@@ -1,0 +1,112 @@
+"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` file goes through one ``nvcc`` call into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds). The library lands in ``build/kernels/`` at the repository root,
+named by a hash of the sources and flags, so an edited kernel is rebuilt
+and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed
+build raises with the compiler's output; nothing falls back.
+
+Pointers and the stream cross into C as ``c_void_p`` (a plain int would be
+cut to 32 bits); each entry point returns the CUDA error code of its
+launch, which the wrappers in ``ops/`` turn into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# entry point -> argument types (all return int: a cudaError_t)
+SIGNATURES = {
+    "gpt2vl_flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
+    "gpt2vl_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "gpt2vl_ce_fwd_block_rows": [],
+    "gpt2vl_ce_fwd_tile_cols": [],
+}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin, default "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built"
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgpt2vl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns (library path, seconds spent compiling; 0.0 when cached). The
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside the library as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return so, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every entry point typed."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
