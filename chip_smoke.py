@@ -15,19 +15,41 @@ Phases (any failure raises and the script exits non-zero):
      B=8, T=1024; the launch counters must show 12 flash and 1 CE launch per
      micro-batch, and the loss must agree with the plain-path run;
   5. generation: cli.sample, cached-vs-uncached logits under the fp32
-     policy, and cli.bench_decode at B=50.
+     policy, cli.bench_decode at B=50, and ops.layers.matmul_f32 on batched
+     bf16 operands of the decode shape against the fp32 product;
+  6. flash-attention backward kernel vs its plain version at the training
+     shape (B=8, T=1024, H=12, hs=64, causal, strided q/k/v) and T=1000,
+     and one attention layer's forward + backward through autograd;
+  7. AdamW kernel vs its plain version over every parameter of GPT-2 124M;
+  8. the train step: GPT-2 124M, fp32 params, bf16 policy,
+     train.step.make_train_step with the AdamW kernel, 4 x (B=8, T=1024) per
+     step, 3 steps; 12 flash forward and 12 flash backward launches per
+     micro-batch and 1 AdamW launch per step; then one step at the peak LR
+     on each path from one state (loss, grad norm and grads against the
+     plain paths; the update against the plain AdamW on the same grads,
+     with controls that must fail); K4 in the training forward timed;
+  9. the trainer entry point: cli.pretrain --synthetic for 3 steps of
+     64 x 1024 tokens (CSV rows, checkpoints), then --steps 4 resumes at
+     step 3 and runs one step.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches, error and times, and last {"ok": true, "device": {...}}. Exits
-non-zero, printing no result, without a CUDA device.
+launches (from the trainer run of phase 9), error and times, and last
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, without
+a CUDA device.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import glob
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -127,6 +149,333 @@ def phase_ce(torch, fc, dev):
     return err, timing
 
 
+def rel_err(a, ref):
+    """max |a - ref| / max |ref|, in fp32."""
+    return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def phase_matmul_f32(torch, layers, dev):
+    print("[5] matmul_f32 on batched bf16 operands (decode shape)", flush=True)
+    tol = 1e-5  # products of bf16 values are exact in fp32; sum order only
+    g = torch.Generator(dev).manual_seed(5)
+    a = torch.randn(50, 12, 1, 64, device=dev, generator=g).to(torch.bfloat16)
+    b = torch.randn(50, 12, 64, 60, device=dev, generator=g).to(torch.bfloat16)
+    got = layers.matmul_f32(a, b)
+    err = rel_err(got, torch.matmul(a.float(), b.float()))
+    print(f"  (50, 12, 1, 64) @ (50, 12, 64, 60): dtype {got.dtype}, max|err| / max|ref| "
+          f"{err:.3e} (tol {tol})", flush=True)
+    require(got.dtype == torch.float32 and err <= tol, "batched matmul_f32 is not fp32-exact")
+    return err
+
+
+def phase_flash_bwd(torch, fa, attention, dev):
+    print("[6] flash-attention backward vs plain (bf16)", flush=True)
+    tol = 3e-2  # max|err| / max|ref|; P and dS round to bf16 in the kernel
+    g = torch.Generator(dev).manual_seed(6)
+    err, timing = 0.0, None
+    for t in (1024, 1000):
+        b, h, hs = 8, 12, 64
+        qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        do = torch.randn(b, t, h, hs, device=dev, generator=g).to(torch.bfloat16)
+        got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+        want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        errs = [rel_err(x, r) for x, r in zip(got, want)]
+        print(f"  B={b} T={t} H={h} hs={hs}: dq, dk, dv max|err| / max|ref| "
+              + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {tol})", flush=True)
+        require(max(errs) <= tol, f"flash backward T={t} disagrees")
+        err = max(err, *errs)
+        if t == 1024:
+            timing = interleaved(
+                lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                              causal=True),
+                50, 3,
+            )
+            leaf = qkv.detach().requires_grad_(True)
+
+            def layer(impl):
+                def run():
+                    qq, kk, vv = (a.view(b, t, h, hs) for a in leaf.split(h * hs, dim=-1))
+                    y = attention.sdpa(qq, kk, vv, causal=True, impl=impl, layout="bthd")
+                    y.backward(do)
+                    leaf.grad = None
+                return run
+
+            fb = interleaved(layer("flash"), layer("xla"), 20, 3)
+            print(f"  one attention layer, forward + backward through autograd: "
+                  f"kernels {fb[0]:.4f} ms, plain {fb[1]:.4f} ms", flush=True)
+    return err, timing
+
+
+def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
+    print("[7] AdamW kernel vs plain over GPT-2 124M", flush=True)
+    tol = 1e-6  # max|err| / max|ref|; fp32 both ways, FMA contraction only
+    model = gpt2.init(cfgs["gpt"], generator=torch.Generator(dev).manual_seed(7), device=dev)
+    params = gpt2.named_params(model)
+    mask = gpt2.decay_mask(model)
+    g = torch.Generator(dev).manual_seed(8)
+    names = list(params)
+    leaves = [(params[n].detach().clone(), torch.randn(params[n].shape, device=dev, generator=g),
+               torch.randn(params[n].shape, device=dev, generator=g) * 1e-2,
+               torch.rand(params[n].shape, device=dev, generator=g) * 1e-4) for n in names]
+    ref = [tuple(a.clone() for a in leaf) for leaf in leaves]
+    ocfg = cfgs["opt"]
+    step = 10
+    bc1, bc2 = 1 - ocfg.beta1 ** step, 1 - ocfg.beta2 ** step
+    lr = schedule.cosine_warmup_lr(step, cfgs["sched"])
+    scal = torch.tensor([lr, ocfg.beta1, ocfg.beta2, ocfg.eps, 0.5, bc1, bc2],
+                        dtype=torch.float32, device=dev)
+    wds = [ocfg.weight_decay if mask[n] else 0.0 for n in names]
+    fw.fused_adamw(leaves, scal, wds)
+    for (p, gr, m, v), wd in zip(ref, wds):
+        fw.adamw_reference(p, gr, m, v, scal, wd=wd)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, r) for leaf, rleaf in zip(leaves, ref) for a, r in zip(leaf, rleaf))
+    n = sum(p.numel() for p in params.values())
+    print(f"  {len(names)} leaves, {n:,} params, step {step}: p, m, v max|err| / max|ref| "
+          f"{err:.3e} (tol {tol})", flush=True)
+    require(err <= tol, "AdamW kernel disagrees")
+
+    def plain():
+        for (p, gr, m, v), wd in zip(ref, wds):
+            fw.adamw_reference(p, gr, m, v, scal, wd=wd)
+
+    timing = interleaved(lambda: fw.fused_adamw(leaves, scal, wds), plain, 20, 5)
+    gbytes = n * 4 * 7 / 1e9  # p, g, m, v read; p, m, v written
+    print(f"  {gbytes:.3f} GB moved per update: kernel {gbytes / timing[0] * 1e3:.1f} GB/s, "
+          f"plain {gbytes / timing[1] * 1e3:.1f} GB/s", flush=True)
+    return err, timing
+
+
+def reset_counts(fa, fc, fw):
+    fa.flash_attention.launches = 0
+    fa.flash_attention_backward.launches = 0
+    fc.ce_forward.launches = 0
+    fw.fused_adamw.launches = 0
+
+
+def read_counts(fa, fc, fw):
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd": fa.flash_attention_backward.launches,
+            "ce_fwd": fc.ce_forward.launches, "adamw": fw.fused_adamw.launches}
+
+
+def update_err(delta, ref):
+    """max |delta - ref| / max |ref| over dicts of tensors."""
+    num = max((delta[n] - r).abs().max().item() for n, r in ref.items())
+    return num / max(r.abs().max().item() for r in ref.values())
+
+
+def compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch):
+    """One step on each path from one state (params and moments after the
+    kernel path's steps) and one batch, at the schedule's peak LR.
+
+    Gradients: the two paths' accumulated .grad, as a relative L2 error.
+    Update: the kernel path's parameter change against the plain AdamW
+    replayed on the same state with the kernel path's own gradients, as
+    max|err| / max|ref|. Adam divides each grad by its own running
+    magnitude, so a grad that is all rounding noise on one path moves its
+    param by up to the LR on either path: the update is compared on one set
+    of grads, the grads on their own. Controls (no update, no weight decay,
+    no clipping) show the update limit sees each of those."""
+    (model, state_k, step_k), (plain_model, state_p, step_p) = kernel, plain
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    ocfg = cfgs["opt"]
+    g_tol, upd_tol = 2e-2, 1e-3
+    params_k, params_p = gpt2.named_params(model), gpt2.named_params(plain_model)
+    with torch.no_grad():
+        for n, p in params_k.items():
+            params_p[n].copy_(p)
+        for key in ("m", "v"):
+            for n, a in state_k[key].items():
+                state_p[key][n].copy_(a)
+    state_p["step"] = state_k["step"]
+    before = {n: p.detach().clone() for n, p in params_k.items()}
+    saved = {"m": {n: a.clone() for n, a in state_k["m"].items()},
+             "v": {n: a.clone() for n, a in state_k["v"].items()}, "step": state_k["step"]}
+    idx = cfgs["sched"].warmup_steps  # the peak LR
+    mk = step_k(model, state_k, batch, idx)
+    counts = read_counts(fa, fc, fw)
+    mp = step_p(plain_model, state_p, batch, idx)
+    require(read_counts(fa, fc, fw) == counts, "the plain-path step launched a kernel")
+
+    dl = abs(mk["loss"] - mp["loss"])
+    dn = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    grads = {n: p.grad for n, p in params_k.items()}
+    sq = lambda ts: sum(t.float().square().sum().item() for t in ts)  # noqa: E731
+    dg = math.sqrt(sq(grads[n] - p.grad for n, p in params_p.items())
+                   / sq(p.grad for p in params_p.values()))
+    print(f"  kernel vs plain paths (attn 'xla', CE 'xla', AdamW plain), one step from "
+          f"one state at lr {mk['lr']:.4e}: loss {mk['loss']:.6f} vs {mp['loss']:.6f} "
+          f"(|diff| {dl:.3e}, tol 1e-2), grad_norm {mk['grad_norm']:.6f} vs "
+          f"{mp['grad_norm']:.6f} (rel diff {dn:.3e}, tol 2e-2), grads ||err|| / ||ref|| "
+          f"{dg:.3e} (tol {g_tol})", flush=True)
+    require(dl <= 1e-2 and dn <= 2e-2 and dg <= g_tol, "kernel and plain train steps disagree")
+
+    inv = 1.0 / batch.shape[0]
+    norm = mods["global_norm"](grads) * inv
+    mask = gpt2.decay_mask(model)
+
+    def replay(opt_cfg, decay_mask):
+        p = {n: a.clone() for n, a in before.items()}
+        st = {"m": {n: a.clone() for n, a in saved["m"].items()},
+              "v": {n: a.clone() for n, a in saved["v"].items()}, "step": saved["step"]}
+        mods["adamw_update"](p, grads, st, mk["lr"], opt_cfg, norm=norm, decay_mask=decay_mask,
+                             use_fused=False, grad_scale=inv)
+        return {n: p[n] - before[n] for n in p}
+
+    with torch.no_grad():
+        ref = replay(ocfg, mask)
+        delta = {n: p.detach() - before[n] for n, p in params_k.items()}
+        err = update_err(delta, ref)
+        controls = {
+            "no update": update_err({n: torch.zeros_like(r) for n, r in ref.items()}, ref),
+            "no weight decay": update_err(replay(ocfg, {n: False for n in mask}), ref),
+        }
+        clip_on = norm.item() > ocfg.grad_clip
+        if clip_on:
+            controls["no clipping"] = update_err(
+                replay(dataclasses.replace(ocfg, grad_clip=math.inf), mask), ref)
+    print(f"  update: kernel path vs plain AdamW on its grads, max|err| / max|ref| "
+          f"{err:.3e} (tol {upd_tol}; max|ref| {max(r.abs().max().item() for r in ref.values()):.4e}); "
+          f"controls " + ", ".join(f"{k} {v:.3e}" for k, v in controls.items())
+          + ("" if clip_on else " (the clip was inactive)"), flush=True)
+    require(err <= upd_tol, "the kernel path's update differs from the plain AdamW's")
+    require(all(v > upd_tol for v in controls.values()),
+            "a control update passed the update check: the check cannot see it")
+
+
+def phase_train_step(torch, np, gpt2, mods, cfgs, dev):
+    print("[8] train step: GPT-2 124M, bf16 policy, 4 x (B=8, T=1024) per step", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    cfg = cfgs["gpt"]
+    accum, b, t = 4, 8, 1024
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    plain_model = copy.deepcopy(model)
+    rows = np.random.RandomState(2).randint(0, cfg.vocab_size, (accum, b, t + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+
+    def loss_fn(attn_impl, ce_impl):
+        return lambda m, r: gpt2.loss(m, r[:, :-1], cfg, targets=r[:, 1:],
+                                      policy=mods["policy"], attn_impl=attn_impl,
+                                      ce_chunks=1, ce_impl=ce_impl)
+
+    def make(model, attn_impl, ce_impl, fused):
+        step = mods["make_train_step"](loss_fn(attn_impl, ce_impl), cfgs["opt"], cfgs["sched"],
+                                       decay_mask=gpt2.decay_mask(model),
+                                       use_fused_adamw=fused)
+        return step, mods["adamw_init"](gpt2.named_params(model))
+
+    step_k, state_k = make(model, "auto", "auto", True)
+    step_p, state_p = make(plain_model, "xla", "xla", False)
+    n_tok = accum * b * t
+    reset_counts(fa, fc, fw)
+    per_step = {"flash_fwd": accum * cfg.n_layer, "flash_bwd": accum * cfg.n_layer,
+                "ce_fwd": 0, "adamw": 1}
+    metrics, times = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step_k(model, state_k, batch, i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_counts(fa, fc, fw)
+        print(f"  step {i}: loss {metrics[-1]['loss']:.6f}, grad_norm "
+              f"{metrics[-1]['grad_norm']:.6f}, lr {metrics[-1]['lr']:.4e}, "
+              f"{n_tok / times[-1]:.1f} tokens/s; launches {counts}", flush=True)
+        require(counts == {k: (i + 1) * v for k, v in per_step.items()},
+                f"expected {per_step} launches per step, got {counts} after {i + 1}")
+        require(math.isfinite(metrics[-1]["loss"]) and math.isfinite(metrics[-1]["grad_norm"]),
+                "train loss or grad norm is not finite")
+        if i == 0:
+            ln_v = math.log(cfg.padded_vocab_size)
+            require(abs(metrics[0]["loss"] - ln_v) < 0.5, "first loss is not near ln(V)")
+    main_counts = read_counts(fa, fc, fw)
+    compare_train_steps(torch, gpt2, mods, cfgs, (model, state_k, step_k),
+                        (plain_model, state_p, step_p), batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_p(plain_model, state_p, batch, 1)
+    torch.cuda.synchronize()
+    plain_tps = n_tok / (time.perf_counter() - t0)
+    kernel_tps = n_tok / (sum(times[1:]) / 2)
+    print(f"  tokens/s: kernel path {kernel_tps:.1f} (steps 1-2), plain paths "
+          f"{plain_tps:.1f} (step 1)", flush=True)
+    del plain_model, state_p
+
+    # K4 in the training forward: one micro-batch forward + backward
+    micro = batch[0]
+
+    def fwd_bwd(ce_impl):
+        def run():
+            loss_fn("auto", ce_impl)(model, micro).backward()
+            for p in model.parameters():
+                p.grad = None
+        return run
+
+    saved = fc.ce_forward.launches
+    k4 = interleaved(fwd_bwd("kernel"), fwd_bwd("auto"), 3, 3)
+    require(fc.ce_forward.launches > saved, "ce_impl='kernel' did not launch K4")
+    print(f"  one micro-batch forward + backward: CE 'kernel' (K4 forward) {k4[0]:.4f} ms, "
+          f"CE 'auto' (plain chunked forward) {k4[1]:.4f} ms", flush=True)
+    return {"kernel_tps": kernel_tps, "plain_tps": plain_tps, "counts": main_counts}
+
+
+def phase_trainer(torch, mods, cfgs):
+    print("[9] trainer: cli.pretrain --synthetic, 3 steps of 65,536 tokens, then resume",
+          flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    cfg = cfgs["gpt"]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = log_dir  # the synthetic shards go under it too
+    try:
+        argv = ["--synthetic", "--total-batch", "65536", "--no-hellaswag",
+                "--log-dir", os.path.join(log_dir, "log")]
+        reset_counts(fa, fc, fw)
+        t0 = time.perf_counter()
+        out = mods["pretrain"].main(argv + ["--steps", "3"])
+        dt = time.perf_counter() - t0
+        counts = read_counts(fa, fc, fw)
+        accum, val_steps = 8, 20
+        want = {"flash_fwd": cfg.n_layer * (3 * accum + 2 * val_steps),
+                "flash_bwd": cfg.n_layer * 3 * accum, "ce_fwd": 2 * val_steps, "adamw": 3}
+        print(f"  3 steps in {dt:.1f} s (val at steps 0 and 2, samples, checkpoints); "
+              f"launches {counts}", flush=True)
+        require(counts == want, f"expected launches {want}, got {counts}")
+        require(out["opt_state"]["step"] == 3 and math.isfinite(out["val_loss"]),
+                "the trainer did not take 3 finite steps")
+        rows = [line.split(",") for f in sorted(glob.glob(os.path.join(log_dir, "log", "*.csv")))
+                for line in open(f).read().splitlines()[1:]]
+        phases = [r[1] for r in rows]
+        print(f"  CSV: {phases.count('train')} train rows, {phases.count('val')} val rows",
+              flush=True)
+        require(phases.count("train") == 3 and phases.count("val") >= 1,
+                "the CSV does not hold 3 train rows and a val row")
+        ckpts = sorted(os.listdir(os.path.join(log_dir, "log", "ckpts")))
+        print(f"  checkpoints: {ckpts}", flush=True)
+        require("model_final.pt" in ckpts, "model_final was not written")
+
+        reset_counts(fa, fc, fw)
+        out = mods["pretrain"].main(argv + ["--steps", "4"])
+        rows = [line.split(",") for f in sorted(glob.glob(os.path.join(log_dir, "log", "*.csv")))
+                for line in open(f).read().splitlines()[1:]]
+        steps = [int(r[2]) for r in rows if r[1] == "train"]
+        print(f"  resumed: train steps logged {steps}, AdamW launches "
+              f"{fw.fused_adamw.launches}, optimizer step {out['opt_state']['step']}",
+              flush=True)
+        require(steps == [0, 1, 2, 3] and fw.fused_adamw.launches == 1
+                and out["opt_state"]["step"] == 4,
+                "the second call did not resume at step 3 and run one step")
+        return counts, phases.count("train")
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -153,15 +502,23 @@ def main() -> int:
     import numpy as np
 
     from gpt2_vision_language_tpu_torch import _build
-    from gpt2_vision_language_tpu_torch.cli import bench_decode, sample
-    from gpt2_vision_language_tpu_torch.core.config import GPTConfig
+    from gpt2_vision_language_tpu_torch.cli import bench_decode, pretrain, sample
+    from gpt2_vision_language_tpu_torch.core.config import (
+        GPTConfig, OptimizerConfig, ScheduleConfig,
+    )
     from gpt2_vision_language_tpu_torch.core.precision import (
         DEFAULT_POLICY, FP32_POLICY,
     )
     from gpt2_vision_language_tpu_torch.models import gpt2
+    from gpt2_vision_language_tpu_torch.ops import attention, layers
     from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
+    from gpt2_vision_language_tpu_torch.ops import fused_adamw as fw
     from gpt2_vision_language_tpu_torch.ops import fused_ce as fc
-    from gpt2_vision_language_tpu_torch.train.step import make_eval_step
+    from gpt2_vision_language_tpu_torch.train import schedule
+    from gpt2_vision_language_tpu_torch.train.optimizer import (
+        adamw_init, adamw_update, global_norm,
+    )
+    from gpt2_vision_language_tpu_torch.train.step import make_eval_step, make_train_step
 
     print("[1] build", flush=True)
     so, build_s = _build.build()
@@ -233,20 +590,49 @@ def main() -> int:
     require(e <= 1e-3, "cached and uncached logits disagree")
     result = bench_decode.main(["--batch", "50", "--new", "24", "--iters", "3"])
     require(result["value"] > 0 and result["batch"] == 50, "bench_decode failed")
+    phase_matmul_f32(torch, layers, dev)
+    del model
 
+    cfgs = {"gpt": cfg, "opt": OptimizerConfig(), "sched": ScheduleConfig()}
+    mods = {"fa": fa, "fc": fc, "fw": fw, "policy": DEFAULT_POLICY,
+            "make_train_step": make_train_step, "adamw_init": adamw_init,
+            "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain}
+    bwd_err, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
+    adamw_err, adamw_t = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
+    train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
+    torch.cuda.empty_cache()
+    trainer_counts, _ = phase_trainer(torch, mods, cfgs)
+
+    by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
+               "train_step": train["counts"], "trainer": trainer_counts}
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "gpt2_vision_language_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "gpt2_vision_language_tpu/ops/flash_attention.py:841",
-         "launches": launches["flash"], "max_abs_err": flash_errs["o"],
-         "lse_max_abs_err": flash_errs["lse"],
+         "max_abs_err": flash_errs["o"], "lse_max_abs_err": flash_errs["lse"],
          "ms": flash_t[0], "plain_ms": flash_t[1]},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "gpt2_vision_language_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "gpt2_vision_language_tpu/ops/flash_attention.py:887",
+         "max_abs_err": bwd_err, "err_is": "max|err| / max|ref|",
+         "ms": bwd_t[0], "plain_ms": bwd_t[1]},
         {"name": "ce_fwd", "route": "cuda",
          "source": "gpt2_vision_language_tpu_torch/csrc/ce_fwd.cu",
          "replaces": "gpt2_vision_language_tpu/ops/fused_ce.py:93",
-         "launches": launches["ce"], "max_abs_err": ce_err,
-         "ms": ce_t[0], "plain_ms": ce_t[1]},
+         "max_abs_err": ce_err, "ms": ce_t[0], "plain_ms": ce_t[1]},
+        {"name": "adamw", "route": "cuda",
+         "source": "gpt2_vision_language_tpu_torch/csrc/adamw.cu",
+         "replaces": "gpt2_vision_language_tpu/ops/fused_adamw.py:36",
+         "max_abs_err": adamw_err, "err_is": "max|err| / max|ref|",
+         "ms": adamw_t[0], "plain_ms": adamw_t[1]},
     ]
+    for k in kernels:
+        k["launches"] = trainer_counts[k["name"]]
+        k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()
+                                 if k["name"] in c}
+        require(k["launches"] > 0, f"{k['name']} was not launched by the trainer")
+    print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
+                                                  "plain": train["plain_tps"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file goes through one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library lands in ``build/kernels/`` at the repository root,
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds). The
+library lands in ``build/kernels/`` at the repository root,
 named by a hash of the sources and flags, so an edited kernel is rebuilt
 and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed
 build raises with the compiler's output; nothing falls back.
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -40,6 +41,9 @@ SIGNATURES = {
     "gpt2vl_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "gpt2vl_ce_fwd_block_rows": [],
     "gpt2vl_ce_fwd_tile_cols": [],
+    "gpt2vl_flash_bwd": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
+    "gpt2vl_adamw": [_P, _I, _L, _P, _P],
+    "gpt2vl_adamw_chunk": [],
 }
 
 
@@ -78,18 +82,34 @@ def build() -> tuple[Path, float]:
         return so, 0.0
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one compiler per source, all running at once; then one link
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(sources(), objs))
+    ]
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    report = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, out, _ in logs)
+    failed = [(cmd, rc) for cmd, _, rc in logs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
+            f"nvcc failed (exit {failed[0][1]}): {' '.join(failed[0][0])}\n{report}"
         )
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    so.with_suffix(".log").write_text(report)
     os.replace(tmp, so)
     return so, seconds
 

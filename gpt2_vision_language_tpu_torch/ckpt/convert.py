@@ -7,6 +7,11 @@ torch's (out, in), ``lm_head.weight`` tied to ``transformer.wte.weight``.
 It agrees key for key and value for value with
 gpt2_vision_language_tpu/ckpt/torch_export.py gpt2_to_torch_state_dict.
 
+``opt_state_from_jax`` maps the JAX AdamW state (fp32 ``m``/``v``
+pytrees of the params' structure, and ``step``) to the port's
+``train/optimizer`` state by the same rule, so both start from the same
+params and moments.
+
 ``load_reference_checkpoint`` reads a reference-format ``.pt``
 (``{"model": state_dict, ...}``, train_gpt2.py:363-391) into a state dict
 that ``GPT2.load_state_dict`` takes, as ckpt/torch_import.py does for the
@@ -62,6 +67,19 @@ def gpt2_from_jax_params(params_np, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
     sd["transformer.ln_f.weight"] = _t(params_np["lnf"]["scale"])
     sd["transformer.ln_f.bias"] = _t(params_np["lnf"]["bias"])
     return sd
+
+
+def opt_state_from_jax(opt_state_np, cfg: GPTConfig) -> dict:
+    """The port's AdamW state {"m", "v", "step"} from the JAX one: moments
+    keyed by the state-dict names of ``models.gpt2.named_params`` (the tied
+    weight once, as transformer.wte.weight)."""
+    def moments(tree):
+        sd = gpt2_from_jax_params(tree, cfg)
+        del sd["lm_head.weight"]
+        return sd
+
+    return {"m": moments(opt_state_np["m"]), "v": moments(opt_state_np["v"]),
+            "step": int(np.asarray(opt_state_np["step"]))}
 
 
 def load_reference_checkpoint(path: str, cfg: GPTConfig):

@@ -1,15 +1,19 @@
-"""GPT-2 decoder configuration.
+"""GPT-2 decoder and pretraining configuration.
 
-Counterpart of gpt2_vision_language_tpu/core/config.py:21-65 (GPTConfig and
-the GPT-2 family presets). It is carried here rather than imported because
-the JAX package's ``core/__init__`` imports jax. The fields and defaults are
-the JAX dataclass's, field for field (pinned by tests/test_torch_import.py).
+Counterpart of gpt2_vision_language_tpu/core/config.py: GPTConfig and the
+GPT-2 family presets (:21-65), ScheduleConfig, OptimizerConfig and
+PretrainConfig (:114-240). They are carried here rather than imported
+because the JAX package's ``core/__init__`` imports jax. GPTConfig,
+ScheduleConfig and OptimizerConfig are the JAX dataclasses field for field;
+PretrainConfig carries the fields the single-device trainer honors, and
+tests/test_torch_import.py names every JAX field it leaves out.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 
 def _round_up(x: int, m: int) -> int:
@@ -51,3 +55,62 @@ GPT2_124M = GPTConfig()
 GPT2_350M = GPTConfig(n_layer=24, n_head=16, n_embd=1024)
 GPT2_774M = GPTConfig(n_layer=36, n_head=20, n_embd=1280)
 GPT2_1558M = GPTConfig(n_layer=48, n_head=25, n_embd=1600)
+
+
+@dataclass(frozen=True)
+class ScheduleConfig:
+    """Cosine decay with linear warmup (train_gpt2.py:273-285)."""
+
+    max_lr: float = 6e-4
+    min_lr: float = 6e-5
+    warmup_steps: int = 715
+    max_steps: int = 19073
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW hyperparameters (train_gpt2.py:127-144): decay on the weights
+    only, betas (0.9, 0.95), eps 1e-8, wd 0.1, global-norm clip 1.0."""
+
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class PretrainConfig:
+    """FineWeb-Edu pretraining workload (train_gpt2.py:243-285), single
+    device. The JAX fields for the TPU's memory mechanisms, the big-model
+    recipes, model parallelism and the HellaSwag cadence (its evaluator is
+    not ported) are not carried (tests/test_torch_import.py lists them)."""
+
+    model: GPTConfig = field(
+        default_factory=lambda: GPT2_124M.replace(unroll_layers=True)
+    )
+    total_batch_size: int = 524288  # tokens per optimizer step
+    micro_batch_size: int = 8  # B
+    seq_len: int = 1024  # T
+    schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    val_every: int = 250
+    val_steps: int = 20
+    sample_every: int = 250
+    save_every: int = 2500
+    run_hellaswag: bool = True
+    data_dir: Optional[str] = None  # defaults to $FW_OUT_DIR or edu_fineweb10B
+    log_dir: Optional[str] = None  # defaults to $LOG_DIR or log
+    seed: int = 1337
+    save_ckpt: bool = True  # False: no checkpoint is written or resumed
+    nan_guard: bool = True  # skip the update of a step with a non-finite loss or norm
+    attn_impl: str = "auto"
+
+    def grad_accum_steps(self, world_size: int = 1) -> int:
+        denom = self.micro_batch_size * self.seq_len * world_size
+        if self.total_batch_size % denom:
+            raise ValueError(
+                "total_batch_size must be divisible by B*T*world_size "
+                f"({self.total_batch_size} % {denom})"
+            )
+        return self.total_batch_size // denom

@@ -1,7 +1,7 @@
 """GPT-2 decoder: an nn.Module with the reference's names, and the forward
 as plain functions over it.
 
-Counterpart of gpt2_vision_language_tpu/models/gpt2.py, inference slice.
+Counterpart of gpt2_vision_language_tpu/models/gpt2.py, decoder only.
 The JAX package keeps parameters as a stacked pytree; here they live in an
 ``nn.Module`` whose submodule names are the reference's
 (``transformer.wte/wpe/h.{i}.ln_1/attn.c_attn/attn.c_proj/ln_2/mlp.c_fc/
@@ -12,11 +12,16 @@ and keep the JAX names and arguments.
 
 Self-attention feeds the three strided (B, T, H, hs) views of the fused
 QKV output straight to ops/attention.sdpa, which routes causal T >= 512 on
-CUDA to the flash kernel. ``loss`` runs lm_head + CE through
-ops/fused_ce.fused_linear_ce, which routes a call without autograd under
-the bf16 policy on CUDA to the fused CE kernel. The layer loop is always
-unrolled; the remat modes and the gated cross-attention variant are not
-ported yet.
+CUDA to the flash kernels (forward and backward). ``loss`` runs lm_head +
+CE through ops/fused_ce.fused_linear_ce, which routes a call without
+autograd under the bf16 policy on CUDA to the fused CE kernel; under
+autograd it takes the chunked plain forward, and both have the chunked
+recompute backward, so ``loss`` is differentiable end to end. The tied
+wte / lm_head weight gets its gradient from the embedding gather and the
+CE head into one fp32 ``.grad``. The parameter dicts below
+(``named_params``, ``decay_mask``) are keyed by state-dict name and hold the tied weight once, as
+``transformer.wte.weight``. The layer loop is always unrolled; the remat
+modes and the gated cross-attention variant are not ported yet.
 """
 
 from __future__ import annotations
@@ -108,6 +113,26 @@ def init(cfg: GPTConfig, *, generator: torch.Generator | None = None,
     return model
 
 
+def named_params(model: nn.Module) -> dict:
+    """name -> parameter, the tied wte / lm_head weight once (as
+    ``transformer.wte.weight``): the leaves the optimizer updates."""
+    return dict(model.named_parameters())
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in named_params(model).values())
+
+
+def decay_mask(model: nn.Module) -> dict:
+    """name -> True where AdamW weight decay applies (models/gpt2.py:801):
+    the weights of nn.Linear and nn.Embedding (wte, wpe, every projection);
+    not biases or LayerNorm parameters (train_gpt2.py:130-135, torch ndim
+    >= 2)."""
+    decayed = {id(m.weight) for m in model.modules()
+               if isinstance(m, (nn.Linear, nn.Embedding))}
+    return {n: id(p) in decayed for n, p in named_params(model).items()}
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -166,8 +191,7 @@ def lm_head(model: GPT2, x, cfg: GPTConfig, *,
     """Tied unembedding, ln_f(x) @ wte.T, fp32 accumulation, returned in the
     compute dtype (models/gpt2.py:353-368)."""
     x = _ln(x, model.transformer.ln_f)
-    cc = policy.cast_compute
-    logits = matmul_f32(cc(x), cc(model.transformer.wte.weight).t())
+    logits = linear(x, model.transformer.wte.weight, policy=policy)
     return logits.to(policy.compute_dtype)
 
 
@@ -204,8 +228,10 @@ def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None,
     """CE loss without the (B, T, V) logits: apply(...)[1]'s semantics with
     lm_head + CE through fused_linear_ce. The scoring forward: called without
     autograd (train/step.py make_eval_step) under the bf16 policy on CUDA it
-    runs the flash kernel in every layer and the fused CE kernel once.
-    ``ce_impl`` is fused_linear_ce's ``impl``."""
+    runs the flash kernel in every layer and the fused CE kernel once. The
+    training loss: under autograd on CUDA every layer runs the flash forward
+    and, in the backward, the flash backward kernel; CE takes the chunked
+    plain forward and backward. ``ce_impl`` is fused_linear_ce's ``impl``."""
     _check_len(idx, cfg)
     x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
     x = run_blocks(model, x, cfg, policy=policy, attn_impl=attn_impl)

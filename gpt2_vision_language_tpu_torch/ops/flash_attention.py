@@ -1,15 +1,22 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels and
+their plain versions.
 
-Counterpart of gpt2_vision_language_tpu/ops/flash_attention.py, forward
-only: the kernel in ``csrc/flash_fwd.cu`` replaces ``_fwd_dt_kernel``
-(:841, launched by ``_fwd_dt`` :956) behind ``flash_attention_dt`` (:1061)
-and ``flash_attention`` (:1089). It takes q/k/v as (B, T, H, hs), strided
-views included, so the fused QKV output feeds it without a copy.
+Counterpart of gpt2_vision_language_tpu/ops/flash_attention.py's dt path.
+``csrc/flash_fwd.cu`` replaces ``_fwd_dt_kernel`` (:841, launched by
+``_fwd_dt`` :956) and ``csrc/flash_bwd.cu`` replaces ``_bwd_dt_kernel``
+(:887, launched by ``_bwd_dt`` :989), behind ``flash_attention_dt`` (:1061)
+and ``flash_attention`` (:1089). Both take q/k/v as (B, T, H, hs), strided
+views included, so the fused QKV output feeds them without a copy. The
+softmax scale 1/sqrt(hs) is applied inside both kernels (the JAX wrapper
+folds it into q outside its custom VJP), so the backward scales dq and dk.
 
-``flash_attention`` runs the kernel for CUDA tensors and the plain version,
-``flash_attention_reference``, for CPU tensors; nothing else selects
-between them, and there is no fallback from one to the other. Each kernel
-launch adds one to ``flash_attention.launches``.
+``_FlashAttn`` is the autograd Function on both devices: for CUDA tensors
+its forward and backward launch the kernels, for CPU tensors they run the
+plain versions, ``flash_attention_reference`` and
+``flash_attention_backward_reference``. Nothing else selects between them,
+and there is no fallback from one to the other. Each forward launch adds
+one to ``flash_attention.launches``, each backward launch one to
+``flash_attention_backward.launches``.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 
 from .. import _build
 
-# head sizes csrc/flash_fwd.cu is built for
+# head sizes csrc/flash_fwd.cu and csrc/flash_bwd.cu are built for
 KERNEL_HEAD_SIZES = (64,)
 
 
@@ -41,6 +48,29 @@ def flash_attention_reference(q, k, v, *, causal: bool = True):
     probs = torch.exp(scores - lse[..., None]).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return o.to(q.dtype), lse
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *, causal: bool = True):
+    """Plain version of the backward kernel: (dq, dk, dv) in q.dtype from the
+    forward's o and lse (B, H, T) and the output cotangent do, all
+    (B, T, H, hs). fp32 on upcast operands; P is recomputed from lse, as the
+    kernel does, and D = rowsum(do * o)."""
+    tq, tk, hs = q.shape[1], k.shape[1], q.shape[-1]
+    scale = hs**-0.5
+    q32, k32, v32, do32 = (a.float() for a in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    if causal:
+        qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dd = (do32 * o.float()).sum(-1).transpose(1, 2)  # (B, H, Tq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = p * (dp - dd[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v):
@@ -89,17 +119,64 @@ def flash_fwd_cuda(q, k, v, *, causal: bool):
     return o, lse
 
 
-class _FlashFwd(torch.autograd.Function):
+def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
+    """Launch the CUDA backward kernels: (dq, dk, dv), each (B, T, H, hs) bf16."""
+    for name, a in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_kernel_operand(name, a)
+    if not (o.is_contiguous() and lse.is_contiguous() and lse.dtype == torch.float32):
+        raise ValueError("flash_attention backward kernel takes the forward's "
+                         "contiguous o and fp32 lse")
+    do = do.contiguous()
+    b, t, h, hs = q.shape
+    dq, dk, dv = (torch.empty((b, t, h, hs), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    dd = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gpt2vl_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, t, h, hs, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], int(causal), stream,
+        )
+    _build.check(err, "flash_bwd")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of flash attention from the forward's o and lse: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.is_cuda:
+        return flash_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, causal=causal)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+flash_attention_backward.launches = 0
+
+
+class _FlashAttn(torch.autograd.Function):
+    """Forward and backward of flash attention; saves (q, k, v, o, lse)."""
+
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        return flash_fwd_cuda(q, k, v, causal=causal)
+        if q.is_cuda:
+            o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        else:
+            o, lse = flash_attention_reference(q, k, v, causal=causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "flash_attention backward is not ported yet (ROADMAP Queue 2, "
-            "K1-bwd: _bwd_dt_kernel)"
-        )
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
@@ -109,20 +186,18 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
     in the same layout. With return_lse, also the per-row logsumexp
     (B, H, T) fp32. Any T is taken; a ragged tail is masked.
 
-    CUDA tensors go to the kernel (bf16, head size 64, hs contiguous) and
-    anything it does not take raises; CPU tensors go to the plain version.
+    CUDA tensors go to the kernels (bf16, head size 64, hs contiguous) and
+    anything they do not take raises; CPU tensors go to the plain versions.
+    Differentiable in q, k and v (not in lse).
     """
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"flash_attention: unknown layout {layout!r}")
     if layout == "bhtd":
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
     _check(q, k, v)
-    if q.is_cuda:
-        o, lse = _FlashFwd.apply(q, k, v, causal)
-    elif q.device.type == "cpu":
-        o, lse = flash_attention_reference(q, k, v, causal=causal)
-    else:
+    if not (q.is_cuda or q.device.type == "cpu"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    o, lse = _FlashAttn.apply(q, k, v, causal)
     if layout == "bhtd":
         o = o.transpose(1, 2)
     return (o, lse) if return_lse else o

@@ -12,8 +12,12 @@ tensors; each launch adds one to ``ce_forward.launches``.
 TPU" read as "on CUDA": a call without autograd under a non-fp32 compute
 policy takes the kernel; everything else takes the chunked plain path of
 ``_make._fwd_impl`` (:291-329), whose logits round to the compute dtype.
-The custom recompute backward (:331) is not ported yet; the plain path is
-differentiated by autograd, and the kernel path has no backward.
+Either forward has the chunked recompute backward of ``_make._bwd``
+(:331-372), in plain PyTorch as the JAX backward is XLA: per chunk of rows
+the logits are recomputed, p = softmax - onehot is scaled by the cotangent
+and cast once to the compute dtype, then dx = p @ w and dw += p.T @ x. w
+comes in its param dtype and is cast inside, so dw accumulates in that
+dtype (fp32 for fp32 masters) and not per chunk in the compute dtype.
 """
 
 from __future__ import annotations
@@ -82,23 +86,11 @@ def ce_forward_cuda(x, w, targets):
     return nll, lse
 
 
-class _CEFwd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, targets):
-        return ce_forward_cuda(x, w, targets)
-
-    @staticmethod
-    def backward(ctx, dnll, dlse):
-        raise NotImplementedError(
-            "fused CE backward is not ported yet (ROADMAP Queue 2, K4 backward)"
-        )
-
-
 def ce_forward(x, w, targets):
     """Per-row (nll, lse) of x (N, D) @ w (V, D).T over the whole vocab, fp32.
     targets (N,) int32 in [0, V). CUDA tensors go to the kernel (bf16, D % 8
     == 0, contiguous) and anything it does not take raises; CPU tensors go to
-    the plain version."""
+    the plain version. Not differentiable: ``fused_linear_ce`` is."""
     if not (x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[1]
             and targets.shape == x.shape[:1]):
         raise ValueError(
@@ -108,7 +100,7 @@ def ce_forward(x, w, targets):
     if not (x.device == w.device == targets.device):
         raise ValueError("ce_forward: x, w, targets on different devices")
     if x.is_cuda:
-        return _CEFwd.apply(x, w, targets)
+        return ce_forward_cuda(x, w, targets)
     if x.device.type == "cpu":
         return ce_forward_reference(x, w, targets)
     raise ValueError(f"ce_forward: no kernel for device {x.device}")
@@ -117,13 +109,52 @@ def ce_forward(x, w, targets):
 ce_forward.launches = 0
 
 
+class _LinearCE(torch.autograd.Function):
+    """nll of x @ w.T against targets; saves (x, w, targets, logz)."""
+
+    @staticmethod
+    def forward(ctx, x, w, targets, n_chunks, policy, use_kernel):
+        cc = policy.cast_compute
+        if use_kernel:
+            nll, logz = ce_forward(cc(x).contiguous(), cc(w).contiguous(),
+                                   targets.to(torch.int32).contiguous())
+        else:
+            nll, logz = ce_forward_reference(cc(x), cc(w), targets, n_chunks=n_chunks,
+                                             logits_dtype=policy.compute_dtype)
+        ctx.n_chunks, ctx.policy = n_chunks, policy
+        ctx.save_for_backward(x, w, targets, logz)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, targets, logz = ctx.saved_tensors
+        policy = ctx.policy
+        cc = policy.cast_compute
+        wc = cc(w)
+        dw = torch.zeros_like(w)  # accumulated in the param dtype across chunks
+        dx = []
+        for xc, tc, gc, lzc in zip(x.chunk(ctx.n_chunks), targets.chunk(ctx.n_chunks),
+                                   g.float().chunk(ctx.n_chunks),
+                                   logz.chunk(ctx.n_chunks)):
+            xcc = cc(xc)
+            logits = matmul_f32(xcc, wc.t()).to(policy.compute_dtype)
+            p32 = torch.exp(logits.float() - lzc[:, None]) * gc[:, None]
+            rows = torch.arange(p32.shape[0], device=p32.device)
+            p32[rows, tc.long()] -= gc
+            p = p32.to(policy.compute_dtype)
+            dx.append(matmul_f32(p, wc).to(x.dtype))
+            dw += matmul_f32(p.t(), xcc).to(dw.dtype)
+        return torch.cat(dx), dw, None, None, None, None
+
+
 def fused_linear_ce(x, w, targets, *, n_chunks: int = 8,
                     policy: Policy = DEFAULT_POLICY, impl: str = "auto"):
     """Per-position NLL (N,) fp32 of a tied LM head without the full logits.
 
     x: (N, D) final hiddens (already layer-normed). w: (V, D) unembedding
-    (tied wte). targets: (N,) class ids in [0, V); the ignore index -100 must
-    be clipped by the caller, who masks those rows.
+    (tied wte) in its param dtype. targets: (N,) class ids in [0, V); the
+    ignore index -100 must be clipped by the caller, who masks those rows.
+    Differentiable in x and w through the chunked recompute backward.
 
     impl: "auto" takes the kernel for a call without autograd, under a
     non-fp32 compute policy, on CUDA tensors, and the chunked plain path
@@ -140,11 +171,4 @@ def fused_linear_ce(x, w, targets, *, n_chunks: int = 8,
         use_kernel = (no_grad and x.is_cuda
                       and policy.compute_dtype != torch.float32)
         impl = "kernel" if use_kernel else "xla"
-    x, w = policy.cast_compute(x), policy.cast_compute(w)
-    if impl == "kernel":
-        nll, _ = ce_forward(x.contiguous(), w.contiguous(),
-                            targets.to(torch.int32).contiguous())
-    else:
-        nll, _ = ce_forward_reference(x, w, targets, n_chunks=int(n_chunks),
-                                      logits_dtype=policy.compute_dtype)
-    return nll
+    return _LinearCE.apply(x, w, targets, int(n_chunks), policy, impl == "kernel")

@@ -93,3 +93,60 @@ def test_sdpa_routing_on_cpu():
         attention.sdpa(q, k, v, causal=True, impl="ring")
     with pytest.raises(ValueError):
         attention.sdpa(q, k, v, causal=True, impl="bogus")
+
+
+def _from_dt(a, b):
+    """The JAX kernel's (H, hs, B*T) -> (B, T, H, hs)."""
+    h, hs, bt = a.shape
+    return np.asarray(a).reshape(h, hs, b, bt // b).transpose(2, 3, 0, 1)
+
+
+def _port_grads(q, k, v, g, causal, fn=None):
+    """dq, dk, dv of sum(attention(q, k, v) * g) through the port."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = (fn or fa.flash_attention)(*leaves, causal=causal)
+    (o * torch.from_numpy(g)).sum().backward()
+    return [a.grad.numpy() for a in leaves]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 256])
+def test_backward_matches_jax_dt_kernel(t, causal):
+    """fp32, B=2 H=2 hs=64: the port's _FlashAttn backward (its plain version
+    on CPU) against jax.grad of flash_attention_dt in interpret mode, whose
+    VJP is _bwd_dt_kernel; dq, dk, dv within 1e-5."""
+    import jax
+
+    b, h, hs = 2, 2, 64
+    q, k, v = _qkv(b, t, h, hs, seed=3)
+    g = np.random.RandomState(4).randn(b, t, h, hs).astype(np.float32)
+
+    def loss(q, k, v):
+        o = jfa.flash_attention_dt(_to_dt(q), _to_dt(k), _to_dt(v), b=b, causal=causal,
+                                   interpret=True)
+        return jnp.sum(jnp.asarray(o) * _to_dt(g))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = _port_grads(q, k, v, g, causal)
+    assert fa.flash_attention_backward.launches == 0  # CPU tensors: the plain version
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a, np.asarray(w), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"d{name}")
+
+
+def test_backward_ragged_t_matches_autograd_of_reference():
+    """T=200 (no tile multiple), causal, fp32: the plain backward against
+    autograd through flash_attention_reference, within 1e-5."""
+    q, k, v = _qkv(2, 200, 3, 64, seed=5)
+    g = np.random.RandomState(6).randn(*q.shape).astype(np.float32)
+    got = _port_grads(q, k, v, g, True)
+    want = _port_grads(q, k, v, g, True,
+                       fn=lambda *a, causal: fa.flash_attention_reference(*a, causal=causal)[0])
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5, err_msg=f"d{name}")
+
+
+def test_lse_is_not_differentiable():
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 64, 1, 64, seed=7))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert o.requires_grad and not lse.requires_grad

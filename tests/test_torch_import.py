@@ -1,4 +1,6 @@
-"""The PyTorch port imports without jax, and its GPTConfig is the JAX one."""
+"""The PyTorch port imports without jax, and its configs are the JAX ones:
+GPTConfig, ScheduleConfig and OptimizerConfig field for field, and every
+field of the JAX PretrainConfig either carried or named here as left out."""
 
 import dataclasses
 import os
@@ -21,8 +23,17 @@ PORT_MODULES = (
     "gpt2_vision_language_tpu_torch.ckpt.convert",
     "gpt2_vision_language_tpu_torch.ops.fused_ce",
     "gpt2_vision_language_tpu_torch.ops.flash_attention",
-    # the tokenizer is shared host code the CLIs import from the JAX package
+    "gpt2_vision_language_tpu_torch.ops.fused_adamw",
+    "gpt2_vision_language_tpu_torch.train.optimizer",
+    "gpt2_vision_language_tpu_torch.train.pretrain",
+    "gpt2_vision_language_tpu_torch.cli.pretrain",
+    "gpt2_vision_language_tpu_torch.ckpt.checkpoint",
+    # shared host code the port imports from the JAX package: the tokenizer,
+    # the token-shard loader and synthetic corpus, the CSV logger
     "gpt2_vision_language_tpu.data.tokenizer",
+    "gpt2_vision_language_tpu.data.fineweb",
+    "gpt2_vision_language_tpu.obs.csvlog",
+    "gpt2_vision_language_tpu.obs.xlsx",
 )
 
 
@@ -51,3 +62,43 @@ def test_presets_match_jax(preset):
     assert dataclasses.asdict(p) == dataclasses.asdict(j)
     assert (p.head_dim, p.padded_vocab_size) == (j.head_dim, j.padded_vocab_size)
     assert p.padded_vocab_size == 50304
+
+
+# JAX PretrainConfig fields the single-device port does not carry, and why
+LEFT_OUT = {
+    # TPU-only memory and dispatch mechanisms
+    "pin_layouts": "TPU-only", "split_accum": "TPU-only", "sync_accum": "TPU-only",
+    # big-model memory recipes (ROADMAP Queue 1 item 11)
+    "opt_state_dtype": "Queue 1 item 11", "grad_accum_dtype": "Queue 1 item 11",
+    "layerwise_grad": "Queue 1 item 11", "param_dtype": "Queue 1 item 11",
+    # model parallelism (ROADMAP Queue 1 item 10)
+    "tp": "Queue 1 item 10", "seq_parallel": "Queue 1 item 10",
+    "pp": "Queue 1 item 10", "pp_micro": "Queue 1 item 10",
+    # HellaSwag in the trainer (ROADMAP Queue 1 item 5): run_hellaswag stays,
+    # and a run with its data present stops before it starts
+    "hellaswag_every": "Queue 1 item 5",
+}
+
+
+@pytest.mark.parametrize("name", ["ScheduleConfig", "OptimizerConfig"])
+def test_train_configs_match_jax(name):
+    def fields(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(getattr(port_config, name)) == fields(getattr(jax_config, name))
+
+
+def test_pretrain_config_fields_carried_or_left_out():
+    jax_fields = {f.name: f for f in dataclasses.fields(jax_config.PretrainConfig)}
+    port_fields = {f.name: f for f in dataclasses.fields(port_config.PretrainConfig)}
+    assert set(port_fields) | set(LEFT_OUT) == set(jax_fields)
+    assert not set(port_fields) & set(LEFT_OUT)
+    j, p = jax_config.PretrainConfig(), port_config.PretrainConfig()
+    for name in port_fields:
+        want = getattr(j, name)
+        got = getattr(p, name)
+        if dataclasses.is_dataclass(want):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        else:
+            assert got == want, name
+    assert p.grad_accum_steps(1) == j.grad_accum_steps(1) == 64

@@ -61,3 +61,66 @@ def test_embed():
     want = J.embed(jnp.asarray(table), jnp.asarray(ids))
     got = P.embed(torch.from_numpy(table), torch.from_numpy(ids))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_layer_norm_backward_matches_jax_custom_vjp():
+    """fp32: dx, dscale, dbias of the recompute backward within 1e-6 of the
+    JAX custom VJP (ops/layers.py _ln_bwd)."""
+    import jax
+
+    x = _x(2, 7, 32, scale=3.0) + 1.5
+    s, b, g = _x(32, seed=1), _x(32, seed=2), _x(2, 7, 32, seed=3)
+    want = jax.grad(lambda *a: jnp.sum(J.layer_norm(*a) * g), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (x, s, b)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, s, b)]
+    (P.layer_norm(*leaves) * torch.from_numpy(g)).sum().backward()
+    for name, a, w in zip(("dx", "dscale", "dbias"), leaves, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=1e-6, atol=2e-6,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_backward_matches_jax(bias):
+    """fp32: dx, dw, db of the linear Function within 1e-6 of jax.grad
+    (dw compared in torch's (out, in) layout)."""
+    import jax
+
+    x, w, b = _x(2, 5, 16), _x(16, 24, seed=1, scale=0.1), _x(24, seed=2)
+    g = _x(2, 5, 24, seed=3)
+
+    def loss(x, w, b):
+        return jnp.sum(J.linear(x, w, b if bias else None, policy=JAX_FP32) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_(True) for a in (x, w.T.copy(), b))
+    (P.linear(xt, wt, bt if bias else None, policy=FP32_POLICY)
+     * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want[0]), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want[1]).T, **TOL)
+    if bias:
+        np.testing.assert_allclose(bt.grad.numpy(), np.asarray(want[2]), rtol=1e-6, atol=2e-6)
+    else:
+        assert bt.grad is None
+
+
+def test_linear_bf16_backward_dtypes():
+    """bf16 policy on CPU: dx in x's dtype, dw and db in the fp32 params'
+    dtype, the products of bf16 operands accumulated in fp32."""
+    x = torch.from_numpy(_x(3, 64)).bfloat16().requires_grad_(True)
+    w = torch.from_numpy(_x(32, 64, seed=1, scale=0.1)).requires_grad_(True)
+    b = torch.zeros(32, requires_grad=True)
+    P.linear(x, w, b).float().sum().backward()
+    assert (x.grad.dtype, w.grad.dtype, b.grad.dtype) == (
+        torch.bfloat16, torch.float32, torch.float32)
+    want = torch.ones(3, 32).t() @ x.detach().float()
+    torch.testing.assert_close(w.grad, want, rtol=1e-6, atol=1e-6)
+
+
+def test_matmul_f32_batched_low_precision():
+    """Batched bf16 operands with broadcast batch dims: the fp32 product of
+    the (exactly upcast) operands, returned in fp32."""
+    a = torch.from_numpy(_x(5, 3, 1, 16)).bfloat16()
+    b = torch.from_numpy(_x(3, 16, 7, seed=1)).bfloat16()
+    got = P.matmul_f32(a, b)
+    assert got.dtype == torch.float32 and got.shape == (5, 3, 1, 7)
+    torch.testing.assert_close(got, torch.matmul(a.float(), b.float()), rtol=0, atol=0)
