@@ -30,12 +30,32 @@ Phases (any failure raises and the script exits non-zero):
      with controls that must fail); K4 in the training forward timed;
   9. the trainer entry point: cli.pretrain --synthetic for 3 steps of
      64 x 1024 tokens (CSV rows, checkpoints), then --steps 4 resumes at
-     step 3 and runs one step.
+     step 3 and runs one step;
+ 10. the general (Tq != Tk, streamed K/V) flash kernels vs their plain
+     versions, forward (o, lse) and backward (D, dq, dk/dv), at (B, Tq, Tk)
+     = (2, 4096, 4096), (2, 1000, 1000), (2, 64, 2048) causal and not,
+     (4, 1, 1500), all H=12, and at the long-context shape B=1, T=16384,
+     H=12 against the plain versions run two heads at a time;
+ 11. the general kernels against the self-attention kernels on the same
+     inputs at B=8, T=1024 and B=2, T=4096 (times only printed);
+ 12. library-call probes, timed only and never a route of the port:
+     F.scaled_dot_product_attention forward and backward at B=8, T=1024 and
+     B=1, T=16384, torch.optim.AdamW(fused=True) over the 148 leaves;
+ 13. the long-context train step: GPT-2 124M with block_size 16384,
+     make_train_step at B=1, T=16384, 2 micro-batches a step, 3 steps; 12
+     general forward, 12 D, 12 dq and 12 dk/dv launches per micro-batch, none
+     of the self-attention kernels, 1 AdamW launch a step; then at 2 layers
+     and T=8320 one step on the kernel path and on the plain paths from one
+     state (loss, grad norm, grads, the update, with controls);
+ 14. the long-context trainer: cli.pretrain --synthetic --seq-len 16384
+     --micro-batch 1 --total-batch 32768 --steps 3 with a synthetic
+     HellaSwag file in $HELLASWAG_DIR (validation on the general forward and
+     the CE kernel, 'hella' rows, checkpoints), then --steps 4 resumes.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches (from the trainer run of phase 9), error and times, and last
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, without
-a CUDA device.
+launches (from the trainer runs of phases 9 and 14), error, times, bound and
+library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
+printing no result, without a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,6 +66,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -250,17 +271,27 @@ def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
     return err, timing
 
 
+def _counters(fa, fc, fw):
+    return {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_attention_backward,
+            "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
+            "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
+            "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv}
+
+
 def reset_counts(fa, fc, fw):
-    fa.flash_attention.launches = 0
-    fa.flash_attention_backward.launches = 0
-    fc.ce_forward.launches = 0
-    fw.fused_adamw.launches = 0
+    for fn in _counters(fa, fc, fw).values():
+        fn.launches = 0
 
 
 def read_counts(fa, fc, fw):
-    return {"flash_fwd": fa.flash_attention.launches,
-            "flash_bwd": fa.flash_attention_backward.launches,
-            "ce_fwd": fc.ce_forward.launches, "adamw": fw.fused_adamw.launches}
+    return {name: fn.launches for name, fn in _counters(fa, fc, fw).items()}
+
+
+def with_zeros(counts):
+    """Expected launch counts: the named ones, every other kernel 0."""
+    return {**dict.fromkeys(("flash_fwd", "flash_bwd", "ce_fwd", "adamw", "flash_general_fwd",
+                             "flash_rowdot", "flash_general_dq", "flash_general_dkv"), 0),
+            **counts}
 
 
 def update_err(delta, ref):
@@ -373,8 +404,8 @@ def phase_train_step(torch, np, gpt2, mods, cfgs, dev):
     step_p, state_p = make(plain_model, "xla", "xla", False)
     n_tok = accum * b * t
     reset_counts(fa, fc, fw)
-    per_step = {"flash_fwd": accum * cfg.n_layer, "flash_bwd": accum * cfg.n_layer,
-                "ce_fwd": 0, "adamw": 1}
+    per_step = with_zeros({"flash_fwd": accum * cfg.n_layer,
+                           "flash_bwd": accum * cfg.n_layer, "adamw": 1})
     metrics, times = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -441,8 +472,9 @@ def phase_trainer(torch, mods, cfgs):
         dt = time.perf_counter() - t0
         counts = read_counts(fa, fc, fw)
         accum, val_steps = 8, 20
-        want = {"flash_fwd": cfg.n_layer * (3 * accum + 2 * val_steps),
-                "flash_bwd": cfg.n_layer * 3 * accum, "ce_fwd": 2 * val_steps, "adamw": 3}
+        want = with_zeros({"flash_fwd": cfg.n_layer * (3 * accum + 2 * val_steps),
+                           "flash_bwd": cfg.n_layer * 3 * accum, "ce_fwd": 2 * val_steps,
+                           "adamw": 3})
         print(f"  3 steps in {dt:.1f} s (val at steps 0 and 2, samples, checkpoints); "
               f"launches {counts}", flush=True)
         require(counts == want, f"expected launches {want}, got {counts}")
@@ -473,6 +505,371 @@ def phase_trainer(torch, mods, cfgs):
         return counts, phases.count("train")
     finally:
         tempfile.tempdir = old_tmp
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): bf16 dense tensor-core
+# rate and HBM3 rate. A kernel's bound is the larger of its operations over the
+# first and its bytes (each input read once, each output written once) over the
+# second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(flops, nbytes):
+    """(least milliseconds the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_bound(kind, b, tq, tk, h, hs, causal):
+    """Bound of one attention kernel on bf16 operands. Operations count the
+    (query, key) pairs the mask leaves visible: two products in the forward
+    (S, PV), five in the whole backward (S, dP, dV, dQ, dK), three of them for
+    dq alone (S, dP, dQ) and four for dk/dv alone (S, dP, dV, dK)."""
+    pairs = b * h * (tq * (tk - tq) + tq * (tq + 1) // 2 if causal else tq * tk)
+    n_q, n_k, stats = b * tq * h * hs, b * tk * h * hs, b * h * tq * 4
+    products, q_like, k_like, n_stats = {
+        "fwd": (2, 2, 2, 1),   # q, o; k, v; lse
+        "bwd": (5, 4, 4, 1),   # q, o, dO, dq; k, v, dk, dv; lse
+        "dq": (3, 3, 2, 2),    # q, dO, dq; k, v; lse, D
+        "dkv": (4, 2, 4, 2),   # q, dO; k, v, dk, dv; lse, D
+    }[kind]
+    return bound_ms(2 * products * hs * pairs, 2 * (q_like * n_q + k_like * n_k)
+                    + n_stats * stats)
+
+
+def qkv_inputs(torch, b, tq, tk, h, dev, g):
+    """bf16 q (B, Tq, H, 64) and k, v (B, Tk, H, 64), strided views of fused
+    projections as the model makes them (one QKV tensor when Tq == Tk), and
+    an output cotangent."""
+    hs = 64
+    if tq == tk:
+        qkv = torch.randn(b, tq, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = (a.view(b, tq, h, hs) for a in qkv.split(h * hs, dim=-1))
+    else:
+        q = torch.randn(b, tq, h, hs, device=dev, generator=g).to(torch.bfloat16)
+        kv = torch.randn(b, tk, 2 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (a.view(b, tk, h, hs) for a in kv.split(h * hs, dim=-1))
+    do = torch.randn(b, tq, h, hs, device=dev, generator=g).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def out_excess(o, ref):
+    """(max|err|, the largest amount by which |err| passes max(2e-2, one bf16
+    ulp of |ref|)): the kernel and the plain version both round o to bf16, so
+    where |ref| > 2.56 one ulp (2^-7 |ref|) is more than 2e-2."""
+    err = (o.float() - ref.float()).abs()
+    allowed = (ref.float().abs() * 2.0 ** -7).clamp(min=2e-2)
+    return err.max().item(), (err - allowed).max().item()
+
+
+def plain_by_heads(torch, fa, q, k, v, do, o, lse, dd, causal, heads=2):
+    """The plain forward and backward, `heads` heads at a time (their (B, H,
+    Tq, Tk) fp32 score matrices do not fit at once at T=16384, H=12). Each
+    plain version gets its kernel's inputs: the forward q, k, v; D the
+    kernel's o; the backward the kernels' lse and D. Returns (o, lse, D, dq,
+    dk, dv)."""
+    parts = []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        parts.append((
+            *fa.flash_attention_reference(q[:, :, c], k[:, :, c], v[:, :, c], causal=causal),
+            fa.rowdot_reference(do[:, :, c], o[:, :, c]),
+            *fa.flash_attention_backward_reference(
+                q[:, :, c], k[:, :, c], v[:, :, c], None, lse[:, c], do[:, :, c],
+                causal=causal, dd=dd[:, c])))
+    dims = (2, 1, 1, 2, 2, 2)  # the head axis of each
+    return [torch.cat([p[j] for p in parts], dim=d) for j, d in enumerate(dims)]
+
+
+def phase_general(torch, fa, dev):
+    print("[10] general flash kernels (Tq != Tk, streamed K/V) vs plain (bf16)", flush=True)
+    lse_tol, bwd_tol = 1e-3, 3e-2  # as the self-attention kernels
+    dd_tol = 1e-5  # fp32 sums of the same 64 products in another order
+    g = torch.Generator(dev).manual_seed(10)
+    errs = {"o": 0.0, "lse": 0.0, "dd": 0.0, "dq": 0.0, "dkv": 0.0}
+    shapes = [(2, 4096, 4096, 12, True), (2, 1000, 1000, 12, True), (2, 64, 2048, 12, True),
+              (2, 64, 2048, 12, False), (4, 1, 1500, 12, True), (1, 16384, 16384, 12, True)]
+    for b, tq, tk, h, causal in shapes:
+        q, k, v, do = qkv_inputs(torch, b, tq, tk, h, dev, g)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True, stream_kv=True)
+        dd = fa.flash_rowdot(do, o)
+        dq = fa.flash_general_dq(q, k, v, do, lse, dd, causal=causal)
+        dk, dv = fa.flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
+        ro, rlse, rdd, rdq, rdk, rdv = plain_by_heads(torch, fa, q, k, v, do, o, lse, dd,
+                                                       causal)
+        torch.cuda.synchronize()
+        eo, excess = out_excess(o, ro)
+        el = (lse - rlse).abs().max().item()
+        ed = rel_err(dd, rdd)
+        eq, ek, ev = rel_err(dq, rdq), rel_err(dk, rdk), rel_err(dv, rdv)
+        finite = all(torch.isfinite(a.float()).all().item() for a in (o, lse, dd, dq, dk, dv))
+        print(f"  B={b} Tq={tq} Tk={tk} H={h} causal={causal}: out max|err| {eo:.3e} (tol "
+              f"2e-2 or one bf16 ulp), lse max|err| {el:.3e} (tol {lse_tol}), D "
+              f"{ed:.3e} (tol {dd_tol}), dq, dk, dv max|err| / max|ref| {eq:.3e}, "
+              f"{ek:.3e}, {ev:.3e} (tol {bwd_tol})", flush=True)
+        require(finite, f"general kernels gave a non-finite value at Tq={tq} Tk={tk}")
+        require(excess <= 0 and el <= lse_tol, f"general forward Tq={tq} Tk={tk} disagrees")
+        require(ed <= dd_tol and max(eq, ek, ev) <= bwd_tol,
+                f"general backward Tq={tq} Tk={tk} disagrees")
+        for key, e in (("o", eo), ("lse", el), ("dd", ed), ("dq", eq), ("dkv", max(ek, ev))):
+            errs[key] = max(errs[key], e)
+    # times at the long-context shape (the last one above); the backward's
+    # plain version computes dq, dk and dv together
+    print(f"  times at B={b} T={tq} H={h} causal, plain two heads at a time:", flush=True)
+
+    def plain_fwd():
+        for i in range(0, h, 2):
+            fa.flash_attention_reference(q[:, :, i:i + 2], k[:, :, i:i + 2], v[:, :, i:i + 2],
+                                         causal=True)
+
+    def plain_bwd():
+        for i in range(0, h, 2):
+            c = slice(i, i + 2)
+            fa.flash_attention_backward_reference(q[:, :, c], k[:, :, c], v[:, :, c], None,
+                                                  lse[:, c], do[:, :, c], causal=True,
+                                                  dd=dd[:, c])
+
+    times = {
+        "fwd": interleaved(lambda: fa.flash_general_forward(q, k, v, causal=True),
+                           plain_fwd, 5, 1),
+        "dq": interleaved(lambda: fa.flash_general_dq(q, k, v, do, lse, dd, causal=True),
+                          plain_bwd, 5, 1),
+        "dkv": interleaved(lambda: fa.flash_general_dkv(q, k, v, do, lse, dd, causal=True),
+                           plain_bwd, 5, 1),
+        "rowdot": interleaved(lambda: fa.flash_rowdot(do, o),
+                              lambda: fa.rowdot_reference(do, o), 20, 5),
+    }
+    return errs, times
+
+
+def phase_general_vs_self(torch, fa, dev):
+    print("[11] general kernels vs self-attention kernels on the same inputs", flush=True)
+    g = torch.Generator(dev).manual_seed(11)
+    out = {}
+    for b, t in ((8, 1024), (2, 4096)):
+        q, k, v, do = qkv_inputs(torch, b, t, t, 12, dev, g)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        og, lseg = fa.flash_attention(q, k, v, causal=True, return_lse=True, stream_kv=True)
+        bs = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+        bg = fa.flash_general_backward(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(o, og) and torch.equal(lse, lseg)
+                and all(torch.equal(x, y) for x, y in zip(bs, bg)))
+        fwd = interleaved(lambda: fa.flash_attention(q, k, v, causal=True, stream_kv=True),
+                          lambda: fa.flash_attention(q, k, v, causal=True), 20, 20)
+        bwd = interleaved(lambda: fa.flash_general_backward(q, k, v, o, lse, do, causal=True),
+                          lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                          20, 20)
+        print(f"  B={b} T={t} H=12 causal: forward general {fwd[0]:.4f} ms, self {fwd[1]:.4f} "
+              f"ms; backward general (D + dq + dk/dv) {bwd[0]:.4f} ms, self {bwd[1]:.4f} ms; "
+              f"results bit-identical: {same}", flush=True)
+        require(max(rel_err(og, o), *(rel_err(x, y) for x, y in zip(bg, bs))) <= 1e-2,
+                f"the two kernel families disagree at T={t}")
+        out[f"B{b}_T{t}"] = {"general_fwd_ms": fwd[0], "self_fwd_ms": fwd[1],
+                             "general_bwd_ms": bwd[0], "self_bwd_ms": bwd[1]}
+    return out
+
+
+def phase_library_probes(torch, gpt2, cfgs, dev):
+    """One PyTorch call computing the same function as a kernel, timed beside
+    it. Nothing in the port calls these."""
+    import torch.nn.functional as F
+
+    print("[12] library-call probes (timed only; never a route of the port)", flush=True)
+    g = torch.Generator(dev).manual_seed(12)
+    out = {}
+    for b, t, iters in ((8, 1024, 20), (1, 16384, 5)):
+        # (B, H, T, hs) contiguous, the layout the library call is built for
+        q, k, v, do = (a.transpose(1, 2).contiguous()
+                       for a in qkv_inputs(torch, b, t, t, 12, dev, g))
+        for a in (q, k, v):
+            a.requires_grad_(True)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        grad = lambda wrt: lambda: torch.autograd.grad(o, wrt, do, retain_graph=True)  # noqa: E731
+        r = {"fwd": cuda_ms(fwd, iters), "bwd": cuda_ms(grad((q, k, v)), iters),
+             "dq": cuda_ms(grad((q,)), iters), "dkv": cuda_ms(grad((k, v)), iters)}
+        print(f"  F.scaled_dot_product_attention B={b} T={t} H=12 hs=64 bf16 causal: forward "
+              f"{r['fwd']:.4f} ms, backward (autograd.grad of q, k, v) {r['bwd']:.4f} ms, "
+              f"forward + backward {r['fwd'] + r['bwd']:.4f} ms; grad of q alone "
+              f"{r['dq']:.4f} ms, of k and v {r['dkv']:.4f} ms", flush=True)
+        out[f"B{b}_T{t}"] = r
+        del o
+
+    model = gpt2.init(cfgs["gpt"], generator=torch.Generator(dev).manual_seed(7), device=dev)
+    params = [p.detach().clone().requires_grad_(True) for p in gpt2.named_params(model).values()]
+    for p in params:
+        p.grad = torch.randn(p.shape, device=dev, generator=g)
+    ocfg = cfgs["opt"]
+    opt = torch.optim.AdamW(params, lr=6e-4, betas=(ocfg.beta1, ocfg.beta2), eps=ocfg.eps,
+                            weight_decay=ocfg.weight_decay, fused=True)
+    out["adamw_fused"] = cuda_ms(opt.step, 20)
+    print(f"  torch.optim.AdamW(fused=True).step() over {len(params)} leaves: "
+          f"{out['adamw_fused']:.4f} ms", flush=True)
+    return out
+
+
+def phase_long_train_step(torch, np, gpt2, mods, cfgs, dev):
+    accum, b, t = 2, 1, 16384
+    print(f"[13] long-context train step: GPT-2 124M, block_size {t}, bf16 policy, "
+          f"{accum} x (B={b}, T={t}) per step", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    cfg = cfgs["gpt"].replace(block_size=t)
+
+    def loss_fn(cfg, attn_impl, ce_impl):
+        return lambda m, r: gpt2.loss(m, r[:, :-1], cfg, targets=r[:, 1:],
+                                      policy=mods["policy"], attn_impl=attn_impl,
+                                      ce_chunks=1, ce_impl=ce_impl)
+
+    def make(model, cfg, attn_impl, ce_impl, fused):
+        step = mods["make_train_step"](loss_fn(cfg, attn_impl, ce_impl), cfgs["opt"],
+                                       cfgs["sched"], decay_mask=gpt2.decay_mask(model),
+                                       use_fused_adamw=fused)
+        return step, mods["adamw_init"](gpt2.named_params(model))
+
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    rows = np.random.RandomState(13).randint(0, cfg.vocab_size, (accum, b, t + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    step_k, state_k = make(model, cfg, "auto", "auto", True)
+    n = accum * cfg.n_layer
+    per_step = with_zeros({"flash_general_fwd": n, "flash_rowdot": n, "flash_general_dq": n,
+                           "flash_general_dkv": n, "adamw": 1})
+    n_tok = accum * b * t
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, fc, fw)
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_k(model, state_k, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_counts(fa, fc, fw)
+        print(f"  step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
+              f"{m['lr']:.4e}, {n_tok / times[-1]:.1f} tokens/s; launches {counts}", flush=True)
+        require(counts == {k: (i + 1) * v for k, v in per_step.items()},
+                f"expected {per_step} launches per step, got {counts} after {i + 1}")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                "long-context train loss or grad norm is not finite")
+        if i == 0:
+            require(abs(m["loss"] - math.log(cfg.padded_vocab_size)) < 0.5,
+                    "first long-context loss is not near ln(V)")
+    main_counts = read_counts(fa, fc, fw)
+    tps = n_tok / (sum(times[1:]) / 2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  tokens/s {tps:.1f} (steps 1-2), peak device memory {peak:.2f} GiB", flush=True)
+    del model, state_k, step_k, batch
+    torch.cuda.empty_cache()
+
+    # against the plain paths where einsum attention fits: full width, 2
+    # layers, T just above the self-attention kernels' longest
+    t2 = 8320
+    cfg2 = cfgs["gpt"].replace(block_size=t2, n_layer=2)
+    print(f"  kernel path vs plain paths at {cfg2.n_layer} layers, B=1, T={t2}:", flush=True)
+    model = gpt2.init(cfg2, generator=torch.Generator(dev).manual_seed(1338), device=dev)
+    plain_model = copy.deepcopy(model)
+    rows = np.random.RandomState(14).randint(0, cfg2.vocab_size, (1, 1, t2 + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    kernel = (model, *reversed(make(model, cfg2, "auto", "auto", True)))
+    plain = (plain_model, *reversed(make(plain_model, cfg2, "xla", "xla", False)))
+    kernel[2](model, kernel[1], batch, 0)  # one step first, so the moments are not zero
+    reset_counts(fa, fc, fw)
+    compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch)
+    counts = read_counts(fa, fc, fw)
+    require(counts == with_zeros({"flash_general_fwd": 2, "flash_rowdot": 2,
+                                  "flash_general_dq": 2, "flash_general_dkv": 2, "adamw": 1}),
+            f"the T={t2} kernel-path step did not run on the general kernels: {counts}")
+    return {"tps": tps, "peak_gib": peak, "counts": main_counts}
+
+
+def write_synthetic_hellaswag(np, path, n=16, seed=0):
+    """A small seeded HellaSwag-format file (no such data ships with the
+    repository and none can be fetched)."""
+    rng = np.random.RandomState(seed)
+    words = "the a cat dog runs sleeps quickly under over bridge river and then stops".split()
+    with open(path, "w") as f:
+        for _ in range(n):
+            phrase = lambda k: " ".join(rng.choice(words, size=k))  # noqa: E731
+            f.write(json.dumps({"ctx": phrase(int(rng.randint(3, 9))),
+                                "label": int(rng.randint(4)),
+                                "endings": [phrase(int(rng.randint(1, 5))) for _ in range(4)]})
+                    + "\n")
+
+
+def phase_long_trainer(torch, np, mods, cfgs):
+    print("[14] long-context trainer: cli.pretrain --synthetic --seq-len 16384 --micro-batch 1, "
+          "3 steps of 32,768 tokens with HellaSwag, then resume", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    n_layer = cfgs["gpt"].n_layer
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_long_")
+    old_tmp, old_hs = tempfile.tempdir, os.environ.get("HELLASWAG_DIR")
+    tempfile.tempdir = log_dir  # the synthetic shards go under it too
+    try:
+        hs_dir = os.path.join(log_dir, "hellaswag")
+        os.makedirs(hs_dir)
+        write_synthetic_hellaswag(np, os.path.join(hs_dir, "hellaswag_val.jsonl"))
+        os.environ["HELLASWAG_DIR"] = hs_dir
+        argv = ["--synthetic", "--seq-len", "16384", "--micro-batch", "1", "--total-batch",
+                "32768", "--log-dir", os.path.join(log_dir, "log")]
+        reset_counts(fa, fc, fw)
+        t0 = time.perf_counter()
+        out = mods["pretrain"].main(argv + ["--steps", "3"])
+        dt = time.perf_counter() - t0
+        counts = read_counts(fa, fc, fw)
+        accum, val_steps = 2, 20
+        bwd = n_layer * 3 * accum
+        want = with_zeros({"flash_general_fwd": n_layer * (3 * accum + 2 * val_steps),
+                           "flash_rowdot": bwd, "flash_general_dq": bwd,
+                           "flash_general_dkv": bwd, "ce_fwd": 2 * val_steps, "adamw": 3})
+        print(f"  3 steps in {dt:.1f} s (val and HellaSwag at steps 0 and 2, samples, "
+              f"checkpoints); launches {counts}", flush=True)
+        require(counts == want, f"expected launches {want}, got {counts}")
+        require(out["opt_state"]["step"] == 3 and math.isfinite(out["val_loss"])
+                and out["model"].transformer.wpe.weight.shape[0] == 16384,
+                "the long-context trainer did not take 3 finite steps at block_size 16384")
+
+        def csv_rows():
+            return [line.split(",")
+                    for f in sorted(glob.glob(os.path.join(log_dir, "log", "*.csv")))
+                    for line in open(f).read().splitlines()[1:]]
+
+        rows = csv_rows()
+        phases = [r[1] for r in rows]
+        hella = [(int(r[2]), float(r[8])) for r in rows if r[1] == "hella"]
+        tps = [float(r[7]) for r in rows if r[1] == "train"]
+        print(f"  CSV: {phases.count('train')} train rows (tokens/s {tps}), "
+              f"{phases.count('val')} val rows, hella rows {hella}", flush=True)
+        require(phases.count("train") == 3 and phases.count("val") == 2
+                and [s for s, _ in hella] == [0, 2] and all(0 <= a <= 1 for _, a in hella),
+                "the CSV does not hold 3 train, 2 val and 2 hella rows")
+        ckpts = sorted(os.listdir(os.path.join(log_dir, "log", "ckpts")))
+        print(f"  checkpoints: {ckpts}", flush=True)
+        require("model_final.pt" in ckpts, "model_final was not written")
+
+        reset_counts(fa, fc, fw)
+        out = mods["pretrain"].main(argv + ["--steps", "4"])
+        rows = csv_rows()
+        steps = [int(r[2]) for r in rows if r[1] == "train"]
+        resumed = read_counts(fa, fc, fw)
+        print(f"  resumed: train steps logged {steps}, launches {resumed}, optimizer step "
+              f"{out['opt_state']['step']}", flush=True)
+        require(steps == [0, 1, 2, 3] and resumed["adamw"] == 1
+                and resumed["flash_general_dq"] == n_layer * accum
+                and resumed["flash_fwd"] == 0 and out["opt_state"]["step"] == 4,
+                "the second call did not resume at step 3 and run one step")
+        return counts, tps
+    finally:
+        tempfile.tempdir = old_tmp
+        if old_hs is None:
+            os.environ.pop("HELLASWAG_DIR", None)
+        else:
+            os.environ["HELLASWAG_DIR"] = old_hs
         shutil.rmtree(log_dir, ignore_errors=True)
 
 
@@ -524,6 +921,15 @@ def main() -> int:
     so, build_s = _build.build()
     _build.load()
     print(f"  {so.name}: nvcc {build_s:.2f} s", flush=True)
+    # registers and spills of every kernel, from the compiler's report
+    report = so.with_suffix(".log").read_text()
+    for name, regs in re.findall(
+            r"Compiling entry function '\S*?\d([a-z_]+_kernel)\w*' for 'sm_90a'"
+            r".*?Used (\d+) registers",
+            report, flags=re.S):
+        print(f"    {name}: {regs} registers", flush=True)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
+    print(f"    spill stores: {sum(spills)} bytes over {len(spills)} functions", flush=True)
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
     ce_err, ce_t = phase_ce(torch, fc, dev)
@@ -603,34 +1009,83 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer_counts, _ = phase_trainer(torch, mods, cfgs)
 
+    gen_errs, gen_t = phase_general(torch, fa, dev)
+    torch.cuda.empty_cache()
+    families = phase_general_vs_self(torch, fa, dev)
+    library = phase_library_probes(torch, gpt2, cfgs, dev)
+    torch.cuda.empty_cache()
+    long_train = phase_long_train_step(torch, np, gpt2, mods, cfgs, dev)
+    torch.cuda.empty_cache()
+    long_counts, long_tps = phase_long_trainer(torch, np, mods, cfgs)
+
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
-               "train_step": train["counts"], "trainer": trainer_counts}
-    kernels = [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "gpt2_vision_language_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "gpt2_vision_language_tpu/ops/flash_attention.py:841",
-         "max_abs_err": flash_errs["o"], "lse_max_abs_err": flash_errs["lse"],
-         "ms": flash_t[0], "plain_ms": flash_t[1]},
-        {"name": "flash_bwd", "route": "cuda",
-         "source": "gpt2_vision_language_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "gpt2_vision_language_tpu/ops/flash_attention.py:887",
-         "max_abs_err": bwd_err, "err_is": "max|err| / max|ref|",
-         "ms": bwd_t[0], "plain_ms": bwd_t[1]},
-        {"name": "ce_fwd", "route": "cuda",
-         "source": "gpt2_vision_language_tpu_torch/csrc/ce_fwd.cu",
-         "replaces": "gpt2_vision_language_tpu/ops/fused_ce.py:93",
-         "max_abs_err": ce_err, "ms": ce_t[0], "plain_ms": ce_t[1]},
-        {"name": "adamw", "route": "cuda",
-         "source": "gpt2_vision_language_tpu_torch/csrc/adamw.cu",
-         "replaces": "gpt2_vision_language_tpu/ops/fused_adamw.py:36",
-         "max_abs_err": adamw_err, "err_is": "max|err| / max|ref|",
-         "ms": adamw_t[0], "plain_ms": adamw_t[1]},
+               "train_step": train["counts"], "trainer": trainer_counts,
+               "long_train_step": long_train["counts"], "long_trainer": long_counts}
+    csrc = "gpt2_vision_language_tpu_torch/csrc/"
+    jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
+    n_params = 124_475_904
+    self_shape, long_shape = (8, 1024, 1024, 12, 64, True), (1, 16384, 16384, 12, 64, True)
+    lib_self, lib_long = library["B8_T1024"], library["B1_T16384"]
+    # name, source, the TPU kernel it replaces, the path whose run gives `launches`,
+    # max error, (kernel ms, plain ms), bound, the library call's ms
+    table = [
+        ("flash_fwd", "flash_fwd.cu", f"{jfa}:841", "trainer", flash_errs["o"], flash_t,
+         attention_bound("fwd", *self_shape), lib_self["fwd"]),
+        ("flash_bwd", "flash_bwd.cu", f"{jfa}:887", "trainer", bwd_err, bwd_t,
+         attention_bound("bwd", *self_shape), lib_self["bwd"]),
+        ("ce_fwd", "ce_fwd.cu", "gpt2_vision_language_tpu/ops/fused_ce.py:93", "trainer",
+         ce_err, ce_t, bound_ms(2 * 8192 * 768 * 50304,
+                                2 * (8192 * 768 + 50304 * 768) + 3 * 4 * 8192), None),
+        ("adamw", "adamw.cu", "gpt2_vision_language_tpu/ops/fused_adamw.py:36", "trainer",
+         adamw_err, adamw_t, bound_ms(0, 7 * 4 * n_params), library["adamw_fused"]),
+        ("flash_general_fwd", "flash_general_fwd.cu", f"{jfa}:221", "long_trainer",
+         gen_errs["o"], gen_t["fwd"], attention_bound("fwd", *long_shape), lib_long["fwd"]),
+        ("flash_general_dq", "flash_general_bwd.cu", f"{jfa}:369", "long_trainer",
+         gen_errs["dq"], gen_t["dq"], attention_bound("dq", *long_shape), lib_long["dq"]),
+        ("flash_general_dkv", "flash_general_bwd.cu", f"{jfa}:509", "long_trainer",
+         gen_errs["dkv"], gen_t["dkv"], attention_bound("dkv", *long_shape), lib_long["dkv"]),
+        # the D pre-kernel of the general backward: XLA code in the JAX package
+        ("flash_rowdot", "flash_general_bwd.cu", f"{jfa}:573", "long_trainer",
+         gen_errs["dd"], gen_t["rowdot"],
+         bound_ms(2 * 16384 * 768, 2 * 2 * 16384 * 768 + 4 * 16384 * 12), None),
     ]
+    kernels = []
+    for name, src, replaces, path, err, (ms, plain_ms), (b_ms, b_by), lib_ms in table:
+        count = by_path[path][name]
+        require(count > 0, f"{name} was not launched by the {path} run")
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+            "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
+        })
+    notes = {
+        "flash_fwd": {"lse_max_abs_err": flash_errs["lse"], "shape": "B=8 T=1024 H=12 causal",
+                      "library_is": "F.scaled_dot_product_attention"},
+        "flash_bwd": {"err_is": "max|err| / max|ref|", "shape": "B=8 T=1024 H=12 causal",
+                      "library_is": "autograd.grad of q, k and v through SDPA"},
+        "ce_fwd": {"shape": "N=8192 D=768 V=50304"},
+        "adamw": {"err_is": "max|err| / max|ref|", "shape": "148 leaves, 124,475,904 params",
+                  "library_is": "torch.optim.AdamW(fused=True).step()"},
+        "flash_general_fwd": {"lse_max_abs_err": gen_errs["lse"],
+                              "library_is": "F.scaled_dot_product_attention"},
+        "flash_general_dq": {"err_is": "max|err| / max|ref|",
+                             "plain_is": "the plain backward computes dq, dk and dv together",
+                             "library_is": "autograd.grad of q through SDPA"},
+        "flash_general_dkv": {"err_is": "max|err| / max|ref|",
+                              "plain_is": "the plain backward computes dq, dk and dv together",
+                              "library_is": "autograd.grad of k and v through SDPA"},
+        "flash_rowdot": {"err_is": "max|err| / max|ref|"},
+    }
     for k in kernels:
-        k["launches"] = trainer_counts[k["name"]]
-        k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()
-                                 if k["name"] in c}
-        require(k["launches"] > 0, f"{k['name']} was not launched by the trainer")
+        k.update(notes[k["name"]])
+        if k["name"].startswith("flash_general") or k["name"] == "flash_rowdot":
+            k["shape"] = "B=1 T=16384 H=12 causal"
+    print(json.dumps({"long_context": {"train_step_tokens_per_s": long_train["tps"],
+                                       "peak_gib": long_train["peak_gib"],
+                                       "trainer_tokens_per_s": long_tps,
+                                       "general_vs_self": families,
+                                       "sdpa_ms": {"B8_T1024": lib_self, "B1_T16384": lib_long}}}))
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))
     print(json.dumps({"kernels": kernels}))

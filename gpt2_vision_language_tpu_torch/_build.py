@@ -42,6 +42,10 @@ SIGNATURES = {
     "gpt2vl_ce_fwd_block_rows": [],
     "gpt2vl_ce_fwd_tile_cols": [],
     "gpt2vl_flash_bwd": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_general_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_rowdot": [_P] * 3 + [_I] * 4 + [_P],
+    "gpt2vl_flash_general_dq": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_general_dkv": [_P] * 8 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_adamw": [_P, _I, _L, _P, _P],
     "gpt2vl_adamw_chunk": [],
 }

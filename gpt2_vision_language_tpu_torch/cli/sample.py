@@ -28,9 +28,8 @@ def main(argv=None):
 
     import torch
 
-    from gpt2_vision_language_tpu.data.tokenizer import get_tokenizer
-
     from ..core.config import GPTConfig
+    from ..data.tokenizer import get_tokenizer
     from ..infer.decode import Decoder
     from ..infer.sampling import sample_top_k
     from ..models import gpt2

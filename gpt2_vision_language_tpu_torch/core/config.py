@@ -83,8 +83,8 @@ class OptimizerConfig:
 class PretrainConfig:
     """FineWeb-Edu pretraining workload (train_gpt2.py:243-285), single
     device. The JAX fields for the TPU's memory mechanisms, the big-model
-    recipes, model parallelism and the HellaSwag cadence (its evaluator is
-    not ported) are not carried (tests/test_torch_import.py lists them)."""
+    recipes and model parallelism are not carried
+    (tests/test_torch_import.py lists them)."""
 
     model: GPTConfig = field(
         default_factory=lambda: GPT2_124M.replace(unroll_layers=True)
@@ -96,6 +96,7 @@ class PretrainConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     val_every: int = 250
     val_steps: int = 20
+    hellaswag_every: int = 250
     sample_every: int = 250
     save_every: int = 2500
     run_hellaswag: bool = True

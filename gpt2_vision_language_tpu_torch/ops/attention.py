@@ -4,10 +4,13 @@ Counterpart of gpt2_vision_language_tpu/ops/attention.py:
 
   * impl="xla"   — plain einsum attention, fp32 softmax (the name is the JAX
     package's; here it is plain PyTorch);
-  * impl="flash" — ops/flash_attention.py: the CUDA kernel for CUDA tensors,
-    its plain version for CPU tensors;
+  * impl="flash" — ops/flash_attention.py: the CUDA kernels for CUDA tensors
+    (the self-attention family for Tq == Tk up to its longest T, the general
+    streamed-K/V family for every other shape, Tq != Tk included), their
+    plain versions for CPU tensors;
   * impl="auto"  — flash for causal self-attention (Tq == Tk) of at least
-    AUTO_FLASH_MIN_T positions on CUDA tensors, xla otherwise;
+    AUTO_FLASH_MIN_T positions on CUDA tensors, xla otherwise; a long
+    self-attention (T = 16384) reaches the general kernels through it;
   * impl="ring"  — not ported yet.
 """
 

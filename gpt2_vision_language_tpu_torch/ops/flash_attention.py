@@ -1,22 +1,38 @@
 """Flash attention, forward and backward: the hand-written CUDA kernels and
 their plain versions.
 
-Counterpart of gpt2_vision_language_tpu/ops/flash_attention.py's dt path.
-``csrc/flash_fwd.cu`` replaces ``_fwd_dt_kernel`` (:841, launched by
-``_fwd_dt`` :956) and ``csrc/flash_bwd.cu`` replaces ``_bwd_dt_kernel``
-(:887, launched by ``_bwd_dt`` :989), behind ``flash_attention_dt`` (:1061)
-and ``flash_attention`` (:1089). Both take q/k/v as (B, T, H, hs), strided
-views included, so the fused QKV output feeds them without a copy. The
-softmax scale 1/sqrt(hs) is applied inside both kernels (the JAX wrapper
-folds it into q outside its custom VJP), so the backward scales dq and dk.
+Counterpart of gpt2_vision_language_tpu/ops/flash_attention.py, two kernel
+families behind one ``flash_attention`` (:1089 there):
 
-``_FlashAttn`` is the autograd Function on both devices: for CUDA tensors
-its forward and backward launch the kernels, for CPU tensors they run the
-plain versions, ``flash_attention_reference`` and
-``flash_attention_backward_reference``. Nothing else selects between them,
-and there is no fallback from one to the other. Each forward launch adds
-one to ``flash_attention.launches``, each backward launch one to
-``flash_attention_backward.launches``.
+  * the self-attention family (Tq == Tk, T <= K1_MAX_T): ``csrc/flash_fwd.cu``
+    replaces ``_fwd_dt_kernel`` (:841, launched by ``_fwd_dt`` :956) and
+    ``csrc/flash_bwd.cu`` replaces ``_bwd_dt_kernel`` (:887, ``_bwd_dt``
+    :989);
+  * the general family (Tq != Tk, any length, right-aligned causal or
+    non-causal): ``csrc/flash_general_fwd.cu`` replaces the streamed-K/V
+    forward ``_fwd_kernel_grid`` (:221, launched by ``_fwd`` :265), and
+    ``csrc/flash_general_bwd.cu`` replaces ``_dq_kernel_grid`` (:369) and
+    ``_dkv_kernel_grid`` (:509), both launched by ``_bwd`` (:550). As there,
+    the two backward kernels take D = rowsum(dO * O) as an input tensor; a
+    small kernel of the same file forms it (``_bwd`` leaves it to XLA, :573).
+
+All take q as (B, Tq, H, hs) and k/v as (B, Tk, H, hs), strided views
+included, so the fused QKV output feeds them without a copy. The softmax
+scale 1/sqrt(hs) is applied inside the kernels (the JAX wrapper folds it
+into q outside its custom VJP), so the backward kernels scale dq and dk.
+
+``_FlashAttn`` and ``_FlashAttnGeneral`` are the autograd Functions of the
+two families on both devices: for CUDA tensors their forward and backward
+launch the kernels, for CPU tensors they run the plain versions,
+``flash_attention_reference``, ``rowdot_reference`` and
+``flash_attention_backward_reference``. Nothing else selects between kernel
+and plain version, and there is no fallback from one to the other, from one
+family to the other, or to any library call: what a kernel does not take
+raises. Each launch adds one to its wrapper's count:
+``flash_attention.launches`` and ``flash_attention_backward.launches`` for
+the self-attention family, ``flash_general_forward.launches``,
+``flash_general_dq.launches``, ``flash_general_dkv.launches`` and
+``flash_rowdot.launches`` for the general one.
 """
 
 from __future__ import annotations
@@ -25,8 +41,22 @@ import torch
 
 from .. import _build
 
-# head sizes csrc/flash_fwd.cu and csrc/flash_bwd.cu are built for
+# head sizes the kernels in csrc/ are built for
 KERNEL_HEAD_SIZES = (64,)
+
+# The longest self-attention the first family takes. It is DT_MAX_T of the JAX
+# package (ops/flash_attention.py:823 dt_eligible), kept so that both packages
+# send the same shapes to counterpart kernels: Tq == Tk up to this length to
+# the self-attention kernels, everything else to the general ones.
+K1_MAX_T = 8192
+
+
+def _causal_mask(tq, tk, device):
+    """(Tq, Tk) bool, True where query i (at position i + Tk - Tq) does not
+    see key j."""
+    qpos = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=device)[None, :]
+    return kpos > qpos
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True):
@@ -41,30 +71,36 @@ def flash_attention_reference(q, k, v, *, causal: bool = True):
     tq, tk, hs = q.shape[1], k.shape[1], q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hs**-0.5
     if causal:
-        qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
-        kpos = torch.arange(tk, device=q.device)[None, :]
-        scores = scores.masked_fill(kpos > qpos, float("-inf"))
+        scores = scores.masked_fill(_causal_mask(tq, tk, q.device), float("-inf"))
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.exp(scores - lse[..., None]).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return o.to(q.dtype), lse
 
 
-def flash_attention_backward_reference(q, k, v, o, lse, do, *, causal: bool = True):
-    """Plain version of the backward kernel: (dq, dk, dv) in q.dtype from the
-    forward's o and lse (B, H, T) and the output cotangent do, all
-    (B, T, H, hs). fp32 on upcast operands; P is recomputed from lse, as the
-    kernel does, and D = rowsum(do * o)."""
+def rowdot_reference(do, o):
+    """Plain version of the D pre-kernel: D = rowsum(dO * O) in fp32,
+    (B, T, H, hs) x 2 -> (B, H, T)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *, causal: bool = True,
+                                       dd=None):
+    """Plain version of the backward kernels: (dq, dk, dv) in the operands'
+    dtypes from the forward's o and lse (B, H, Tq) and the output cotangent
+    do; q, o, do are (B, Tq, H, hs), k, v are (B, Tk, H, hs). fp32 on upcast
+    operands; P is recomputed from lse, as the kernels do. ``dd`` is D
+    (B, H, Tq) fp32 where the caller has it (the general kernels take it as
+    an input); without it D = rowsum(do * o) is formed here."""
     tq, tk, hs = q.shape[1], k.shape[1], q.shape[-1]
     scale = hs**-0.5
     q32, k32, v32, do32 = (a.float() for a in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
     if causal:
-        qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
-        kpos = torch.arange(tk, device=q.device)[None, :]
-        s = s.masked_fill(kpos > qpos, float("-inf"))
+        s = s.masked_fill(_causal_mask(tq, tk, q.device), float("-inf"))
     p = torch.exp(s - lse[..., None])
-    dd = (do32 * o.float()).sum(-1).transpose(1, 2)  # (B, H, Tq)
+    if dd is None:
+        dd = rowdot_reference(do, o)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
     dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
     ds = p * (dp - dd[..., None])
@@ -73,11 +109,12 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, *, causal: bool = Tr
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v):
-    if not (q.dim() == 4 and q.shape == k.shape == v.shape):
+def _check(q, k, v, causal):
+    if not (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+            and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:]):
         raise ValueError(
-            "flash_attention takes q, k, v of one (B, T, H, hs) shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            "flash_attention takes q (B, Tq, H, hs) and k, v of one (B, Tk, H, hs) "
+            f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     if q.shape[-1] not in KERNEL_HEAD_SIZES:
         raise ValueError(
@@ -85,6 +122,13 @@ def _check(q, k, v):
         )
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
+    if not (q.is_cuda or q.device.type == "cpu"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(
+            "causal flash attention requires Tq <= Tk (right-aligned queries); "
+            f"got Tq={q.shape[1]} Tk={k.shape[1]}"
+        )
 
 
 def _check_kernel_operand(name, a):
@@ -99,6 +143,27 @@ def _check_kernel_operand(name, a):
         raise ValueError(f"flash_attention kernel: {name} is not 16-byte aligned")
 
 
+def _check_stats(o, lse, dd=None):
+    stats = (lse,) if dd is None else (lse, dd)
+    if not (o.is_contiguous()
+            and all(a.is_contiguous() and a.dtype == torch.float32 for a in stats)):
+        raise ValueError("flash_attention backward kernels take the forward's "
+                         "contiguous o and contiguous fp32 lse and D")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _strides(q, k, v):
+    return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+# ---------------------------------------------------------------------------
+# The self-attention family (Tq == Tk)
+# ---------------------------------------------------------------------------
+
+
 def flash_fwd_cuda(q, k, v, *, causal: bool):
     """Launch the CUDA kernel: (o (B, T, H, hs) bf16, lse (B, H, T) fp32)."""
     for name, a in (("q", q), ("k", k), ("v", v)):
@@ -108,11 +173,9 @@ def flash_fwd_cuda(q, k, v, *, causal: bool):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.gpt2vl_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, t, h, hs, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), stream,
+            b, t, h, hs, *_strides(q, k, v), int(causal), _stream(q),
         )
     _build.check(err, "flash_fwd")
     flash_attention.launches += 1
@@ -123,9 +186,7 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     """Launch the CUDA backward kernels: (dq, dk, dv), each (B, T, H, hs) bf16."""
     for name, a in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_kernel_operand(name, a)
-    if not (o.is_contiguous() and lse.is_contiguous() and lse.dtype == torch.float32):
-        raise ValueError("flash_attention backward kernel takes the forward's "
-                         "contiguous o and fp32 lse")
+    _check_stats(o, lse)
     do = do.contiguous()
     b, t, h, hs = q.shape
     dq, dk, dv = (torch.empty((b, t, h, hs), dtype=q.dtype, device=q.device)
@@ -133,12 +194,10 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     dd = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.gpt2vl_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, t, h, hs, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), stream,
+            dv.data_ptr(), b, t, h, hs, *_strides(q, k, v), int(causal), _stream(q),
         )
     _build.check(err, "flash_bwd")
     flash_attention_backward.launches += 1
@@ -146,8 +205,8 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
 
 
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
-    """(dq, dk, dv) of flash attention from the forward's o and lse: the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    """(dq, dk, dv) of self-attention (Tq == Tk) from the forward's o and
+    lse: the kernel for CUDA tensors, the plain version for CPU tensors."""
     if q.is_cuda:
         return flash_bwd_cuda(q, k, v, o, lse, do, causal=causal)
     if q.device.type == "cpu":
@@ -159,7 +218,8 @@ flash_attention_backward.launches = 0
 
 
 class _FlashAttn(torch.autograd.Function):
-    """Forward and backward of flash attention; saves (q, k, v, o, lse)."""
+    """Forward and backward of the self-attention family; saves
+    (q, k, v, o, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -179,12 +239,180 @@ class _FlashAttn(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+# ---------------------------------------------------------------------------
+# The general family (Tq != Tk, streamed K/V)
+# ---------------------------------------------------------------------------
+
+
+def flash_general_forward(q, k, v, *, causal: bool = True):
+    """General forward, (o (B, Tq, H, hs), lse (B, H, Tq) fp32): the kernel
+    for CUDA tensors (bf16), the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal)
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_operand(name, a)
+    b, tq, h, hs = q.shape
+    o = torch.empty((b, tq, h, hs), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_general_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, tq, k.shape[1], h, hs, *_strides(q, k, v), int(causal), _stream(q),
+        )
+    _build.check(err, "flash_general_fwd")
+    flash_general_forward.launches += 1
+    return o, lse
+
+
+flash_general_forward.launches = 0
+
+
+def flash_rowdot(do, o):
+    """D = rowsum(dO * O), (B, H, T) fp32, from contiguous (B, T, H, hs)
+    tensors: the pre-kernel of the general backward for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not do.is_cuda:
+        return rowdot_reference(do, o)
+    for name, a in (("do", do), ("o", o)):
+        _check_kernel_operand(name, a)
+    if not (do.is_contiguous() and o.is_contiguous() and do.shape == o.shape):
+        raise ValueError("flash_rowdot takes contiguous do and o of one shape")
+    b, t, h, hs = o.shape
+    dd = torch.empty((b, h, t), dtype=torch.float32, device=o.device)
+    lib = _build.load()
+    with torch.cuda.device(o.device):
+        err = lib.gpt2vl_flash_rowdot(do.data_ptr(), o.data_ptr(), dd.data_ptr(),
+                                      b, t, h, hs, _stream(o))
+    _build.check(err, "flash_rowdot")
+    flash_rowdot.launches += 1
+    return dd
+
+
+flash_rowdot.launches = 0
+
+
+def _general_bwd_args(q, k, v, do, lse, dd, causal):
+    for name, a in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_kernel_operand(name, a)
+    _check_stats(do, lse, dd)
+    b, tq, h, hs = q.shape
+    if lse.shape != (b, h, tq) or dd.shape != (b, h, tq):
+        raise ValueError(f"lse and D must be (B, H, Tq) = {(b, h, tq)}, got "
+                         f"{tuple(lse.shape)}, {tuple(dd.shape)}")
+    return (b, tq, k.shape[1], h, hs, *_strides(q, k, v), int(causal), _stream(q))
+
+
+def flash_general_dq(q, k, v, do, lse, dd, *, causal: bool = True):
+    """dq (B, Tq, H, hs) of general attention from lse and D (both (B, H, Tq)
+    fp32) and a contiguous do: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_backward_reference(q, k, v, None, lse, do, causal=causal,
+                                                  dd=dd)[0]
+    tail = _general_bwd_args(q, k, v, do, lse, dd, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_general_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), dq.data_ptr(), *tail,
+        )
+    _build.check(err, "flash_general_dq")
+    flash_general_dq.launches += 1
+    return dq
+
+
+flash_general_dq.launches = 0
+
+
+def flash_general_dkv(q, k, v, do, lse, dd, *, causal: bool = True):
+    """(dk, dv), each (B, Tk, H, hs), of general attention; arguments as
+    flash_general_dq."""
+    if not q.is_cuda:
+        return flash_attention_backward_reference(q, k, v, None, lse, do, causal=causal,
+                                                  dd=dd)[1:]
+    tail = _general_bwd_args(q, k, v, do, lse, dd, causal)
+    dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_general_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail,
+        )
+    _build.check(err, "flash_general_dkv")
+    flash_general_dkv.launches += 1
+    return dk, dv
+
+
+flash_general_dkv.launches = 0
+
+
+def flash_general_backward(q, k, v, o, lse, do, *, causal: bool = True):
+    """(dq, dk, dv) of general attention from the forward's o and lse: D from
+    flash_rowdot, then the dq and the dk/dv kernels (CUDA tensors), or the
+    plain version with that D passed in (CPU tensors)."""
+    do = do.contiguous()
+    dd = flash_rowdot(do, o)
+    if q.is_cuda:
+        dq = flash_general_dq(q, k, v, do, lse, dd, causal=causal)
+        dk, dv = flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
+        return dq, dk, dv
+    return flash_attention_backward_reference(q, k, v, o, lse, do, causal=causal, dd=dd)
+
+
+class _FlashAttnGeneral(torch.autograd.Function):
+    """Forward and backward of the general family; saves (q, k, v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_general_forward(q, k, v, causal=causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_general_backward(q, k, v, o, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+# ---------------------------------------------------------------------------
+# Routing
+# ---------------------------------------------------------------------------
+
+
+def select_family(tq: int, tk: int, stream_kv: bool | None = None) -> str:
+    """"self" (the Tq == Tk kernels) or "general" (the streamed-K/V kernels)
+    for a shape. stream_kv=None picks by shape: Tq == Tk up to K1_MAX_T goes
+    to the self-attention kernels, everything else to the general ones; True
+    forces the general kernels; False asks for kernels that hold K/V whole,
+    which only the self-attention family's shapes have here."""
+    self_ok = tq == tk and tq <= K1_MAX_T
+    if stream_kv is None:
+        return "self" if self_ok else "general"
+    if stream_kv:
+        return "general"
+    if self_ok:
+        return "self"
+    raise NotImplementedError(
+        f"flash_attention(stream_kv=False) at Tq={tq}, Tk={tk}: the resident-K/V "
+        "general kernels (_fwd_kernel, _bwd_kernel_fused of the JAX package) are "
+        "not ported yet (ROADMAP Queue 2: K2a, K3c, with ring attention)"
+    )
+
+
 def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
-                    return_lse: bool = False):
-    """Self-attention forward over q/k/v of one shape, (B, T, H, hs) with
-    layout="bthd" or (B, H, T, hs) with layout="bhtd"; the output comes back
+                    return_lse: bool = False, stream_kv: bool | None = None):
+    """Flash attention over q (B, Tq, H, hs) and k, v (B, Tk, H, hs) with
+    layout="bthd", or (B, H, T, hs) with layout="bhtd"; the output comes back
     in the same layout. With return_lse, also the per-row logsumexp
-    (B, H, T) fp32. Any T is taken; a ragged tail is masked.
+    (B, H, Tq) fp32. Tq and Tk may differ and need no alignment; causal
+    masking is right-aligned (query i sees keys <= i + Tk - Tq) and needs
+    Tq <= Tk. ``stream_kv`` is select_family's: None picks the kernel family
+    by shape.
 
     CUDA tensors go to the kernels (bf16, head size 64, hs contiguous) and
     anything they do not take raises; CPU tensors go to the plain versions.
@@ -194,10 +422,10 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
         raise ValueError(f"flash_attention: unknown layout {layout!r}")
     if layout == "bhtd":
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
-    _check(q, k, v)
-    if not (q.is_cuda or q.device.type == "cpu"):
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    o, lse = _FlashAttn.apply(q, k, v, causal)
+    _check(q, k, v, causal)
+    family = select_family(q.shape[1], k.shape[1], stream_kv)
+    fn = _FlashAttn if family == "self" else _FlashAttnGeneral
+    o, lse = fn.apply(q, k, v, causal)
     if layout == "bhtd":
         o = o.transpose(1, 2)
     return (o, lse) if return_lse else o

@@ -3,12 +3,13 @@
 Counterpart of gpt2_vision_language_tpu/train/pretrain.py:44-466 for a
 single device: the reference's cadences (val every 250, samples every 250,
 rolling checkpoint every 2500, auto-resume), its CSV schema and its
-hyperparameters through ``PretrainConfig``. The token shards are read by the
-JAX package's ``data/fineweb.TokenShardLoader`` and the CSV is written by its
-``obs/csvlog.MetricsLogger``: both are host code that imports no jax. Each
-step's (accum, B, T+1) row buffer goes to the device as one pinned int32
-tensor. HellaSwag is not ported yet: with ``run_hellaswag`` set and its data
-present, the run stops before it starts.
+hyperparameters through ``PretrainConfig``. The token shards are read by
+``data/fineweb.TokenShardLoader`` and the CSV is written by
+``obs/csvlog.MetricsLogger``, the port's own copies of the JAX package's host
+modules. Each step's (accum, B, T+1) row buffer goes to the device as one
+pinned int32 tensor. HellaSwag runs every ``hellaswag_every`` steps and at
+the last step when ``run_hellaswag`` is set and ``$HELLASWAG_DIR`` (default
+``./hellaswag``) is a directory.
 """
 
 from __future__ import annotations
@@ -22,16 +23,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gpt2_vision_language_tpu.data.fineweb import TokenShardLoader
-from gpt2_vision_language_tpu.data.tokenizer import get_tokenizer
-from gpt2_vision_language_tpu.obs.csvlog import MetricsLogger
-
 from ..ckpt.checkpoint import CheckpointManager
 from ..core.config import PretrainConfig
 from ..core.precision import Policy, DEFAULT_POLICY
+from ..data.fineweb import TokenShardLoader
+from ..data.tokenizer import get_tokenizer
+from ..eval.hellaswag import HellaSwagEvaluator
 from ..infer.decode import Decoder
 from ..infer.sampling import sample_top_k
 from ..models import gpt2
+from ..obs.csvlog import MetricsLogger
 from .optimizer import adamw_init
 from .step import make_eval_step, make_train_step
 
@@ -53,11 +54,6 @@ def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY
     accum = cfg.grad_accum_steps(1)
     print(f"total desired batch size: {cfg.total_batch_size}")
     print(f"=> calculated gradient accumulation steps: {accum}")
-    if cfg.run_hellaswag and os.path.isdir(os.environ.get("HELLASWAG_DIR", "hellaswag")):
-        raise NotImplementedError(
-            "HellaSwag in the trainer is not ported yet (ROADMAP Queue 1 item 5, "
-            "eval/hellaswag); run with run_hellaswag=False (--no-hellaswag)"
-        )
 
     tokenizer = get_tokenizer()
     b, t = cfg.micro_batch_size, cfg.seq_len
@@ -85,6 +81,8 @@ def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY
     log.meta("argv", " ".join(sys.argv))
     manager = CheckpointManager(os.path.join(log.log_dir, "ckpts"),
                                 save_every=cfg.save_every, enabled=cfg.save_ckpt)
+    hella = HellaSwagEvaluator(cfg.model, policy=policy)
+    hellaswag_dir_ok = os.path.isdir(os.environ.get("HELLASWAG_DIR", "hellaswag"))
     decoder = Decoder(cfg.model, policy=policy, sample_fn=sample_top_k)
 
     start_step = 0
@@ -116,6 +114,13 @@ def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY
             val_loss = float(eval_step(model, vbatch))
             log.val(step, val_loss)
             manager.save_step(step, model, opt_state, val_loss, last_step=last_step)
+
+        if (cfg.run_hellaswag and hellaswag_dir_ok
+                and cfg.hellaswag_every  # 0 disables, like val/sample_every
+                and (step % cfg.hellaswag_every == 0 or last_step)):
+            correct, total = hella.evaluate(model, tokenizer)
+            if total:
+                log.hellaswag(step, correct / total, correct, total)
 
         if cfg.sample_every and ((step > 0 and step % cfg.sample_every == 0) or last_step):
             prompt = tokenizer.encode("Hello, I'm a language model,")

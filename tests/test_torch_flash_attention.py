@@ -67,7 +67,8 @@ def test_ragged_t_matches_xla_sdpa(layout):
 @pytest.mark.parametrize(
     "shapes, kw",
     [
-        (((1, 16, 2, 64), (1, 32, 2, 64), (1, 32, 2, 64)), {}),  # Tq != Tk
+        # Tq != Tk is taken (the general kernels), except causal with Tq > Tk
+        (((1, 32, 2, 64), (1, 16, 2, 64), (1, 16, 2, 64)), {}),
         (((1, 16, 2, 32),) * 3, {}),  # a head size the kernel is not built for
         (((16, 2, 64),) * 3, {}),  # not 4-D
         (((1, 16, 2, 64),) * 3, {"layout": "bht"}),

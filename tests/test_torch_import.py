@@ -28,12 +28,13 @@ PORT_MODULES = (
     "gpt2_vision_language_tpu_torch.train.pretrain",
     "gpt2_vision_language_tpu_torch.cli.pretrain",
     "gpt2_vision_language_tpu_torch.ckpt.checkpoint",
-    # shared host code the port imports from the JAX package: the tokenizer,
-    # the token-shard loader and synthetic corpus, the CSV logger
-    "gpt2_vision_language_tpu.data.tokenizer",
-    "gpt2_vision_language_tpu.data.fineweb",
-    "gpt2_vision_language_tpu.obs.csvlog",
-    "gpt2_vision_language_tpu.obs.xlsx",
+    # the port's own host modules: the tokenizer, the token-shard loader and
+    # synthetic corpus, the CSV logger, the HellaSwag evaluator
+    "gpt2_vision_language_tpu_torch.data.tokenizer",
+    "gpt2_vision_language_tpu_torch.data.fineweb",
+    "gpt2_vision_language_tpu_torch.obs.csvlog",
+    "gpt2_vision_language_tpu_torch.obs.xlsx",
+    "gpt2_vision_language_tpu_torch.eval.hellaswag",
 )
 
 
@@ -43,6 +44,7 @@ def test_port_imports_no_jax():
         "import gpt2_vision_language_tpu_torch as P; "
         + "; ".join(f"import {m}" for m in PORT_MODULES)
         + "; import sys; assert 'jax' not in sys.modules, 'jax was imported'"
+        + "; assert 'gpt2_vision_language_tpu' not in sys.modules, 'the JAX package'"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -74,9 +76,6 @@ LEFT_OUT = {
     # model parallelism (ROADMAP Queue 1 item 10)
     "tp": "Queue 1 item 10", "seq_parallel": "Queue 1 item 10",
     "pp": "Queue 1 item 10", "pp_micro": "Queue 1 item 10",
-    # HellaSwag in the trainer (ROADMAP Queue 1 item 5): run_hellaswag stays,
-    # and a run with its data present stops before it starts
-    "hellaswag_every": "Queue 1 item 5",
 }
 
 

@@ -57,10 +57,34 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 
 def test_hellaswag_is_not_ported(tmp_path, monkeypatch):
-    monkeypatch.setenv("HELLASWAG_DIR", str(tmp_path))
+    """Named for what it pinned while the evaluator was missing (the run
+    raised NotImplementedError). Now: with $HELLASWAG_DIR a directory the
+    trainer scores it at step 0 and at the last step and writes the JAX
+    trainer's 'hella' rows; --no-hellaswag, or no such directory, writes
+    none."""
+    import json
+
+    data = tmp_path / "hs"
+    data.mkdir()
+    with open(data / "hellaswag_val.jsonl", "w") as f:
+        for i in range(5):
+            f.write(json.dumps({"ctx": f"The number {i} is", "label": i % 4,
+                                "endings": ["small", "large!", "a word", "nothing"]}) + "\n")
+    monkeypatch.setenv("HELLASWAG_DIR", str(data))
     argv = [a for a in ARGS if a != "--no-hellaswag"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        pretrain.main(argv + ["--log-dir", str(tmp_path / "log"), "--steps", "1"], model=TINY)
+    pretrain.main(argv + ["--log-dir", str(tmp_path / "log"), "--steps", "2"], model=TINY)
+    hella = [r for r in _csv_rows(tmp_path / "log") if r[1] == "hella"]
+    assert [int(r[2]) for r in hella] == [0, 1]
+    for r in hella:
+        acc = float(r[8])
+        assert r[3:8] == [""] * 5 and acc in {k / 5 for k in range(6)}
+    txt = open(tmp_path / "log" / "log.txt").read()
+    assert "0 hella " in txt and "1 hella " in txt
+    _run(tmp_path / "off", 1)  # ARGS carry --no-hellaswag
+    monkeypatch.setenv("HELLASWAG_DIR", str(tmp_path / "missing"))
+    pretrain.main(argv + ["--log-dir", str(tmp_path / "none"), "--steps", "1"], model=TINY)
+    for d in ("off", "none"):
+        assert not [r for r in _csv_rows(tmp_path / d) if r[1] == "hella"]
 
 
 def test_flags():
@@ -70,7 +94,31 @@ def test_flags():
     assert (cfg.micro_batch_size, cfg.seq_len, cfg.total_batch_size) == (4, 512, 4096)
     assert (cfg.run_hellaswag, cfg.save_every, cfg.log_dir) == (False, 7, "x")
     assert args.steps == 2 and cfg.grad_accum_steps(1) == 2
-    assert cfg.model == GPTConfig(unroll_layers=True)
+    assert cfg.model == GPTConfig(unroll_layers=True) and cfg.attn_impl == "auto"
+    assert cfg.hellaswag_every == 250
+
+
+@pytest.mark.parametrize(
+    "argv, block, attn",
+    [(["--seq-len", "4096"], 4096, "auto"), (["--seq-len", "16384", "--micro-batch", "1"],
+                                             16384, "auto"),
+     (["--seq-len", "512"], 1024, "auto"), (["--seq-len", "512", "--block-size", "2048"],
+                                            2048, "auto"),
+     (["--seq-len", "2048", "--block-size", "4096", "--attn-impl", "flash"], 4096, "flash"),
+     (["--attn-impl", "xla"], 1024, "xla")],
+)
+def test_long_context_flags(argv, block, attn):
+    """--seq-len over 1024 grows block_size with it unless --block-size says
+    otherwise, as the JAX CLI (cli/pretrain.py:221-226); --attn-impl lands in
+    the config."""
+    cfg, _ = pretrain.parse_and_build(argv)
+    assert (cfg.model.block_size, cfg.attn_impl) == (block, attn)
+    assert cfg.model == GPTConfig(unroll_layers=True, block_size=block)
+
+
+def test_attn_impl_ring_is_refused():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        pretrain.parse_and_build(["--attn-impl", "ring"])
 
 
 def test_checkpoint_manager_resumes_furthest(tmp_path):
