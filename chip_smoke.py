@@ -50,11 +50,34 @@ Phases (any failure raises and the script exits non-zero):
  14. the long-context trainer: cli.pretrain --synthetic --seq-len 16384
      --micro-batch 1 --total-batch 32768 --steps 3 with a synthetic
      HellaSwag file in $HELLASWAG_DIR (validation on the general forward and
-     the CE kernel, 'hella' rows, checkpoints), then --steps 4 resumes.
+     the CE kernel, 'hella' rows, checkpoints), then --steps 4 resumes;
+ 15. the lse-forward and one-pass backward kernels vs their plain versions,
+     q/k/v strided views of a longer tensor as the ring passes them, at
+     (B, Tq, Tk) = (1, 4096, 4096) causal and not (the ring's two calls),
+     (2, 1000, 1000), (2, 64, 2048) causal and not, (4, 1, 1500); the
+     backward with a random lse cotangent and a control without it that must
+     disagree; the backward twice on one input (dq is summed by reductions in
+     global memory in no fixed order); the general kernels timed beside them;
+ 16. ring attention as an op: 4 chunks at B=1, T=16384, H=12, forward and
+     backward through autograd, against the general kernels on the whole
+     sequence, 10 + 10 + 10 launches (lse forward, D, one-pass backward) and
+     none of any other flash kernel; at T=2048 against the einsum-chunk ring
+     and plain attention, with a control (the lse cotangent dropped) that
+     must fail;
+ 17. the ring train step: GPT-2 124M, block_size 16384, make_train_step with
+     attn_impl="ring" over a ring of 4, 2 x (B=1, T=16384) a step, 2 steps,
+     120 + 120 + 120 launches per micro-batch and none of the other flash
+     kernels; then one step from one state on the ring path and on the
+     attn_impl="flash" path (loss, grad norm, grads), with a control (merge
+     weights dropped) that must fail;
+ 18. the ring trainer: cli.pretrain --synthetic --seq-len 16384 --micro-batch
+     1 --total-batch 32768 --attn-impl ring --tp 4 --steps 2 (validation
+     through the ring on the lse forward and the CE kernel, checkpoints), then
+     --steps 3 resumes; --tp 4 without --attn-impl ring must raise.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches (from the trainer runs of phases 9 and 14), error, times, bound and
-library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
+launches (from the trainer runs of phases 9, 14 and 18), error, times, bound
+and library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA device.
 """
 
@@ -275,7 +298,8 @@ def _counters(fa, fc, fw):
     return {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_attention_backward,
             "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
             "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
-            "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv}
+            "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
+            "flash_lse_fwd": fa.flash_lse_forward, "flash_fused_bwd": fa.flash_fused_backward}
 
 
 def reset_counts(fa, fc, fw):
@@ -290,7 +314,8 @@ def read_counts(fa, fc, fw):
 def with_zeros(counts):
     """Expected launch counts: the named ones, every other kernel 0."""
     return {**dict.fromkeys(("flash_fwd", "flash_bwd", "ce_fwd", "adamw", "flash_general_fwd",
-                             "flash_rowdot", "flash_general_dq", "flash_general_dkv"), 0),
+                             "flash_rowdot", "flash_general_dq", "flash_general_dkv",
+                             "flash_lse_fwd", "flash_fused_bwd"), 0),
             **counts}
 
 
@@ -526,12 +551,14 @@ def attention_bound(kind, b, tq, tk, h, hs, causal):
     """Bound of one attention kernel on bf16 operands. Operations count the
     (query, key) pairs the mask leaves visible: two products in the forward
     (S, PV), five in the whole backward (S, dP, dV, dQ, dK), three of them for
-    dq alone (S, dP, dQ) and four for dk/dv alone (S, dP, dV, dK)."""
+    dq alone (S, dP, dQ) and four for dk/dv alone (S, dP, dV, dK). The one-pass
+    backward reads dcap where the self-attention backward reads o."""
     pairs = b * h * (tq * (tk - tq) + tq * (tq + 1) // 2 if causal else tq * tk)
     n_q, n_k, stats = b * tq * h * hs, b * tk * h * hs, b * h * tq * 4
     products, q_like, k_like, n_stats = {
         "fwd": (2, 2, 2, 1),   # q, o; k, v; lse
         "bwd": (5, 4, 4, 1),   # q, o, dO, dq; k, v, dk, dv; lse
+        "fused_bwd": (5, 3, 4, 2),  # q, dO, dq; k, v, dk, dv; lse, dcap
         "dq": (3, 3, 2, 2),    # q, dO, dq; k, v; lse, D
         "dkv": (4, 2, 4, 2),   # q, dO; k, v, dk, dv; lse, D
     }[kind]
@@ -680,7 +707,9 @@ def phase_library_probes(torch, gpt2, cfgs, dev):
     print("[12] library-call probes (timed only; never a route of the port)", flush=True)
     g = torch.Generator(dev).manual_seed(12)
     out = {}
-    for b, t, iters in ((8, 1024, 20), (1, 16384, 5)):
+    # the last two are the ring's chunk pair, with its causal mask and without
+    for b, t, causal, iters in ((8, 1024, True, 20), (1, 16384, True, 5), (1, 4096, True, 20),
+                                (1, 4096, False, 20)):
         # (B, H, T, hs) contiguous, the layout the library call is built for
         q, k, v, do = (a.transpose(1, 2).contiguous()
                        for a in qkv_inputs(torch, b, t, t, 12, dev, g))
@@ -689,17 +718,18 @@ def phase_library_probes(torch, gpt2, cfgs, dev):
 
         def fwd():
             with torch.no_grad():
-                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
-        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
         grad = lambda wrt: lambda: torch.autograd.grad(o, wrt, do, retain_graph=True)  # noqa: E731
         r = {"fwd": cuda_ms(fwd, iters), "bwd": cuda_ms(grad((q, k, v)), iters),
              "dq": cuda_ms(grad((q,)), iters), "dkv": cuda_ms(grad((k, v)), iters)}
-        print(f"  F.scaled_dot_product_attention B={b} T={t} H=12 hs=64 bf16 causal: forward "
+        print(f"  F.scaled_dot_product_attention B={b} T={t} H=12 hs=64 bf16 "
+              f"{'causal' if causal else 'no mask'}: forward "
               f"{r['fwd']:.4f} ms, backward (autograd.grad of q, k, v) {r['bwd']:.4f} ms, "
               f"forward + backward {r['fwd'] + r['bwd']:.4f} ms; grad of q alone "
               f"{r['dq']:.4f} ms, of k and v {r['dkv']:.4f} ms", flush=True)
-        out[f"B{b}_T{t}"] = r
+        out[f"B{b}_T{t}" + ("" if causal else "_nomask")] = r
         del o
 
     model = gpt2.init(cfgs["gpt"], generator=torch.Generator(dev).manual_seed(7), device=dev)
@@ -873,6 +903,350 @@ def phase_long_trainer(torch, np, mods, cfgs):
         shutil.rmtree(log_dir, ignore_errors=True)
 
 
+def chunk_views(torch, b, tq, tk, h, dev, g):
+    """bf16 q (B, Tq, H, 64) and k, v (B, Tk, H, 64) as the ring passes them:
+    views of one fused (B, Tk + Tq, 3 * H * 64) projection, K/V the first Tk
+    positions and q the last Tq, so every sequence stride is the long
+    tensor's; an output cotangent and a logsumexp cotangent."""
+    hs = 64
+    qkv = torch.randn(b, tk + tq, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = (a.view(b, tk + tq, h, hs) for a in qkv.split(h * hs, dim=-1))
+    do = torch.randn(b, tq, h, hs, device=dev, generator=g).to(torch.bfloat16)
+    dlse = torch.randn(b, h, tq, device=dev, generator=g)
+    return q[:, tk:], k[:, :tk], v[:, :tk], do, dlse
+
+
+def phase_lse(torch, fa, dev):
+    print("[15] lse-forward and one-pass backward kernels vs plain (bf16, chunk views)",
+          flush=True)
+    lse_tol, bwd_tol = 1e-3, 3e-2  # as the general family
+    g = torch.Generator(dev).manual_seed(15)
+    errs = {"o": 0.0, "lse": 0.0, "bwd": 0.0, "rerun": 0.0}
+    times = {}
+    shapes = [(1, 4096, 4096, True), (1, 4096, 4096, False), (2, 1000, 1000, True),
+              (2, 64, 2048, True), (2, 64, 2048, False), (4, 1, 1500, True)]
+    h = 12
+    for b, tq, tk, causal in shapes:
+        q, k, v, do, dlse = chunk_views(torch, b, tq, tk, h, dev, g)
+        o, lse = fa.flash_lse_forward(q, k, v, causal=causal)
+        ro, rlse = fa.flash_attention_with_lse_reference(q, k, v, causal=causal)
+        dd = fa.flash_rowdot(do, o)
+        dcap = dd - dlse
+        got = fa.flash_fused_backward(q, k, v, do, lse, dcap, causal=causal)
+        again = fa.flash_fused_backward(q, k, v, do, lse, dcap, causal=causal)
+        want = fa.flash_fused_backward_reference(q, k, v, do, lse, dcap, causal=causal)
+        no_dlse = fa.flash_fused_backward(q, k, v, do, lse, dd, causal=causal)
+        torch.cuda.synchronize()
+        eo, excess = out_excess(o, ro)
+        el = (lse - rlse).abs().max().item()
+        eq, ek, ev = (rel_err(x, r) for x, r in zip(got, want))
+        control = max(rel_err(x, r) for x, r in zip(no_dlse, want))
+        rerun = rel_err(again[0], got[0])
+        finite = all(torch.isfinite(a.float()).all().item() for a in (o, lse, *got))
+        print(f"  B={b} Tq={tq} Tk={tk} H={h} causal={causal}: out max|err| {eo:.3e} (tol 2e-2 "
+              f"or one bf16 ulp), lse max|err| {el:.3e} (tol {lse_tol}); with a random lse "
+              f"cotangent dq, dk, dv max|err| / max|ref| {eq:.3e}, {ek:.3e}, {ev:.3e} (tol "
+              f"{bwd_tol}), control without it {control:.3e}; dq of two runs differs by "
+              f"{rerun:.3e} of max|dq|", flush=True)
+        require(finite, f"lse kernels gave a non-finite value at Tq={tq} Tk={tk}")
+        require(excess <= 0 and el <= lse_tol, f"lse forward Tq={tq} Tk={tk} disagrees")
+        require(max(eq, ek, ev) <= bwd_tol, f"one-pass backward Tq={tq} Tk={tk} disagrees")
+        require(control > bwd_tol, "the backward without the lse cotangent passed the check: "
+                "the check cannot see dcap")
+        require(rerun <= bwd_tol and torch.equal(again[1], got[1])
+                and torch.equal(again[2], got[2]),
+                "two runs of the one-pass backward differ by more than its tolerance, or in "
+                "dk/dv, which are summed in a fixed order")
+        errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["bwd"], errs["rerun"] = max(errs["bwd"], eq, ek, ev), max(errs["rerun"], rerun)
+        if tq == 1000:
+            # the same through autograd: the Function forms dcap = D - dlse itself
+            leaves = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+            oo, ll = fa.flash_attention_with_lse(*leaves, causal=causal)
+            torch.autograd.backward((oo, ll), (do, dlse))
+            e = max(rel_err(a.grad, r) for a, r in zip(leaves, got))
+            print(f"    through flash_attention_with_lse and autograd: grads differ from the "
+                  f"direct launch by {e:.3e} of max|ref| (dq's run-to-run sum order only)",
+                  flush=True)
+            require(torch.equal(oo, o) and torch.equal(ll, lse) and e <= 1e-2,
+                    "flash_attention_with_lse through autograd disagrees with the kernels")
+        if tq == 4096:
+            key = "causal" if causal else "nomask"
+            print(f"  times at B={b} Tq={tq} Tk={tk} H={h} causal={causal}:", flush=True)
+            fwd = interleaved(
+                lambda: fa.flash_lse_forward(q, k, v, causal=causal),
+                lambda: fa.flash_attention_with_lse_reference(q, k, v, causal=causal), 20, 3)
+            bwd = interleaved(
+                lambda: fa.flash_fused_backward(q, k, v, do, lse, dcap, causal=causal),
+                lambda: fa.flash_fused_backward_reference(q, k, v, do, lse, dcap,
+                                                          causal=causal), 20, 3)
+
+            def split_bwd():
+                fa.flash_general_dq(q, k, v, do, lse, dcap, causal=causal)
+                fa.flash_general_dkv(q, k, v, do, lse, dcap, causal=causal)
+
+            general = (cuda_ms(lambda: fa.flash_general_forward(q, k, v, causal=causal), 20),
+                       cuda_ms(split_bwd, 20))
+            print(f"  the general kernels on the same inputs: forward {general[0]:.4f} ms, "
+                  f"dq + dk/dv {general[1]:.4f} ms", flush=True)
+            times[key] = {"fwd": fwd, "bwd": bwd, "general_fwd_ms": general[0],
+                          "general_bwd_ms": general[1]}
+    return errs, times
+
+
+def phase_ring_op(torch, mods, attention, dev):
+    fa, fc, fw, ra = mods["fa"], mods["fc"], mods["fw"], mods["ra"]
+    n, b, t, h, hs = 4, 1, 16384, 12, 64
+    print(f"[16] ring attention as an op: {n} chunks at B={b}, T={t}, H={h}, forward and "
+          f"backward through autograd", flush=True)
+    tol = 3e-2
+    g = torch.Generator(dev).manual_seed(16)
+
+    def inputs(t):
+        qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+        do = torch.randn(b, t, h, hs, device=dev, generator=g).to(torch.bfloat16)
+        return qkv.requires_grad_(True), do
+
+    def run(leaf, do, fn):
+        """out and the gradient of the fused projection under cotangent do."""
+        leaf.grad = None
+        q, k, v = (a.view(b, leaf.shape[1], h, hs) for a in leaf.split(h * hs, dim=-1))
+        out = fn(q, k, v)
+        out.backward(do)
+        return out.detach(), leaf.grad
+
+    def grad_errs(got, want):
+        return [rel_err(x, r) for x, r in zip(got.split(h * hs, dim=-1),
+                                              want.split(h * hs, dim=-1))]
+
+    ring = lambda impl: lambda q, k, v: ra.ring_attention(q, k, v, n, chunk_impl=impl)  # noqa: E731
+    whole = lambda q, k, v: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+
+    leaf, do = inputs(t)
+    reset_counts(fa, fc, fw)
+    out, grad = run(leaf, do, ring("auto"))
+    torch.cuda.synchronize()
+    launched = read_counts(fa, fc, fw)
+    pairs = n * (n + 1) // 2
+    print(f"  launches of one forward + backward: {launched}", flush=True)
+    require(launched == with_zeros({"flash_lse_fwd": pairs, "flash_fused_bwd": pairs,
+                                    "flash_rowdot": pairs}),
+            f"expected {pairs} lse-forward, D and one-pass backward launches and no other")
+    out_w, grad_w = run(leaf, do, whole)
+    torch.cuda.synchronize()
+    eo, excess = out_excess(out, out_w)
+    ge = grad_errs(grad, grad_w)
+    print(f"  against the general kernels on the whole sequence: out max|err| {eo:.3e} (tol "
+          f"2e-2 or one bf16 ulp), dq, dk, dv max|err| / max|ref| "
+          + ", ".join(f"{e:.3e}" for e in ge) + f" (tol {tol})", flush=True)
+    require(excess <= 0 and max(ge) <= tol and torch.isfinite(grad.float()).all().item(),
+            "ring attention disagrees with the whole-sequence kernels")
+    ring_ms, whole_ms = interleaved(lambda: run(leaf, do, ring("auto")),
+                                    lambda: run(leaf, do, whole), 3, 3)
+    del leaf, do, out, grad, out_w, grad_w
+
+    t2 = 2048
+    leaf, do = inputs(t2)
+    out_f, grad_f = run(leaf, do, ring("flash"))
+    out_e, grad_e = run(leaf, do, ring("einsum"))
+    out_p, grad_p = run(leaf, do, lambda q, k, v: attention.xla_sdpa(q, k, v, causal=True,
+                                                                     layout="bthd"))
+    # control: the kernels' backward without the lse cotangent
+    real = fa._FlashAttnLse.backward
+    fa._FlashAttnLse.backward = staticmethod(lambda ctx, do, dlse: real(ctx, do, None))
+    try:
+        _, grad_c = run(leaf, do, ring("flash"))
+    finally:
+        fa._FlashAttnLse.backward = staticmethod(real)
+    torch.cuda.synchronize()
+    checks = {"einsum-chunk ring": (out_excess(out_f, out_e), grad_errs(grad_f, grad_e)),
+              "plain attention": (out_excess(out_f, out_p), grad_errs(grad_f, grad_p))}
+    control = max(grad_errs(grad_c, grad_p))
+    for name, ((eo2, ex2), ge2) in checks.items():
+        print(f"  T={t2}, kernel-chunk ring against the {name}: out max|err| {eo2:.3e}, dq, dk, "
+              f"dv max|err| / max|ref| " + ", ".join(f"{e:.3e}" for e in ge2)
+              + f" (tol {tol})", flush=True)
+        require(ex2 <= 0 and max(ge2) <= tol, f"ring attention disagrees with the {name}")
+    print(f"  control, the lse cotangent dropped: {control:.3e} (must pass {tol})", flush=True)
+    require(control > tol, "the ring without the lse cotangent passed the check")
+    return {"ring_fwd_bwd_ms": ring_ms, "general_fwd_bwd_ms": whole_ms, "launches": launched}
+
+
+def phase_ring_train_step(torch, np, gpt2, mods, cfgs, dev, whole):
+    """`whole`: phase 13's result, the same step on the general kernels over the
+    whole sequence, printed beside this one's."""
+    accum, b, t, n = 2, 1, 16384, 4
+    ra = mods["ra"]
+    print(f"[17] ring train step: GPT-2 124M, block_size {t}, a ring of {n} chunks, bf16 "
+          f"policy, {accum} x (B={b}, T={t}) per step", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    cfg = cfgs["gpt"].replace(block_size=t)
+
+    def make(model, attn_impl):
+        step = mods["make_train_step"](
+            lambda m, r: gpt2.loss(m, r[:, :-1], cfg, targets=r[:, 1:], policy=mods["policy"],
+                                   attn_impl=attn_impl, ce_chunks=1),
+            cfgs["opt"], cfgs["sched"], decay_mask=gpt2.decay_mask(model))
+        return step, mods["adamw_init"](gpt2.named_params(model))
+
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    rows = np.random.RandomState(17).randint(0, cfg.vocab_size, (accum, b, t + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    step_r, state_r = make(model, "ring")
+    pairs = accum * cfg.n_layer * n * (n + 1) // 2
+    per_step = with_zeros({"flash_lse_fwd": pairs, "flash_rowdot": pairs,
+                           "flash_fused_bwd": pairs, "adamw": 1})
+    n_tok = accum * b * t
+    ra.set_ring(n)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, fc, fw)
+        times = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_r(model, state_r, batch, i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = read_counts(fa, fc, fw)
+            print(f"  step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, lr "
+                  f"{m['lr']:.4e}, {n_tok / times[-1]:.1f} tokens/s; launches {counts}",
+                  flush=True)
+            require(counts == {k: (i + 1) * v for k, v in per_step.items()},
+                    f"expected {per_step} launches per step, got {counts} after {i + 1}")
+            require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                    "ring train loss or grad norm is not finite")
+            if i == 0:
+                require(abs(m["loss"] - math.log(cfg.padded_vocab_size)) < 0.5,
+                        "first ring loss is not near ln(V)")
+        main_counts = read_counts(fa, fc, fw)
+        tps = n_tok / times[1]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  tokens/s {tps:.1f} (step 1), peak device memory {peak:.2f} GiB; the general "
+              f"kernels on the whole sequence (phase 13): {whole['tps']:.1f} tokens/s, "
+              f"{whole['peak_gib']:.2f} GiB", flush=True)
+
+        # one step from one state on the ring path, on the flash path (the general
+        # kernels on the whole sequence), and on a ring whose merge drops its weights
+        def twin():
+            m2 = copy.deepcopy(model)
+            step, state = make(m2, "flash")
+            with torch.no_grad():
+                for key in ("m", "v"):
+                    for name, a in state_r[key].items():
+                        state[key][name].copy_(a)
+            state["step"] = state_r["step"]
+            return m2, step, state
+
+        flash_model, step_f, state_f = twin()
+        ctrl_model, _, state_c = twin()
+        step_c, _ = make(ctrl_model, "ring")
+        idx = cfgs["sched"].warmup_steps  # the peak LR
+        m_ring = step_r(model, state_r, batch, idx)
+        reset_counts(fa, fc, fw)
+        m_flash = step_f(flash_model, state_f, batch, idx)
+        counts = read_counts(fa, fc, fw)
+        whole = accum * cfg.n_layer
+        require(counts == with_zeros({"flash_general_fwd": whole, "flash_rowdot": whole,
+                                      "flash_general_dq": whole, "flash_general_dkv": whole,
+                                      "adamw": 1}),
+                f"the flash-path step did not run on the general kernels: {counts}")
+        real_merge = ra._merge
+        ra._merge = lambda c, u: (c[0] + u[0], torch.logaddexp(c[1], u[1]))
+        try:
+            m_ctrl = step_c(ctrl_model, state_c, batch, idx)
+        finally:
+            ra._merge = real_merge
+    finally:
+        ra.set_ring(None)
+
+    def diffs(m, other):
+        sq = lambda ts: sum(x.float().square().sum().item() for x in ts)  # noqa: E731
+        ref = [p.grad for p in flash_model.parameters()]
+        dg = math.sqrt(sq(p.grad - r for p, r in zip(other.parameters(), ref)) / sq(ref))
+        return (abs(m["loss"] - m_flash["loss"]),
+                abs(m["grad_norm"] - m_flash["grad_norm"]) / m_flash["grad_norm"], dg)
+
+    dl, dn, dg = diffs(m_ring, model)
+    cl, cn, cg = diffs(m_ctrl, ctrl_model)
+    print(f"  ring path vs flash path, one step from one state at lr {m_ring['lr']:.4e}: loss "
+          f"{m_ring['loss']:.6f} vs {m_flash['loss']:.6f} (|diff| {dl:.3e}, tol 5e-3), "
+          f"grad_norm {m_ring['grad_norm']:.6f} vs {m_flash['grad_norm']:.6f} (rel diff "
+          f"{dn:.3e}, tol 2e-2), grads ||err|| / ||ref|| {dg:.3e} (tol 2e-2); control with the "
+          f"merge weights dropped: loss |diff| {cl:.3e}, grad_norm rel diff {cn:.3e}, grads "
+          f"{cg:.3e}", flush=True)
+    require(dl <= 5e-3 and dn <= 2e-2 and dg <= 2e-2, "ring and flash train steps disagree")
+    require(cg > 2e-2, "the control ring passed the check: it cannot see the merge")
+    return {"tps": tps, "peak_gib": peak, "counts": main_counts}
+
+
+def phase_ring_trainer(torch, mods, cfgs):
+    print("[18] ring trainer: cli.pretrain --synthetic --seq-len 16384 --micro-batch 1 "
+          "--attn-impl ring --tp 4, 2 steps of 32,768 tokens, then resume", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    n_layer, pairs = cfgs["gpt"].n_layer, 10  # chunk pairs of a ring of 4
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = log_dir  # the synthetic shards go under it too
+    try:
+        argv = ["--synthetic", "--seq-len", "16384", "--micro-batch", "1", "--total-batch",
+                "32768", "--no-hellaswag", "--log-dir", os.path.join(log_dir, "log")]
+        ring = ["--attn-impl", "ring", "--tp", "4"]
+        reset_counts(fa, fc, fw)
+        t0 = time.perf_counter()
+        out = mods["pretrain"].main(argv + ring + ["--steps", "2"])
+        dt = time.perf_counter() - t0
+        counts = read_counts(fa, fc, fw)
+        accum, val_steps = 2, 20
+        bwd = n_layer * pairs * 2 * accum
+        want = with_zeros({"flash_lse_fwd": n_layer * pairs * (2 * accum + 2 * val_steps),
+                           "flash_rowdot": bwd, "flash_fused_bwd": bwd,
+                           "ce_fwd": 2 * val_steps, "adamw": 2})
+        print(f"  2 steps in {dt:.1f} s (val at steps 0 and 1, samples, checkpoints); "
+              f"launches {counts}", flush=True)
+        require(counts == want, f"expected launches {want}, got {counts}")
+        require(out["opt_state"]["step"] == 2 and math.isfinite(out["val_loss"])
+                and out["model"].transformer.wpe.weight.shape[0] == 16384,
+                "the ring trainer did not take 2 finite steps at block_size 16384")
+        require(mods["ra"].RING is None, "the trainer left its ring installed")
+
+        def csv_rows():
+            return [line.split(",")
+                    for f in sorted(glob.glob(os.path.join(log_dir, "log", "*.csv")))
+                    for line in open(f).read().splitlines()[1:]]
+
+        rows = csv_rows()
+        phases = [r[1] for r in rows]
+        tps = [float(r[7]) for r in rows if r[1] == "train"]
+        print(f"  CSV: {phases.count('train')} train rows (tokens/s {tps}), "
+              f"{phases.count('val')} val rows", flush=True)
+        require(phases.count("train") == 2 and phases.count("val") == 2,
+                "the CSV does not hold 2 train and 2 val rows")
+        require("model_final.pt" in os.listdir(os.path.join(log_dir, "log", "ckpts")),
+                "model_final was not written")
+
+        reset_counts(fa, fc, fw)
+        out = mods["pretrain"].main(argv + ring + ["--steps", "3"])
+        steps = [int(r[2]) for r in csv_rows() if r[1] == "train"]
+        resumed = read_counts(fa, fc, fw)
+        print(f"  resumed: train steps logged {steps}, launches {resumed}, optimizer step "
+              f"{out['opt_state']['step']}", flush=True)
+        require(steps == [0, 1, 2] and resumed["adamw"] == 1
+                and resumed["flash_fused_bwd"] == n_layer * pairs * accum
+                and resumed["flash_general_fwd"] == 0 and out["opt_state"]["step"] == 3,
+                "the second call did not resume at step 2 and run one step on the ring")
+        try:
+            mods["pretrain"].main(argv + ["--tp", "4", "--steps", "1"])
+        except NotImplementedError as e:
+            print(f"  --tp 4 without --attn-impl ring: NotImplementedError: {e}", flush=True)
+        else:
+            raise RuntimeError("chip_smoke: --tp 4 without --attn-impl ring did not raise")
+        return counts, tps
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -911,6 +1285,7 @@ def main() -> int:
     from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
     from gpt2_vision_language_tpu_torch.ops import fused_adamw as fw
     from gpt2_vision_language_tpu_torch.ops import fused_ce as fc
+    from gpt2_vision_language_tpu_torch.ops import ring_attention as ra
     from gpt2_vision_language_tpu_torch.train import schedule
     from gpt2_vision_language_tpu_torch.train.optimizer import (
         adamw_init, adamw_update, global_norm,
@@ -1000,7 +1375,7 @@ def main() -> int:
     del model
 
     cfgs = {"gpt": cfg, "opt": OptimizerConfig(), "sched": ScheduleConfig()}
-    mods = {"fa": fa, "fc": fc, "fw": fw, "policy": DEFAULT_POLICY,
+    mods = {"fa": fa, "fc": fc, "fw": fw, "ra": ra, "policy": DEFAULT_POLICY,
             "make_train_step": make_train_step, "adamw_init": adamw_init,
             "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain}
     bwd_err, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
@@ -1017,15 +1392,27 @@ def main() -> int:
     long_train = phase_long_train_step(torch, np, gpt2, mods, cfgs, dev)
     torch.cuda.empty_cache()
     long_counts, long_tps = phase_long_trainer(torch, np, mods, cfgs)
+    torch.cuda.empty_cache()
+
+    lse_errs, lse_t = phase_lse(torch, fa, dev)
+    torch.cuda.empty_cache()
+    ring_op = phase_ring_op(torch, mods, attention, dev)
+    torch.cuda.empty_cache()
+    ring_train = phase_ring_train_step(torch, np, gpt2, mods, cfgs, dev, long_train)
+    torch.cuda.empty_cache()
+    ring_counts, ring_tps = phase_ring_trainer(torch, mods, cfgs)
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
                "train_step": train["counts"], "trainer": trainer_counts,
-               "long_train_step": long_train["counts"], "long_trainer": long_counts}
+               "long_train_step": long_train["counts"], "long_trainer": long_counts,
+               "ring_train_step": ring_train["counts"], "ring_trainer": ring_counts}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
     self_shape, long_shape = (8, 1024, 1024, 12, 64, True), (1, 16384, 16384, 12, 64, True)
     lib_self, lib_long = library["B8_T1024"], library["B1_T16384"]
+    chunk_shape = (1, 4096, 4096, 12, 64, False)  # a ring hop onto an earlier chunk
+    lib_chunk = library["B1_T4096_nomask"]
     # name, source, the TPU kernel it replaces, the path whose run gives `launches`,
     # max error, (kernel ms, plain ms), bound, the library call's ms
     table = [
@@ -1048,6 +1435,10 @@ def main() -> int:
         ("flash_rowdot", "flash_general_bwd.cu", f"{jfa}:573", "long_trainer",
          gen_errs["dd"], gen_t["rowdot"],
          bound_ms(2 * 16384 * 768, 2 * 2 * 16384 * 768 + 4 * 16384 * 12), None),
+        ("flash_lse_fwd", "flash_lse_fwd.cu", f"{jfa}:197", "ring_trainer", lse_errs["o"],
+         lse_t["nomask"]["fwd"], attention_bound("fwd", *chunk_shape), lib_chunk["fwd"]),
+        ("flash_fused_bwd", "flash_fused_bwd.cu", f"{jfa}:396", "ring_trainer", lse_errs["bwd"],
+         lse_t["nomask"]["bwd"], attention_bound("fused_bwd", *chunk_shape), lib_chunk["bwd"]),
     ]
     kernels = []
     for name, src, replaces, path, err, (ms, plain_ms), (b_ms, b_by), lib_ms in table:
@@ -1076,16 +1467,40 @@ def main() -> int:
                               "plain_is": "the plain backward computes dq, dk and dv together",
                               "library_is": "autograd.grad of k and v through SDPA"},
         "flash_rowdot": {"err_is": "max|err| / max|ref|"},
+        "flash_lse_fwd": {"lse_max_abs_err": lse_errs["lse"],
+                          "library_is": "F.scaled_dot_product_attention"},
+        "flash_fused_bwd": {"err_is": "max|err| / max|ref|, with a random lse cotangent",
+                            "dq_two_runs_max_diff_over_max": lse_errs["rerun"],
+                            "library_is": "autograd.grad of q, k and v through SDPA"},
     }
+    causal_shape = (*chunk_shape[:5], True)
+    lib_causal = library["B1_T4096"]
     for k in kernels:
         k.update(notes[k["name"]])
         if k["name"].startswith("flash_general") or k["name"] == "flash_rowdot":
             k["shape"] = "B=1 T=16384 H=12 causal"
+        if k["name"] in ("flash_lse_fwd", "flash_fused_bwd"):
+            # the row is the ring's unmasked chunk pair (6 of its 10 launches at 4
+            # chunks); the causal pair (the other 4) beside it
+            bound_kind, key = (("fwd", "fwd") if k["name"] == "flash_lse_fwd"
+                               else ("fused_bwd", "bwd"))
+            ms, plain_ms = lse_t["causal"][key]
+            k["shape"] = "B=1 Tq=Tk=4096 H=12 no mask"
+            k["causal_pair"] = {"ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": attention_bound(bound_kind, *causal_shape)[0],
+                                "library_ms": lib_causal[key]}
+            k["general_kernels_ms"] = {m: lse_t[m][f"general_{key}_ms"]
+                                       for m in ("nomask", "causal")}
     print(json.dumps({"long_context": {"train_step_tokens_per_s": long_train["tps"],
                                        "peak_gib": long_train["peak_gib"],
                                        "trainer_tokens_per_s": long_tps,
                                        "general_vs_self": families,
                                        "sdpa_ms": {"B8_T1024": lib_self, "B1_T16384": lib_long}}}))
+    print(json.dumps({"ring": {"train_step_tokens_per_s": ring_train["tps"],
+                               "peak_gib": ring_train["peak_gib"],
+                               "trainer_tokens_per_s": ring_tps, "op_T16384": ring_op,
+                               "sdpa_ms": {"B1_T4096": lib_causal,
+                                           "B1_T4096_nomask": lib_chunk}}}))
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))
     print(json.dumps({"kernels": kernels}))

@@ -46,6 +46,8 @@ SIGNATURES = {
     "gpt2vl_flash_rowdot": [_P] * 3 + [_I] * 4 + [_P],
     "gpt2vl_flash_general_dq": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_general_dkv": [_P] * 8 + [_I] * 5 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_lse_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_fused_bwd": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_adamw": [_P, _I, _L, _P, _P],
     "gpt2vl_adamw_chunk": [],
 }

@@ -3,12 +3,15 @@
     python -m gpt2_vision_language_tpu_torch.cli.pretrain [--steps N] [--synthetic]
 
 Counterpart of gpt2_vision_language_tpu/cli/pretrain.py with the flags the
-single-device trainer honors. Runs on the first CUDA device, where every
-update goes through the hand-written AdamW kernel, or on the CPU where
-there is none. ``--seq-len`` over 1024 grows the model's ``block_size`` with
-it (long-context pretraining: ``--seq-len 16384 --micro-batch 1`` runs every
-self-attention on the general flash kernels). Env: FW_OUT_DIR (token
-shards), LOG_DIR, HELLASWAG_DIR, GPT2_BPE_DIR.
+single-device trainer honors. Runs on the first CUDA device (``--device``,
+default ``cuda``), where every update goes through the hand-written AdamW
+kernel; without a CUDA device it raises unless ``--device cpu`` asks for the
+CPU. ``--seq-len`` over 1024 grows the model's ``block_size`` with it
+(long-context pretraining: ``--seq-len 16384 --micro-batch 1`` runs every
+self-attention on the general flash kernels; with ``--attn-impl ring --tp 4``
+as a ring of 4 sequence chunks on the lse-forward and one-pass backward
+kernels). Env: FW_OUT_DIR (token shards), LOG_DIR, HELLASWAG_DIR,
+GPT2_BPE_DIR.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from ..core.config import GPTConfig, PretrainConfig
 from ..data.fineweb import write_synthetic_corpus
+from ..train.pretrain import check_parallel, run_pretrain
 
 
 def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
@@ -47,8 +51,18 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         help="attention path: 'flash' is the hand-written kernels on a CUDA "
         "device (the general streamed-K/V family past T = 8192), 'xla' plain "
         "einsum attention, 'auto' flash for T >= 512 on a CUDA device; 'ring' "
-        "is not ported yet",
+        "ring attention over --tp sequence chunks (requires --tp > 1 and "
+        "seq_len %% tp == 0)",
     )
+    p.add_argument(
+        "--tp", type=int, default=1,
+        help="with --attn-impl ring: the ring size, the number of sequence chunks "
+        "(the JAX CLI's tensor-parallel degree, whose mesh axis its ring runs over); "
+        "Megatron tensor parallelism itself is not ported",
+    )
+    p.add_argument("--device", default="cuda",
+                   help="device to train on: 'cuda' (default; raises without a CUDA "
+                   "device) or 'cpu'")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic token corpus in a temp dir (smoke runs)")
     p.add_argument("--synthetic-kind", choices=["zipf", "markov"], default="zipf")
@@ -77,26 +91,28 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         updates["save_every"] = args.save_every
     if args.log_dir:
         updates["log_dir"] = args.log_dir
-    if args.attn_impl == "ring":
-        raise NotImplementedError(
-            "--attn-impl ring: ring attention is not ported yet (ROADMAP Queue 1 "
-            "item 10, with the parallel styles)"
-        )
+    if args.tp != 1:
+        updates["tp"] = args.tp
     if args.attn_impl != "auto":
         updates["attn_impl"] = args.attn_impl
     if args.synthetic:
         d = tempfile.mkdtemp(prefix="fineweb_synthetic_")
         write_synthetic_corpus(d, kind=args.synthetic_kind, n_train=args.synthetic_shards)
         updates["data_dir"] = d
-    return dataclasses.replace(cfg, **updates), args
+    cfg = dataclasses.replace(cfg, **updates)
+    check_parallel(cfg)
+    return cfg, args
 
 
-def main(argv=None, *, model: Optional[GPTConfig] = None) -> dict:
+def main(argv=None, *, model: Optional[GPTConfig] = None, device=None) -> dict:
+    """Run the trainer. ``device`` overrides ``--device``."""
     cfg, args = parse_and_build(argv, model=model)
-
-    from ..train.pretrain import run_pretrain
-
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = torch.device(args.device if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "cli.pretrain: no CUDA device (torch.cuda.is_available() is False); pass "
+            "--device cpu to train on the CPU"
+        )
     return run_pretrain(cfg, device=device, max_steps_override=args.steps)
 
 

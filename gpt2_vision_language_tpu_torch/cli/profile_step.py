@@ -1,7 +1,8 @@
 """CLI: profile one GPT-2 train step on the CUDA device, by kernel.
 
     python -m gpt2_vision_language_tpu_torch.cli.profile_step \
-        [--seq-len 16384] [--micro-batch 1] [--accum 2] [--n-layer 12]
+        [--seq-len 16384] [--micro-batch 1] [--accum 2] [--n-layer 12] \
+        [--attn-impl ring --tp 4]
 
 Builds GPT-2 124M with seeded random weights (``block_size`` grown to
 ``--seq-len``), runs ``train.step.make_train_step`` on a seeded random batch
@@ -11,7 +12,13 @@ prints one JSON line: the step's wall time and tokens/s, peak device memory,
 the device time of every kernel class (the hand-written kernels by name,
 cuBLAS GEMMs, elementwise, reductions, copies, other), the launch counts of
 the hand-written kernels and the device idle share (wall time of the profiled
-step minus the sum of kernel times, over the wall time). Needs a CUDA device.
+step minus the sum of kernel times, over the wall time; and the same against
+the unprofiled steps, which the profiler does not slow). With ``--attn-impl
+ring --tp N`` every self-attention is a ring of N sequence chunks, and the
+library kernels (elementwise, reductions, copies) launched by operators on
+chunk-shaped tensors, forward and backward, are one class of their own, "ring
+glue": the merges of the partial results, their casts, the split and the
+concatenation. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,11 +34,15 @@ import torch
 from ..core.config import GPTConfig, OptimizerConfig, ScheduleConfig
 from ..core.precision import DEFAULT_POLICY
 from ..models import gpt2
+from ..ops import ring_attention
 from ..train.optimizer import adamw_init
 from ..train.step import make_train_step
 
-# kernel-name fragments -> class, first match wins
-CLASSES = (
+# kernel-name fragments -> class, first match wins; the hand-written kernels first
+HAND_WRITTEN_CLASSES = (
+    ("flash_lse_fwd_kernel", "lse flash forward"),
+    ("flash_fused_bwd_kernel", "one-pass flash backward"),
+    ("flash_fused_dq_cast_kernel", "one-pass flash backward dq cast"),
     ("flash_general_fwd_kernel", "general flash forward"),
     ("flash_general_dq_kernel", "general flash dq"),
     ("flash_general_dkv_kernel", "general flash dk/dv"),
@@ -40,6 +51,8 @@ CLASSES = (
     ("flash_bwd_", "self-attention flash backward"),
     ("adamw_kernel", "AdamW kernel"),
     ("ce_fwd", "CE forward kernel"),
+)
+CLASSES = HAND_WRITTEN_CLASSES + (
     ("nvjet", "GEMM"), ("gemm", "GEMM"), ("cutlass", "GEMM"), ("cublas", "GEMM"),
     ("reduce", "reduction"),
     ("elementwise", "elementwise"), ("vectorized", "elementwise"),
@@ -47,8 +60,31 @@ CLASSES = (
 )
 
 
+HAND_WRITTEN = {cls for _, cls in HAND_WRITTEN_CLASSES}
+RING_GLUE = "ring glue"
+
+
 def classify(name: str) -> str:
     return next((cls for frag, cls in CLASSES if frag in name), "other")
+
+
+def ring_glue_ms(events, chunk: int) -> tuple[float, int]:
+    """(device ms, launches) of the library kernels launched by operators
+    with an input whose second axis is one ring chunk long: (B, T/n, H, hs)
+    and (B, T/n, H, 1) are the shapes of the ring's partial results, and no
+    other tensor of the step has that length. Needs record_shapes."""
+    us, count = 0.0, 0
+    for ev in events:
+        if not ev.kernels:
+            continue
+        shapes = [s for s in (ev.input_shapes or []) if isinstance(s, (list, tuple))]
+        if not any(len(s) >= 3 and s[1] == chunk for s in shapes):
+            continue
+        for k in ev.kernels:
+            if classify(k.name) not in HAND_WRITTEN:
+                us += k.duration
+                count += 1
+    return us / 1e3, count
 
 
 def main(argv=None) -> dict:
@@ -57,7 +93,13 @@ def main(argv=None) -> dict:
     p.add_argument("--micro-batch", type=int, default=1)
     p.add_argument("--accum", type=int, default=2, help="micro-batches per step")
     p.add_argument("--n-layer", type=int, default=12)
+    p.add_argument("--attn-impl", choices=["auto", "xla", "flash", "ring"], default="auto")
+    p.add_argument("--tp", type=int, default=1,
+                   help="with --attn-impl ring: the ring size (sequence chunks)")
     args = p.parse_args(argv)
+    if (args.attn_impl == "ring") != (args.tp > 1) or args.seq_len % args.tp:
+        raise ValueError("--attn-impl ring needs --tp > 1 dividing --seq-len, and --tp "
+                         "needs --attn-impl ring")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     from torch.autograd import DeviceType
@@ -69,11 +111,13 @@ def main(argv=None) -> dict:
     model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
     step = make_train_step(
         lambda m, r: gpt2.loss(m, r[:, :-1], cfg, targets=r[:, 1:], policy=DEFAULT_POLICY,
-                               ce_chunks=1),
+                               attn_impl=args.attn_impl, ce_chunks=1),
         OptimizerConfig(), ScheduleConfig(), decay_mask=gpt2.decay_mask(model))
     state = adamw_init(gpt2.named_params(model))
     rows = np.random.RandomState(0).randint(0, cfg.vocab_size, (args.accum, b, t + 1))
     batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+
+    ring_attention.set_ring(args.tp if args.attn_impl == "ring" else None)
 
     def timed(i):
         torch.cuda.synchronize()
@@ -86,8 +130,10 @@ def main(argv=None) -> dict:
         timed(i)
     torch.cuda.reset_peak_memory_stats()
     plain = [timed(i) for i in (2, 3)]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         wall = timed(4)
+    ring_attention.set_ring(None)
     by_class, launches, total_us = {}, {}, 0.0
     for ev in prof.key_averages():
         # kernel events only: an operator's row repeats its kernels' time
@@ -100,20 +146,30 @@ def main(argv=None) -> dict:
         total_us += us
     if total_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
+    if args.attn_impl == "ring":
+        # its kernels are counted above under elementwise, reduction, copies or other
+        by_class[RING_GLUE], launches[RING_GLUE] = ring_glue_ms(prof.events(), t // args.tp)
     n_tok = args.accum * b * t
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     result = {
         "card": card, "seq_len": t, "micro_batch": b, "accum": args.accum,
-        "n_layer": args.n_layer, "tokens_per_step": n_tok,
+        "n_layer": args.n_layer, "attn_impl": args.attn_impl, "tp": args.tp,
+        "tokens_per_step": n_tok,
         "unprofiled_step_s": plain, "tokens_per_s": [n_tok / s for s in plain],
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "profiled_wall_ms": wall * 1e3, "device_kernel_ms": total_us / 1e3,
         "device_idle_share": 1.0 - total_us / 1e3 / (wall * 1e3),
+        # the profiler slows the host (record_shapes, thousands of small launches):
+        # the same kernel time against the unprofiled steps' mean wall time
+        "device_idle_share_of_unprofiled_step": 1.0 - total_us / 1e6 / (sum(plain) / len(plain)),
         "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "launches_by_class": launches,
     }
+    if args.attn_impl == "ring":
+        result["note"] = (f"'{RING_GLUE}' is a subset of the library-kernel classes, not "
+                          "an addition to them")
     print(json.dumps(result))
     return result
 

@@ -82,8 +82,10 @@ class OptimizerConfig:
 @dataclass(frozen=True)
 class PretrainConfig:
     """FineWeb-Edu pretraining workload (train_gpt2.py:243-285), single
-    device. The JAX fields for the TPU's memory mechanisms, the big-model
-    recipes and model parallelism are not carried
+    device. ``tp`` is the ring size of ``attn_impl="ring"`` (the JAX package
+    rings over the tensor-parallel mesh axis; Megatron tensor parallelism
+    itself is not ported). The JAX fields for the TPU's memory mechanisms, the
+    big-model recipes and the other parallel styles are not carried
     (tests/test_torch_import.py lists them)."""
 
     model: GPTConfig = field(
@@ -106,6 +108,7 @@ class PretrainConfig:
     save_ckpt: bool = True  # False: no checkpoint is written or resumed
     nan_guard: bool = True  # skip the update of a step with a non-finite loss or norm
     attn_impl: str = "auto"
+    tp: int = 1  # ring size of attn_impl="ring" (sequence chunks)
 
     def grad_accum_steps(self, world_size: int = 1) -> int:
         denom = self.micro_batch_size * self.seq_len * world_size

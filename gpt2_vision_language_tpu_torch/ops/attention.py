@@ -11,7 +11,12 @@ Counterpart of gpt2_vision_language_tpu/ops/attention.py:
   * impl="auto"  — flash for causal self-attention (Tq == Tk) of at least
     AUTO_FLASH_MIN_T positions on CUDA tensors, xla otherwise; a long
     self-attention (T = 16384) reaches the general kernels through it;
-  * impl="ring"  — not ported yet.
+  * impl="ring"  — ops/ring_attention.py over the ring that its
+    ``set_ring`` installed: the sequence in chunks, each visible chunk pair
+    through flash_attention_with_lse (the lse-forward and one-pass backward
+    kernels for CUDA tensors), the partial results merged exactly. The
+    port's layout is (B, T, H, hs) end to end, so the two transposes of the
+    JAX route (:78-84 there) have no counterpart.
 """
 
 from __future__ import annotations
@@ -45,9 +50,15 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "auto", layout: str = "bhtd"):
     if impl == "flash":
         return flash_attention(q, k, v, causal=causal, layout=layout)
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP Queue 1 item 10)"
-        )
+        # sequence-chunked long-context path: needs set_ring() to have been
+        # called with the ring to run over
+        from . import ring_attention as ra
+
+        if ra.RING is None:
+            raise RuntimeError(
+                "attn_impl='ring' needs ops.ring_attention.set_ring(ring) first"
+            )
+        return ra.ring_attention(q, k, v, ra.RING, causal=causal, layout=layout)
     return xla_sdpa(q, k, v, causal=causal, layout=layout)
 
 

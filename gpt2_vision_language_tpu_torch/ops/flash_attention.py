@@ -1,8 +1,9 @@
 """Flash attention, forward and backward: the hand-written CUDA kernels and
 their plain versions.
 
-Counterpart of gpt2_vision_language_tpu/ops/flash_attention.py, two kernel
-families behind one ``flash_attention`` (:1089 there):
+Counterpart of gpt2_vision_language_tpu/ops/flash_attention.py, three kernel
+families behind ``flash_attention`` (:1089 there) and
+``flash_attention_with_lse`` (:752):
 
   * the self-attention family (Tq == Tk, T <= K1_MAX_T): ``csrc/flash_fwd.cu``
     replaces ``_fwd_dt_kernel`` (:841, launched by ``_fwd_dt`` :956) and
@@ -14,25 +15,36 @@ families behind one ``flash_attention`` (:1089 there):
     ``csrc/flash_general_bwd.cu`` replaces ``_dq_kernel_grid`` (:369) and
     ``_dkv_kernel_grid`` (:509), both launched by ``_bwd`` (:550). As there,
     the two backward kernels take D = rowsum(dO * O) as an input tensor; a
-    small kernel of the same file forms it (``_bwd`` leaves it to XLA, :573).
+    small kernel of the same file forms it (``_bwd`` leaves it to XLA, :573);
+  * the lse family, the same shapes again, behind ``flash_attention_with_lse``
+    and ``flash_attention(stream_kv=False)``: ``csrc/flash_lse_fwd.cu``
+    replaces ``_fwd_kernel`` (:197, launched by ``_fwd`` :265 with
+    stream_kv=False) and ``csrc/flash_fused_bwd.cu`` replaces the one-pass
+    ``_bwd_kernel_fused`` (:396, ``_bwd`` :550). Its logsumexp output is
+    differentiable: the backward takes the cotangent of lse as
+    dcap = D - dlse (:576-580 there), which is what makes the merge of ring
+    attention's chunks exact in the gradient too.
 
 All take q as (B, Tq, H, hs) and k/v as (B, Tk, H, hs), strided views
 included, so the fused QKV output feeds them without a copy. The softmax
 scale 1/sqrt(hs) is applied inside the kernels (the JAX wrapper folds it
 into q outside its custom VJP), so the backward kernels scale dq and dk.
 
-``_FlashAttn`` and ``_FlashAttnGeneral`` are the autograd Functions of the
-two families on both devices: for CUDA tensors their forward and backward
-launch the kernels, for CPU tensors they run the plain versions,
-``flash_attention_reference``, ``rowdot_reference`` and
-``flash_attention_backward_reference``. Nothing else selects between kernel
+``_FlashAttn``, ``_FlashAttnGeneral`` and ``_FlashAttnLse`` are the autograd
+Functions of the three families on both devices: for CUDA tensors their
+forward and backward launch the kernels, for CPU tensors they run the plain
+versions, ``flash_attention_reference``, ``rowdot_reference``,
+``flash_attention_backward_reference`` and
+``flash_fused_backward_reference``. Nothing else selects between kernel
 and plain version, and there is no fallback from one to the other, from one
 family to the other, or to any library call: what a kernel does not take
 raises. Each launch adds one to its wrapper's count:
 ``flash_attention.launches`` and ``flash_attention_backward.launches`` for
 the self-attention family, ``flash_general_forward.launches``,
 ``flash_general_dq.launches``, ``flash_general_dkv.launches`` and
-``flash_rowdot.launches`` for the general one.
+``flash_rowdot.launches`` for the general one, ``flash_lse_forward.launches``
+and ``flash_fused_backward.launches`` (and ``flash_rowdot.launches`` for its
+D) for the lse family.
 """
 
 from __future__ import annotations
@@ -380,28 +392,138 @@ class _FlashAttnGeneral(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# The lse family (differentiable logsumexp, one-pass backward)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_with_lse_reference(q, k, v, *, causal: bool = True):
+    """Plain version of the lse forward: flash_attention_reference, whose lse
+    is differentiable through plain autograd."""
+    return flash_attention_reference(q, k, v, causal=causal)
+
+
+def flash_fused_backward_reference(q, k, v, do, lse, dcap, *, causal: bool = True):
+    """Plain version of the one-pass backward kernel: (dq, dk, dv) from the
+    forward's lse and the row term dcap = D - dlse, both (B, H, Tq) fp32, as
+    the kernel takes them."""
+    return flash_attention_backward_reference(q, k, v, None, lse, do, causal=causal, dd=dcap)
+
+
+def flash_lse_forward(q, k, v, *, causal: bool = True):
+    """Forward with logsumexp, (o (B, Tq, H, hs), lse (B, H, Tq) fp32): the
+    kernel for CUDA tensors (bf16), the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_with_lse_reference(q, k, v, causal=causal)
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_operand(name, a)
+    b, tq, h, hs = q.shape
+    o = torch.empty((b, tq, h, hs), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_lse_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, tq, k.shape[1], h, hs, *_strides(q, k, v), int(causal), _stream(q),
+        )
+    _build.check(err, "flash_lse_fwd")
+    flash_lse_forward.launches += 1
+    return o, lse
+
+
+flash_lse_forward.launches = 0
+
+
+def flash_fused_backward(q, k, v, do, lse, dcap, *, causal: bool = True):
+    """(dq, dk, dv) in one pass from lse and dcap = D - dlse (both (B, H, Tq)
+    fp32) and a contiguous do: the kernel for CUDA tensors, the plain version
+    for CPU tensors. The kernel sums dq over the key tiles with reductions in
+    global memory, in no fixed order: dq can differ in its last bits between
+    two runs."""
+    if not q.is_cuda:
+        return flash_fused_backward_reference(q, k, v, do, lse, dcap, causal=causal)
+    tail = _general_bwd_args(q, k, v, do, lse, dcap, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_fused_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dcap.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *tail,
+        )
+    _build.check(err, "flash_fused_bwd")
+    flash_fused_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_fused_backward.launches = 0
+
+
+class _FlashAttnLse(torch.autograd.Function):
+    """Forward and backward of the lse family, differentiable in o and in
+    lse; saves (q, k, v, o, lse). The backward forms D with flash_rowdot,
+    subtracts the cotangent of lse in plain torch (XLA code in the JAX
+    package too) and hands dcap to the one-pass kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_lse_forward(q, k, v, causal=causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        dcap = flash_rowdot(do, o)
+        if dlse is not None:
+            dcap = (dcap - dlse.float()).contiguous()
+        dq, dk, dv = flash_fused_backward(q, k, v, do, lse, dcap, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True):
+    """Attention over q (B, Tq, H, hs) and k, v (B, Tk, H, hs) that also
+    returns the per-row logsumexp: (out in q.dtype, lse (B, H, Tq) fp32),
+    differentiable in BOTH. The ingredient for merging attention over chunks
+    of keys: given per-chunk (out_c, lse_c) the exact total is
+    sum_c out_c * exp(lse_c - logaddexp_c lse_c) (ops/ring_attention.py).
+
+    Causal masking is right-aligned and needs Tq <= Tk. CUDA tensors go to
+    the lse-forward and one-pass backward kernels (bf16, head size 64, hs
+    contiguous; strided views welcome) and anything they do not take raises;
+    CPU tensors go to the plain versions.
+    """
+    _check(q, k, v, causal)
+    return _FlashAttnLse.apply(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
 # Routing
 # ---------------------------------------------------------------------------
 
 
 def select_family(tq: int, tk: int, stream_kv: bool | None = None) -> str:
-    """"self" (the Tq == Tk kernels) or "general" (the streamed-K/V kernels)
-    for a shape. stream_kv=None picks by shape: Tq == Tk up to K1_MAX_T goes
-    to the self-attention kernels, everything else to the general ones; True
-    forces the general kernels; False asks for kernels that hold K/V whole,
-    which only the self-attention family's shapes have here."""
+    """"self" (the Tq == Tk kernels), "general" (the streamed-K/V kernels) or
+    "lse" (the lse forward and the one-pass backward) for a shape.
+    stream_kv=None picks by shape: Tq == Tk up to K1_MAX_T goes to the
+    self-attention kernels, everything else to the general ones; True forces
+    the general kernels; False asks for the kernels that the JAX package runs
+    with K/V held whole: the self-attention family on its shapes, the lse
+    family (with a zero lse cotangent) on every other, as ``_flash`` there
+    does with stream_kv=False (:1152-1160)."""
     self_ok = tq == tk and tq <= K1_MAX_T
     if stream_kv is None:
         return "self" if self_ok else "general"
     if stream_kv:
         return "general"
-    if self_ok:
-        return "self"
-    raise NotImplementedError(
-        f"flash_attention(stream_kv=False) at Tq={tq}, Tk={tk}: the resident-K/V "
-        "general kernels (_fwd_kernel, _bwd_kernel_fused of the JAX package) are "
-        "not ported yet (ROADMAP Queue 2: K2a, K3c, with ring attention)"
-    )
+    return "self" if self_ok else "lse"
+
+
+_FAMILIES = {"self": _FlashAttn, "general": _FlashAttnGeneral, "lse": _FlashAttnLse}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
@@ -424,8 +546,9 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
     _check(q, k, v, causal)
     family = select_family(q.shape[1], k.shape[1], stream_kv)
-    fn = _FlashAttn if family == "self" else _FlashAttnGeneral
-    o, lse = fn.apply(q, k, v, causal)
+    o, lse = _FAMILIES[family].apply(q, k, v, causal)
+    if family == "lse":
+        lse = lse.detach()  # flash_attention's lse carries no gradient
     if layout == "bhtd":
         o = o.transpose(1, 2)
     return (o, lse) if return_lse else o

@@ -9,7 +9,11 @@ hyperparameters through ``PretrainConfig``. The token shards are read by
 modules. Each step's (accum, B, T+1) row buffer goes to the device as one
 pinned int32 tensor. HellaSwag runs every ``hellaswag_every`` steps and at
 the last step when ``run_hellaswag`` is set and ``$HELLASWAG_DIR`` (default
-``./hellaswag``) is a directory.
+``./hellaswag``) is a directory. ``attn_impl="ring"`` (:88-96, :134-138,
+:462-465 there) needs ``tp > 1`` chunks that divide ``seq_len``; the ring is
+run in turn by this one process (``ops.ring_attention.LocalRing``), installed
+before the first step and removed when the run ends. ``tp > 1`` with any
+other ``attn_impl`` would be Megatron tensor parallelism, which is not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..infer.decode import Decoder
 from ..infer.sampling import sample_top_k
 from ..models import gpt2
 from ..obs.csvlog import MetricsLogger
+from ..ops import ring_attention
 from .optimizer import adamw_init
 from .step import make_eval_step, make_train_step
 
@@ -46,11 +51,38 @@ def stage_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def check_parallel(cfg: PretrainConfig) -> None:
+    """Raise on a tp / attn_impl combination the single-device trainer does
+    not run."""
+    if cfg.attn_impl == "ring":
+        if cfg.tp <= 1:
+            raise ValueError("attn_impl='ring' requires tp > 1 (the ring size)")
+        if cfg.seq_len % cfg.tp:
+            raise ValueError(f"attn_impl='ring': seq_len {cfg.seq_len} is not divisible "
+                             f"by tp={cfg.tp}")
+    elif cfg.tp != 1:
+        raise NotImplementedError(
+            f"tp={cfg.tp} without attn_impl='ring' is Megatron tensor parallelism, which "
+            "is not ported yet (ROADMAP Queue 1 item 10)"
+        )
+
+
 def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY,
                  max_steps_override: Optional[int] = None) -> dict:
     """Run the pretrain loop on ``device``. Returns {"model", "opt_state",
     "val_loss"}."""
-    device = torch.device(device)
+    check_parallel(cfg)
+    ring = cfg.attn_impl == "ring"
+    if ring:
+        ring_attention.set_ring(cfg.tp)
+    try:
+        return _run_pretrain(cfg, torch.device(device), policy, max_steps_override)
+    finally:
+        if ring:
+            ring_attention.set_ring(None)
+
+
+def _run_pretrain(cfg, device, policy, max_steps_override) -> dict:
     accum = cfg.grad_accum_steps(1)
     print(f"total desired batch size: {cfg.total_batch_size}")
     print(f"=> calculated gradient accumulation steps: {accum}")

@@ -114,16 +114,12 @@ def test_plain_backward_with_d_passed_in(causal):
         (1024, 1024, True, "general"),
         (64, 2048, True, "general"),
         (1024, 1024, False, "self"),
-        (16384, 16384, False, None),  # the resident kernels are not ported
-        (64, 2048, False, None),
+        (16384, 16384, False, "lse"),  # the lse forward and the one-pass backward
+        (64, 2048, False, "lse"),
     ],
 )
 def test_select_family(tq, tk, stream_kv, want):
-    if want is None:
-        with pytest.raises(NotImplementedError, match="K2a, K3c"):
-            fa.select_family(tq, tk, stream_kv)
-    else:
-        assert fa.select_family(tq, tk, stream_kv) == want
+    assert fa.select_family(tq, tk, stream_kv) == want
     assert fa.K1_MAX_T == jfa.DT_MAX_T
 
 

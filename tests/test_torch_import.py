@@ -73,8 +73,9 @@ LEFT_OUT = {
     # big-model memory recipes (ROADMAP Queue 1 item 11)
     "opt_state_dtype": "Queue 1 item 11", "grad_accum_dtype": "Queue 1 item 11",
     "layerwise_grad": "Queue 1 item 11", "param_dtype": "Queue 1 item 11",
-    # model parallelism (ROADMAP Queue 1 item 10)
-    "tp": "Queue 1 item 10", "seq_parallel": "Queue 1 item 10",
+    # model parallelism (ROADMAP Queue 1 item 10); tp is carried as the ring
+    # size of attn_impl="ring"
+    "seq_parallel": "Queue 1 item 10",
     "pp": "Queue 1 item 10", "pp_micro": "Queue 1 item 10",
 }
 

@@ -94,7 +94,7 @@ def test_slice_loss_and_grads_match_jax(jax_params, monkeypatch, jax_impl):
 
 TINY = GPTConfig(block_size=64, n_layer=2, n_head=2, n_embd=64)
 ARGS = ["--synthetic", "--synthetic-shards", "1", "--micro-batch", "1", "--seq-len", "2048",
-        "--total-batch", "4096", "--no-hellaswag"]
+        "--total-batch", "4096", "--no-hellaswag", "--device", "cpu"]
 
 
 def test_pretrain_long_seq_len_grows_block_size_and_resumes(tmp_path, monkeypatch):

@@ -14,7 +14,7 @@ from gpt2_vision_language_tpu_torch.core.config import GPTConfig
 
 TINY = GPTConfig(block_size=64, n_layer=2, n_head=2, n_embd=64)
 ARGS = ["--synthetic", "--synthetic-shards", "1", "--micro-batch", "2", "--seq-len", "64",
-        "--total-batch", "256", "--no-hellaswag"]
+        "--total-batch", "256", "--no-hellaswag", "--device", "cpu"]
 
 
 @pytest.fixture(autouse=True)
@@ -117,8 +117,67 @@ def test_long_context_flags(argv, block, attn):
 
 
 def test_attn_impl_ring_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    """Named for what it pinned while ring attention was missing (the flag
+    raised NotImplementedError). Now: --attn-impl ring --tp 2 parses to what
+    the JAX CLI gives for tp and attn_impl; ring without --tp, a --tp that
+    does not divide --seq-len, and --tp without ring (Megatron tensor
+    parallelism, not ported) are refused."""
+    from gpt2_vision_language_tpu.cli import pretrain as jax_pretrain
+
+    argv = ["--attn-impl", "ring", "--tp", "2", "--seq-len", "64"]
+    cfg, args = pretrain.parse_and_build(argv)
+    want = jax_pretrain.parse_and_build(argv)[0]
+    assert (cfg.tp, cfg.attn_impl, cfg.seq_len) == (want.tp, want.attn_impl, want.seq_len)
+    assert (cfg.tp, cfg.attn_impl, args.tp) == (2, "ring", 2)
+    assert pretrain.parse_and_build([])[0].tp == 1
+    with pytest.raises(ValueError, match="requires tp > 1"):
         pretrain.parse_and_build(["--attn-impl", "ring"])
+    with pytest.raises(ValueError, match="not divisible"):
+        pretrain.parse_and_build(["--attn-impl", "ring", "--tp", "3", "--seq-len", "64"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        pretrain.parse_and_build(["--tp", "2"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        pretrain.parse_and_build(["--tp", "2", "--attn-impl", "flash"])
+
+
+def test_ring_run_matches_xla_run(tmp_path):
+    """Two steps of the tiny model with --attn-impl ring --tp 2 on the CPU end
+    at the loss and the weights of the --attn-impl xla run (fp32 sums in
+    another order only), and the ring is removed when the run ends."""
+    from gpt2_vision_language_tpu_torch.core.precision import FP32_POLICY
+    from gpt2_vision_language_tpu_torch.ops import ring_attention as ra
+    from gpt2_vision_language_tpu_torch.train.pretrain import run_pretrain
+
+    def run(name, extra):
+        cfg, args = pretrain.parse_and_build(
+            ARGS + ["--log-dir", str(tmp_path / name), "--steps", "2"] + extra, model=TINY)
+        out = run_pretrain(cfg, device="cpu", policy=FP32_POLICY, max_steps_override=args.steps)
+        rows = [r for r in _csv_rows(tmp_path / name) if r[1] == "train"]
+        return out, [float(r[3]) for r in rows]
+
+    ring, ring_losses = run("ring", ["--attn-impl", "ring", "--tp", "2"])
+    assert ra.RING is None
+    xla, xla_losses = run("xla", ["--attn-impl", "xla"])
+    assert len(ring_losses) == 2
+    assert ring_losses == pytest.approx(xla_losses, rel=1e-5)
+    assert ring["val_loss"] == pytest.approx(xla["val_loss"], rel=1e-5)
+    for (n, a), b in zip(ring["model"].named_parameters(), xla["model"].parameters()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=n)
+
+
+def test_device_flag(tmp_path, monkeypatch):
+    """--device defaults to cuda and the CLI raises without a CUDA device
+    instead of training on the CPU; --device cpu and main(device=...) ask for
+    the CPU."""
+    assert pretrain.parse_and_build([])[1].device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in ARGS if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        pretrain.main(argv + ["--log-dir", str(tmp_path / "a"), "--steps", "1"], model=TINY)
+    assert not os.path.exists(tmp_path / "a")
+    out = pretrain.main(argv + ["--log-dir", str(tmp_path / "b"), "--steps", "1"], model=TINY,
+                        device="cpu")
+    assert out["opt_state"]["step"] == 1
 
 
 def test_checkpoint_manager_resumes_furthest(tmp_path):
