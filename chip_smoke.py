@@ -73,10 +73,36 @@ Phases (any failure raises and the script exits non-zero):
  18. the ring trainer: cli.pretrain --synthetic --seq-len 16384 --micro-batch
      1 --total-batch 32768 --attn-impl ring --tp 4 --steps 2 (validation
      through the ring on the lse forward and the CE kernel, checkpoints), then
-     --steps 3 resumes; --tp 4 without --attn-impl ring must raise.
+     --steps 3 resumes; --tp 4 without --attn-impl ring must raise;
+ 19. the dt-layout kernels of the A/B tool vs their plain versions on the
+     tool's own bf16 inputs (B=8, T=1024, H=12, hs=64, causal): the forward
+     (o, lse) also against the shipping forward's output transposed, the
+     one-pass backward with a control (wrong dcap) that must fail, and twice on
+     one input (dq is summed by reductions in global memory);
+ 20. the A/B tool through its main: --check, --check-bwd, the forward bench
+     and --bwd (device ms per layer of the shipping path, of the dt kernels,
+     and of the copies into and out of the dt layout);
+ 21. the self-attention kernels against the plain path at the fine-tune shape
+     (B=128, T=65), forward and forward + backward: below the 512-token
+     routing threshold, timed only, the routing is the JAX package's;
+ 22. fine-tune ops on the card under the bf16 policy against the same
+     functions on the CPU in fp32 (pooling, each bridge, the gated
+     cross-attention block, the caption / cross-attention loss with the CE
+     kernel and with the plain CE); one optimizer step of each fine-tune at
+     full depth: frozen leaves bit-identical and without .grad, trainable
+     leaves moved, the AdamW kernel's leaf table holding exactly the
+     trainable leaves, and the same step on the plain update from one state;
+ 23. the fine-tune entry points at full width: cli.finetune_linear,
+     finetune_qformer and finetune_xattn --synthetic --steps 3 (B=128, T=32
+     after a 33- or 32-token prefix, 128 / 128 / 1 micro-batches a step,
+     validation on the CE kernel, CIDEr over the 64 synthetic val images,
+     checkpoints), evaluate_captions called directly, frozen leaves
+     bit-identical to the seeded init; then --steps 4 resumes the
+     cross-attention run.
 
 Prints the card's name and power limit, one JSON line with each kernel's
-launches (from the trainer runs of phases 9, 14 and 18), error, times, bound
+launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
+phase 20; the fine-tune runs of phase 23 beside them), error, times, bound
 and library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA device.
 """
@@ -1247,6 +1273,532 @@ def phase_ring_trainer(torch, mods, cfgs):
         shutil.rmtree(log_dir, ignore_errors=True)
 
 
+def dt_inputs(torch, ab, dev, seed):
+    """The tool's own inputs at its bench shape: q (pre-scaled), k, v, dO in the
+    dt layout (H, 64, B*T) bf16, the (B, T, H, hs) strided views they were copied
+    from, and the shape."""
+    qkv, dout, (b, h, t, hs) = ab._bench_inputs(dev, seed)
+    q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+    scale = hs ** -0.5
+    dt = (ab.to_dt(q * scale), ab.to_dt(k), ab.to_dt(v), ab.to_dt(dout))
+    return dt, (q, k, v, dout), (b, h, t, hs)
+
+
+def phase_dt_kernels(torch, ab, fa, dev):
+    print("[19] dt-layout forward (P1) and one-pass backward (P2) vs plain (bf16), "
+          "B=8 T=1024 H=12 hs=64 causal", flush=True)
+    (qd, kd, vd, dod), (q, k, v, _), (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
+    scale = hs ** -0.5
+    o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
+    o_ref, lse_ref = ab.flash_fwd_dt_b_reference(qd, kd, vd, b, t, t, causal=True)
+    torch.cuda.synchronize()
+    o_err, o_excess = out_excess(o, o_ref)
+    lse_err = (lse - lse_ref).abs().max().item()
+    print(f"  P1: o max|err| {o_err:.3e} (tol max(2e-2, one bf16 ulp); excess "
+          f"{o_excess:.3e}), lse max|err| {lse_err:.3e} (tol 1e-3)", flush=True)
+    require(o_excess <= 0 and lse_err <= 1e-3, "dt forward disagrees with its plain version")
+    # against the shipping forward on the same values (q unscaled there; the
+    # pre-scaled bf16 q of the dt side rounds once more, so one bf16 ulp apart)
+    o_k1 = fa.flash_attention(q, k, v, causal=True, layout="bthd")
+    k1_err, k1_excess = out_excess(ab.from_dt(o, b, t), o_k1)
+    print(f"  P1 vs the shipping forward's output transposed: max|err| {k1_err:.3e} "
+          f"(excess {k1_excess:.3e})", flush=True)
+    require(k1_excess <= 0, "dt forward disagrees with the shipping forward")
+
+    tol = 3e-2  # max|err| / max|ref|; P and dS round to bf16 in the kernel
+    dcap = ab.dcap_dt(o, dod)
+    run = lambda dc: ab.flash_bwd_dt_b(qd, kd, vd, dod, lse, dc, b, t, t, causal=True,  # noqa: E731
+                                       dq_scale=scale)
+    got = run(dcap)
+    want = ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, dcap, b, t, t, causal=True,
+                                       dq_scale=scale)
+    torch.cuda.synchronize()
+    errs = [rel_err(x, r) for x, r in zip(got, want)]
+    print("  P2: dq, dk, dv max|err| / max|ref| " + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (tol {tol})", flush=True)
+    require(max(errs) <= tol, "dt backward disagrees with its plain version")
+    control = [rel_err(x, r) for x, r in zip(run(torch.zeros_like(dcap)), want)]
+    print("  control (dcap = 0): " + ", ".join(f"{e:.3e}" for e in control), flush=True)
+    require(max(control[:2]) > tol, "the wrong-dcap control passed: the check cannot fail")
+    again = run(dcap)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(x, y)) for x, y in zip(got, again)]
+    rerun = rel_err(again[0], got[0])
+    print(f"  P2 twice on one input: dq, dk, dv bit-equal {same}; dq max|diff| / max "
+          f"{rerun:.3e}", flush=True)
+    require(same[1] and same[2], "dk or dv differ between two runs")
+
+    fwd_t = interleaved(lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True),
+                        lambda: ab.flash_fwd_dt_b_reference(qd, kd, vd, b, t, t, causal=True),
+                        50, 3)
+    bwd_t = interleaved(lambda: run(dcap),
+                        lambda: ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, dcap, b, t, t,
+                                                            causal=True, dq_scale=scale), 50, 3)
+    return ({"o": o_err, "lse": lse_err, "vs_k1": k1_err, "bwd": max(errs), "rerun": rerun,
+             "dq_bit_equal": same[0]}, {"fwd": fwd_t, "bwd": bwd_t})
+
+
+def phase_dt_tool(ab):
+    print("[20] the A/B tool through its main: --check, --check-bwd, forward bench, --bwd",
+          flush=True)
+    ab.flash_fwd_dt_b.launches = ab.flash_bwd_dt_b.launches = 0
+    ab.main(["--check"])
+    rels = ab.main(["--check-bwd"])
+    fwd = ab.main([])
+    bwd = ab.main(["--bwd"])
+    counts = {"flash_dt_fwd": ab.flash_fwd_dt_b.launches, "flash_dt_bwd": ab.flash_bwd_dt_b.launches}
+    # check 1; check-bwd 1 + 1; each bench one set-up call and a warm-up + 12 timed
+    want = {"flash_dt_fwd": 1 + 1 + 14 + 14, "flash_dt_bwd": 1 + 14}
+    print(f"  launches {counts}", flush=True)
+    require(counts == want, f"expected launches {want}, got {counts}")
+    require(max(rels.values()) < 3e-2, "the tool's backward check disagrees")
+    return counts, {"forward_ms_per_layer": fwd, "forward_backward_ms_per_layer": bwd}
+
+
+def phase_k1_short(torch, fa, attention, dev):
+    b, t, h, hs = 128, 65, 12, 64
+    print(f"[21] the self-attention kernels against the plain path at the fine-tune shape "
+          f"B={b} T={t} H={h} hs={hs} causal (below the {attention.AUTO_FLASH_MIN_T}-token "
+          f"routing threshold)", flush=True)
+    g = torch.Generator(dev).manual_seed(21)
+    q, k, v, do = qkv_inputs(torch, b, t, t, h, dev, g)
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True)
+    o_err, o_excess = out_excess(o, o_ref)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs = [rel_err(x, r) for x, r in zip(got, want)]
+    print(f"  o max|err| {o_err:.3e} (excess {o_excess:.3e}), lse "
+          f"{(lse - lse_ref).abs().max().item():.3e}; dq, dk, dv max|err| / max|ref| "
+          + ", ".join(f"{e:.3e}" for e in errs) + " (tol 3e-2)", flush=True)
+    require(o_excess <= 0 and max(errs) <= 3e-2, "the kernels disagree at T=65")
+
+    def fwd(impl):
+        def run():
+            with torch.no_grad():
+                attention.sdpa(q, k, v, causal=True, impl=impl, layout="bthd")
+        return run
+
+    leaves = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+
+    def fwd_bwd(impl):
+        def run():
+            y = attention.sdpa(*leaves, causal=True, impl=impl, layout="bthd")
+            y.backward(do)
+            for a in leaves:
+                a.grad = None
+        return run
+
+    f = interleaved(fwd("flash"), fwd("xla"), 50, 20)
+    fb = interleaved(fwd_bwd("flash"), fwd_bwd("xla"), 50, 20)
+    print(f"  forward: kernel {f[0]:.4f} ms, plain {f[1]:.4f} ms; forward + backward through "
+          f"autograd: kernels {fb[0]:.4f} ms, plain {fb[1]:.4f} ms", flush=True)
+    return {"shape": f"B={b} T={t} H={h} hs={hs} causal", "fwd_kernel_ms": f[0],
+            "fwd_plain_ms": f[1], "fwd_bwd_kernel_ms": fb[0], "fwd_bwd_plain_ms": fb[1]}
+
+
+def finetune_setup(ft, kind, n_layer, dev, policy):
+    """(preset with ``n_layer`` layers at full width, the parts
+    train/finetune.build_finetune makes of it on ``dev``)."""
+    preset = ft["presets"][kind]()
+    preset = dataclasses.replace(preset, model=preset.model.replace(n_layer=n_layer))
+    return preset, ft["finetune"].build_finetune(preset, device=dev, policy=policy)
+
+
+def finetune_batch(torch, np, accum, b, t, n_bank, dev, seed):
+    """A synthetic accumulation window {x, y, mask, idx}, each (accum, b, ...);
+    idx are rows of a bank of n_bank images."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, 50257, (accum, b, t + 1))
+    lens = rng.randint(4, t, (accum, b, 1))
+    mask = np.arange(t)[None, None, :] < lens
+    idx = rng.randint(0, n_bank, (accum, b))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in (("x", toks[..., :-1]), ("y", toks[..., 1:]), ("mask", mask),
+                         ("idx", idx))}
+
+
+def finetune_ce_check(torch, ft, fc, kind, model, loss_fn, micro, bank):
+    """The CE kernel at the shape the fine-tune's validation gives it: the
+    no-grad loss of one B=128 micro-batch at full depth launches it once on
+    N = 128 * 32 = 4096 rows, about half of them ignored (-100 labels or a
+    false mask). The hidden states and targets that reach ``fused_ce_loss``
+    are recorded, and the kernel's per-row NLL and the path's masked-mean loss
+    are held against the plain version on them. Returns the per-row error."""
+    gpt2 = ft["gpt2"]
+    tol = 2e-3  # fp32 logits both ways; only the sum order differs
+    seen = {}
+    fused_ce_loss = gpt2.fused_ce_loss
+
+    def recording(x, wte, targets, *, mask=None, **kw):
+        seen.update(x=x, wte=wte, targets=targets, mask=mask)
+        return fused_ce_loss(x, wte, targets, mask=mask, **kw)
+
+    gpt2.fused_ce_loss = recording
+    try:
+        with torch.no_grad():
+            n_ce = fc.ce_forward.launches
+            loss_k = loss_fn(model, micro, bank).item()
+            require(fc.ce_forward.launches == n_ce + 1,
+                    "the no-grad loss at B=128 did not launch the CE kernel once")
+    finally:
+        gpt2.fused_ce_loss = fused_ce_loss
+    cc = ft["policy"].cast_compute
+    x = cc(seen["x"]).reshape(-1, seen["x"].shape[-1]).contiguous()
+    w = cc(seen["wte"]).contiguous()
+    flat_t = seen["targets"].reshape(-1)
+    valid = flat_t != -100
+    if seen["mask"] is not None:
+        valid = valid & seen["mask"].reshape(-1).bool()
+    safe_t = flat_t.clamp(min=0).to(torch.int32).contiguous()
+    nll_k, _ = fc.ce_forward(x, w, safe_t)
+    nll_p, _ = fc.ce_forward_reference(x, w, safe_t, n_chunks=8)
+    torch.cuda.synchronize()
+    n, n_valid = x.shape[0], int(valid.sum())
+    err = ((nll_k - nll_p) * valid).abs().max().item()
+    counted = (nll_p - nll_k * valid).abs().max().item()  # control: ignored rows kept
+    loss_p = ((nll_p * valid).sum() / n_valid).item()
+    sum_all = (nll_p.sum() / n_valid).item()  # control: ignored rows in the sum
+    mean_all = nll_p.mean().item()  # ignored rows in the sum and the count
+    print(f"  {kind} CE kernel at the validation shape, N={n} rows ({n_valid} counted), "
+          f"D={x.shape[1]}, V={w.shape[0]}: per-row nll max|err| {err:.3e}, masked-mean loss "
+          f"{loss_k:.6f} (path) vs {loss_p:.6f} (plain), tol {tol}; controls with the ignored "
+          f"rows counted: per row {counted:.3e}, in the sum {abs(sum_all - loss_k):.3e}, in "
+          f"the sum and the count {abs(mean_all - loss_k):.3e} (printed, not held)", flush=True)
+    require(0 < n_valid < n, "the micro-batch has no ignored rows")
+    require(err <= tol and abs(loss_k - loss_p) <= tol,
+            f"{kind}: the CE kernel disagrees at the fine-tune shape")
+    require(counted > tol and abs(sum_all - loss_k) > tol,
+            "a loss that counts the ignored rows passed the check: the check cannot see them")
+    return err
+
+
+def finetune_update_check(torch, np, ft, mods, kind, model, state, make_step, opt_cfg,
+                          trainable, decay, bank, dev):
+    """The AdamW kernel over the trainable leaves, from warm moments.
+
+    Adam's first step is lr * g / (|g| + eps): the clip scale, the betas and
+    the bias corrections cancel, so it cannot tell a wrong scalar from a right
+    one. ``state`` has taken step 0; step 1 here gives every trainable leaf
+    non-zero moments (the cross-attention leaves behind the gates get their
+    first gradient in it) and the grad norm, and step 2, with the clip at half
+    that norm so that it is active, is the one compared: the kernel path's
+    parameter change against the plain AdamW replayed on the same state with
+    the same gradients, as max|err| / max|ref|. Controls (no weight decay, no
+    clipping, the bias corrections of a first step) must fall outside the
+    limit."""
+    gpt2 = ft["gpt2"]
+    tol = 1e-3
+    batch = finetune_batch(torch, np, 2, 128, 32, bank.shape[0], dev, 25)
+    warm = make_step(opt_cfg, True)(model, state, batch, 1, bank)
+    clipped = dataclasses.replace(opt_cfg, grad_clip=0.5 * warm["grad_norm"])
+    params = {n: p for n, p in gpt2.named_params(model).items() if trainable[n]}
+    before = {n: p.detach().clone() for n, p in params.items()}
+    saved = {"m": {n: a.clone() for n, a in state["m"].items()},
+             "v": {n: a.clone() for n, a in state["v"].items()}, "step": state["step"]}
+    n0 = mods["fw"].fused_adamw.launches
+    mk = make_step(clipped, True)(model, state, batch, 2, bank)
+    require(mods["fw"].fused_adamw.launches == n0 + 1, "the compared step did not launch AdamW")
+    grads = {n: p.grad for n, p in params.items()}
+    inv = 1.0 / batch["x"].shape[0]
+    norm = mods["global_norm"](grads) * inv
+
+    def replay(cfg, decay_mask, step):
+        p = {n: a.clone() for n, a in before.items()}
+        st = {"m": {n: a.clone() for n, a in saved["m"].items()},
+              "v": {n: a.clone() for n, a in saved["v"].items()}, "step": step}
+        mods["adamw_update"](p, grads, st, mk["lr"], cfg, norm=norm, decay_mask=decay_mask,
+                             use_fused=False, grad_scale=inv)
+        return {n: p[n] - before[n] for n in p}
+
+    with torch.no_grad():
+        ref = replay(clipped, decay, saved["step"])
+        delta = {n: p.detach() - before[n] for n, p in params.items()}
+        err = update_err(delta, ref)
+        controls = {
+            "no weight decay": update_err(replay(clipped, {n: False for n in decay},
+                                                 saved["step"]), ref),
+            "no clipping": update_err(replay(dataclasses.replace(clipped, grad_clip=math.inf),
+                                             decay, saved["step"]), ref),
+            "bias corrections of a first step": update_err(replay(clipped, decay, 0), ref),
+        }
+    print(f"    third step (warm moments, clip {clipped.grad_clip:.4e} against a grad norm of "
+          f"{mk['grad_norm']:.4e}, lr {mk['lr']:.4e}): update on the kernel vs the plain AdamW "
+          f"on its grads, max|err| / max|ref| {err:.3e} (tol {tol}); controls "
+          + ", ".join(f"{k} {v:.3e}" for k, v in controls.items()), flush=True)
+    require(saved["step"] == 2 and mk["grad_norm"] > clipped.grad_clip,
+            "the compared step is not a clipped third step")
+    require(err <= tol, f"{kind}: the AdamW kernel's update disagrees with the plain one")
+    require(all(v > tol for v in controls.values()),
+            "a control update passed the update check: the check cannot see it")
+    return err
+
+
+def phase_finetune_ops(torch, np, ft, mods, dev):
+    print("[22] fine-tune ops on the card (bf16 policy) against the same functions on the "
+          "CPU in fp32", flush=True)
+    gpt2, bridges, pooling = ft["gpt2"], ft["bridges"], ft["pooling"]
+    fw, fc = mods["fw"], mods["fc"]
+    fp32 = ft["fp32_policy"]
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(22)
+    feats = torch.from_numpy(rng.randn(64, 197, 768).astype(np.float32))
+    pooled_cpu = pooling.pool_clip_tokens_to_33(feats)
+    pooled = pooling.pool_clip_tokens_to_33(feats.to(dev))
+    e = (pooled.cpu() - pooled_cpu).abs().max().item()
+    print(f"  pooling (64, 197, 768) -> (64, 33, 768): max|err| {e:.3e} (tol 1e-5, fp32 sums "
+          f"in another order)", flush=True)
+    require(tuple(pooled.shape) == (64, 33, 768) and e <= 1e-5, "pooling disagrees with the CPU")
+    bank = pooled.to(torch.bfloat16)
+
+    results = {}
+    for kind in ("linear", "qformer", "xattn"):
+        # 2 layers at full width: the CPU fp32 side stays short
+        preset, parts = finetune_setup(ft, kind, 2, dev, ft["policy"])
+        mcfg, model, loss_fn = preset.model, parts["model"], parts["loss_fn"]
+        if kind == "xattn":
+            with torch.no_grad():
+                # open the gates, or the cross-attention changes nothing; and raise its
+                # output projection from the init's 0.02 / sqrt(2 L), or what it adds to
+                # a residual of size 1 is below a bf16 ulp
+                for layer in model.transformer.h:
+                    layer.cross_gate.fill_(0.5)
+                    layer.xattn.c_proj.weight.mul_(50.0)
+        _, ref_parts = finetune_setup(ft, kind, 2, cpu, fp32)
+        ref, ref_loss_fn = ref_parts["model"], ref_parts["loss_fn"]
+        ref.load_state_dict(model.state_dict())
+        batch = finetune_batch(torch, np, 1, 16, 32, 64, dev, 23)
+        micro = {k_: v_[0] for k_, v_ in batch.items()}
+        micro_cpu = {k_: v_.cpu() for k_, v_ in micro.items()}
+        with torch.no_grad():
+            if kind != "xattn":
+                z = bank[micro["idx"]]
+                out = bridges.bridge_apply(model.bridge, z, preset.bridge, policy=ft["policy"])
+                want = bridges.bridge_apply(ref.bridge, z.cpu().float(), preset.bridge, policy=fp32)
+                e = rel_err(out.cpu(), want)
+                print(f"  {kind} bridge {tuple(z.shape)} -> {tuple(out.shape)}: max|err| / "
+                      f"max|ref| {e:.3e} (tol 3e-2, bf16 operands)", flush=True)
+                require(out.shape == want.shape and e <= 3e-2, f"{kind} bridge disagrees")
+            else:
+                x = torch.randn(16, 32, 768, device=dev, generator=torch.Generator(dev).manual_seed(3))
+                zp = gpt2.project_visual(model, bank[micro["idx"]], mcfg, torch.bfloat16,
+                                         policy=ft["policy"])
+                out = gpt2.block(model.transformer.h[0], x.to(torch.bfloat16), mcfg,
+                                 policy=ft["policy"], attn_impl="auto", z=zp)
+                zp_ref = gpt2.project_visual(ref, bank[micro["idx"]].cpu().float(), mcfg,
+                                             torch.float32, policy=fp32)
+                want = gpt2.block(ref.transformer.h[0], x.cpu(), mcfg, policy=fp32,
+                                  attn_impl="xla", z=zp_ref)
+                plain_no_z = gpt2.block(ref.transformer.h[0], x.cpu(), mcfg, policy=fp32,
+                                        attn_impl="xla")
+                e = rel_err(out.cpu(), want)
+                moved = rel_err(plain_no_z, want)
+                print(f"  xattn block (gate 0.5) (16, 32, 768) x z (16, 33, 768): max|err| / "
+                      f"max|ref| {e:.3e} (tol 3e-2); without z the block differs by {moved:.3e}",
+                      flush=True)
+                require(e <= 3e-2 and moved > e, "the gated cross-attention block disagrees")
+            # validation path: no autograd, so lm_head + CE go through the CE kernel
+            n_ce = fc.ce_forward.launches
+            loss_k = loss_fn(model, micro, bank).item()
+            require(fc.ce_forward.launches == n_ce + 1, "the no-grad loss did not launch the "
+                    "CE kernel")
+            loss_cpu = ref_loss_fn(ref, micro_cpu, bank.cpu().float()).item()
+        loss_g = loss_fn(model, micro, bank)  # under autograd: the chunked plain CE
+        require(fc.ce_forward.launches == n_ce + 1, "the training loss launched the CE kernel")
+        print(f"  {kind} loss (2 layers, B=16, T=32): card, CE kernel {loss_k:.6f}; card, plain "
+              f"CE under autograd {loss_g.item():.6f}; CPU fp32 {loss_cpu:.6f} (tol 2e-2)",
+              flush=True)
+        require(abs(loss_k - loss_cpu) <= 2e-2 and abs(loss_g.item() - loss_k) <= 1e-2,
+                f"{kind} loss disagrees")
+        del model, ref
+
+        # full depth, B=128: the shapes the fine-tune gives the CE and AdamW kernels
+        preset, parts = finetune_setup(ft, kind, 12, dev, ft["policy"])
+        mcfg, model, loss_fn = preset.model, parts["model"], parts["loss_fn"]
+        trainable, decay = parts["trainable"], parts["decay"]
+        big_bank = bank.repeat(4, 1, 1)
+        batch = finetune_batch(torch, np, 2, 128, 32, big_bank.shape[0], dev, 24)
+        ce_err = finetune_ce_check(torch, ft, fc, kind, model, loss_fn,
+                                   {k_: v_[0] for k_, v_ in batch.items()}, big_bank)
+
+        # one optimizer step: frozen leaves bit-identical, trainable leaves
+        # moved, the AdamW kernel's table holds the trainable leaves only; the
+        # same step on the plain update from the same state (the validation
+        # loss_fn: no dropout, so both updates see the same grads)
+        plain_model = copy.deepcopy(model)
+        before = {n: p.detach().clone() for n, p in gpt2.named_params(model).items()}
+        sched = dataclasses.replace(preset.schedule, warmup_steps=0)  # step 0 at the peak LR
+        table_sizes = []
+        launch = fw.fused_adamw_cuda
+
+        def recording(leaves, scalars, wds):
+            table_sizes.append(len(leaves))
+            return launch(leaves, scalars, wds)
+
+        def make_step(opt_cfg, fused):
+            return mods["make_train_step"](loss_fn, opt_cfg, sched, decay_mask=decay,
+                                           trainable_mask=trainable, use_fused_adamw=fused)
+
+        out, states = {}, {}
+        fw.fused_adamw_cuda = recording
+        try:
+            for name, m, fused in (("kernel", model, True), ("plain", plain_model, False)):
+                states[name] = mods["adamw_init"](gpt2.named_params(m), trainable_mask=trainable)
+                step = make_step(preset.optimizer, fused)
+                n0 = fw.fused_adamw.launches
+                out[name] = step(m, states[name], batch, 0, big_bank)
+                out[name]["launches"] = fw.fused_adamw.launches - n0
+                out[name]["moments"] = len(states[name]["m"])
+        finally:
+            fw.fused_adamw_cuda = launch
+        after = gpt2.named_params(model)
+        n_train = sum(trainable.values())
+        frozen_same = all(torch.equal(after[n], before[n]) for n in before if not trainable[n])
+        moved = [n for n in before if trainable[n] and not torch.equal(after[n], before[n])]
+        no_grad = all(after[n].grad is None for n in before if not trainable[n])
+        kk, pp = out["kernel"], out["plain"]
+        print(f"  {kind} one step, 2 x (B=128, T=32), 12 layers: loss {kk['loss']:.6f} / "
+              f"{pp['loss']:.6f}, grad norm {kk['grad_norm']:.6f} / {pp['grad_norm']:.6f} "
+              f"(kernel / plain update); AdamW launches {kk['launches']} / {pp['launches']}, "
+              f"leaf table {table_sizes} of {len(before)} leaves, {n_train} trainable, "
+              f"{kk['moments']} with moments; frozen bit-identical {frozen_same}, frozen "
+              f"without .grad {no_grad}, trainable leaves moved {len(moved)}/{n_train}",
+              flush=True)
+        require(kk["launches"] == 1 and pp["launches"] == 0 and table_sizes == [n_train]
+                and kk["moments"] == n_train, "the AdamW kernel's table is not the trainable leaves")
+        require(frozen_same and no_grad, "a frozen leaf changed or got a gradient")
+        if kind == "xattn":
+            # closed gates: only the gates have a gradient at step 0 (tanh'(0) = 1);
+            # the other trainable leaves move by weight decay alone or not at all
+            gates = [n for n in moved if n.endswith("cross_gate")]
+            require(len(gates) == mcfg.n_layer, "the first step did not move every gate")
+        else:
+            require(len(moved) == n_train, "a trainable leaf did not move")
+        require(abs(kk["loss"] - pp["loss"]) <= 1e-2
+                and abs(kk["grad_norm"] - pp["grad_norm"]) <= 0.02 * pp["grad_norm"],
+                "the kernel-path and plain-path steps disagree")
+        del plain_model, states["plain"]
+        upd = finetune_update_check(torch, np, ft, mods, kind, model, states["kernel"],
+                                    make_step, preset.optimizer, trainable, decay, big_bank, dev)
+        results[kind] = {"n_trainable_leaves": n_train, "n_leaves": len(before),
+                         "ce_max_abs_err": ce_err, "update_err": upd}
+        del model, before
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_finetune_clis(torch, ft, mods, dev):
+    print("[23] the fine-tune entry points at full width: cli.finetune_linear / "
+          "finetune_qformer / finetune_xattn --synthetic, then a resume", flush=True)
+    fa, fc, fw, gpt2 = mods["fa"], mods["fc"], mods["fw"], ft["gpt2"]
+    results, counts_by = {}, {}
+    log_root = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = log_root  # the synthetic COCO files go under it too
+    try:
+        for kind, steps in (("linear", 3), ("qformer", 3), ("xattn", 3)):
+            cli = ft["cli"][kind]
+            log_dir = os.path.join(log_root, kind)
+            argv = ["--synthetic", "--log-dir", log_dir]
+            reset_counts(fa, fc, fw)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = cli.main(argv + ["--steps", str(steps)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts(fa, fc, fw)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            model = out["model"]
+            params = gpt2.named_params(model)
+            trainable = (gpt2.trainable_mask_xattn(model) if kind == "xattn"
+                         else {n: n.startswith("bridge.") for n in params})
+            n_train = sum(p.numel() for n, p in params.items() if trainable[n])
+            n_total = sum(p.numel() for p in params.values())
+            # validations at step 0 and at the last step, 20 micro-batches each
+            want = with_zeros({"ce_fwd": 2 * 20, "adamw": steps})
+            rows = [line.split(",") for f in sorted(glob.glob(os.path.join(log_dir, "*.csv")))
+                    for line in open(f).read().splitlines()[1:]]
+            train_rows = [r for r in rows if r[1] == "train"]
+            phases = [r[1] for r in rows]
+            print(f"  {kind}: {steps} steps in {dt:.1f} s; launches {counts}; rows "
+                  f"{ {p_: phases.count(p_) for p_ in ('train', 'val', 'cider')} }; val loss "
+                  f"{out['val_loss']:.4f}, CIDEr {out['cider']}; peak {peak:.2f} GiB; trainable "
+                  f"{n_train:,} of {n_total:,} parameters", flush=True)
+            require(counts == want, f"expected launches {want}, got {counts}")
+            require(out["opt_state"]["step"] == steps and math.isfinite(out["val_loss"])
+                    and out["cider"] is not None and math.isfinite(out["cider"]),
+                    f"{kind}: the run did not take {steps} finite steps with a CIDEr score")
+            require(phases.count("train") == steps and phases.count("val") == 2
+                    and phases.count("cider") == 2, f"{kind}: CSV rows missing")
+            ckpts = sorted(os.listdir(os.path.join(log_dir, "ckpts")))
+            require("model_final.pt" in ckpts and "model_best.pt" in ckpts,
+                    f"{kind}: checkpoints missing, got {ckpts}")
+            # frozen leaves bit-identical to the seeded init, trainable leaves moved
+            cfg = ft["presets"][kind]()
+            fresh = gpt2.named_params(ft["finetune"].build_finetune(cfg, device=dev)["model"])
+            frozen_same = all(torch.equal(params[n], p) for n, p in fresh.items()
+                              if not trainable[n])
+            moved = sum(not torch.equal(params[n], p) for n, p in fresh.items() if trainable[n])
+            n_leaves = sum(trainable.values())
+            print(f"    frozen leaves bit-identical to the seeded init: {frozen_same}; trainable "
+                  f"leaves moved: {moved}/{n_leaves}", flush=True)
+            require(frozen_same and moved == n_leaves, f"{kind}: freezing is broken")
+            # step 1 stands for the step time: steps 0 and 2 carry a validation, a
+            # CIDEr evaluation and checkpoint writes
+            mid = train_rows[1]
+            # CIDEr through evaluate_captions directly: a fault here fails the run
+            run_cfg = out["cfg"]  # holds the synthetic dataset's directories
+            val_ds = ft["coco"].CocoClipTokensDataset(
+                os.path.join(run_cfg.clip_feats_dir, "val"),
+                os.path.join(run_cfg.coco_root, "annotations", "captions_val2017.json"),
+                ft["tokenizer"], cfg.seq_len, seed=cfg.seed)
+            t0 = time.perf_counter()
+            ev = ft["evaluate_captions"](model, val_ds, cfg.model,
+                                         None if kind == "xattn" else cfg.bridge, ft["tokenizer"],
+                                         max_samples=cfg.cider_samples,
+                                         max_new_tokens=cfg.cider_max_new_tokens)
+            torch.cuda.synchronize()
+            dt_ev = time.perf_counter() - t0
+            require(len(ev["captions"]) == 64 and math.isfinite(ev["cider"]),
+                    f"{kind}: evaluate_captions did not score the 64 val images")
+            results[kind] = {
+                "steps": steps, "accum": cfg.grad_accum_steps(1),
+                "step_ms": [float(r[6]) for r in train_rows],
+                "train_tokens_per_s": [float(r[7]) for r in train_rows],
+                "plain_step_ms": float(mid[6]), "plain_step_tokens_per_s": float(mid[7]),
+                "cider": ev["cider"], "cider_captions": len(ev["captions"]),
+                "captions_per_s": len(ev["captions"]) / dt_ev, "peak_gib": peak,
+                "val_loss": out["val_loss"], "ce_fwd_launches": counts["ce_fwd"],
+                "adamw_launches": counts["adamw"], "trainable_params": n_train,
+                "total_params": n_total, "wall_s": dt,
+            }
+            print(f"    step ms {results[kind]['step_ms']}, tokens/s "
+                  f"{results[kind]['train_tokens_per_s']}; CIDEr decode of 64 images "
+                  f"{dt_ev:.2f} s = {64 / dt_ev:.1f} captions/s (CIDEr {ev['cider']:.4f})",
+                  flush=True)
+            counts_by[kind] = counts
+            del model, out, fresh
+            torch.cuda.empty_cache()
+
+        # resume the cross-attention run: one more step from its checkpoints
+        log_dir = os.path.join(log_root, "xattn")
+        reset_counts(fa, fc, fw)
+        out = ft["cli"]["xattn"].main(["--synthetic", "--log-dir", log_dir, "--steps", "4"])
+        rows = [line.split(",") for f in sorted(glob.glob(os.path.join(log_dir, "*.csv")))
+                for line in open(f).read().splitlines()[1:]]
+        steps = [int(r[2]) for r in rows if r[1] == "train"]
+        print(f"  resumed xattn: train steps logged {steps}, AdamW launches "
+              f"{fw.fused_adamw.launches}, optimizer step {out['opt_state']['step']}", flush=True)
+        require(steps == [0, 1, 2, 3] and fw.fused_adamw.launches == 1
+                and out["opt_state"]["step"] == 4,
+                "the second call did not resume at step 3 and run one step")
+        return counts_by, results
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(log_root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1291,6 +1843,17 @@ def main() -> int:
         adamw_init, adamw_update, global_norm,
     )
     from gpt2_vision_language_tpu_torch.train.step import make_eval_step, make_train_step
+    from gpt2_vision_language_tpu_torch.tools import ab_dt_flash as ab
+    from gpt2_vision_language_tpu_torch.cli import (
+        finetune_linear, finetune_qformer, finetune_xattn,
+    )
+    from gpt2_vision_language_tpu_torch.core import config as port_config
+    from gpt2_vision_language_tpu_torch.data import coco
+    from gpt2_vision_language_tpu_torch.data.tokenizer import get_tokenizer
+    from gpt2_vision_language_tpu_torch.eval.caption_eval import evaluate_captions
+    from gpt2_vision_language_tpu_torch.models import bridges
+    from gpt2_vision_language_tpu_torch.ops import pooling
+    from gpt2_vision_language_tpu_torch.train import finetune
 
     print("[1] build", flush=True)
     so, build_s = _build.build()
@@ -1401,11 +1964,30 @@ def main() -> int:
     ring_train = phase_ring_train_step(torch, np, gpt2, mods, cfgs, dev, long_train)
     torch.cuda.empty_cache()
     ring_counts, ring_tps = phase_ring_trainer(torch, mods, cfgs)
+    torch.cuda.empty_cache()
+
+    dt_errs, dt_t = phase_dt_kernels(torch, ab, fa, dev)
+    torch.cuda.empty_cache()
+    dt_counts, dt_bench = phase_dt_tool(ab)
+    k1_short = phase_k1_short(torch, fa, attention, dev)
+    torch.cuda.empty_cache()
+    ft = {"gpt2": gpt2, "bridges": bridges, "pooling": pooling, "policy": DEFAULT_POLICY, "fp32_policy": FP32_POLICY,
+          "cli": {"linear": finetune_linear, "qformer": finetune_qformer,
+                  "xattn": finetune_xattn},
+          "presets": {"linear": port_config.finetune_linear_preset,
+                      "qformer": port_config.finetune_qformer_preset,
+                      "xattn": port_config.finetune_xattn_preset},
+          "finetune": finetune, "coco": coco, "tokenizer": get_tokenizer(),
+          "evaluate_captions": evaluate_captions}
+    ft_ops = phase_finetune_ops(torch, np, ft, mods, dev)
+    ft_counts, ft_runs = phase_finetune_clis(torch, ft, mods, dev)
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
                "train_step": train["counts"], "trainer": trainer_counts,
                "long_train_step": long_train["counts"], "long_trainer": long_counts,
-               "ring_train_step": ring_train["counts"], "ring_trainer": ring_counts}
+               "ring_train_step": ring_train["counts"], "ring_trainer": ring_counts,
+               "ab_dt_flash": dt_counts,
+               **{f"finetune_{kind}": c for kind, c in ft_counts.items()}}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
@@ -1439,6 +2021,12 @@ def main() -> int:
          lse_t["nomask"]["fwd"], attention_bound("fwd", *chunk_shape), lib_chunk["fwd"]),
         ("flash_fused_bwd", "flash_fused_bwd.cu", f"{jfa}:396", "ring_trainer", lse_errs["bwd"],
          lse_t["nomask"]["bwd"], attention_bound("fused_bwd", *chunk_shape), lib_chunk["bwd"]),
+        # the dt-layout pair: the A/B tool's own path (its main, phase 20)
+        ("flash_dt_fwd", "flash_dt_fwd.cu", "tools/ab_dt_flash.py:48", "ab_dt_flash",
+         dt_errs["o"], dt_t["fwd"], attention_bound("fwd", *self_shape), lib_self["fwd"]),
+        ("flash_dt_bwd", "flash_dt_bwd.cu", "tools/ab_dt_flash.py:132", "ab_dt_flash",
+         dt_errs["bwd"], dt_t["bwd"], attention_bound("fused_bwd", *self_shape),
+         lib_self["bwd"]),
     ]
     kernels = []
     for name, src, replaces, path, err, (ms, plain_ms), (b_ms, b_by), lib_ms in table:
@@ -1472,6 +2060,15 @@ def main() -> int:
         "flash_fused_bwd": {"err_is": "max|err| / max|ref|, with a random lse cotangent",
                             "dq_two_runs_max_diff_over_max": lse_errs["rerun"],
                             "library_is": "autograd.grad of q, k and v through SDPA"},
+        "flash_dt_fwd": {"lse_max_abs_err": dt_errs["lse"],
+                         "vs_flash_fwd_max_abs_err": dt_errs["vs_k1"],
+                         "shape": "B=8 T=1024 H=12 causal, dt layout (H, hs, B*T)",
+                         "library_is": "F.scaled_dot_product_attention"},
+        "flash_dt_bwd": {"err_is": "max|err| / max|ref|",
+                         "dq_two_runs_max_diff_over_max": dt_errs["rerun"],
+                         "dq_two_runs_bit_equal": dt_errs["dq_bit_equal"],
+                         "shape": "B=8 T=1024 H=12 causal, dt layout (H, hs, B*T)",
+                         "library_is": "autograd.grad of q, k and v through SDPA"},
     }
     causal_shape = (*chunk_shape[:5], True)
     lib_causal = library["B1_T4096"]
@@ -1501,6 +2098,8 @@ def main() -> int:
                                "trainer_tokens_per_s": ring_tps, "op_T16384": ring_op,
                                "sdpa_ms": {"B1_T4096": lib_causal,
                                            "B1_T4096_nomask": lib_chunk}}}))
+    print(json.dumps({"ab_dt_flash": dt_bench, "k1_at_finetune_shape": k1_short}))
+    print(json.dumps({"finetune": ft_runs, "finetune_ops": ft_ops}))
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))
     print(json.dumps({"kernels": kernels}))

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     "gpt2vl_flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
@@ -48,6 +49,8 @@ SIGNATURES = {
     "gpt2vl_flash_general_dkv": [_P] * 8 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_lse_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_fused_bwd": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_dt_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "gpt2vl_flash_dt_bwd": [_P] * 10 + [_I] * 6 + [_F, _P],
     "gpt2vl_adamw": [_P, _I, _L, _P, _P],
     "gpt2vl_adamw_chunk": [],
 }

@@ -3,6 +3,8 @@
     python -m gpt2_vision_language_tpu_torch.cli.profile_step \
         [--seq-len 16384] [--micro-batch 1] [--accum 2] [--n-layer 12] \
         [--attn-impl ring --tp 4]
+    python -m gpt2_vision_language_tpu_torch.cli.profile_step \
+        --finetune {linear,qformer,xattn} [--accum 4]
 
 Builds GPT-2 124M with seeded random weights (``block_size`` grown to
 ``--seq-len``), runs ``train.step.make_train_step`` on a seeded random batch
@@ -18,7 +20,11 @@ ring --tp N`` every self-attention is a ring of N sequence chunks, and the
 library kernels (elementwise, reductions, copies) launched by operators on
 chunk-shaped tensors, forward and backward, are one class of their own, "ring
 glue": the merges of the partial results, their casts, the split and the
-concatenation. Needs a CUDA device.
+concatenation. With ``--finetune KIND`` the step is that caption fine-tune's
+(``train/finetune.build_finetune`` of its preset: GPT-2 124M frozen, B=128,
+T=32 text tokens after the visual prefix, a seeded random feature bank and
+batch, ``--accum`` micro-batches) and tokens count text tokens, as its log
+does. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ import time
 import numpy as np
 import torch
 
-from ..core.config import GPTConfig, OptimizerConfig, ScheduleConfig
+from ..core.config import (
+    GPTConfig, OptimizerConfig, ScheduleConfig, finetune_linear_preset,
+    finetune_qformer_preset, finetune_xattn_preset,
+)
 from ..core.precision import DEFAULT_POLICY
 from ..models import gpt2
 from ..ops import ring_attention
+from ..train.finetune import build_finetune
 from ..train.optimizer import adamw_init
 from ..train.step import make_train_step
 
@@ -87,25 +97,12 @@ def ring_glue_ms(events, chunk: int) -> tuple[float, int]:
     return us / 1e3, count
 
 
-def main(argv=None) -> dict:
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--seq-len", type=int, default=16384)
-    p.add_argument("--micro-batch", type=int, default=1)
-    p.add_argument("--accum", type=int, default=2, help="micro-batches per step")
-    p.add_argument("--n-layer", type=int, default=12)
-    p.add_argument("--attn-impl", choices=["auto", "xla", "flash", "ring"], default="auto")
-    p.add_argument("--tp", type=int, default=1,
-                   help="with --attn-impl ring: the ring size (sequence chunks)")
-    args = p.parse_args(argv)
-    if (args.attn_impl == "ring") != (args.tp > 1) or args.seq_len % args.tp:
-        raise ValueError("--attn-impl ring needs --tp > 1 dividing --seq-len, and --tp "
-                         "needs --attn-impl ring")
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_step needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+FINETUNE_PRESETS = {"linear": finetune_linear_preset, "qformer": finetune_qformer_preset,
+                    "xattn": finetune_xattn_preset}
 
-    dev = torch.device("cuda", 0)
+
+def pretrain_step(args, dev):
+    """(step(i), tokens per step, extra result fields) of the pretrain step."""
     t, b = args.seq_len, args.micro_batch
     cfg = GPTConfig(block_size=max(1024, t), n_layer=args.n_layer)
     model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
@@ -116,13 +113,68 @@ def main(argv=None) -> dict:
     state = adamw_init(gpt2.named_params(model))
     rows = np.random.RandomState(0).randint(0, cfg.vocab_size, (args.accum, b, t + 1))
     batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    return (lambda i: step(model, state, batch, i)), args.accum * b * t, {
+        "seq_len": t, "micro_batch": b, "n_layer": args.n_layer, "attn_impl": args.attn_impl,
+        "tp": args.tp}
+
+
+def finetune_step(args, dev):
+    """The same of one caption fine-tune's step at its preset's shape."""
+    cfg = FINETUNE_PRESETS[args.finetune]()
+    parts = build_finetune(cfg, device=dev)
+    model, trainable = parts["model"], parts["trainable"]
+    if parts["dropout_gen"] is not None:
+        parts["dropout_gen"].manual_seed(cfg.seed)
+    step = make_train_step(parts["train_loss_fn"], cfg.optimizer, cfg.schedule,
+                           decay_mask=parts["decay"], trainable_mask=trainable)
+    params = gpt2.named_params(model)
+    state = adamw_init(params, trainable_mask=trainable)
+    b, t, n_bank = cfg.micro_batch_size, cfg.seq_len, 256
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.model.vocab_size, (args.accum, b, t + 1))
+    mask = np.arange(t)[None, None, :] < rng.randint(4, t, (args.accum, b, 1))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in (("x", toks[..., :-1]), ("y", toks[..., 1:]), ("mask", mask),
+                          ("idx", rng.randint(0, n_bank, (args.accum, b))))}
+    g = torch.Generator(dev).manual_seed(1)
+    bank = torch.nn.functional.normalize(
+        torch.randn(n_bank, 33, cfg.bridge.enc_dim, device=dev, generator=g), dim=-1
+    ).to(DEFAULT_POLICY.compute_dtype)
+    return (lambda i: step(model, state, batch, i, bank)), args.accum * b * t, {
+        "finetune": args.finetune, "micro_batch": b, "seq_len": t,
+        "trainable_params": sum(p.numel() for n, p in params.items() if trainable[n]),
+        "total_params": sum(p.numel() for p in params.values())}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--seq-len", type=int, default=16384)
+    p.add_argument("--micro-batch", type=int, default=1)
+    p.add_argument("--accum", type=int, default=2, help="micro-batches per step")
+    p.add_argument("--n-layer", type=int, default=12)
+    p.add_argument("--attn-impl", choices=["auto", "xla", "flash", "ring"], default="auto")
+    p.add_argument("--tp", type=int, default=1,
+                   help="with --attn-impl ring: the ring size (sequence chunks)")
+    p.add_argument("--finetune", choices=sorted(FINETUNE_PRESETS), default=None,
+                   help="profile this caption fine-tune's step instead of the pretrain step")
+    args = p.parse_args(argv)
+    if (args.attn_impl == "ring") != (args.tp > 1) or args.seq_len % args.tp:
+        raise ValueError("--attn-impl ring needs --tp > 1 dividing --seq-len, and --tp "
+                         "needs --attn-impl ring")
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    step, n_tok, what = (finetune_step if args.finetune else pretrain_step)(args, dev)
 
     ring_attention.set_ring(args.tp if args.attn_impl == "ring" else None)
 
     def timed(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(model, state, batch, i)
+        step(i)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -148,15 +200,13 @@ def main(argv=None) -> dict:
         raise RuntimeError("torch.profiler recorded no device time")
     if args.attn_impl == "ring":
         # its kernels are counted above under elementwise, reduction, copies or other
-        by_class[RING_GLUE], launches[RING_GLUE] = ring_glue_ms(prof.events(), t // args.tp)
-    n_tok = args.accum * b * t
+        by_class[RING_GLUE], launches[RING_GLUE] = ring_glue_ms(prof.events(),
+                                                                args.seq_len // args.tp)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     result = {
-        "card": card, "seq_len": t, "micro_batch": b, "accum": args.accum,
-        "n_layer": args.n_layer, "attn_impl": args.attn_impl, "tp": args.tp,
-        "tokens_per_step": n_tok,
+        "card": card, **what, "accum": args.accum, "tokens_per_step": n_tok,
         "unprofiled_step_s": plain, "tokens_per_s": [n_tok / s for s in plain],
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "profiled_wall_ms": wall * 1e3, "device_kernel_ms": total_us / 1e3,

@@ -1,17 +1,20 @@
-"""GPT-2 decoder and pretraining configuration.
+"""GPT-2 decoder, bridge, pretraining and fine-tune configuration.
 
 Counterpart of gpt2_vision_language_tpu/core/config.py: GPTConfig and the
-GPT-2 family presets (:21-65), ScheduleConfig, OptimizerConfig and
-PretrainConfig (:114-240). They are carried here rather than imported
+GPT-2 family presets (:21-65), BridgeConfig (:95-111), ScheduleConfig,
+OptimizerConfig and PretrainConfig (:114-240), FinetuneConfig and the three
+fine-tune presets (:243-309). They are carried here rather than imported
 because the JAX package's ``core/__init__`` imports jax. GPTConfig,
-ScheduleConfig and OptimizerConfig are the JAX dataclasses field for field;
-PretrainConfig carries the fields the single-device trainer honors, and
-tests/test_torch_import.py names every JAX field it leaves out.
+BridgeConfig, ScheduleConfig, OptimizerConfig and FinetuneConfig are the JAX
+dataclasses field for field; PretrainConfig carries the fields the
+single-device trainer honors, and tests/test_torch_import.py names every JAX
+field it leaves out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -55,6 +58,24 @@ GPT2_124M = GPTConfig()
 GPT2_350M = GPTConfig(n_layer=24, n_head=16, n_embd=1024)
 GPT2_774M = GPTConfig(n_layer=36, n_head=20, n_embd=1280)
 GPT2_1558M = GPTConfig(n_layer=48, n_head=25, n_embd=1600)
+
+
+@dataclass(frozen=True)
+class BridgeConfig:
+    """Vision->LM bridge configuration shared by the three bridge families.
+
+    kind: 'linear' (gpt2_linear/model.py:114-129), 'qformer'
+    (gpt2_q_former/model.py:114-168), or 'xattn' (handled by
+    GPTConfig.cross_attention instead of a wrapper).
+    """
+
+    kind: str = "linear"
+    enc_dim: int = 768  # CLIP feature dim fed to the bridge
+    n_queries: int = 32  # Q-Former learnable queries / m_vis_tokens
+    n_layers: int = 2  # Q-Former depth
+    n_heads: int = 12
+    dropout: float = 0.1
+    use_cls_only: bool = False
 
 
 @dataclass(frozen=True)
@@ -118,3 +139,74 @@ class PretrainConfig:
                 f"({self.total_batch_size} % {denom})"
             )
         return self.total_batch_size // denom
+
+
+@dataclass(frozen=True)
+class FinetuneConfig:
+    """COCO captioning bridge fine-tune workload.
+
+    linear/qformer preset: gpt2_linear/train.py:55-62,132-144 (B=128, T=32,
+    accum=524288/(B*T*world), lr 1e-3->1e-4, warmup 5, 80 steps).
+    xattn preset: gpt2_cross-att/train.py:47-49,110-126 (accum=1, warmup 20,
+    lr 1e-3->1e-5, steps = 1 epoch of the dataset).
+    """
+
+    model: GPTConfig = field(default_factory=lambda: GPT2_124M)
+    bridge: BridgeConfig = field(default_factory=BridgeConfig)
+    micro_batch_size: int = 128
+    seq_len: int = 32  # caption text length
+    total_batch_size: int = 524288
+    grad_accum_override: Optional[int] = None  # xattn uses 1
+    schedule: ScheduleConfig = field(
+        default_factory=lambda: ScheduleConfig(
+            max_lr=1e-3, min_lr=1e-4, warmup_steps=5, max_steps=80
+        )
+    )
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    val_every: int = 20
+    val_steps: int = 20
+    cider_every: int = 20
+    cider_samples: int = 500
+    cider_max_new_tokens: int = 24
+    save_every: int = 2500
+    init_ckpt: Optional[str] = None  # pretrained GPT-2 checkpoint to bootstrap
+    coco_root: Optional[str] = None
+    clip_feats_dir: Optional[str] = None
+    log_dir: Optional[str] = None
+    seed: int = 1337
+
+    def grad_accum_steps(self, world_size: int = 1) -> int:
+        if self.grad_accum_override is not None:
+            return self.grad_accum_override
+        denom = self.micro_batch_size * self.seq_len * world_size
+        if self.total_batch_size % denom:
+            raise ValueError(
+                "total_batch_size must be divisible by B*T*world_size "
+                f"({self.total_batch_size} % {denom})"
+            )
+        return self.total_batch_size // denom
+
+
+def finetune_linear_preset(**kw) -> FinetuneConfig:
+    return FinetuneConfig(bridge=BridgeConfig(kind="linear"), **kw)
+
+
+def finetune_qformer_preset(**kw) -> FinetuneConfig:
+    return FinetuneConfig(bridge=BridgeConfig(kind="qformer"), **kw)
+
+
+def finetune_xattn_preset(dataset_size: int = 118287, world_size: int = 1, **kw):
+    """Cross-attention preset: 1 epoch at global batch B*world, accum=1
+    (gpt2_cross-att/train.py:109-117)."""
+    b = kw.pop("micro_batch_size", 128)
+    steps = math.ceil(dataset_size / (b * world_size))
+    return FinetuneConfig(
+        model=GPT2_124M.replace(img_embd=768, cross_attention=True),
+        bridge=BridgeConfig(kind="xattn"),
+        micro_batch_size=b,
+        grad_accum_override=1,
+        schedule=ScheduleConfig(
+            max_lr=1e-3, min_lr=1e-5, warmup_steps=20, max_steps=steps
+        ),
+        **kw,
+    )

@@ -49,18 +49,18 @@ class Decoder:
         self.sample_fn = sample_fn
 
     @torch.no_grad()
-    def prefill_tokens(self, model, ids, cache, slot: int, pos_offset: int = 0):
+    def prefill_tokens(self, model, ids, cache, slot: int, pos_offset: int = 0, z=None):
         """Embed ids at positions pos_offset.. and prefill at ``slot``.
         Returns (last-position logits (B, V), cache)."""
         embeds = gpt2.embed_tokens(model, ids, self.cfg, pos_offset=pos_offset)
-        return self.prefill_embeds(model, embeds, cache, slot)
+        return self.prefill_embeds(model, embeds, cache, slot, z=z)
 
     @torch.no_grad()
-    def prefill_embeds(self, model, embeds, cache, slot: int):
+    def prefill_embeds(self, model, embeds, cache, slot: int, z=None):
         """Prefill raw embeddings (a visual prefix: no positional embeddings)."""
         embeds = embeds.to(self.policy.compute_dtype)
         logits, cache = gpt2.forward_cached(
-            model, embeds, self.cfg, cache, slot, policy=self.policy,
+            model, embeds, self.cfg, cache, slot, z=z, policy=self.policy,
             last_only=True,
         )
         return logits[:, -1, :], cache
@@ -75,11 +75,13 @@ class Decoder:
     @torch.no_grad()
     def generate(self, model, prompt_ids, max_new_tokens: int,
                  generator: Optional[torch.Generator], *, prefix_embeds=None,
-                 max_len: Optional[int] = None):
+                 z=None, max_len: Optional[int] = None):
         """Sample continuations. Returns ((B, max_new_tokens) new ids, cache).
 
         prompt_ids: (B, Tp) int. prefix_embeds: optional (B, M, D) visual
-        prefix placed before the prompt without positional embeddings.
+        prefix placed before the prompt without positional embeddings. z:
+        optional (B, N, C) projected visual memory of the cross-attention
+        variant, attended to by every block at every step.
         """
         b, tp = prompt_ids.shape
         m = 0 if prefix_embeds is None else prefix_embeds.shape[1]
@@ -98,7 +100,7 @@ class Decoder:
         if prefix_embeds is not None:
             cache = self.prefill_embeds_cache_only(model, prefix_embeds, cache, slot)
             slot = m
-        logits, cache = self.prefill_tokens(model, prompt_ids, cache, slot)
+        logits, cache = self.prefill_tokens(model, prompt_ids, cache, slot, z=z)
         slot, pos = m + tp, tp
         wte = model.transformer.wte.weight
         wpe = model.transformer.wpe.weight
@@ -107,7 +109,7 @@ class Decoder:
             embeds = (wte[toks[-1]] + wpe[pos])[:, None, :]
             logits, cache = gpt2.forward_cached(
                 model, embeds.to(self.policy.compute_dtype), self.cfg, cache,
-                slot, policy=self.policy, last_only=True,
+                slot, z=z, policy=self.policy, last_only=True,
             )
             toks.append(self.sample_fn(generator, logits[:, -1, :]))
             slot, pos = slot + 1, pos + 1

@@ -1,7 +1,7 @@
 """GPT-2 decoder: an nn.Module with the reference's names, and the forward
 as plain functions over it.
 
-Counterpart of gpt2_vision_language_tpu/models/gpt2.py, decoder only.
+Counterpart of gpt2_vision_language_tpu/models/gpt2.py.
 The JAX package keeps parameters as a stacked pytree; here they live in an
 ``nn.Module`` whose submodule names are the reference's
 (``transformer.wte/wpe/h.{i}.ln_1/attn.c_attn/attn.c_proj/ln_2/mlp.c_fc/
@@ -21,7 +21,18 @@ wte / lm_head weight gets its gradient from the embedding gather and the
 CE head into one fp32 ``.grad``. The parameter dicts below
 (``named_params``, ``decay_mask``) are keyed by state-dict name and hold the tied weight once, as
 ``transformer.wte.weight``. The layer loop is always unrolled; the remat
-modes and the gated cross-attention variant are not ported yet.
+modes are not ported.
+
+The gated cross-attention variant (``cfg.cross_attention``) prepends
+``x += tanh(cross_gate) * xattn(ln_x(x), z)`` to every block
+(gpt2_cross-att/model.py:99-104) under the reference's names
+(``transformer.h.{i}.ln_x / xattn.q_proj / xattn.kv_proj / xattn.c_proj /
+cross_gate`` and ``transformer.vis_proj.z_proj``, the names
+ckpt/torch_import.py:92-108 reads). The gates start at 0, so the model
+starts as plain GPT-2; ``z`` is the (B, N, img_embd) visual memory, projected
+once through ``vis_proj`` by ``apply`` / ``loss`` (``run_blocks`` and
+``forward_cached`` take it already projected). Cross-attention is non-causal
+over 33 keys and always takes the plain path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +65,20 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
 
 
+class CrossAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.q_proj = nn.Linear(cfg.n_embd, cfg.n_embd)
+        self.kv_proj = nn.Linear(cfg.n_embd, 2 * cfg.n_embd)
+        self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd)
+
+
+class VisProj(nn.Module):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.z_proj = nn.Linear(cfg.img_embd, cfg.n_embd)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -61,6 +86,12 @@ class Block(nn.Module):
         self.attn = CausalSelfAttention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.n_embd)
         self.mlp = MLP(cfg)
+        if cfg.cross_attention:
+            self.ln_x = nn.LayerNorm(cfg.n_embd)
+            self.xattn = CrossAttention(cfg)
+            # Flamingo-style scalar gate, 0 so the pretrained LM is untouched
+            # at step 0 (gpt2_cross-att/model.py:97)
+            self.cross_gate = nn.Parameter(torch.zeros(1))
 
 
 class GPT2(nn.Module):
@@ -69,11 +100,8 @@ class GPT2(nn.Module):
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        if cfg.cross_attention:
-            raise NotImplementedError(
-                "the gated cross-attention decoder is not ported yet "
-                "(ROADMAP Queue 1 item 6)"
-            )
+        if cfg.cross_attention and cfg.img_embd <= 0:
+            raise ValueError("cross_attention needs img_embd > 0")
         self.cfg = cfg
         self.transformer = nn.ModuleDict(
             dict(
@@ -83,6 +111,8 @@ class GPT2(nn.Module):
                 ln_f=nn.LayerNorm(cfg.n_embd),
             )
         )
+        if cfg.cross_attention:
+            self.transformer["vis_proj"] = VisProj(cfg)
         self.lm_head = nn.Linear(cfg.n_embd, cfg.padded_vocab_size, bias=False)
         self.lm_head.weight = self.transformer.wte.weight  # tied (train_gpt2.py:97)
 
@@ -91,9 +121,10 @@ class GPT2(nn.Module):
 def init(cfg: GPTConfig, *, generator: torch.Generator | None = None,
          device=None) -> GPT2:
     """A GPT-2 with the JAX init's distribution (models/gpt2.py:48-100):
-    normal(0, 0.02) for the embeddings, QKV and MLP-in weights, normal(0,
-    0.02 * (2 * n_layer) ** -0.5) for the two residual output projections,
-    zero biases, unit LayerNorm scales; fp32. Same distribution as the JAX
+    normal(0, 0.02) for the embeddings, QKV and MLP-in weights (and the
+    cross-attention q/kv projections and vis_proj), normal(0, 0.02 *
+    (2 * n_layer) ** -0.5) for the residual output projections (the
+    cross-attention's too), zero biases and gates, unit LayerNorm scales; fp32. Same distribution as the JAX
     init, not the same numbers. ``generator`` must live on ``device``."""
     device = torch.device(device or "cpu")
     if generator is None:
@@ -106,7 +137,7 @@ def init(cfg: GPTConfig, *, generator: torch.Generator | None = None,
             p.normal_(0.0, proj_std, generator=generator)
         elif p.dim() == 2:
             p.normal_(0.0, 0.02, generator=generator)
-        elif name.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight")):
+        elif name.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight", "ln_x.weight")):
             p.fill_(1.0)
         else:
             p.zero_()
@@ -127,10 +158,20 @@ def decay_mask(model: nn.Module) -> dict:
     """name -> True where AdamW weight decay applies (models/gpt2.py:801):
     the weights of nn.Linear and nn.Embedding (wte, wpe, every projection);
     not biases or LayerNorm parameters (train_gpt2.py:130-135, torch ndim
-    >= 2)."""
+    >= 2); the cross-attention gates do not decay."""
     decayed = {id(m.weight) for m in model.modules()
                if isinstance(m, (nn.Linear, nn.Embedding))}
     return {n: id(p) in decayed for n, p in named_params(model).items()}
+
+
+def trainable_mask_xattn(model: nn.Module) -> dict:
+    """name -> True for what the cross-attention fine-tune trains: vis_proj,
+    every xattn projection and every cross_gate. Everything else is frozen,
+    ln_x included although it sits inside the trained prologue
+    (gpt2_cross-att/model.py:131-139; models/gpt2.py:786-798)."""
+    return {n: (".xattn." in n or n.endswith(".cross_gate")
+                or n.startswith("transformer.vis_proj."))
+            for n in named_params(model)}
 
 
 # ---------------------------------------------------------------------------
@@ -162,20 +203,59 @@ def mlp(m: MLP, x, *, policy: Policy):
     return linear(h, m.c_proj.weight, m.c_proj.bias, policy=policy)
 
 
+def cross_attention(xattn: CrossAttention, x, z, cfg: GPTConfig, *, policy: Policy):
+    """Non-causal text -> vision cross-attention (gpt2_cross-att/model.py:34-58)
+    over the projected visual memory z (B, N, C). 33 keys: always the plain
+    path."""
+    b, t, c = x.shape
+    hs = c // cfg.n_head
+    q = linear(x, xattn.q_proj.weight, xattn.q_proj.bias, policy=policy)
+    kv = linear(z, xattn.kv_proj.weight, xattn.kv_proj.bias, policy=policy)
+    q = q.view(b, t, cfg.n_head, hs)
+    k, v = (a.view(b, z.shape[1], cfg.n_head, hs) for a in kv.split(c, dim=-1))
+    cc = policy.cast_compute
+    y = sdpa(cc(q), cc(k), cc(v), causal=False, impl="xla", layout="bthd")
+    y = y.to(x.dtype).reshape(b, t, c)
+    return linear(y, xattn.c_proj.weight, xattn.c_proj.bias, policy=policy)
+
+
+def _xblock(layer: Block, x, z, cfg: GPTConfig, policy: Policy):
+    """The gated cross-attention prologue of a block; the identity without z."""
+    if not cfg.cross_attention or z is None:
+        return x
+    xa = cross_attention(layer.xattn, _ln(x, layer.ln_x), z, cfg, policy=policy)
+    # cast: the fp32 scalar gate must not promote the bf16 residual
+    return x + torch.tanh(layer.cross_gate).to(x.dtype) * xa
+
+
 def block(layer: Block, x, cfg: GPTConfig, *, policy: Policy,
-          attn_impl: str):
-    """Pre-LN residual block (train_gpt2.py:62-74)."""
+          attn_impl: str, z=None):
+    """Pre-LN residual block (train_gpt2.py:62-74), with the gated
+    cross-attention prologue when the model has one and z is given."""
+    x = _xblock(layer, x, z, cfg, policy)
     x = x + self_attention(layer.attn, _ln(x, layer.ln_1), cfg, policy=policy,
                            attn_impl=attn_impl)
     return x + mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy)
 
 
-def run_blocks(model: GPT2, x, cfg: GPTConfig, *,
+def run_blocks(model: GPT2, x, cfg: GPTConfig, *, z=None,
                policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
-    """The blocks in order, as a Python loop (the JAX unrolled path)."""
+    """The blocks in order, as a Python loop (the JAX unrolled path). ``z``
+    is the projected visual memory of the cross-attention variant."""
     for layer in model.transformer.h:
-        x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl)
+        x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z)
     return x
+
+
+def project_visual(model: GPT2, z, cfg: GPTConfig, dtype, *,
+                   policy: Policy = DEFAULT_POLICY):
+    """(B, N, img_embd) visual tokens -> the (B, N, C) memory the blocks
+    attend to, through vis_proj, in ``dtype``; None stays None, and a model
+    without cross-attention ignores z."""
+    if z is None or not cfg.cross_attention:
+        return None
+    zp = model.transformer.vis_proj.z_proj
+    return linear(z, zp.weight, zp.bias, policy=policy).to(dtype)
 
 
 def embed_tokens(model: GPT2, idx, cfg: GPTConfig, *, pos_offset: int = 0):
@@ -202,27 +282,30 @@ def _check_len(idx, cfg: GPTConfig):
         )
 
 
-def forward_embeds(model: GPT2, embeds, cfg: GPTConfig, *,
+def forward_embeds(model: GPT2, embeds, cfg: GPTConfig, *, z=None,
                    policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
-    """Blocks + ln_f + lm_head over already-embedded inputs."""
-    x = run_blocks(model, embeds, cfg, policy=policy, attn_impl=attn_impl)
+    """Blocks + ln_f + lm_head over already-embedded inputs (z already
+    projected)."""
+    x = run_blocks(model, embeds, cfg, z=z, policy=policy, attn_impl=attn_impl)
     return lm_head(model, x, cfg, policy=policy)
 
 
 def apply(model: GPT2, idx, cfg: GPTConfig, *, targets=None, target_mask=None,
-          policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
+          z=None, policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
     """Full forward. Returns (logits, loss); loss is None without targets
-    (train_gpt2.py:111-125)."""
+    (train_gpt2.py:111-125; the masked mean of the cross-attention variant,
+    gpt2_cross-att/model.py:169-186). ``z``: (B, N, img_embd) visual tokens."""
     _check_len(idx, cfg)
     x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
-    logits = forward_embeds(model, x, cfg, policy=policy, attn_impl=attn_impl)
+    z = project_visual(model, z, cfg, x.dtype, policy=policy)
+    logits = forward_embeds(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl)
     loss = None
     if targets is not None:
         loss = cross_entropy(logits, targets, mask=target_mask)
     return logits, loss
 
 
-def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None,
+def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
          policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
          ce_chunks: int = 8, ce_impl: str = "auto"):
     """CE loss without the (B, T, V) logits: apply(...)[1]'s semantics with
@@ -234,7 +317,8 @@ def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None,
     plain forward and backward. ``ce_impl`` is fused_linear_ce's ``impl``."""
     _check_len(idx, cfg)
     x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
-    x = run_blocks(model, x, cfg, policy=policy, attn_impl=attn_impl)
+    z = project_visual(model, z, cfg, x.dtype, policy=policy)
+    x = run_blocks(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl)
     x = _ln(x, model.transformer.ln_f)
     return fused_ce_loss(x, model.transformer.wte.weight, targets,
                          mask=target_mask, policy=policy, ce_chunks=ce_chunks,
@@ -307,12 +391,13 @@ def _cached_sdpa(q, k_cache, v_cache, slot: int, policy: Policy):
 
 
 def run_blocks_cached(model: GPT2, embeds, cfg: GPTConfig, cache, slot: int,
-                       policy: Policy):
+                       policy: Policy, z=None):
     x = embeds
     b, t, c = x.shape
     hs = cfg.head_dim
     for l, layer in enumerate(model.transformer.h):
         attn = layer.attn
+        x = _xblock(layer, x, z, cfg, policy)
         qkv = linear(_ln(x, layer.ln_1), attn.c_attn.weight, attn.c_attn.bias,
                      policy=policy)
         q, k, v = (a.view(b, t, cfg.n_head, hs).transpose(1, 2)
@@ -328,14 +413,15 @@ def run_blocks_cached(model: GPT2, embeds, cfg: GPTConfig, cache, slot: int,
 
 
 def forward_cached(model: GPT2, embeds, cfg: GPTConfig, cache, slot: int, *,
-                   policy: Policy = DEFAULT_POLICY,
+                   z=None, policy: Policy = DEFAULT_POLICY,
                    last_only: bool = False):
     """Blocks over already-embedded inputs, reading and writing the KV cache
     at [slot, slot + T). Returns (logits, cache): logits over all T positions,
     or over the last one with last_only=True. The cache tensors are updated
     in place. Positional embeddings are the caller's (a visual prefix gets
-    none, text restarts at position 0)."""
-    x = run_blocks_cached(model, embeds, cfg, cache, slot, policy)
+    none, text restarts at position 0). ``z`` is the projected visual memory
+    of the cross-attention variant (models/gpt2.py:719-729)."""
+    x = run_blocks_cached(model, embeds, cfg, cache, slot, policy, z=z)
     if last_only:
         x = x[:, -1:, :]
     return lm_head(model, x, cfg, policy=policy), cache

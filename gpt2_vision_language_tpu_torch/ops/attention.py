@@ -23,8 +23,13 @@ from __future__ import annotations
 
 from .flash_attention import flash_attention, flash_attention_reference
 
-# The JAX package's flash threshold (ops/attention.py:52-64), measured on
-# another chip; still to be measured on the H100.
+# The JAX package's flash threshold (ops/attention.py:52-64), kept so that both
+# packages route the same shapes the same way. On the H100 the kernels win
+# below it too: at the fine-tune shape (B=128, T=65, H=12, hs=64, causal) the
+# forward kernel took 0.0717 ms against 0.5496 ms for the plain path, forward
+# + backward through autograd 0.5604 ms against 1.8693 ms (chip_smoke.py phase
+# 21, NVIDIA H100 80GB HBM3, 700.00 W), and at every T from 64 up in the
+# forward. Lowering the threshold is a routing change of its own.
 AUTO_FLASH_MIN_T = 512
 
 IMPLS = ("auto", "xla", "flash", "ring")

@@ -131,7 +131,8 @@ class _LinearCE(torch.autograd.Function):
         policy = ctx.policy
         cc = policy.cast_compute
         wc = cc(w)
-        dw = torch.zeros_like(w)  # accumulated in the param dtype across chunks
+        # accumulated in the param dtype across chunks; a frozen head gets none
+        dw = torch.zeros_like(w) if ctx.needs_input_grad[1] else None
         dx = []
         for xc, tc, gc, lzc in zip(x.chunk(ctx.n_chunks), targets.chunk(ctx.n_chunks),
                                    g.float().chunk(ctx.n_chunks),
@@ -143,7 +144,8 @@ class _LinearCE(torch.autograd.Function):
             p32[rows, tc.long()] -= gc
             p = p32.to(policy.compute_dtype)
             dx.append(matmul_f32(p, wc).to(x.dtype))
-            dw += matmul_f32(p.t(), xcc).to(dw.dtype)
+            if dw is not None:
+                dw += matmul_f32(p.t(), xcc).to(dw.dtype)
         return torch.cat(dx), dw, None, None, None, None
 
 

@@ -103,8 +103,11 @@ class _LayerNorm(torch.autograd.Function):
         g32 = g.float()
         xhat = (x.float() - mean) * rstd
         red = tuple(range(g32.dim() - 1))  # all leading axes, for the (D,) params
-        dscale = (g32 * xhat).sum(red).to(scale.dtype)
-        dbias = g32.sum(red).to(scale.dtype)
+        dscale = dbias = None  # frozen LayerNorm parameters get no gradient work
+        if ctx.needs_input_grad[1]:
+            dscale = (g32 * xhat).sum(red).to(scale.dtype)
+        if ctx.needs_input_grad[2]:
+            dbias = g32.sum(red).to(scale.dtype)
         dxhat = g32 * scale.float()
         m1 = dxhat.mean(dim=-1, keepdim=True)
         m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)

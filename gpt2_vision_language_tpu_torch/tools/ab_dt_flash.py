@@ -1,0 +1,412 @@
+"""A/B: dt-layout flash attention (forward and one-pass backward) against the
+shipping kernels, on an NVIDIA GPU.
+
+Counterpart of tools/ab_dt_flash.py. There the hypothesis was a TPU one: the
+shipping kernel's (block, hs=64) tiles fill half of a 128-lane register tile,
+and a transposed "dt" layout, q/k/v/o as (H, hs, B*T) with the sequence
+contiguous, fills it whole. A GPU has no such tile: a 64-wide bf16 row is one
+full 128-byte line either way. The question that is left on this card is
+coalescing along the sequence against along the head: the shipping kernels
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu) read (B, T, H, hs) through strides,
+128 contiguous bytes of the head per position, and the dt kernels
+(csrc/flash_dt_fwd.cu, csrc/flash_dt_bwd.cu) read 128 contiguous bytes of the
+sequence per channel and feed the tensor cores transposed fragments. On the
+TPU the QKV projection can emit the dt layout for free; here it is a copy, and
+the tool times that copy on its own line. It reports the three numbers and
+decides nothing.
+
+  q (H, hs, B*Tq) pre-scaled by 1/sqrt(hs); k, v (H, hs, B*Tk); one slab of T
+  positions per batch row; causal means query i sees keys <= i.
+  forward:  o (H, hs, B*Tq) in q's dtype, lse (H, B*Tq) fp32
+  backward: dq (times dq_scale), dk, dv from dO, lse and
+            dcap = rowsum(dO * O), (H, B*Tq) fp32
+
+The TPU kernels return lse as (H, 8, B*Tq), one row replicated over eight
+sublanes; here it is the one row. Their ``bq``/``bk`` arguments size VMEM
+blocks; the CUDA kernels' 64-position tiles are their own constants, so
+shapes must be multiples of 64.
+
+``flash_fwd_dt_b`` and ``flash_bwd_dt_b`` launch the kernels for CUDA tensors
+(bf16) and run the plain versions ``flash_fwd_dt_b_reference`` and
+``flash_bwd_dt_b_reference`` for CPU tensors; nothing falls back from one to
+the other. Each launch adds one to ``flash_fwd_dt_b.launches`` /
+``flash_bwd_dt_b.launches``.
+
+Usage (on the card):
+  python -m gpt2_vision_language_tpu_torch.tools.ab_dt_flash [--bwd] [--iters 12]
+Numerics (kernels on the card; ``--device cpu`` runs the plain versions):
+  python -m gpt2_vision_language_tpu_torch.tools.ab_dt_flash --check | --check-bwd
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..ops.flash_attention import flash_attention, flash_attention_reference
+
+TILE = 64  # positions per tile of the CUDA kernels
+HEAD_SIZE = 64
+
+
+def to_dt(x):
+    """(B, T, H, hs) -> dt layout (H, hs, B*T), b-major slabs along the last
+    axis; a copy."""
+    b, t, h, hs = x.shape
+    return x.permute(2, 3, 0, 1).contiguous().view(h, hs, b * t)
+
+
+def from_dt(x, b: int, t: int):
+    """dt layout (H, hs, B*T) -> (B, T, H, hs), a strided view."""
+    h, hs, _ = x.shape
+    return x.reshape(h, hs, b, t).permute(2, 3, 0, 1)
+
+
+def _scores(q, k, b, tq, tk, causal):
+    h, hs, _ = q.shape
+    s = torch.einsum("hdbq,hdbk->hbqk", q.float().reshape(h, hs, b, tq),
+                     k.float().reshape(h, hs, b, tk))
+    if causal:
+        qpos = torch.arange(tq, device=q.device)[:, None]
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, float("-inf"))
+    return s
+
+
+def flash_fwd_dt_b_reference(q, k, v, b, tq, tk, *, causal=True):
+    """Plain version of the dt forward on dt-layout tensors: fp32 scores and
+    softmax, the probabilities rounded to v.dtype before the P V product as
+    in the kernel. Returns (o (H, hs, B*Tq) in q.dtype, lse (H, B*Tq) fp32)."""
+    h, hs, _ = q.shape
+    s = _scores(q, k, b, tq, tk, causal)
+    lse = torch.logsumexp(s, dim=-1)  # (H, B, Tq)
+    p = torch.exp(s - lse[..., None]).to(v.dtype).float()
+    o = torch.einsum("hbqk,hdbk->hdbq", p, v.float().reshape(h, hs, b, tk))
+    return o.reshape(h, hs, b * tq).to(q.dtype), lse.reshape(h, b * tq)
+
+
+def flash_bwd_dt_b_reference(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True,
+                             dq_scale=1.0):
+    """Plain version of the dt one-pass backward: (dq * dq_scale, dk, dv) in
+    dt layout from lse and dcap (H, B*Tq). P and dS are rounded to the
+    operands' dtype before their products, as in the kernel."""
+    h, hs, _ = q.shape
+    q4, do4 = (a.float().reshape(h, hs, b, tq) for a in (q, do))
+    k4, v4 = (a.float().reshape(h, hs, b, tk) for a in (k, v))
+    s = _scores(q, k, b, tq, tk, causal)
+    p = torch.exp(s - lse.reshape(h, b, tq, 1))
+    dv = torch.einsum("hbqk,hdbq->hdbk", p.to(do.dtype).float(), do4)
+    dp = torch.einsum("hdbq,hdbk->hbqk", do4, v4)
+    ds = (p * (dp - dcap.reshape(h, b, tq, 1))).to(q.dtype).float()
+    dk = torch.einsum("hbqk,hdbq->hdbk", ds, q4)
+    dq = torch.einsum("hbqk,hdbk->hdbq", ds, k4) * dq_scale
+    return (dq.reshape(h, hs, b * tq).to(q.dtype), dk.reshape(h, hs, b * tk).to(k.dtype),
+            dv.reshape(h, hs, b * tk).to(v.dtype))
+
+
+def _check_dt(name, a, h, hs, n):
+    if a.shape != (h, hs, n):
+        raise ValueError(f"dt layout: {name} must be (H, hs, B*T) = {(h, hs, n)}, "
+                         f"got {tuple(a.shape)}")
+
+
+def _check_kernel(tensors, stats, tq, tk):
+    for name, a in tensors:
+        if a.dtype != torch.bfloat16 or not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"dt kernel takes contiguous 16-byte aligned bf16, got {name} "
+                             f"{a.dtype} strides {a.stride()}")
+    for name, a in stats:
+        if a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"dt kernel takes contiguous fp32 {name}, got {a.dtype}")
+    if tensors[0][1].shape[1] != HEAD_SIZE:
+        raise ValueError(f"dt kernel: head size {tensors[0][1].shape[1]} is not {HEAD_SIZE}")
+    if tq % TILE or tk % TILE:
+        raise ValueError(f"dt kernel: aligned shapes only, Tq and Tk multiples of {TILE}, "
+                         f"got {tq}, {tk}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd_dt_b(q, k, v, b, tq, tk, *, causal=True):
+    """dt forward: q (H, hs, B*Tq) pre-scaled, k, v (H, hs, B*Tk) ->
+    (o (H, hs, B*Tq), lse (H, B*Tq) fp32). The kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    h, hs, _ = q.shape
+    _check_dt("q", q, h, hs, b * tq)
+    _check_dt("k", k, h, hs, b * tk)
+    _check_dt("v", v, h, hs, b * tk)
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_fwd_dt_b: no kernel for device {q.device}")
+        return flash_fwd_dt_b_reference(q, k, v, b, tq, tk, causal=causal)
+    _check_kernel((("q", q), ("k", k), ("v", v)), (), tq, tk)
+    o = torch.empty_like(q)
+    lse = torch.empty((h, b * tq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_dt_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                      lse.data_ptr(), b, tq, tk, h, hs, int(causal),
+                                      _stream(q))
+    _build.check(err, "flash_dt_fwd")
+    flash_fwd_dt_b.launches += 1
+    return o, lse
+
+
+flash_fwd_dt_b.launches = 0
+
+
+def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1.0):
+    """dt one-pass backward: (dq * dq_scale, dk, dv) in dt layout from do
+    (H, hs, B*Tq), lse and dcap (H, B*Tq) fp32. The kernel for CUDA tensors,
+    the plain version for CPU tensors. The kernel sums dq over the key tiles
+    in an fp32 buffer with reductions in global memory, in no fixed order: dq
+    can differ in its last bits between two runs; dk and dv cannot."""
+    h, hs, _ = q.shape
+    _check_dt("q", q, h, hs, b * tq)
+    _check_dt("do", do, h, hs, b * tq)
+    _check_dt("k", k, h, hs, b * tk)
+    _check_dt("v", v, h, hs, b * tk)
+    if lse.shape != (h, b * tq) or dcap.shape != (h, b * tq):
+        raise ValueError(f"lse and dcap must be (H, B*Tq) = {(h, b * tq)}, got "
+                         f"{tuple(lse.shape)}, {tuple(dcap.shape)}")
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_bwd_dt_b: no kernel for device {q.device}")
+        return flash_bwd_dt_b_reference(q, k, v, do, lse, dcap, b, tq, tk, causal=causal,
+                                        dq_scale=dq_scale)
+    _check_kernel((("q", q), ("k", k), ("v", v), ("do", do)),
+                  (("lse", lse), ("dcap", dcap)), tq, tk)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_dt_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dcap.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, tq, tk, h, hs, int(causal), float(dq_scale), _stream(q))
+    _build.check(err, "flash_dt_bwd")
+    flash_bwd_dt_b.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_dt_b.launches = 0
+
+
+def dcap_dt(o, do):
+    """dcap = rowsum(dO * O) over the head channels, (H, B*Tq) fp32 (plain
+    torch, as the TPU tool leaves it to XLA)."""
+    return (o.float() * do.float()).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# Numerics
+# ---------------------------------------------------------------------------
+
+
+def _device(device):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("ab_dt_flash: no CUDA device (pass --device cpu to run "
+                           "the plain versions)")
+    return device
+
+
+def _check_inputs(seed, n, device):
+    """n fp32 (B, T, H, hs) tensors at the TPU tool's check shape; on the card
+    they are rounded to bf16, which is what the kernels take."""
+    b, h, t, hs = 2, 3, 1024, 64
+    rng = np.random.RandomState(seed)
+    xs = [torch.from_numpy(rng.randn(b, h, t, hs).astype(np.float32)).transpose(1, 2)
+          for _ in range(n)]
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return [x.to(device=device, dtype=dtype).contiguous() for x in xs], (b, h, t, hs)
+
+
+def check_numerics(device="cuda"):
+    """The dt forward against the shipping path's plain reference at
+    (2, 3, 1024, 64). Limit 2e-5 for the fp32 plain version (CPU, the TPU
+    tool's limit), 2e-2 for the bf16 kernel on the card (one bf16 ulp of an
+    output of size up to about 4)."""
+    device = _device(device)
+    (q, k, v), (b, h, t, hs) = _check_inputs(0, 3, device)
+    ref, _ = flash_attention_reference(q.float(), k.float(), v.float(), causal=True)
+    scale = hs ** -0.5
+    o_dt, lse = flash_fwd_dt_b(to_dt(q * scale), to_dt(k), to_dt(v), b, t, t, causal=True)
+    got = from_dt(o_dt, b, t).float()
+    err = float((got - ref).abs().max())
+    limit = 2e-2 if device.type == "cuda" else 2e-5
+    print(f"dt fwd max |err| vs the shipping path's plain version: {err:.2e} "
+          f"(limit {limit:.0e}, {device.type})")
+    assert err < limit, err
+    assert lse.shape == (h, b * t) and bool(torch.isfinite(lse).all())
+    print("OK")
+    return err
+
+
+def check_bwd_numerics(device="cuda"):
+    """The dt forward + backward against the gradients of the shipping path's
+    plain reference (autograd) at (2, 3, 1024, 64): relative to max |ref|,
+    limit 1e-5 for the fp32 plain versions (CPU, the TPU tool's limit), 3e-2
+    for the bf16 kernels on the card."""
+    device = _device(device)
+    (q, k, v, dout), (b, h, t, hs) = _check_inputs(1, 4, device)
+    q32, k32, v32 = (a.float().clone().requires_grad_() for a in (q, k, v))
+    o_ref, _ = flash_attention_reference(q32, k32, v32, causal=True)
+    refs = torch.autograd.grad((o_ref * dout.float()).sum(), (q32, k32, v32))
+    scale = hs ** -0.5
+    qs, kd, vd, dod = to_dt(q * scale), to_dt(k), to_dt(v), to_dt(dout)
+    o, lse = flash_fwd_dt_b(qs, kd, vd, b, t, t, causal=True)
+    dq, dk, dv = flash_bwd_dt_b(qs, kd, vd, dod, lse, dcap_dt(o, dod), b, t, t, causal=True,
+                                dq_scale=scale)
+    limit = 3e-2 if device.type == "cuda" else 1e-5
+    rels = {}
+    for name, got, ref in (("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        err = float((from_dt(got, b, t).float() - ref).abs().max())
+        rels[name] = err / float(ref.abs().max())
+        print(f"{name}: max |err| {err:.2e} (rel {rels[name]:.2e}, limit {limit:.0e})")
+        assert rels[name] < limit, (name, err)
+    print("OK")
+    return rels
+
+
+# ---------------------------------------------------------------------------
+# Device A/B
+# ---------------------------------------------------------------------------
+
+
+def _time_ms(fn, iters: int) -> float:
+    """Device ms per call by CUDA events over ``iters`` calls, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bench_inputs(device, seed=0):
+    """The fused QKV output of one layer at the pretrain shape and an output
+    cotangent: (B, T, 3C) and (B, T, H, hs) bf16."""
+    b, h, t, hs = 8, 12, 1024, 64
+    g = torch.Generator(device).manual_seed(seed)
+    qkv = torch.randn(b, t, 3 * h * hs, generator=g, device=device).to(torch.bfloat16)
+    dout = torch.randn(b, t, h, hs, generator=g, device=device).to(torch.bfloat16)
+    return qkv, dout, (b, h, t, hs)
+
+
+def _report(title, rows, layers):
+    print(title)
+    for name, ms in rows.items():
+        print(f"    {name}: {ms * layers:.3f} ms device for {layers} layers "
+              f"({ms * 1000:.1f} us/layer)")
+    return rows
+
+
+def bench(device="cuda", layers: int = 12):
+    """Device A/B of the forward over ``layers`` calls, by CUDA events.
+
+    A = the shipping path: flash_attention(layout="bthd") on the strided
+        views of the fused QKV output (csrc/flash_fwd.cu).
+    B = the dt forward alone (csrc/flash_dt_fwd.cu).
+    T = the copies into and out of the dt layout (q scaled, k, v in; o out),
+        which the TPU projection emits for free and this port would pay.
+    """
+    device = _device(device)
+    if device.type != "cuda":
+        raise RuntimeError("ab_dt_flash bench measures device time: it needs a CUDA device")
+    qkv, _, (b, h, t, hs) = _bench_inputs(device)
+    q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+    scale = hs ** -0.5
+    qd, kd, vd = to_dt(q * scale), to_dt(k), to_dt(v)
+    with torch.no_grad():
+        o_dt, _ = flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
+        rows = {
+            "A bthd (shipping forward)": _time_ms(
+                lambda: flash_attention(q, k, v, causal=True, layout="bthd"), layers),
+            "B dt forward": _time_ms(
+                lambda: flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True), layers),
+            "T transposes (q*scale, k, v in; o out)": _time_ms(
+                lambda: (to_dt(q * scale), to_dt(k), to_dt(v),
+                         from_dt(o_dt, b, t).contiguous()), layers),
+        }
+    return _report(f"forward, B={b} T={t} H={h} hs={hs} bf16 causal, "
+                   f"{torch.cuda.get_device_name(device)}", rows, layers)
+
+
+def bench_bwd(device="cuda", layers: int = 12):
+    """Device A/B of forward + backward over ``layers`` calls, by CUDA events.
+
+    A = the shipping path through autograd: flash_attention(layout="bthd") on
+        the strided QKV views and its backward (csrc/flash_fwd.cu,
+        csrc/flash_bwd.cu).
+    B = dt forward + dcap + dt one-pass backward (csrc/flash_dt_fwd.cu,
+        csrc/flash_dt_bwd.cu).
+    T = the copies into and out of the dt layout (q scaled, k, v, dO in;
+        o, dq, dk, dv out).
+    """
+    device = _device(device)
+    if device.type != "cuda":
+        raise RuntimeError("ab_dt_flash bench measures device time: it needs a CUDA device")
+    qkv, dout, (b, h, t, hs) = _bench_inputs(device)
+    qkv.requires_grad_()
+    scale = hs ** -0.5
+
+    def path_a():
+        q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+        o = flash_attention(q, k, v, causal=True, layout="bthd")
+        qkv.grad = None
+        o.backward(dout)
+
+    with torch.no_grad():
+        q, k, v = (a.view(b, t, h, hs) for a in qkv.detach().split(h * hs, dim=-1))
+        qd, kd, vd, dod = to_dt(q * scale), to_dt(k), to_dt(v), to_dt(dout)
+
+    def path_b():
+        o, lse = flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
+        return (o,) + flash_bwd_dt_b(qd, kd, vd, dod, lse, dcap_dt(o, dod), b, t, t,
+                                     causal=True, dq_scale=scale)
+
+    with torch.no_grad():
+        outs = path_b()
+
+    def transposes():
+        ins = (to_dt(q * scale), to_dt(k), to_dt(v), to_dt(dout))
+        return ins, tuple(from_dt(a, b, t).contiguous() for a in outs)
+
+    rows = {"A bthd grad (shipping forward + backward)": _time_ms(path_a, layers)}
+    with torch.no_grad():
+        rows["B dt forward + backward"] = _time_ms(path_b, layers)
+        rows["T transposes (q*scale, k, v, dO in; o, dq, dk, dv out)"] = _time_ms(
+            transposes, layers)
+    return _report(f"forward + backward, B={b} T={t} H={h} hs={hs} bf16 causal, "
+                   f"{torch.cuda.get_device_name(device)}", rows, layers)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--check-bwd", action="store_true")
+    ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--iters", type=int, default=12, help="layers per timed loop")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cpu runs the plain versions of the checks")
+    args = ap.parse_args(argv)
+    if args.check:
+        return check_numerics(args.device)
+    if args.check_bwd:
+        return check_bwd_numerics(args.device)
+    if args.bwd:
+        return bench_bwd(args.device, args.iters)
+    return bench(args.device, args.iters)
+
+
+if __name__ == "__main__":
+    main()

@@ -49,10 +49,14 @@ def _steps(batch) -> int:
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
                     sched_cfg: ScheduleConfig, *, decay_mask, trainable_mask=None,
                     use_fused_adamw: bool = True, nan_guard: bool = True):
-    """Build ``step(model, opt_state, batch, step_idx) -> metrics``.
+    """Build ``step(model, opt_state, batch, step_idx, extra=None) -> metrics``.
 
-    loss_fn(model, micro) -> scalar loss tensor; ``batch`` carries a leading
-    micro-batch axis (a tensor or a dict / tuple / list of them). The model's
+    loss_fn(model, micro) -> scalar loss tensor, or loss_fn(model, micro,
+    extra) when the step is given ``extra`` (the fine-tunes' device-resident
+    feature bank, as make_eval_step takes it); ``batch`` carries a leading
+    micro-batch axis (a tensor or a dict / tuple / list of them). With a
+    ``trainable_mask`` the frozen leaves have requires_grad off: they get no
+    ``.grad``, stay out of the norm and out of the AdamW kernel's leaf table. The model's
     params and ``opt_state`` are updated in place. metrics: {"loss", "lr",
     "grad_norm"} as Python floats (the reference's log line,
     train_gpt2.py:485); with nan_guard and a non-finite loss or norm the
@@ -60,7 +64,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
     through the AdamW kernel on CUDA; ``use_fused_adamw=False`` runs the
     plain per-leaf version instead (the path the kernel is compared with)."""
 
-    def step(model, opt_state, batch, step_idx):
+    def step(model, opt_state, batch, step_idx, extra=None):
         if trainable_mask is not None:
             freeze(model, trainable_mask)
         params = named_params(model)
@@ -70,7 +74,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         accum = _steps(batch)
         lsum = None
         for i in range(accum):
-            loss = loss_fn(model, _micro(batch, i))
+            micro = _micro(batch, i)
+            loss = loss_fn(model, micro) if extra is None else loss_fn(model, micro, extra)
             loss.backward()
             l = loss.detach().float()
             lsum = l if lsum is None else lsum + l

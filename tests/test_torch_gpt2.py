@@ -179,8 +179,12 @@ def test_init_distribution():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        gpt2.GPT2(GPTConfig(n_layer=1, img_embd=768, cross_attention=True))
+    # the gated cross-attention decoder is built now; without a visual width it raises
+    with pytest.raises(ValueError, match="img_embd"):
+        gpt2.GPT2(GPTConfig(n_layer=1, cross_attention=True))
+    x = gpt2.GPT2(GPTConfig(block_size=8, vocab_size=100, n_layer=1, n_head=2, n_embd=16,
+                            img_embd=24, cross_attention=True))
+    assert "transformer.h.0.cross_gate" in dict(x.named_parameters())
     m = gpt2.GPT2(GPTConfig(block_size=8, vocab_size=100, n_layer=1, n_head=2, n_embd=16))
     with pytest.raises(ValueError, match="block_size"):
         gpt2.apply(m, torch.zeros(1, 9, dtype=torch.long), m.cfg)

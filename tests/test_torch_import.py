@@ -1,6 +1,7 @@
 """The PyTorch port imports without jax, and its configs are the JAX ones:
-GPTConfig, ScheduleConfig and OptimizerConfig field for field, and every
-field of the JAX PretrainConfig either carried or named here as left out."""
+GPTConfig, BridgeConfig, ScheduleConfig, OptimizerConfig and FinetuneConfig
+field for field, and every field of the JAX PretrainConfig either carried or
+named here as left out."""
 
 import dataclasses
 import os
@@ -35,6 +36,19 @@ PORT_MODULES = (
     "gpt2_vision_language_tpu_torch.obs.csvlog",
     "gpt2_vision_language_tpu_torch.obs.xlsx",
     "gpt2_vision_language_tpu_torch.eval.hellaswag",
+    # the caption fine-tunes and the dt-layout A/B tool
+    "gpt2_vision_language_tpu_torch.ops.pooling",
+    "gpt2_vision_language_tpu_torch.models.bridges",
+    "gpt2_vision_language_tpu_torch.models.caption",
+    "gpt2_vision_language_tpu_torch.data.coco",
+    "gpt2_vision_language_tpu_torch.data.pipeline",
+    "gpt2_vision_language_tpu_torch.eval.cider",
+    "gpt2_vision_language_tpu_torch.eval.caption_eval",
+    "gpt2_vision_language_tpu_torch.train.finetune",
+    "gpt2_vision_language_tpu_torch.cli.finetune_linear",
+    "gpt2_vision_language_tpu_torch.cli.finetune_qformer",
+    "gpt2_vision_language_tpu_torch.cli.finetune_xattn",
+    "gpt2_vision_language_tpu_torch.tools.ab_dt_flash",
 )
 
 
@@ -80,7 +94,7 @@ LEFT_OUT = {
 }
 
 
-@pytest.mark.parametrize("name", ["ScheduleConfig", "OptimizerConfig"])
+@pytest.mark.parametrize("name", ["ScheduleConfig", "OptimizerConfig", "BridgeConfig"])
 def test_train_configs_match_jax(name):
     def fields(cls):
         return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
@@ -102,3 +116,18 @@ def test_pretrain_config_fields_carried_or_left_out():
         else:
             assert got == want, name
     assert p.grad_accum_steps(1) == j.grad_accum_steps(1) == 64
+
+
+def test_finetune_config_fields_carried():
+    """Every field of the JAX FinetuneConfig, in order, with the same
+    defaults (the dataclass-valued ones compared by value)."""
+    jf = dataclasses.fields(jax_config.FinetuneConfig)
+    pf = dataclasses.fields(port_config.FinetuneConfig)
+    assert [f.name for f in pf] == [f.name for f in jf]
+    j, p = jax_config.FinetuneConfig(), port_config.FinetuneConfig()
+    for f in pf:
+        want, got = getattr(j, f.name), getattr(p, f.name)
+        if dataclasses.is_dataclass(want):
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
+        else:
+            assert got == want, f.name
