@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
 started together, and the objects are linked into one shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds). The
 library lands in ``build/kernels/`` at the repository root,
-named by a hash of the sources and flags, so an edited kernel is rebuilt
+named by a hash of the sources, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel is rebuilt
 and an unchanged one is loaded as it is. A missing ``nvcc`` or a failed
 build raises with the compiler's output; nothing falls back.
 
@@ -73,9 +74,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgpt2vl_kernels_{h.hexdigest()[:16]}.so"

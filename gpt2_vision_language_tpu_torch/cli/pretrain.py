@@ -1,6 +1,8 @@
 """CLI: GPT-2 124M FineWeb-Edu pretraining on one device.
 
     python -m gpt2_vision_language_tpu_torch.cli.pretrain [--steps N] [--synthetic]
+        [--model {124M,350M,774M,1558M}] [--val-every N] [--sample-every N]
+        [--no-ckpt] [--no-nan-guard]
 
 Counterpart of gpt2_vision_language_tpu/cli/pretrain.py with the flags the
 single-device trainer honors. Runs on the first CUDA device (``--device``,
@@ -23,16 +25,21 @@ from typing import Optional
 
 import torch
 
-from ..core.config import GPTConfig, PretrainConfig
+from ..core.config import GPT2_350M, GPT2_774M, GPT2_1558M, GPTConfig, PretrainConfig
 from ..data.fineweb import write_synthetic_corpus
 from ..train.pretrain import check_parallel, run_pretrain
 
 
 def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
     """Parse argv into (PretrainConfig, args) without running anything.
-    ``model`` replaces the GPT-2 124M architecture (smaller test runs)."""
+    ``model`` replaces the architecture that ``--model`` names (smaller test
+    runs) and wins over it."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=None, help="override max_steps")
+    p.add_argument(
+        "--model", choices=["124M", "350M", "774M", "1558M"], default="124M",
+        help="GPT-2 family preset (core/config.py); 124M is the reference workload",
+    )
     p.add_argument("--micro-batch", type=int, default=None)
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument(
@@ -43,9 +50,18 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
     )
     p.add_argument("--total-batch", type=int, default=None)
     p.add_argument("--no-hellaswag", action="store_true")
+    p.add_argument("--val-every", type=int, default=None,
+                   help="0 disables validation (and its checkpoint save) entirely")
+    p.add_argument("--no-ckpt", action="store_true",
+                   help="disable checkpointing entirely (no save, no resume)")
+    p.add_argument("--no-nan-guard", action="store_true",
+                   help="apply the update of a step with a non-finite loss or grad "
+                   "norm instead of skipping it; the loop still halts on it")
     p.add_argument("--save-every", type=int, default=None)
     p.add_argument("--log-dir", default=None,
                    help="CSV/checkpoint output directory (default: $LOG_DIR or ./log)")
+    p.add_argument("--sample-every", type=int, default=None,
+                   help="0 disables sampling entirely (incl. the final step)")
     p.add_argument(
         "--attn-impl", choices=["auto", "xla", "flash", "ring"], default="auto",
         help="attention path: 'flash' is the hand-written kernels on a CUDA "
@@ -74,6 +90,9 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
     updates = {}
     if model is not None:
         updates["model"] = model
+    elif args.model != "124M":
+        updates["model"] = {"350M": GPT2_350M, "774M": GPT2_774M,
+                            "1558M": GPT2_1558M}[args.model]
     if args.micro_batch:
         updates["micro_batch_size"] = args.micro_batch
     if args.seq_len:
@@ -87,10 +106,18 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         updates["total_batch_size"] = args.total_batch
     if args.no_hellaswag:
         updates["run_hellaswag"] = False
+    if args.val_every is not None:
+        updates["val_every"] = args.val_every
+    if args.no_ckpt:
+        updates["save_ckpt"] = False
+    if args.no_nan_guard:
+        updates["nan_guard"] = False
     if args.save_every is not None:
         updates["save_every"] = args.save_every
     if args.log_dir:
         updates["log_dir"] = args.log_dir
+    if args.sample_every is not None:
+        updates["sample_every"] = args.sample_every
     if args.tp != 1:
         updates["tp"] = args.tp
     if args.attn_impl != "auto":
@@ -104,10 +131,10 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
     return cfg, args
 
 
-def main(argv=None, *, model: Optional[GPTConfig] = None, device=None) -> dict:
-    """Run the trainer. ``device`` overrides ``--device``."""
+def main(argv=None, *, model: Optional[GPTConfig] = None) -> dict:
+    """Run the trainer on the device that ``--device`` names."""
     cfg, args = parse_and_build(argv, model=model)
-    device = torch.device(args.device if device is None else device)
+    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "cli.pretrain: no CUDA device (torch.cuda.is_available() is False); pass "

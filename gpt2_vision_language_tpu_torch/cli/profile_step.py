@@ -44,7 +44,7 @@ from ..core.config import (
 from ..core.precision import DEFAULT_POLICY
 from ..models import gpt2
 from ..ops import ring_attention
-from ..train.finetune import build_finetune
+from ..train.finetune import build_finetune, dropout_seeds
 from ..train.optimizer import adamw_init
 from ..train.step import make_train_step
 
@@ -123,8 +123,6 @@ def finetune_step(args, dev):
     cfg = FINETUNE_PRESETS[args.finetune]()
     parts = build_finetune(cfg, device=dev)
     model, trainable = parts["model"], parts["trainable"]
-    if parts["dropout_gen"] is not None:
-        parts["dropout_gen"].manual_seed(cfg.seed)
     step = make_train_step(parts["train_loss_fn"], cfg.optimizer, cfg.schedule,
                            decay_mask=parts["decay"], trainable_mask=trainable)
     params = gpt2.named_params(model)
@@ -136,6 +134,8 @@ def finetune_step(args, dev):
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
              for k, v in (("x", toks[..., :-1]), ("y", toks[..., 1:]), ("mask", mask),
                           ("idx", rng.randint(0, n_bank, (args.accum, b))))}
+    if parts["dropout"]:
+        batch["seed"] = dropout_seeds(cfg.seed, 0, args.accum)
     g = torch.Generator(dev).manual_seed(1)
     bank = torch.nn.functional.normalize(
         torch.randn(n_bank, 33, cfg.bridge.enc_dim, device=dev, generator=g), dim=-1

@@ -10,204 +10,285 @@
 // the keys at or before it. The TPU kernel walks a (B*H, nq, nk) grid in order
 // and carries max / sum / accumulator in scratch memory from one grid step to
 // the next; blocks on the H100 run in no order, so here one block owns a
-// (b, h, 64-query tile) and the key sweep is a loop inside it.
+// (b, h, 128-query tile) and the key sweep is a loop inside it.
 //
 // What bounds it on the H100: at B=1, T=16384, H=12, hs=64 causal it is
-// 2 * 12 * 16384^2 * 64 = 412 GFLOP against 101 MB of q/k/v/o, about 4,000
-// FLOP per byte: the tensor cores, not HBM, bound it by far. Every query tile
-// re-reads its K/V prefix, which stays in the 50 MB L2 (K and V of one head are
-// 4 MB at T=16384).
+// 2 * 2 * 12 * 16384^2 / 2 * 64 = 412 GFLOP against 101 MB of q/k/v/o, about
+// 4,000 FLOP per byte: the tensor cores, not HBM, bound it by far (0.417 ms at
+// 989 TFLOP/s). Every query tile re-reads its K/V prefix, which stays in the
+// 50 MB L2 (K and V of one head are 4 MB at T=16384).
 //
-// What the design does about it: four warps of 16 query rows each; K and V
-// stream through shared memory in 64-key tiles, the scores of a tile never
-// leave the SM. Products run on the tensor cores through nvcuda::wmma (bf16
-// 16x16x16, fp32 accumulate); the softmax state lives in registers, two lanes
-// per query row, and the wmma accumulators pass through a per-warp shared
-// scratch because their register layout is opaque. A causal block stops at
-// the last key tile any of its rows sees, min((q_off + m0 + 63) / 64 + 1,
-// ceil(Tk / 64)), and the blocks with the most tiles are scheduled first (the
-// highest query tiles, whatever q_off is). Because q_off need not be a
-// multiple of 64, a row can have no visible key in a tile its block visits:
-// its scores there are -inf, its running max does not move, and exp2(-inf) = 0
-// adds nothing. Keys >= Tk are masked, query rows >= Tq are loaded as zero and
-// not stored. All offsets are 64-bit. Simple first: synchronous loads, no
-// cp.async, wgmma or TMA yet.
+// What the design does about it (hopper.cuh holds the building blocks): the
+// only way to the tensor cores' rate is wgmma, and the loads must overlap the
+// products. A block is three warpgroups. The third is the producer: one
+// thread loads the 128-row Q tile once and then K and V in 128-key tiles by
+// TMA (4-D tensor maps over the strided (B, T, H, 64) views, 128-byte
+// swizzle, rows past Tq and Tk zero-filled) into a ring of STAGES slots, with
+// a full and an empty mbarrier per slot and per operand, so S of a tile can
+// start while its V is still in flight. The other two are consumers of 64
+// query rows each (setmaxnreg moves the producer's registers to them). A
+// consumer forms S = Q K^T with wgmma m64n128k16 from shared memory into
+// registers, runs the online softmax there (a row lives in one quad of
+// threads: max and sum by two shuffles; the max starts at a finite -1e30, so
+// a row with no visible key in a tile keeps its max and adds exp2(-inf) = 0),
+// packs P to bf16 straight into the A fragments of P V (wgmma m64n64k16, A
+// from registers, V read MN-major through the transpose bit) and rescales the
+// fp32 output accumulator, which never leaves registers. Within a consumer
+// the products are pipelined: tile j's S is issued before tile j - 1's P V,
+// and tile j's softmax runs while that P V is on the tensor cores; the
+// exponentials are one FFMA and one ex2.approx each. The position mask
+// costs compares only on the tiles that cross the diagonal or the Tk edge;
+// zero-filled keys past Tk score 0 and are masked there by position. The two
+// consumers take turns to issue their products (two named barriers), so one's
+// softmax runs while the other's products do. A causal block stops at the
+// last key tile its last row sees, and the blocks with the most tiles are
+// scheduled first. The output goes through the consumer's half of the Q tile
+// in shared memory to 16-byte stores; rows >= Tq are not stored. All offsets
+// are 64-bit.
 
 #include <math.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int HS = 64;             // head size the kernel is built for
-constexpr int BM = 64;             // query rows per block
-constexpr int BN = 64;             // keys per K/V tile
-constexpr int WARPS = BM / 16;     // one warp per 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = HS + 8;        // bf16 row pitch of the Q/K/V tiles
-constexpr int LDP = BN + 8;        // bf16 row pitch of a warp's P tile
-constexpr int LDS = (BN > HS ? BN : HS) + 4;  // fp32 pitch of a warp's scratch
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int HS = 64;            // head size the kernel is built for
+constexpr int BM = 128;           // query rows per block, 64 per consumer
+constexpr int BN = 128;           // keys per K/V tile
+constexpr int STAGES = 3;         // slots of the K/V ring
+constexpr int CONSUMERS = 2;      // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr uint32_t TILE_BYTES = BN * HS * 2;
+constexpr uint32_t Q_BYTES = BM * HS * 2;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-struct Smem {
-  __nv_bfloat16 q[BM * LDH];
-  __nv_bfloat16 k[BN * LDH];
-  __nv_bfloat16 v[BN * LDH];
-  __nv_bfloat16 p[WARPS][16 * LDP];
-  float s[WARPS][16 * LDS];
+struct __align__(1024) Smem {
+  bf16 q[BM * HS];  // 64 rows a consumer; later its output tile
+  bf16 k[STAGES][BN * HS];
+  bf16 v[STAGES][BN * HS];
+  uint64_t q_full;
+  uint64_t k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 
-// rows [row0, row0 + ROWS) of one head into a (ROWS, LDH) tile; rows >= len are zero
-template <int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long st, int row0, int len, int tid) {
-  constexpr int VEC = 8;  // 16-byte loads
-  constexpr int PER_ROW = HS / VEC;
-  for (int i = tid; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < len) val = *reinterpret_cast<const uint4*>(src + (long long)t * st + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+__device__ __forceinline__ Smem& smem_of(unsigned char* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_general_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int Tq, int Tk, int H,
-                         long long qsb, long long qst, long long qsh,
-                         long long ksb, long long kst, long long ksh,
-                         long long vsb, long long vst, long long vsh,
-                         int causal, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_general_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                         float* __restrict__ lse, int Tq, int Tk, int H, int causal,
+                         float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Smem& sm = smem_of(smem_raw);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid / 128;
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int m0 = qt * BM;
   const int q_off = Tk - Tq;  // query i sits at key position i + q_off
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-
-  load_tile<BM>(sm.q, qb, qst, m0, Tq, tid);
-
   const int n_all = (Tk + BN - 1) / BN;
   const int n_tiles = causal ? min(n_all, (q_off + m0 + BM - 1) / BN + 1) : n_all;
 
-  // two lanes per query row: row r of this warp, columns half * (width / 2) ...
-  const int r = lane >> 1, half = lane & 1;
-  const int qrow = m0 + warp * 16 + r;  // row of q, o and lse
-  const int qpos = qrow + q_off;        // its position among the keys
-  float m_i = -1e30f;  // running max, log2 domain
-  float l_i = 0.f;     // running sum of 2^(s - m_i)
-  float acc[HS / 2];
-#pragma unroll
-  for (int d = 0; d < HS / 2; ++d) acc[d] = 0.f;
-
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[HS / 16];
-#pragma unroll
-  for (int kk = 0; kk < HS / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], &sm.q[warp * 16 * LDH + kk * 16], LDH);
-
-  float* scratch = sm.s[warp];
-  __nv_bfloat16* ptile = sm.p[warp];
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<BN>(sm.k, kb, kst, n0, Tk, tid);
-    load_tile<BN>(sm.v, vb, vst, n0, Tk, tid);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int n = 0; n < BN / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, &sm.k[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], sf, LDS, wmma::mem_row_major);
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], CONSUMERS);
+      mbar_init(&sm.v_empty[s], CONSUMERS);
     }
-    __syncwarp();
-
-    // online softmax over this lane's half row; a row with no visible key in
-    // this tile keeps its max (m_i starts finite, so m_i - m_new is never
-    // -inf - -inf) and adds exp2(-inf) = 0
-    const float* srow = &scratch[r * LDS + half * (BN / 2)];
-    const int c0 = n0 + half * (BN / 2);
-    float x[BN / 2];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < BN / 2; ++c) {
-      const int kpos = c0 + c;
-      const bool ok = kpos < Tk && (!causal || kpos <= qpos);
-      x[c] = ok ? srow[c] * scale_log2 : -INFINITY;
-      mx = fmaxf(mx, x[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = exp2f(m_i - m_new);
-    float sum = 0.f;
-    __nv_bfloat16* prow = &ptile[r * LDP + half * (BN / 2)];
-#pragma unroll
-    for (int c = 0; c < BN / 2; ++c) {
-      const float pc = exp2f(x[c] - m_new);
-      prow[c] = __float2bfloat16(pc);
-      sum += pc;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * corr + sum;
-    m_i = m_new;
-    __syncwarp();  // P written and the scores read before the scratch is reused
-
-    // PV = P (16 x BN) V (BN x HS) into the scratch
-#pragma unroll
-    for (int n = 0; n < HS / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, &ptile[kk * 16], LDP);
-        wmma::load_matrix_sync(vf, &sm.v[kk * 16 * LDH + n * 16], LDH);
-        wmma::mma_sync(of, pf, vf, of);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], of, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    const float* pv = &scratch[r * LDS + half * (HS / 2)];
-#pragma unroll
-    for (int d = 0; d < HS / 2; ++d) acc[d] = acc[d] * corr + pv[d];
-    __syncwarp();
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  if (qrow < Tq) {
-    // every row of a right-aligned causal mask with Tq <= Tk sees key 0, so
-    // l_i > 0; the guard keeps a fully masked row at o = 0 instead of NaN
-    const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
-    __nv_bfloat16* orow = o + (((long long)b * Tq + qrow) * H + h) * HS + half * (HS / 2);
-#pragma unroll
-    for (int d = 0; d < HS / 2; d += 8) {
-      __align__(16) __nv_bfloat16 tmp[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tmp[e] = __float2bfloat16(acc[d + e] * inv);
-      *reinterpret_cast<uint4*>(orow + d) = *reinterpret_cast<const uint4*>(tmp);
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    setmaxnreg_dec<24>();
+    if (tid == CONSUMERS * 128) {
+      tma_prefetch_map(&mq);
+      tma_prefetch_map(&mk);
+      tma_prefetch_map(&mv);
+      mbar_expect_tx(&sm.q_full, Q_BYTES);
+      tma_load_4d(sm.q, &mq, &sm.q_full, 0, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES, ph = (j / STAGES) & 1;
+        mbar_wait(&sm.k_empty[s], ph ^ 1);
+        mbar_expect_tx(&sm.k_full[s], TILE_BYTES);
+        tma_load_4d(sm.k[s], &mk, &sm.k_full[s], 0, h, j * BN, b);
+        mbar_wait(&sm.v_empty[s], ph ^ 1);
+        mbar_expect_tx(&sm.v_full[s], TILE_BYTES);
+        tma_load_4d(sm.v[s], &mv, &sm.v_full[s], 0, h, j * BN, b);
+      }
     }
-    if (half == 0) lse[((long long)b * H + h) * Tq + qrow] = (m_i + log2f(l_i)) * LN2;
+  } else {
+    setmaxnreg_inc<240>();
+    const int t = tid % 128, warp = t / 32, lane = t % 32;
+    const int wm0 = m0 + wg * 64;          // this consumer's first query row
+    const int row0 = wm0 + warp * 16 + lane / 4;  // its rows: row0 and row0 + 8
+    const int pos0 = row0 + q_off;         // their key positions
+    const int col_l = 2 * (lane % 4);      // this thread's first column in an n8 block
+    bf16* qs = sm.q + wg * 64 * HS;
+    const uint64_t dq = desc_sw128(qs);
+
+    float m_i[2] = {-1e30f, -1e30f};  // running max, log2 domain
+    float l_i[2] = {0.f, 0.f};        // this thread's part of the running sum
+    float corr[2];                    // 2^(old max - new max) of the last tile
+    float acc[32], sc[64];
+    uint32_t pa[BN / 16][4];          // P of the last tile, bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    // online softmax of tile j's raw scores in place: the position mask where
+    // the tile crosses this consumer's diagonal or the Tk edge, the running
+    // max and sum, then p = 2^(s * scale_log2 - max)
+    auto softmax = [&](int j) {
+      const int n0 = j * BN;
+      const bool masked = n0 + BN > Tk || (causal && n0 + BN - 1 > wm0 + q_off);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if (masked) {
+          const int kpos = n0 + 8 * (i / 4) + col_l + (i & 1);
+          const int qpos = pos0 + 8 * ((i >> 1) & 1);
+          sc[i] = (kpos < Tk && (!causal || kpos <= qpos)) ? sc[i] : -INFINITY;
+        }
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);
+        corr[r] = ex2(m_i[r] - m_new);
+        m_i[r] = m_new;
+        l_i[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = ex2(fmaf(sc[i], scale_log2, -m_i[r]));
+        l_i[r] += sc[i];
+      }
+    };
+    auto issue_s = [&](int j) {  // S of tile j into sc
+      const int s = j % STAGES;
+      mbar_wait(&sm.k_full[s], (j / STAGES) & 1);
+      reg_fence(sc);
+      wg_fence();
+      const uint64_t dk = desc_sw128(sm.k[s]);
+#pragma unroll
+      for (int kk = 0; kk < HS / 16; ++kk)
+        mma_m64n128_ss(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk);
+      wg_commit();
+    };
+    auto issue_pv = [&](int j) {  // acc += P V of tile j
+      const int s = j % STAGES;
+      mbar_wait(&sm.v_full[s], (j / STAGES) & 1);
+      reg_fence(acc);
+      wg_fence();
+      const uint64_t dv = desc_sw128(sm.v[s]);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) mma_m64n64_rs_tb(acc, pa[kk], desc_add(dv, 2048 * kk), 1);
+      wg_commit();
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    };
+
+    // the two consumers take turns to issue their products (named barriers
+    // 3 and 4): one's softmax runs while the other's products do. Consumer 1
+    // lets consumer 0 go first; each turn ends by handing over, except
+    // consumer 1's last, which nobody waits for.
+    const int n_turns = n_tiles + 1;
+    int turn = 0;
+    auto my_turn = [&]() { named_sync(3 + wg, CONSUMERS * 128); };
+    auto hand_over = [&]() {
+      if (!(wg == 1 && turn == n_turns - 1)) named_arrive(3 + (wg ^ 1), CONSUMERS * 128);
+      ++turn;
+    };
+    if (wg == 1) named_arrive(3, CONSUMERS * 128);
+
+    mbar_wait(&sm.q_full, 0);
+    my_turn();
+    issue_s(0);
+    hand_over();
+    wg_wait<0>();
+    reg_fence(sc);
+    if (t == 0) mbar_arrive(&sm.k_empty[0]);
+    softmax(0);
+    pack();
+    // tile j's scores run on the tensor cores beside tile j - 1's P V, and
+    // tile j's softmax beside that P V
+    for (int j = 1; j < n_tiles; ++j) {
+      my_turn();
+      issue_s(j);
+      issue_pv(j - 1);
+      hand_over();
+      wg_wait<1>();  // S of tile j is in
+      reg_fence(sc);
+      if (t == 0) mbar_arrive(&sm.k_empty[j % STAGES]);
+      softmax(j);
+      reg_fence(sc);
+      wg_wait<0>();  // P V of tile j - 1 is in
+      reg_fence(acc);
+      reg_fence(pa);
+      if (t == 0) mbar_arrive(&sm.v_empty[(j - 1) % STAGES]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
+      pack();
+    }
+    my_turn();
+    issue_pv(n_tiles - 1);
+    hand_over();
+    wg_wait<0>();
+    reg_fence(acc);
+    reg_fence(pa);
+    if (t == 0) mbar_arrive(&sm.v_empty[(n_tiles - 1) % STAGES]);
+
+    // every row of a right-aligned causal mask with Tq <= Tk sees key 0, so
+    // l > 0; the guard keeps a fully masked row at o = 0 instead of NaN
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+      inv[r] = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
+    }
+    // o through this consumer's half of the Q tile (sw128 rows), then 16-byte
+    // stores of whole rows
+    unsigned char* ob = reinterpret_cast<unsigned char*>(qs);
+#pragma unroll
+    for (int j = 0; j < HS / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + lane / 4 + 8 * r;
+        *reinterpret_cast<uint32_t*>(ob + row * 128 + ((j ^ (row % 8)) * 16) + col_l * 2) =
+            pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+      }
+    named_sync(1 + wg, 128);
+    for (int c = t; c < 64 * (HS / 8); c += 128) {
+      const int row = c / (HS / 8), chunk = c % (HS / 8);
+      const int qrow = wm0 + row;
+      if (qrow < Tq)
+        *reinterpret_cast<uint4*>(o + (((long long)b * Tq + qrow) * H + h) * HS + chunk * 8) =
+            *reinterpret_cast<const uint4*>(ob + row * 128 + ((chunk ^ (row % 8)) * 16));
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qrow = row0 + 8 * r;
+        if (qrow < Tq) lse[((long long)b * H + h) * Tq + qrow] = (m_i[r] + log2f(l_i[r])) * LN2;
+      }
+    }
   }
 }
 
@@ -215,8 +296,8 @@ flash_general_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 
 // q: (B, Tq, H, hs), k/v: (B, Tk, H, hs), bf16 with unit stride on hs; strides
 // in elements, each a multiple of 8, base pointers 16-byte aligned (checked by
-// the Python wrapper, which also rejects causal with Tq > Tk). o: contiguous
-// (B, Tq, H, hs) bf16; lse: contiguous (B, H, Tq) fp32.
+// the Python wrapper, which also rejects causal with Tq > Tk; TMA needs the
+// same). o: contiguous (B, Tq, H, hs) bf16; lse: contiguous (B, H, Tq) fp32.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int gpt2vl_flash_general_fwd(const void* q, const void* k, const void* v, void* o,
                                         void* lse, int B, int Tq, int Tk, int H, int hs,
@@ -227,15 +308,18 @@ extern "C" int gpt2vl_flash_general_fwd(const void* q, const void* k, const void
   if (hs != HS || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || (causal && Tq > Tk) || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
+  CUtensorMap mq, mk, mv;
+  if (!hopper_host::map_bthd(&mq, q, B, Tq, H, qsb, qst, qsh, BM) ||
+      !hopper_host::map_bthd(&mk, k, B, Tk, H, ksb, kst, ksh, BN) ||
+      !hopper_host::map_bthd(&mv, v, B, Tk, H, vsb, vst, vsh, BN))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem) + 1024;  // + the alignment of the base
   cudaError_t err = cudaFuncSetAttribute(flash_general_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + BM - 1) / BM, H, B);
   const float scale_log2 = LOG2E / sqrtf((float)HS);
   flash_general_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, (float*)lse, Tq, Tk, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-      causal, scale_log2);
+      mq, mk, mv, (bf16*)o, (float*)lse, Tq, Tk, H, causal, scale_log2);
   return (int)cudaGetLastError();
 }

@@ -87,13 +87,15 @@ def batch_to_device(raw, device: torch.device) -> dict:
 
 def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLICY) -> dict:
     """The model, masks and loss functions of one fine-tune on ``device``:
-    {"model", "trainable", "decay", "loss_fn", "train_loss_fn", "dropout_gen"}.
+    {"model", "trainable", "decay", "loss_fn", "train_loss_fn", "dropout"}.
 
     The frozen LM comes from ``load_pretrained_gpt`` (+ a trainable bridge under
     ``bridge.*``, or the cross-attention leaves). ``loss_fn(model, micro, bank)``
     is the validation loss; ``train_loss_fn`` is the same with the Q-Former's
-    dropout drawn from ``dropout_gen`` (None for the other two, which have no
-    dropout sites). ``micro`` holds x, y, mask and idx, the rows of ``bank``."""
+    dropout active, drawn from the seed that the micro-batch carries under
+    "seed" (``dropout_seeds``). ``dropout`` says whether the training batches
+    must carry those seeds: the other two kinds have no dropout sites. ``micro``
+    holds x, y, mask and idx, the rows of ``bank``."""
     device = torch.device(device)
     kind, model_cfg = cfg.bridge.kind, cfg.model
     gpt = load_pretrained_gpt(model_cfg, cfg.init_ckpt, seed=cfg.seed, device=device)
@@ -105,7 +107,7 @@ def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLI
 
         return {"model": gpt, "trainable": gpt2.trainable_mask_xattn(gpt),
                 "decay": gpt2.decay_mask(gpt), "loss_fn": loss_fn, "train_loss_fn": loss_fn,
-                "dropout_gen": None}
+                "dropout": False}
 
     bridge = caption.init(
         model_cfg, cfg.bridge,
@@ -118,8 +120,8 @@ def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLI
     # train=True: the Q-Former's dropout is active when a micro-batch carries a
     # generator, which only training batches do
     base_loss = caption.loss_fn_factory(model_cfg, cfg.bridge, policy=policy, train=True)
-    # the Q-Former's dropout stream (the JAX per-micro seed counter, :246-263);
-    # the linear bridge has no dropout sites
+    # the Q-Former's dropout stream, re-seeded for each micro-batch from the
+    # seed it carries; the linear bridge has no dropout sites
     dropout_gen = torch.Generator(device) if kind == "qformer" else None
 
     def loss_fn(model, micro, bank):
@@ -128,11 +130,20 @@ def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLI
     def train_loss_fn(model, micro, bank):
         micro = {**micro, "z": bank[micro["idx"]]}
         if dropout_gen is not None:
-            micro["generator"] = dropout_gen
+            micro["generator"] = dropout_gen.manual_seed(int(micro.pop("seed")))
         return base_loss(model, micro)
 
     return {"model": model, "trainable": trainable, "decay": decay, "loss_fn": loss_fn,
-            "train_loss_fn": train_loss_fn, "dropout_gen": dropout_gen}
+            "train_loss_fn": train_loss_fn, "dropout": dropout_gen is not None}
+
+
+def dropout_seeds(seed: int, step: int, accum: int) -> torch.Tensor:
+    """The dropout seeds of step ``step``'s micro-batches, (accum,): one for
+    each global micro-batch index step * accum + i, as the JAX trainer draws
+    one seed a micro-batch (gpt2_vision_language_tpu/train/finetune.py:246-263).
+    They depend on the position alone, so a resumed run draws what the
+    uninterrupted one does."""
+    return seed * 1000003 + step * accum + torch.arange(accum)
 
 
 def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT_POLICY,
@@ -186,7 +197,7 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
     parts = build_finetune(cfg, device=device, policy=policy)
     model, trainable, decay = parts["model"], parts["trainable"], parts["decay"]
     loss_fn, train_loss_fn = parts["loss_fn"], parts["train_loss_fn"]
-    dropout_gen = parts["dropout_gen"]
+    dropout = parts["dropout"]
 
     params = gpt2.named_params(model)
     n_train = sum(p.numel() for n, p in params.items() if trainable[n])
@@ -221,8 +232,6 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
         # the data stream goes on where the uninterrupted run would be
         train_batcher.skip_batches(start_step * accum)
         print(f"[ckpt] resumed at step {start_step}")
-    if dropout_gen is not None:
-        dropout_gen.manual_seed(cfg.seed * 1000003 + start_step)
 
     max_steps = max_steps_override or cfg.schedule.max_steps
     val_loss, cider = float("nan"), None
@@ -271,6 +280,8 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
                 run_validation(step, last_step)
 
             batch = prefetch.next()
+            if dropout:
+                batch = {**batch, "seed": dropout_seeds(cfg.seed, step, accum)}
             metrics = train_step(model, opt_state, batch, step, train_bank)
             final_step = step
             if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):

@@ -6,10 +6,13 @@ rolling checkpoint every 2500, auto-resume), its CSV schema and its
 hyperparameters through ``PretrainConfig``. The token shards are read by
 ``data/fineweb.TokenShardLoader`` and the CSV is written by
 ``obs/csvlog.MetricsLogger``, the port's own copies of the JAX package's host
-modules. Each step's (accum, B, T+1) row buffer goes to the device as one
-pinned int32 tensor. HellaSwag runs every ``hellaswag_every`` steps and at
-the last step when ``run_hellaswag`` is set and ``$HELLASWAG_DIR`` (default
-``./hellaswag``) is a directory. ``attn_impl="ring"`` (:88-96, :134-138,
+modules. Each step's (accum, B, T+1) uint16 row buffer is read and copied to
+the device by a background thread (``data/pipeline.HostPrefetcher``: the next
+window is on its way while the current step runs), in its 16 bits through
+pinned memory, and split into x, y and widened to int32 there, as the JAX
+trainer does (``split_rows_on_device``). HellaSwag runs every
+``hellaswag_every`` steps and at the last step when ``run_hellaswag`` is set
+and ``$HELLASWAG_DIR`` (default ``./hellaswag``) is a directory. ``attn_impl="ring"`` (:88-96, :134-138,
 :462-465 there) needs ``tp > 1`` chunks that divide ``seq_len``; the ring is
 run in turn by this one process (``ops.ring_attention.LocalRing``), installed
 before the first step and removed when the run ends. ``tp > 1`` with any
@@ -31,6 +34,7 @@ from ..ckpt.checkpoint import CheckpointManager
 from ..core.config import PretrainConfig
 from ..core.precision import Policy, DEFAULT_POLICY
 from ..data.fineweb import TokenShardLoader
+from ..data.pipeline import HostPrefetcher
 from ..data.tokenizer import get_tokenizer
 from ..eval.hellaswag import HellaSwagEvaluator
 from ..infer.decode import Decoder
@@ -42,13 +46,22 @@ from .optimizer import adamw_init
 from .step import make_eval_step, make_train_step
 
 
-def stage_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(..., B, T+1) token rows -> one int32 tensor on ``device`` (through
-    pinned memory for a CUDA device)."""
-    t = torch.from_numpy(rows.astype(np.int32))
+def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(..., B, T+1) uint16 token rows -> the same 16 bits on ``device``, as
+    an int16 tensor (through pinned memory for a CUDA device): half the bytes
+    of int32 rows."""
+    t = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.uint16).view(np.int16))
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def split_rows_on_device(rows: torch.Tensor) -> dict:
+    """Rows from ``upload_rows`` -> {"x": rows[..., :-1], "y": rows[..., 1:]},
+    widened to int32 on the rows' device (the port's counterpart of
+    gpt2_vision_language_tpu/data/fineweb.py split_rows_on_device)."""
+    wide = rows.to(torch.int32) & 0xFFFF
+    return {"x": wide[..., :-1], "y": wide[..., 1:]}
 
 
 def check_parallel(cfg: PretrainConfig) -> None:
@@ -98,8 +111,8 @@ def _run_pretrain(cfg, device, policy, max_steps_override) -> dict:
     print(f"[init] parameters: {gpt2.param_count(model):,}")
 
     def loss_fn(model, micro):
-        # micro: (B, T+1) rows; x = rows[:, :-1], y = rows[:, 1:]
-        return gpt2.loss(model, micro[:, :-1], cfg.model, targets=micro[:, 1:],
+        # micro: {"x", "y"}, (B, T) int32 each
+        return gpt2.loss(model, micro["x"], cfg.model, targets=micro["y"],
                          policy=policy, attn_impl=cfg.attn_impl)
 
     train_step = make_train_step(
@@ -137,43 +150,50 @@ def _run_pretrain(cfg, device, policy, max_steps_override) -> dict:
     val_loss = float("nan")
     tokens_per_step = b * t * accum
     final_step, halted = start_step - 1, False
-    for step in range(start_step, max_steps):
-        t0 = time.time()
-        last_step = step == max_steps - 1
-        if cfg.val_every and (step % cfg.val_every == 0 or last_step):
-            val_loader.reset()
-            vbatch = stage_rows(val_loader.next_accum_rowbuf(cfg.val_steps), device)
-            val_loss = float(eval_step(model, vbatch))
-            log.val(step, val_loss)
-            manager.save_step(step, model, opt_state, val_loss, last_step=last_step)
+    # after the resume's seek: the thread reads on from where this run starts
+    prefetch = HostPrefetcher(lambda: train_loader.next_accum_rowbuf(accum),
+                              stage=lambda rows: upload_rows(rows, device))
+    try:
+        for step in range(start_step, max_steps):
+            t0 = time.time()
+            last_step = step == max_steps - 1
+            if cfg.val_every and (step % cfg.val_every == 0 or last_step):
+                val_loader.reset()
+                vrows = upload_rows(val_loader.next_accum_rowbuf(cfg.val_steps), device)
+                vbatch = split_rows_on_device(vrows)
+                val_loss = float(eval_step(model, vbatch))
+                log.val(step, val_loss)
+                manager.save_step(step, model, opt_state, val_loss, last_step=last_step)
 
-        if (cfg.run_hellaswag and hellaswag_dir_ok
-                and cfg.hellaswag_every  # 0 disables, like val/sample_every
-                and (step % cfg.hellaswag_every == 0 or last_step)):
-            correct, total = hella.evaluate(model, tokenizer)
-            if total:
-                log.hellaswag(step, correct / total, correct, total)
+            if (cfg.run_hellaswag and hellaswag_dir_ok
+                    and cfg.hellaswag_every  # 0 disables, like val/sample_every
+                    and (step % cfg.hellaswag_every == 0 or last_step)):
+                correct, total = hella.evaluate(model, tokenizer)
+                if total:
+                    log.hellaswag(step, correct / total, correct, total)
 
-        if cfg.sample_every and ((step > 0 and step % cfg.sample_every == 0) or last_step):
-            prompt = tokenizer.encode("Hello, I'm a language model,")
-            ids = torch.tensor([prompt] * 4, device=device)
-            # seed 42, re-seeded at each sampling event (train_gpt2.py:438-439)
-            toks, _ = decoder.generate(model, ids, max(1, 32 - len(prompt)),
-                                       torch.Generator(device).manual_seed(42))
-            for i in range(4):
-                print(f"sample {i}: {tokenizer.decode(prompt + toks[i].tolist())}")
+            if cfg.sample_every and ((step > 0 and step % cfg.sample_every == 0) or last_step):
+                prompt = tokenizer.encode("Hello, I'm a language model,")
+                ids = torch.tensor([prompt] * 4, device=device)
+                # seed 42, re-seeded at each sampling event (train_gpt2.py:438-439)
+                toks, _ = decoder.generate(model, ids, max(1, 32 - len(prompt)),
+                                           torch.Generator(device).manual_seed(42))
+                for i in range(4):
+                    print(f"sample {i}: {tokenizer.decode(prompt + toks[i].tolist())}")
 
-        batch = stage_rows(train_loader.next_accum_rowbuf(accum), device)
-        metrics = train_step(model, opt_state, batch, step)
-        final_step = step
-        if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
-            # the step skipped its update; stop with usable checkpoints on disk
-            print(f"[guard] non-finite loss/grad at step {step}; halting")
-            halted = True
-            break
-        dt = time.time() - t0
-        log.train(step, metrics["loss"], metrics["lr"], metrics["grad_norm"],
-                  dt * 1000, tokens_per_step / dt)
+            batch = split_rows_on_device(prefetch.next())
+            metrics = train_step(model, opt_state, batch, step)
+            final_step = step
+            if not (math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])):
+                # the step skipped its update; stop with usable checkpoints on disk
+                print(f"[guard] non-finite loss/grad at step {step}; halting")
+                halted = True
+                break
+            dt = time.time() - t0
+            log.train(step, metrics["loss"], metrics["lr"], metrics["grad_norm"],
+                      dt * 1000, tokens_per_step / dt)
+    finally:
+        prefetch.close()
 
     next_step = final_step if halted else final_step + 1
     manager.save_final(final_step, model, opt_state, val_loss, next_step=next_step)

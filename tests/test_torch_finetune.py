@@ -273,6 +273,25 @@ def test_cli_runs_and_resumes_on_the_cpu(tmp_path, kind):
                              or ("vis_proj" in n) for n in trainable)
 
 
+def test_qformer_resume_matches_uninterrupted(tmp_path):
+    """With the Q-Former's dropout on, 3 steps straight and 2 steps + a resume
+    + 1 step end at the same bridge leaves, bit for bit: micro-batch i of step
+    s draws its dropout from seed base + s * accum + i, whatever ran before."""
+    cli, kw = CLI_KW["qformer"]
+    assert kw["bridge"].dropout > 0
+    over = dict(SHORT, cider_every=0)
+    argv = ["--synthetic", "--micro-batch", "8", "--device", "cpu"]
+    a = cli.main(argv + ["--log-dir", str(tmp_path / "a"), "--steps", "3"], overrides=over, **kw)
+    cli.main(argv + ["--log-dir", str(tmp_path / "b"), "--steps", "2"], overrides=over, **kw)
+    b = cli.main(argv + ["--log-dir", str(tmp_path / "b"), "--steps", "3"], overrides=over, **kw)
+    assert a["opt_state"]["step"] == b["opt_state"]["step"] == 3
+    pa, pb = gpt2.named_params(a["model"]), gpt2.named_params(b["model"])
+    bridge = [n for n in pa if n.startswith("bridge.")]
+    assert bridge and all(pa[n].dtype == torch.float32 for n in bridge)
+    for n in bridge:
+        assert torch.equal(pa[n], pb[n]), n
+
+
 def test_xattn_cli_takes_one_epoch_of_steps(tmp_path, monkeypatch):
     """Without --steps the cross-attention CLI runs ceil(n_images / B) steps."""
     seen = {}

@@ -42,6 +42,27 @@ def test_no_source_imports_the_jax_package():
     assert not bad, bad
 
 
+def test_no_user_facing_string_names_the_jax_package(capsys, monkeypatch):
+    """No source of the port, nor chip_smoke.py, points its user at a command
+    of the JAX package (docstrings cite its files by path, which stays); the
+    tokenizer's fallback warning says to place the BPE files by hand."""
+    files = _port_sources() + [os.path.join(d, n) for d, _, names in os.walk(PORT_DIR)
+                               for n in names if n.endswith((".cu", ".cuh"))]
+    bad = [(f, line.strip()) for f in files for line in open(f, encoding="utf-8")
+           if "python -m gpt2_vision_language_tpu." in line]
+    assert not bad, bad
+    monkeypatch.setenv("GPT2_BPE_DIR", "")
+    monkeypatch.setitem(sys.modules, "tiktoken", None)  # no tiktoken data either
+    ptok.get_tokenizer.cache_clear()
+    try:
+        assert isinstance(ptok.get_tokenizer(), ptok.ByteFallbackTokenizer)
+    finally:
+        ptok.get_tokenizer.cache_clear()
+    err = capsys.readouterr().err
+    assert "encoder.json" in err and "vocab.bpe" in err and "GPT2_BPE_DIR" in err
+    assert "python -m gpt2_vision_language_tpu." not in err
+
+
 def test_importing_every_port_module_loads_no_jax():
     """A subprocess imports every module of the port (cli.pretrain and
     train.pretrain included): neither jax nor the JAX package is loaded."""

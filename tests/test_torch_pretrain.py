@@ -167,17 +167,57 @@ def test_ring_run_matches_xla_run(tmp_path):
 
 def test_device_flag(tmp_path, monkeypatch):
     """--device defaults to cuda and the CLI raises without a CUDA device
-    instead of training on the CPU; --device cpu and main(device=...) ask for
-    the CPU."""
+    instead of training on the CPU; --device cpu, the one way to pick the
+    device (main takes no device keyword), asks for the CPU."""
+    import inspect
+
     assert pretrain.parse_and_build([])[1].device == "cuda"
+    assert "device" not in inspect.signature(pretrain.main).parameters
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [a for a in ARGS if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="--device cpu"):
         pretrain.main(argv + ["--log-dir", str(tmp_path / "a"), "--steps", "1"], model=TINY)
     assert not os.path.exists(tmp_path / "a")
-    out = pretrain.main(argv + ["--log-dir", str(tmp_path / "b"), "--steps", "1"], model=TINY,
-                        device="cpu")
+    out = pretrain.main(argv + ["--log-dir", str(tmp_path / "b"), "--steps", "1",
+                                "--device", "cpu"], model=TINY)
     assert out["opt_state"]["step"] == 1
+
+
+@pytest.mark.parametrize(
+    "argv, field",
+    [(["--val-every", "0"], "val_every"), (["--val-every", "7"], "val_every"),
+     (["--sample-every", "0"], "sample_every"), (["--sample-every", "9"], "sample_every"),
+     (["--no-ckpt"], "save_ckpt"), (["--no-nan-guard"], "nan_guard"),
+     (["--model", "124M"], "model"), (["--model", "350M"], "model"),
+     (["--model", "774M"], "model"), (["--model", "1558M"], "model"),
+     (["--model", "350M", "--seq-len", "2048"], "model")],
+)
+def test_flags_match_jax_cli(argv, field):
+    """Each of these flags gives the config field that the JAX CLI's
+    parse_and_build gives (gpt2_vision_language_tpu/cli/pretrain.py:41-113,
+    :212-250); --model takes the port's own presets. ``unroll_layers`` is
+    left out: the JAX CLI sets it for 350M, and nothing in the port reads it."""
+    import dataclasses
+
+    from gpt2_vision_language_tpu.cli import pretrain as jax_pretrain
+
+    got = getattr(pretrain.parse_and_build(argv)[0], field)
+    want = getattr(jax_pretrain.parse_and_build(argv)[0], field)
+    if field == "model":
+        assert type(got).__module__.startswith("gpt2_vision_language_tpu_torch.")
+        names = [f.name for f in dataclasses.fields(got) if f.name != "unroll_layers"]
+        want = {n: getattr(want, n) for n in names}
+        got = {n: getattr(got, n) for n in names}
+    assert got == want
+    assert getattr(pretrain.parse_and_build([])[0], field) == getattr(
+        jax_pretrain.parse_and_build([])[0], field) or field == "model"
+
+
+def test_model_keyword_wins_over_model_flag():
+    """main's and parse_and_build's model= (tiny test architectures) wins
+    over --model."""
+    cfg, args = pretrain.parse_and_build(["--model", "774M"], model=TINY)
+    assert cfg.model == TINY and args.model == "774M"
 
 
 def test_checkpoint_manager_resumes_furthest(tmp_path):
@@ -201,3 +241,48 @@ def test_checkpoint_manager_resumes_furthest(tmp_path):
     off = CheckpointManager(str(tmp_path / "off"), enabled=False)
     off.save_final(1, model, state, next_step=2)
     assert off.maybe_resume() is None and not os.path.exists(tmp_path / "off")
+
+
+def test_device_side_split_matches_staged_rows():
+    """The rows go to the device in their 16 bits and are split and widened
+    there: x and y equal what the trainer staged before, the rows widened to
+    int32 on the host and sliced (ids up to 65535, past int16's range)."""
+    import numpy as np
+
+    from gpt2_vision_language_tpu.data.fineweb import split_rows_on_device as jax_split
+    from gpt2_vision_language_tpu_torch.train.pretrain import split_rows_on_device, upload_rows
+
+    rows = np.random.RandomState(0).randint(0, 65536, (3, 2, 9)).astype(np.uint16)
+    rows[0, 0, :3] = (0, 32767, 65535)
+    staged = torch.from_numpy(rows.astype(np.int32))  # the former stage_rows
+    up = upload_rows(rows, torch.device("cpu"))
+    assert up.dtype == torch.int16 and up.shape == rows.shape
+    got = split_rows_on_device(up)
+    assert got["x"].dtype == got["y"].dtype == torch.int32
+    assert torch.equal(got["x"], staged[..., :-1]) and torch.equal(got["y"], staged[..., 1:])
+    jx, jy = jax_split(rows)
+    assert np.array_equal(got["x"].numpy(), np.asarray(jx))
+    assert np.array_equal(got["y"].numpy(), np.asarray(jy))
+
+
+def test_trainer_takes_its_windows_from_the_prefetcher(tmp_path, monkeypatch):
+    """The pretrain loop reads its training windows through
+    data/pipeline.HostPrefetcher (one window a step, staged by the thread)
+    and closes it when the run ends."""
+    from gpt2_vision_language_tpu_torch.data import pipeline
+    from gpt2_vision_language_tpu_torch.train import pretrain as tp
+
+    seen = {"next": 0, "closed": 0}
+
+    class Counting(pipeline.HostPrefetcher):
+        def next(self):
+            seen["next"] += 1
+            return super().next()
+
+        def close(self):
+            seen["closed"] += 1
+            super().close()
+
+    monkeypatch.setattr(tp, "HostPrefetcher", Counting)
+    _run(tmp_path / "log", 2)
+    assert seen == {"next": 2, "closed": 1}
