@@ -1,7 +1,7 @@
 """Drive the PyTorch/H100 port once on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-times   # K2b and K3c times only, one JSON line
+    python3 chip_smoke.py --flash-times   # K2a, K2b, K3b, K3c times only, one JSON line
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -38,10 +38,13 @@ Phases (any failure raises and the script exits non-zero):
      (4, 1, 1500), (2, 777, 1234) causal, (3, 200, 200) without a mask, all
      H=12, and at the long-context shape B=1, T=16384, H=12 against the plain
      versions run two heads at a time; o is held elementwise and row by row
-     (each row of 64 within 2^-6 of its norm); two controls must fail: the
-     forward's o against the plain version with the other mask (T=4096), and
-     the last 128 rows against the plain version without their last key tile
-     (T=16384);
+     (each row of 64 within 2^-6 of its norm), dk and dv against 3e-2 of
+     max|ref| and row by row (each key row within 2^-6 of its norm plus 1e-3),
+     the dk/dv kernel twice on one input bit for bit; three controls must
+     fail: the forward's o against the plain version with the other mask
+     (T=4096), the last 128 rows against the plain version without their last
+     key tile (T=16384), and the plain dk/dv without the query rows from 4096
+     after each key tile on (T=16384, the row check);
  11. the general kernels against the self-attention kernels on the same
      inputs at B=8, T=1024 and B=2, T=4096 (within 1e-2; times and whether
      they are bit-identical only printed);
@@ -62,10 +65,14 @@ Phases (any failure raises and the script exits non-zero):
      q/k/v strided views of a longer tensor as the ring passes them, at
      (B, Tq, Tk) = (1, 4096, 4096) causal and not (the ring's two calls),
      (2, 1000, 1000), (2, 64, 2048) causal and not, (4, 1, 1500), (2, 777,
-     1234) causal, (3, 200, 200) without a mask; the
-     backward with a random lse cotangent and a control without it that must
-     disagree; the backward twice on one input (dq is summed by reductions in
-     global memory in no fixed order); the general kernels timed beside them;
+     1234) causal, (3, 200, 200) without a mask; o held elementwise and row
+     by row as in phase 10, with a control that must fail the row check (the
+     last 128 rows of the unmasked 4096 pair against the plain version without
+     their last key tile); the backward with a random lse cotangent, dk and dv
+     also row by row as in phase 10, and a control without the cotangent that
+     must disagree; the backward twice on one input (dq is summed by
+     reductions in global memory in no fixed order); the general kernels timed
+     beside them;
  16. ring attention as an op: 4 chunks at B=1, T=16384, H=12, forward and
      backward through autograd, against the general kernels on the whole
      sequence, 10 + 10 + 10 launches (lse forward, D, one-pass backward) and
@@ -114,8 +121,8 @@ phase 20; the fine-tune runs of phase 23 beside them), error, times, bound
 and library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA device.
 
-With --flash-times it only builds the kernels and times K2b and K3c at the
-shapes of the kernels line (``flash_times``). Copied into the root of another
+With --flash-times it only builds the kernels and times K2a, K2b, K3b and
+K3c at the shapes of the kernels line (``flash_times``). Copied into the root of another
 checkout and run there, it times that checkout's kernels, so two trees
 compare on one card in the order parent, change, change, parent.
 """
@@ -642,6 +649,49 @@ def row_excess(o, ref, rel=2.0 ** -6):
     return r, r - rel
 
 
+def grad_row_excess(x, ref, rel=2.0 ** -6, floor=1e-3):
+    """(the largest |x - ref| / (|ref| + floor) over the key rows of hs
+    values of dk or dv, by how much it passes ``rel``). Under a causal mask
+    the key rows of dk and dv differ in size by orders of magnitude, so the
+    check against 3e-2 of max|ref|, which the largest rows set, can pass a
+    middle key's row that is off by half its norm: what a dk/dv kernel whose
+    key tiles stop their query sweep early gives. The absolute floor keeps
+    rows near zero, whose error is set by the size of their terms rather
+    than of their sum, from turning rounding into a failure. Sound kernels
+    read at most about 6e-3 (P and dS rounded to bf16, then dk and dv)."""
+    err = (x.float() - ref.float()).norm(dim=-1)
+    r = (err / (ref.float().norm(dim=-1) + floor)).max().item()
+    return r, r - rel
+
+
+def dkv_reference(torch, q, k, v, do, lse, dd, causal, drop_after=None, tile=128, heads=2):
+    """dk and dv of the plain backward (flash_attention_backward_reference's
+    fp32 arithmetic on the kernels' lse and D), `heads` heads at a time. With
+    ``drop_after``, a query whose key position is ``drop_after`` or more past
+    the first key of a key's 128-key tile adds nothing to that key: what a
+    dk/dv kernel would give whose key tiles stop their query sweep that early,
+    the control that the row check of dk and dv must fail."""
+    tq, tk, hs = q.shape[1], k.shape[1], q.shape[-1]
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    hide = kpos > qpos if causal else torch.zeros(tq, tk, dtype=torch.bool, device=q.device)
+    if drop_after is not None:
+        hide = hide | (qpos >= kpos // tile * tile + drop_after)
+    dks, dvs = [], []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        q32, k32, v32, do32 = (a[:, :, c].float() for a in (q, k, v, do))
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * hs**-0.5
+        p = torch.exp(s.masked_fill(hide, float("-inf")) - lse[:, c, :, None])
+        del s
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, do32).to(v.dtype))
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", do32, v32) - dd[:, c, :, None])
+        del p
+        dks.append((torch.einsum("bhqk,bqhd->bkhd", ds, q32) * hs**-0.5).to(k.dtype))
+        del ds
+    return torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+
+
 def plain_by_heads(torch, fa, q, k, v, do, o, lse, dd, causal, heads=2):
     """The plain forward and backward, `heads` heads at a time (their (B, H,
     Tq, Tk) fp32 score matrices do not fit at once at T=16384, H=12). Each
@@ -666,7 +716,8 @@ def phase_general(torch, fa, dev):
     lse_tol, bwd_tol = 1e-3, 3e-2  # as the self-attention kernels
     dd_tol = 1e-5  # fp32 sums of the same 64 products in another order
     g = torch.Generator(dev).manual_seed(10)
-    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dd": 0.0, "dq": 0.0, "dkv": 0.0}
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dd": 0.0, "dq": 0.0, "dkv": 0.0,
+            "dkv_row": 0.0}
     # 777 / 1234: an offset Tk - Tq = 457 that is no multiple of 64 or 128, so
     # the 128-row tiles of K2b cross the diagonal mid-tile; 200: ragged
     # without a mask
@@ -701,6 +752,11 @@ def phase_general(torch, fa, dev):
         dd = fa.flash_rowdot(do, o)
         dq = fa.flash_general_dq(q, k, v, do, lse, dd, causal=causal)
         dk, dv = fa.flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
+        dk2, dv2 = fa.flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
+        require(torch.equal(dk2, dk) and torch.equal(dv2, dv),
+                f"two runs of the dk/dv kernel differ at Tq={tq} Tk={tk}: it sums in a "
+                "fixed order")
+        del dk2, dv2
         ro, rlse, rdd, rdq, rdk, rdv = plain_by_heads(torch, fa, q, k, v, do, o, lse, dd,
                                                        causal)
         torch.cuda.synchronize()
@@ -709,19 +765,35 @@ def phase_general(torch, fa, dev):
         el = (lse - rlse).abs().max().item()
         ed = rel_err(dd, rdd)
         eq, ek, ev = rel_err(dq, rdq), rel_err(dk, rdk), rel_err(dv, rdv)
+        (rk, k_over), (rv, v_over) = grad_row_excess(dk, rdk), grad_row_excess(dv, rdv)
         finite = all(torch.isfinite(a.float()).all().item() for a in (o, lse, dd, dq, dk, dv))
         print(f"  B={b} Tq={tq} Tk={tk} H={h} causal={causal}: out max|err| {eo:.3e} (tol "
               f"2e-2 or one bf16 ulp), max row |err| / |ref| {erow:.3e} (tol 2^-6), lse "
               f"max|err| {el:.3e} (tol {lse_tol}), D "
               f"{ed:.3e} (tol {dd_tol}), dq, dk, dv max|err| / max|ref| {eq:.3e}, "
-              f"{ek:.3e}, {ev:.3e} (tol {bwd_tol})", flush=True)
+              f"{ek:.3e}, {ev:.3e} (tol {bwd_tol}), dk, dv max row |err| / (|ref| + 1e-3) "
+              f"{rk:.3e}, {rv:.3e} (tol 2^-6)", flush=True)
         require(finite, f"general kernels gave a non-finite value at Tq={tq} Tk={tk}")
         require(excess <= 0 and row_over <= 0 and el <= lse_tol,
                 f"general forward Tq={tq} Tk={tk} disagrees")
-        require(ed <= dd_tol and max(eq, ek, ev) <= bwd_tol,
+        require(ed <= dd_tol and max(eq, ek, ev) <= bwd_tol and k_over <= 0 and v_over <= 0,
                 f"general backward Tq={tq} Tk={tk} disagrees")
+        if tq == 16384:
+            # control: the plain dk/dv with the query rows from 4096 after each
+            # key tile on dropped, as a K3b whose sweeps stop early would give
+            # them; the row check must fail it (the check against max|ref| is
+            # printed beside it)
+            sk, sv = dkv_reference(torch, q, k, v, do, lse, dd, causal, drop_after=4096)
+            control = max(grad_row_excess(sk, rdk)[1], grad_row_excess(sv, rdv)[1])
+            loose = max(rel_err(sk, rdk), rel_err(sv, rdv))
+            del sk, sv
+            print(f"  control: dk/dv without the queries from 4096 after each key tile on "
+                  f"pass the row tolerance by {control:.3e} (must be > 0); max|err| / "
+                  f"max|ref| {loose:.3e} (tol {bwd_tol})", flush=True)
+            require(control > 0, "dk/dv without the far queries passed the row check: the "
+                    "check cannot see a short key-tile sweep")
         for key, e in (("o", eo), ("o_row", erow), ("lse", el), ("dd", ed), ("dq", eq),
-                       ("dkv", max(ek, ev))):
+                       ("dkv", max(ek, ev)), ("dkv_row", max(rk, rv))):
             errs[key] = max(errs[key], e)
     # times at the long-context shape (the last one above); the backward's
     # plain version computes dq, dk and dv together
@@ -1002,7 +1074,7 @@ def phase_lse(torch, fa, dev):
           flush=True)
     lse_tol, bwd_tol = 1e-3, 3e-2  # as the general family
     g = torch.Generator(dev).manual_seed(15)
-    errs = {"o": 0.0, "lse": 0.0, "bwd": 0.0, "rerun": 0.0}
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "bwd": 0.0, "dkv_row": 0.0, "rerun": 0.0}
     times = {}
     # the last two as in phase 10: an offset that is no multiple of the tiles,
     # and ragged without a mask
@@ -1022,19 +1094,38 @@ def phase_lse(torch, fa, dev):
         no_dlse = fa.flash_fused_backward(q, k, v, do, lse, dd, causal=causal)
         torch.cuda.synchronize()
         eo, excess = out_excess(o, ro)
+        erow, row_over = row_excess(o, ro)
         el = (lse - rlse).abs().max().item()
         eq, ek, ev = (rel_err(x, r) for x, r in zip(got, want))
+        (rk, k_over), (rv, v_over) = (grad_row_excess(x, r) for x, r in zip(got[1:], want[1:]))
         control = max(rel_err(x, r) for x, r in zip(no_dlse, want))
         rerun = rel_err(again[0], got[0])
         finite = all(torch.isfinite(a.float()).all().item() for a in (o, lse, *got))
         print(f"  B={b} Tq={tq} Tk={tk} H={h} causal={causal}: out max|err| {eo:.3e} (tol 2e-2 "
-              f"or one bf16 ulp), lse max|err| {el:.3e} (tol {lse_tol}); with a random lse "
+              f"or one bf16 ulp), max row |err| / |ref| {erow:.3e} (tol 2^-6), lse max|err| "
+              f"{el:.3e} (tol {lse_tol}); with a random lse "
               f"cotangent dq, dk, dv max|err| / max|ref| {eq:.3e}, {ek:.3e}, {ev:.3e} (tol "
-              f"{bwd_tol}), control without it {control:.3e}; dq of two runs differs by "
+              f"{bwd_tol}), dk, dv max row |err| / (|ref| + 1e-3) {rk:.3e}, {rv:.3e} (tol "
+              f"2^-6), control without it {control:.3e}; dq of two runs differs by "
               f"{rerun:.3e} of max|dq|", flush=True)
         require(finite, f"lse kernels gave a non-finite value at Tq={tq} Tk={tk}")
-        require(excess <= 0 and el <= lse_tol, f"lse forward Tq={tq} Tk={tk} disagrees")
-        require(max(eq, ek, ev) <= bwd_tol, f"one-pass backward Tq={tq} Tk={tk} disagrees")
+        require(excess <= 0 and row_over <= 0 and el <= lse_tol,
+                f"lse forward Tq={tq} Tk={tk} disagrees")
+        require(max(eq, ek, ev) <= bwd_tol and k_over <= 0 and v_over <= 0,
+                f"one-pass backward Tq={tq} Tk={tk} disagrees")
+        if tq == 4096 and not causal:
+            # control: the last 128 rows as a K2a that dropped their last key
+            # tile would give them; the row check must fail it
+            r = slice(tq - 128, tq)
+            dropped = fa.flash_attention_reference(q[:, r], k[:, :tk - 128], v[:, :tk - 128],
+                                                   causal=False)[0]
+            _, o_control = row_excess(o[:, r], dropped)
+            _, loose = out_excess(o[:, r], dropped)
+            print(f"  control: the last 128 rows without their last key tile pass the row "
+                  f"tolerance by {o_control:.3e} (must be > 0), the elementwise one by "
+                  f"{loose:.3e}", flush=True)
+            require(o_control > 0, "K2a's o passed the row check against o without the last "
+                    "key tile: the check cannot see a short key sweep")
         require(control > bwd_tol, "the backward without the lse cotangent passed the check: "
                 "the check cannot see dcap")
         require(rerun <= bwd_tol and torch.equal(again[1], got[1])
@@ -1042,6 +1133,7 @@ def phase_lse(torch, fa, dev):
                 "two runs of the one-pass backward differ by more than its tolerance, or in "
                 "dk/dv, which are summed in a fixed order")
         errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["o_row"], errs["dkv_row"] = max(errs["o_row"], erow), max(errs["dkv_row"], rk, rv)
         errs["bwd"], errs["rerun"] = max(errs["bwd"], eq, ek, ev), max(errs["rerun"], rerun)
         if tq == 1000:
             # the same through autograd: the Function forms dcap = D - dlse itself
@@ -1858,21 +1950,28 @@ def phase_finetune_clis(torch, ft, mods, dev):
 
 
 def flash_times(torch, fa, dev, build_s, card):
-    """K2b at B=1, T=16384, H=12 causal (q, k, v views of one fused
-    projection) and K2b and K3c on one ring chunk pair, B=1, Tq=Tk=4096,
-    H=12, unmasked and causal (chunk views; lse and dcap from the plain
-    forward): each the mean of 20 launches after a warm-up, in one JSON line
-    with the build time and the card."""
+    """K2b and K3b at B=1, T=16384, H=12 causal (q, k, v views of one fused
+    projection; K3b's lse from K2b, its D from the D pre-kernel) and K2a, K2b
+    and K3c on one ring chunk pair, B=1, Tq=Tk=4096, H=12, unmasked and
+    causal (chunk views; lse and dcap from the plain forward): each the mean
+    of 20 launches after a warm-up (10 for K3b), in one JSON line with the
+    build time and the card."""
     g = torch.Generator(dev).manual_seed(0)
     out = {"build_s": build_s}
-    q, k, v, _ = qkv_inputs(torch, 1, 16384, 16384, 12, dev, g)
+    q, k, v, do = qkv_inputs(torch, 1, 16384, 16384, 12, dev, g)
     out["k2b_T16384_causal_ms"] = cuda_ms(
         lambda: fa.flash_general_forward(q, k, v, causal=True), 20)
+    o, lse = fa.flash_general_forward(q, k, v, causal=True)
+    dd = fa.flash_rowdot(do, o)
+    out["k3b_T16384_causal_ms"] = cuda_ms(
+        lambda: fa.flash_general_dkv(q, k, v, do, lse, dd, causal=True), 10)
     for causal in (False, True):
         q, k, v, do, _ = chunk_views(torch, 1, 4096, 4096, 12, dev, g)
         o, lse = fa.flash_attention_with_lse_reference(q, k, v, causal=causal)
         dcap = fa.rowdot_reference(do, o).contiguous()
         key = "causal" if causal else "nomask"
+        out[f"k2a_pair_{key}_ms"] = cuda_ms(
+            lambda: fa.flash_lse_forward(q, k, v, causal=causal), 20)
         out[f"k2b_pair_{key}_ms"] = cuda_ms(
             lambda: fa.flash_general_forward(q, k, v, causal=causal), 20)
         out[f"k3c_pair_{key}_ms"] = cuda_ms(
@@ -2096,7 +2195,7 @@ def main() -> int:
          gen_errs["o"], gen_t["fwd"], attention_bound("fwd", *long_shape), lib_long["fwd"]),
         ("flash_general_dq", "flash_general_bwd.cu", f"{jfa}:369", "long_trainer",
          gen_errs["dq"], gen_t["dq"], attention_bound("dq", *long_shape), lib_long["dq"]),
-        ("flash_general_dkv", "flash_general_bwd.cu", f"{jfa}:509", "long_trainer",
+        ("flash_general_dkv", "flash_dkv_bwd.cu", f"{jfa}:509", "long_trainer",
          gen_errs["dkv"], gen_t["dkv"], attention_bound("dkv", *long_shape), lib_long["dkv"]),
         # the D pre-kernel of the general backward: XLA code in the JAX package
         ("flash_rowdot", "flash_general_bwd.cu", f"{jfa}:573", "long_trainer",
@@ -2120,7 +2219,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": lib_ms,
             "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
         })
     notes = {
@@ -2131,18 +2230,20 @@ def main() -> int:
         "ce_fwd": {"shape": "N=8192 D=768 V=50304"},
         "adamw": {"err_is": "max|err| / max|ref|", "shape": "148 leaves, 124,475,904 params",
                   "library_is": "torch.optim.AdamW(fused=True).step()"},
-        "flash_general_fwd": {"lse_max_abs_err": gen_errs["lse"],
+        "flash_general_fwd": {"lse_max_abs_err": gen_errs["lse"], "row_err": gen_errs["o_row"],
                               "library_is": "F.scaled_dot_product_attention"},
         "flash_general_dq": {"err_is": "max|err| / max|ref|",
                              "plain_is": "the plain backward computes dq, dk and dv together",
                              "library_is": "autograd.grad of q through SDPA"},
         "flash_general_dkv": {"err_is": "max|err| / max|ref|",
+                              "row_err": gen_errs["dkv_row"],
                               "plain_is": "the plain backward computes dq, dk and dv together",
                               "library_is": "autograd.grad of k and v through SDPA"},
         "flash_rowdot": {"err_is": "max|err| / max|ref|"},
-        "flash_lse_fwd": {"lse_max_abs_err": lse_errs["lse"],
+        "flash_lse_fwd": {"lse_max_abs_err": lse_errs["lse"], "row_err": lse_errs["o_row"],
                           "library_is": "F.scaled_dot_product_attention"},
         "flash_fused_bwd": {"err_is": "max|err| / max|ref|, with a random lse cotangent",
+                            "dkv_row_err": lse_errs["dkv_row"],
                             "dq_two_runs_max_diff_over_max": lse_errs["rerun"],
                             "library_is": "autograd.grad of q, k and v through SDPA"},
         "flash_dt_fwd": {"lse_max_abs_err": dt_errs["lse"],
@@ -2168,9 +2269,9 @@ def main() -> int:
                                else ("fused_bwd", "bwd"))
             ms, plain_ms = lse_t["causal"][key]
             k["shape"] = "B=1 Tq=Tk=4096 H=12 no mask"
-            k["causal_pair"] = {"ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": attention_bound(bound_kind, *causal_shape)[0],
-                                "library_ms": lib_causal[key]}
+            b_ms = attention_bound(bound_kind, *causal_shape)[0]
+            k["causal_pair"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                "bound_share": b_ms / ms, "library_ms": lib_causal[key]}
             k["general_kernels_ms"] = {m: lse_t[m][f"general_{key}_ms"]
                                        for m in ("nomask", "causal")}
     print(json.dumps({"long_context": {"train_step_tokens_per_s": long_train["tps"],

@@ -11,10 +11,10 @@
 //   dV += P^T dO,  dP = dO V^T,  dS = P * (dP - dcap),
 //   dK += dS^T Q / sqrt(hs),  dQ += dS K / sqrt(hs):
 // five products and one exp per pair, where the split dq and dk/dv kernels
-// (flash_general_bwd.cu) recompute S, P and dP and pay seven and two. dcap is
-// an input, (B, H, Tq) fp32: D = rowsum(dO * O) for plain attention, D - dlse
-// when the logsumexp carries a cotangent too (a chunk's lse feeds the merge of
-// ring attention), exactly as the TPU kernel takes it. The scale is applied
+// (flash_general_bwd.cu, flash_dkv_bwd.cu) recompute S, P and dP and pay seven
+// and two. dcap is an input, (B, H, Tq) fp32: D = rowsum(dO * O) for plain
+// attention, D - dlse when the logsumexp carries a cotangent too (a chunk's lse
+// feeds the merge of ring attention), exactly as the TPU kernel takes it. The scale is applied
 // here, once to dk at its store and once to dq at its cast, because the
 // forward applies it inside its kernel.
 //
@@ -23,80 +23,25 @@
 // q/k/v/dO/dq/dk/dv: the tensor cores bound it by far (0.130 ms at 989
 // TFLOP/s).
 //
-// What the design does about it (hopper.cuh holds the building blocks): the
-// TPU kernel runs one program per (b, h), with everything of that head
-// resident and dq summed over the key tiles in an fp32 scratch of all Tq rows.
-// Here that scratch would be 1 MB at Tq = 4096 (a block has 227 KB), so one
-// block owns a (b, h, 128-key tile) and loops over the query tiles from the
-// first one that sees it, max(0, (n0 - q_off) / 64). A block is three
-// warpgroups. The producer loads K and V of the tile once and streams Q and dO
-// in 64-query tiles by TMA (4-D tensor maps over the strided views, 128-byte
-// swizzle, rows past the lengths zero-filled) through a ring of STAGES slots;
-// its 32 lanes copy the tile's lse (times log2 e) and dcap rows beside them
-// (a (B, H, Tq) row has no 16-byte alignment for a bulk copy). Each of the two
-// consumers owns 64 keys and keeps dK and dV in fp32 wgmma accumulators. Per
-// pair it forms S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands
-// from shared memory), then P^T and dS^T in registers, rounded to bf16 as on
-// the TPU, which are the register A operands of dV += P^T dO and dK += dS^T Q
-// (dO and Q read MN-major through the transpose bit). The position mask costs
-// compares only on pairs that cross the diagonal or a length; P is 0 there by
-// a select, never by exp of a padded lse, so no inf * 0 reaches dk/dv. For dQ
-// each consumer writes its dS^T once to a swizzled shared tile; after a
-// barrier of the two, consumer c forms hs columns 32c .. 32c + 31 of dS K over
-// all 128 keys (dS read MN-major from that tile, K MN-major), so the block
-// adds each dQ tile once, with 16-byte reductions (red.global.add.v4.f32)
-// straight from registers into a zeroed fp32 (B, Tq, H, hs) buffer: no
-// shared-memory staging and no wait for a bulk copy, and half the reductions
-// of 64-key blocks. The dS^T tile is double-buffered, so one barrier a pair
-// suffices. The register A fragments are kept live until the wait that
-// completes their products. A second kernel casts the buffer to bf16 times
-// the scale. Blocks of different key tiles add into the same rows in no fixed
-// order, so dq can differ in the last fp32 bits from run to run; dk and dv
-// are deterministic.
-// Causal blocks of low key tiles have the most query tiles and get the lowest
-// block indices. All offsets are 64-bit.
+// What the design does about it: the key-major backward of flash_bwd_sm90.cuh
+// with its dQ half (DQ = true): the TPU kernel runs one program per (b, h),
+// with everything of that head resident and dq summed over the key tiles in an
+// fp32 scratch of all Tq rows. Here that scratch would be 1 MB at Tq = 4096 (a
+// block has 227 KB), so one block owns a (b, h, 128-key tile), dK and dV stay
+// in wgmma accumulators, and dQ is added once per block and query tile with
+// 16-byte reductions into a zeroed fp32 buffer (half the reductions of 64-key
+// blocks); the dS^T tile is double-buffered, so one barrier of the two
+// consumers a pair suffices. A second kernel here casts the buffer to bf16
+// times the scale. dq can differ in the last fp32 bits from run to run; dk and
+// dv are deterministic.
 
-#include <math.h>
-
-#include "hopper.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace hopper;
+using namespace flash_bwd_sm90;
 
-constexpr int HS = 64;        // head size the kernels are built for
-constexpr int BK = 128;       // keys per block, 64 per consumer
-constexpr int BQ = 64;        // rows of a query tile
-constexpr int STAGES = 2;     // slots of the Q / dO ring
-constexpr int CONSUMERS = 2;  // consumer warpgroups
-constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr uint32_t KV_BYTES = 2 * BK * HS * 2;
-constexpr uint32_t QDO_BYTES = 2 * BQ * HS * 2;
-constexpr float LOG2E = 1.4426950408889634f;
-
-struct __align__(1024) Smem {
-  bf16 k[BK * HS];
-  bf16 v[BK * HS];
-  bf16 q[STAGES][BQ * HS];
-  bf16 dO[STAGES][BQ * HS];
-  bf16 ds[2][BK * BQ];  // dS^T, [key][query], both consumers' rows
-  float lse2[STAGES][BQ];
-  float dcap[STAGES][BQ];
-  uint64_t kv_full;
-  uint64_t full[STAGES], empty[STAGES];
-};
-
-__device__ __forceinline__ Smem& smem_of(unsigned char* raw) {
-  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
-
-// dst[0..3] += a, one 16-byte reduction in global memory (dst 16-byte aligned)
-__device__ __forceinline__ void red_add4(float* dst, float a0, float a1, float a2, float a3) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst), "f"(a0), "f"(a1),
-               "f"(a2), "f"(a3)
-               : "memory");
-}
+constexpr int STAGES = 2;  // slots of the Q / dO ring
 
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fused_bwd_kernel(const __grid_constant__ CUtensorMap mq,
@@ -107,199 +52,8 @@ flash_fused_bwd_kernel(const __grid_constant__ CUtensorMap mq,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H,
                        int causal, float scale, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  Smem& sm = smem_of(smem_raw);
-
-  const int tid = threadIdx.x, wg = tid / 128;
-  const int n0 = blockIdx.x * BK;  // key tile; low tiles have the most query tiles
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q_off = Tk - Tq;  // query i sits at key position i + q_off
-  const int nq = (Tq + BQ - 1) / BQ;
-  // the first query tile with a row at or after this key tile's first key
-  const int i0 = causal ? max(0, (n0 - q_off) / BQ) : 0;
-
-  if (tid == 0) {
-    mbar_init(&sm.kv_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.full[s], 32);
-      mbar_init(&sm.empty[s], CONSUMERS);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == CONSUMERS) {
-    // producer: the first warp keeps the ring full
-    setmaxnreg_dec<24>();
-    if (tid < CONSUMERS * 128 + 32) {
-      const int lane = tid % 32;
-      const float* lseb = lse + ((long long)b * H + h) * Tq;
-      const float* dcapb = dcap + ((long long)b * H + h) * Tq;
-      if (lane == 0) {
-        tma_prefetch_map(&mq);
-        tma_prefetch_map(&mdo);
-        mbar_expect_tx(&sm.kv_full, KV_BYTES);
-        tma_load_4d(sm.k, &mk, &sm.kv_full, 0, h, n0, b);
-        tma_load_4d(sm.v, &mv, &sm.kv_full, 0, h, n0, b);
-      }
-      for (int i = i0; i < nq; ++i) {
-        const int it = i - i0, s = it % STAGES, ph = (it / STAGES) & 1;
-        const int m0 = i * BQ;
-        mbar_wait(&sm.empty[s], ph ^ 1);
-        // rows >= Tq read as zero: their P is zeroed by position, not through these
-        for (int j = lane; j < BQ; j += 32) {
-          const int t = m0 + j;
-          sm.lse2[s][j] = t < Tq ? lseb[t] * LOG2E : 0.f;
-          sm.dcap[s][j] = t < Tq ? dcapb[t] : 0.f;
-        }
-        if (lane == 0) {
-          mbar_expect_tx(&sm.full[s], QDO_BYTES);
-          tma_load_4d(sm.q[s], &mq, &sm.full[s], 0, h, m0, b);
-          tma_load_4d(sm.dO[s], &mdo, &sm.full[s], 0, h, m0, b);
-        } else {
-          mbar_arrive(&sm.full[s]);
-        }
-      }
-    }
-  } else {
-    setmaxnreg_inc<240>();
-    const int t = tid % 128, warp = t / 32, lane = t % 32;
-    const int kw0 = n0 + wg * 64;                   // this consumer's first key
-    const int krow0 = kw0 + warp * 16 + lane / 4;   // its rows: krow0 and krow0 + 8
-    const int col_l = 2 * (lane % 4);               // first column in an n8 block
-    const uint64_t dkw = desc_sw128(sm.k + wg * 64 * HS);
-    const uint64_t dvw = desc_sw128(sm.v + wg * 64 * HS);
-    const uint64_t dkn = desc_add(desc_sw128(sm.k), 64 * wg);  // K, hs columns 32 wg ..
-    float* dqb = dq_acc + (long long)b * Tq * H * HS + h * HS + 32 * wg;
-
-    float dka[32], dva[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
-
-    mbar_wait(&sm.kv_full, 0);
-    for (int i = i0; i < nq; ++i) {
-      const int it = i - i0, s = it % STAGES, ph = (it / STAGES) & 1, buf = it & 1;
-      const int m0 = i * BQ;
-      const uint64_t dqs = desc_sw128(sm.q[s]), dos = desc_sw128(sm.dO[s]);
-      float st[32], dpt[32];
-      mbar_wait(&sm.full[s], ph);
-      reg_fence(st);
-      reg_fence(dpt);
-      wg_fence();
-      // S^T (64 keys x 64 queries) = K_c Q^T, dP^T = V_c dO^T
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n64_ss(st, desc_add(dkw, 32 * kk), desc_add(dqs, 32 * kk), kk);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n64_ss(dpt, desc_add(dvw, 32 * kk), desc_add(dos, 32 * kk), kk);
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(st);
-      reg_fence(dpt);
-
-      // P^T = exp(S^T * scale - lse), masked by position; dS^T = P^T (dP^T - dcap)
-      const bool masked = m0 + BQ > Tq || kw0 + 64 > Tk || (causal && kw0 + 63 > m0 + q_off);
-      const float* lse2 = sm.lse2[s];
-      const float* dcs = sm.dcap[s];
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int qi = 8 * (e / 4) + col_l + (e & 1);
-        float p = ex2(fmaf(st[e], scale_log2, -lse2[qi]));
-        if (masked) {
-          const int kpos = krow0 + 8 * ((e >> 1) & 1), qrow = m0 + qi;
-          p = (qrow < Tq && kpos < Tk && (!causal || kpos <= qrow + q_off)) ? p : 0.f;
-        }
-        st[e] = p;
-        dpt[e] = p * (dpt[e] - dcs[qi]);
-      }
-      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
-          sa[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
-        }
-
-      // dV += P^T dO, dK += dS^T Q
-      reg_fence(dva);
-      reg_fence(dka);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) mma_m64n64_rs_tb(dva, pa[kk], desc_add(dos, 2048 * kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) mma_m64n64_rs_tb(dka, sa[kk], desc_add(dqs, 2048 * kk), 1);
-      wg_commit();
-
-      // dS^T of this consumer's 64 keys into its rows of the shared tile
-      unsigned char* dsb = reinterpret_cast<unsigned char*>(sm.ds[buf]);
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = wg * 64 + warp * 16 + lane / 4 + 8 * (e & 1);
-          const int chunk = 2 * kk + (e >> 1);
-          *reinterpret_cast<uint32_t*>(dsb + row * 128 + ((chunk ^ (row % 8)) * 16) + col_l * 2) =
-              sa[kk][e];
-        }
-      fence_proxy_async();
-      named_sync(1, CONSUMERS * 128);  // both consumers' dS^T rows are written
-
-      // dQ (64 queries x hs columns 32 wg ..) = dS K over all 128 keys
-      float dqa[16];
-      reg_fence(dqa);
-      wg_fence();
-      const uint64_t dds = desc_sw128(sm.ds[buf]);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        mma_m64n32_ss_tt(dqa, desc_add(dds, 2048 * kk), desc_add(dkn, 2048 * kk), kk);
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(dqa);
-      reg_fence(dva);
-      reg_fence(dka);
-      reg_fence(pa);
-      reg_fence(sa);
-      if (t == 0) mbar_arrive(&sm.empty[s]);
-
-      // quad neighbours swap halves so each thread holds four consecutive
-      // columns of one row: even lanes row r, odd lanes row r + 8
-      const bool even = (lane & 1) == 0;
-      const int qrow = m0 + warp * 16 + lane / 4 + (even ? 0 : 8);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float s0 = even ? dqa[4 * j + 2] : dqa[4 * j];
-        const float s1 = even ? dqa[4 * j + 3] : dqa[4 * j + 1];
-        const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        if (qrow < Tq) {
-          const int col = 8 * j + (even ? col_l : col_l - 2);
-          float* dst = dqb + (long long)qrow * H * HS + col;
-          if (even)
-            red_add4(dst, dqa[4 * j], dqa[4 * j + 1], r0, r1);
-          else
-            red_add4(dst, r0, r1, dqa[4 * j + 2], dqa[4 * j + 3]);
-        }
-      }
-    }
-
-    // a key tile past every query's reach (non-causal never; causal only when
-    // i0 >= nq) stores the zeros it was filled with
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kpos = krow0 + 8 * r;
-      if (kpos >= Tk) continue;
-      const long long out = (((long long)b * Tk + kpos) * H + h) * HS;
-#pragma unroll
-      for (int j = 0; j < HS / 8; ++j) {
-        const int col = 8 * j + col_l;
-        *reinterpret_cast<uint32_t*>(dk + out + col) =
-            pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + out + col) =
-            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
-      }
-    }
-  }
+  backward_block<true, STAGES>(&mq, &mk, &mv, &mdo, lse, dcap, dq_acc, dk, dv, Tq, Tk, H, causal,
+                               scale, scale_log2, smem_raw);
 }
 
 // dq = bf16(dq_acc * scale), eight elements a thread
@@ -319,14 +73,10 @@ __global__ void flash_fused_dq_cast_kernel(const float* __restrict__ acc, bf16* 
 
 }  // namespace
 
-// q: (B, Tq, H, hs), k/v: (B, Tk, H, hs), bf16 with unit stride on hs; strides
-// in elements, each a multiple of 8, base pointers 16-byte aligned (TMA needs
-// the same). dO, dq: contiguous (B, Tq, H, hs) bf16; dk, dv: contiguous (B, Tk,
-// H, hs) bf16. lse, dcap: contiguous (B, H, Tq) fp32, lse from the forward,
-// dcap = D - dlse from the caller. dq_acc: contiguous (B, Tq, H, hs) fp32
-// scratch, zeroed here. All checked by the Python wrapper. Zeroes the scratch,
-// launches the one-pass kernel and the cast on `stream`; returns the first
-// CUDA error code (0 on success).
+// Arguments as flash_bwd_sm90::launch, with dq: contiguous (B, Tq, H, hs) bf16
+// and dq_acc: contiguous (B, Tq, H, hs) fp32 scratch, zeroed here. Zeroes the
+// scratch, launches the one-pass kernel and the cast on `stream`; returns the
+// first CUDA error code (0 on success).
 extern "C" int gpt2vl_flash_fused_bwd(const void* q, const void* k, const void* v,
                                       const void* dO, const void* lse, const void* dcap,
                                       void* dq_acc, void* dq, void* dk, void* dv,
@@ -335,34 +85,18 @@ extern "C" int gpt2vl_flash_fused_bwd(const void* q, const void* k, const void* 
                                       long long ksb, long long kst, long long ksh,
                                       long long vsb, long long vst, long long vsh,
                                       int causal, void* stream) {
-  if (hs != HS || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || (causal && Tq > Tk) || B > 65535 ||
-      H > 65535)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mdo;
-  const long long ost = (long long)H * HS;  // row stride of dO
-  if (!hopper_host::map_bthd(&mq, q, B, Tq, H, qsb, qst, qsh, BQ) ||
-      !hopper_host::map_bthd(&mk, k, B, Tk, H, ksb, kst, ksh, BK) ||
-      !hopper_host::map_bthd(&mv, v, B, Tk, H, vsb, vst, vsh, BK) ||
-      !hopper_host::map_bthd(&mdo, dO, B, Tq, H, Tq * ost, ost, HS, BQ))
-    return (int)cudaErrorInvalidValue;
+  if (hs != HS || B <= 0 || Tq <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int smem = (int)sizeof(Smem) + 1024;  // + the alignment of the base
-  cudaError_t err = cudaFuncSetAttribute(flash_fused_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const long long n = (long long)B * Tq * H * HS;
-  err = cudaMemsetAsync(dq_acc, 0, (size_t)n * sizeof(float), st);
+  cudaError_t err = cudaMemsetAsync(dq_acc, 0, (size_t)n * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-
-  const float scale = 1.f / sqrtf((float)HS);
-  const dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_fused_bwd_kernel<<<grid, THREADS, smem, st>>>(
-      mq, mk, mv, mdo, (const float*)lse, (const float*)dcap, (float*)dq_acc, (bf16*)dk,
-      (bf16*)dv, Tq, Tk, H, causal, scale, scale * LOG2E);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int rc = flash_bwd_sm90::launch<true, STAGES>(
+      flash_fused_bwd_kernel, q, k, v, dO, lse, dcap, dq_acc, dk, dv, B, Tq, Tk, H, hs, qsb,
+      qst, qsh, ksb, kst, ksh, vsb, vst, vsh, causal, st);
+  if (rc != 0) return rc;
 
   const long long n8 = n / 8;
+  const float scale = 1.f / sqrtf((float)HS);
   flash_fused_dq_cast_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(
       (const float*)dq_acc, (bf16*)dq, n8, scale);
   return (int)cudaGetLastError();

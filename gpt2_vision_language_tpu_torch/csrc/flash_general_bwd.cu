@@ -1,40 +1,37 @@
-// General flash-attention backward for Hopper (sm_90a): dq and dk/dv kernels for
-// Tq != Tk, ragged lengths on both sides, right-aligned causal or non-causal.
+// General flash-attention backward for Hopper (sm_90a): the dq kernel and the
+// D pre-kernel for Tq != Tk, ragged lengths on both sides, right-aligned causal
+// or non-causal. Its dk/dv partner is flash_dkv_bwd.cu.
 //
-// Replaces the TPU kernels gpt2_vision_language_tpu/ops/flash_attention.py
-// _dq_kernel_grid (step _dq_step) and _dkv_kernel_grid (step _dkv_step),
-// launched by _bwd with stream_kv=True. Same functions: with P = exp(S - lse),
-// S = q k^T / sqrt(hs) under the mask (query i at key position i + Tk - Tq), and
-// D given by the caller,
-//   dV = P^T dO,  dS = P * (dO V^T - D),  dQ = dS K / sqrt(hs),  dK = dS^T Q / sqrt(hs).
-// Like the TPU kernels they take D as an input tensor (there `dcap`), so a
-// caller that also has a cotangent of lse can pass D - dlse without a new
-// kernel; gpt2vl_flash_rowdot below forms the plain D = rowsum(dO * O). Unlike
-// the TPU kernels the scale is applied here (the forward applies it inside its
-// kernel too), and q/k/v are read in their (B, T, H, hs) layout through strides.
-// The TPU kernels walk (B*H, nq, nk) and (B*H, nk, nq) grids in order and carry
-// their accumulators in scratch memory across grid steps; blocks on the H100 run
-// in no order, so the sweep is a loop inside the block that owns the tile.
+// Replaces the TPU kernel gpt2_vision_language_tpu/ops/flash_attention.py
+// _dq_kernel_grid (step _dq_step), launched by _bwd with stream_kv=True. Same
+// function: with P = exp(S - lse), S = q k^T / sqrt(hs) under the mask (query i
+// at key position i + Tk - Tq), and D given by the caller,
+//   dS = P * (dO V^T - D),  dQ = dS K / sqrt(hs).
+// Like the TPU kernel it takes D as an input tensor (there `dcap`), so a caller
+// that also has a cotangent of lse can pass D - dlse without a new kernel;
+// gpt2vl_flash_rowdot below forms the plain D = rowsum(dO * O). Unlike the TPU
+// kernel the scale is applied here (the forward applies it inside its kernel
+// too), and q/k/v are read in their (B, T, H, hs) layout through strides. The
+// TPU kernel walks a (B*H, nq, nk) grid in order and carries its accumulator
+// in scratch memory across grid steps; blocks on the H100 run in no order, so
+// the sweep is a loop inside the block that owns the query tile.
 //
-// What bounds them on the H100: at B=1, T=16384, H=12, hs=64 causal the two
-// kernels do 5 * 12 * 16384^2 * 64 = 1,031 GFLOP of useful work (1,443 with S
-// and dP computed in both) against ~200 MB of q/k/v/dO/dq/dk/dv: the tensor
-// cores bound them by far; the re-read tiles stay in L2.
+// What bounds it on the H100: at B=1, T=16384, H=12, hs=64 causal it does
+// 3 * 2 * 12 * 16384^2 / 2 * 64 = 619 GFLOP (S, dP, dQ) against ~100 MB of
+// q/k/v/dO/dq and the row statistics: the tensor cores bound it by far; the
+// re-read tiles stay in L2.
 //
-// What the design does about it: the dq kernel runs one block per (b, h,
-// 64-query tile) and loops over the key tiles up to the last one its rows see;
-// the dk/dv kernel runs one block per (b, h, 64-key tile) and loops over the
-// query tiles from the first one that sees it, max(0, (n0 - q_off) / 64). Each
-// keeps its outputs in fp32 tensor-core accumulators (nvcuda::wmma, bf16
-// 16x16x16), needs no atomics and is deterministic. P and dS are rounded to
-// bf16 before their products, as on the TPU. Four warps per block, 16 rows
-// each; the elementwise step goes through a per-warp shared scratch. Blocks
-// with the most tiles launch first (the highest query tiles for dq, the lowest
-// key tiles for dk/dv, whatever q_off is). Padded rows: q, k, v and dO rows
-// past their length are loaded as zero, and P is set to 0 by a select on the
-// positions, never by exp of a padded lse, so no inf * 0 can reach dk/dv; rows
-// past the length are not stored. All offsets are 64-bit. Simple first:
-// synchronous loads, no cp.async, wgmma or TMA yet.
+// What the design does about it: one block per (b, h, 64-query tile) loops
+// over the key tiles up to the last one its rows see and keeps dQ in fp32
+// tensor-core accumulators (nvcuda::wmma, bf16 16x16x16): no atomics, and dq
+// is deterministic. P and dS are rounded to bf16 before their products, as on
+// the TPU. Four warps per block, 16 rows each; the elementwise step goes
+// through a per-warp shared scratch. Blocks with the most tiles launch first
+// (the highest query tiles, whatever q_off is). Padded rows: q, k, v and dO
+// rows past their length are loaded as zero, and P is set to 0 by a select on
+// the positions, never by exp of a padded lse; rows past the length are not
+// stored. All offsets are 64-bit. Simple first: synchronous loads, no
+// cp.async, wgmma or TMA yet.
 
 #include <math.h>
 #include <cuda_bf16.h>
@@ -146,144 +143,6 @@ __global__ void flash_rowdot_kernel(const bf16* __restrict__ dO, const bf16* __r
     const int t = (int)(bt % T), b = (int)(bt / T);
     dd[((long long)b * H + h) * T + t] = sum;
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_general_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                         const float* __restrict__ lse, const float* __restrict__ dd,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int H,
-                         long long qsb, long long qst, long long qsh,
-                         long long ksb, long long kst, long long ksh,
-                         long long vsb, long long vst, long long vsh,
-                         int causal, float scale, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * BT;  // key tile; low tiles have the most query tiles
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q_off = Tk - Tq;  // query i sits at key position i + q_off
-  const long long ost = (long long)H * HS;  // row stride of dO, dk, dv
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* dob = dO + (long long)b * Tq * ost + h * HS;
-  const float* lseb = lse + ((long long)b * H + h) * Tq;
-  const float* ddb = dd + ((long long)b * H + h) * Tq;
-
-  load_tile(sm.k, k + b * ksb + h * ksh, kst, n0, Tk, tid);
-  load_tile(sm.v, v + b * vsb + h * vsh, vst, n0, Tk, tid);
-
-  FragC dkf[HS / 16], dvf[HS / 16];
-#pragma unroll
-  for (int n = 0; n < HS / 16; ++n) {
-    wmma::fill_fragment(dkf[n], 0.f);
-    wmma::fill_fragment(dvf[n], 0.f);
-  }
-
-  // two lanes per key row: row r of this warp, query columns half * 32 ...
-  const int r = lane >> 1, half = lane & 1;
-  const int kpos = n0 + warp * 16 + r;
-  float* scratch = sm.s[warp];
-  bf16* ptile = sm.p[warp];
-  const float* srow = &scratch[r * LDS + half * (BT / 2)];
-  bf16* prow = &ptile[r * LDP + half * (BT / 2)];
-
-  const int nq = (Tq + BT - 1) / BT;
-  // the first query tile with a row at or after this key tile's first key
-  const int i0 = causal ? max(0, (n0 - q_off) / BT) : 0;
-  for (int i = i0; i < nq; ++i) {
-    const int m0 = i * BT;
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile(sm.q, qb, qst, m0, Tq, tid);
-    load_tile(sm.dO, dob, ost, m0, Tq, tid);
-    load_row_stats(sm, lseb, ddb, m0, Tq, tid);
-    __syncthreads();
-
-    // S^T (16 keys x 64 queries) = K_w Q^T
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      FragC sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        FragA kf;
-        FragBc qf;
-        wmma::load_matrix_sync(kf, &sm.k[warp * 16 * LDH + kk * 16], LDH);
-        wmma::load_matrix_sync(qf, &sm.q[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(sf, kf, qf, sf);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], sf, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // P^T = exp(S^T * scale - lse), masked; bf16 copy for the products
-    float p[BT / 2];
-#pragma unroll
-    for (int c = 0; c < BT / 2; ++c) {
-      const int qi = half * (BT / 2) + c;
-      const int qrow = m0 + qi;
-      const bool ok = qrow < Tq && kpos < Tk && (!causal || kpos <= qrow + q_off);
-      p[c] = ok ? exp2f(srow[c] * scale_log2 - sm.lse2[qi]) : 0.f;
-      prow[c] = __float2bfloat16(p[c]);
-    }
-    __syncwarp();
-
-    // dV += P^T dO
-#pragma unroll
-    for (int n = 0; n < HS / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragA pf;
-        FragBr of;
-        wmma::load_matrix_sync(pf, &ptile[kk * 16], LDP);
-        wmma::load_matrix_sync(of, &sm.dO[kk * 16 * LDH + n * 16], LDH);
-        wmma::mma_sync(dvf[n], pf, of, dvf[n]);
-      }
-    }
-    // dP^T (16 keys x 64 queries) = V_w dO^T
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      FragC df;
-      wmma::fill_fragment(df, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        FragA vf;
-        FragBc of;
-        wmma::load_matrix_sync(vf, &sm.v[warp * 16 * LDH + kk * 16], LDH);
-        wmma::load_matrix_sync(of, &sm.dO[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(df, vf, of, df);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], df, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();  // dP stored, and P read by the dV products, before dS overwrites it
-
-    // dS^T = P^T * (dP^T - D)
-#pragma unroll
-    for (int c = 0; c < BT / 2; ++c) {
-      const int qi = half * (BT / 2) + c;
-      prow[c] = __float2bfloat16(p[c] * (srow[c] - sm.dd[qi]));
-    }
-    __syncwarp();
-
-    // dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < HS / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragA sf;
-        FragBr qf;
-        wmma::load_matrix_sync(sf, &ptile[kk * 16], LDP);
-        wmma::load_matrix_sync(qf, &sm.q[kk * 16 * LDH + n * 16], LDH);
-        wmma::mma_sync(dkf[n], sf, qf, dkf[n]);
-      }
-    }
-  }
-
-  // a key tile past every query's reach (non-causal never; causal only when
-  // i0 >= nq) stores the zeros it was filled with
-  const long long out = (((long long)b * Tk + kpos) * H + h) * HS;
-  store_rows(dkf, scratch, dk + out, kpos < Tk, lane, scale);
-  store_rows(dvf, scratch, dv + out, kpos < Tk, lane, 1.f);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -445,28 +304,5 @@ extern "C" int gpt2vl_flash_general_dq(const void* q, const void* k, const void*
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
       (const float*)dd, (bf16*)dq, Tq, Tk, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
       causal, scale, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-// As gpt2vl_flash_general_dq; dk, dv: contiguous (B, Tk, H, hs) bf16.
-extern "C" int gpt2vl_flash_general_dkv(const void* q, const void* k, const void* v,
-                                        const void* dO, const void* lse, const void* dd,
-                                        void* dk, void* dv,
-                                        int B, int Tq, int Tk, int H, int hs,
-                                        long long qsb, long long qst, long long qsh,
-                                        long long ksb, long long kst, long long ksh,
-                                        long long vsb, long long vst, long long vsh,
-                                        int causal, void* stream) {
-  if (bad_shape(B, Tq, Tk, H, hs, causal)) return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(flash_general_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = 1.f / sqrtf((float)HS);
-  const dim3 grid((Tk + BT - 1) / BT, H, B);
-  flash_general_dkv_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
-      (const float*)dd, (bf16*)dk, (bf16*)dv, Tq, Tk, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
-      vsh, causal, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma attention kernels
-// (flash_general_fwd.cu, flash_fused_bwd.cu): mbarriers, TMA loads, wgmma
-// descriptors and instructions, and the host-side encoding of tensor maps.
+// (the forward main loop of flash_fwd_sm90.cuh, the key-major backward of
+// flash_bwd_sm90.cuh): mbarriers, TMA loads, wgmma descriptors and
+// instructions, and the host-side encoding of tensor maps.
 //
 // Layout conventions. Every bf16 tile in shared memory is a stack of 128-byte
 // rows (64 values of hs, or of a 64-wide axis) written by TMA with

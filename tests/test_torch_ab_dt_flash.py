@@ -148,7 +148,7 @@ def test_kernel_sources_and_signatures_are_registered():
     from gpt2_vision_language_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 10
+    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 11
     assert len(_build.SIGNATURES["gpt2vl_flash_dt_fwd"]) == 12
     assert len(_build.SIGNATURES["gpt2vl_flash_dt_bwd"]) == 18
     for name in ("flash_dt_fwd", "flash_dt_bwd"):
