@@ -1,14 +1,19 @@
 """Drive the PyTorch/H100 port once on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-times   # K2a, K2b, K3b, K3c times only, one JSON line
+    python3 chip_smoke.py --flash-times   # K1-fwd, K2a, K2b, K3a-K3c times only, one JSON line
 
 Phases (any failure raises and the script exits non-zero):
 
   1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc;
   2. flash-attention forward kernel vs its plain version, bf16, at the
      scoring shape (B=8, T=1024, H=12, hs=64, causal, q/k/v strided views of
-     the fused QKV output) and at a ragged T=1000;
+     the fused QKV output), at a ragged T=1000 and at B=1, T=8192 (K1_MAX_T,
+     the plain version four heads at a time); o held elementwise and row by
+     row (each row of 64 within 2^-6 of its norm), and a control that must
+     fail the row check: the last 128 rows at T=8192 against the plain
+     version without their first key tile (the elementwise check's reading
+     printed beside it);
   3. fused LM-head + CE forward kernel vs its plain version at N=8192,
      D=768, V=50304 (targets include the last vocab tile) and a ragged N=1000;
   4. the scoring forward: GPT-2 124M with seeded random weights, fp32
@@ -19,8 +24,9 @@ Phases (any failure raises and the script exits non-zero):
      policy, cli.bench_decode at B=50, and ops.layers.matmul_f32 on batched
      bf16 operands of the decode shape against the fp32 product;
   6. flash-attention backward kernel vs its plain version at the training
-     shape (B=8, T=1024, H=12, hs=64, causal, strided q/k/v) and T=1000,
-     and one attention layer's forward + backward through autograd;
+     shape (B=8, T=1024, H=12, hs=64, causal, strided q/k/v) and T=1000, dq
+     also row by row (each query row within 2^-6 of its norm plus 1e-3), and
+     one attention layer's forward + backward through autograd;
   7. AdamW kernel vs its plain version over every parameter of GPT-2 124M;
   8. the train step: GPT-2 124M, fp32 params, bf16 policy,
      train.step.make_train_step with the AdamW kernel, 4 x (B=8, T=1024) per
@@ -38,13 +44,15 @@ Phases (any failure raises and the script exits non-zero):
      (4, 1, 1500), (2, 777, 1234) causal, (3, 200, 200) without a mask, all
      H=12, and at the long-context shape B=1, T=16384, H=12 against the plain
      versions run two heads at a time; o is held elementwise and row by row
-     (each row of 64 within 2^-6 of its norm), dk and dv against 3e-2 of
-     max|ref| and row by row (each key row within 2^-6 of its norm plus 1e-3),
-     the dk/dv kernel twice on one input bit for bit; three controls must
-     fail: the forward's o against the plain version with the other mask
-     (T=4096), the last 128 rows against the plain version without their last
-     key tile (T=16384), and the plain dk/dv without the query rows from 4096
-     after each key tile on (T=16384, the row check);
+     (each row of 64 within 2^-6 of its norm), dq, dk and dv against 3e-2 of
+     max|ref| and row by row (each row within 2^-6 of its norm plus 1e-3),
+     the dq and the dk/dv kernels twice on one input bit for bit; four
+     controls must fail: the forward's o against the plain version with the
+     other mask (T=4096), the last 128 rows against the plain version without
+     their last key tile (T=16384), the plain dk/dv without the query rows
+     from 4096 after each key tile on and the plain dq without the keys more
+     than DQ_DROP_BEFORE before each query tile (T=16384, the row check; the
+     check against max|ref| passes the dq control);
  11. the general kernels against the self-attention kernels on the same
      inputs at B=8, T=1024 and B=2, T=4096 (within 1e-2; times and whether
      they are bit-identical only printed);
@@ -68,11 +76,11 @@ Phases (any failure raises and the script exits non-zero):
      1234) causal, (3, 200, 200) without a mask; o held elementwise and row
      by row as in phase 10, with a control that must fail the row check (the
      last 128 rows of the unmasked 4096 pair against the plain version without
-     their last key tile); the backward with a random lse cotangent, dk and dv
-     also row by row as in phase 10, and a control without the cotangent that
-     must disagree; the backward twice on one input (dq is summed by
-     reductions in global memory in no fixed order); the general kernels timed
-     beside them;
+     their last key tile); the backward with a random lse cotangent, dq, dk
+     and dv also row by row as in phase 10, and a control without the
+     cotangent that must disagree; the backward twice on one input (dq is
+     summed by reductions in global memory in no fixed order); the general
+     kernels timed beside them;
  16. ring attention as an op: 4 chunks at B=1, T=16384, H=12, forward and
      backward through autograd, against the general kernels on the whole
      sequence, 10 + 10 + 10 launches (lse forward, D, one-pass backward) and
@@ -98,8 +106,9 @@ Phases (any failure raises and the script exits non-zero):
      and --bwd (device ms per layer of the shipping path, of the dt kernels,
      and of the copies into and out of the dt layout);
  21. the self-attention kernels against the plain path at the fine-tune shape
-     (B=128, T=65), forward and forward + backward: below the 512-token
-     routing threshold, timed only, the routing is the JAX package's;
+     (B=128, T=65), o also row by row, forward and forward + backward:
+     below the 512-token routing threshold, timed only, the routing is the
+     JAX package's;
  22. fine-tune ops on the card under the bf16 policy against the same
      functions on the CPU in fp32 (pooling, each bridge, the gated
      cross-attention block, the caption / cross-attention loss with the CE
@@ -121,10 +130,11 @@ phase 20; the fine-tune runs of phase 23 beside them), error, times, bound
 and library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA device.
 
-With --flash-times it only builds the kernels and times K2a, K2b, K3b and
-K3c at the shapes of the kernels line (``flash_times``). Copied into the root of another
-checkout and run there, it times that checkout's kernels, so two trees
-compare on one card in the order parent, change, change, parent.
+With --flash-times it only builds the kernels and times K1-fwd (with the
+host side of its launch), K2a, K2b, K3a, K3b and K3c at the shapes of the
+kernels line (``flash_times``). Copied into the root of another checkout and
+run there, it times that checkout's kernels, so two trees compare on one
+card in the order parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -148,15 +158,26 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# cycles of the kernel that holds the card while a timed loop is enqueued:
+# about 50 ms at the H100's clock, longer than the host takes to enqueue any
+# loop timed here
+HOLD_CYCLES = 100_000_000
+
+
 def cuda_ms(fn, iters):
     """Mean device milliseconds of fn() over iters launches (after one
-    warm-up), from CUDA events."""
+    warm-up), from CUDA events. The loop is enqueued behind a kernel that
+    holds the card, so the launches run back to back and the host's time per
+    launch, which for a 0.06-0.08 ms kernel can be as long as the kernel
+    (53-90 us through flash_attention on an H100 host), is not in the
+    reading."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -177,31 +198,63 @@ def interleaved(kernel_fn, plain_fn, iters_kernel, iters_plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def fwd_by_heads(torch, fa, q, k, v, causal, heads=4):
+    """The plain forward, `heads` heads at a time (its (B, H, T, T) fp32
+    scores do not fit at once at T=8192, H=12): (o, lse)."""
+    parts = [fa.flash_attention_reference(q[:, :, i:i + heads], k[:, :, i:i + heads],
+                                          v[:, :, i:i + heads], causal=causal)
+             for i in range(0, q.shape[2], heads)]
+    return torch.cat([p[0] for p in parts], dim=2), torch.cat([p[1] for p in parts], dim=1)
+
+
 def phase_flash(torch, fa, dev):
     print("[2] flash-attention forward vs plain (bf16)", flush=True)
-    out_tol, lse_tol = 2e-2, 1e-3  # bf16 P.V rounding; fp32 softmax stats
+    lse_tol = 1e-3  # fp32 softmax stats
     g = torch.Generator(dev).manual_seed(0)
-    errs = {"o": 0.0, "lse": 0.0}
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0}
     timing = None
-    for t in (1024, 1000):
-        b, h, hs = 8, 12, 64
+    # the scoring shape, a ragged T, and K1_MAX_T, where the late rows' |o| is
+    # smallest (the plain version four heads at a time)
+    for b, t in ((8, 1024), (8, 1000), (1, fa.K1_MAX_T)):
+        h, hs = 12, 64
         qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
         q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+        ro, rlse = fwd_by_heads(torch, fa, q, k, v, True)
         torch.cuda.synchronize()
-        eo = (o.float() - ro.float()).abs().max().item()
+        eo, excess = out_excess(o, ro)
+        erow, row_over = row_excess(o, ro)
         el = (lse - rlse).abs().max().item()
-        print(f"  B={b} T={t} H={h} hs={hs}: out max|err| {eo:.3e} (tol {out_tol}), "
-              f"lse max|err| {el:.3e} (tol {lse_tol})", flush=True)
-        require(eo <= out_tol and el <= lse_tol, f"flash T={t} disagrees")
+        print(f"  B={b} T={t} H={h} hs={hs}: out max|err| {eo:.3e} (tol 2e-2 or one bf16 ulp), "
+              f"max row |err| / |ref| {erow:.3e} (tol 2^-6), lse max|err| {el:.3e} "
+              f"(tol {lse_tol})", flush=True)
+        require(excess <= 0 and row_over <= 0 and el <= lse_tol, f"flash T={t} disagrees")
         errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["o_row"] = max(errs["o_row"], erow)
+        if t == fa.K1_MAX_T:
+            # control: the last 128 rows as a kernel whose sweep starts one key
+            # tile late would give them (keys 128 on); the row check must fail
+            # it where the late rows' |o| is smallest. The elementwise check,
+            # whose 2e-2 floor is above a typical late |o| (0.012), passes it
+            # on one head and catches it on twelve only narrowly (by 4.6e-3
+            # to 6.5e-3 on an H100): its reading is printed beside
+            r = slice(t - 128, t)
+            late = fa.flash_attention_reference(q[:, r], k[:, 128:], v[:, 128:], causal=True)[0]
+            _, control = row_excess(o[:, r], late)
+            _, loose = out_excess(o[:, r], late)
+            print(f"  control: the last 128 rows without their first key tile pass the row "
+                  f"tolerance by {control:.3e} (must be > 0), the elementwise one by "
+                  f"{loose:.3e}", flush=True)
+            require(control > 0, "K1-fwd's o passed the row check against o without the first "
+                    "key tile: the check cannot see a late start of the key sweep")
+            errs["o_control"], errs["o_control_elementwise"] = control, loose
         if t == 1024:
             timing = interleaved(
                 lambda: fa.flash_attention(q, k, v, causal=True),
                 lambda: fa.flash_attention_reference(q, k, v, causal=True),
                 50, 5,
             )
+        del q, k, v, qkv, o, ro
     return errs, timing
 
 
@@ -262,7 +315,7 @@ def phase_flash_bwd(torch, fa, attention, dev):
     print("[6] flash-attention backward vs plain (bf16)", flush=True)
     tol = 3e-2  # max|err| / max|ref|; P and dS round to bf16 in the kernel
     g = torch.Generator(dev).manual_seed(6)
-    err, timing = 0.0, None
+    err, row_err, timing = 0.0, 0.0, None
     for t in (1024, 1000):
         b, h, hs = 8, 12, 64
         qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
@@ -273,10 +326,12 @@ def phase_flash_bwd(torch, fa, attention, dev):
         want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True)
         torch.cuda.synchronize()
         errs = [rel_err(x, r) for x, r in zip(got, want)]
+        dq_row, dq_over = grad_row_excess(got[0], want[0])
         print(f"  B={b} T={t} H={h} hs={hs}: dq, dk, dv max|err| / max|ref| "
-              + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {tol})", flush=True)
-        require(max(errs) <= tol, f"flash backward T={t} disagrees")
-        err = max(err, *errs)
+              + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {tol}), dq max row |err| / "
+              f"(|ref| + 1e-3) {dq_row:.3e} (tol 2^-6)", flush=True)
+        require(max(errs) <= tol and dq_over <= 0, f"flash backward T={t} disagrees")
+        err, row_err = max(err, *errs), max(row_err, dq_row)
         if t == 1024:
             timing = interleaved(
                 lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
@@ -297,7 +352,7 @@ def phase_flash_bwd(torch, fa, attention, dev):
             fb = interleaved(layer("flash"), layer("xla"), 20, 3)
             print(f"  one attention layer, forward + backward through autograd: "
                   f"kernels {fb[0]:.4f} ms, plain {fb[1]:.4f} ms", flush=True)
-    return err, timing
+    return err, row_err, timing
 
 
 def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
@@ -650,15 +705,17 @@ def row_excess(o, ref, rel=2.0 ** -6):
 
 
 def grad_row_excess(x, ref, rel=2.0 ** -6, floor=1e-3):
-    """(the largest |x - ref| / (|ref| + floor) over the key rows of hs
-    values of dk or dv, by how much it passes ``rel``). Under a causal mask
-    the key rows of dk and dv differ in size by orders of magnitude, so the
-    check against 3e-2 of max|ref|, which the largest rows set, can pass a
-    middle key's row that is off by half its norm: what a dk/dv kernel whose
-    key tiles stop their query sweep early gives. The absolute floor keeps
-    rows near zero, whose error is set by the size of their terms rather
-    than of their sum, from turning rounding into a failure. Sound kernels
-    read at most about 6e-3 (P and dS rounded to bf16, then dk and dv)."""
+    """(the largest |x - ref| / (|ref| + floor) over the rows of hs values of
+    a gradient, the key rows of dk or dv or the query rows of dq, by how much
+    it passes ``rel``). Under a causal mask these rows differ in size by
+    orders of magnitude (dq's from 2.6e-7 to 4.67 at T=8192), so the check
+    against 3e-2 of max|ref|, which the largest rows set, can pass a row that
+    is off by most of its norm: what a dk/dv kernel whose key tiles stop
+    their query sweep early gives, or a dq kernel whose query tiles skip far
+    keys. The absolute floor keeps rows near zero, whose error is set by the
+    size of their terms rather than of their sum, from turning rounding into
+    a failure. Sound kernels read at most about 6e-3 (P and dS rounded to
+    bf16, then the gradient)."""
     err = (x.float() - ref.float()).norm(dim=-1)
     r = (err / (ref.float().norm(dim=-1) + floor)).max().item()
     return r, r - rel
@@ -692,6 +749,42 @@ def dkv_reference(torch, q, k, v, do, lse, dd, causal, drop_after=None, tile=128
     return torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
 
 
+# phase 10's dq control at T=16384: the keys more than this many positions
+# before each 128-row query tile are dropped (up to 896 keys of the last 896
+# rows); chosen so that the control passes the check against 3e-2 of
+# max|ref| on phase 10's inputs (1.40e-2 on an H100; 12288 read 4.45e-2),
+# which is printed beside the row check's reading
+DQ_DROP_BEFORE = 15360
+
+
+def dq_reference(torch, q, k, v, do, lse, dd, causal, drop_before=None, tile=128, heads=2):
+    """dq of the plain backward (flash_attention_backward_reference's fp32
+    arithmetic on the kernels' lse and D), `heads` heads at a time. With
+    ``drop_before``, a key more than ``drop_before`` positions before the
+    first row of a query's 128-row tile adds nothing to that query: what a dq
+    kernel would give whose query tiles start their key sweep that late, the
+    control that the row check of dq must fail."""
+    tq, tk, hs = q.shape[1], k.shape[1], q.shape[-1]
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    hide = kpos > qpos if causal else torch.zeros(tq, tk, dtype=torch.bool, device=q.device)
+    if drop_before is not None:
+        first = torch.arange(tq, device=q.device)[:, None] // tile * tile + (tk - tq)
+        hide = hide | (kpos < first - drop_before)
+    dqs = []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        q32, k32, v32, do32 = (a[:, :, c].float() for a in (q, k, v, do))
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * hs**-0.5
+        p = torch.exp(s.masked_fill(hide, float("-inf")) - lse[:, c, :, None])
+        del s
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", do32, v32) - dd[:, c, :, None])
+        del p
+        dqs.append((torch.einsum("bhqk,bkhd->bqhd", ds, k32) * hs**-0.5).to(q.dtype))
+        del ds
+    return torch.cat(dqs, dim=2)
+
+
 def plain_by_heads(torch, fa, q, k, v, do, o, lse, dd, causal, heads=2):
     """The plain forward and backward, `heads` heads at a time (their (B, H,
     Tq, Tk) fp32 score matrices do not fit at once at T=16384, H=12). Each
@@ -716,7 +809,7 @@ def phase_general(torch, fa, dev):
     lse_tol, bwd_tol = 1e-3, 3e-2  # as the self-attention kernels
     dd_tol = 1e-5  # fp32 sums of the same 64 products in another order
     g = torch.Generator(dev).manual_seed(10)
-    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dd": 0.0, "dq": 0.0, "dkv": 0.0,
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dd": 0.0, "dq": 0.0, "dq_row": 0.0, "dkv": 0.0,
             "dkv_row": 0.0}
     # 777 / 1234: an offset Tk - Tq = 457 that is no multiple of 64 or 128, so
     # the 128-row tiles of K2b cross the diagonal mid-tile; 200: ragged
@@ -751,12 +844,13 @@ def phase_general(torch, fa, dev):
                     "key tile: the check cannot see the late rows' P @ V")
         dd = fa.flash_rowdot(do, o)
         dq = fa.flash_general_dq(q, k, v, do, lse, dd, causal=causal)
+        dq2 = fa.flash_general_dq(q, k, v, do, lse, dd, causal=causal)
         dk, dv = fa.flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
         dk2, dv2 = fa.flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
-        require(torch.equal(dk2, dk) and torch.equal(dv2, dv),
-                f"two runs of the dk/dv kernel differ at Tq={tq} Tk={tk}: it sums in a "
-                "fixed order")
-        del dk2, dv2
+        require(torch.equal(dq2, dq) and torch.equal(dk2, dk) and torch.equal(dv2, dv),
+                f"two runs of the dq or the dk/dv kernel differ at Tq={tq} Tk={tk}: both sum "
+                "in a fixed order")
+        del dq2, dk2, dv2
         ro, rlse, rdd, rdq, rdk, rdv = plain_by_heads(torch, fa, q, k, v, do, o, lse, dd,
                                                        causal)
         torch.cuda.synchronize()
@@ -765,18 +859,19 @@ def phase_general(torch, fa, dev):
         el = (lse - rlse).abs().max().item()
         ed = rel_err(dd, rdd)
         eq, ek, ev = rel_err(dq, rdq), rel_err(dk, rdk), rel_err(dv, rdv)
-        (rk, k_over), (rv, v_over) = grad_row_excess(dk, rdk), grad_row_excess(dv, rdv)
+        (rq, q_over), (rk, k_over), (rv, v_over) = (grad_row_excess(x, r) for x, r in
+                                                     ((dq, rdq), (dk, rdk), (dv, rdv)))
         finite = all(torch.isfinite(a.float()).all().item() for a in (o, lse, dd, dq, dk, dv))
         print(f"  B={b} Tq={tq} Tk={tk} H={h} causal={causal}: out max|err| {eo:.3e} (tol "
               f"2e-2 or one bf16 ulp), max row |err| / |ref| {erow:.3e} (tol 2^-6), lse "
               f"max|err| {el:.3e} (tol {lse_tol}), D "
               f"{ed:.3e} (tol {dd_tol}), dq, dk, dv max|err| / max|ref| {eq:.3e}, "
-              f"{ek:.3e}, {ev:.3e} (tol {bwd_tol}), dk, dv max row |err| / (|ref| + 1e-3) "
-              f"{rk:.3e}, {rv:.3e} (tol 2^-6)", flush=True)
+              f"{ek:.3e}, {ev:.3e} (tol {bwd_tol}), dq, dk, dv max row |err| / (|ref| + 1e-3) "
+              f"{rq:.3e}, {rk:.3e}, {rv:.3e} (tol 2^-6)", flush=True)
         require(finite, f"general kernels gave a non-finite value at Tq={tq} Tk={tk}")
         require(excess <= 0 and row_over <= 0 and el <= lse_tol,
                 f"general forward Tq={tq} Tk={tk} disagrees")
-        require(ed <= dd_tol and max(eq, ek, ev) <= bwd_tol and k_over <= 0 and v_over <= 0,
+        require(ed <= dd_tol and max(eq, ek, ev) <= bwd_tol and max(q_over, k_over, v_over) <= 0,
                 f"general backward Tq={tq} Tk={tk} disagrees")
         if tq == 16384:
             # control: the plain dk/dv with the query rows from 4096 after each
@@ -792,8 +887,21 @@ def phase_general(torch, fa, dev):
                   f"max|ref| {loose:.3e} (tol {bwd_tol})", flush=True)
             require(control > 0, "dk/dv without the far queries passed the row check: the "
                     "check cannot see a short key-tile sweep")
+            # control: the plain dq without the keys more than DQ_DROP_BEFORE
+            # before each query tile, as a K3a whose sweeps start late would
+            # give it; the row check must fail it, the check against max|ref|
+            # passes it
+            sq = dq_reference(torch, q, k, v, do, lse, dd, causal, drop_before=DQ_DROP_BEFORE)
+            control, loose = grad_row_excess(sq, rdq)[1], rel_err(sq, rdq)
+            del sq
+            print(f"  control: dq without the keys more than {DQ_DROP_BEFORE} before each query "
+                  f"tile passes the row tolerance by {control:.3e} (must be > 0); max|err| / "
+                  f"max|ref| {loose:.3e} (tol {bwd_tol})", flush=True)
+            require(control > 0, "dq without the far keys passed the row check: the check "
+                    "cannot see a late start of a query tile's key sweep")
+            errs["dq_control"], errs["dq_control_max_rel"] = control, loose
         for key, e in (("o", eo), ("o_row", erow), ("lse", el), ("dd", ed), ("dq", eq),
-                       ("dkv", max(ek, ev)), ("dkv_row", max(rk, rv))):
+                       ("dq_row", rq), ("dkv", max(ek, ev)), ("dkv_row", max(rk, rv))):
             errs[key] = max(errs[key], e)
     # times at the long-context shape (the last one above); the backward's
     # plain version computes dq, dk and dv together
@@ -1074,7 +1182,8 @@ def phase_lse(torch, fa, dev):
           flush=True)
     lse_tol, bwd_tol = 1e-3, 3e-2  # as the general family
     g = torch.Generator(dev).manual_seed(15)
-    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "bwd": 0.0, "dkv_row": 0.0, "rerun": 0.0}
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "bwd": 0.0, "dq_row": 0.0, "dkv_row": 0.0,
+            "rerun": 0.0}
     times = {}
     # the last two as in phase 10: an offset that is no multiple of the tiles,
     # and ragged without a mask
@@ -1097,7 +1206,8 @@ def phase_lse(torch, fa, dev):
         erow, row_over = row_excess(o, ro)
         el = (lse - rlse).abs().max().item()
         eq, ek, ev = (rel_err(x, r) for x, r in zip(got, want))
-        (rk, k_over), (rv, v_over) = (grad_row_excess(x, r) for x, r in zip(got[1:], want[1:]))
+        (rq, q_over), (rk, k_over), (rv, v_over) = (grad_row_excess(x, r)
+                                                     for x, r in zip(got, want))
         control = max(rel_err(x, r) for x, r in zip(no_dlse, want))
         rerun = rel_err(again[0], got[0])
         finite = all(torch.isfinite(a.float()).all().item() for a in (o, lse, *got))
@@ -1105,13 +1215,13 @@ def phase_lse(torch, fa, dev):
               f"or one bf16 ulp), max row |err| / |ref| {erow:.3e} (tol 2^-6), lse max|err| "
               f"{el:.3e} (tol {lse_tol}); with a random lse "
               f"cotangent dq, dk, dv max|err| / max|ref| {eq:.3e}, {ek:.3e}, {ev:.3e} (tol "
-              f"{bwd_tol}), dk, dv max row |err| / (|ref| + 1e-3) {rk:.3e}, {rv:.3e} (tol "
-              f"2^-6), control without it {control:.3e}; dq of two runs differs by "
+              f"{bwd_tol}), dq, dk, dv max row |err| / (|ref| + 1e-3) {rq:.3e}, {rk:.3e}, "
+              f"{rv:.3e} (tol 2^-6), control without it {control:.3e}; dq of two runs differs by "
               f"{rerun:.3e} of max|dq|", flush=True)
         require(finite, f"lse kernels gave a non-finite value at Tq={tq} Tk={tk}")
         require(excess <= 0 and row_over <= 0 and el <= lse_tol,
                 f"lse forward Tq={tq} Tk={tk} disagrees")
-        require(max(eq, ek, ev) <= bwd_tol and k_over <= 0 and v_over <= 0,
+        require(max(eq, ek, ev) <= bwd_tol and max(q_over, k_over, v_over) <= 0,
                 f"one-pass backward Tq={tq} Tk={tk} disagrees")
         if tq == 4096 and not causal:
             # control: the last 128 rows as a K2a that dropped their last key
@@ -1134,6 +1244,7 @@ def phase_lse(torch, fa, dev):
                 "dk/dv, which are summed in a fixed order")
         errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
         errs["o_row"], errs["dkv_row"] = max(errs["o_row"], erow), max(errs["dkv_row"], rk, rv)
+        errs["dq_row"] = max(errs["dq_row"], rq)
         errs["bwd"], errs["rerun"] = max(errs["bwd"], eq, ek, ev), max(errs["rerun"], rerun)
         if tq == 1000:
             # the same through autograd: the Function forms dcap = D - dlse itself
@@ -1515,14 +1626,17 @@ def phase_k1_short(torch, fa, attention, dev):
     o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True)
     o_err, o_excess = out_excess(o, o_ref)
+    o_row, row_over = row_excess(o, o_ref)
     got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
     want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
     errs = [rel_err(x, r) for x, r in zip(got, want)]
-    print(f"  o max|err| {o_err:.3e} (excess {o_excess:.3e}), lse "
-          f"{(lse - lse_ref).abs().max().item():.3e}; dq, dk, dv max|err| / max|ref| "
-          + ", ".join(f"{e:.3e}" for e in errs) + " (tol 3e-2)", flush=True)
-    require(o_excess <= 0 and max(errs) <= 3e-2, "the kernels disagree at T=65")
+    print(f"  o max|err| {o_err:.3e} (excess {o_excess:.3e}), max row |err| / |ref| "
+          f"{o_row:.3e} (tol 2^-6), lse {(lse - lse_ref).abs().max().item():.3e}; dq, dk, dv "
+          f"max|err| / max|ref| " + ", ".join(f"{e:.3e}" for e in errs) + " (tol 3e-2)",
+          flush=True)
+    require(o_excess <= 0 and row_over <= 0 and max(errs) <= 3e-2,
+            "the kernels disagree at T=65")
 
     def fwd(impl):
         def run():
@@ -1544,8 +1658,9 @@ def phase_k1_short(torch, fa, attention, dev):
     fb = interleaved(fwd_bwd("flash"), fwd_bwd("xla"), 50, 20)
     print(f"  forward: kernel {f[0]:.4f} ms, plain {f[1]:.4f} ms; forward + backward through "
           f"autograd: kernels {fb[0]:.4f} ms, plain {fb[1]:.4f} ms", flush=True)
-    return {"shape": f"B={b} T={t} H={h} hs={hs} causal", "fwd_kernel_ms": f[0],
-            "fwd_plain_ms": f[1], "fwd_bwd_kernel_ms": fb[0], "fwd_bwd_plain_ms": fb[1]}
+    return {"shape": f"B={b} T={t} H={h} hs={hs} causal", "o_row_err": o_row,
+            "fwd_kernel_ms": f[0], "fwd_plain_ms": f[1], "fwd_bwd_kernel_ms": fb[0],
+            "fwd_bwd_plain_ms": fb[1]}
 
 
 def finetune_setup(ft, kind, n_layer, dev, policy):
@@ -1949,20 +2064,51 @@ def phase_finetune_clis(torch, ft, mods, dev):
         shutil.rmtree(log_root, ignore_errors=True)
 
 
+def host_us(torch, fn, iters):
+    """(host microseconds a call spends enqueueing fn(), microseconds a call
+    of the same loop synchronised at its end): when the first is not below
+    the kernel's device time, the host sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / iters * 1e6, (t2 - t0) / iters * 1e6
+
+
 def flash_times(torch, fa, dev, build_s, card):
-    """K2b and K3b at B=1, T=16384, H=12 causal (q, k, v views of one fused
-    projection; K3b's lse from K2b, its D from the D pre-kernel) and K2a, K2b
-    and K3c on one ring chunk pair, B=1, Tq=Tk=4096, H=12, unmasked and
-    causal (chunk views; lse and dcap from the plain forward): each the mean
-    of 20 launches after a warm-up (10 for K3b), in one JSON line with the
-    build time and the card."""
+    """K1-fwd at B=8, T=1024 and B=2, T=4096 causal and at the fine-tune's
+    B=128, T=65 (q, k, v views of one fused projection), and at B=8, T=1024
+    the host time of a launch beside the kernel's device time; K2b, K3a and
+    K3b at B=1, T=16384, H=12 causal (K3a's and K3b's lse from K2b, their D
+    from the D pre-kernel); K2a, K2b and K3c on one ring chunk pair, B=1,
+    Tq=Tk=4096, H=12, unmasked and causal (chunk views; lse and dcap from the
+    plain forward): each the mean device time of 20 launches after a warm-up
+    (10 for K3a and K3b, 50 for K1-fwd; ``cuda_ms``), in one JSON line with
+    the build time and the card. It calls only wrappers that earlier
+    checkouts of the port have too, so copied into one it times that
+    checkout's kernels."""
     g = torch.Generator(dev).manual_seed(0)
     out = {"build_s": build_s}
+    for b, t in ((8, 1024), (2, 4096), (128, 65)):
+        q, k, v, _ = qkv_inputs(torch, b, t, t, 12, dev, g)
+        out[f"k1fwd_B{b}_T{t}_causal_ms"] = cuda_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True), 50)
+        if t == 1024:
+            enq, wall = host_us(torch, lambda: fa.flash_attention(q, k, v, causal=True), 200)
+            out["k1fwd_B8_T1024_host_us"] = {
+                "flash_attention_enqueue": enq, "flash_attention_wall": wall,
+                "kernel_device": out["k1fwd_B8_T1024_causal_ms"] * 1e3}
     q, k, v, do = qkv_inputs(torch, 1, 16384, 16384, 12, dev, g)
     out["k2b_T16384_causal_ms"] = cuda_ms(
         lambda: fa.flash_general_forward(q, k, v, causal=True), 20)
     o, lse = fa.flash_general_forward(q, k, v, causal=True)
     dd = fa.flash_rowdot(do, o)
+    out["k3a_T16384_causal_ms"] = cuda_ms(
+        lambda: fa.flash_general_dq(q, k, v, do, lse, dd, causal=True), 10)
     out["k3b_T16384_causal_ms"] = cuda_ms(
         lambda: fa.flash_general_dkv(q, k, v, do, lse, dd, causal=True), 10)
     for causal in (False, True):
@@ -2125,7 +2271,7 @@ def main() -> int:
     mods = {"fa": fa, "fc": fc, "fw": fw, "ra": ra, "policy": DEFAULT_POLICY,
             "make_train_step": make_train_step, "adamw_init": adamw_init,
             "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain}
-    bwd_err, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
+    bwd_err, bwd_dq_row, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
     adamw_err, adamw_t = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
     train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
     torch.cuda.empty_cache()
@@ -2193,7 +2339,7 @@ def main() -> int:
          adamw_err, adamw_t, bound_ms(0, 7 * 4 * n_params), library["adamw_fused"]),
         ("flash_general_fwd", "flash_general_fwd.cu", f"{jfa}:221", "long_trainer",
          gen_errs["o"], gen_t["fwd"], attention_bound("fwd", *long_shape), lib_long["fwd"]),
-        ("flash_general_dq", "flash_general_bwd.cu", f"{jfa}:369", "long_trainer",
+        ("flash_general_dq", "flash_dq_bwd.cu", f"{jfa}:369", "long_trainer",
          gen_errs["dq"], gen_t["dq"], attention_bound("dq", *long_shape), lib_long["dq"]),
         ("flash_general_dkv", "flash_dkv_bwd.cu", f"{jfa}:509", "long_trainer",
          gen_errs["dkv"], gen_t["dkv"], attention_bound("dkv", *long_shape), lib_long["dkv"]),
@@ -2223,16 +2369,23 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items() if name in c},
         })
     notes = {
-        "flash_fwd": {"lse_max_abs_err": flash_errs["lse"], "shape": "B=8 T=1024 H=12 causal",
+        "flash_fwd": {"lse_max_abs_err": flash_errs["lse"], "row_err": flash_errs["o_row"],
+                      "row_control_excess": flash_errs["o_control"],
+                      "row_control_elementwise_excess": flash_errs["o_control_elementwise"],
+                      "shape": "B=8 T=1024 H=12 causal",
                       "library_is": "F.scaled_dot_product_attention"},
-        "flash_bwd": {"err_is": "max|err| / max|ref|", "shape": "B=8 T=1024 H=12 causal",
+        "flash_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": bwd_dq_row,
+                      "shape": "B=8 T=1024 H=12 causal",
                       "library_is": "autograd.grad of q, k and v through SDPA"},
         "ce_fwd": {"shape": "N=8192 D=768 V=50304"},
         "adamw": {"err_is": "max|err| / max|ref|", "shape": "148 leaves, 124,475,904 params",
                   "library_is": "torch.optim.AdamW(fused=True).step()"},
         "flash_general_fwd": {"lse_max_abs_err": gen_errs["lse"], "row_err": gen_errs["o_row"],
                               "library_is": "F.scaled_dot_product_attention"},
-        "flash_general_dq": {"err_is": "max|err| / max|ref|",
+        "flash_general_dq": {"err_is": "max|err| / max|ref|", "row_err": gen_errs["dq_row"],
+                             "row_control_excess": gen_errs["dq_control"],
+                             "row_control_max_rel": gen_errs["dq_control_max_rel"],
+                             "bit_equal_twice": True,
                              "plain_is": "the plain backward computes dq, dk and dv together",
                              "library_is": "autograd.grad of q through SDPA"},
         "flash_general_dkv": {"err_is": "max|err| / max|ref|",
@@ -2243,7 +2396,7 @@ def main() -> int:
         "flash_lse_fwd": {"lse_max_abs_err": lse_errs["lse"], "row_err": lse_errs["o_row"],
                           "library_is": "F.scaled_dot_product_attention"},
         "flash_fused_bwd": {"err_is": "max|err| / max|ref|, with a random lse cotangent",
-                            "dkv_row_err": lse_errs["dkv_row"],
+                            "dq_row_err": lse_errs["dq_row"], "dkv_row_err": lse_errs["dkv_row"],
                             "dq_two_runs_max_diff_over_max": lse_errs["rerun"],
                             "library_is": "autograd.grad of q, k and v through SDPA"},
         "flash_dt_fwd": {"lse_max_abs_err": dt_errs["lse"],

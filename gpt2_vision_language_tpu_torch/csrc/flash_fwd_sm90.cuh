@@ -1,10 +1,11 @@
 // The flash-attention forward main loop for Hopper (sm_90a), shared by the
-// general forward (flash_general_fwd.cu, K2b) and the lse forward of the ring
-// (flash_lse_fwd.cu, K2a). Each source instantiates it as its own __global__
-// entry point with its own tile configuration (consumer warpgroups, ring
-// slots, block order); both compute the same function: Tq != Tk, ragged
-// lengths on both sides, right-aligned causal or non-causal; bf16 q/k/v, fp32
-// online softmax, o and the per-row natural-log logsumexp in fp32.
+// general forward (flash_general_fwd.cu, K2b), the lse forward of the ring
+// (flash_lse_fwd.cu, K2a) and the self-attention forward (flash_fwd.cu,
+// K1-fwd, Tq = Tk). Each source instantiates it as its own __global__ entry
+// point with its own tile configuration (consumer warpgroups, ring slots,
+// block order); all compute the same function: Tq != Tk, ragged lengths on
+// both sides, right-aligned causal or non-causal; bf16 q/k/v, fp32 online
+// softmax, o and the per-row natural-log logsumexp in fp32.
 //
 // O = softmax(q k^T / sqrt(hs) + mask) v, where under the causal mask query i
 // sits at key position i + (Tk - Tq) and sees the keys at or before it; lse =
@@ -40,6 +41,10 @@
 #pragma once
 
 #include <math.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 #include "hopper.cuh"
 
@@ -301,9 +306,28 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
   }
 }
 
-// The kernel signature both entry points share.
+// The kernel signature the entry points share.
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap, bf16*, float*,
                         int, int, int, int, float);
+
+// Raises `kernel`'s dynamic shared-memory limit to `smem` bytes on the
+// current device the first time it launches there. The CUDA call costs
+// about 3 us of host time on an H100 host, and at B=8, T=1024 the host
+// enqueues a self-attention forward about as fast as the card runs it
+// (0.061 ms), so it is not repeated on every launch.
+inline cudaError_t set_smem_once(Kernel kernel, int smem) {
+  static std::mutex mu;
+  static std::set<std::pair<int, uintptr_t>> done;  // (device, kernel) pairs set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::pair<int, uintptr_t> key(dev, reinterpret_cast<uintptr_t>(kernel));
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(key)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done.insert(key);
+  return err;
+}
 
 // Checks the arguments, encodes the tensor maps, launches `kernel` (an
 // instantiation of forward_block with the same CONSUMERS, STAGES and
@@ -328,8 +352,7 @@ inline int launch(Kernel kernel, const void* q, const void* k, const void* v, vo
     return (int)cudaErrorInvalidValue;
   // + the alignment of the base
   const int smem = (int)sizeof(Smem<CONSUMERS, STAGES>) + 1024;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = set_smem_once(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = (Tq + Cfg::BM - 1) / Cfg::BM;
   const dim3 grid = HEADS_INNER ? dim3(nq * H, 1, B) : dim3(nq, H, B);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma attention kernels
 // (the forward main loop of flash_fwd_sm90.cuh, the key-major backward of
-// flash_bwd_sm90.cuh): mbarriers, TMA loads, wgmma descriptors and
-// instructions, and the host-side encoding of tensor maps.
+// flash_bwd_sm90.cuh, the query-major dq kernel of flash_dq_bwd.cu):
+// mbarriers, TMA loads, wgmma descriptors and instructions, and the host-side
+// encoding of tensor maps.
 //
 // Layout conventions. Every bf16 tile in shared memory is a stack of 128-byte
 // rows (64 values of hs, or of a 64-wide axis) written by TMA with

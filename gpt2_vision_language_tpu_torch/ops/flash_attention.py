@@ -12,11 +12,11 @@ families behind ``flash_attention`` (:1089 there) and
   * the general family (Tq != Tk, any length, right-aligned causal or
     non-causal): ``csrc/flash_general_fwd.cu`` replaces the streamed-K/V
     forward ``_fwd_kernel_grid`` (:221, launched by ``_fwd`` :265),
-    ``csrc/flash_general_bwd.cu`` replaces ``_dq_kernel_grid`` (:369) and
+    ``csrc/flash_dq_bwd.cu`` replaces ``_dq_kernel_grid`` (:369) and
     ``csrc/flash_dkv_bwd.cu`` ``_dkv_kernel_grid`` (:509), both launched by
     ``_bwd`` (:550). As there, the two backward kernels take D = rowsum(dO *
-    O) as an input tensor; a small kernel of ``flash_general_bwd.cu`` forms it
-    (``_bwd`` leaves it to XLA, :573);
+    O) as an input tensor; the small kernel of ``csrc/flash_general_bwd.cu``
+    forms it (``_bwd`` leaves it to XLA, :573);
   * the lse family, the same shapes again, behind ``flash_attention_with_lse``
     and ``flash_attention(stream_kv=False)``: ``csrc/flash_lse_fwd.cu``
     replaces ``_fwd_kernel`` (:197, launched by ``_fwd`` :265 with

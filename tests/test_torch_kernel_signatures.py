@@ -58,35 +58,68 @@ def _includes(path):
     return found
 
 
+# source -> the repository headers it includes, transitively; every other
+# source includes none
+SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
+          "flash_lse_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
+          "flash_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
+          "flash_fused_bwd.cu": {"flash_bwd_sm90.cuh", "hopper.cuh"},
+          "flash_dkv_bwd.cu": {"flash_bwd_sm90.cuh", "hopper.cuh"},
+          "flash_dq_bwd.cu": {"hopper.cuh"}}
+
+
 def test_sources_include_only_their_own_headers():
-    """The four Hopper kernels share csrc/hopper.cuh through two headers, the
-    forward main loop (K2b, K2a) and the key-major backward (K3c, K3b), and
-    the library name hashes every header with the sources, so an edit of one
-    rebuilds them. Those sources issue wgmma and load by TMA, and none of
-    them, nor the headers, uses nvcuda::wmma."""
+    """The six Hopper kernels share csrc/hopper.cuh, five of them through two
+    headers, the forward main loop (K2b, K2a, K1-fwd) and the key-major
+    backward (K3c, K3b); the query-major dq kernel (K3a) uses hopper.cuh
+    alone. The library name hashes every header with the sources, so an edit
+    of one rebuilds them. Those sources issue wgmma and load by TMA, and none
+    of them, nor the headers, uses nvcuda::wmma."""
     heads = {p.name for p in _build.headers()}
     assert heads == {"hopper.cuh", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh"}
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
-    shared = {"flash_general_fwd.cu": "flash_fwd_sm90.cuh",
-              "flash_lse_fwd.cu": "flash_fwd_sm90.cuh",
-              "flash_fused_bwd.cu": "flash_bwd_sm90.cuh",
-              "flash_dkv_bwd.cu": "flash_bwd_sm90.cuh"}
-    for name, header in shared.items():
-        assert _includes(_build.CSRC / name) == {header, "hopper.cuh"}, name
-        for text in ((_build.CSRC / name).read_text(), (_build.CSRC / header).read_text()):
+    for name, headers in SHARED.items():
+        assert _includes(_build.CSRC / name) == headers, name
+        for text in [(_build.CSRC / n).read_text() for n in (name, *headers)]:
             assert "nvcuda::wmma" not in text and "<mma.h>" not in text
     for src in _build.sources():
-        if src.name not in shared:
+        if src.name not in SHARED:
             assert not _includes(src), src.name
+
+
+@pytest.mark.parametrize("name,entry", [("flash_fwd.cu", "gpt2vl_flash_fwd"),
+                                        ("flash_dq_bwd.cu", "gpt2vl_flash_general_dq")])
+def test_rebuilt_kernel_is_hopper_only(name, entry):
+    """K1-fwd and K3a, rebuilt for Hopper: each source holds its entry point
+    and its own __global__ kernel, reaches TMA and wgmma through
+    csrc/hopper.cuh, and keeps nothing of the wmma kernels it replaced."""
+    text = (_build.CSRC / name).read_text()
+    assert f'extern "C" int {entry}(' in text
+    assert text.count("__global__") == 1
+    assert "hopper.cuh" in _includes(_build.CSRC / name)
+    for gone in ("nvcuda", "<mma.h>", "wmma::", "load_matrix_sync", "mma_sync("):
+        assert gone not in text, (name, gone)
+
+
+def test_dq_kernel_reads_k_both_ways():
+    """K3a forms S from the K tile read K-major and dQ from the same tile
+    read MN-major through the transpose bit (mma_m64n64_rs_tb), its dS as a
+    register A operand; the D pre-kernel stays in flash_general_bwd.cu."""
+    dq = (_build.CSRC / "flash_dq_bwd.cu").read_text()
+    assert "mma_m64n64_rs_tb(dqa, sa[kk]" in dq and "tma_load_4d" in dq
+    general = (_build.CSRC / "flash_general_bwd.cu").read_text()
+    assert 'extern "C" int gpt2vl_flash_rowdot(' in general
+    assert "gpt2vl_flash_general_dq" not in general
 
 
 @pytest.mark.parametrize("header,body", [("flash_fwd_sm90.cuh", "forward_block"),
                                          ("flash_bwd_sm90.cuh", "backward_block")])
 def test_main_loop_exists_once(header, body):
     """The forward main loop and the key-major backward consumer are written
-    once, in their header: each source that runs them only instantiates
-    them, and no source repeats their wgmma calls."""
+    once, in their header: each source that runs them (K2b, K2a and K1-fwd;
+    K3c and K3b) only instantiates them, and no source repeats their wgmma
+    calls."""
     assert f"__device__ __forceinline__ void {body}(" in (_build.CSRC / header).read_text()
     for src in _build.sources():
         text = src.read_text()
