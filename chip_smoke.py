@@ -1,11 +1,12 @@
 """Drive the PyTorch/H100 port once on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-times   # K1-fwd, K2a, K2b, K3a-K3c times only, one JSON line
+    python3 chip_smoke.py --flash-times   # attention kernel times and SASS counts, one JSON line
 
 Phases (any failure raises and the script exits non-zero):
 
-  1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc;
+  1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc (their
+     registers, spills and SASS instruction counts printed);
   2. flash-attention forward kernel vs its plain version, bf16, at the
      scoring shape (B=8, T=1024, H=12, hs=64, causal, q/k/v strided views of
      the fused QKV output), at a ragged T=1000 and at B=1, T=8192 (K1_MAX_T,
@@ -24,9 +25,16 @@ Phases (any failure raises and the script exits non-zero):
      policy, cli.bench_decode at B=50, and ops.layers.matmul_f32 on batched
      bf16 operands of the decode shape against the fp32 product;
   6. flash-attention backward kernel vs its plain version at the training
-     shape (B=8, T=1024, H=12, hs=64, causal, strided q/k/v) and T=1000, dq
-     also row by row (each query row within 2^-6 of its norm plus 1e-3), and
-     one attention layer's forward + backward through autograd;
+     shape (B=8, T=1024, H=12, hs=64, causal, strided q/k/v), at T=1000 and
+     at B=1, T=8192 (K1_MAX_T, the plain version two heads at a time); dq,
+     dk and dv against 3e-2 of max|ref| and row by row (each query row of
+     dq, each key row of dk and dv within 2^-6 of its norm plus 1e-3), the
+     kernel twice on one input bit for bit; two controls at T=8192 that must
+     fail the row check (the plain dk/dv without the queries from
+     K1_DKV_DROP_AFTER after each key tile, the plain dq without the keys
+     more than K1_DQ_DROP_BEFORE before each query tile; the check against
+     max|ref| passes both, its reading printed beside); one attention
+     layer's forward + backward through autograd;
   7. AdamW kernel vs its plain version over every parameter of GPT-2 124M;
   8. the train step: GPT-2 124M, fp32 params, bf16 policy,
      train.step.make_train_step with the AdamW kernel, 4 x (B=8, T=1024) per
@@ -57,8 +65,10 @@ Phases (any failure raises and the script exits non-zero):
      inputs at B=8, T=1024 and B=2, T=4096 (within 1e-2; times and whether
      they are bit-identical only printed);
  12. library-call probes, timed only and never a route of the port:
-     F.scaled_dot_product_attention forward and backward at B=8, T=1024 and
-     B=1, T=16384, torch.optim.AdamW(fused=True) over the 148 leaves;
+     F.scaled_dot_product_attention forward and backward (one kernel forms
+     dq, dk and dv) at B=8, T=1024, B=1, T=8192 and B=1, T=16384, causal,
+     and on the ring's chunk pair, torch.optim.AdamW(fused=True) over the
+     148 leaves;
  13. the long-context train step: GPT-2 124M with block_size 16384,
      make_train_step at B=1, T=16384, 2 micro-batches a step, 3 steps; 12
      general forward, 12 D, 12 dq and 12 dk/dv launches per micro-batch, none
@@ -97,16 +107,22 @@ Phases (any failure raises and the script exits non-zero):
      1 --total-batch 32768 --attn-impl ring --tp 4 --steps 2 (validation
      through the ring on the lse forward and the CE kernel, checkpoints), then
      --steps 3 resumes; --tp 4 without --attn-impl ring must raise;
- 19. the dt-layout kernels of the A/B tool vs their plain versions on the
-     tool's own bf16 inputs (B=8, T=1024, H=12, hs=64, causal): the forward
-     (o, lse) also against the shipping forward's output transposed, the
-     one-pass backward with a control (wrong dcap) that must fail, and twice on
-     one input (dq is summed by reductions in global memory);
+ 19. the dt-layout kernels of the A/B tool vs their plain versions, H=12,
+     hs=64, causal: the forward (o elementwise and row by row, lse) on the
+     tool's own bf16 inputs (B=8, T=1024), at B=3, T=1088 (sequences that end
+     in half a 128-row tile), at B=2, Tq=512, Tk=1024 (the mask without
+     offset) and at B=1, T=8192 (the plain version four heads at a time),
+     with a control there that must fail the row check (the last 128 rows
+     without their first key tile), and at B=8, T=1024 against the shipping
+     forward's output transposed; the one-pass backward on the tool's inputs
+     with a control (wrong dcap) that must fail, and twice on one input (dq
+     is summed by reductions in global memory);
  20. the A/B tool through its main: --check, --check-bwd, the forward bench
      and --bwd (device ms per layer of the shipping path, of the dt kernels,
      and of the copies into and out of the dt layout);
  21. the self-attention kernels against the plain path at the fine-tune shape
-     (B=128, T=65), o also row by row, forward and forward + backward:
+     (B=128, T=65), o, dq, dk and dv also row by row, forward and forward +
+     backward:
      below the 512-token routing threshold, timed only, the routing is the
      JAX package's;
  22. fine-tune ops on the card under the bf16 policy against the same
@@ -130,9 +146,10 @@ phase 20; the fine-tune runs of phase 23 beside them), error, times, bound
 and library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA device.
 
-With --flash-times it only builds the kernels and times K1-fwd (with the
-host side of its launch), K2a, K2b, K3a, K3b and K3c at the shapes of the
-kernels line (``flash_times``). Copied into the root of another checkout and
+With --flash-times it only builds the kernels, counts each one's SASS
+instructions and times K1-fwd (with the host side of its launch), K1-bwd,
+P1, K2a, K2b, K3a, K3b and K3c at the shapes of the kernels line
+(``flash_times``). Copied into the root of another checkout and
 run there, it times that checkout's kernels, so two trees compare on one
 card in the order parent, change, change, parent.
 """
@@ -311,35 +328,98 @@ def phase_matmul_f32(torch, layers, dev):
     return err
 
 
+# phase 6's controls at B=1, T=8192 (K1_MAX_T), H=12: the plain dk/dv
+# without the queries from K1_DKV_DROP_AFTER after the first key of each
+# 128-key tile on (the keys of the first four tiles lose up to 512 queries),
+# and the plain dq without the keys more than K1_DQ_DROP_BEFORE before each
+# 128-row query tile (the last 128 rows lose their first 128 keys). Both are
+# chosen so that the check against 3e-2 of max|ref| passes them (at four
+# heads on the CPU: dk 1.81e-2, dv 7.98e-3, dq 1.71e-2), while their rows
+# fail the row check (by 9.9e-2, 7.2e-2 and 0.53); that check's reading is
+# printed beside each
+K1_DKV_DROP_AFTER = 7680
+K1_DQ_DROP_BEFORE = 7936
+
+
+def bwd_by_heads(torch, fa, q, k, v, o, lse, do, causal, heads=2):
+    """The plain backward, `heads` heads at a time (its (B, H, T, T) fp32
+    matrices do not fit at once at T=8192, H=12): [dq, dk, dv]."""
+    parts = [fa.flash_attention_backward_reference(q[:, :, c], k[:, :, c], v[:, :, c],
+                                                   o[:, :, c], lse[:, c], do[:, :, c],
+                                                   causal=causal)
+             for c in (slice(i, i + heads) for i in range(0, q.shape[2], heads))]
+    return [torch.cat([p[j] for p in parts], dim=2) for j in range(3)]
+
+
 def phase_flash_bwd(torch, fa, attention, dev):
     print("[6] flash-attention backward vs plain (bf16)", flush=True)
     tol = 3e-2  # max|err| / max|ref|; P and dS round to bf16 in the kernel
     g = torch.Generator(dev).manual_seed(6)
-    err, row_err, timing = 0.0, 0.0, None
-    for t in (1024, 1000):
-        b, h, hs = 8, 12, 64
-        qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
-        q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+    errs = {"max_rel": 0.0, "dq_row": 0.0, "dkv_row": 0.0}
+    timing = {}
+    # the training shape, a ragged T, and K1_MAX_T, where the key rows of dk
+    # and dv and the query rows of dq differ most in size (the plain side two
+    # heads at a time)
+    for b, t in ((8, 1024), (8, 1000), (1, fa.K1_MAX_T)):
+        h, hs = 12, 64
+        q, k, v, do = qkv_inputs(torch, b, t, t, h, dev, g)
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-        do = torch.randn(b, t, h, hs, device=dev, generator=g).to(torch.bfloat16)
         got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
-        want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
         torch.cuda.synchronize()
-        errs = [rel_err(x, r) for x, r in zip(got, want)]
-        dq_row, dq_over = grad_row_excess(got[0], want[0])
+        same = [bool(torch.equal(x, y)) for x, y in zip(got, again)]
+        del again
+        want = bwd_by_heads(torch, fa, q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        rels = [rel_err(x, r) for x, r in zip(got, want)]
+        rows = [grad_row_excess(x, r) for x, r in zip(got, want)]
         print(f"  B={b} T={t} H={h} hs={hs}: dq, dk, dv max|err| / max|ref| "
-              + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {tol}), dq max row |err| / "
-              f"(|ref| + 1e-3) {dq_row:.3e} (tol 2^-6)", flush=True)
-        require(max(errs) <= tol and dq_over <= 0, f"flash backward T={t} disagrees")
-        err, row_err = max(err, *errs), max(row_err, dq_row)
+              + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {tol}), max row |err| / "
+              f"(|ref| + 1e-3) " + ", ".join(f"{r[0]:.3e}" for r in rows) + " (tol 2^-6); "
+              f"twice on one input bit-equal {same}", flush=True)
+        require(all(same), f"two runs of the flash backward differ at T={t}: dq, dk and dv "
+                "are summed in a fixed order")
+        require(max(rels) <= tol and max(r[1] for r in rows) <= 0,
+                f"flash backward T={t} disagrees")
+        errs["max_rel"] = max(errs["max_rel"], *rels)
+        errs["dq_row"] = max(errs["dq_row"], rows[0][0])
+        errs["dkv_row"] = max(errs["dkv_row"], rows[1][0], rows[2][0])
+        if t == fa.K1_MAX_T:
+            # controls: the plain dk/dv of key tiles that stop their query
+            # sweep early, and the plain dq of query tiles that start their
+            # key sweep late; the row check must fail both
+            dd = fa.rowdot_reference(do, o)
+            sk, sv = dkv_reference(torch, q, k, v, do, lse, dd, True,
+                                   drop_after=K1_DKV_DROP_AFTER)
+            control = max(grad_row_excess(sk, want[1])[1], grad_row_excess(sv, want[2])[1])
+            loose = max(rel_err(sk, want[1]), rel_err(sv, want[2]))
+            del sk, sv
+            print(f"  control: dk/dv without the queries from {K1_DKV_DROP_AFTER} after each "
+                  f"key tile on pass the row tolerance by {control:.3e} (must be > 0); "
+                  f"max|err| / max|ref| {loose:.3e} (tol {tol})", flush=True)
+            require(control > 0, "dk/dv without the far queries passed the row check at "
+                    "T=8192: the check cannot see a short key-tile sweep")
+            errs["dkv_control"], errs["dkv_control_max_rel"] = control, loose
+            sq = dq_reference(torch, q, k, v, do, lse, dd, True, drop_before=K1_DQ_DROP_BEFORE)
+            control, loose = grad_row_excess(sq, want[0])[1], rel_err(sq, want[0])
+            del sq
+            print(f"  control: dq without the keys more than {K1_DQ_DROP_BEFORE} before each "
+                  f"query tile passes the row tolerance by {control:.3e} (must be > 0); "
+                  f"max|err| / max|ref| {loose:.3e} (tol {tol})", flush=True)
+            require(control > 0, "dq without the far keys passed the row check at T=8192: "
+                    "the check cannot see a late start of a query tile's key sweep")
+            errs["dq_control"], errs["dq_control_max_rel"] = control, loose
+            timing["B1_T8192"] = interleaved(
+                lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                lambda: bwd_by_heads(torch, fa, q, k, v, o, lse, do, True), 10, 1)
         if t == 1024:
-            timing = interleaved(
+            timing["B8_T1024"] = interleaved(
                 lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
                 lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                               causal=True),
                 50, 3,
             )
-            leaf = qkv.detach().requires_grad_(True)
+            leaf = torch.cat([q, k, v], dim=2).view(b, t, 3 * h * hs).requires_grad_(True)
 
             def layer(impl):
                 def run():
@@ -352,7 +432,8 @@ def phase_flash_bwd(torch, fa, attention, dev):
             fb = interleaved(layer("flash"), layer("xla"), 20, 3)
             print(f"  one attention layer, forward + backward through autograd: "
                   f"kernels {fb[0]:.4f} ms, plain {fb[1]:.4f} ms", flush=True)
-    return err, row_err, timing
+        del q, k, v, do, o, lse, got, want
+    return errs, timing
 
 
 def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
@@ -969,8 +1050,8 @@ def phase_library_probes(torch, gpt2, cfgs, dev):
     g = torch.Generator(dev).manual_seed(12)
     out = {}
     # the last two are the ring's chunk pair, with its causal mask and without
-    for b, t, causal, iters in ((8, 1024, True, 20), (1, 16384, True, 5), (1, 4096, True, 20),
-                                (1, 4096, False, 20)):
+    for b, t, causal, iters in ((8, 1024, True, 20), (1, 8192, True, 10), (1, 16384, True, 5),
+                                (1, 4096, True, 20), (1, 4096, False, 20)):
         # (B, H, T, hs) contiguous, the layout the library call is built for
         q, k, v, do = (a.transpose(1, 2).contiguous()
                        for a in qkv_inputs(torch, b, t, t, 12, dev, g))
@@ -982,14 +1063,15 @@ def phase_library_probes(torch, gpt2, cfgs, dev):
                 F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
         o = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-        grad = lambda wrt: lambda: torch.autograd.grad(o, wrt, do, retain_graph=True)  # noqa: E731
-        r = {"fwd": cuda_ms(fwd, iters), "bwd": cuda_ms(grad((q, k, v)), iters),
-             "dq": cuda_ms(grad((q,)), iters), "dkv": cuda_ms(grad((k, v)), iters)}
+        # SDPA's backward forms dq, dk and dv in one kernel whichever of them
+        # are asked for, so no call times dq or dk/dv alone
+        r = {"fwd": cuda_ms(fwd, iters),
+             "bwd": cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+                            iters)}
         print(f"  F.scaled_dot_product_attention B={b} T={t} H=12 hs=64 bf16 "
               f"{'causal' if causal else 'no mask'}: forward "
               f"{r['fwd']:.4f} ms, backward (autograd.grad of q, k, v) {r['bwd']:.4f} ms, "
-              f"forward + backward {r['fwd'] + r['bwd']:.4f} ms; grad of q alone "
-              f"{r['dq']:.4f} ms, of k and v {r['dkv']:.4f} ms", flush=True)
+              f"forward + backward {r['fwd'] + r['bwd']:.4f} ms", flush=True)
         out[f"B{b}_T{t}" + ("" if causal else "_nomask")] = r
         del o
 
@@ -1545,19 +1627,82 @@ def dt_inputs(torch, ab, dev, seed):
     return dt, (q, k, v, dout), (b, h, t, hs)
 
 
+def dt_fwd_by_heads(torch, ab, qd, kd, vd, b, tq, tk, heads=4):
+    """The plain dt forward, `heads` heads at a time (its (H, B, Tq, Tk) fp32
+    scores do not fit at once at T=8192, H=12): (o, lse)."""
+    parts = [ab.flash_fwd_dt_b_reference(qd[i:i + heads], kd[i:i + heads], vd[i:i + heads],
+                                         b, tq, tk, causal=True)
+             for i in range(0, qd.shape[0], heads)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def dt_rows_without_first_keys(torch, qd, kd, vd, t, rows=128, skip=128):
+    """The plain dt forward of the last `rows` queries of a B=1 input without
+    their first `skip` keys, causal: what a kernel whose sweep starts one key
+    tile late would give them. (H, hs, rows) in qd's dtype."""
+    q, k, v = qd[:, :, t - rows:].float(), kd[:, :, skip:].float(), vd[:, :, skip:].float()
+    s = torch.einsum("hdq,hdk->hqk", q, k)
+    qpos = torch.arange(t - rows, t, device=qd.device)[:, None]
+    kpos = torch.arange(skip, t, device=qd.device)[None, :]
+    s = s.masked_fill(kpos > qpos, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True)).to(vd.dtype).float()
+    return torch.einsum("hqk,hdk->hdq", p, v).to(qd.dtype)
+
+
+def dt_row_excess(o, ref):
+    """``row_excess`` over the rows of a dt-layout (H, hs, N) output: each
+    position's hs values."""
+    return row_excess(o.transpose(1, 2), ref.transpose(1, 2))
+
+
 def phase_dt_kernels(torch, ab, fa, dev):
-    print("[19] dt-layout forward (P1) and one-pass backward (P2) vs plain (bf16), "
-          "B=8 T=1024 H=12 hs=64 causal", flush=True)
+    print("[19] dt-layout forward (P1) and one-pass backward (P2) vs plain (bf16), H=12 "
+          "hs=64 causal", flush=True)
     (qd, kd, vd, dod), (q, k, v, _), (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
     scale = hs ** -0.5
-    o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
-    o_ref, lse_ref = ab.flash_fwd_dt_b_reference(qd, kd, vd, b, t, t, causal=True)
-    torch.cuda.synchronize()
-    o_err, o_excess = out_excess(o, o_ref)
-    lse_err = (lse - lse_ref).abs().max().item()
-    print(f"  P1: o max|err| {o_err:.3e} (tol max(2e-2, one bf16 ulp); excess "
-          f"{o_excess:.3e}), lse max|err| {lse_err:.3e} (tol 1e-3)", flush=True)
-    require(o_excess <= 0 and lse_err <= 1e-3, "dt forward disagrees with its plain version")
+    fwd_errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0}
+
+    def check_fwd(bb, tq, tk, xs):
+        o, lse = ab.flash_fwd_dt_b(*xs, bb, tq, tk, causal=True)
+        o_ref, lse_ref = dt_fwd_by_heads(torch, ab, *xs, bb, tq, tk)
+        torch.cuda.synchronize()
+        o_err, o_excess = out_excess(o, o_ref)
+        o_row, row_over = dt_row_excess(o, o_ref)
+        lse_err = (lse - lse_ref).abs().max().item()
+        print(f"  P1 B={bb} Tq={tq} Tk={tk}: o max|err| {o_err:.3e} (tol max(2e-2, one bf16 "
+              f"ulp); excess {o_excess:.3e}), max row |err| / |ref| {o_row:.3e} (tol 2^-6), "
+              f"lse max|err| {lse_err:.3e} (tol 1e-3)", flush=True)
+        require(o_excess <= 0 and row_over <= 0 and lse_err <= 1e-3,
+                f"dt forward disagrees with its plain version at B={bb} Tq={tq} Tk={tk}")
+        for key, e in (("o", o_err), ("o_row", o_row), ("lse", lse_err)):
+            fwd_errs[key] = max(fwd_errs[key], e)
+        return o, lse
+
+    o, lse = check_fwd(b, t, t, (qd, kd, vd))
+    # a T that is a multiple of 64 but not of 128 (each sequence ends in half
+    # a 128-row tile, and the next sequence starts where zeros belong); Tq !=
+    # Tk under the no-offset mask (query i sees keys <= i); and T=8192, where
+    # a late row's |o| is small (the plain side four heads at a time)
+    g = torch.Generator(dev).manual_seed(190)
+    for bb, tq, tk in ((3, 1088, 1088), (2, 512, 1024), (1, 8192, 8192)):
+        xs = [ab.to_dt(torch.randn(bb, n, h, hs, device=dev, generator=g).to(torch.bfloat16))
+              for n in (tq, tk, tk)]
+        xs[0] = (xs[0].float() * scale).to(torch.bfloat16)
+        o_x, _ = check_fwd(bb, tq, tk, xs)
+        if tq == 8192:
+            # control: the last 128 rows without their first key tile; the row
+            # check must fail it where the late rows' |o| is smallest (the
+            # elementwise check's reading beside it)
+            late = dt_rows_without_first_keys(torch, *xs, tq)
+            _, control = dt_row_excess(o_x[:, :, tq - 128:], late)
+            _, loose = out_excess(o_x[:, :, tq - 128:], late)
+            print(f"  control: the last 128 rows without their first key tile pass the row "
+                  f"tolerance by {control:.3e} (must be > 0), the elementwise one by "
+                  f"{loose:.3e}", flush=True)
+            require(control > 0, "P1's o passed the row check against o without the first key "
+                    "tile: the check cannot see a late start of the key sweep")
+            fwd_errs["o_control"], fwd_errs["o_control_elementwise"] = control, loose
+        del xs, o_x
     # against the shipping forward on the same values (q unscaled there; the
     # pre-scaled bf16 q of the dt side rounds once more, so one bf16 ulp apart)
     o_k1 = fa.flash_attention(q, k, v, causal=True, layout="bthd")
@@ -1595,7 +1740,7 @@ def phase_dt_kernels(torch, ab, fa, dev):
     bwd_t = interleaved(lambda: run(dcap),
                         lambda: ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, dcap, b, t, t,
                                                             causal=True, dq_scale=scale), 50, 3)
-    return ({"o": o_err, "lse": lse_err, "vs_k1": k1_err, "bwd": max(errs), "rerun": rerun,
+    return ({**fwd_errs, "vs_k1": k1_err, "bwd": max(errs), "rerun": rerun,
              "dq_bit_equal": same[0]}, {"fwd": fwd_t, "bwd": bwd_t})
 
 
@@ -1631,12 +1776,14 @@ def phase_k1_short(torch, fa, attention, dev):
     want = fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
     errs = [rel_err(x, r) for x, r in zip(got, want)]
+    rows = [grad_row_excess(x, r) for x, r in zip(got, want)]
     print(f"  o max|err| {o_err:.3e} (excess {o_excess:.3e}), max row |err| / |ref| "
           f"{o_row:.3e} (tol 2^-6), lse {(lse - lse_ref).abs().max().item():.3e}; dq, dk, dv "
-          f"max|err| / max|ref| " + ", ".join(f"{e:.3e}" for e in errs) + " (tol 3e-2)",
-          flush=True)
-    require(o_excess <= 0 and row_over <= 0 and max(errs) <= 3e-2,
-            "the kernels disagree at T=65")
+          f"max|err| / max|ref| " + ", ".join(f"{e:.3e}" for e in errs) + " (tol 3e-2), "
+          "max row |err| / (|ref| + 1e-3) " + ", ".join(f"{r[0]:.3e}" for r in rows)
+          + " (tol 2^-6)", flush=True)
+    require(o_excess <= 0 and row_over <= 0 and max(errs) <= 3e-2
+            and max(r[1] for r in rows) <= 0, "the kernels disagree at T=65")
 
     def fwd(impl):
         def run():
@@ -1659,6 +1806,7 @@ def phase_k1_short(torch, fa, attention, dev):
     print(f"  forward: kernel {f[0]:.4f} ms, plain {f[1]:.4f} ms; forward + backward through "
           f"autograd: kernels {fb[0]:.4f} ms, plain {fb[1]:.4f} ms", flush=True)
     return {"shape": f"B={b} T={t} H={h} hs={hs} causal", "o_row_err": o_row,
+            "grad_row_err": max(r[0] for r in rows),
             "fwd_kernel_ms": f[0], "fwd_plain_ms": f[1], "fwd_bwd_kernel_ms": fb[0],
             "fwd_bwd_plain_ms": fb[1]}
 
@@ -2079,20 +2227,45 @@ def host_us(torch, fn, iters):
     return (t1 - t0) / iters * 1e6, (t2 - t0) / iters * 1e6
 
 
-def flash_times(torch, fa, dev, build_s, card):
+def sass_counts(so):
+    """{kernel function: its SASS instructions} in the built library, read
+    with the toolkit's cuobjdump -sass: a refactor of a tuned kernel is held
+    to its parent's count."""
+    from gpt2_vision_language_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
+    require(dump.returncode == 0, f"cuobjdump failed: {dump.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in dump.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            short = re.search(r"\d([a-z_]+_kernel)", fn.group(1))
+            name = short.group(1) if short else fn.group(1)
+            while name in counts:
+                name += "'"
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
+def flash_times(torch, fa, ab, dev, so, build_s, card):
     """K1-fwd at B=8, T=1024 and B=2, T=4096 causal and at the fine-tune's
     B=128, T=65 (q, k, v views of one fused projection), and at B=8, T=1024
-    the host time of a launch beside the kernel's device time; K2b, K3a and
+    the host time of a launch beside the kernel's device time; K1-bwd at
+    B=8, T=1024 and B=1, T=8192 causal on K1-fwd's o and lse; P1 at the A/B
+    tool's B=8, T=1024 causal (its own inputs, dt layout); K2b, K3a and
     K3b at B=1, T=16384, H=12 causal (K3a's and K3b's lse from K2b, their D
     from the D pre-kernel); K2a, K2b and K3c on one ring chunk pair, B=1,
     Tq=Tk=4096, H=12, unmasked and causal (chunk views; lse and dcap from the
     plain forward): each the mean device time of 20 launches after a warm-up
-    (10 for K3a and K3b, 50 for K1-fwd; ``cuda_ms``), in one JSON line with
-    the build time and the card. It calls only wrappers that earlier
-    checkouts of the port have too, so copied into one it times that
-    checkout's kernels."""
+    (10 for K3a and K3b, 50 for K1-fwd and P1; ``cuda_ms``), in one JSON line
+    with the build time, the SASS instruction count of every kernel and the
+    card. It calls only wrappers that earlier checkouts of the port have too,
+    so copied into one it times that checkout's kernels."""
     g = torch.Generator(dev).manual_seed(0)
-    out = {"build_s": build_s}
+    out = {"build_s": build_s, "sass": sass_counts(so)}
     for b, t in ((8, 1024), (2, 4096), (128, 65)):
         q, k, v, _ = qkv_inputs(torch, b, t, t, 12, dev, g)
         out[f"k1fwd_B{b}_T{t}_causal_ms"] = cuda_ms(
@@ -2102,6 +2275,14 @@ def flash_times(torch, fa, dev, build_s, card):
             out["k1fwd_B8_T1024_host_us"] = {
                 "flash_attention_enqueue": enq, "flash_attention_wall": wall,
                 "kernel_device": out["k1fwd_B8_T1024_causal_ms"] * 1e3}
+    for b, t in ((8, 1024), (1, 8192)):
+        q, k, v, do = qkv_inputs(torch, b, t, t, 12, dev, g)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        out[f"k1bwd_B{b}_T{t}_causal_ms"] = cuda_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), 20)
+    (qd, kd, vd, _), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
+    out["p1_B8_T1024_causal_ms"] = cuda_ms(
+        lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True), 50)
     q, k, v, do = qkv_inputs(torch, 1, 16384, 16384, 12, dev, g)
     out["k2b_T16384_causal_ms"] = cuda_ms(
         lambda: fa.flash_general_forward(q, k, v, causal=True), 20)
@@ -2186,7 +2367,7 @@ def main() -> int:
     so, build_s = _build.build()
     _build.load()
     if sys.argv[1:] == ["--flash-times"]:
-        flash_times(torch, fa, dev, build_s, card)
+        flash_times(torch, fa, ab, dev, so, build_s, card)
         return 0
     print(f"  {so.name}: nvcc {build_s:.2f} s", flush=True)
     # registers and spills of every kernel, from the compiler's report
@@ -2198,6 +2379,7 @@ def main() -> int:
         print(f"    {name}: {regs} registers", flush=True)
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
     print(f"    spill stores: {sum(spills)} bytes over {len(spills)} functions", flush=True)
+    print(f"    SASS instructions: {json.dumps(sass_counts(so))}", flush=True)
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
     ce_err, ce_t = phase_ce(torch, fc, dev)
@@ -2271,7 +2453,7 @@ def main() -> int:
     mods = {"fa": fa, "fc": fc, "fw": fw, "ra": ra, "policy": DEFAULT_POLICY,
             "make_train_step": make_train_step, "adamw_init": adamw_init,
             "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain}
-    bwd_err, bwd_dq_row, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
+    bwd_errs, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
     adamw_err, adamw_t = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
     train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
     torch.cuda.empty_cache()
@@ -2330,7 +2512,8 @@ def main() -> int:
     table = [
         ("flash_fwd", "flash_fwd.cu", f"{jfa}:841", "trainer", flash_errs["o"], flash_t,
          attention_bound("fwd", *self_shape), lib_self["fwd"]),
-        ("flash_bwd", "flash_bwd.cu", f"{jfa}:887", "trainer", bwd_err, bwd_t,
+        ("flash_bwd", "flash_bwd.cu", f"{jfa}:887", "trainer", bwd_errs["max_rel"],
+         bwd_t["B8_T1024"],
          attention_bound("bwd", *self_shape), lib_self["bwd"]),
         ("ce_fwd", "ce_fwd.cu", "gpt2_vision_language_tpu/ops/fused_ce.py:93", "trainer",
          ce_err, ce_t, bound_ms(2 * 8192 * 768 * 50304,
@@ -2340,9 +2523,9 @@ def main() -> int:
         ("flash_general_fwd", "flash_general_fwd.cu", f"{jfa}:221", "long_trainer",
          gen_errs["o"], gen_t["fwd"], attention_bound("fwd", *long_shape), lib_long["fwd"]),
         ("flash_general_dq", "flash_dq_bwd.cu", f"{jfa}:369", "long_trainer",
-         gen_errs["dq"], gen_t["dq"], attention_bound("dq", *long_shape), lib_long["dq"]),
+         gen_errs["dq"], gen_t["dq"], attention_bound("dq", *long_shape), None),
         ("flash_general_dkv", "flash_dkv_bwd.cu", f"{jfa}:509", "long_trainer",
-         gen_errs["dkv"], gen_t["dkv"], attention_bound("dkv", *long_shape), lib_long["dkv"]),
+         gen_errs["dkv"], gen_t["dkv"], attention_bound("dkv", *long_shape), None),
         # the D pre-kernel of the general backward: XLA code in the JAX package
         ("flash_rowdot", "flash_general_bwd.cu", f"{jfa}:573", "long_trainer",
          gen_errs["dd"], gen_t["rowdot"],
@@ -2374,8 +2557,17 @@ def main() -> int:
                       "row_control_elementwise_excess": flash_errs["o_control_elementwise"],
                       "shape": "B=8 T=1024 H=12 causal",
                       "library_is": "F.scaled_dot_product_attention"},
-        "flash_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": bwd_dq_row,
+        "flash_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": bwd_errs["dq_row"],
+                      "dkv_row_err": bwd_errs["dkv_row"], "bit_equal_twice": True,
+                      "dkv_row_control_excess": bwd_errs["dkv_control"],
+                      "dkv_row_control_max_rel": bwd_errs["dkv_control_max_rel"],
+                      "dq_row_control_excess": bwd_errs["dq_control"],
+                      "dq_row_control_max_rel": bwd_errs["dq_control_max_rel"],
                       "shape": "B=8 T=1024 H=12 causal",
+                      "B1_T8192": {
+                          "ms": bwd_t["B1_T8192"][0], "plain_ms": bwd_t["B1_T8192"][1],
+                          "bound_ms": attention_bound("bwd", 1, 8192, 8192, 12, 64, True)[0],
+                          "library_ms": library["B1_T8192"]["bwd"]},
                       "library_is": "autograd.grad of q, k and v through SDPA"},
         "ce_fwd": {"shape": "N=8192 D=768 V=50304"},
         "adamw": {"err_is": "max|err| / max|ref|", "shape": "148 leaves, 124,475,904 params",
@@ -2387,19 +2579,30 @@ def main() -> int:
                              "row_control_max_rel": gen_errs["dq_control_max_rel"],
                              "bit_equal_twice": True,
                              "plain_is": "the plain backward computes dq, dk and dv together",
-                             "library_is": "autograd.grad of q through SDPA"},
+                             "library_is": "none: SDPA's backward forms dq, dk and dv in one "
+                                           "kernel"},
         "flash_general_dkv": {"err_is": "max|err| / max|ref|",
                               "row_err": gen_errs["dkv_row"],
                               "plain_is": "the plain backward computes dq, dk and dv together",
-                              "library_is": "autograd.grad of k and v through SDPA"},
-        "flash_rowdot": {"err_is": "max|err| / max|ref|"},
+                              "library_is": "none: SDPA's backward forms dq, dk and dv in one "
+                                            "kernel"},
+        "flash_rowdot": {"err_is": "max|err| / max|ref|",
+                         # the general backward as a whole against the one
+                         # library call that computes the same function
+                         "general_backward": {
+                             "is": "D + dq + dk/dv kernels",
+                             "ms": gen_t["rowdot"][0] + gen_t["dq"][0] + gen_t["dkv"][0],
+                             "library_ms": lib_long["bwd"],
+                             "library_is": "autograd.grad of q, k and v through SDPA"}},
         "flash_lse_fwd": {"lse_max_abs_err": lse_errs["lse"], "row_err": lse_errs["o_row"],
                           "library_is": "F.scaled_dot_product_attention"},
         "flash_fused_bwd": {"err_is": "max|err| / max|ref|, with a random lse cotangent",
                             "dq_row_err": lse_errs["dq_row"], "dkv_row_err": lse_errs["dkv_row"],
                             "dq_two_runs_max_diff_over_max": lse_errs["rerun"],
                             "library_is": "autograd.grad of q, k and v through SDPA"},
-        "flash_dt_fwd": {"lse_max_abs_err": dt_errs["lse"],
+        "flash_dt_fwd": {"lse_max_abs_err": dt_errs["lse"], "row_err": dt_errs["o_row"],
+                         "row_control_excess": dt_errs["o_control"],
+                         "row_control_elementwise_excess": dt_errs["o_control_elementwise"],
                          "vs_flash_fwd_max_abs_err": dt_errs["vs_k1"],
                          "shape": "B=8 T=1024 H=12 causal, dt layout (H, hs, B*T)",
                          "library_is": "F.scaled_dot_product_attention"},

@@ -56,7 +56,7 @@ HAND_WRITTEN_CLASSES = (
     ("flash_general_fwd_kernel", "general flash forward"),
     ("flash_general_dq_kernel", "general flash dq"),
     ("flash_general_dkv_kernel", "general flash dk/dv"),
-    ("flash_rowdot_kernel", "general flash D"),
+    ("flash_rowdot_kernel", "flash D pre-kernel"),  # the general and the self-attention backward
     ("flash_fwd_kernel", "self-attention flash forward"),
     ("flash_bwd_", "self-attention flash backward"),
     ("adamw_kernel", "AdamW kernel"),

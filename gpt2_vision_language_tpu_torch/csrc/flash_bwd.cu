@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): dq, dk, dv from the saved lse.
+// Self-attention flash backward for Hopper (sm_90a): dq, dk, dv from the saved
+// lse, Tq == Tk = T, causal or not, T ragged.
 //
 // Replaces the TPU kernel gpt2_vision_language_tpu/ops/flash_attention.py
 // _bwd_dt_kernel (launcher _bwd_dt). Same function: with P = exp(S - lse),
@@ -7,386 +8,89 @@
 // Unlike the TPU kernel, the scale is applied here (the forward applies it
 // inside its kernel too), and q/k/v are read in their (B, T, H, hs) layout
 // through strides, so the strided views of the fused QKV projection go in
-// without a copy.
+// without a copy. P and dS are rounded to bf16 before their products, as on
+// the TPU.
 //
 // What bounds it on the H100: at B=8, T=1024, H=12, hs=64 causal the backward
-// is 32 GFLOP of useful work (45 GFLOP with the recomputation below) against
-// ~100 MB of q/k/v/o/dO/dq/dk/dv, over 300 FLOP per byte: the tensor cores,
-// not HBM, bound it. The TPU kernel runs one program per (h, b) and keeps a (hs, T) fp32
-// dq accumulator resident: 256 KB at T=1024, more than a block's 227 KB of
-// shared memory, and B*H = 96 programs would not fill 132 SMs.
+// is 32 GFLOP of useful work (five products of the visible pairs) against
+// about 100 MB of q/k/v/o/dO/dq/dk/dv, over 300 FLOP per byte: the tensor
+// cores, not HBM, bound it (0.033 ms at 989 TFLOP/s). The TPU kernel runs one
+// program per (h, b) and keeps a (hs, T) fp32 dq accumulator resident: 256 KB
+// at T=1024, more than a block's 227 KB of shared memory, and B*H = 96
+// programs would not fill 132 SMs.
 //
-// What the design does about it: the work is split in two kernels that need
-// no atomics and are deterministic. The dk/dv kernel runs one block per
-// (b, h, 64-key tile) and loops over the query tiles from the diagonal on,
-// keeping dK and dV of its 64 keys in fp32 tensor-core accumulators. The dq
-// kernel runs one block per (b, h, 64-query tile) and loops over the key
-// tiles up to the diagonal, keeping dQ in accumulators. Each recomputes S and
-// dP = dO V^T from the saved lse. A small pre-kernel forms D. Products run on
-// the tensor cores through nvcuda::wmma (bf16 16x16x16, fp32 accumulate);
-// P and dS are rounded to bf16 before their products, as on the TPU. Four
-// warps per block, 16 rows each; the elementwise step goes through a
-// per-warp shared scratch because wmma's register layout is opaque. Blocks
-// with the most tiles launch first. A ragged tail of T is masked (rows past
-// T are loaded as zero, masked out of P, and not stored). Simple first: no
-// cp.async, wgmma or TMA yet.
+// What the design does about it: one launch of two kinds of block, each an
+// instantiation of a shared Hopper block (TMA into an mbarrier ring, wgmma,
+// setmaxnreg; hopper.cuh). A dk/dv block is the key-major block of
+// flash_bwd_sm90.cuh without its dQ half, as the general dk/dv kernel
+// (flash_dkv_bwd.cu) runs it: it owns 128 keys of one (b, h) and sweeps the
+// 64-row query tiles from the diagonal on, dK and dV in wgmma accumulators.
+// A dq block is the query-major block of flash_dq_sm90.cuh, as the general dq
+// kernel (flash_dq_bwd.cu) runs it: it owns 128 queries and sweeps the
+// 128-key tiles up to the diagonal, dQ in a wgmma accumulator. Both recompute
+// S and dP from the saved lse and read D, which the D pre-kernel of
+// flash_general_bwd.cu forms first in the same call (gpt2vl_flash_rowdot).
+// Seven products per visited pair where a one-pass block does five, but no
+// atomics and no zeroed fp32 buffer: dq, dk and dv are summed in a fixed
+// order and are bit-equal from run to run, as the TPU kernel's are. The two
+// halves read the same inputs and write disjoint outputs, so one grid holds
+// both: in each sequence the heads are folded under the tile, and the dk/dv
+// block of key tile i comes just before the dq block of query tile nt - 1 - i,
+// so the longest causal sweeps of both kinds start first and the shortest
+// fill the tail of the grid. The shared-memory attribute is set once per
+// (device, kernel).
 
-#include <math.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "flash_bwd_sm90.cuh"
+#include "flash_dq_sm90.cuh"
 
-using namespace nvcuda;
+// The D pre-kernel's entry point (flash_general_bwd.cu).
+extern "C" int gpt2vl_flash_rowdot(const void* dO, const void* o, void* dd, int B, int T, int H,
+                                   int hs, void* stream);
 
 namespace {
 
-constexpr int HS = 64;           // head size the kernels are built for
-constexpr int BT = 64;           // rows of a query tile and of a key tile
-constexpr int WARPS = BT / 16;   // one warp per 16 rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = HS + 8;      // bf16 row pitch of the q/k/v/dO tiles
-constexpr int LDP = BT + 8;      // bf16 row pitch of a warp's P / dS tile
-constexpr int LDS = BT + 4;      // fp32 pitch of a warp's scratch (BT == HS)
-constexpr float LOG2E = 1.4426950408889634f;
-
 using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-struct Smem {
-  bf16 q[BT * LDH];
-  bf16 k[BT * LDH];
-  bf16 v[BT * LDH];
-  bf16 dO[BT * LDH];
-  float lse2[BT];  // lse * log2(e) of the query tile
-  float dd[BT];    // D = rowsum(dO * O) of the query tile
-  bf16 p[WARPS][16 * LDP];
-  float s[WARPS][16 * LDS];
-};
+constexpr int DKV_STAGES = 3;  // slots of a dk/dv block's Q / dO ring, as the general kernel
+constexpr int DQ_STAGES = 3;   // slots of a dq block's K / V ring, as the general kernel
+constexpr int TILE = 128;      // keys of a dk/dv block, queries of a dq block
+constexpr int THREADS = 384;   // both blocks: two consumer warpgroups and a producer
+constexpr int SMEM = flash_bwd_sm90::smem_bytes<false, DKV_STAGES>() >
+                             flash_dq_sm90::smem_bytes<DQ_STAGES>()
+                         ? flash_bwd_sm90::smem_bytes<false, DKV_STAGES>()
+                         : flash_dq_sm90::smem_bytes<DQ_STAGES>();
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(flash_bwd_sm90::BK == TILE && flash_dq_sm90::BM == TILE &&
+                  flash_dq_sm90::BN == TILE,
+              "a dk/dv block and a dq block cover the same 128 positions");
+static_assert(flash_bwd_sm90::THREADS == THREADS && flash_dq_sm90::THREADS == THREADS,
+              "both blocks run in one grid");
 
-// rows [row0, row0 + BT) of one head into a (BT, LDH) tile; rows >= T are zero
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long st, int row0,
-                                          int T, int tid) {
-  constexpr int VEC = 8;  // 16-byte loads
-  constexpr int PER_ROW = HS / VEC;
-  for (int i = tid; i < BT * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) val = *reinterpret_cast<const uint4*>(src + (long long)t * st + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// lse * log2(e) and D of query rows [m0, m0 + BT); rows >= T read as zero
-__device__ __forceinline__ void load_row_stats(Smem& sm, const float* lse, const float* dd,
-                                               int m0, int T, int tid) {
-  for (int j = tid; j < BT; j += THREADS) {
-    const int t = m0 + j;
-    sm.lse2[j] = t < T ? lse[t] * LOG2E : 0.f;
-    sm.dd[j] = t < T ? dd[t] : 0.f;
-  }
-}
-
-// 16 x 64 fp32 accumulators (four fragments) of one warp -> rows of out
-// (contiguous (B, T, H, HS) bf16), times `mul`; rows >= T are not stored
-__device__ __forceinline__ void store_rows(const FragC (&f)[HS / 16], float* scratch, bf16* out,
-                                           int pos, int T, int lane, float mul) {
-#pragma unroll
-  for (int n = 0; n < HS / 16; ++n)
-    wmma::store_matrix_sync(&scratch[n * 16], f[n], LDS, wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane >> 1, half = lane & 1;
-  if (pos < T) {
-    const float* src = &scratch[r * LDS + half * (HS / 2)];
-    bf16* dst = out + half * (HS / 2);
-#pragma unroll
-    for (int d = 0; d < HS / 2; d += 8) {
-      __align__(16) bf16 tmp[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) tmp[e] = __float2bfloat16(src[d + e] * mul);
-      *reinterpret_cast<uint4*>(dst + d) = *reinterpret_cast<const uint4*>(tmp);
-    }
-  }
-  __syncwarp();
-}
-
-// D[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d]; eight lanes per row
-__global__ void flash_bwd_dot_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ o,
-                                     float* __restrict__ dd, int B, int T, int H) {
-  const long long rows = (long long)B * T * H;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = idx >> 3;
-  const int part = (int)(idx & 7);
-  float sum = 0.f;
-  if (row < rows) {
-    const uint4 a = *reinterpret_cast<const uint4*>(dO + row * HS + part * 8);
-    const uint4 c = *reinterpret_cast<const uint4*>(o + row * HS + part * 8);
-    const bf16* pa = reinterpret_cast<const bf16*>(&a);
-    const bf16* pc = reinterpret_cast<const bf16*>(&c);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sum += __bfloat162float(pa[e]) * __bfloat162float(pc[e]);
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  if (row < rows && part == 0) {
-    const int h = (int)(row % H);
-    const long long bt = row / H;
-    const int t = (int)(bt % T), b = (int)(bt / T);
-    dd[((long long)b * H + h) * T + t] = sum;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                     const float* __restrict__ lse, const float* __restrict__ dd,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
-                     long long qsb, long long qst, long long qsh,
-                     long long ksb, long long kst, long long ksh,
-                     long long vsb, long long vst, long long vsh,
-                     int causal, float scale, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * BT;  // key tile; low tiles have the most query tiles
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long ost = (long long)H * HS;  // row stride of dO, dk, dv
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* dob = dO + (long long)b * T * ost + h * HS;
-  const float* lseb = lse + ((long long)b * H + h) * T;
-  const float* ddb = dd + ((long long)b * H + h) * T;
-
-  load_tile(sm.k, k + b * ksb + h * ksh, kst, n0, T, tid);
-  load_tile(sm.v, v + b * vsb + h * vsh, vst, n0, T, tid);
-
-  FragC dkf[HS / 16], dvf[HS / 16];
-#pragma unroll
-  for (int n = 0; n < HS / 16; ++n) {
-    wmma::fill_fragment(dkf[n], 0.f);
-    wmma::fill_fragment(dvf[n], 0.f);
-  }
-
-  // two lanes per key row: row r of this warp, query columns half * 32 ...
-  const int r = lane >> 1, half = lane & 1;
-  const int kpos = n0 + warp * 16 + r;
-  float* scratch = sm.s[warp];
-  bf16* ptile = sm.p[warp];
-  const float* srow = &scratch[r * LDS + half * (BT / 2)];
-  bf16* prow = &ptile[r * LDP + half * (BT / 2)];
-
-  const int nq = (T + BT - 1) / BT;
-  for (int i = causal ? blockIdx.x : 0; i < nq; ++i) {
-    const int m0 = i * BT;
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile(sm.q, qb, qst, m0, T, tid);
-    load_tile(sm.dO, dob, ost, m0, T, tid);
-    load_row_stats(sm, lseb, ddb, m0, T, tid);
-    __syncthreads();
-
-    // S^T (16 keys x 64 queries) = K_w Q^T
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      FragC sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        FragA kf;
-        FragBc qf;
-        wmma::load_matrix_sync(kf, &sm.k[warp * 16 * LDH + kk * 16], LDH);
-        wmma::load_matrix_sync(qf, &sm.q[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(sf, kf, qf, sf);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], sf, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // P^T = exp(S^T * scale - lse), masked; bf16 copy for the products
-    float p[BT / 2];
-#pragma unroll
-    for (int c = 0; c < BT / 2; ++c) {
-      const int qi = half * (BT / 2) + c;
-      const int qpos = m0 + qi;
-      const bool ok = qpos < T && (!causal || kpos <= qpos);
-      p[c] = ok ? exp2f(srow[c] * scale_log2 - sm.lse2[qi]) : 0.f;
-      prow[c] = __float2bfloat16(p[c]);
-    }
-    __syncwarp();
-
-    // dV += P^T dO
-#pragma unroll
-    for (int n = 0; n < HS / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragA pf;
-        FragBr of;
-        wmma::load_matrix_sync(pf, &ptile[kk * 16], LDP);
-        wmma::load_matrix_sync(of, &sm.dO[kk * 16 * LDH + n * 16], LDH);
-        wmma::mma_sync(dvf[n], pf, of, dvf[n]);
-      }
-    }
-    // dP^T (16 keys x 64 queries) = V_w dO^T
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      FragC df;
-      wmma::fill_fragment(df, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        FragA vf;
-        FragBc of;
-        wmma::load_matrix_sync(vf, &sm.v[warp * 16 * LDH + kk * 16], LDH);
-        wmma::load_matrix_sync(of, &sm.dO[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(df, vf, of, df);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], df, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();  // dP stored, and P read by the dV products, before dS overwrites it
-
-    // dS^T = P^T * (dP^T - D)
-#pragma unroll
-    for (int c = 0; c < BT / 2; ++c) {
-      const int qi = half * (BT / 2) + c;
-      prow[c] = __float2bfloat16(p[c] * (srow[c] - sm.dd[qi]));
-    }
-    __syncwarp();
-
-    // dK += dS^T Q
-#pragma unroll
-    for (int n = 0; n < HS / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragA sf;
-        FragBr qf;
-        wmma::load_matrix_sync(sf, &ptile[kk * 16], LDP);
-        wmma::load_matrix_sync(qf, &sm.q[kk * 16 * LDH + n * 16], LDH);
-        wmma::mma_sync(dkf[n], sf, qf, dkf[n]);
-      }
-    }
-  }
-
-  const long long out = (((long long)b * T + kpos) * H + h) * HS;
-  store_rows(dkf, scratch, dk + out, kpos, T, lane, scale);
-  store_rows(dvf, scratch, dv + out, kpos, T, lane, 1.f);
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                    const float* __restrict__ lse, const float* __restrict__ dd,
-                    bf16* __restrict__ dq, int T, int H,
-                    long long qsb, long long qst, long long qsh,
-                    long long ksb, long long kst, long long ksh,
-                    long long vsb, long long vst, long long vsh,
-                    int causal, float scale, float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BT;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long ost = (long long)H * HS;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-
-  load_tile(sm.q, q + b * qsb + h * qsh, qst, m0, T, tid);
-  load_tile(sm.dO, dO + (long long)b * T * ost + h * HS, ost, m0, T, tid);
-  load_row_stats(sm, lse + ((long long)b * H + h) * T, dd + ((long long)b * H + h) * T, m0, T,
-                 tid);
-  __syncthreads();
-
-  FragA qf[HS / 16], of[HS / 16];
-#pragma unroll
-  for (int kk = 0; kk < HS / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], &sm.q[warp * 16 * LDH + kk * 16], LDH);
-    wmma::load_matrix_sync(of[kk], &sm.dO[warp * 16 * LDH + kk * 16], LDH);
-  }
-  FragC dqf[HS / 16];
-#pragma unroll
-  for (int n = 0; n < HS / 16; ++n) wmma::fill_fragment(dqf[n], 0.f);
-
-  // two lanes per query row: row r of this warp, key columns half * 32 ...
-  const int r = lane >> 1, half = lane & 1;
-  const int qpos = m0 + warp * 16 + r;
-  const float lse2_r = sm.lse2[warp * 16 + r];
-  const float d_r = sm.dd[warp * 16 + r];
-  float* scratch = sm.s[warp];
-  bf16* ptile = sm.p[warp];
-  const float* srow = &scratch[r * LDS + half * (BT / 2)];
-  bf16* prow = &ptile[r * LDP + half * (BT / 2)];
-
-  const int n_all = (T + BT - 1) / BT;
-  const int n_tiles = causal ? min(n_all, (m0 + BT - 1) / BT + 1) : n_all;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * BT;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sm.k, kb, kst, n0, T, tid);
-    load_tile(sm.v, vb, vst, n0, T, tid);
-    __syncthreads();
-
-    // S = Q_w K^T (16 queries x 64 keys)
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      FragC sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        FragBc kf;
-        wmma::load_matrix_sync(kf, &sm.k[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], sf, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    float p[BT / 2];
-#pragma unroll
-    for (int c = 0; c < BT / 2; ++c) {
-      const int kpos = n0 + half * (BT / 2) + c;
-      const bool ok = qpos < T && kpos < T && (!causal || kpos <= qpos);
-      p[c] = ok ? exp2f(srow[c] * scale_log2 - lse2_r) : 0.f;
-    }
-    __syncwarp();  // scores read before dP overwrites the scratch
-
-    // dP = dO_w V^T
-#pragma unroll
-    for (int n = 0; n < BT / 16; ++n) {
-      FragC df;
-      wmma::fill_fragment(df, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk) {
-        FragBc vf;
-        wmma::load_matrix_sync(vf, &sm.v[n * 16 * LDH + kk * 16], LDH);
-        wmma::mma_sync(df, of[kk], vf, df);
-      }
-      wmma::store_matrix_sync(&scratch[n * 16], df, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // dS = P * (dP - D), bf16
-#pragma unroll
-    for (int c = 0; c < BT / 2; ++c) prow[c] = __float2bfloat16(p[c] * (srow[c] - d_r));
-    __syncwarp();
-
-    // dQ += dS K
-#pragma unroll
-    for (int n = 0; n < HS / 16; ++n) {
-#pragma unroll
-      for (int kk = 0; kk < BT / 16; ++kk) {
-        FragA sf;
-        FragBr kf;
-        wmma::load_matrix_sync(sf, &ptile[kk * 16], LDP);
-        wmma::load_matrix_sync(kf, &sm.k[kk * 16 * LDH + n * 16], LDH);
-        wmma::mma_sync(dqf[n], sf, kf, dqf[n]);
-      }
-    }
-  }
-
-  store_rows(dqf, scratch, dq + (((long long)b * T + qpos) * H + h) * HS, qpos, T, lane, scale);
+// Block x of batch z: in each sequence the heads are folded under the tile,
+// and pair i of tiles is the dk/dv block of key tile i, then the dq block of
+// query tile nt - 1 - i. mq_kv / mdo_kv have boxes of 64 rows (a dk/dv
+// block's query tile), mq_q / mdo_q boxes of 128 (a dq block's); mk, mv boxes
+// of 128.
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap mq_kv,
+                 const __grid_constant__ CUtensorMap mdo_kv,
+                 const __grid_constant__ CUtensorMap mq_q,
+                 const __grid_constant__ CUtensorMap mdo_q,
+                 const __grid_constant__ CUtensorMap mk, const __grid_constant__ CUtensorMap mv,
+                 const float* __restrict__ lse, const float* __restrict__ dd,
+                 bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
+                 int H, int causal, float scale, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int nt = (T + TILE - 1) / TILE;
+  const int slot = (int)blockIdx.x / H, h = (int)blockIdx.x % H, b = (int)blockIdx.z;
+  const int i = slot / 2;
+  if (slot % 2 == 0)
+    flash_bwd_sm90::backward_block<false, DKV_STAGES>(&mq_kv, &mk, &mv, &mdo_kv, lse, dd,
+                                                      nullptr, dk, dv, T, T, H, causal, scale,
+                                                      scale_log2, i, h, b, smem_raw);
+  else
+    flash_dq_sm90::dq_block<DQ_STAGES>(&mq_q, &mk, &mv, &mdo_q, lse, dd, dq, T, T, H, causal,
+                                       scale, scale_log2, nt - 1 - i, h, b, smem_raw);
 }
 
 }  // namespace
@@ -395,8 +99,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // multiple of 8, base pointers 16-byte aligned. o, dO, dq, dk, dv: contiguous
 // (B, T, H, hs) bf16. lse: contiguous (B, H, T) fp32 from the forward. dd:
 // (B, H, T) fp32 scratch for D. All checked by the Python wrapper. Launches
-// the D pre-kernel, the dk/dv kernel and the dq kernel on `stream`; returns
-// the first CUDA error code (0 on success).
+// the D pre-kernel and the backward kernel on `stream`; returns the first
+// CUDA error code (0 on success).
 extern "C" int gpt2vl_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                                 const void* dO, const void* lse, void* dd, void* dq, void* dk,
                                 void* dv, int B, int T, int H, int hs,
@@ -404,34 +108,27 @@ extern "C" int gpt2vl_flash_bwd(const void* q, const void* k, const void* v, con
                                 long long ksb, long long kst, long long ksh,
                                 long long vsb, long long vst, long long vsh,
                                 int causal, void* stream) {
-  if (hs != HS || B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int smem = (int)sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-
-  const long long lanes = (long long)B * T * H * 8;
-  flash_bwd_dot_kernel<<<(unsigned)((lanes + 255) / 256), 256, 0, st>>>(
-      (const bf16*)dO, (const bf16*)o, (float*)dd, B, T, H);
-  err = cudaGetLastError();
+  if (hs != flash_bwd_sm90::HS || B <= 0 || T <= 0 || H <= 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq_kv, mdo_kv, mq_q, mdo_q, mk, mv;
+  const long long ost = (long long)H * hs;  // row stride of dO
+  if (!hopper_host::map_bthd(&mq_kv, q, B, T, H, qsb, qst, qsh, flash_bwd_sm90::BQ) ||
+      !hopper_host::map_bthd(&mdo_kv, dO, B, T, H, T * ost, ost, hs, flash_bwd_sm90::BQ) ||
+      !hopper_host::map_bthd(&mq_q, q, B, T, H, qsb, qst, qsh, TILE) ||
+      !hopper_host::map_bthd(&mdo_q, dO, B, T, H, T * ost, ost, hs, TILE) ||
+      !hopper_host::map_bthd(&mk, k, B, T, H, ksb, kst, ksh, TILE) ||
+      !hopper_host::map_bthd(&mv, v, B, T, H, vsb, vst, vsh, TILE))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = hopper_host::set_smem_once(flash_bwd_kernel, SMEM);
   if (err != cudaSuccess) return (int)err;
 
-  const float scale = 1.f / sqrtf((float)HS);
-  const dim3 grid((T + BT - 1) / BT, H, B);
-  flash_bwd_dkv_kernel<<<grid, THREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
-      (const float*)dd, (bf16*)dk, (bf16*)dv, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-      causal, scale, scale * LOG2E);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int rc = gpt2vl_flash_rowdot(dO, o, dd, B, T, H, hs, stream);
+  if (rc != 0) return rc;
 
-  flash_bwd_dq_kernel<<<grid, THREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
-      (const float*)dd, (bf16*)dq, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, causal,
-      scale, scale * LOG2E);
+  const float scale = 1.f / sqrtf((float)hs);
+  const int nt = (T + TILE - 1) / TILE;
+  flash_bwd_kernel<<<dim3(2 * nt * H, 1, B), THREADS, SMEM, (cudaStream_t)stream>>>(
+      mq_kv, mdo_kv, mq_q, mdo_q, mk, mv, (const float*)lse, (const float*)dd, (bf16*)dq,
+      (bf16*)dk, (bf16*)dv, T, H, causal, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }

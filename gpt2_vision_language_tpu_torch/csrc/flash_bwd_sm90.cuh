@@ -1,8 +1,10 @@
 // The key-major flash-attention backward for Hopper (sm_90a), shared by the
-// one-pass backward of the ring (flash_fused_bwd.cu, K3c: dq, dk and dv) and
-// the general dk/dv backward (flash_dkv_bwd.cu, K3b: dk and dv alone). Each
-// source instantiates it as its own __global__ entry point; a compile-time
-// switch (DQ) adds the dQ half. Tq != Tk, ragged lengths on both sides,
+// one-pass backward of the ring (flash_fused_bwd.cu, K3c: dq, dk and dv), the
+// general dk/dv backward (flash_dkv_bwd.cu, K3b: dk and dv alone) and the dk/dv
+// half of the self-attention backward (flash_bwd.cu, K1-bwd). Each source
+// instantiates it in its own __global__ entry point and picks the block order
+// (which key tile, head and sequence a block owns); a compile-time switch
+// (DQ) adds the dQ half. Tq != Tk, ragged lengths on both sides,
 // right-aligned causal or non-causal.
 //
 // Function: for every visited (query tile, key tile) pair once, with S = q k^T
@@ -44,8 +46,8 @@
 // differ in the last fp32 bits from run to run. Without DQ the two consumers
 // share nothing but the ring.
 //
-// Causal blocks of low key tiles have the most query tiles and get the lowest
-// block indices. All offsets are 64-bit.
+// Causal blocks of low key tiles have the most query tiles; the entry points
+// give them the lowest block indices. All offsets are 64-bit.
 
 #pragma once
 
@@ -96,8 +98,8 @@ __device__ __forceinline__ void red_add4(float* dst, float a0, float a1, float a
                : "memory");
 }
 
-// The work of one block: key tile blockIdx.x of head blockIdx.y of batch
-// blockIdx.z. dq_acc is read only with DQ.
+// The work of one block: key tile kt of head h of batch b. dq_acc is read
+// only with DQ.
 template <bool DQ, int STAGES>
 __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUtensorMap* mk,
                                                const CUtensorMap* mv, const CUtensorMap* mdo,
@@ -106,13 +108,13 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
                                                float* __restrict__ dq_acc,
                                                bf16* __restrict__ dk, bf16* __restrict__ dv,
                                                int Tq, int Tk, int H, int causal, float scale,
-                                               float scale_log2, unsigned char* smem_raw) {
+                                               float scale_log2, int kt, int h, int b,
+                                               unsigned char* smem_raw) {
   Smem<DQ, STAGES>& sm = *reinterpret_cast<Smem<DQ, STAGES>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int n0 = blockIdx.x * BK;  // key tile; low tiles have the most query tiles
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n0 = kt * BK;
   const int q_off = Tk - Tq;  // query i sits at key position i + q_off
   const int nq = (Tq + BQ - 1) / BQ;
   // the first query tile with a row at or after this key tile's first key
@@ -319,7 +321,8 @@ using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                         int, int, int, float, float);
 
 // Checks the arguments, encodes the tensor maps and launches `kernel` (an
-// instantiation of backward_block with the same DQ and STAGES) on `stream`.
+// instantiation of backward_block with the same DQ and STAGES, key tile
+// blockIdx.x of head blockIdx.y of batch blockIdx.z) on `stream`.
 // q: (B, Tq, H, hs), k/v: (B, Tk, H, hs), bf16 with unit stride on hs; strides
 // in elements, each a multiple of 8, base pointers 16-byte aligned (TMA needs
 // the same). dO: contiguous (B, Tq, H, hs) bf16; dk, dv: contiguous (B, Tk, H,
@@ -343,8 +346,7 @@ inline int launch(Kernel kernel, const void* q, const void* k, const void* v, co
       !hopper_host::map_bthd(&mdo, dO, B, Tq, H, Tq * ost, ost, HS, BQ))
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes<DQ, STAGES>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = hopper_host::set_smem_once(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const float scale = 1.f / sqrtf((float)HS);
   const dim3 grid((Tk + BK - 1) / BK, H, B);

@@ -55,7 +55,7 @@ flash_general_dkv_kernel(const __grid_constant__ CUtensorMap mq,
                          int causal, float scale, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   backward_block<false, STAGES>(&mq, &mk, &mv, &mdo, lse, dd, unused, dk, dv, Tq, Tk, H, causal,
-                                scale, scale_log2, smem_raw);
+                                scale, scale_log2, blockIdx.x, blockIdx.y, blockIdx.z, smem_raw);
 }
 
 }  // namespace

@@ -53,7 +53,7 @@ flash_fused_bwd_kernel(const __grid_constant__ CUtensorMap mq,
                        int causal, float scale, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   backward_block<true, STAGES>(&mq, &mk, &mv, &mdo, lse, dcap, dq_acc, dk, dv, Tq, Tk, H, causal,
-                               scale, scale_log2, smem_raw);
+                               scale, scale_log2, blockIdx.x, blockIdx.y, blockIdx.z, smem_raw);
 }
 
 // dq = bf16(dq_acc * scale), eight elements a thread

@@ -1,10 +1,11 @@
 // The flash-attention forward main loop for Hopper (sm_90a), shared by the
 // general forward (flash_general_fwd.cu, K2b), the lse forward of the ring
-// (flash_lse_fwd.cu, K2a) and the self-attention forward (flash_fwd.cu,
-// K1-fwd, Tq = Tk). Each source instantiates it as its own __global__ entry
-// point with its own tile configuration (consumer warpgroups, ring slots,
-// block order); all compute the same function: Tq != Tk, ragged lengths on
-// both sides, right-aligned causal or non-causal; bf16 q/k/v, fp32 online
+// (flash_lse_fwd.cu, K2a), the self-attention forward (flash_fwd.cu, K1-fwd,
+// Tq = Tk) and the dt-layout forward of the A/B tool (flash_dt_fwd.cu, P1).
+// Each source instantiates it as its own __global__ entry point with its own
+// tile configuration (consumer warpgroups, ring slots, block order, operand
+// layout); all compute the same function: Tq != Tk, ragged lengths on both
+// sides, right-aligned causal or non-causal; bf16 q/k/v, fp32 online
 // softmax, o and the per-row natural-log logsumexp in fp32.
 //
 // O = softmax(q k^T / sqrt(hs) + mask) v, where under the causal mask query i
@@ -37,14 +38,23 @@
 // tile its last row sees. The output goes through the consumer's rows of the
 // Q tile in shared memory to 16-byte stores; rows >= Tq are not stored. All
 // offsets are 64-bit.
+//
+// The dt layout (Layout::DT, P1): q, k, v and o are (H, 64, B*T), the
+// sequence contiguous, q pre-scaled, lse (H, B*Tq), and the causal mask has
+// no offset (query i sees keys <= i). TMA reads a 4-D map over (T, B, 64, H)
+// in boxes of 64 positions by 64 channels, [channel][position], zero past T
+// inside each sequence; a 128-row Q tile or 128-key K or V tile is two
+// boxes, 8 KB apart. The same registers come out of other reads of them: S =
+// Q K^T reads Q and K both MN-major (m64n128k16 with both transpose bits, K's
+// two boxes one descriptor with LBO 8 KB), and P V reads the V boxes K-major
+// (the keys are the contiguous axis; no transpose bit), 32 bytes a k16 step
+// and the second box for keys 64 on. o is transposed through the consumer's
+// Q box ([channel][position], sw128) so that each store writes whole
+// 128-byte rows of the sequence.
 
 #pragma once
 
 #include <math.h>
-
-#include <mutex>
-#include <set>
-#include <utility>
 
 #include "hopper.cuh"
 
@@ -70,6 +80,9 @@ struct Config {
   static_assert(CONSUMERS >= 2 && CONSUMERS <= 3, "two or three consumer warpgroups");
 };
 
+// operand layouts of the main loop (see the top of the file)
+enum class Layout { BTHD, DT };
+
 template <int CONSUMERS, int STAGES>
 struct __align__(1024) Smem {
   bf16 q[CONSUMERS * 64 * HS];  // 64 rows a consumer; later its output tile
@@ -83,8 +96,8 @@ struct __align__(1024) Smem {
 // (query tile, head, batch) as (blockIdx.x, y, z), true folds the heads into
 // blockIdx.x under the query tile, so the longest causal tiles of every head
 // launch first. Either way the highest query tiles (the longest causal rows)
-// come first.
-template <int CONSUMERS, int STAGES, bool HEADS_INNER>
+// come first. L picks the operand layout.
+template <int CONSUMERS, int STAGES, bool HEADS_INNER, Layout L = Layout::BTHD>
 __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUtensorMap* mk,
                                               const CUtensorMap* mv, bf16* __restrict__ o,
                                               float* __restrict__ lse, int Tq, int Tk, int H,
@@ -103,7 +116,8 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
   const int qt = nq - 1 - (HEADS_INNER ? bx / H : bx);
   const int h = HEADS_INNER ? bx % H : (int)blockIdx.y, b = (int)blockIdx.z;
   const int m0 = qt * BM;
-  const int q_off = Tk - Tq;  // query i sits at key position i + q_off
+  constexpr bool DT = L == Layout::DT;
+  const int q_off = DT ? 0 : Tk - Tq;  // query i sits at key position i + q_off
   const int n_all = (Tk + BN - 1) / BN;
   const int n_tiles = causal ? min(n_all, (q_off + m0 + BM - 1) / BN + 1) : n_all;
 
@@ -127,15 +141,30 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
       tma_prefetch_map(mk);
       tma_prefetch_map(mv);
       mbar_expect_tx(&sm.q_full, Q_BYTES);
-      tma_load_4d(sm.q, mq, &sm.q_full, 0, h, m0, b);
+      if constexpr (DT) {
+        for (int c = 0; c < CONSUMERS; ++c)
+          tma_load_4d(sm.q + c * 64 * HS, mq, &sm.q_full, m0 + 64 * c, b, 0, h);
+      } else {
+        tma_load_4d(sm.q, mq, &sm.q_full, 0, h, m0, b);
+      }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES, ph = (j / STAGES) & 1;
         mbar_wait(&sm.k_empty[s], ph ^ 1);
         mbar_expect_tx(&sm.k_full[s], TILE_BYTES);
-        tma_load_4d(sm.k[s], mk, &sm.k_full[s], 0, h, j * BN, b);
+        if constexpr (DT) {
+          tma_load_4d(sm.k[s], mk, &sm.k_full[s], j * BN, b, 0, h);
+          tma_load_4d(sm.k[s] + 64 * HS, mk, &sm.k_full[s], j * BN + 64, b, 0, h);
+        } else {
+          tma_load_4d(sm.k[s], mk, &sm.k_full[s], 0, h, j * BN, b);
+        }
         mbar_wait(&sm.v_empty[s], ph ^ 1);
         mbar_expect_tx(&sm.v_full[s], TILE_BYTES);
-        tma_load_4d(sm.v[s], mv, &sm.v_full[s], 0, h, j * BN, b);
+        if constexpr (DT) {
+          tma_load_4d(sm.v[s], mv, &sm.v_full[s], j * BN, b, 0, h);
+          tma_load_4d(sm.v[s] + 64 * HS, mv, &sm.v_full[s], j * BN + 64, b, 0, h);
+        } else {
+          tma_load_4d(sm.v[s], mv, &sm.v_full[s], 0, h, j * BN, b);
+        }
       }
     }
   } else {
@@ -193,10 +222,18 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
       mbar_wait(&sm.k_full[s], (j / STAGES) & 1);
       reg_fence(sc);
       wg_fence();
-      const uint64_t dk = desc_sw128(sm.k[s]);
+      if constexpr (DT) {
+        // Q and K MN-major (the channels are the rows), K's two boxes 8 KB apart
+        const uint64_t dk = desc_sw128_lbo(sm.k[s], 64 * HS * 2);
 #pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n128_ss(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk);
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n128_ss_tt(sc, desc_add(dq, 2048 * kk), desc_add(dk, 2048 * kk), kk);
+      } else {
+        const uint64_t dk = desc_sw128(sm.k[s]);
+#pragma unroll
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n128_ss(sc, desc_add(dq, 32 * kk), desc_add(dk, 32 * kk), kk);
+      }
       wg_commit();
     };
     auto issue_pv = [&](int j) {  // acc += P V of tile j
@@ -205,8 +242,17 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
       reg_fence(acc);
       wg_fence();
       const uint64_t dv = desc_sw128(sm.v[s]);
+      if constexpr (DT) {
+        // V K-major (the keys are the contiguous axis): 32 bytes a k16 step,
+        // the second box for keys 64 on
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) mma_m64n64_rs_tb(acc, pa[kk], desc_add(dv, 2048 * kk), 1);
+        for (int kk = 0; kk < BN / 16; ++kk)
+          mma_m64n64_rs(acc, pa[kk], desc_add(dv, (kk / 4) * 64 * HS * 2 + (kk % 4) * 32), 1);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          mma_m64n64_rs_tb(acc, pa[kk], desc_add(dv, 2048 * kk), 1);
+      }
       wg_commit();
     };
     auto pack = [&]() {
@@ -268,8 +314,9 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
     reg_fence(pa);
     if (t == 0) mbar_arrive(&sm.v_empty[(n_tiles - 1) % STAGES]);
 
-    // every row of a right-aligned causal mask with Tq <= Tk sees key 0, so
-    // l > 0; the guard keeps a fully masked row at o = 0 instead of NaN
+    // every row of a right-aligned causal mask with Tq <= Tk, and every row
+    // of the dt layout's, sees key 0, so l > 0; the guard keeps a fully
+    // masked row at o = 0 instead of NaN
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -277,9 +324,42 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
       l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
       inv[r] = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
     }
+    unsigned char* ob = reinterpret_cast<unsigned char*>(qs);
+    if constexpr (DT) {
+      // o^T through this consumer's Q box ([channel][position], sw128 rows),
+      // then 16-byte stores of whole rows of its 64 positions; the box lies
+      // wholly below Tq or wholly past it (Tq is a multiple of 64)
+#pragma unroll
+      for (int j = 0; j < HS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 8 * j + col_l + (e & 1), row = warp * 16 + lane / 4 + 8 * (e >> 1);
+          *reinterpret_cast<bf16*>(ob + d * 128 + (((row / 8) ^ (d % 8)) * 16) + (row % 8) * 2) =
+              __float2bfloat16(acc[4 * j + e] * inv[e >> 1]);
+        }
+      named_sync(1 + wg, 128);
+      const long long n_all_q = (long long)gridDim.z * Tq;  // B * Tq
+      if (wm0 < Tq) {
+        bf16* og = o + (long long)h * HS * n_all_q + (long long)b * Tq + wm0;
+        for (int c = t; c < HS * 8; c += 128) {
+          const int d = c / 8, chunk = c % 8;
+          *reinterpret_cast<uint4*>(og + d * n_all_q + chunk * 8) =
+              *reinterpret_cast<const uint4*>(ob + d * 128 + ((chunk ^ (d % 8)) * 16));
+        }
+      }
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qrow = row0 + 8 * r;
+          if (qrow < Tq)
+            lse[(long long)h * n_all_q + (long long)b * Tq + qrow] =
+                (m_i[r] + log2f(l_i[r])) * LN2;
+        }
+      }
+      return;
+    }
     // o through this consumer's rows of the Q tile (sw128 rows), then 16-byte
     // stores of whole rows
-    unsigned char* ob = reinterpret_cast<unsigned char*>(qs);
 #pragma unroll
     for (int j = 0; j < HS / 8; ++j)
 #pragma unroll
@@ -310,25 +390,6 @@ __device__ __forceinline__ void forward_block(const CUtensorMap* mq, const CUten
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap, bf16*, float*,
                         int, int, int, int, float);
 
-// Raises `kernel`'s dynamic shared-memory limit to `smem` bytes on the
-// current device the first time it launches there. The CUDA call costs
-// about 3 us of host time on an H100 host, and at B=8, T=1024 the host
-// enqueues a self-attention forward about as fast as the card runs it
-// (0.061 ms), so it is not repeated on every launch.
-inline cudaError_t set_smem_once(Kernel kernel, int smem) {
-  static std::mutex mu;
-  static std::set<std::pair<int, uintptr_t>> done;  // (device, kernel) pairs set
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const std::pair<int, uintptr_t> key(dev, reinterpret_cast<uintptr_t>(kernel));
-  std::lock_guard<std::mutex> lock(mu);
-  if (done.count(key)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done.insert(key);
-  return err;
-}
-
 // Checks the arguments, encodes the tensor maps, launches `kernel` (an
 // instantiation of forward_block with the same CONSUMERS, STAGES and
 // HEADS_INNER) on `stream`. q: (B, Tq, H, hs), k/v: (B, Tk, H, hs), bf16 with
@@ -352,7 +413,7 @@ inline int launch(Kernel kernel, const void* q, const void* k, const void* v, vo
     return (int)cudaErrorInvalidValue;
   // + the alignment of the base
   const int smem = (int)sizeof(Smem<CONSUMERS, STAGES>) + 1024;
-  const cudaError_t err = set_smem_once(kernel, smem);
+  const cudaError_t err = hopper_host::set_smem_once(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = (Tq + Cfg::BM - 1) / Cfg::BM;
   const dim3 grid = HEADS_INNER ? dim3(nq * H, 1, B) : dim3(nq, H, B);

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma attention kernels
 // (the forward main loop of flash_fwd_sm90.cuh, the key-major backward of
-// flash_bwd_sm90.cuh, the query-major dq kernel of flash_dq_bwd.cu):
-// mbarriers, TMA loads, wgmma descriptors and instructions, and the host-side
-// encoding of tensor maps.
+// flash_bwd_sm90.cuh, the query-major dq block of flash_dq_sm90.cuh):
+// mbarriers, TMA loads, wgmma descriptors and instructions, and on the host
+// the encoding of tensor maps and the shared-memory attribute of a kernel.
 //
 // Layout conventions. Every bf16 tile in shared memory is a stack of 128-byte
 // rows (64 values of hs, or of a 64-wide axis) written by TMA with
@@ -14,7 +14,9 @@
 // product's depth), a k16 step moves the start address by 32 bytes inside the
 // atom; read MN-major (transpose bit set, the rows are the depth), a k16 step
 // moves it by 16 rows = 2048 bytes, and an n32 half of the 64-wide axis starts
-// 64 bytes in.
+// 64 bytes in. An MN-major operand wider than 64 (the n128 B of a dt-layout
+// S = Q K^T) is two such tiles side by side: the descriptor's LBO is the step
+// from the first to the second (desc_sw128_lbo).
 //
 // The fp32 accumulator of an m64nN wgmma: thread t of the warpgroup (warp
 // w = t / 32, lane l) holds d[4j + e] at row 16w + l / 4 + 8 (e / 2) and
@@ -30,6 +32,10 @@
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace hopper {
 
@@ -120,11 +126,15 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // ---- wgmma -----------------------------------------------------------------
 
 // descriptor of a 128-byte-swizzled tile at `p` (1024-byte aligned, or moved
-// inside an atom by a k or n step): LBO 16 bytes (unused), SBO 1024 bytes
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// inside an atom by a k or n step): SBO 1024 bytes, LBO `lbo` bytes, the
+// step between the two 64-wide tiles of an MN-major operand 128 wide
+__device__ __forceinline__ uint64_t desc_sw128_lbo(const void* p, uint32_t lbo) {
   const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
+
+// the same for an operand at most 64 wide: LBO unused (16 bytes)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) { return desc_sw128_lbo(p, 16); }
 
 // the descriptor `bytes` further on (a multiple of 16)
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
@@ -209,6 +219,27 @@ __device__ __forceinline__ void mma_m64n64_ss(float (&d)[32], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D (64 x 128) {=, +=} A (64 x 16, shared) B (16 x 128, shared) ; A MN-major ; B MN-major
+__device__ __forceinline__ void mma_m64n128_ss_tt(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // D (64 x 32) {=, +=} A (64 x 16, shared) B (16 x 32, shared) ; A MN-major ; B MN-major
 __device__ __forceinline__ void mma_m64n32_ss_tt(float (&d)[16], uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -236,9 +267,24 @@ __device__ __forceinline__ void mma_m64n64_rs_tb(float (&d)[32], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D (64 x 64) {=, +=} A (64 x 16, registers) B (16 x 64, shared) ; B K-major
+__device__ __forceinline__ void mma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 }  // namespace hopper
 
-// ---- host: tensor maps -----------------------------------------------------
+// ---- host: tensor maps, kernel attributes ----------------------------------
 
 namespace hopper_host {
 
@@ -278,6 +324,46 @@ static inline bool map_bthd(CUtensorMap* map, const void* base, int B, int T, in
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
+}
+
+// A 4-D map over a contiguous bf16 dt-layout (H, 64, B*T) tensor, seen as
+// (T, B, 64, H) with the sequence innermost: boxes of 64 positions of one
+// sequence by the 64 channels of one head, stored [channel][position] (a row
+// of 64 positions is 128 bytes), 128-byte swizzle. Positions past T read as
+// zero, never as the next sequence's. T must be a multiple of 8.
+static inline bool map_dt(CUtensorMap* map, const void* base, int B, int T, int H) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)T, (cuuint64_t)B, 64, (cuuint64_t)H};
+  const cuuint64_t strides[3] = {(cuuint64_t)T * 2, (cuuint64_t)B * T * 2,
+                                 (cuuint64_t)64 * B * T * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `smem` bytes on the
+// current device the first time it launches there. The CUDA call costs
+// about 3 us of host time on an H100 host, and at B=8, T=1024 the host
+// enqueues a self-attention forward about as fast as the card runs it
+// (0.061 ms), so it is not repeated on every launch.
+template <typename KernelPtr>
+inline cudaError_t set_smem_once(KernelPtr kernel, int smem) {
+  static std::mutex mu;
+  static std::set<std::pair<int, uintptr_t>> done;  // (device, kernel) pairs set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::pair<int, uintptr_t> key(dev, reinterpret_cast<uintptr_t>(kernel));
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count(key)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done.insert(key);
+  return err;
 }
 
 }  // namespace hopper_host

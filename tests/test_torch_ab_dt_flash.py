@@ -51,6 +51,33 @@ def test_plain_forward_matches_the_tpu_kernel(jax_tool, causal):
     assert np.array_equal(np.asarray(jlse)[:, 0, :], np.asarray(jlse)[:, 7, :])
 
 
+@pytest.mark.parametrize("b,tq,tk", [(2, 128, 256), (2, 192, 192)])
+def test_plain_forward_matches_the_tpu_kernel_at_checked_shapes(jax_tool, b, tq, tk):
+    """The yardstick of chip_smoke's P1 shapes, in 64-position blocks (the
+    CUDA kernel's box): Tq != Tk under the causal mask, which has no offset
+    (query i sees keys <= i), and a T that is an odd multiple of 64 (a
+    sequence ends in half a 128-row tile, and the next one starts where
+    zeros belong). o and lse within 2e-5 of the TPU kernel in interpret
+    mode."""
+    rng = np.random.RandomState(9)
+    to_dt = lambda x: np.ascontiguousarray(x.transpose(2, 3, 0, 1).reshape(H, HS, -1))  # noqa: E731
+    qd = to_dt(rng.randn(b, tq, H, HS).astype(np.float32) * HS ** -0.5)
+    kd, vd = (to_dt(rng.randn(b, tk, H, HS).astype(np.float32)) for _ in range(2))
+    jo, jlse = jax_tool.flash_fwd_dt_b(jnp.asarray(qd), jnp.asarray(kd), jnp.asarray(vd), b, tq,
+                                       tk, causal=True, bq=64, bk=64, interpret=True)
+    o, lse = ab.flash_fwd_dt_b(*(torch.from_numpy(a) for a in (qd, kd, vd)), b, tq, tk,
+                               causal=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, 0, :], atol=2e-5, rtol=0)
+    if tq != tk:
+        # the no-offset mask: the last query sees the first tq keys only
+        q_last = torch.from_numpy(qd).reshape(H, HS, b, tq)[..., -1].float()
+        k_first = torch.from_numpy(kd).reshape(H, HS, b, tk)[..., :tq].float()
+        want = torch.logsumexp(torch.einsum("hdb,hdbk->hbk", q_last, k_first), dim=-1)
+        np.testing.assert_allclose(lse.reshape(H, b, tq)[..., -1].numpy(), want.numpy(),
+                                   atol=2e-5, rtol=0)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_backward_matches_the_tpu_kernel(jax_tool, causal):
     """dq, dk, dv within 1e-5 of max|ref| (the TPU tool's own limit), from the

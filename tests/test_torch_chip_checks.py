@@ -15,6 +15,7 @@ import torch
 
 import chip_smoke as cs
 from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
+from gpt2_vision_language_tpu_torch.tools import ab_dt_flash as ab
 
 T, H, HS = 1024, 1, 64
 
@@ -135,3 +136,82 @@ def test_plain_bf16_dq_passes_row_check(causal):
     dq32 = fa.flash_attention_backward_reference(
         q.float(), k.float(), v.float(), None, lse, do.float(), causal=causal, dd=dd)[0]
     assert cs.grad_row_excess(dq, dq32)[1] <= 0 and cs.rel_err(dq, dq32) <= 3e-2
+
+
+@pytest.fixture(scope="module")
+def k1_max_t():
+    """Phase 6's longest shape, one head: B=1, T=8192 (K1_MAX_T) bf16 inputs
+    drawn as the phase draws them (normal values), lse and D from the fp32
+    forward, and the plain backward on the operands' dtype and in fp32."""
+    t = fa.K1_MAX_T
+    g = torch.Generator().manual_seed(6)
+    qkv = torch.randn(1, t, 3 * HS, generator=g).to(torch.bfloat16)
+    q, k, v = (a.view(1, t, 1, HS) for a in qkv.split(HS, dim=-1))
+    do = torch.randn(1, t, 1, HS, generator=g).to(torch.bfloat16)
+    o32, lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), causal=True)
+    dd = fa.rowdot_reference(do.float(), o32)
+    grads = fa.flash_attention_backward_reference(q, k, v, None, lse, do, causal=True, dd=dd)
+    grads32 = fa.flash_attention_backward_reference(q.float(), k.float(), v.float(), None, lse,
+                                                    do.float(), causal=True, dd=dd)
+    return (q, k, v, do, lse, dd), grads, grads32
+
+
+def test_k1_dkv_control_fails_row_check(k1_max_t):
+    """Phase 6's dk/dv control at T=8192: the queries from K1_DKV_DROP_AFTER
+    after each key tile dropped. The row check fails it on dk and on dv."""
+    (q, k, v, do, lse, dd), (_, dk, dv), _ = k1_max_t
+    sk, sv = cs.dkv_reference(torch, q, k, v, do, lse, dd, True,
+                              drop_after=cs.K1_DKV_DROP_AFTER, heads=1)
+    assert cs.grad_row_excess(sk, dk)[1] > 0 and cs.grad_row_excess(sv, dv)[1] > 0
+
+
+def test_k1_dq_control_fails_row_check_not_max_relative(k1_max_t):
+    """Phase 6's dq control at T=8192: the keys more than K1_DQ_DROP_BEFORE
+    before each query tile dropped (the last 128 rows lose their first 128
+    keys). The row check fails it; the check against 3e-2 of max|ref|, which
+    held dq before, passes it."""
+    (q, k, v, do, lse, dd), (dq, _, _), _ = k1_max_t
+    late = cs.dq_reference(torch, q, k, v, do, lse, dd, True,
+                           drop_before=cs.K1_DQ_DROP_BEFORE, heads=1)
+    assert cs.grad_row_excess(late, dq)[1] > 0
+    assert cs.rel_err(late, dq) <= 3e-2
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_plain_bf16_passes_row_checks_at_k1_max_t(k1_max_t, which):
+    """The plain dq, dk and dv on bf16 operands at T=8192 against the same
+    values in fp32 pass the row check and the check against max|ref|."""
+    _, grads, grads32 = k1_max_t
+    x, ref = grads[which], grads32[which]
+    assert cs.grad_row_excess(x, ref)[1] <= 0 and cs.rel_err(x, ref) <= 3e-2
+
+
+def _dt(seed, t):
+    """One sequence of one head in the dt layout (1, 64, T) bf16, q pre-scaled."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(1, HS, t).astype(np.float32)) for _ in range(3))
+    return (q * HS ** -0.5).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def test_dt_rows_without_first_keys_is_the_plain_forward_when_none_dropped():
+    """Phase 19's control helper with no key dropped gives the plain dt
+    forward's last rows, within one bf16 rounding (its sums run over the
+    visible keys of 128 rows, the plain version's over all of them)."""
+    t = 1024
+    qd, kd, vd = _dt(7, t)
+    o = ab.flash_fwd_dt_b_reference(qd, kd, vd, 1, t, t, causal=True)[0]
+    rows = cs.dt_rows_without_first_keys(torch, qd, kd, vd, t, skip=0)
+    assert torch.allclose(rows.float(), o[:, :, t - 128:].float(), rtol=2 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("t", [2048, 8192])
+def test_dt_late_start_fails_row_check(t):
+    """Phase 19's P1 control: the last 128 rows without their first key tile.
+    The row check (over each position's 64 channels) fails it, and the plain
+    dt forward on bf16 operands passes it against the same values in fp32."""
+    qd, kd, vd = _dt(8, t)
+    o = cs.dt_rows_without_first_keys(torch, qd, kd, vd, t, skip=0)
+    late = cs.dt_rows_without_first_keys(torch, qd, kd, vd, t)
+    assert cs.dt_row_excess(late, o)[1] > 0
+    o32 = cs.dt_rows_without_first_keys(torch, qd.float(), kd.float(), vd.float(), t, skip=0)
+    assert cs.dt_row_excess(o, o32)[1] <= 0

@@ -2,7 +2,8 @@
 that loads it (_build.SIGNATURES): the same names, and for each the same
 arity and, argument by argument, pointer / int / long long / float. A
 mismatch there passes the wrong bits to the card without any error, and
-only a run on the card would show it."""
+only a run on the card would show it. A source that calls another's entry
+point declares it with the same parameters as its definition."""
 
 import ctypes
 import re
@@ -29,9 +30,9 @@ def _declarations():
     out = {}
     for src in _build.sources():
         for name, params in DECL.findall(src.read_text()):
-            assert name not in out, f"{name} declared twice"
             params = params.strip()
-            out[name] = [] if params in ("", "void") else [_ctype(p) for p in params.split(",")]
+            types = [] if params in ("", "void") else [_ctype(p) for p in params.split(",")]
+            assert out.setdefault(name, types) == types, f"{name} declared twice differently"
     return out
 
 
@@ -63,20 +64,24 @@ def _includes(path):
 SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_lse_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
+          "flash_dt_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_fused_bwd.cu": {"flash_bwd_sm90.cuh", "hopper.cuh"},
           "flash_dkv_bwd.cu": {"flash_bwd_sm90.cuh", "hopper.cuh"},
-          "flash_dq_bwd.cu": {"hopper.cuh"}}
+          "flash_dq_bwd.cu": {"flash_dq_sm90.cuh", "hopper.cuh"},
+          "flash_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"}}
 
 
 def test_sources_include_only_their_own_headers():
-    """The six Hopper kernels share csrc/hopper.cuh, five of them through two
-    headers, the forward main loop (K2b, K2a, K1-fwd) and the key-major
-    backward (K3c, K3b); the query-major dq kernel (K3a) uses hopper.cuh
-    alone. The library name hashes every header with the sources, so an edit
-    of one rebuilds them. Those sources issue wgmma and load by TMA, and none
-    of them, nor the headers, uses nvcuda::wmma."""
+    """The eight Hopper kernels share csrc/hopper.cuh through three headers:
+    the forward main loop (K2b, K2a, K1-fwd, P1), the key-major backward
+    (K3c, K3b) and the query-major dq block (K3a); the self-attention
+    backward (K1-bwd) runs both backward blocks. The library name hashes
+    every header with the sources, so an edit of one rebuilds them. Those
+    sources issue wgmma and load by TMA, and none of them, nor the headers,
+    uses nvcuda::wmma."""
     heads = {p.name for p in _build.headers()}
-    assert heads == {"hopper.cuh", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh"}
+    assert heads == {"hopper.cuh", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh",
+                     "flash_dq_sm90.cuh"}
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
     for name, headers in SHARED.items():
@@ -89,10 +94,12 @@ def test_sources_include_only_their_own_headers():
 
 
 @pytest.mark.parametrize("name,entry", [("flash_fwd.cu", "gpt2vl_flash_fwd"),
-                                        ("flash_dq_bwd.cu", "gpt2vl_flash_general_dq")])
+                                        ("flash_dq_bwd.cu", "gpt2vl_flash_general_dq"),
+                                        ("flash_bwd.cu", "gpt2vl_flash_bwd"),
+                                        ("flash_dt_fwd.cu", "gpt2vl_flash_dt_fwd")])
 def test_rebuilt_kernel_is_hopper_only(name, entry):
-    """K1-fwd and K3a, rebuilt for Hopper: each source holds its entry point
-    and its own __global__ kernel, reaches TMA and wgmma through
+    """K1-fwd, K3a, K1-bwd and P1, rebuilt for Hopper: each source holds its
+    entry point and its own __global__ kernel, reaches TMA and wgmma through
     csrc/hopper.cuh, and keeps nothing of the wmma kernels it replaced."""
     text = (_build.CSRC / name).read_text()
     assert f'extern "C" int {entry}(' in text
@@ -103,26 +110,57 @@ def test_rebuilt_kernel_is_hopper_only(name, entry):
 
 
 def test_dq_kernel_reads_k_both_ways():
-    """K3a forms S from the K tile read K-major and dQ from the same tile
-    read MN-major through the transpose bit (mma_m64n64_rs_tb), its dS as a
-    register A operand; the D pre-kernel stays in flash_general_bwd.cu."""
-    dq = (_build.CSRC / "flash_dq_bwd.cu").read_text()
+    """The query-major dq block (K3a, the dq half of K1-bwd) forms S from the
+    K tile read K-major and dQ from the same tile read MN-major through the
+    transpose bit (mma_m64n64_rs_tb), its dS as a register A operand; the D
+    pre-kernel stays in flash_general_bwd.cu, and K1-bwd launches it through
+    its entry point."""
+    dq = (_build.CSRC / "flash_dq_sm90.cuh").read_text()
     assert "mma_m64n64_rs_tb(dqa, sa[kk]" in dq and "tma_load_4d" in dq
     general = (_build.CSRC / "flash_general_bwd.cu").read_text()
     assert 'extern "C" int gpt2vl_flash_rowdot(' in general
     assert "gpt2vl_flash_general_dq" not in general
+    k1 = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert "gpt2vl_flash_rowdot(dO, o, dd," in k1
 
 
 @pytest.mark.parametrize("header,body", [("flash_fwd_sm90.cuh", "forward_block"),
-                                         ("flash_bwd_sm90.cuh", "backward_block")])
+                                         ("flash_bwd_sm90.cuh", "backward_block"),
+                                         ("flash_dq_sm90.cuh", "dq_block")])
 def test_main_loop_exists_once(header, body):
-    """The forward main loop and the key-major backward consumer are written
-    once, in their header: each source that runs them (K2b, K2a and K1-fwd;
-    K3c and K3b) only instantiates them, and no source repeats their wgmma
-    calls."""
+    """The forward main loop, the key-major backward block and the
+    query-major dq block are written once, in their header: each source that
+    runs them (K2b, K2a, K1-fwd and P1; K3c, K3b and K1-bwd; K3a and K1-bwd)
+    only instantiates them, and no source repeats their wgmma calls."""
     assert f"__device__ __forceinline__ void {body}(" in (_build.CSRC / header).read_text()
     for src in _build.sources():
         text = src.read_text()
         assert f"void {body}(" not in text
         if header in _includes(src):
             assert "mma_m64n" not in text and "tma_load_4d" not in text, src.name
+
+
+def test_dt_forward_is_the_main_loop_in_its_dt_layout():
+    """P1 runs the forward main loop in its dt layout, whose S product reads
+    Q and K MN-major (both transpose bits) and whose P V reads V K-major
+    (no transpose bit); the bthd instantiations keep the default layout."""
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert "m64n128k16.f32.bf16.bf16" in hopper and '"%64, %65, p, 1, 1, 1, 1;' in hopper
+    assert '"{%32, %33, %34, %35}, %36, p, 1, 1, 0;' in hopper
+    loop = (_build.CSRC / "flash_fwd_sm90.cuh").read_text()
+    assert "mma_m64n128_ss_tt(sc," in loop and "mma_m64n64_rs(acc," in loop
+    dt = (_build.CSRC / "flash_dt_fwd.cu").read_text()
+    assert "forward_block<CONSUMERS, STAGES, HEADS_INNER, Layout::DT>" in dt
+    assert "map_dt(" in dt
+    for name in ("flash_fwd.cu", "flash_general_fwd.cu", "flash_lse_fwd.cu"):
+        assert "Layout::DT" not in (_build.CSRC / name).read_text(), name
+
+
+def test_self_attention_backward_is_one_grid_of_both_blocks():
+    """K1-bwd launches one grid that holds a dk/dv block (the key-major block
+    without dQ) and a dq block (the query-major block) for every 128-row
+    tile, and sets its shared-memory attribute once per (device, kernel)."""
+    k1 = (_build.CSRC / "flash_bwd.cu").read_text()
+    assert "backward_block<false, DKV_STAGES>" in k1 and "dq_block<DQ_STAGES>" in k1
+    assert "dim3(2 * nt * H, 1, B)" in k1
+    assert "set_smem_once(flash_bwd_kernel" in k1 and "cudaFuncSetAttribute" not in k1
