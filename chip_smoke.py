@@ -15,12 +15,19 @@ Phases (any failure raises and the script exits non-zero):
      fail the row check: the last 128 rows at T=8192 against the plain
      version without their first key tile (the elementwise check's reading
      printed beside it);
-  3. fused LM-head + CE forward kernel vs its plain version at N=8192,
-     D=768, V=50304 (targets include the last vocab tile) and a ragged N=1000;
+  3. fused LM-head + CE forward kernel vs its plain version, nll and lse
+     within 1e-4, at (N, D, V) = (8192, 768, 50304), (1000, 768, 50304),
+     (1000, 768, 50257) (a V no tile width divides) and (1000, 1600, 50304)
+     (the 1558M width), targets in the last vocab tile, the kernel twice on
+     one input bit for bit; two controls that must fail the check
+     (``ce_reference_drop``: 64 vocab columns of one tile left out, at
+     N=8192; the ragged tile's padding counted as logits 0, at V=50257), the
+     old 2e-3 check's reading printed beside;
   4. the scoring forward: GPT-2 124M with seeded random weights, fp32
      params, bf16 policy, train.step.make_eval_step over 2 micro-batches of
      B=8, T=1024; the launch counters must show 12 flash and 1 CE launch per
-     micro-batch, and the loss must agree with the plain-path run;
+     micro-batch, and the loss must agree with the plain-path run; one
+     micro-batch's device time by kernel class (torch.profiler);
   5. generation: cli.sample, cached-vs-uncached logits under the fp32
      policy, cli.bench_decode at B=50, and ops.layers.matmul_f32 on batched
      bf16 operands of the decode shape against the fp32 product;
@@ -35,7 +42,8 @@ Phases (any failure raises and the script exits non-zero):
      more than K1_DQ_DROP_BEFORE before each query tile; the check against
      max|ref| passes both, its reading printed beside); one attention
      layer's forward + backward through autograd;
-  7. AdamW kernel vs its plain version over every parameter of GPT-2 124M;
+  7. AdamW kernel vs its plain version over every parameter of GPT-2 124M,
+     its kernel's device time also by torch.profiler (kernels only);
   8. the train step: GPT-2 124M, fp32 params, bf16 policy,
      train.step.make_train_step with the AdamW kernel, 4 x (B=8, T=1024) per
      step, 3 steps; 12 flash forward and 12 flash backward launches per
@@ -68,7 +76,7 @@ Phases (any failure raises and the script exits non-zero):
      F.scaled_dot_product_attention forward and backward (one kernel forms
      dq, dk and dv) at B=8, T=1024, B=1, T=8192 and B=1, T=16384, causal,
      and on the ring's chunk pair, torch.optim.AdamW(fused=True) over the
-     148 leaves;
+     148 leaves (also its kernels alone, by torch.profiler);
  13. the long-context train step: GPT-2 124M with block_size 16384,
      make_train_step at B=1, T=16384, 2 micro-batches a step, 3 steps; 12
      general forward, 12 D, 12 dq and 12 dk/dv launches per micro-batch, none
@@ -114,9 +122,15 @@ Phases (any failure raises and the script exits non-zero):
      offset) and at B=1, T=8192 (the plain version four heads at a time),
      with a control there that must fail the row check (the last 128 rows
      without their first key tile), and at B=8, T=1024 against the shipping
-     forward's output transposed; the one-pass backward on the tool's inputs
-     with a control (wrong dcap) that must fail, and twice on one input (dq
-     is summed by reductions in global memory);
+     forward's output transposed; the backward at the same four shapes on
+     the forward's o and lse, dq, dk and dv against 3e-2 of max|ref| and row
+     by row (each position's 64 channels within 2^-6 of its norm plus 1e-3;
+     the plain side two heads at a time at T=8192), twice on one input bit
+     for bit, a control (wrong dcap) that must fail, and two controls at
+     T=8192 that must fail the row check (``dt_dkv_reference`` without the
+     queries from K1_DKV_DROP_AFTER after each key tile, ``dt_dq_reference``
+     without the keys more than K1_DQ_DROP_BEFORE before each query tile),
+     the check against max|ref| printed beside;
  20. the A/B tool through its main: --check, --check-bwd, the forward bench
      and --bwd (device ms per layer of the shipping path, of the dt kernels,
      and of the copies into and out of the dt layout);
@@ -148,7 +162,8 @@ printing no result, without a CUDA device.
 
 With --flash-times it only builds the kernels, counts each one's SASS
 instructions and times K1-fwd (with the host side of its launch), K1-bwd,
-P1, K2a, K2b, K3a, K3b and K3c at the shapes of the kernels line
+P1, K2a, K2b, K3a, K3b and K3c at the shapes of the kernels line, P2 at
+B=8, T=1024 and B=1, T=8192, K4 at N=8192 and 4096 and the logits GEMM alone
 (``flash_times``). Copied into the root of another checkout and
 run there, it times that checkout's kernels, so two trees compare on one
 card in the order parent, change, change, parent.
@@ -215,6 +230,40 @@ def interleaved(kernel_fn, plain_fn, iters_kernel, iters_plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def profiled_kernel_ms(torch, fn, iters=5):
+    """(device ms of the kernels one call of fn() launches, {kernel class:
+    ms}, the three longest kernels as (name, ms, launches)), each the mean
+    over `iters` calls under torch.profiler, kernels only: copies and
+    memsets are left out, so a call's wait for a pageable copy is not in it,
+    and so are ranges on the device's timeline that name no kernel (the
+    optimizer's "Optimizer.step#AdamW.step" spans its kernels and would count
+    them twice). Classes as ``cli.profile_step`` names them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpt2_vision_language_tpu_torch.cli.profile_step import classify
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_class, kernels = {}, []
+    for ev in prof.key_averages():
+        us = float(getattr(ev, "self_device_time_total", 0.0) or 0.0)
+        cls = classify(ev.key)
+        if (ev.device_type != DeviceType.CUDA or us <= 0 or cls == "memcpy/memset"
+                or getattr(ev, "is_user_annotation", False) or ev.key.startswith("Optimizer.")):
+            continue
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / iters
+        kernels.append((ev.key[:80], us / 1e3 / iters, ev.count / iters))
+    total = sum(by_class.values())
+    require(total > 0, "torch.profiler recorded no device time")
+    return (total, dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+            sorted(kernels, key=lambda k: -k[1])[:3])
+
+
 def fwd_by_heads(torch, fa, q, k, v, causal, heads=4):
     """The plain forward, `heads` heads at a time (its (B, H, T, T) fp32
     scores do not fit at once at T=8192, H=12): (o, lse)."""
@@ -275,27 +324,83 @@ def phase_flash(torch, fa, dev):
     return errs, timing
 
 
+# phase 3's shapes (N, D, V): the validation micro-batch of 124M, a ragged
+# N, a V that no tile width divides (targets in its ragged last tile), and
+# the 1558M preset's width (25 chunks of 64)
+CE_SHAPES = ((8192, 768, 50304), (1000, 768, 50304), (1000, 768, 50257), (1000, 1600, 50304))
+CE_TOL, CE_OLD_TOL = 1e-4, 2e-3  # nll and lse, absolute; the check before it was 2e-3
+
+
+def ce_reference_drop(torch, x, w, targets, drop_cols=None, pad_zeros=0, n_chunks=8):
+    """``ops.fused_ce.ce_forward_reference``'s (nll, lse) with one of two
+    faults a CE kernel could make, the controls of phase 3's check:
+    ``drop_cols`` (a slice of vocab columns) leaves those logits out of the
+    logsumexp, as a kernel that loses a wgmma N-range or half a tile would;
+    ``pad_zeros`` counts that many more logits of value 0, the rows of w past
+    V that a TMA box zero-fills in a ragged last tile, left unmasked. The
+    gold logit is the true one either way. With neither, the plain version's
+    arithmetic, bit for bit."""
+    from gpt2_vision_language_tpu_torch.ops.layers import matmul_f32
+
+    nll, lse = [], []
+    for xc, tc in zip(x.chunk(n_chunks), targets.chunk(n_chunks)):
+        logits = matmul_f32(xc, w.t()).float()
+        gold = logits.gather(1, tc.long()[:, None])[:, 0]
+        if drop_cols is not None:
+            logits[:, drop_cols] = float("-inf")
+        if pad_zeros:
+            logits = torch.cat([logits, logits.new_zeros(logits.shape[0], pad_zeros)], dim=1)
+        lz = torch.logsumexp(logits, dim=-1)
+        nll.append(lz - gold)
+        lse.append(lz)
+    return torch.cat(nll), torch.cat(lse)
+
+
+def ce_control(torch, name, got, ref):
+    """(max, min over the rows) of a control's |nll| and |lse| error against
+    the plain version, printed beside both tolerances; the new check must
+    fail it."""
+    err = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
+    hi, lo = err.max().item(), err.min().item()
+    print(f"  control: {name}: max|err| {hi:.3e}, least over the rows {lo:.3e}; passes the "
+          f"{CE_TOL:.0e} check by {CE_TOL - hi:.3e} (must be < 0), the old {CE_OLD_TOL:.0e} "
+          f"one by {CE_OLD_TOL - hi:.3e}", flush=True)
+    require(hi > CE_TOL, f"the CE check passed a control ({name}): it cannot see that fault")
+    return hi
+
+
 def phase_ce(torch, fc, dev):
     print("[3] fused LM-head + CE forward vs plain", flush=True)
-    tol = 2e-3  # fp32 logits both ways; only the sum order differs
+    from gpt2_vision_language_tpu_torch import _build
+
+    tile = _build.load().gpt2vl_ce_fwd_tile_cols()
     g = torch.Generator(dev).manual_seed(1)
-    d, v = 768, 50304
-    w = (torch.randn(v, d, device=dev, generator=g) * 0.02).to(torch.bfloat16)
-    err, timing = 0.0, None
-    for n in (8192, 1000):
+    errs, timing, weights = {"nll": 0.0, "lse": 0.0}, None, {}
+    for n, d, v in CE_SHAPES:
+        if d not in weights:
+            weights[d] = (torch.randn(50304, d, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+        w = weights[d][:v]  # the leading rows: contiguous
         x = torch.randn(n, d, device=dev, generator=g).to(torch.bfloat16)
         t = torch.randint(0, v, (n,), device=dev, generator=g, dtype=torch.int32)
-        t[:47] = torch.arange(50257, v, device=dev, dtype=torch.int32)  # last tile
+        t[:47] = torch.arange(v - 47, v, device=dev, dtype=torch.int32)  # the last tile
         nll, lse = fc.ce_forward(x, w, t)
-        rnll, rlse = fc.ce_forward_reference(x, w, t, n_chunks=8)
+        again = fc.ce_forward(x, w, t)
+        ref = fc.ce_forward_reference(x, w, t, n_chunks=8)
         torch.cuda.synchronize()
-        en = (nll - rnll).abs().max().item()
-        el = (lse - rlse).abs().max().item()
+        same = torch.equal(nll, again[0]) and torch.equal(lse, again[1])
+        en = (nll - ref[0]).abs().max().item()
+        el = (lse - ref[1]).abs().max().item()
         print(f"  N={n} D={d} V={v}: nll max|err| {en:.3e}, lse max|err| {el:.3e} "
-              f"(tol {tol})", flush=True)
-        require(en <= tol and el <= tol, f"fused CE N={n} disagrees")
-        err = max(err, en, el)
+              f"(tol {CE_TOL}); twice on one input bit-equal {same}", flush=True)
+        require(same, f"two runs of the CE kernel differ at N={n} D={d} V={v}")
+        require(en <= CE_TOL and el <= CE_TOL, f"fused CE N={n} D={d} V={v} disagrees")
+        errs["nll"], errs["lse"] = max(errs["nll"], en), max(errs["lse"], el)
         if n == 8192:
+            # control (i): 64 columns of one vocab tile left out
+            c0 = 100 * tile
+            errs["control_drop64"] = ce_control(
+                torch, f"the plain version without vocab columns {c0}..{c0 + 63}",
+                ce_reference_drop(torch, x, w, t, drop_cols=slice(c0, c0 + 64)), ref)
             timing = interleaved(
                 lambda: fc.ce_forward(x, w, t),
                 lambda: fc.ce_forward_reference(x, w, t, n_chunks=8),
@@ -306,7 +411,20 @@ def phase_ce(torch, fc, dev):
             )
             print(f"  the plain route of fused_linear_ce (bf16 logits, impl='xla'): "
                   f"{bf16_route:.4f} ms", flush=True)
-    return err, timing
+            # a yardstick only: no PyTorch call computes the kernel's function
+            errs["logits_gemm_ms"] = cuda_ms(lambda: torch.mm(x, w.t()), 10)
+            print(f"  the logits GEMM alone (torch.mm, bf16 logits): "
+                  f"{errs['logits_gemm_ms']:.4f} ms", flush=True)
+        if v == 50257:
+            # control (ii): the ragged tile's zero-filled columns counted
+            pad = -v % tile
+            errs["control_pad"] = ce_control(
+                torch, f"the plain version with the last tile's {pad} padding columns counted "
+                f"as logits 0 (tile {tile})",
+                ce_reference_drop(torch, x, w, t, pad_zeros=pad), ref)
+        del x, t, nll, lse, again, ref
+    errs["max"] = max(errs["nll"], errs["lse"])
+    return errs, timing
 
 
 def rel_err(a, ref):
@@ -473,7 +591,12 @@ def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
     gbytes = n * 4 * 7 / 1e9  # p, g, m, v read; p, m, v written
     print(f"  {gbytes:.3f} GB moved per update: kernel {gbytes / timing[0] * 1e3:.1f} GB/s, "
           f"plain {gbytes / timing[1] * 1e3:.1f} GB/s", flush=True)
-    return err, timing
+    # the kernel's own device time: the call's copy of its leaf table from
+    # pageable memory waits for the work queued before it, which cuda_ms's
+    # reading holds
+    kernel_ms, _, top = profiled_kernel_ms(torch, lambda: fw.fused_adamw(leaves, scal, wds))
+    print(f"  torch.profiler, kernels only: {kernel_ms:.4f} ms a call {top}", flush=True)
+    return err, timing, kernel_ms
 
 
 def _counters(fa, fc, fw):
@@ -1083,8 +1206,10 @@ def phase_library_probes(torch, gpt2, cfgs, dev):
     opt = torch.optim.AdamW(params, lr=6e-4, betas=(ocfg.beta1, ocfg.beta2), eps=ocfg.eps,
                             weight_decay=ocfg.weight_decay, fused=True)
     out["adamw_fused"] = cuda_ms(opt.step, 20)
+    out["adamw_fused_kernel_ms"], _, top = profiled_kernel_ms(torch, opt.step)
     print(f"  torch.optim.AdamW(fused=True).step() over {len(params)} leaves: "
-          f"{out['adamw_fused']:.4f} ms", flush=True)
+          f"{out['adamw_fused']:.4f} ms; torch.profiler, kernels only: "
+          f"{out['adamw_fused_kernel_ms']:.4f} ms {top}", flush=True)
     return out
 
 
@@ -1630,10 +1755,8 @@ def dt_inputs(torch, ab, dev, seed):
 def dt_fwd_by_heads(torch, ab, qd, kd, vd, b, tq, tk, heads=4):
     """The plain dt forward, `heads` heads at a time (its (H, B, Tq, Tk) fp32
     scores do not fit at once at T=8192, H=12): (o, lse)."""
-    parts = [ab.flash_fwd_dt_b_reference(qd[i:i + heads], kd[i:i + heads], vd[i:i + heads],
-                                         b, tq, tk, causal=True)
-             for i in range(0, qd.shape[0], heads)]
-    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    return tuple(_dt_by_heads(torch, lambda q, k, v: ab.flash_fwd_dt_b_reference(
+        q, k, v, b, tq, tk, causal=True), (qd, kd, vd), heads))
 
 
 def dt_rows_without_first_keys(torch, qd, kd, vd, t, rows=128, skip=128):
@@ -1653,6 +1776,83 @@ def dt_row_excess(o, ref):
     """``row_excess`` over the rows of a dt-layout (H, hs, N) output: each
     position's hs values."""
     return row_excess(o.transpose(1, 2), ref.transpose(1, 2))
+
+
+def dt_grad_row_excess(x, ref):
+    """``grad_row_excess`` over the rows of a dt-layout (H, hs, N) gradient:
+    each position's hs values (a query row of dq, a key row of dk or dv)."""
+    return grad_row_excess(x.transpose(1, 2), ref.transpose(1, 2))
+
+
+def _dt_grads(torch, qd, kd, vd, dod, lse, dcap, b, tq, tk, hide, dq_scale, want):
+    """The arithmetic of ``flash_bwd_dt_b_reference`` (causal) on one group of
+    heads, with the extra (Tq, Tk) mask ``hide`` (None: none): the gradients
+    named in ``want`` ("dq", "dk", "dv"), in the operands' dtypes."""
+    h, hs, _ = qd.shape
+    q4, do4 = (a.float().reshape(h, hs, b, tq) for a in (qd, dod))
+    k4, v4 = (a.float().reshape(h, hs, b, tk) for a in (kd, vd))
+    s = torch.einsum("hdbq,hdbk->hbqk", q4, k4)
+    qpos = torch.arange(tq, device=qd.device)[:, None]
+    kpos = torch.arange(tk, device=qd.device)[None, :]
+    mask = kpos > qpos if hide is None else (kpos > qpos) | hide
+    p = torch.exp(s.masked_fill(mask, float("-inf")) - lse.reshape(h, b, tq, 1))
+    del s
+    out = {}
+    if "dv" in want:
+        out["dv"] = torch.einsum("hbqk,hdbq->hdbk", p.to(dod.dtype).float(), do4).reshape(
+            h, hs, b * tk).to(vd.dtype)
+    dp = torch.einsum("hdbq,hdbk->hbqk", do4, v4)
+    ds = (p * (dp - dcap.reshape(h, b, tq, 1))).to(qd.dtype).float()
+    del p, dp
+    if "dk" in want:
+        out["dk"] = torch.einsum("hbqk,hdbq->hdbk", ds, q4).reshape(h, hs, b * tk).to(kd.dtype)
+    if "dq" in want:
+        out["dq"] = (torch.einsum("hbqk,hdbk->hdbq", ds, k4) * dq_scale).reshape(
+            h, hs, b * tq).to(qd.dtype)
+    return [out[n] for n in want]
+
+
+def _dt_by_heads(torch, fn, xs, heads):
+    """fn over the heads `heads` at a time; each of its outputs concatenated
+    along the head axis."""
+    parts = [fn(*(a[i:i + heads] for a in xs)) for i in range(0, xs[0].shape[0], heads)]
+    return [torch.cat([p[j] for p in parts]) for j in range(len(parts[0]))]
+
+
+def dt_dkv_reference(torch, qd, kd, vd, dod, lse, dcap, b, tq, tk, drop_after=None, tile=128,
+                     heads=2):
+    """dk and dv of the plain dt backward (``flash_bwd_dt_b_reference``'s
+    arithmetic on the kernels' lse and dcap), `heads` heads at a time: the
+    dt form of ``dkv_reference``. With ``drop_after``, a query ``drop_after``
+    or more positions past the first key of a key's 128-key tile adds nothing
+    to that key: what a dk/dv block whose key tiles stop their query sweep
+    that early would give, the control that the row check must fail."""
+    hide = None
+    if drop_after is not None:
+        qpos = torch.arange(tq, device=qd.device)[:, None]
+        kpos = torch.arange(tk, device=qd.device)[None, :]
+        hide = qpos >= kpos // tile * tile + drop_after
+    return _dt_by_heads(torch, lambda q, k, v, do, ls, dc: _dt_grads(
+        torch, q, k, v, do, ls, dc, b, tq, tk, hide, 1.0, ("dk", "dv")),
+        (qd, kd, vd, dod, lse, dcap), heads)
+
+
+def dt_dq_reference(torch, qd, kd, vd, dod, lse, dcap, b, tq, tk, dq_scale=1.0,
+                    drop_before=None, tile=128, heads=2):
+    """dq of the plain dt backward, times dq_scale, `heads` heads at a time:
+    the dt form of ``dq_reference``. With ``drop_before``, a key more than
+    ``drop_before`` positions before the first row of a query's 128-row tile
+    adds nothing to that query: what a dq block whose query tiles start their
+    key sweep that late would give, the control that the row check must
+    fail."""
+    hide = None
+    if drop_before is not None:
+        qpos = torch.arange(tq, device=qd.device)[:, None]
+        kpos = torch.arange(tk, device=qd.device)[None, :]
+        hide = kpos < qpos // tile * tile - drop_before
+    return _dt_by_heads(torch, lambda q, k, v, do, ls, dc: _dt_grads(
+        torch, q, k, v, do, ls, dc, b, tq, tk, hide, dq_scale, ("dq",)),
+        (qd, kd, vd, dod, lse, dcap), heads)[0]
 
 
 def phase_dt_kernels(torch, ab, fa, dev):
@@ -1679,6 +1879,8 @@ def phase_dt_kernels(torch, ab, fa, dev):
         return o, lse
 
     o, lse = check_fwd(b, t, t, (qd, kd, vd))
+    # P2's inputs at each shape: q, k, v, dO and the kernel's o and lse
+    bwd_cases = [(b, t, t, [qd, kd, vd, dod, o, lse])]
     # a T that is a multiple of 64 but not of 128 (each sequence ends in half
     # a 128-row tile, and the next sequence starts where zeros belong); Tq !=
     # Tk under the no-offset mask (query i sees keys <= i); and T=8192, where
@@ -1686,14 +1888,15 @@ def phase_dt_kernels(torch, ab, fa, dev):
     g = torch.Generator(dev).manual_seed(190)
     for bb, tq, tk in ((3, 1088, 1088), (2, 512, 1024), (1, 8192, 8192)):
         xs = [ab.to_dt(torch.randn(bb, n, h, hs, device=dev, generator=g).to(torch.bfloat16))
-              for n in (tq, tk, tk)]
+              for n in (tq, tk, tk, tq)]
         xs[0] = (xs[0].float() * scale).to(torch.bfloat16)
-        o_x, _ = check_fwd(bb, tq, tk, xs)
+        o_x, lse_x = check_fwd(bb, tq, tk, xs[:3])
+        bwd_cases.append((bb, tq, tk, [*xs, o_x, lse_x]))
         if tq == 8192:
             # control: the last 128 rows without their first key tile; the row
             # check must fail it where the late rows' |o| is smallest (the
             # elementwise check's reading beside it)
-            late = dt_rows_without_first_keys(torch, *xs, tq)
+            late = dt_rows_without_first_keys(torch, *xs[:3], tq)
             _, control = dt_row_excess(o_x[:, :, tq - 128:], late)
             _, loose = out_excess(o_x[:, :, tq - 128:], late)
             print(f"  control: the last 128 rows without their first key tile pass the row "
@@ -1702,7 +1905,7 @@ def phase_dt_kernels(torch, ab, fa, dev):
             require(control > 0, "P1's o passed the row check against o without the first key "
                     "tile: the check cannot see a late start of the key sweep")
             fwd_errs["o_control"], fwd_errs["o_control_elementwise"] = control, loose
-        del xs, o_x
+        del xs, o_x, lse_x
     # against the shipping forward on the same values (q unscaled there; the
     # pre-scaled bf16 q of the dt side rounds once more, so one bf16 ulp apart)
     o_k1 = fa.flash_attention(q, k, v, causal=True, layout="bthd")
@@ -1711,37 +1914,90 @@ def phase_dt_kernels(torch, ab, fa, dev):
           f"(excess {k1_excess:.3e})", flush=True)
     require(k1_excess <= 0, "dt forward disagrees with the shipping forward")
 
+    # P2 on the kernels' o and lse at the four shapes: against 3e-2 of
+    # max|ref| and row by row (each position's 64 channels of dq, dk and dv
+    # within 2^-6 of the row's norm plus 1e-3), twice on one input bit for
+    # bit; at T=8192 the plain side two heads at a time, and two controls
+    # that must fail the row check while they pass the old one
     tol = 3e-2  # max|err| / max|ref|; P and dS round to bf16 in the kernel
-    dcap = ab.dcap_dt(o, dod)
-    run = lambda dc: ab.flash_bwd_dt_b(qd, kd, vd, dod, lse, dc, b, t, t, causal=True,  # noqa: E731
-                                       dq_scale=scale)
-    got = run(dcap)
-    want = ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, dcap, b, t, t, causal=True,
-                                       dq_scale=scale)
-    torch.cuda.synchronize()
-    errs = [rel_err(x, r) for x, r in zip(got, want)]
-    print("  P2: dq, dk, dv max|err| / max|ref| " + ", ".join(f"{e:.3e}" for e in errs)
-          + f" (tol {tol})", flush=True)
-    require(max(errs) <= tol, "dt backward disagrees with its plain version")
-    control = [rel_err(x, r) for x, r in zip(run(torch.zeros_like(dcap)), want)]
-    print("  control (dcap = 0): " + ", ".join(f"{e:.3e}" for e in control), flush=True)
-    require(max(control[:2]) > tol, "the wrong-dcap control passed: the check cannot fail")
-    again = run(dcap)
-    torch.cuda.synchronize()
-    same = [bool(torch.equal(x, y)) for x, y in zip(got, again)]
-    rerun = rel_err(again[0], got[0])
-    print(f"  P2 twice on one input: dq, dk, dv bit-equal {same}; dq max|diff| / max "
-          f"{rerun:.3e}", flush=True)
-    require(same[1] and same[2], "dk or dv differ between two runs")
+    bwd_errs = {"bwd": 0.0, "dq_row": 0.0, "dkv_row": 0.0}
+    same_all = []
+    for bb, tq, tk, xs in bwd_cases:
+        qx, kx, vx, dox, ox, lsex = xs
+        dcx = ab.dcap_dt(ox, dox)
+        args = (qx, kx, vx, dox, lsex, dcx, bb, tq, tk)
+        got = ab.flash_bwd_dt_b(*args, causal=True, dq_scale=scale)
+        again = ab.flash_bwd_dt_b(*args, causal=True, dq_scale=scale)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(x, y)) for x, y in zip(got, again)]
+        rerun = rel_err(again[0], got[0])
+        del again
+        heads = 2 if tq * tk > 1024 * 1024 else h
+        want = _dt_by_heads(torch, lambda *a: ab.flash_bwd_dt_b_reference(
+            *a, bb, tq, tk, causal=True, dq_scale=scale), (qx, kx, vx, dox, lsex, dcx), heads)
+        torch.cuda.synchronize()
+        rels = [rel_err(x, r) for x, r in zip(got, want)]
+        rows = [dt_grad_row_excess(x, r) for x, r in zip(got, want)]
+        print(f"  P2 B={bb} Tq={tq} Tk={tk}: dq, dk, dv max|err| / max|ref| "
+              + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {tol}), max row |err| / "
+              "(|ref| + 1e-3) " + ", ".join(f"{r[0]:.3e}" for r in rows) + " (tol 2^-6); "
+              f"twice on one input bit-equal {same} (dq max|diff| / max {rerun:.3e})",
+              flush=True)
+        require(max(rels) <= tol and max(r[1] for r in rows) <= 0,
+                f"dt backward disagrees with its plain version at B={bb} Tq={tq} Tk={tk}")
+        same_all.append(same)
+        bwd_errs["bwd"] = max(bwd_errs["bwd"], *rels)
+        bwd_errs["dq_row"] = max(bwd_errs["dq_row"], rows[0][0])
+        bwd_errs["dkv_row"] = max(bwd_errs["dkv_row"], rows[1][0], rows[2][0])
+        bwd_errs["rerun"] = max(bwd_errs.get("rerun", 0.0), rerun)
+        if tq == 8192:
+            sk, sv = dt_dkv_reference(torch, qx, kx, vx, dox, lsex, dcx, bb, tq, tk,
+                                      drop_after=K1_DKV_DROP_AFTER)
+            control = max(dt_grad_row_excess(sk, want[1])[1],
+                          dt_grad_row_excess(sv, want[2])[1])
+            loose = max(rel_err(sk, want[1]), rel_err(sv, want[2]))
+            del sk, sv
+            print(f"  control: dk/dv without the queries from {K1_DKV_DROP_AFTER} after each "
+                  f"key tile on pass the row tolerance by {control:.3e} (must be > 0); "
+                  f"max|err| / max|ref| {loose:.3e} (tol {tol})", flush=True)
+            require(control > 0, "P2's dk/dv passed the row check against dk/dv without the "
+                    "far queries: the check cannot see a short key-tile sweep")
+            bwd_errs["dkv_control"], bwd_errs["dkv_control_max_rel"] = control, loose
+            sq = dt_dq_reference(torch, qx, kx, vx, dox, lsex, dcx, bb, tq, tk, dq_scale=scale,
+                                 drop_before=K1_DQ_DROP_BEFORE)
+            control, loose = dt_grad_row_excess(sq, want[0])[1], rel_err(sq, want[0])
+            del sq
+            print(f"  control: dq without the keys more than {K1_DQ_DROP_BEFORE} before each "
+                  f"query tile passes the row tolerance by {control:.3e} (must be > 0); "
+                  f"max|err| / max|ref| {loose:.3e} (tol {tol})", flush=True)
+            require(control > 0, "P2's dq passed the row check against dq without the far "
+                    "keys: the check cannot see a late start of a query tile's key sweep")
+            bwd_errs["dq_control"], bwd_errs["dq_control_max_rel"] = control, loose
+        if (bb, tq) == (b, t):
+            # the wrong-dcap control on the tool's inputs
+            control = [rel_err(x, r) for x, r in zip(
+                ab.flash_bwd_dt_b(qx, kx, vx, dox, lsex, torch.zeros_like(dcx), bb, tq, tk,
+                                  causal=True, dq_scale=scale), want)]
+            print("  control (dcap = 0): " + ", ".join(f"{e:.3e}" for e in control),
+                  flush=True)
+            require(max(control[:2]) > tol, "the wrong-dcap control passed: the check cannot "
+                    "fail")
+        del got, want, xs
+    bwd_cases.clear()
+    torch.cuda.empty_cache()
 
+    dcap = ab.dcap_dt(o, dod)
     fwd_t = interleaved(lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True),
                         lambda: ab.flash_fwd_dt_b_reference(qd, kd, vd, b, t, t, causal=True),
                         50, 3)
-    bwd_t = interleaved(lambda: run(dcap),
+    bwd_t = interleaved(lambda: ab.flash_bwd_dt_b(qd, kd, vd, dod, lse, dcap, b, t, t,
+                                                  causal=True, dq_scale=scale),
                         lambda: ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, dcap, b, t, t,
                                                             causal=True, dq_scale=scale), 50, 3)
-    return ({**fwd_errs, "vs_k1": k1_err, "bwd": max(errs), "rerun": rerun,
-             "dq_bit_equal": same[0]}, {"fwd": fwd_t, "bwd": bwd_t})
+    require(all(all(x) for x in same_all), "two runs of the dt backward differ: dq, dk and dv "
+            f"are summed in a fixed order (bit-equal dq, dk, dv by shape: {same_all})")
+    return ({**fwd_errs, "vs_k1": k1_err, **bwd_errs, "dq_bit_equal": True},
+            {"fwd": fwd_t, "bwd": bwd_t})
 
 
 def phase_dt_tool(ab):
@@ -1840,7 +2096,7 @@ def finetune_ce_check(torch, ft, fc, kind, model, loss_fn, micro, bank):
     are recorded, and the kernel's per-row NLL and the path's masked-mean loss
     are held against the plain version on them. Returns the per-row error."""
     gpt2 = ft["gpt2"]
-    tol = 2e-3  # fp32 logits both ways; only the sum order differs
+    tol = CE_TOL  # fp32 logits both ways; only the sum order differs
     seen = {}
     fused_ce_loss = gpt2.fused_ce_loss
 
@@ -1876,7 +2132,8 @@ def finetune_ce_check(torch, ft, fc, kind, model, loss_fn, micro, bank):
     mean_all = nll_p.mean().item()  # ignored rows in the sum and the count
     print(f"  {kind} CE kernel at the validation shape, N={n} rows ({n_valid} counted), "
           f"D={x.shape[1]}, V={w.shape[0]}: per-row nll max|err| {err:.3e}, masked-mean loss "
-          f"{loss_k:.6f} (path) vs {loss_p:.6f} (plain), tol {tol}; controls with the ignored "
+          f"{loss_k:.6f} (path) vs {loss_p:.6f} (plain, |diff| {abs(loss_k - loss_p):.3e}), "
+          f"tol {tol}; controls with the ignored "
           f"rows counted: per row {counted:.3e}, in the sum {abs(sum_all - loss_k):.3e}, in "
           f"the sum and the count {abs(mean_all - loss_k):.3e} (printed, not held)", flush=True)
     require(0 < n_valid < n, "the micro-batch has no ignored rows")
@@ -2250,7 +2507,7 @@ def sass_counts(so):
     return counts
 
 
-def flash_times(torch, fa, ab, dev, so, build_s, card):
+def flash_times(torch, fa, fc, ab, dev, so, build_s, card):
     """K1-fwd at B=8, T=1024 and B=2, T=4096 causal and at the fine-tune's
     B=128, T=65 (q, k, v views of one fused projection), and at B=8, T=1024
     the host time of a launch beside the kernel's device time; K1-bwd at
@@ -2259,8 +2516,13 @@ def flash_times(torch, fa, ab, dev, so, build_s, card):
     K3b at B=1, T=16384, H=12 causal (K3a's and K3b's lse from K2b, their D
     from the D pre-kernel); K2a, K2b and K3c on one ring chunk pair, B=1,
     Tq=Tk=4096, H=12, unmasked and causal (chunk views; lse and dcap from the
-    plain forward): each the mean device time of 20 launches after a warm-up
-    (10 for K3a and K3b, 50 for K1-fwd and P1; ``cuda_ms``), in one JSON line
+    plain forward); P2 at B=8, T=1024 and B=1, T=8192 causal (dt inputs, lse
+    and dcap from the plain forward); K4 at N=8192 and 4096, D=768,
+    V=50304, and the logits GEMM alone (``torch.mm`` in bf16, a yardstick
+    called by nothing in the package) at N=8192: each the mean device time
+    of 20 launches after a warm-up (10 for K3a and K3b, 50 for K1-fwd and
+    P1; ``cuda_ms``); and one micro-batch of 124M's scoring forward (B=8,
+    T=1024) by kernel class under torch.profiler; in one JSON line
     with the build time, the SASS instruction count of every kernel and the
     card. It calls only wrappers that earlier checkouts of the port have too,
     so copied into one it times that checkout's kernels."""
@@ -2303,6 +2565,45 @@ def flash_times(torch, fa, ab, dev, so, build_s, card):
             lambda: fa.flash_general_forward(q, k, v, causal=causal), 20)
         out[f"k3c_pair_{key}_ms"] = cuda_ms(
             lambda: fa.flash_fused_backward(q, k, v, do, lse, dcap, causal=causal), 20)
+    # P2 at the tool's B=8, T=1024 and at B=1, T=8192, causal, dt inputs;
+    # lse and dcap from the plain forward
+    (qd, kd, vd, dod), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
+    for b, t in ((8, 1024), (1, 8192)):
+        if b == 1:
+            qd, kd, vd, dod = (ab.to_dt(torch.randn(1, t, h, hs, device=dev, generator=g)
+                                        .to(torch.bfloat16)) for _ in range(4))
+            qd = (qd.float() * hs ** -0.5).to(torch.bfloat16)
+        o, lse = dt_fwd_by_heads(torch, ab, qd, kd, vd, b, t, t)
+        dcap = ab.dcap_dt(o, dod)
+        out[f"p2_B{b}_T{t}_causal_ms"] = cuda_ms(
+            lambda: ab.flash_bwd_dt_b(qd, kd, vd, dod, lse, dcap, b, t, t, causal=True,
+                                      dq_scale=hs ** -0.5), 20)
+        del o, lse, dcap
+    # K4 at the validation micro-batch of 124M and at the fine-tune's N=4096,
+    # and, as a yardstick only, the logits GEMM alone (bf16 logits)
+    w = (torch.randn(50304, 768, device=dev, generator=g) * 0.02).to(torch.bfloat16)
+    for n in (8192, 4096):
+        x = torch.randn(n, 768, device=dev, generator=g).to(torch.bfloat16)
+        tg = torch.randint(0, 50304, (n,), device=dev, generator=g, dtype=torch.int32)
+        out[f"k4_N{n}_ms"] = cuda_ms(lambda: fc.ce_forward(x, w, tg), 20)
+        if n == 8192:
+            out["logits_gemm_N8192_ms"] = cuda_ms(lambda: torch.mm(x, w.t()), 20)
+    del w, x
+    # the scoring forward of 124M (seeded random weights), one micro-batch of
+    # B=8, T=1024: device time by kernel class
+    from gpt2_vision_language_tpu_torch.core.config import GPTConfig
+    from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY
+    from gpt2_vision_language_tpu_torch.models import gpt2
+    from gpt2_vision_language_tpu_torch.train.step import make_eval_step
+
+    cfg = GPTConfig()
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 8, 1025), device=dev, generator=g)
+    one = {"idx": toks[..., :-1], "targets": toks[..., 1:]}
+    step = make_eval_step(lambda m, mb: gpt2.loss(m, mb["idx"], cfg, targets=mb["targets"],
+                                                  policy=DEFAULT_POLICY))
+    ms, by_class, _ = profiled_kernel_ms(torch, lambda: step(model, one))
+    out["scoring_micro_batch_device_ms"] = {"total": ms, **by_class}
     out["card"] = card
     print(json.dumps(out), flush=True)
 
@@ -2367,7 +2668,7 @@ def main() -> int:
     so, build_s = _build.build()
     _build.load()
     if sys.argv[1:] == ["--flash-times"]:
-        flash_times(torch, fa, ab, dev, so, build_s, card)
+        flash_times(torch, fa, fc, ab, dev, so, build_s, card)
         return 0
     print(f"  {so.name}: nvcc {build_s:.2f} s", flush=True)
     # registers and spills of every kernel, from the compiler's report
@@ -2382,7 +2683,7 @@ def main() -> int:
     print(f"    SASS instructions: {json.dumps(sass_counts(so))}", flush=True)
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
-    ce_err, ce_t = phase_ce(torch, fc, dev)
+    ce_errs, ce_t = phase_ce(torch, fc, dev)
 
     print("[4] scoring forward: GPT-2 124M, bf16 policy, 2 x (B=8, T=1024)", flush=True)
     cfg = GPTConfig()
@@ -2427,6 +2728,10 @@ def main() -> int:
     require(fa.flash_attention.launches == launches["flash"]
             and fc.ce_forward.launches == launches["ce"],
             "the plain-path run launched a kernel")
+    one = {k_: v_[:1] for k_, v_ in batch.items()}
+    score_ms, score_split, _ = profiled_kernel_ms(torch, lambda: eval_step(model, one))
+    print(f"  one micro-batch (B=8, T=1024), torch.profiler, kernels only: {score_ms:.4f} ms "
+          f"of device time {json.dumps(score_split)}", flush=True)
 
     print("[5] generation", flush=True)
     out = sample.main(["--num", "4", "--length", "32"])
@@ -2454,7 +2759,7 @@ def main() -> int:
             "make_train_step": make_train_step, "adamw_init": adamw_init,
             "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain}
     bwd_errs, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
-    adamw_err, adamw_t = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
+    adamw_err, adamw_t, adamw_kernel_ms = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
     train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
     torch.cuda.empty_cache()
     trainer_counts, _ = phase_trainer(torch, mods, cfgs)
@@ -2516,7 +2821,7 @@ def main() -> int:
          bwd_t["B8_T1024"],
          attention_bound("bwd", *self_shape), lib_self["bwd"]),
         ("ce_fwd", "ce_fwd.cu", "gpt2_vision_language_tpu/ops/fused_ce.py:93", "trainer",
-         ce_err, ce_t, bound_ms(2 * 8192 * 768 * 50304,
+         ce_errs["max"], ce_t, bound_ms(2 * 8192 * 768 * 50304,
                                 2 * (8192 * 768 + 50304 * 768) + 3 * 4 * 8192), None),
         ("adamw", "adamw.cu", "gpt2_vision_language_tpu/ops/fused_adamw.py:36", "trainer",
          adamw_err, adamw_t, bound_ms(0, 7 * 4 * n_params), library["adamw_fused"]),
@@ -2569,9 +2874,18 @@ def main() -> int:
                           "bound_ms": attention_bound("bwd", 1, 8192, 8192, 12, 64, True)[0],
                           "library_ms": library["B1_T8192"]["bwd"]},
                       "library_is": "autograd.grad of q, k and v through SDPA"},
-        "ce_fwd": {"shape": "N=8192 D=768 V=50304"},
+        "ce_fwd": {"shape": "N=8192 D=768 V=50304", "nll_max_abs_err": ce_errs["nll"],
+                   "lse_max_abs_err": ce_errs["lse"], "tol": CE_TOL, "bit_equal_twice": True,
+                   "control_drop64_max_abs_err": ce_errs["control_drop64"],
+                   "control_pad_max_abs_err": ce_errs["control_pad"],
+                   "logits_gemm_ms": ce_errs["logits_gemm_ms"],
+                   "library_is": "none; logits_gemm_ms is torch.mm(x, w.t()) alone, bf16"},
         "adamw": {"err_is": "max|err| / max|ref|", "shape": "148 leaves, 124,475,904 params",
-                  "library_is": "torch.optim.AdamW(fused=True).step()"},
+                  "library_is": "torch.optim.AdamW(fused=True).step()",
+                  # device time of the kernels alone (torch.profiler): ms and
+                  # library_ms hold the call's wait for its pageable table copy
+                  "profiler_kernel_ms": adamw_kernel_ms,
+                  "library_profiler_kernel_ms": library["adamw_fused_kernel_ms"]},
         "flash_general_fwd": {"lse_max_abs_err": gen_errs["lse"], "row_err": gen_errs["o_row"],
                               "library_is": "F.scaled_dot_product_attention"},
         "flash_general_dq": {"err_is": "max|err| / max|ref|", "row_err": gen_errs["dq_row"],
@@ -2606,9 +2920,12 @@ def main() -> int:
                          "vs_flash_fwd_max_abs_err": dt_errs["vs_k1"],
                          "shape": "B=8 T=1024 H=12 causal, dt layout (H, hs, B*T)",
                          "library_is": "F.scaled_dot_product_attention"},
-        "flash_dt_bwd": {"err_is": "max|err| / max|ref|",
-                         "dq_two_runs_max_diff_over_max": dt_errs["rerun"],
-                         "dq_two_runs_bit_equal": dt_errs["dq_bit_equal"],
+        "flash_dt_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": dt_errs["dq_row"],
+                         "dkv_row_err": dt_errs["dkv_row"], "bit_equal_twice": True,
+                         "dkv_row_control_excess": dt_errs["dkv_control"],
+                         "dkv_row_control_max_rel": dt_errs["dkv_control_max_rel"],
+                         "dq_row_control_excess": dt_errs["dq_control"],
+                         "dq_row_control_max_rel": dt_errs["dq_control_max_rel"],
                          "shape": "B=8 T=1024 H=12 causal, dt layout (H, hs, B*T)",
                          "library_is": "autograd.grad of q, k and v through SDPA"},
     }
@@ -2641,6 +2958,9 @@ def main() -> int:
                                "sdpa_ms": {"B1_T4096": lib_causal,
                                            "B1_T4096_nomask": lib_chunk}}}))
     print(json.dumps({"ab_dt_flash": dt_bench, "k1_at_finetune_shape": k1_short}))
+    print(json.dumps({"scoring": {"tokens_per_s": n_tok / dt, "plain_tokens_per_s":
+                                  n_tok / dt_plain, "micro_batch_device_ms": score_ms,
+                                  "micro_batch_device_ms_by_class": score_split}}))
     print(json.dumps({"finetune": ft_runs, "finetune_ops": ft_ops}))
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))

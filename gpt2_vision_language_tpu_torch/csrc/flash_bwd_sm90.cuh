@@ -1,7 +1,8 @@
 // The key-major flash-attention backward for Hopper (sm_90a), shared by the
 // one-pass backward of the ring (flash_fused_bwd.cu, K3c: dq, dk and dv), the
-// general dk/dv backward (flash_dkv_bwd.cu, K3b: dk and dv alone) and the dk/dv
-// half of the self-attention backward (flash_bwd.cu, K1-bwd). Each source
+// general dk/dv backward (flash_dkv_bwd.cu, K3b: dk and dv alone), the dk/dv
+// half of the self-attention backward (flash_bwd.cu, K1-bwd) and the dk/dv
+// half of the A/B tool's dt-layout backward (flash_dt_bwd.cu, P2). Each source
 // instantiates it in its own __global__ entry point and picks the block order
 // (which key tile, head and sequence a block owns); a compile-time switch
 // (DQ) adds the dQ half. Tq != Tk, ragged lengths on both sides,
@@ -45,6 +46,17 @@
 // different key tiles add into the same rows in no fixed order, so dq can
 // differ in the last fp32 bits from run to run. Without DQ the two consumers
 // share nothing but the ring.
+//
+// The dt layout (Layout::DT, P2, without DQ): q, k, v, dO, dk and dv are
+// (H, 64, B*T), the sequence contiguous, lse and dcap (H, B*Tq), and the
+// causal mask has no offset (query i sees keys <= i). Every tile in shared
+// memory is the transpose of its bthd counterpart, [channel][position] (TMA
+// boxes of 64 positions by 64 channels, map_dt; a 128-key tile is two boxes,
+// box c consumer c's keys), so each shared-memory operand flips its major:
+// S^T and dP^T read K_c, Q, V_c and dO MN-major (both transpose bits), dV
+// and dK read dO and Q K-major; the register A operands do not change. dk
+// and dv leave transposed through the consumer's K and V boxes into whole
+// 128-byte rows of the sequence.
 //
 // Causal blocks of low key tiles have the most query tiles; the entry points
 // give them the lowest block indices. All offsets are 64-bit.
@@ -99,8 +111,9 @@ __device__ __forceinline__ void red_add4(float* dst, float a0, float a1, float a
 }
 
 // The work of one block: key tile kt of head h of batch b. dq_acc is read
-// only with DQ.
-template <bool DQ, int STAGES>
+// only with DQ. L picks the operand layout; the dt layout (L = DT, no dQ
+// half) takes the batch count from gridDim.z.
+template <bool DQ, int STAGES, Layout L = Layout::BTHD>
 __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUtensorMap* mk,
                                                const CUtensorMap* mv, const CUtensorMap* mdo,
                                                const float* __restrict__ lse,
@@ -110,12 +123,14 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
                                                int Tq, int Tk, int H, int causal, float scale,
                                                float scale_log2, int kt, int h, int b,
                                                unsigned char* smem_raw) {
+  constexpr bool DT = L == Layout::DT;
+  static_assert(!(DT && DQ), "the dt layout has no dQ half");
   Smem<DQ, STAGES>& sm = *reinterpret_cast<Smem<DQ, STAGES>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int n0 = kt * BK;
-  const int q_off = Tk - Tq;  // query i sits at key position i + q_off
+  const int q_off = DT ? 0 : Tk - Tq;  // query i sits at key position i + q_off
   const int nq = (Tq + BQ - 1) / BQ;
   // the first query tile with a row at or after this key tile's first key
   const int i0 = causal ? max(0, (n0 - q_off) / BQ) : 0;
@@ -135,14 +150,24 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
     setmaxnreg_dec<24>();
     if (tid < CONSUMERS * 128 + 32) {
       const int lane = tid % 32;
-      const float* lseb = lse + ((long long)b * H + h) * Tq;
-      const float* dcapb = dcap + ((long long)b * H + h) * Tq;
+      // a query's stats: (B, H, Tq) rows, or (H, B*Tq) in the dt layout
+      const long long srow = DT ? ((long long)h * gridDim.z + b) * Tq : ((long long)b * H + h) * Tq;
+      const float* lseb = lse + srow;
+      const float* dcapb = dcap + srow;
       if (lane == 0) {
         tma_prefetch_map(mq);
         tma_prefetch_map(mdo);
         mbar_expect_tx(&sm.kv_full, KV_BYTES);
-        tma_load_4d(sm.k, mk, &sm.kv_full, 0, h, n0, b);
-        tma_load_4d(sm.v, mv, &sm.kv_full, 0, h, n0, b);
+        if constexpr (DT) {
+          // two boxes of 64 keys, [channel][key]: box c is consumer c's
+          tma_load_4d(sm.k, mk, &sm.kv_full, n0, b, 0, h);
+          tma_load_4d(sm.k + 64 * HS, mk, &sm.kv_full, n0 + 64, b, 0, h);
+          tma_load_4d(sm.v, mv, &sm.kv_full, n0, b, 0, h);
+          tma_load_4d(sm.v + 64 * HS, mv, &sm.kv_full, n0 + 64, b, 0, h);
+        } else {
+          tma_load_4d(sm.k, mk, &sm.kv_full, 0, h, n0, b);
+          tma_load_4d(sm.v, mv, &sm.kv_full, 0, h, n0, b);
+        }
       }
       for (int i = i0; i < nq; ++i) {
         const int it = i - i0, s = it % STAGES, ph = (it / STAGES) & 1;
@@ -156,8 +181,13 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
         }
         if (lane == 0) {
           mbar_expect_tx(&sm.full[s], QDO_BYTES);
-          tma_load_4d(sm.q[s], mq, &sm.full[s], 0, h, m0, b);
-          tma_load_4d(sm.dO[s], mdo, &sm.full[s], 0, h, m0, b);
+          if constexpr (DT) {
+            tma_load_4d(sm.q[s], mq, &sm.full[s], m0, b, 0, h);
+            tma_load_4d(sm.dO[s], mdo, &sm.full[s], m0, b, 0, h);
+          } else {
+            tma_load_4d(sm.q[s], mq, &sm.full[s], 0, h, m0, b);
+            tma_load_4d(sm.dO[s], mdo, &sm.full[s], 0, h, m0, b);
+          }
         } else {
           mbar_arrive(&sm.full[s]);
         }
@@ -188,13 +218,23 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
       reg_fence(st);
       reg_fence(dpt);
       wg_fence();
-      // S^T (64 keys x 64 queries) = K_c Q^T, dP^T = V_c dO^T
+      // S^T (64 keys x 64 queries) = K_c Q^T, dP^T = V_c dO^T; in the dt
+      // layout all four tiles are read MN-major (the channels are the rows)
+      if constexpr (DT) {
 #pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n64_ss(st, desc_add(dkw, 32 * kk), desc_add(dqs, 32 * kk), kk);
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n64_ss_tt(st, desc_add(dkw, 2048 * kk), desc_add(dqs, 2048 * kk), kk);
 #pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n64_ss(dpt, desc_add(dvw, 32 * kk), desc_add(dos, 32 * kk), kk);
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n64_ss_tt(dpt, desc_add(dvw, 2048 * kk), desc_add(dos, 2048 * kk), kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n64_ss(st, desc_add(dkw, 32 * kk), desc_add(dqs, 32 * kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n64_ss(dpt, desc_add(dvw, 32 * kk), desc_add(dos, 32 * kk), kk);
+      }
       wg_commit();
       wg_wait<0>();
       reg_fence(st);
@@ -224,14 +264,24 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
           sa[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
         }
 
-      // dV += P^T dO, dK += dS^T Q
+      // dV += P^T dO, dK += dS^T Q; in the dt layout dO and Q are read
+      // K-major (the queries are the contiguous axis), 32 bytes a k16 step
       reg_fence(dva);
       reg_fence(dka);
       wg_fence();
+      if constexpr (DT) {
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) mma_m64n64_rs_tb(dva, pa[kk], desc_add(dos, 2048 * kk), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk) mma_m64n64_rs(dva, pa[kk], desc_add(dos, 32 * kk), 1);
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) mma_m64n64_rs_tb(dka, sa[kk], desc_add(dqs, 2048 * kk), 1);
+        for (int kk = 0; kk < BQ / 16; ++kk) mma_m64n64_rs(dka, sa[kk], desc_add(dqs, 32 * kk), 1);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          mma_m64n64_rs_tb(dva, pa[kk], desc_add(dos, 2048 * kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          mma_m64n64_rs_tb(dka, sa[kk], desc_add(dqs, 2048 * kk), 1);
+      }
       wg_commit();
 
       if constexpr (!DQ) {
@@ -298,6 +348,37 @@ __device__ __forceinline__ void backward_block(const CUtensorMap* mq, const CUte
 
     // a key tile past every query's reach (non-causal never; causal only when
     // i0 >= nq) stores the zeros it was filled with
+    if constexpr (DT) {
+      // dk^T and dv^T through this consumer's K and V boxes ([channel][key],
+      // sw128; only it reads them, and its products are done), then 16-byte
+      // stores of whole rows of its 64 keys; the box lies wholly below Tk
+      // or wholly past it (Tk is a multiple of 64)
+      unsigned char* kb = reinterpret_cast<unsigned char*>(sm.k + wg * 64 * HS);
+      unsigned char* vb = reinterpret_cast<unsigned char*>(sm.v + wg * 64 * HS);
+#pragma unroll
+      for (int j = 0; j < HS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 8 * j + col_l + (e & 1), row = warp * 16 + lane / 4 + 8 * (e >> 1);
+          const int at = d * 128 + (((row / 8) ^ (d % 8)) * 16) + (row % 8) * 2;
+          *reinterpret_cast<bf16*>(kb + at) = __float2bfloat16(dka[4 * j + e] * scale);
+          *reinterpret_cast<bf16*>(vb + at) = __float2bfloat16(dva[4 * j + e]);
+        }
+      named_sync(1 + wg, 128);
+      if (kw0 < Tk) {
+        const long long n_all_k = (long long)gridDim.z * Tk;  // B * Tk
+        const long long out = (long long)h * HS * n_all_k + (long long)b * Tk + kw0;
+        for (int c = t; c < HS * 8; c += 128) {
+          const int d = c / 8, chunk = c % 8;
+          const int at = d * 128 + ((chunk ^ (d % 8)) * 16);
+          *reinterpret_cast<uint4*>(dk + out + d * n_all_k + chunk * 8) =
+              *reinterpret_cast<const uint4*>(kb + at);
+          *reinterpret_cast<uint4*>(dv + out + d * n_all_k + chunk * 8) =
+              *reinterpret_cast<const uint4*>(vb + at);
+        }
+      }
+      return;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int kpos = krow0 + 8 * r;

@@ -1,6 +1,7 @@
 // The query-major flash-attention dq backward for Hopper (sm_90a), shared by
-// the general dq backward (flash_dq_bwd.cu, K3a) and the dq half of the
-// self-attention backward (flash_bwd.cu, K1-bwd). Each source instantiates it
+// the general dq backward (flash_dq_bwd.cu, K3a), the dq half of the
+// self-attention backward (flash_bwd.cu, K1-bwd) and the dq half of the A/B
+// tool's dt-layout backward (flash_dt_bwd.cu, P2). Each source instantiates it
 // in its own __global__ entry point and picks the block order (which query
 // tile, head and sequence a block owns). Tq != Tk, ragged lengths on both
 // sides, right-aligned causal or non-causal, the row term D an input.
@@ -35,6 +36,13 @@
 // their slot). dq leaves through the consumer's rows of the Q tile in shared
 // memory as 16-byte stores of whole rows. No atomics and a fixed key order:
 // dq is deterministic. All offsets are 64-bit.
+//
+// The dt layout (Layout::DT, P2): every tensor (H, 64, B*T), the stats (H,
+// B*Tq), the causal mask without offset. The tiles in shared memory are the
+// transposes of the bthd ones, so S = Q K^T and dP = dO V^T read all four
+// MN-major (K's and V's two 64-key boxes one descriptor, LBO 8 KB, as the
+// forward main loop's dt S), dQ += dS K reads K K-major; dq leaves transposed
+// through the consumer's Q box into whole 128-byte rows of the sequence.
 
 #pragma once
 
@@ -77,8 +85,10 @@ constexpr int smem_bytes() {
 // The work of one block: query tile qt of head h of batch b. q: (B, Tq, H,
 // hs) and k/v: (B, Tk, H, hs) through the maps (boxes of BM query rows and BN
 // key rows), dO through its map (boxes of BM rows); lse, dd (B, H, Tq) fp32;
-// dq contiguous (B, Tq, H, hs) bf16.
-template <int STAGES>
+// dq contiguous (B, Tq, H, hs) bf16. L picks the operand layout: in the dt
+// layout every tensor is (H, hs, B*T) through map_dt (boxes of 64 positions),
+// lse and dd are (H, B*Tq), and the batch count is gridDim.z.
+template <int STAGES, Layout L = Layout::BTHD>
 __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMap* mk,
                                          const CUtensorMap* mv, const CUtensorMap* mdo,
                                          const float* __restrict__ lse,
@@ -86,12 +96,13 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
                                          int Tq, int Tk, int H, int causal, float scale,
                                          float scale_log2, int qt, int h, int b,
                                          unsigned char* smem_raw) {
+  constexpr bool DT = L == Layout::DT;
   Smem<STAGES>& sm = *reinterpret_cast<Smem<STAGES>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int m0 = qt * BM;
-  const int q_off = Tk - Tq;  // query i sits at key position i + q_off
+  const int q_off = DT ? 0 : Tk - Tq;  // query i sits at key position i + q_off
   const int n_all = (Tk + BN - 1) / BN;
   const int n_tiles = causal ? min(n_all, (q_off + m0 + BM - 1) / BN + 1) : n_all;
 
@@ -110,8 +121,10 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
     setmaxnreg_dec<24>();
     if (tid < CONSUMERS * 128 + 32) {
       const int lane = tid % 32;
-      const float* lseb = lse + ((long long)b * H + h) * Tq;
-      const float* ddb = dd + ((long long)b * H + h) * Tq;
+      // a query's stats: (B, H, Tq) rows, or (H, B*Tq) in the dt layout
+      const long long srow = DT ? ((long long)h * gridDim.z + b) * Tq : ((long long)b * H + h) * Tq;
+      const float* lseb = lse + srow;
+      const float* ddb = dd + srow;
       // rows >= Tq read as zero: their P is zeroed by position, not through these
       for (int j = lane; j < BM; j += 32) {
         const int t = m0 + j;
@@ -122,14 +135,29 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
         tma_prefetch_map(mk);
         tma_prefetch_map(mv);
         mbar_expect_tx(&sm.rows_full, ROWS_BYTES);
-        tma_load_4d(sm.q, mq, &sm.rows_full, 0, h, m0, b);
-        tma_load_4d(sm.dO, mdo, &sm.rows_full, 0, h, m0, b);
+        if constexpr (DT) {
+          // two boxes of 64 positions, [channel][position]: box c is consumer c's
+          for (int c = 0; c < CONSUMERS; ++c) {
+            tma_load_4d(sm.q + c * 64 * HS, mq, &sm.rows_full, m0 + 64 * c, b, 0, h);
+            tma_load_4d(sm.dO + c * 64 * HS, mdo, &sm.rows_full, m0 + 64 * c, b, 0, h);
+          }
+        } else {
+          tma_load_4d(sm.q, mq, &sm.rows_full, 0, h, m0, b);
+          tma_load_4d(sm.dO, mdo, &sm.rows_full, 0, h, m0, b);
+        }
         for (int j = 0; j < n_tiles; ++j) {
           const int s = j % STAGES, ph = (j / STAGES) & 1;
           mbar_wait(&sm.empty[s], ph ^ 1);
           mbar_expect_tx(&sm.full[s], KV_BYTES);
-          tma_load_4d(sm.k[s], mk, &sm.full[s], 0, h, j * BN, b);
-          tma_load_4d(sm.v[s], mv, &sm.full[s], 0, h, j * BN, b);
+          if constexpr (DT) {
+            tma_load_4d(sm.k[s], mk, &sm.full[s], j * BN, b, 0, h);
+            tma_load_4d(sm.k[s] + 64 * HS, mk, &sm.full[s], j * BN + 64, b, 0, h);
+            tma_load_4d(sm.v[s], mv, &sm.full[s], j * BN, b, 0, h);
+            tma_load_4d(sm.v[s] + 64 * HS, mv, &sm.full[s], j * BN + 64, b, 0, h);
+          } else {
+            tma_load_4d(sm.k[s], mk, &sm.full[s], 0, h, j * BN, b);
+            tma_load_4d(sm.v[s], mv, &sm.full[s], 0, h, j * BN, b);
+          }
         }
       } else {
         mbar_arrive(&sm.rows_full);
@@ -158,22 +186,43 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
       reg_fence(sc);
       reg_fence(dp);
       wg_fence();
-      const uint64_t dk = desc_sw128(sm.k[s]), dv = desc_sw128(sm.v[s]);
+      if constexpr (DT) {
+        // all four tiles MN-major (the channels are the rows); K's and V's
+        // two boxes one descriptor each, LBO 8 KB
+        const uint64_t dk = desc_sw128_lbo(sm.k[s], 64 * HS * 2);
+        const uint64_t dv = desc_sw128_lbo(sm.v[s], 64 * HS * 2);
 #pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n128_ss(sc, desc_add(dqs, 32 * kk), desc_add(dk, 32 * kk), kk);
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n128_ss_tt(sc, desc_add(dqs, 2048 * kk), desc_add(dk, 2048 * kk), kk);
 #pragma unroll
-      for (int kk = 0; kk < HS / 16; ++kk)
-        mma_m64n128_ss(dp, desc_add(dos, 32 * kk), desc_add(dv, 32 * kk), kk);
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n128_ss_tt(dp, desc_add(dos, 2048 * kk), desc_add(dv, 2048 * kk), kk);
+      } else {
+        const uint64_t dk = desc_sw128(sm.k[s]), dv = desc_sw128(sm.v[s]);
+#pragma unroll
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n128_ss(sc, desc_add(dqs, 32 * kk), desc_add(dk, 32 * kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < HS / 16; ++kk)
+          mma_m64n128_ss(dp, desc_add(dos, 32 * kk), desc_add(dv, 32 * kk), kk);
+      }
       wg_commit();
     };
     auto issue_dq = [&](int j) {  // dqa += dS K of tile j, K read MN-major
       reg_fence(dqa);
       wg_fence();
       const uint64_t dk = desc_sw128(sm.k[j % STAGES]);
+      if constexpr (DT) {
+        // K read K-major (the keys are the contiguous axis): 32 bytes a k16
+        // step, the second box for keys 64 on
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        mma_m64n64_rs_tb(dqa, sa[kk], desc_add(dk, 2048 * kk), 1);
+        for (int kk = 0; kk < BN / 16; ++kk)
+          mma_m64n64_rs(dqa, sa[kk], desc_add(dk, (kk / 4) * 64 * HS * 2 + (kk % 4) * 32), 1);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          mma_m64n64_rs_tb(dqa, sa[kk], desc_add(dk, 2048 * kk), 1);
+      }
       wg_commit();
     };
 
@@ -230,9 +279,33 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* mq, const CUtensorMa
       if (t == 0) mbar_arrive(&sm.empty[s]);
     }
 
+    unsigned char* ob = reinterpret_cast<unsigned char*>(qs);
+    if constexpr (DT) {
+      // dq^T * scale through this consumer's Q box ([channel][position],
+      // sw128), then 16-byte stores of whole rows of its 64 positions; the box
+      // lies wholly below Tq or wholly past it (Tq is a multiple of 64)
+#pragma unroll
+      for (int j = 0; j < HS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 8 * j + col_l + (e & 1), row = lrow + 8 * (e >> 1);
+          *reinterpret_cast<bf16*>(ob + d * 128 + (((row / 8) ^ (d % 8)) * 16) + (row % 8) * 2) =
+              __float2bfloat16(dqa[4 * j + e] * scale);
+        }
+      named_sync(1 + wg, 128);
+      if (wm0 < Tq) {
+        const long long n_all_q = (long long)gridDim.z * Tq;  // B * Tq
+        bf16* dqg = dq + (long long)h * HS * n_all_q + (long long)b * Tq + wm0;
+        for (int c = t; c < HS * 8; c += 128) {
+          const int d = c / 8, chunk = c % 8;
+          *reinterpret_cast<uint4*>(dqg + d * n_all_q + chunk * 8) =
+              *reinterpret_cast<const uint4*>(ob + d * 128 + ((chunk ^ (d % 8)) * 16));
+        }
+      }
+      return;
+    }
     // dq * scale through this consumer's rows of the Q tile (sw128 rows), then
     // 16-byte stores of whole rows; rows >= Tq are not stored
-    unsigned char* ob = reinterpret_cast<unsigned char*>(qs);
 #pragma unroll
     for (int j = 0; j < HS / 8; ++j)
 #pragma unroll

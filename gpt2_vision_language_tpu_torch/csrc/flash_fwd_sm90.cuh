@@ -80,9 +80,6 @@ struct Config {
   static_assert(CONSUMERS >= 2 && CONSUMERS <= 3, "two or three consumer warpgroups");
 };
 
-// operand layouts of the main loop (see the top of the file)
-enum class Layout { BTHD, DT };
-
 template <int CONSUMERS, int STAGES>
 struct __align__(1024) Smem {
   bf16 q[CONSUMERS * 64 * HS];  // 64 rows a consumer; later its output tile

@@ -47,13 +47,27 @@ def ce_forward_reference(x, w, targets, *, n_chunks: int = 1,
     return torch.cat(nll), torch.cat(lse)
 
 
+def split_count(row_tiles: int, vocab_tiles: int, sms: int) -> int:
+    """Vocab splits per row tile, for a kernel that holds one block per SM:
+    the count whose grid ends first, reckoned as waves of blocks times the
+    vocab tiles of a split plus one (a block's start and merge); the fewest
+    splits among equals. 124M's vocab at N=8192 (64 row tiles of 128, 197
+    tiles of 256) gives 2 splits, 128 blocks in one wave on 132 SMs; N=4096
+    gives 4, 128 blocks."""
+    best = None
+    for want in range(1, vocab_tiles + 1):
+        per = -(-vocab_tiles // want)
+        splits = -(-vocab_tiles // per)  # no empty split
+        cost = -(-row_tiles * splits // sms) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
 def _split_count(n: int, v: int, lib, device) -> int:
-    """Vocab splits per row tile: enough blocks for about two waves of the
-    card's SMs (three blocks fit on one), at most one split per vocab tile."""
-    row_tiles = -(-n // lib.gpt2vl_ce_fwd_block_rows())
-    vocab_tiles = -(-v // lib.gpt2vl_ce_fwd_tile_cols())
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(vocab_tiles, -(-6 * sms // row_tiles)))
+    return split_count(-(-n // lib.gpt2vl_ce_fwd_block_rows()),
+                       -(-v // lib.gpt2vl_ce_fwd_tile_cols()),
+                       torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def ce_forward_cuda(x, w, targets):

@@ -1,5 +1,5 @@
-"""A/B: dt-layout flash attention (forward and one-pass backward) against the
-shipping kernels, on an NVIDIA GPU.
+"""A/B: dt-layout flash attention (forward and backward) against the shipping
+kernels, on an NVIDIA GPU.
 
 Counterpart of tools/ab_dt_flash.py. There the hypothesis was a TPU one: the
 shipping kernel's (block, hs=64) tiles fill half of a 128-lane register tile,
@@ -161,11 +161,11 @@ flash_fwd_dt_b.launches = 0
 
 
 def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1.0):
-    """dt one-pass backward: (dq * dq_scale, dk, dv) in dt layout from do
-    (H, hs, B*Tq), lse and dcap (H, B*Tq) fp32. The kernel for CUDA tensors,
-    the plain version for CPU tensors. The kernel sums dq over the key tiles
-    in an fp32 buffer with reductions in global memory, in no fixed order: dq
-    can differ in its last bits between two runs; dk and dv cannot."""
+    """dt backward: (dq * dq_scale, dk, dv) in dt layout from do (H, hs,
+    B*Tq), lse and dcap (H, B*Tq) fp32. The kernel for CUDA tensors, the plain
+    version for CPU tensors. The kernel sums each of dq, dk and dv in a fixed
+    order in one block, as the TPU kernel sums dq in one scratch in key
+    order: all three are bit-equal from run to run."""
     h, hs, _ = q.shape
     _check_dt("q", q, h, hs, b * tq)
     _check_dt("do", do, h, hs, b * tq)
@@ -182,12 +182,11 @@ def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1
     _check_kernel((("q", q), ("k", k), ("v", v), ("do", do)),
                   (("lse", lse), ("dcap", dcap)), tq, tk)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.gpt2vl_flash_dt_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dcap.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dcap.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, tq, tk, h, hs, int(causal), float(dq_scale), _stream(q))
     _build.check(err, "flash_dt_bwd")
     flash_bwd_dt_b.launches += 1

@@ -15,6 +15,7 @@ import torch
 
 import chip_smoke as cs
 from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
+from gpt2_vision_language_tpu_torch.ops import fused_ce as fc
 from gpt2_vision_language_tpu_torch.tools import ab_dt_flash as ab
 
 T, H, HS = 1024, 1, 64
@@ -215,3 +216,119 @@ def test_dt_late_start_fails_row_check(t):
     assert cs.dt_row_excess(late, o)[1] > 0
     o32 = cs.dt_rows_without_first_keys(torch, qd.float(), kd.float(), vd.float(), t, skip=0)
     assert cs.dt_row_excess(o, o32)[1] <= 0
+
+
+# phase 3's CE check (1e-4 in nll and lse) and its two controls. The
+# controls' size scales as the columns they touch over V, so they are made
+# at the real V (50304 and 50257) with a narrow D and logits of phase 3's
+# spread (std 0.554): a 64-column drop and 47 counted padding columns move
+# lse by about 1e-3, inside the old 2e-3 check.
+CE_N, CE_D = 256, 64
+
+
+@pytest.fixture(scope="module")
+def ce_inputs():
+    rng = np.random.RandomState(1)
+    w = torch.from_numpy((rng.randn(50304, CE_D) * 0.554 / CE_D ** 0.5).astype(np.float32))
+    x = torch.from_numpy(rng.randn(CE_N, CE_D).astype(np.float32))
+    t = torch.from_numpy(rng.randint(0, 50257, CE_N).astype(np.int32))
+    t[:47] = torch.arange(50257 - 47, 50257, dtype=torch.int32)  # the last, ragged tile
+    return x.to(torch.bfloat16), w.to(torch.bfloat16), t
+
+
+@pytest.mark.parametrize("v", [50304, 50257])
+def test_ce_reference_drop_with_nothing_dropped_is_the_plain_version(ce_inputs, v):
+    x, w, t = ce_inputs
+    want = fc.ce_forward_reference(x, w[:v], t, n_chunks=8)
+    got = cs.ce_reference_drop(torch, x, w[:v], t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("fault", ["drop64", "pad"])
+def test_ce_controls_fail_the_check_and_pass_the_old_one(ce_inputs, fault):
+    """Control (i), 64 columns of one 128-column tile left out at V=50304, and
+    control (ii), the 47 padding columns of V=50257's ragged last tile counted
+    as logits 0: every row is off by more than 1e-4, and the largest error is
+    under the old 2e-3, which passed both."""
+    x, w, t = ce_inputs
+    if fault == "drop64":
+        v, kw = 50304, {"drop_cols": slice(100 * 128, 100 * 128 + 64)}
+    else:
+        v, kw = 50257, {"pad_zeros": -50257 % 128}
+    ref = fc.ce_forward_reference(x, w[:v], t, n_chunks=8)
+    got = cs.ce_reference_drop(torch, x, w[:v], t, **kw)
+    err = torch.maximum((got[0] - ref[0]).abs(), (got[1] - ref[1]).abs())
+    assert err.min().item() > cs.CE_TOL
+    assert err.max().item() < cs.CE_OLD_TOL
+
+
+def test_plain_bf16_operands_pass_the_ce_check(ce_inputs):
+    """The fp32 plain version over the bf16 operands against the same sums in
+    fp64: far inside 1e-4."""
+    x, w, t = ce_inputs
+    nll, lse = fc.ce_forward_reference(x, w, t, n_chunks=8)
+    logits = x.double() @ w.double().t()
+    lz = torch.logsumexp(logits, dim=-1)
+    assert (lse.double() - lz).abs().max().item() < cs.CE_TOL / 10
+    gold = logits.gather(1, t.long()[:, None])[:, 0]
+    assert (nll.double() - (lz - gold)).abs().max().item() < cs.CE_TOL / 10
+
+
+# phase 19's P2 checks at a small size: one sequence of T=2048, one head, in
+# the dt layout; its controls drop fewer positions than phase 19's (the
+# effect on max|ref| grows with the share of a row that is lost)
+DT_T = 2048
+
+
+@pytest.fixture(scope="module")
+def dt_backward():
+    """q (pre-scaled), k, v, dO in the dt layout (1, 64, T) bf16, lse and dcap
+    from the fp32 forward, and the plain dt backward on the operands' dtype
+    and in fp32."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, HS, DT_T).astype(np.float32)) for _ in range(4))
+    qd, kd, vd, dod = ((q * HS ** -0.5).to(torch.bfloat16), k.to(torch.bfloat16),
+                       v.to(torch.bfloat16), do.to(torch.bfloat16))
+    o, lse = ab.flash_fwd_dt_b_reference(qd.float(), kd.float(), vd.float(), 1, DT_T, DT_T)
+    dcap = ab.dcap_dt(o, dod)
+    args = (qd, kd, vd, dod, lse, dcap, 1, DT_T, DT_T)
+    grads = ab.flash_bwd_dt_b_reference(*args, dq_scale=HS ** -0.5)
+    grads32 = ab.flash_bwd_dt_b_reference(qd.float(), kd.float(), vd.float(), dod.float(), lse,
+                                          dcap, 1, DT_T, DT_T, dq_scale=HS ** -0.5)
+    return args, grads, grads32
+
+
+def test_dt_references_with_nothing_dropped_are_the_plain_backward(dt_backward):
+    args, (dq, dk, dv), _ = dt_backward
+    rk, rv = cs.dt_dkv_reference(torch, *args, heads=1)
+    rq = cs.dt_dq_reference(torch, *args, dq_scale=HS ** -0.5, heads=1)
+    assert torch.equal(rq, dq) and torch.equal(rk, dk) and torch.equal(rv, dv)
+
+
+def test_dt_dkv_control_fails_row_check_not_max_relative(dt_backward):
+    """dk/dv whose key tiles stop their query sweep 1984 positions on (the
+    keys of the first tile lose up to 64 queries): the row check fails dk and
+    dv, the check against 3e-2 of max|ref| passes both."""
+    args, (_, dk, dv), _ = dt_backward
+    sk, sv = cs.dt_dkv_reference(torch, *args, drop_after=1984, heads=1)
+    assert cs.dt_grad_row_excess(sk, dk)[1] > 0 and cs.dt_grad_row_excess(sv, dv)[1] > 0
+    assert cs.rel_err(sk, dk) <= 3e-2 and cs.rel_err(sv, dv) <= 3e-2
+
+
+def test_dt_dq_control_fails_row_check_not_max_relative(dt_backward):
+    """dq whose query tiles start their key sweep late (the keys more than
+    1912 before each query tile dropped): the row check fails it, the check
+    against 3e-2 of max|ref| passes it."""
+    args, (dq, _, _), _ = dt_backward
+    late = cs.dt_dq_reference(torch, *args, dq_scale=HS ** -0.5, drop_before=1912, heads=1)
+    assert cs.dt_grad_row_excess(late, dq)[1] > 0
+    assert cs.rel_err(late, dq) <= 3e-2
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_plain_bf16_dt_backward_passes_row_check(dt_backward, which):
+    """The plain dt dq, dk and dv on bf16 operands against the same values in
+    fp32 pass the row check and the check against max|ref|."""
+    _, grads, grads32 = dt_backward
+    x, ref = grads[which], grads32[which]
+    assert cs.dt_grad_row_excess(x, ref)[1] <= 0 and cs.rel_err(x, ref) <= 3e-2

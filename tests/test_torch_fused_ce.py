@@ -41,6 +41,53 @@ def test_plain_matches_jax_pallas_kernel():
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("v", [1152, 1408])
+def test_plain_matches_jax_pallas_kernel_at_a_ragged_tile(v):
+    """N=256, D=64, V a multiple of 128 but not of 256 (9 and 11 lane tiles:
+    the CUDA kernel's 256-wide vocab tiles end half full), fp32, targets in
+    the last 128 columns: nll and lse within 1e-4 of _ce_fwd_kernel in
+    interpret mode (its vocab blocks are 384 and 128 wide)."""
+    x, w, t = _inputs(256, 64, v, seed=9)
+    t[16:32] = np.arange(v - 16, v)
+    bn, bv = jce._ce_block_sizes(256, 64, v, 4)
+    with mock.patch.object(jce, "FORCE_INTERPRET", True):
+        nll_j, lse_j = jce._ce_fwd_pallas(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(t),
+            jax_precision.FP32_POLICY, bn, bv, interpret=True,
+        )
+    nll, lse = fc.ce_forward(*map(torch.from_numpy, (x, w, t)))
+    np.testing.assert_allclose(nll.numpy(), np.asarray(nll_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("v", [50257, 1000])
+def test_plain_matches_jax_at_a_ragged_vocab(v):
+    """N=256, D=64, V that no lane tile divides (GPT-2's own 50257, and 1000),
+    targets in the last columns: the Pallas block sizes refuse the shape
+    (ops/fused_ce.py:146 of the JAX package), so the plain version's nll is
+    held within 1e-5 to the JAX XLA route under the fp32 policy."""
+    x, w, t = _inputs(256, 64, v, seed=10)
+    t[16:32] = np.arange(v - 16, v)
+    assert jce._ce_block_sizes(256, 64, v, 4) is None
+    want = jce.fused_linear_ce(jnp.asarray(x), jnp.asarray(w), jnp.asarray(t),
+                               n_chunks=2, policy=jax_precision.FP32_POLICY, impl="xla")
+    nll, _ = fc.ce_forward(*map(torch.from_numpy, (x, w, t)))
+    np.testing.assert_allclose(nll.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,splits", [(8192, 2), (4096, 4), (1000, 16), (65536, 1)])
+def test_split_count_fills_a_wave(n, splits):
+    """The kernel's vocab split for 124M's vocab (197 tiles of 256 columns) on
+    an H100's 132 SMs, one block of 128 rows an SM: one wave of 128 blocks at
+    N=8192, 4096 and 1000, and one split where the row tiles alone fill
+    several waves; every split holds a tile."""
+    vocab_tiles = -(-50304 // 256)
+    got = fc.split_count(-(-n // 128), vocab_tiles, 132)
+    assert got == splits
+    per = -(-vocab_tiles // got)
+    assert (got - 1) * per < vocab_tiles
+
+
 @pytest.mark.parametrize("n_chunks", [1, 3, 8])
 def test_reference_chunking_is_exact(n_chunks):
     x, w, t = map(torch.from_numpy, _inputs(100, 32, 300, seed=1))

@@ -68,17 +68,20 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_fused_bwd.cu": {"flash_bwd_sm90.cuh", "hopper.cuh"},
           "flash_dkv_bwd.cu": {"flash_bwd_sm90.cuh", "hopper.cuh"},
           "flash_dq_bwd.cu": {"flash_dq_sm90.cuh", "hopper.cuh"},
-          "flash_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"}}
+          "flash_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
+          "flash_dt_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
+          "ce_fwd.cu": {"hopper.cuh"}}
 
 
 def test_sources_include_only_their_own_headers():
-    """The eight Hopper kernels share csrc/hopper.cuh through three headers:
-    the forward main loop (K2b, K2a, K1-fwd, P1), the key-major backward
-    (K3c, K3b) and the query-major dq block (K3a); the self-attention
-    backward (K1-bwd) runs both backward blocks. The library name hashes
-    every header with the sources, so an edit of one rebuilds them. Those
-    sources issue wgmma and load by TMA, and none of them, nor the headers,
-    uses nvcuda::wmma."""
+    """The ten Hopper kernels share csrc/hopper.cuh, eight of them through
+    three headers: the forward main loop (K2b, K2a, K1-fwd, P1), the
+    key-major backward (K3c, K3b) and the query-major dq block (K3a); the
+    self-attention backward (K1-bwd) and the dt-layout backward (P2) run both
+    backward blocks, and the fused LM-head + CE forward (K4) includes
+    hopper.cuh alone. The library name hashes every header with the sources,
+    so an edit of one rebuilds them. Those sources issue wgmma and load by
+    TMA, and none of them, nor the headers, uses nvcuda::wmma."""
     heads = {p.name for p in _build.headers()}
     assert heads == {"hopper.cuh", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh",
                      "flash_dq_sm90.cuh"}
@@ -96,9 +99,10 @@ def test_sources_include_only_their_own_headers():
 @pytest.mark.parametrize("name,entry", [("flash_fwd.cu", "gpt2vl_flash_fwd"),
                                         ("flash_dq_bwd.cu", "gpt2vl_flash_general_dq"),
                                         ("flash_bwd.cu", "gpt2vl_flash_bwd"),
-                                        ("flash_dt_fwd.cu", "gpt2vl_flash_dt_fwd")])
+                                        ("flash_dt_fwd.cu", "gpt2vl_flash_dt_fwd"),
+                                        ("flash_dt_bwd.cu", "gpt2vl_flash_dt_bwd")])
 def test_rebuilt_kernel_is_hopper_only(name, entry):
-    """K1-fwd, K3a, K1-bwd and P1, rebuilt for Hopper: each source holds its
+    """K1-fwd, K3a, K1-bwd, P1 and P2, rebuilt for Hopper: each source holds its
     entry point and its own __global__ kernel, reaches TMA and wgmma through
     csrc/hopper.cuh, and keeps nothing of the wmma kernels it replaced."""
     text = (_build.CSRC / name).read_text()
@@ -164,3 +168,41 @@ def test_self_attention_backward_is_one_grid_of_both_blocks():
     assert "backward_block<false, DKV_STAGES>" in k1 and "dq_block<DQ_STAGES>" in k1
     assert "dim3(2 * nt * H, 1, B)" in k1
     assert "set_smem_once(flash_bwd_kernel" in k1 and "cudaFuncSetAttribute" not in k1
+
+
+def test_dt_backward_is_both_blocks_in_their_dt_layout():
+    """P2 runs the key-major dk/dv block (without its dQ half) and the
+    query-major dq block in their dt layout, in one grid in the
+    self-attention backward's block order, over map_dt tensor maps; dq is
+    summed in one block in a fixed order (no fp32 buffer, no reductions in
+    global memory, no cast kernel). The bthd sources keep the default
+    layout. The dt S^T and dP^T of the dk/dv block read both operands
+    MN-major (m64n64k16 with both transpose bits)."""
+    dt = (_build.CSRC / "flash_dt_bwd.cu").read_text()
+    assert "backward_block<false, DKV_STAGES, Layout::DT>" in dt
+    assert "dq_block<DQ_STAGES, Layout::DT>" in dt
+    assert "map_dt(" in dt and "set_smem_once(flash_dt_bwd_kernel" in dt
+    for gone in ("dq_acc", "red.global", "atomicAdd", "cast_kernel", "gpt2vl_flash_rowdot"):
+        assert gone not in dt, gone
+    for name in ("flash_bwd.cu", "flash_dq_bwd.cu", "flash_dkv_bwd.cu", "flash_fused_bwd.cu"):
+        assert "Layout::DT" not in (_build.CSRC / name).read_text(), name
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert "enum class Layout { BTHD, DT };" in hopper
+    assert "void mma_m64n64_ss_tt(" in hopper
+    kv = (_build.CSRC / "flash_bwd_sm90.cuh").read_text()
+    assert "mma_m64n64_ss_tt(st," in kv and "mma_m64n64_rs(dva, pa[kk]" in kv
+
+
+def test_ce_forward_is_a_wgmma_gemm_with_a_row_epilogue():
+    """K4, rebuilt for Hopper: 2-D TMA maps of x and w, wgmma m64n256k16 with
+    both operands K-major from shared memory, the per-split row statistics
+    merged by a second kernel; its entry points keep their names."""
+    text = (_build.CSRC / "ce_fwd.cu").read_text()
+    for entry in ("gpt2vl_ce_fwd", "gpt2vl_ce_fwd_block_rows", "gpt2vl_ce_fwd_tile_cols"):
+        assert f'extern "C" int {entry}(' in text
+    assert "map_2d(" in text and "tma_load_2d(" in text and "mma_m64n256_ss(" in text
+    assert "ce_fwd_combine_kernel" in text
+    for gone in ("nvcuda", "<mma.h>", "wmma::", "load_matrix_sync", "mma_sync("):
+        assert gone not in text, gone
+    hopper = (_build.CSRC / "hopper.cuh").read_text()
+    assert "m64n256k16.f32.bf16.bf16" in hopper and "cp.async.bulk.tensor.2d" in hopper
