@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
      registers, spills and SASS instruction counts printed);
   2. flash-attention forward kernel vs its plain version, bf16, at the
      scoring shape (B=8, T=1024, H=12, hs=64, causal, q/k/v strided views of
-     the fused QKV output), at a ragged T=1000 and at B=1, T=8192 (K1_MAX_T,
-     the plain version four heads at a time); o held elementwise and row by
+     the fused QKV output), at a ragged T=1000, at the HellaSwag shape of
+     phase 26 (B=32: 8 examples x 4 endings, T=1024) and at B=1, T=8192
+     (K1_MAX_T, the plain version four heads at a time); o held elementwise and row by
      row (each row of 64 within 2^-6 of its norm), and a control that must
      fail the row check: the last 128 rows at T=8192 against the plain
      version without their first key tile (the elementwise check's reading
@@ -152,12 +153,30 @@ Phases (any failure raises and the script exits non-zero):
      validation on the CE kernel, CIDEr over the 64 synthetic val images,
      checkpoints), evaluate_captions called directly, frozen leaves
      bit-identical to the seeded init; then --steps 4 resumes the
-     cross-attention run.
+     cross-attention run;
+ 24. the top-p samplers at (50, 50304) on logits of the 124M lm_head over
+     seeded hidden states: top_p_keep_mask at ways=2 and 8 bit-equal, equal
+     to the sorted kept set except on rows whose boundary mass lies within
+     1e-5 of p (counted), a dyadic tie row equal to the sorted set with a
+     control (the tie rule dropped) that must differ; one call of each
+     sampler timed, wall and device;
+ 25. decode: cli.bench_decode at B=50 with --topp-ways 2 (phase 5's run) and
+     8, and at --batch 1 with --uncached-baseline; captions/s beside the card;
+ 26. cli.eval_quality at GPT-2 124M full width and depth from seeded weights,
+     on files written here: HellaSwag (16 examples, contexts of 520-900
+     tokens, every batch padded to 1024) from a reference .pt and an HF
+     directory at --policy bf16 (2 x 12 K1-fwd launches each, equal counts;
+     K1-fwd at this shape is held against its plain version in phase 2);
+     --policy fp32 must raise before any launch, and so must the router
+     (ops/attention.sdpa) on fp32 q at T=1024, since the kernels take bf16;
+     CIDEr and METEOR from a linear and a Q-Former GPT_Caption .pt at bf16,
+     the served Q-Former's query_tokens fp32.
 
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
-phase 20; the fine-tune runs of phase 23 beside them), error, times, bound
-and library-call time, and last {"ok": true, "device": {...}}. Exits non-zero,
+phase 20; the fine-tune runs of phase 23 and the HellaSwag runs of phase 26
+beside them), error, times, bound and library-call time, the whole run's
+seconds, and last {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA device.
 
 With --flash-times it only builds the kernels, counts each one's SASS
@@ -279,9 +298,10 @@ def phase_flash(torch, fa, dev):
     g = torch.Generator(dev).manual_seed(0)
     errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0}
     timing = None
-    # the scoring shape, a ragged T, and K1_MAX_T, where the late rows' |o| is
-    # smallest (the plain version four heads at a time)
-    for b, t in ((8, 1024), (8, 1000), (1, fa.K1_MAX_T)):
+    # the scoring shape, a ragged T, the HellaSwag forward's (phase 26: 8
+    # examples x 4 endings padded to 1024), and K1_MAX_T, where the late rows'
+    # |o| is smallest (the plain version four heads at a time)
+    for b, t in ((8, 1024), (8, 1000), (32, 1024), (1, fa.K1_MAX_T)):
         h, hs = 12, 64
         qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
         q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
@@ -314,7 +334,7 @@ def phase_flash(torch, fa, dev):
             require(control > 0, "K1-fwd's o passed the row check against o without the first "
                     "key tile: the check cannot see a late start of the key sweep")
             errs["o_control"], errs["o_control_elementwise"] = control, loose
-        if t == 1024:
+        if (b, t) == (8, 1024):
             timing = interleaved(
                 lambda: fa.flash_attention(q, k, v, causal=True),
                 lambda: fa.flash_attention_reference(q, k, v, causal=True),
@@ -1286,16 +1306,22 @@ def phase_long_train_step(torch, np, gpt2, mods, cfgs, dev):
     return {"tps": tps, "peak_gib": peak, "counts": main_counts}
 
 
-def write_synthetic_hellaswag(np, path, n=16, seed=0):
+def write_synthetic_hellaswag(np, path, n=16, seed=0, ctx_tokens=None, tokenizer=None):
     """A small seeded HellaSwag-format file (no such data ships with the
-    repository and none can be fetched)."""
+    repository and none can be fetched). With ``ctx_tokens=(lo, hi)`` each
+    context grows until ``tokenizer`` encodes it to a length drawn from
+    [lo, hi] or more."""
     rng = np.random.RandomState(seed)
     words = "the a cat dog runs sleeps quickly under over bridge river and then stops".split()
     with open(path, "w") as f:
         for _ in range(n):
             phrase = lambda k: " ".join(rng.choice(words, size=k))  # noqa: E731
-            f.write(json.dumps({"ctx": phrase(int(rng.randint(3, 9))),
-                                "label": int(rng.randint(4)),
+            ctx = phrase(int(rng.randint(3, 9)))
+            if ctx_tokens is not None:
+                want = int(rng.randint(ctx_tokens[0], ctx_tokens[1] + 1))
+                while len(tokenizer.encode(ctx)) < want:
+                    ctx += " " + phrase(8)
+            f.write(json.dumps({"ctx": ctx, "label": int(rng.randint(4)),
                                 "endings": [phrase(int(rng.randint(1, 5))) for _ in range(4)]})
                     + "\n")
 
@@ -2469,6 +2495,255 @@ def phase_finetune_clis(torch, ft, mods, dev):
         shutil.rmtree(log_root, ignore_errors=True)
 
 
+def dyadic_tie_row(np, v, p, seed=0, m=8, head=20):
+    """One (1, v) fp32 row of multiples of 2^-20 summing to exactly 1, with a
+    tie group of m tokens at one value straddling p in shuffled positions:
+    every partial sum is exact in any order, so the kept set is exact."""
+    n, tie = 1 << 20, 2000
+    rng = np.random.RandomState(seed)
+    top = int(p * n) - (m // 2) * tie + int(rng.randint(tie))
+    heads = np.full(head, top // head)
+    heads[-1] += top - heads.sum()
+    tail = rng.multinomial(n - top - m * tie, np.full(v - head - m, 1.0 / (v - head - m)))
+    counts = np.concatenate([heads, np.full(m, tie), tail])
+    require(counts.sum() == n and heads.min() > tie > tail.max(), "bad dyadic row")
+    return (counts[rng.permutation(v)][None] / n).astype(np.float32)
+
+
+def wall_ms(torch, fn, iters):
+    """Wall milliseconds a call of fn() costs in a loop synchronised at its
+    end: what a host-paced decode step pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_sampler(torch, np, gpt2, sampling, cfg, dev):
+    """The sort-free nucleus sampler on the card at (50, 50304): its two
+    arities bit-equal, the sorted kept set away from the boundary, a dyadic
+    tie row exact, a control without the tie rule, and both samplers timed."""
+    print("[24] top-p samplers at (50, 50304): sort-free against sorted", flush=True)
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(24), device=dev)
+    g = torch.Generator(dev).manual_seed(25)
+    scale = torch.linspace(1.0, 20.0, 50, device=dev)[:, None]
+    hidden = torch.randn(50, cfg.n_embd, generator=g, device=dev) * scale
+    logits = hidden @ model.transformer.wte.weight.t()  # the 124M lm_head, fp32
+    del model
+    probs = torch.softmax(logits / 0.8, dim=-1)
+    out = {}
+    for p in (0.5, 0.9):
+        k2 = sampling.top_p_keep_mask(probs, p, ways=2)
+        k8 = sampling.top_p_keep_mask(probs, p, ways=8)
+        require(torch.equal(k2, k8), f"p={p}: ways=2 and ways=8 masks differ on the card")
+        ks = sampling.sorted_keep_mask(probs, p)
+        s64 = torch.sort(probs.double(), dim=-1, descending=True).values
+        excl = torch.cumsum(s64, dim=-1) - s64
+        kept = (excl <= p).sum(-1)
+        rows = torch.arange(50, device=dev)
+        near = (((excl[rows, kept - 1] - p).abs() <= 1e-5)
+                | ((excl[rows, kept.clamp(max=excl.shape[1] - 1)] - p).abs() <= 1e-5))
+        differ = (k2 != ks).any(-1)
+        print(f"  p={p}: ways 2 = ways 8 bit for bit; kept {int(k2.sum(-1).min())}-"
+              f"{int(k2.sum(-1).max())} tokens a row; rows within 1e-5 of p: "
+              f"{int(near.sum())}; rows that differ from the sorted set: {int(differ.sum())}",
+              flush=True)
+        require(not bool((differ & ~near).any()),
+                f"p={p}: the sort-free kept set differs from the sorted one away from p")
+        out[f"p{p}"] = {"near_rows": int(near.sum()), "differing_rows": int(differ.sum())}
+    row = torch.from_numpy(dyadic_tie_row(np, cfg.padded_vocab_size, 0.9)).to(dev)
+    keep = sampling.top_p_keep_mask(row, 0.9)
+    require(torch.equal(keep, sampling.sorted_keep_mask(row, 0.9))
+            and torch.equal(keep, sampling.top_p_keep_mask(row, 0.9, ways=8)),
+            "the dyadic tie row's kept set differs from the sorted one")
+    vb = row[keep].min()
+    tie = row == vb
+    control = row > vb  # the tie rule dropped
+    print(f"  dyadic tie row: {int(keep.sum())} kept, {int((keep & tie).sum())} of the "
+          f"{int(tie.sum())}-token tie group; control without the tie rule keeps "
+          f"{int(control.sum())}", flush=True)
+    require(0 < int((keep & tie).sum()) < int(tie.sum()), "the tie group does not straddle p")
+    require(not torch.equal(control, keep), "the control without the tie rule passed")
+    gen = torch.Generator(dev).manual_seed(26)
+    fns = {"sorted": lambda: sampling.sample_top_p(gen, logits),
+           "fast_ways2": lambda: sampling.sample_top_p_fast(gen, logits, ways=2),
+           "fast_ways8": lambda: sampling.sample_top_p_fast(gen, logits, ways=8)}
+    # wall: a loop synchronised at its end, twice; device: the kernels alone
+    # (torch.profiler), since the sort-free sampler's ~400 launches a call
+    # outlast the hold kernel that cuda_ms queues its loop behind
+    for name, fn in fns.items():
+        out[name] = {"wall_ms": wall_ms(torch, fn, 20),
+                     "kernel_ms": profiled_kernel_ms(torch, fn)[0]}
+    for name, fn in fns.items():
+        out[name]["wall_ms_2"] = wall_ms(torch, fn, 20)
+    ratio = out["fast_ways2"]["wall_ms"] / out["sorted"]["wall_ms"]
+    out["fast_over_sorted_wall"] = ratio
+    out["faster_by_the_rule"] = "sample_top_p_fast" if ratio <= 1.10 else "sample_top_p"
+    print("  one call, wall ms (again) / kernels ms: " + "; ".join(
+        f"{n} {v['wall_ms']:.3f} ({v['wall_ms_2']:.3f}) / {v['kernel_ms']:.3f}"
+        for n, v in out.items() if isinstance(v, dict) and "wall_ms" in v)
+        + f"; sort-free / sorted wall {ratio:.2f}x", flush=True)
+    return out
+
+
+def phase_decode(bench_decode, first, card):
+    """cli.bench_decode at B=50 with --topp-ways 2 (phase 5's run, ``first``)
+    and 8, and at --batch 1 with --uncached-baseline."""
+    print("[25] decode: cli.bench_decode at B=50 (--topp-ways 2 and 8) and B=1 "
+          "(--uncached-baseline)", flush=True)
+    out = {"B50_ways2": first}
+    out["B50_ways8"] = bench_decode.main(["--batch", "50", "--new", "24", "--iters", "3",
+                                          "--topp-ways", "8"])
+    out["B1_ways2"] = bench_decode.main(["--batch", "1", "--new", "24", "--iters", "3",
+                                         "--uncached-baseline"])
+    for name, r in out.items():
+        require(r["value"] > 0, f"bench_decode {name} failed")
+        print(f"  {name}: {r['value']} captions/s ({card})", flush=True)
+    require(out["B1_ways2"]["uncached_reference_captions_per_sec"] > 0,
+            "the uncached baseline did not run")
+    print(f"  uncached reference regime (B=1, a full re-forward per token, sorted "
+          f"sampler): {out['B1_ways2']['uncached_reference_captions_per_sec']} captions/s; "
+          f"B=1 cached is {out['B1_ways2']['speedup_vs_uncached']}x it", flush=True)
+    return out
+
+
+def phase_eval_quality(torch, np, mods, ft, cfg, dev):
+    """cli.eval_quality at GPT-2 124M full width and depth from seeded weights,
+    on files written here: HellaSwag from a reference .pt and an HF directory
+    (bf16, every batch padded to 1024 so that each layer's attention runs on
+    K1-fwd; fp32 refused), captions with METEOR from a linear and a Q-Former
+    GPT_Caption .pt."""
+    print("[26] cli.eval_quality: GPT-2 124M, reference .pt and HF directory (HellaSwag), "
+          "GPT_Caption .pt of each bridge (CIDEr, METEOR)", flush=True)
+    from gpt2_vision_language_tpu_torch.cli import eval_quality
+    from gpt2_vision_language_tpu_torch.core.config import BridgeConfig
+    from gpt2_vision_language_tpu_torch.eval import caption_eval
+
+    fa, fc, fw, gpt2, bridges = mods["fa"], mods["fc"], mods["fw"], ft["gpt2"], ft["bridges"]
+    out, secs = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_quality_")
+    try:
+        t0 = time.perf_counter()
+        model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(2611), device=dev)
+        with torch.no_grad():
+            model.transformer.wte.weight[cfg.vocab_size:] = 0.0  # as an unpadded file reads
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        pt = os.path.join(root, "model.pt")
+        torch.save({"model": sd, "step": 0}, pt)
+        hf = {}
+        for k, v in sd.items():
+            if k.endswith(("c_attn.weight", "c_proj.weight", "c_fc.weight")):
+                v = v.t().contiguous()  # HF Conv1D: (in, out)
+            hf[k] = v[:cfg.vocab_size] if k in ("transformer.wte.weight", "lm_head.weight") else v
+        for i in range(cfg.n_layer):
+            hf[f"transformer.h.{i}.attn.bias"] = torch.tril(torch.ones(
+                1, 1, cfg.block_size, cfg.block_size))
+        hf_dir = os.path.join(root, "hf")
+        os.makedirs(hf_dir)
+        torch.save(hf, os.path.join(hf_dir, "pytorch_model.bin"))
+        hs_dir = os.path.join(root, "hellaswag")
+        os.makedirs(hs_dir)
+        write_synthetic_hellaswag(np, os.path.join(hs_dir, "hellaswag_val.jsonl"), n=16, seed=3,
+                                  ctx_tokens=(520, 900), tokenizer=ft["tokenizer"])
+        tokens_dir, ann = ft["coco"].write_synthetic_coco(root, split="val", n_images=16,
+                                                          n_tokens=197, enc_dim=768)
+        captions = {}
+        for kind in ("linear", "qformer"):
+            bridge = bridges.bridge_init(BridgeConfig(kind=kind, enc_dim=768), cfg.n_embd,
+                                         generator=torch.Generator().manual_seed(7))
+            captions[kind] = os.path.join(root, f"caption_{kind}.pt")
+            torch.save({"model": {**{f"gpt.{k}": v for k, v in sd.items()},
+                                  **{f"bridge.{k}": v for k, v in bridge.state_dict().items()}}},
+                       captions[kind])
+        secs["write_files"] = time.perf_counter() - t0
+
+        hs = ["--hellaswag", "--hellaswag-dir", hs_dir, "--device", "cuda"]
+        for name, argv in (("reference_pt_bf16", ["--gpt-ckpt", pt, "--policy", "bf16"]),
+                           ("hf_dir_bf16", ["--hf-ckpt", hf_dir, "--policy", "bf16"])):
+            reset_counts(fa, fc, fw)
+            t0 = time.perf_counter()
+            r = eval_quality.main(argv + hs)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            counts = read_counts(fa, fc, fw)
+            out[name] = {k: r[k] for k in ("ckpt_format", "hellaswag_correct",
+                                           "hellaswag_total", "hellaswag_acc")}
+            out[name]["launches"] = counts
+            out[name]["flash_fwd_launches"] = counts["flash_fwd"]
+            print(f"  HellaSwag {name}: {r['hellaswag_correct']}/{r['hellaswag_total']} in "
+                  f"{secs[name]:.1f} s; launches {counts}", flush=True)
+            require(r["hellaswag_total"] == 16 and "hellaswag_skipped_too_long" not in r,
+                    f"{name}: not all 16 examples were scored")
+            # 16 examples, 8 a batch: two flushes at width 1024, 12 layers each
+            want = with_zeros({"flash_fwd": 2 * cfg.n_layer})
+            require(counts == want, f"{name}: expected launches {want}, got {counts}")
+        require(out["reference_pt_bf16"]["hellaswag_correct"]
+                == out["hf_dir_bf16"]["hellaswag_correct"],
+                "the reference .pt and the HF directory disagree on HellaSwag")
+        # --policy fp32: the JAX package runs its kernel on fp32 operands; the
+        # port's take bf16, so the entry point refuses before it loads a
+        # weight, and the router raises on fp32 q at T=1024 rather than
+        # reroute it
+        reset_counts(fa, fc, fw)
+        refused = {}
+        try:
+            eval_quality.main(["--gpt-ckpt", pt, "--policy", "fp32"] + hs)
+        except SystemExit as e:
+            refused["eval_quality_fp32"] = f"SystemExit: {e}"
+        q = torch.randn(1, 1024, 12, 64, device=dev)
+        try:
+            mods["attention"].sdpa(q, q, q, causal=True, layout="bthd")
+        except ValueError as e:
+            refused["sdpa_auto_fp32"] = f"ValueError: {e}"
+        counts = read_counts(fa, fc, fw)
+        for k, v in refused.items():
+            print(f"  {k}: {v}", flush=True)
+        require("--policy bf16" in refused.get("eval_quality_fp32", ""),
+                "eval_quality --hellaswag --policy fp32 ran on the card")
+        require("sdpa_auto_fp32" in refused, "ops.attention.sdpa took fp32 q at T=1024")
+        require(counts == with_zeros({}), f"the refused fp32 runs launched {counts}")
+        out["fp32_refused"] = refused
+
+        seen = []
+        cast = caption_eval.cast_decode_params
+        caption_eval.cast_decode_params = lambda m, p: seen.append(cast(m, p)) or seen[-1]
+        try:
+            for kind, path in captions.items():
+                t0 = time.perf_counter()
+                r = eval_quality.main(["--gpt-ckpt", path, "--bridge", kind, "--coco-tokens",
+                                       tokens_dir, "--coco-ann", ann, "--meteor",
+                                       "--cider-samples", "16", "--batch-size", "16",
+                                       "--policy", "bf16", "--device", "cuda"])
+                torch.cuda.synchronize()
+                secs[f"captions_{kind}"] = time.perf_counter() - t0
+                dtypes = {n: str(p.dtype) for n, p in seen[-1].bridge.named_parameters()
+                          if n in ("query_tokens", "vis_proj.weight")}
+                out[f"captions_{kind}"] = {k: r[k] for k in (
+                    "cider", "cider_samples", "meteor", "meteor_synonyms")}
+                out[f"captions_{kind}"]["served_dtypes"] = dtypes
+                print(f"  captions {kind}: CIDEr {r['cider']:.4f}, METEOR {r['meteor']:.4f} "
+                      f"({r['meteor_synonyms']}) over {r['cider_samples']} images in "
+                      f"{secs[f'captions_{kind}']:.1f} s; served dtypes {dtypes}", flush=True)
+                require(math.isfinite(r["cider"]) and math.isfinite(r["meteor"])
+                        and r["cider_samples"] == 16, f"{kind}: caption scores are not finite")
+                require(dtypes["vis_proj.weight"] == "torch.bfloat16",
+                        f"{kind}: the served vis_proj is not bf16")
+                if kind == "qformer":
+                    require(dtypes["query_tokens"] == "torch.float32",
+                            "the served Q-Former's query_tokens are not fp32")
+        finally:
+            caption_eval.cast_decode_params = cast
+        out["seconds"] = secs
+        print(f"  seconds: {json.dumps({k: round(v, 2) for k, v in secs.items()})}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def host_us(torch, fn, iters):
     """(host microseconds a call spends enqueueing fn(), microseconds a call
     of the same loop synchronised at its end): when the first is not below
@@ -2608,6 +2883,9 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card):
     print(json.dumps(out), flush=True)
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     import torch
 
@@ -2663,6 +2941,7 @@ def main() -> int:
     from gpt2_vision_language_tpu_torch.models import bridges
     from gpt2_vision_language_tpu_torch.ops import pooling
     from gpt2_vision_language_tpu_torch.train import finetune
+    from gpt2_vision_language_tpu_torch.infer import sampling
 
     print("[1] build", flush=True)
     so, build_s = _build.build()
@@ -2749,15 +3028,16 @@ def main() -> int:
     print(f"  cached vs uncached next-token logits (fp32): max|err| {e:.3e} (tol 1e-3)",
           flush=True)
     require(e <= 1e-3, "cached and uncached logits disagree")
-    result = bench_decode.main(["--batch", "50", "--new", "24", "--iters", "3"])
-    require(result["value"] > 0 and result["batch"] == 50, "bench_decode failed")
+    decode_b50 = bench_decode.main(["--batch", "50", "--new", "24", "--iters", "3"])
+    require(decode_b50["value"] > 0 and decode_b50["batch"] == 50, "bench_decode failed")
     phase_matmul_f32(torch, layers, dev)
     del model
 
     cfgs = {"gpt": cfg, "opt": OptimizerConfig(), "sched": ScheduleConfig()}
     mods = {"fa": fa, "fc": fc, "fw": fw, "ra": ra, "policy": DEFAULT_POLICY,
             "make_train_step": make_train_step, "adamw_init": adamw_init,
-            "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain}
+            "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain,
+            "attention": attention}
     bwd_errs, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
     adamw_err, adamw_t, adamw_kernel_ms = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
     train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
@@ -2798,13 +3078,22 @@ def main() -> int:
           "evaluate_captions": evaluate_captions}
     ft_ops = phase_finetune_ops(torch, np, ft, mods, dev)
     ft_counts, ft_runs = phase_finetune_clis(torch, ft, mods, dev)
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    sampler = phase_sampler(torch, np, gpt2, sampling, cfg, dev)
+    decode = phase_decode(bench_decode, decode_b50, card)
+    torch.cuda.empty_cache()
+    quality = phase_eval_quality(torch, np, mods, ft, cfg, dev)
+    slice_s = {"sampler_decode_eval_quality": time.perf_counter() - t_slice}
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
                "train_step": train["counts"], "trainer": trainer_counts,
                "long_train_step": long_train["counts"], "long_trainer": long_counts,
                "ring_train_step": ring_train["counts"], "ring_trainer": ring_counts,
                "ab_dt_flash": dt_counts,
-               **{f"finetune_{kind}": c for kind, c in ft_counts.items()}}
+               **{f"finetune_{kind}": c for kind, c in ft_counts.items()},
+               **{f"eval_quality_{name}": quality[name]["launches"]
+                  for name in ("reference_pt_bf16", "hf_dir_bf16")}}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
@@ -2962,6 +3251,9 @@ def main() -> int:
                                   n_tok / dt_plain, "micro_batch_device_ms": score_ms,
                                   "micro_batch_device_ms_by_class": score_split}}))
     print(json.dumps({"finetune": ft_runs, "finetune_ops": ft_ops}))
+    print(json.dumps({"sampler": sampler, "decode": decode, "eval_quality": quality,
+                      "seconds": slice_s, "card": card}))
+    print(f"whole run: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,9 @@ reference's semantics (train_gpt2.py:307-329,363-391,494-508):
 
 The format is the port's own: one ``torch.save`` file holding the model's
 state dict, the AdamW state {"m", "v", "step"} and a metadata dict. Writes
-are synchronous. Reading the JAX ``.npz`` checkpoints waits for ROADMAP
-Queue 1 item 9.
+are synchronous. ``load_jax_checkpoint`` reads the JAX package's ``.npz``
+(its ckpt/checkpoint.py:97-116) without jax or ``ml_dtypes``: a nested dict
+of numpy arrays, which ckpt/convert.py turns into the port's state dicts.
 
 Every metadata dict carries ``next_step``, the step a resumed run starts
 at. A rolling save happens at the top of step s, before its update, so its
@@ -25,11 +26,16 @@ the previous one ended.
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+# the JAX package's key suffix for a bf16 leaf stored as its uint16 bits
+_BF16_TAG = "::bfloat16"
 
 
 def save_checkpoint(path: str, tree: dict, meta: Optional[dict] = None) -> None:
@@ -52,6 +58,31 @@ def load_checkpoint(path: str, map_location="cpu") -> Tuple[dict, dict]:
     ckpt = torch.load(path, map_location=map_location, mmap=True, weights_only=True)
     meta = ckpt.pop("meta", {})
     return ckpt, meta
+
+
+def load_jax_checkpoint(path: str) -> Tuple[dict, dict]:
+    """Read a JAX-package ``.npz`` checkpoint -> (nested dict of numpy arrays,
+    meta). Keys are "/"-joined paths, ``__meta__`` is JSON bytes, and a key
+    ending in ``::bfloat16`` holds the leaf's uint16 bits, widened here
+    exactly to fp32 (the bits shifted into the high half of a float32)."""
+    tree: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(z["__meta__"].tobytes().decode()) if "__meta__" in z.files else {}
+        for key in z.files:
+            if key == "__meta__":
+                continue
+            val = z[key]
+            if key.endswith(_BF16_TAG):
+                if val.dtype != np.uint16:
+                    raise ValueError(f"{path}: {key!r} holds {val.dtype}, not bf16 bits")
+                key = key[: -len(_BF16_TAG)]
+                val = (val.astype(np.uint32) << 16).view(np.float32)
+            node = tree
+            *parents, leaf = key.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = val
+    return tree, meta
 
 
 class CheckpointManager:

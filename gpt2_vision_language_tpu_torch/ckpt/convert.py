@@ -16,10 +16,11 @@ pytrees of the params' structure, and ``step``) to the port's
 ``train/optimizer`` state by the same rule, so both start from the same
 params and moments.
 
-``load_reference_checkpoint`` reads a reference-format ``.pt``
-(``{"model": state_dict, ...}``, train_gpt2.py:363-391) into a state dict
-that ``GPT2.load_state_dict`` takes, as ckpt/torch_import.py does for the
-JAX package.
+``jax_leaf_name`` gives the JAX leaf name of a port parameter (the decode
+cast's rule is by that name), and ``check_jax_paths`` holds a JAX tree to the
+leaves these converters read. The readers of files from outside the port
+(reference and HF ``.pt``/``.bin``/``.safetensors``) are in
+``ckpt/torch_import.py``, the JAX ``.npz`` reader in ``ckpt/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -67,6 +68,81 @@ _QFORMER_LEAVES = (
     ("mlp", "wfc", "mlp.0.weight", True), ("mlp", "bfc", "mlp.0.bias", False),
     ("mlp", "wproj", "mlp.2.weight", True), ("mlp", "bproj", "mlp.2.bias", False),
 )
+
+
+# port parameter names outside the layer tables -> the JAX leaf's name
+_TOP_LEAVES = {
+    "transformer.wte.weight": "wte", "lm_head.weight": "wte",
+    "transformer.wpe.weight": "wpe",
+    "transformer.ln_f.weight": "scale", "transformer.ln_f.bias": "bias",
+    "transformer.vis_proj.z_proj.weight": "w", "transformer.vis_proj.z_proj.bias": "b",
+    # the bridges (models/bridges.py), bare or under CaptionModel's bridge.*
+    "vis_proj.weight": "w", "vis_proj.bias": "b", "query_tokens": "query_tokens",
+}
+_GPT_LAYER_LEAVES = {**{name: leaf for _, leaf, name, _ in _BLOCK_LEAVES + _XATTN_BLOCK_LEAVES},
+                     "cross_gate": "gate"}
+# every parameter of a Q-Former layer; in_proj_weight packs the JAX leaves wq,
+# wk and wv (in_proj_bias bq, bk and bv)
+_QFORMER_LAYER_LEAVES = {
+    **{name: leaf for _, leaf, name, _ in _QFORMER_LEAVES},
+    **{f"{attn}.{name}": leaf for attn in ("self_attn", "cross_attn")
+       for name, leaf in (("in_proj_weight", "wq"), ("in_proj_bias", "bq"),
+                          ("out_proj.weight", "wo"), ("out_proj.bias", "bo"))},
+}
+
+
+def jax_leaf_name(name: str) -> str:
+    """The last key of the JAX parameter path that the port parameter ``name``
+    comes from, for a GPT2 (plain or gated cross-attention), a bridge, or a
+    CaptionModel (``gpt.*``, ``bridge.*``). Raises KeyError on a name that no
+    JAX leaf maps to."""
+    bare = name.removeprefix("gpt.").removeprefix("bridge.")
+    if bare in _TOP_LEAVES:
+        return _TOP_LEAVES[bare]
+    parts = bare.split(".")
+    if parts[:2] == ["transformer", "h"] and len(parts) > 3 and parts[2].isdigit():
+        leaf = _GPT_LAYER_LEAVES.get(".".join(parts[3:]))
+    elif parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+        leaf = _QFORMER_LAYER_LEAVES.get(".".join(parts[2:]))
+    else:
+        leaf = None
+    if leaf is None:
+        raise KeyError(f"no JAX leaf maps to the port parameter {name!r}")
+    return leaf
+
+
+def _paths(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _paths(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def check_jax_paths(tree: Mapping, cfg: GPTConfig = None, bridge_kind: str = None) -> None:
+    """Raise KeyError unless the leaf paths of a JAX parameter tree are exactly
+    those that ``gpt2_from_jax_params`` (``cfg``) or ``bridge_from_jax_params``
+    (``bridge_kind``) reads: a leaf no converter reads is named, never
+    dropped."""
+    if cfg is not None:
+        want = {"wte", "wpe", "lnf/scale", "lnf/bias"}
+        leaves = _BLOCK_LEAVES + (_XATTN_BLOCK_LEAVES if cfg.cross_attention else ())
+        want |= {f"blocks/{group}/{leaf}" for group, leaf, _, _ in leaves}
+        if cfg.cross_attention:
+            want |= {"blocks/gate", "vis_proj/w", "vis_proj/b"}
+    else:
+        want = {"vis_proj/w", "vis_proj/b"}
+        if bridge_kind == "qformer":
+            want |= {"query_tokens"}
+            want |= {f"layers/{group}/{leaf}" for group, leaf, _, _ in _QFORMER_LEAVES}
+            want |= {f"layers/{attn}/{w}" for attn in ("self_attn", "cross_attn")
+                     for w in ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")}
+        elif bridge_kind != "linear":
+            raise ValueError(f"no bridge parameters for kind {bridge_kind!r}")
+    have = set(_paths(tree))
+    if have != want:
+        raise KeyError(f"JAX parameter tree: leaves not read {sorted(have - want)[:8]}, "
+                       f"leaves missing {sorted(want - have)[:8]}")
 
 
 def _t(a) -> torch.Tensor:
@@ -170,22 +246,3 @@ def opt_state_from_jax(opt_state_np, cfg: GPTConfig, bridge_cfg=None) -> dict:
 
     return {"m": moments(opt_state_np["m"]), "v": moments(opt_state_np["v"]),
             "step": int(np.asarray(opt_state_np["step"]))}
-
-
-def load_reference_checkpoint(path: str, cfg: GPTConfig):
-    """Read a reference ``.pt`` -> (state dict for GPT2, meta). Drops the
-    causal-mask buffers some reference versions register as ``...attn.bias``
-    and zero-pads an unpadded vocab to ``cfg.padded_vocab_size`` rows."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    sd: Mapping = ckpt["model"] if isinstance(ckpt, dict) and "model" in ckpt else ckpt
-    meta = ({k: v for k, v in ckpt.items() if k != "model"}
-            if isinstance(ckpt, dict) else {})
-    sd = {k: v.float() for k, v in sd.items()
-          if k.split(".")[-2:] != ["attn", "bias"]}
-    wte = sd["transformer.wte.weight"]
-    pad = cfg.padded_vocab_size - wte.shape[0]
-    if pad > 0:
-        wte = torch.cat([wte, wte.new_zeros(pad, wte.shape[1])])
-    sd["transformer.wte.weight"] = wte
-    sd["lm_head.weight"] = wte
-    return sd, meta

@@ -3,8 +3,9 @@
     python -m gpt2_vision_language_tpu_torch.cli.sample --ckpt model.pt \\
         --prompt "Hello, I'm a language model," --num 4 --length 32
 
-``--ckpt`` takes a reference-format ``.pt`` ({"model": state_dict}); without
-one the model is a seeded random init. Counterpart of
+``--ckpt`` takes any checkpoint ckpt/torch_import.load_gpt_checkpoint reads
+(a reference or port ``.pt``, an HF directory or weights file, a JAX
+``.npz``); without one the model is a seeded random init. Counterpart of
 gpt2_vision_language_tpu/cli/sample.py, with the same flags plus ``--device``.
 """
 
@@ -37,9 +38,9 @@ def main(argv=None):
     device = torch.device(args.device)
     cfg = GPTConfig()
     if args.ckpt:
-        from ..ckpt.convert import load_reference_checkpoint
+        from ..ckpt.torch_import import load_gpt_checkpoint
 
-        sd, _ = load_reference_checkpoint(args.ckpt, cfg)
+        sd, _ = load_gpt_checkpoint(args.ckpt, cfg)
         model = gpt2.GPT2(cfg)
         model.load_state_dict(sd)
         model = model.to(device)

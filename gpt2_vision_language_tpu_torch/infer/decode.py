@@ -20,21 +20,28 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ckpt.convert import jax_leaf_name
 from ..core.config import GPTConfig
 from ..core.precision import Policy, DEFAULT_POLICY
 from ..models import gpt2
 from .sampling import sample_top_k
 
 
-def cast_decode_params(model: gpt2.GPT2, policy: Policy = DEFAULT_POLICY):
-    """A copy of ``model`` with its weight matrices (wte/lm_head, wpe, every
-    Linear weight) stored in the compute dtype, for serving; LayerNorm
-    parameters and biases stay fp32 (infer/decode.py:29-61). Decoding
-    reads every weight once per token, so this halves the bytes it moves;
-    the matmuls cast to the compute dtype anyway."""
+def cast_decode_params(model, policy: Policy = DEFAULT_POLICY):
+    """A copy of ``model`` (a GPT2, a bridge or a CaptionModel) with the JAX
+    rule's leaves stored in the compute dtype, for serving
+    (infer/decode.py:29-61 there): ``wte`` (and the tied ``lm_head``), ``wpe``
+    and every leaf named ``w*`` with ndim >= 2 but ``gate``, the names
+    ckpt/convert.jax_leaf_name gives. LayerNorm parameters, biases, the
+    Q-Former's ``query_tokens`` and ``cross_gate`` keep their dtype. Decoding
+    reads every weight once per token, so this halves the bytes it moves; the
+    matmuls cast to the compute dtype anyway."""
     out = copy.deepcopy(model)
-    for p in out.parameters():
-        if p.is_floating_point() and p.dim() >= 2:
+    for name, p in out.named_parameters():
+        leaf = jax_leaf_name(name)
+        if p.is_floating_point() and (
+                leaf in ("wte", "wpe")
+                or (leaf.startswith("w") and leaf != "gate" and p.dim() >= 2)):
             p.data = p.data.to(policy.compute_dtype)
     return out
 

@@ -135,7 +135,9 @@ def generate_captions(model: CaptionModel, patch_tokens, prompt_ids, cfg: GPTCon
                       bridge_cfg: BridgeConfig, generator, *, max_new_tokens: int = 24,
                       policy: Policy = DEFAULT_POLICY, decoder=None):
     """KV-cached nucleus-sampled caption generation (temperature 0.8, top-p
-    0.9, gpt2_linear/data.py:108-127)."""
+    0.9, gpt2_linear/data.py:108-127), by the sorted ``sample_top_p``: the
+    sort-free sampler keeps the same set and took 13.1-19.9 ms a call on the
+    H100 against 0.57-0.90 ms (infer/sampling.py)."""
     # local import: infer.decode itself imports models.gpt2
     from ..infer.decode import Decoder
     from ..infer.sampling import sample_top_p

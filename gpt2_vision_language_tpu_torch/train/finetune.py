@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ckpt.checkpoint import CheckpointManager
-from ..ckpt.convert import load_reference_checkpoint
+from ..ckpt.torch_import import load_gpt_checkpoint
 from ..core.config import FinetuneConfig
 from ..core.precision import Policy, DEFAULT_POLICY
 from ..data.coco import CocoBatcher, CocoClipTokensDataset, build_pooled_feature_bank
@@ -64,7 +64,7 @@ def load_pretrained_gpt(cfg, init_ckpt: Optional[str], *, device, seed: int = 0)
                       device=device)
     if not init_ckpt:
         return model
-    sd, _ = load_reference_checkpoint(init_ckpt, cfg)
+    sd, _ = load_gpt_checkpoint(init_ckpt, cfg)
     missing, _ = model.load_state_dict(sd, strict=False)
     if missing:
         print(f"[init] {len(missing)} leaves not in {init_ckpt} keep their init")
@@ -215,6 +215,8 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
     log.meta("tokenizer", tokenizer.name)
     log.meta("argv", " ".join(sys.argv))
     manager = CheckpointManager(os.path.join(log.log_dir, "ckpts"), save_every=cfg.save_every)
+    # the sorted sampler: it keeps the sort-free one's set and took 0.57-0.90
+    # ms a call on the H100 against 13.1-19.9 ms (infer/sampling.py)
     cider_decoder = Decoder(model_cfg, policy=policy, sample_fn=sample_top_p)
 
     start_step = 0

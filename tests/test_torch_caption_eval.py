@@ -1,7 +1,7 @@
 """The port's caption evaluation: the copied CIDEr scorer against the JAX
-package's on fixed strings, evaluate_captions end to end for a prefix bridge
-and for the cross-attention decoder, and the KV-cached decode with a visual
-memory against the uncached forward."""
+package's on fixed strings, evaluate_captions end to end (CIDEr and METEOR)
+for a prefix bridge and for the cross-attention decoder, and the KV-cached
+decode with a visual memory against the uncached forward."""
 
 import os
 
@@ -76,9 +76,12 @@ def test_evaluate_captions_runs(val_ds, kind):
     again = caption_eval.evaluate_captions(model, val_ds, cfg, bcfg, get_tokenizer(),
                                            feature_bank=bank, **kw)
     assert again["captions"] == out["captions"] and again["cider"] == out["cider"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        caption_eval.evaluate_captions(model, val_ds, cfg, bcfg, get_tokenizer(),
-                                       compute_meteor=True)
+    # METEOR (eval/meteor.py) beside CIDEr, with its synonym table's provenance
+    with_meteor = caption_eval.evaluate_captions(model, val_ds, cfg, bcfg, get_tokenizer(),
+                                                 compute_meteor=True, **kw)
+    assert with_meteor["captions"] == out["captions"]
+    assert 0.0 <= with_meteor["meteor"] <= 1.0
+    assert with_meteor["meteor_synonyms"] in ("builtin", "nltk-wordnet")
 
 
 def test_cached_decode_with_z_equals_the_uncached_forward():

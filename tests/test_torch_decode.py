@@ -11,16 +11,21 @@ import pytest
 import torch
 
 from gpt2_vision_language_tpu.core import precision as jp
+from gpt2_vision_language_tpu.core.config import BridgeConfig as JaxBridgeConfig
 from gpt2_vision_language_tpu.core.config import GPTConfig as JaxGPTConfig
 from gpt2_vision_language_tpu.infer import decode as jdecode
 from gpt2_vision_language_tpu.infer import sampling as jsampling
+from gpt2_vision_language_tpu.models import caption as jcaption
 from gpt2_vision_language_tpu.models import gpt2 as jgpt2
-from gpt2_vision_language_tpu_torch.ckpt.convert import _BLOCK_LEAVES, gpt2_from_jax_params
-from gpt2_vision_language_tpu_torch.core.config import GPTConfig
+from gpt2_vision_language_tpu_torch.ckpt.convert import (
+    caption_from_jax_params,
+    gpt2_from_jax_params,
+)
+from gpt2_vision_language_tpu_torch.core.config import BridgeConfig, GPTConfig
 from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY
 from gpt2_vision_language_tpu_torch.infer import sampling
 from gpt2_vision_language_tpu_torch.infer.decode import Decoder, cast_decode_params, generate
-from gpt2_vision_language_tpu_torch.models import gpt2
+from gpt2_vision_language_tpu_torch.models import bridges, caption, gpt2
 
 KW = dict(block_size=64, vocab_size=128, n_layer=2, n_head=2, n_embd=64)
 CFG, JCFG = GPTConfig(**KW), JaxGPTConfig(**KW)
@@ -111,23 +116,50 @@ def test_top_p_draws_only_from_kept_set():
     assert [set(np.nonzero(m)[0].tolist()) for m in jmask] == kept
 
 
-def test_cast_decode_params_casts_the_jax_leaves(jax_params, model):
-    """The same leaves as infer/decode.py:50-59 go to bf16; the tie holds."""
-    jcast = jdecode.cast_decode_params(jax_params)
-    want = {"transformer.wte.weight": jcast["wte"].dtype == jnp.bfloat16,
-            "transformer.wpe.weight": jcast["wpe"].dtype == jnp.bfloat16,
-            "transformer.ln_f.weight": jcast["lnf"]["scale"].dtype == jnp.bfloat16,
-            "transformer.ln_f.bias": jcast["lnf"]["bias"].dtype == jnp.bfloat16}
-    for i in range(CFG.n_layer):
-        for group, leaf, name, _ in _BLOCK_LEAVES:
-            want[f"transformer.h.{i}.{name}"] = (
-                jcast["blocks"][group][leaf].dtype == jnp.bfloat16)
+def _cast_case(kind, jax_params):
+    """(JAX params, the port model built from them through ckpt/convert.py, the
+    converter that maps a JAX tree of that kind to port names)."""
+    if kind == "gpt2":
+        return jax_params, lambda t: gpt2_from_jax_params(t, CFG), CFG, None
+    if kind == "xattn":
+        jcfg, cfg = JCFG.replace(cross_attention=True, img_embd=24), CFG.replace(
+            cross_attention=True, img_embd=24)
+        params = jgpt2.init(jax.random.PRNGKey(2), jcfg)
+        return params, lambda t: gpt2_from_jax_params(t, cfg), cfg, None
+    kw = dict(kind=kind, enc_dim=24, n_queries=8, n_layers=2, n_heads=2)
+    bcfg = BridgeConfig(**kw)
+    params = {"gpt": jax_params,
+              "bridge": jcaption.init(jax.random.PRNGKey(3), JCFG, JaxBridgeConfig(**kw))}
+    return params, lambda t: caption_from_jax_params(t, CFG, bcfg), CFG, bcfg
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "xattn", "linear", "qformer"])
+def test_cast_decode_params_casts_the_jax_leaves(jax_params, kind):
+    """Every parameter gets the dtype of its JAX leaf under
+    infer/decode.py:50-59's rule, and the same values after the cast, bit for
+    bit, over the plain and the gated cross-attention GPT-2 and both caption
+    models (the Q-Former's query_tokens stay fp32); the tie holds."""
+    params, convert, cfg, bcfg = _cast_case(kind, jax_params)
+    np_params = jax.tree.map(np.asarray, params)
+    if bcfg is None:
+        model = gpt2.GPT2(cfg)
+    else:
+        model = caption.CaptionModel(gpt2.GPT2(cfg), bridges.bridge_init(bcfg, cfg.n_embd))
+    model.load_state_dict(convert(np_params))
+    jcast = jdecode.cast_decode_params(params)
+    want = convert(jax.tree.map(np.asarray, jcast))
+    is_bf16 = convert(jax.tree.map(
+        lambda a: np.full(a.shape, float(a.dtype == jnp.bfloat16), np.float32), jcast))
     cast = cast_decode_params(model)
-    got = {k: v.dtype == torch.bfloat16 for k, v in cast.state_dict().items()
-           if k != "lm_head.weight"}
-    assert got == want
-    assert cast.lm_head.weight is cast.transformer.wte.weight
-    assert model.transformer.wte.weight.dtype == torch.float32  # a copy
+    got = dict(cast.named_parameters())
+    assert set(got) == set(want) - {"lm_head.weight", "gpt.lm_head.weight"}
+    for name, p in got.items():
+        want_dtype = torch.bfloat16 if bool(is_bf16[name].all()) else torch.float32
+        assert p.dtype == want_dtype and bool(is_bf16[name].any()) == (want_dtype == torch.bfloat16), name
+        assert torch.equal(p.float(), want[name]), name
+    gpt = cast if bcfg is None else cast.gpt
+    assert gpt.lm_head.weight is gpt.transformer.wte.weight
+    assert next(model.parameters()).dtype == torch.float32  # a copy
 
 
 def test_sample_cli_on_cpu(capsys):
@@ -146,3 +178,25 @@ def test_bench_decode_cli_on_cpu(capsys):
     assert line["metric"] == "caption_decode_captions_per_sec_per_chip"
     assert (line["batch"], line["new_tokens"], line["device"]) == (2, 3, "cpu")
     assert line["value"] > 0
+
+
+def test_bench_decode_uncached_baseline_and_topp_ways(capsys, monkeypatch):
+    """--uncached-baseline --topp-ways 8 on a 2-layer config: the keys of the
+    JAX tool (cli/bench_decode.py:68-112 there) plus the port's device."""
+    from gpt2_vision_language_tpu_torch.cli import bench_decode
+    from gpt2_vision_language_tpu_torch.core import config
+
+    monkeypatch.setattr(config, "GPTConfig", lambda: GPTConfig(
+        block_size=64, vocab_size=50257, n_layer=2, n_head=2, n_embd=64))
+    calls = []
+    real = sampling.sample_top_p_fast
+    monkeypatch.setattr(sampling, "sample_top_p_fast",
+                        lambda *a, **kw: calls.append(kw.get("ways")) or real(*a, **kw))
+    out = bench_decode.main(["--device", "cpu", "--batch", "2", "--new", "3", "--iters", "1",
+                             "--uncached-baseline", "--topp-ways", "8"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out
+    assert set(line) == {"metric", "value", "unit", "batch", "new_tokens",
+                         "uncached_reference_captions_per_sec", "speedup_vs_uncached", "device"}
+    assert line["uncached_reference_captions_per_sec"] > 0 and line["speedup_vs_uncached"] > 0
+    assert calls and set(calls) == {8}  # the cached loop samples sort-free at --topp-ways

@@ -20,9 +20,10 @@ from gpt2_vision_language_tpu.models import gpt2 as jgpt2
 from gpt2_vision_language_tpu.ops import flash_attention as jfa
 from gpt2_vision_language_tpu.ops import fused_ce as jce
 from gpt2_vision_language_tpu.train.step import make_eval_step as jax_make_eval_step
-from gpt2_vision_language_tpu_torch.ckpt.convert import (
-    gpt2_from_jax_params,
-    load_reference_checkpoint,
+from gpt2_vision_language_tpu_torch.ckpt.convert import gpt2_from_jax_params
+from gpt2_vision_language_tpu_torch.ckpt.torch_import import (
+    gpt2_from_torch_state_dict,
+    load_torch_checkpoint,
 )
 from gpt2_vision_language_tpu_torch.core.config import GPTConfig
 from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY
@@ -155,7 +156,8 @@ def test_reference_checkpoint_round_trip(jax_params, model, tmp_path):
     raw["model"]["lm_head.weight"] = raw["model"]["transformer.wte.weight"]
     raw["model"]["transformer.h.0.attn.bias"] = torch.ones(1, 1, 8, 8)
     torch.save(raw, path)
-    sd, meta = load_reference_checkpoint(path, CFG)
+    raw, meta = load_torch_checkpoint(path)
+    sd = gpt2_from_torch_state_dict(raw, CFG)
     m = gpt2.GPT2(CFG)
     m.load_state_dict(sd)
     assert meta == {"step": 7}

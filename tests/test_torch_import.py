@@ -49,6 +49,11 @@ PORT_MODULES = (
     "gpt2_vision_language_tpu_torch.cli.finetune_qformer",
     "gpt2_vision_language_tpu_torch.cli.finetune_xattn",
     "gpt2_vision_language_tpu_torch.tools.ab_dt_flash",
+    # checkpoint in, quality metrics out: the readers, METEOR, the CLI
+    "gpt2_vision_language_tpu_torch.ckpt.torch_import",
+    "gpt2_vision_language_tpu_torch.eval.meteor",
+    "gpt2_vision_language_tpu_torch.eval.synonyms",
+    "gpt2_vision_language_tpu_torch.cli.eval_quality",
 )
 
 
