@@ -16,6 +16,16 @@ Phases (any failure raises and the script exits non-zero):
      fail the row check: the last 128 rows at T=8192 against the plain
      version without their first key tile (the elementwise check's reading
      printed beside it);
+  2b. the fp32 flash-attention forward kernel vs its plain version in fp32
+     (no TF32 on either side), strided q/k/v views of a fused fp32 QKV, at
+     the HellaSwag shape (B=32, T=1024, H=12, causal), at B=8, T=1000 with
+     and without the mask and at B=1, T=8192 (the plain version four heads
+     at a time): o elementwise and lse within 1e-5, each row of o within
+     2e-5 of its norm; twice on one input bit for bit; a control that must
+     fail the row check (the last 128 rows at T=8192 without their first key
+     tile); timed beside K1-fwd on the same inputs in bf16 and
+     F.scaled_dot_product_attention on the fp32 operands (a library probe, as
+     in phase 12);
   3. fused LM-head + CE forward kernel vs its plain version, nll and lse
      within 1e-4, at (N, D, V) = (8192, 768, 50304), (1000, 768, 50304),
      (1000, 768, 50257) (a V no tile width divides) and (1000, 1600, 50304)
@@ -167,17 +177,42 @@ Phases (any failure raises and the script exits non-zero):
      tokens, every batch padded to 1024) from a reference .pt and an HF
      directory at --policy bf16 (2 x 12 K1-fwd launches each, equal counts;
      K1-fwd at this shape is held against its plain version in phase 2);
-     --policy fp32 must raise before any launch, and so must the router
-     (ops/attention.sdpa) on fp32 q at T=1024, since the kernels take bf16;
-     CIDEr and METEOR from a linear and a Q-Former GPT_Caption .pt at bf16,
-     the served Q-Former's query_tokens fp32.
+     from the reference .pt at the default --policy fp32: 2 x 12 launches of
+     the fp32 forward kernel (held in phase 2b), none of K1-fwd, and against
+     the same run on the plain path (the router's threshold lifted) the
+     per-ending losses within 1e-4 and the predictions equal wherever the
+     two lowest endings are more than 2e-4 apart; the router
+     (ops/attention.sdpa) on fp32 q at T=1024 runs the fp32 kernel without
+     a gradient and raises with one (its backward is not ported); CIDEr and
+     METEOR from a linear and a Q-Former GPT_Caption .pt at bf16, the served
+     Q-Former's query_tokens fp32;
+ 27. the CLIP encoder at full width: ViT-L/14 (width 1024, 24 layers, 16
+     heads, 257 tokens) from seeded random weights at B=64, uint8 images of
+     four sizes made on the card, put through preprocess there, then
+     features under the bf16 policy (no kernel launched: CLIP's attention is
+     plain in both packages); preprocess and features under the fp32 policy
+     on the card against the CPU at B=2; images/s, peak memory, device time
+     by kernel class and the bound; then, printed only, K1-fwd non-causal at
+     (B=64, T=257, H=16) against the encoder's plain attention on the same
+     operands;
+ 28. the two entry points at full width: cli.extract_clip_features
+     --variant vit-l-14 on a synthetic COCO layout of 96 JPEGs of four sizes
+     (--batch 32 --rows-per-shard 40: shards of 40, 40 and 16 rows), its rows
+     read back through data/coco.CocoClipTokensDataset equal to features of
+     the same crops cast to float16; cli.caption on 4 of them at vit-l-14
+     with a random linear and a random Q-Former bridge (24 new tokens), and
+     at vit-b-16 with phase 23's linear fine-tune checkpoint as --gpt-ckpt
+     and --bridge-ckpt. Where PIL does not import, a line says so and the
+     CLIs' device steps (everything after the JPEG decode) run on numpy uint8
+     crops.
 
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
-phase 20; the fine-tune runs of phase 23 and the HellaSwag runs of phase 26
-beside them), error, times, bound and library-call time, the whole run's
-seconds, and last {"ok": true, "device": {...}}. Exits non-zero,
-printing no result, without a CUDA device.
+phase 20 and, for the fp32 forward kernel, phase 26's fp32 HellaSwag run;
+the fine-tune runs of phase 23 and the HellaSwag runs of phase 26 beside
+them), error, times, bound and library-call time, the whole run's seconds,
+and last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
+without a CUDA device.
 
 With --flash-times it only builds the kernels, counts each one's SASS
 instructions and times K1-fwd (with the host side of its launch), K1-bwd,
@@ -341,6 +376,79 @@ def phase_flash(torch, fa, dev):
                 50, 5,
             )
         del q, k, v, qkv, o, ro
+    return errs, timing
+
+
+# phase 2b's tolerances, the fp32 kernel against the plain fp32 version, which
+# sum in fp32 in other orders: o elementwise and lse, absolute; each row of o
+# relative to its norm. A late row at T=8192 sums 8192 terms about 40 times
+# larger than their sum: a numpy model of the kernel's order read 1.2e-6 to
+# 1.8e-6 of the row's norm against fp64, and the plain version has its own
+F32_TOL, F32_ROW_TOL = 1e-5, 2e-5
+
+
+def phase_flash_f32(torch, fa, dev):
+    print("[2b] flash-attention forward on fp32 operands vs plain (fp32, no TF32)", flush=True)
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(27)
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0}
+    timing = {}
+    # the HellaSwag forward's shape at fp32 (phase 26), a ragged T with and
+    # without the mask, K1_MAX_T
+    for b, t, causal in ((32, 1024, True), (8, 1000, True), (8, 1000, False),
+                         (1, fa.K1_MAX_T, True)):
+        h, hs = 12, 64
+        qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g)
+        q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        o2, lse2 = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ro, rlse = fwd_by_heads(torch, fa, q, k, v, causal)
+        torch.cuda.synchronize()
+        eo = (o - ro).abs().max().item()
+        erow = ((o - ro).norm(dim=-1) / ro.norm(dim=-1)).max().item()
+        el = (lse - rlse).abs().max().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        print(f"  B={b} T={t} H={h} hs={hs} {'causal' if causal else 'no mask'}: out max|err| "
+              f"{eo:.3e} (tol {F32_TOL}), max row "
+              f"|err| / |ref| {erow:.3e} (tol {F32_ROW_TOL}), lse max|err| {el:.3e} (tol "
+              f"{F32_TOL}); o {o.dtype}; bit-equal twice: {same}", flush=True)
+        require(o.dtype == torch.float32 and max(eo, el) <= F32_TOL and erow <= F32_ROW_TOL,
+                f"the fp32 flash forward disagrees at B={b} T={t}")
+        require(same, f"the fp32 flash forward is not bit-equal on one input at T={t}")
+        errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["o_row"] = max(errs["o_row"], erow)
+        if t == fa.K1_MAX_T:
+            # control: the last 128 rows without their first key tile, as a
+            # kernel whose key sweep starts one tile late would give them
+            r = slice(t - 128, t)
+            late = fa.flash_attention_reference(q[:, r], k[:, 128:], v[:, 128:], causal=True)[0]
+            control = ((o[:, r] - late).norm(dim=-1) / late.norm(dim=-1)).max().item()
+            loose = (o[:, r] - late).abs().max().item()
+            print(f"  control: the last 128 rows without their first key tile read max row "
+                  f"|err| / |ref| {control:.3e} (must be > {F32_ROW_TOL}), max|err| "
+                  f"{loose:.3e}", flush=True)
+            require(control > F32_ROW_TOL, "the fp32 kernel's o passed the row check against "
+                    "o without the first key tile")
+            errs["o_control_row"], errs["o_control_elementwise"] = control, loose
+        if (b, t) == (32, 1024):
+            timing["f32"] = interleaved(
+                lambda: fa.flash_attention(q, k, v, causal=True),
+                lambda: fa.flash_attention_reference(q, k, v, causal=True), 20, 3)
+            qb, kb, vb = (a.to(torch.bfloat16) for a in (q, k, v))
+            timing["bf16_ms"] = cuda_ms(lambda: fa.flash_attention(qb, kb, vb, causal=True), 20)
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            timing["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 20)
+            bound = attention_bound("fwd", b, t, t, h, hs, True, elem_bytes=4,
+                                    peak=PEAK_FP32_FLOPS)
+            print(f"  B=32 T=1024: fp32 kernel {timing['f32'][0]:.4f} ms (bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / timing['f32'][0]:.1%}), plain "
+                  f"{timing['f32'][1]:.4f} ms, K1-fwd on the same inputs in bf16 "
+                  f"{timing['bf16_ms']:.4f} ms, SDPA on the fp32 operands "
+                  f"{timing['sdpa_ms']:.4f} ms", flush=True)
+            del qb, kb, vb
+        del q, k, v, qkv, o, o2, ro
     return errs, timing
 
 
@@ -620,7 +728,8 @@ def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
 
 
 def _counters(fa, fc, fw):
-    return {"flash_fwd": fa.flash_attention, "flash_bwd": fa.flash_attention_backward,
+    return {"flash_fwd": fa.flash_attention, "flash_fwd_f32": fa.flash_forward_f32,
+            "flash_bwd": fa.flash_attention_backward,
             "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
             "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
             "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
@@ -638,9 +747,9 @@ def read_counts(fa, fc, fw):
 
 def with_zeros(counts):
     """Expected launch counts: the named ones, every other kernel 0."""
-    return {**dict.fromkeys(("flash_fwd", "flash_bwd", "ce_fwd", "adamw", "flash_general_fwd",
-                             "flash_rowdot", "flash_general_dq", "flash_general_dkv",
-                             "flash_lse_fwd", "flash_fused_bwd"), 0),
+    return {**dict.fromkeys(("flash_fwd", "flash_fwd_f32", "flash_bwd", "ce_fwd", "adamw",
+                             "flash_general_fwd", "flash_rowdot", "flash_general_dq",
+                             "flash_general_dkv", "flash_lse_fwd", "flash_fused_bwd"), 0),
             **counts}
 
 
@@ -859,21 +968,25 @@ def phase_trainer(torch, mods, cfgs):
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): bf16 dense tensor-core
-# rate and HBM3 rate. A kernel's bound is the larger of its operations over the
-# first and its bytes (each input read once, each output written once) over the
-# second.
+# rate, fp32 rate outside the tensor cores (what a kernel whose products are
+# true fp32 FMAs can reach; the tensor cores take fp32 only as TF32) and HBM3
+# rate. A kernel's bound is the larger of its operations over the peak of
+# their type and its bytes (each input read once, each output written once)
+# over the last.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(least milliseconds the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attention_bound(kind, b, tq, tk, h, hs, causal):
-    """Bound of one attention kernel on bf16 operands. Operations count the
+def attention_bound(kind, b, tq, tk, h, hs, causal, elem_bytes=2, peak=PEAK_BF16_FLOPS):
+    """Bound of one attention kernel on operands of ``elem_bytes`` bytes
+    (bf16 unless said), its products at ``peak``. Operations count the
     (query, key) pairs the mask leaves visible: two products in the forward
     (S, PV), five in the whole backward (S, dP, dV, dQ, dK), three of them for
     dq alone (S, dP, dQ) and four for dk/dv alone (S, dP, dV, dK). The one-pass
@@ -887,8 +1000,8 @@ def attention_bound(kind, b, tq, tk, h, hs, causal):
         "dq": (3, 3, 2, 2),    # q, dO, dq; k, v; lse, D
         "dkv": (4, 2, 4, 2),   # q, dO; k, v, dk, dv; lse, D
     }[kind]
-    return bound_ms(2 * products * hs * pairs, 2 * (q_like * n_q + k_like * n_k)
-                    + n_stats * stats)
+    return bound_ms(2 * products * hs * pairs, elem_bytes * (q_like * n_q + k_like * n_k)
+                    + n_stats * stats, peak)
 
 
 def qkv_inputs(torch, b, tq, tk, h, dev, g):
@@ -2389,6 +2502,8 @@ def phase_finetune_clis(torch, ft, mods, dev):
           "finetune_qformer / finetune_xattn --synthetic, then a resume", flush=True)
     fa, fc, fw, gpt2 = mods["fa"], mods["fc"], mods["fw"], ft["gpt2"]
     results, counts_by = {}, {}
+    # outside log_root, which goes at the end of this phase
+    linear_ckpt = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_linear_"), "model_final.pt")
     log_root = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
     old_tmp = tempfile.tempdir
     tempfile.tempdir = log_root  # the synthetic COCO files go under it too
@@ -2430,6 +2545,8 @@ def phase_finetune_clis(torch, ft, mods, dev):
             ckpts = sorted(os.listdir(os.path.join(log_dir, "ckpts")))
             require("model_final.pt" in ckpts and "model_best.pt" in ckpts,
                     f"{kind}: checkpoints missing, got {ckpts}")
+            if kind == "linear":  # phase 28 captions an image with this bridge
+                shutil.copy(os.path.join(log_dir, "ckpts", "model_final.pt"), linear_ckpt)
             # frozen leaves bit-identical to the seeded init, trainable leaves moved
             cfg = ft["presets"][kind]()
             fresh = gpt2.named_params(ft["finetune"].build_finetune(cfg, device=dev)["model"])
@@ -2489,7 +2606,7 @@ def phase_finetune_clis(torch, ft, mods, dev):
         require(steps == [0, 1, 2, 3] and fw.fused_adamw.launches == 1
                 and out["opt_state"]["step"] == 4,
                 "the second call did not resume at step 3 and run one step")
-        return counts_by, results
+        return counts_by, results, linear_ckpt
     finally:
         tempfile.tempdir = old_tmp
         shutil.rmtree(log_root, ignore_errors=True)
@@ -2614,13 +2731,14 @@ def phase_eval_quality(torch, np, mods, ft, cfg, dev):
     """cli.eval_quality at GPT-2 124M full width and depth from seeded weights,
     on files written here: HellaSwag from a reference .pt and an HF directory
     (bf16, every batch padded to 1024 so that each layer's attention runs on
-    K1-fwd; fp32 refused), captions with METEOR from a linear and a Q-Former
-    GPT_Caption .pt."""
+    K1-fwd), from the .pt at the default fp32 policy on the fp32 kernel
+    against the plain path; captions with METEOR from a linear and a
+    Q-Former GPT_Caption .pt."""
     print("[26] cli.eval_quality: GPT-2 124M, reference .pt and HF directory (HellaSwag), "
           "GPT_Caption .pt of each bridge (CIDEr, METEOR)", flush=True)
     from gpt2_vision_language_tpu_torch.cli import eval_quality
     from gpt2_vision_language_tpu_torch.core.config import BridgeConfig
-    from gpt2_vision_language_tpu_torch.eval import caption_eval
+    from gpt2_vision_language_tpu_torch.eval import caption_eval, hellaswag
 
     fa, fc, fw, gpt2, bridges = mods["fa"], mods["fc"], mods["fw"], ft["gpt2"], ft["bridges"]
     out, secs = {}, {}
@@ -2684,29 +2802,91 @@ def phase_eval_quality(torch, np, mods, ft, cfg, dev):
         require(out["reference_pt_bf16"]["hellaswag_correct"]
                 == out["hf_dir_bf16"]["hellaswag_correct"],
                 "the reference .pt and the HF directory disagree on HellaSwag")
-        # --policy fp32: the JAX package runs its kernel on fp32 operands; the
-        # port's take bf16, so the entry point refuses before it loads a
-        # weight, and the router raises on fp32 q at T=1024 rather than
-        # reroute it
-        reset_counts(fa, fc, fw)
-        refused = {}
+        # --policy fp32, the default (the JAX package runs its kernel on fp32
+        # operands there): every layer on the fp32 forward kernel, none on
+        # K1-fwd; then the same run on the plain path (the router's threshold
+        # lifted past 1024), whose per-ending losses the kernel run must meet
+        losses = {}
+        ending_losses = hellaswag.ending_losses
+
+        def recording(name):
+            def record(tokens, mask, logits):
+                out = ending_losses(tokens, mask, logits)
+                losses.setdefault(name, []).append(out.float().cpu())
+                return out
+            return record
+
+        min_t = mods["attention"].AUTO_FLASH_MIN_T
+        fp32 = {}
         try:
-            eval_quality.main(["--gpt-ckpt", pt, "--policy", "fp32"] + hs)
-        except SystemExit as e:
-            refused["eval_quality_fp32"] = f"SystemExit: {e}"
+            for name, threshold in (("reference_pt_fp32", min_t),
+                                    ("reference_pt_fp32_plain", 1 << 30)):
+                hellaswag.ending_losses = recording(name)
+                mods["attention"].AUTO_FLASH_MIN_T = threshold
+                reset_counts(fa, fc, fw)
+                t0 = time.perf_counter()
+                r = eval_quality.main(["--gpt-ckpt", pt] + hs)
+                torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+                fp32[name] = {k: r[k] for k in ("policy", "hellaswag_correct", "hellaswag_total")}
+                fp32[name]["launches"] = read_counts(fa, fc, fw)
+                print(f"  HellaSwag {name}: {r['hellaswag_correct']}/{r['hellaswag_total']} in "
+                      f"{secs[name]:.1f} s; launches {fp32[name]['launches']}", flush=True)
+        finally:
+            hellaswag.ending_losses = ending_losses
+            mods["attention"].AUTO_FLASH_MIN_T = min_t
+        kern, plain = (torch.cat(losses[n]) for n in ("reference_pt_fp32",
+                                                      "reference_pt_fp32_plain"))
+        loss_err = (kern - plain).abs().max().item()
+        # predictions must agree wherever the plain path's two lowest endings
+        # are further apart than twice the loss tolerance; an example closer
+        # to a tie than that (two equal endings, say) may go either way
+        low2 = plain.sort(-1).values
+        decisive = (low2[:, 1] - low2[:, 0]) > 2e-4
+        differ = kern.argmin(-1) != plain.argmin(-1)
+        same_pred = not bool((differ & decisive).any())
+        print(f"  fp32: per-ending losses of {kern.shape[0]} examples x 4 against the plain "
+              f"path: max|err| {loss_err:.3e} (tol 1e-4); predictions equal on the "
+              f"{int(decisive.sum())} examples whose two lowest endings are more than 2e-4 "
+              f"apart: {same_pred}; predictions that differ: {int(differ.sum())}", flush=True)
+        for i in differ.nonzero().flatten().tolist():
+            print(f"    example {i}: kernel {kern[i].tolist()}, plain {plain[i].tolist()}",
+                  flush=True)
+        want = with_zeros({"flash_fwd_f32": 2 * cfg.n_layer})
+        require(fp32["reference_pt_fp32"]["policy"] == "fp32"
+                and fp32["reference_pt_fp32"]["launches"] == want,
+                f"eval_quality at fp32: expected launches {want}, got "
+                f"{fp32['reference_pt_fp32']['launches']}")
+        require(fp32["reference_pt_fp32_plain"]["launches"] == with_zeros({}),
+                "the plain-path fp32 run launched a kernel")
+        require(loss_err <= 1e-4 and same_pred and int(decisive.sum()) >= 12,
+                "fp32 HellaSwag on the kernel disagrees with the plain path")
+        out["reference_pt_fp32"] = {**fp32["reference_pt_fp32"], "loss_max_abs_err": loss_err,
+                                    "decisive_examples": int(decisive.sum()),
+                                    "predictions_differ": int(differ.sum()),
+                                    "plain": fp32["reference_pt_fp32_plain"]}
+        # the router on fp32 q at T=1024: the fp32 kernel without a gradient,
+        # a refusal with one (its backward is not ported)
         q = torch.randn(1, 1024, 12, 64, device=dev)
+        reset_counts(fa, fc, fw)
+        with torch.no_grad():
+            o = mods["attention"].sdpa(q, q, q, causal=True, layout="bthd")
+        o_err = (o - mods["attention"].xla_sdpa(q, q, q, causal=True, layout="bthd")
+                 ).abs().max().item()
+        routed = read_counts(fa, fc, fw)
+        refused = None
         try:
-            mods["attention"].sdpa(q, q, q, causal=True, layout="bthd")
-        except ValueError as e:
-            refused["sdpa_auto_fp32"] = f"ValueError: {e}"
-        counts = read_counts(fa, fc, fw)
-        for k, v in refused.items():
-            print(f"  {k}: {v}", flush=True)
-        require("--policy bf16" in refused.get("eval_quality_fp32", ""),
-                "eval_quality --hellaswag --policy fp32 ran on the card")
-        require("sdpa_auto_fp32" in refused, "ops.attention.sdpa took fp32 q at T=1024")
-        require(counts == with_zeros({}), f"the refused fp32 runs launched {counts}")
-        out["fp32_refused"] = refused
+            mods["attention"].sdpa(q.requires_grad_(True), q, q, causal=True, layout="bthd")
+        except NotImplementedError as e:
+            refused = f"NotImplementedError: {e}"
+        print(f"  ops.attention.sdpa on fp32 q at T=1024: without grad launches {routed} "
+              f"(max|err| {o_err:.3e} against the plain path); with grad: {refused}", flush=True)
+        require(routed == with_zeros({"flash_fwd_f32": 1}) and o_err <= F32_TOL,
+                "the router did not run fp32 q at T=1024 on the fp32 kernel")
+        require(refused is not None and read_counts(fa, fc, fw) == routed,
+                "the router took fp32 q that needs a gradient")
+        out["sdpa_fp32"] = {"no_grad_launches": routed, "max_abs_err": o_err,
+                            "with_grad": refused}
 
         seen = []
         cast = caption_eval.cast_decode_params
@@ -2744,6 +2924,246 @@ def phase_eval_quality(torch, np, mods, ft, cfg, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 27's image sizes (H, W), 16 images each: shrink landscape and
+# portrait, no resize, shrink at 2:3
+CLIP_IMAGE_SIZES = ((480, 640), (640, 480), (224, 224), (333, 500))
+
+
+def clip_flops(cfg, b):
+    """Operations of one CLIP forward at batch b: every block's projections
+    (2 * tokens * 12 w^2), its attention products (4 * heads * T^2 * hs) and
+    the patch matmul."""
+    t, w, n = cfg.num_tokens, cfg.width, cfg.grid ** 2
+    blocks = cfg.layers * (2 * b * t * 12 * w * w + 4 * b * t * t * w)
+    return blocks + 2 * b * n * cfg.patch_size ** 2 * 3 * w
+
+
+def phase_clip(torch, np, mods, dev):
+    from gpt2_vision_language_tpu_torch.core.config import CLIP_VIT_L14 as cfg
+    from gpt2_vision_language_tpu_torch.core.precision import FP32_POLICY
+    from gpt2_vision_language_tpu_torch.models import clip_vit
+
+    b = 16 * len(CLIP_IMAGE_SIZES)
+    print(f"[27] the CLIP encoder at full width: ViT-L/14 (width {cfg.width}, {cfg.layers} "
+          f"layers, {cfg.heads} heads, {cfg.num_tokens} tokens), B={b}, bf16 policy", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    model = clip_vit.init(cfg, generator=torch.Generator(dev).manual_seed(2701), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(dev).manual_seed(2702)
+    groups = [torch.randint(0, 256, (16, h, w, 3), generator=g, device=dev, dtype=torch.uint8)
+              for h, w in CLIP_IMAGE_SIZES]
+
+    def prep():
+        return torch.cat([clip_vit.preprocess(x, cfg.image_size) for x in groups])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, fc, fw)
+    with torch.no_grad():
+        images = prep()
+        feats = clip_vit.features(model, images, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, fc, fw)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  images {tuple(images.shape)} -> features {tuple(feats.shape)} {feats.dtype}; "
+          f"finite: {bool(feats.isfinite().all())}; launches {counts}; peak {peak:.2f} GiB; "
+          f"{n_params:,} parameters", flush=True)
+    require(feats.shape == (b, cfg.num_tokens, cfg.width) and feats.dtype == torch.bfloat16
+            and bool(feats.isfinite().all()), "CLIP features are not finite bf16 of the shape")
+    require(counts == with_zeros({}), "the CLIP encoder launched a kernel: its attention is "
+            "plain in both packages")
+
+    # the card against the CPU under the fp32 policy, preprocess included
+    with torch.device("meta"):
+        cpu_model = clip_vit.CLIPVisionTower(cfg)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+    two = groups[0][:2]
+    with torch.no_grad():
+        pre_card = clip_vit.preprocess(two, cfg.image_size)
+        pre_cpu = clip_vit.preprocess(two.cpu(), cfg.image_size)
+        f_card = clip_vit.features(model, pre_card, cfg, policy=FP32_POLICY)
+        f_cpu = clip_vit.features(cpu_model, pre_cpu, cfg, policy=FP32_POLICY)
+        f_bf16 = clip_vit.features(model, pre_card, cfg)
+    e_pre = (pre_card.cpu() - pre_cpu).abs().max().item()
+    e_f32 = (f_card.cpu() - f_cpu).abs().max().item()
+    e_bf16 = (f_bf16.float().cpu() - f_cpu).abs().max().item()
+    scale = f_cpu.abs().max().item()
+    print(f"  B=2, fp32 policy, card against CPU: preprocess max|err| {e_pre:.3e} (tol 1e-5), "
+          f"features max|err| {e_f32:.3e} (tol 1e-3, max|ref| {scale:.3f}); the card's bf16 "
+          f"features against them {e_bf16:.3e}", flush=True)
+    require(e_pre <= 1e-5 and e_f32 <= 1e-3, "CLIP on the card disagrees with the CPU at fp32")
+    del cpu_model, f_card, f_cpu, f_bf16
+
+    def encode():
+        with torch.no_grad():
+            clip_vit.features(model, images, cfg)
+
+    ms = cuda_ms(encode, 5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        encode()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    pre_ms = cuda_ms(prep, 5)
+    dev_ms, by_class, top = profiled_kernel_ms(torch, encode, iters=3)
+    flops = clip_flops(cfg, b)
+    # fp32 weights and images read once, bf16 features written once
+    bound = bound_ms(flops, 4 * n_params + 4 * images.numel() + 2 * feats.numel())
+    print(f"  features: {ms:.3f} ms on the card ({b / ms * 1e3:.1f} images/s), {wall_ms:.3f} ms "
+          f"wall ({b / wall_ms * 1e3:.1f} images/s); preprocess {pre_ms:.3f} ms; bound "
+          f"{bound[0]:.3f} ms by {bound[1]} ({flops / 1e12:.2f} TFLOP at 989 TFLOP/s), "
+          f"{bound[0] / ms:.1%} of it; torch.profiler, kernels only: {dev_ms:.3f} ms "
+          f"{json.dumps(by_class)}; longest {top}", flush=True)
+
+    # printed only, for a later routing change: K1-fwd non-causal at the
+    # encoder's attention shape against the plain attention it runs
+    h, hs, t = cfg.heads, cfg.width // cfg.heads, cfg.num_tokens
+    qkv = torch.randn(b, t, 3 * cfg.width, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = (a.view(b, t, h, hs) for a in qkv.split(cfg.width, dim=-1))
+    policy = mods["policy"]
+
+    def k1():
+        return fa.flash_attention(q, k, v, causal=False)
+
+    def plain():
+        return clip_vit.plain_attention(*(a.transpose(1, 2) for a in (q, k, v)), policy)
+
+    k1_err = (k1().float() - plain().transpose(1, 2)).abs().max().item()
+    k1_ms, plain_ms = interleaved(k1, plain, 20, 20)
+    print(f"  K1-fwd non-causal at B={b} T={t} H={h} hs={hs}: {k1_ms:.4f} ms against the plain "
+          f"attention's {plain_ms:.4f} ms ({plain_ms / k1_ms:.2f}x), max|err| {k1_err:.3e}; "
+          f"x {cfg.layers} layers: {k1_ms * cfg.layers:.3f} against {plain_ms * cfg.layers:.3f} "
+          f"ms a forward (not routed)", flush=True)
+    return {"shape": f"ViT-L/14 B={b}", "device_ms": ms, "images_per_s": b / ms * 1e3,
+            "wall_ms": wall_ms, "wall_images_per_s": b / wall_ms * 1e3,
+            "preprocess_ms": pre_ms, "peak_gib": peak, "bound_ms": bound[0],
+            "bound_by": bound[1], "tflop": flops / 1e12, "profiler_kernel_ms": dev_ms,
+            "profiler_ms_by_class": by_class, "fp32_vs_cpu_max_abs_err": e_f32,
+            "preprocess_vs_cpu_max_abs_err": e_pre, "bf16_vs_fp32_max_abs_err": e_bf16,
+            "k1_fwd_noncausal_ms": k1_ms, "plain_attention_ms": plain_ms,
+            "k1_vs_plain_max_abs_err": k1_err}
+
+
+def phase_clip_clis(torch, np, mods, dev, tokenizer, linear_ckpt):
+    print("[28] the entry points at full width: cli.extract_clip_features --variant vit-l-14 "
+          "(96 images), cli.caption (vit-l-14 with a random linear and Q-Former bridge, "
+          "vit-b-16 with phase 23's linear checkpoint)", flush=True)
+    from gpt2_vision_language_tpu_torch.cli import caption as caption_cli
+    from gpt2_vision_language_tpu_torch.cli import extract_clip_features as ex
+    from gpt2_vision_language_tpu_torch.core.config import CLIP_VIT_L14 as cfg
+    from gpt2_vision_language_tpu_torch.data.coco import CocoClipTokensDataset
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    print(f"  PIL importable on this machine: {Image is not None}", flush=True)
+    if Image is None:
+        print("  PIL is missing: the CLIs' device steps (everything after the JPEG decode) "
+              "run on numpy uint8 crops", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    out, secs = {"pil": Image is not None}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_clip_")
+    try:
+        rng = np.random.RandomState(28)
+        sizes = ((300, 400), (400, 300), (224, 224), (250, 500))
+        n, batch, rows = 96, 32, 40
+        os.makedirs(os.path.join(root, "annotations"))
+        os.makedirs(os.path.join(root, "val2017"))
+        metas, anns, paths = [], [], []
+        for i in range(n):
+            name = f"{700 + i:012d}.jpg"
+            metas.append({"id": 700 + i, "file_name": name})
+            anns.append({"image_id": 700 + i, "id": i, "caption": f"a synthetic image {i}"})
+            paths.append(os.path.join(root, "val2017", name))
+            if Image is not None:
+                h, w = sizes[i % len(sizes)]
+                Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(paths[-1])
+        ann = os.path.join(root, "annotations", "captions_val2017.json")
+        with open(ann, "w") as f:
+            json.dump({"images": metas, "annotations": anns}, f)
+        feats_dir = os.path.join(root, "feats")
+        reset_counts(fa, fc, fw)
+        t0 = time.perf_counter()
+        if Image is not None:
+            res = ex.main(["--coco-root", root, "--split", "val", "--out", feats_dir,
+                           "--variant", "vit-l-14", "--batch", str(batch), "--rows-per-shard",
+                           str(rows), "--device", "cuda"])
+            crops = ex.load_batch(paths, cfg.image_size)
+        else:
+            crops = rng.randint(0, 256, (n, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+            encoder = ex.load_encoder(cfg, None, dev, warning="[extract] WARNING: no --hf-ckpt, "
+                                      "using random CLIP init")
+            writer = ex.ShardWriter(feats_dir, rows)
+            for s in range(0, n, batch):
+                writer.add(ex.encode(encoder, crops[s:s + batch], cfg, dev))
+            res = writer.close()
+            del encoder
+        torch.cuda.synchronize()
+        secs["extract"] = time.perf_counter() - t0
+        counts = read_counts(fa, fc, fw)
+        shards = sorted(x for x in os.listdir(feats_dir) if x.endswith(".npy"))
+        shapes = [np.load(os.path.join(feats_dir, x), mmap_mode="r").shape for x in shards]
+        print(f"  extract: {res['rows']} rows in {res['shards']} shards {shapes} in "
+              f"{secs['extract']:.1f} s; launches {counts}", flush=True)
+        tw = (cfg.num_tokens, cfg.width)
+        require(res["rows"] == n and shapes == [(rows, *tw), (rows, *tw), (n - 2 * rows, *tw)],
+                f"extract wrote {res} {shapes}")
+        require(counts == with_zeros({}), "the extraction launched a kernel")
+        # read back through the dataset: the rows of features of the same
+        # crops in the same batches, cast to float16 (the CLI's seeded init)
+        ds = CocoClipTokensDataset(feats_dir, ann, tokenizer, max_len=16)
+        encoder = ex.load_encoder(cfg, None, dev, warning="  the CLI's seeded CLIP init")
+        want = np.concatenate([ex.encode(encoder, crops[s:s + batch], cfg, dev)
+                               for s in range(0, n, batch)])
+        got = np.stack([ds.features(i) for i in range(n)]).astype(np.float16)
+        row_diff = float(np.abs(got.astype(np.float32) - want.astype(np.float32)).max())
+        print(f"  rows read back through CocoClipTokensDataset against features of the same "
+              f"crops as float16: max|diff| {row_diff} (must be 0)", flush=True)
+        require(row_diff == 0.0, "the extracted rows differ from features of the same crops")
+        del encoder, ds
+
+        captions = {}
+        runs = (("vit-l-14_linear", "vit-l-14", "linear", None),
+                ("vit-l-14_qformer", "vit-l-14", "qformer", None),
+                ("vit-b-16_linear_finetuned", "vit-b-16", "linear", linear_ckpt))
+        for name, variant, kind, ckpt in runs:
+            reset_counts(fa, fc, fw)
+            t0 = time.perf_counter()
+            if Image is not None:
+                argv = paths[:4] + ["--variant", variant, "--bridge", kind, "--new-tokens", "24",
+                                    "--device", "cuda"]
+                if ckpt:
+                    argv += ["--gpt-ckpt", ckpt, "--bridge-ckpt", ckpt]
+                lines = caption_cli.main(argv)
+            else:
+                clip_cfg, clip_model, gcfg, bcfg, model = caption_cli.load_models(
+                    variant, kind, dev, gpt_ckpt=ckpt, bridge_ckpt=ckpt)
+                size = clip_cfg.image_size
+                toks = caption_cli.caption_crops(
+                    clip_model, model, crops[:4, :size, :size], clip_cfg, gcfg, bcfg,
+                    tokenizer.encode("A photo of"), generator=torch.Generator(dev).manual_seed(0),
+                    new_tokens=24).cpu().numpy()
+                lines = [f"{os.path.basename(p)}: A photo of{tokenizer.decode(t.tolist())}"
+                         for p, t in zip(paths, toks)]
+            torch.cuda.synchronize()
+            secs[f"caption_{name}"] = time.perf_counter() - t0
+            counts = read_counts(fa, fc, fw)
+            print(f"  caption {name}: {len(lines)} lines in {secs[f'caption_{name}']:.1f} s; "
+                  f"launches {counts}", flush=True)
+            require(len(lines) == 4 and all(
+                line.startswith(f"{os.path.basename(p)}: A photo of")
+                for line, p in zip(lines, paths)), f"caption {name}: wrong lines {lines}")
+            captions[name] = [line.encode("ascii", "replace").decode() for line in lines]
+        out.update({"extract": res, "shard_shapes": shapes, "captions": captions,
+                    "seconds": secs})
+        print(f"  seconds: {json.dumps({k: round(v, 2) for k, v in secs.items()})}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(linear_ckpt), ignore_errors=True)
+
+
 def host_us(torch, fn, iters):
     """(host microseconds a call spends enqueueing fn(), microseconds a call
     of the same loop synchronised at its end): when the first is not below
@@ -2759,6 +3179,24 @@ def host_us(torch, fn, iters):
     return (t1 - t0) / iters * 1e6, (t2 - t0) / iters * 1e6
 
 
+def kernel_name(mangled):
+    """The kernel's own name in a mangled one: its last <length><name>
+    component that ends in ``_kernel`` (the anonymous namespace's component
+    holds the source's name and a hash, digits included), else the mangled
+    name."""
+    found, i = mangled, 0
+    while i < len(mangled):
+        m = re.compile(r"\d+").match(mangled, i)
+        if not m:
+            i += 1
+            continue
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if ident.endswith("_kernel"):
+            found = ident
+        i = m.end() + len(ident)
+    return found
+
+
 def sass_counts(so):
     """{kernel function: its SASS instructions} in the built library, read
     with the toolkit's cuobjdump -sass: a refactor of a tuned kernel is held
@@ -2772,8 +3210,7 @@ def sass_counts(so):
     for line in dump.stdout.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            short = re.search(r"\d([a-z_]+_kernel)", fn.group(1))
-            name = short.group(1) if short else fn.group(1)
+            name = kernel_name(fn.group(1))
             while name in counts:
                 name += "'"
             counts[name] = 0
@@ -2952,16 +3389,17 @@ def main() -> int:
     print(f"  {so.name}: nvcc {build_s:.2f} s", flush=True)
     # registers and spills of every kernel, from the compiler's report
     report = so.with_suffix(".log").read_text()
-    for name, regs in re.findall(
-            r"Compiling entry function '\S*?\d([a-z_]+_kernel)\w*' for 'sm_90a'"
-            r".*?Used (\d+) registers",
+    for mangled, regs in re.findall(
+            r"Compiling entry function '(\S+)' for 'sm_90a'.*?Used (\d+) registers",
             report, flags=re.S):
-        print(f"    {name}: {regs} registers", flush=True)
+        print(f"    {kernel_name(mangled)}: {regs} registers", flush=True)
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
     print(f"    spill stores: {sum(spills)} bytes over {len(spills)} functions", flush=True)
     print(f"    SASS instructions: {json.dumps(sass_counts(so))}", flush=True)
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
+    f32_errs, f32_t = phase_flash_f32(torch, fa, dev)
+    torch.cuda.empty_cache()
     ce_errs, ce_t = phase_ce(torch, fc, dev)
 
     print("[4] scoring forward: GPT-2 124M, bf16 policy, 2 x (B=8, T=1024)", flush=True)
@@ -3077,7 +3515,7 @@ def main() -> int:
           "finetune": finetune, "coco": coco, "tokenizer": get_tokenizer(),
           "evaluate_captions": evaluate_captions}
     ft_ops = phase_finetune_ops(torch, np, ft, mods, dev)
-    ft_counts, ft_runs = phase_finetune_clis(torch, ft, mods, dev)
+    ft_counts, ft_runs, linear_ckpt = phase_finetune_clis(torch, ft, mods, dev)
     torch.cuda.empty_cache()
     t_slice = time.perf_counter()
     sampler = phase_sampler(torch, np, gpt2, sampling, cfg, dev)
@@ -3085,6 +3523,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     quality = phase_eval_quality(torch, np, mods, ft, cfg, dev)
     slice_s = {"sampler_decode_eval_quality": time.perf_counter() - t_slice}
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    clip = phase_clip(torch, np, mods, dev)
+    torch.cuda.empty_cache()
+    clip_clis = phase_clip_clis(torch, np, mods, dev, ft["tokenizer"], linear_ckpt)
+    slice_s["clip_and_entry_points"] = time.perf_counter() - t_slice
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
                "train_step": train["counts"], "trainer": trainer_counts,
@@ -3093,7 +3537,7 @@ def main() -> int:
                "ab_dt_flash": dt_counts,
                **{f"finetune_{kind}": c for kind, c in ft_counts.items()},
                **{f"eval_quality_{name}": quality[name]["launches"]
-                  for name in ("reference_pt_bf16", "hf_dir_bf16")}}
+                  for name in ("reference_pt_bf16", "hf_dir_bf16", "reference_pt_fp32")}}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
@@ -3106,6 +3550,11 @@ def main() -> int:
     table = [
         ("flash_fwd", "flash_fwd.cu", f"{jfa}:841", "trainer", flash_errs["o"], flash_t,
          attention_bound("fwd", *self_shape), lib_self["fwd"]),
+        # K1-fwd's function on fp32 operands: the fp32 HellaSwag run of phase 26
+        ("flash_fwd_f32", "flash_fwd_f32.cu", f"{jfa}:841", "eval_quality_reference_pt_fp32",
+         f32_errs["o"], f32_t["f32"],
+         attention_bound("fwd", 32, 1024, 1024, 12, 64, True, elem_bytes=4,
+                         peak=PEAK_FP32_FLOPS), f32_t["sdpa_ms"]),
         ("flash_bwd", "flash_bwd.cu", f"{jfa}:887", "trainer", bwd_errs["max_rel"],
          bwd_t["B8_T1024"],
          attention_bound("bwd", *self_shape), lib_self["bwd"]),
@@ -3151,6 +3600,14 @@ def main() -> int:
                       "row_control_elementwise_excess": flash_errs["o_control_elementwise"],
                       "shape": "B=8 T=1024 H=12 causal",
                       "library_is": "F.scaled_dot_product_attention"},
+        "flash_fwd_f32": {"lse_max_abs_err": f32_errs["lse"], "row_err": f32_errs["o_row"],
+                          "row_control": f32_errs["o_control_row"],
+                          "row_control_elementwise": f32_errs["o_control_elementwise"],
+                          "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL},
+                          "bit_equal_twice": True, "shape": "B=32 T=1024 H=12 causal fp32",
+                          "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
+                          "bf16_flash_fwd_ms": f32_t["bf16_ms"],
+                          "library_is": "F.scaled_dot_product_attention on fp32 operands"},
         "flash_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": bwd_errs["dq_row"],
                       "dkv_row_err": bwd_errs["dkv_row"], "bit_equal_twice": True,
                       "dkv_row_control_excess": bwd_errs["dkv_control"],
@@ -3252,7 +3709,8 @@ def main() -> int:
                                   "micro_batch_device_ms_by_class": score_split}}))
     print(json.dumps({"finetune": ft_runs, "finetune_ops": ft_ops}))
     print(json.dumps({"sampler": sampler, "decode": decode, "eval_quality": quality,
-                      "seconds": slice_s, "card": card}))
+                      "clip": clip, "clip_entry_points": clip_clis, "seconds": slice_s,
+                      "card": card}))
     print(f"whole run: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))

@@ -40,6 +40,7 @@ _F = ctypes.c_float
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     "gpt2vl_flash_fwd": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
+    "gpt2vl_flash_fwd_f32": [_P] * 5 + [_I] * 4 + [_L] * 9 + [_I, _P],
     "gpt2vl_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "gpt2vl_ce_fwd_block_rows": [],
     "gpt2vl_ce_fwd_tile_cols": [],

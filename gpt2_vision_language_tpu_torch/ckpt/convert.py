@@ -9,7 +9,11 @@ gpt2_vision_language_tpu/ckpt/torch_export.py gpt2_to_torch_state_dict, and
 carries the gated cross-attention leaves. ``bridge_from_jax_params`` does the
 same for the linear and Q-Former bridges (the Q-Former's three projection
 matrices packed as torch ``nn.MultiheadAttention`` packs them) and
-``caption_from_jax_params`` for the pair.
+``caption_from_jax_params`` for the pair. ``clip_from_jax_params`` turns the
+JAX CLIP ViT tree (models/clip_vit.py) into the state dict of the port's
+``CLIPVisionTower``, which has HF CLIPVisionModel's names: the fused QKV
+split into q/k/v projections, the patch matmul's weight back into the
+conv's (width, 3, p, p) shape.
 
 ``opt_state_from_jax`` maps the JAX AdamW state (fp32 ``m``/``v``
 pytrees of the params' structure, and ``step``) to the port's
@@ -30,7 +34,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..core.config import GPTConfig
+from ..core.config import CLIPConfig, GPTConfig
 
 # JAX leaf (block group, name) -> reference name and whether it is a Linear
 # weight that torch stores transposed
@@ -246,3 +250,58 @@ def opt_state_from_jax(opt_state_np, cfg: GPTConfig, bridge_cfg=None) -> dict:
 
     return {"m": moments(opt_state_np["m"]), "v": moments(opt_state_np["v"]),
             "step": int(np.asarray(opt_state_np["step"]))}
+
+
+# CLIP block leaves: JAX (group, name) -> the port's layer name and whether it
+# is a Linear weight that torch stores transposed; wqkv / bqkv are split
+_CLIP_BLOCK_LEAVES = (
+    ("ln1", "scale", "layer_norm1.weight", False),
+    ("ln1", "bias", "layer_norm1.bias", False),
+    ("attn", "wo", "self_attn.out_proj.weight", True),
+    ("attn", "bo", "self_attn.out_proj.bias", False),
+    ("ln2", "scale", "layer_norm2.weight", False),
+    ("ln2", "bias", "layer_norm2.bias", False),
+    ("mlp", "wfc", "mlp.fc1.weight", True),
+    ("mlp", "bfc", "mlp.fc1.bias", False),
+    ("mlp", "wproj", "mlp.fc2.weight", True),
+    ("mlp", "bproj", "mlp.fc2.bias", False),
+)
+
+
+def clip_from_jax_params(params_np, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """The port's fp32 CLIPVisionTower state dict (HF CLIPVisionModel's names
+    without ``vision_model.``) from the JAX CLIP ViT parameter tree: the
+    layer axis un-stacked, Linear weights transposed to (out, in), the fused
+    ``wqkv`` / ``bqkv`` split into q, k and v, the (p * p * 3, width) patch
+    matrix back into the conv's (width, 3, p, p). Raises KeyError unless
+    the tree holds exactly the leaves read."""
+    want = {"patch_w", "cls", "pos", "ln_pre/scale", "ln_pre/bias", "ln_post/scale",
+            "ln_post/bias", "blocks/attn/wqkv", "blocks/attn/bqkv"}
+    want |= {f"blocks/{group}/{leaf}" for group, leaf, _, _ in _CLIP_BLOCK_LEAVES}
+    have = set(_paths(params_np))
+    if have != want:
+        raise KeyError(f"JAX CLIP tree: leaves not read {sorted(have - want)[:8]}, "
+                       f"leaves missing {sorted(want - have)[:8]}")
+    w, p = cfg.width, cfg.patch_size
+    out = {
+        "embeddings.class_embedding": _t(params_np["cls"]),
+        "embeddings.patch_embedding.weight": _t(
+            np.asarray(params_np["patch_w"]).reshape(p, p, 3, w).transpose(3, 2, 0, 1)),
+        "embeddings.position_embedding.weight": _t(params_np["pos"]),
+        "pre_layrnorm.weight": _t(params_np["ln_pre"]["scale"]),
+        "pre_layrnorm.bias": _t(params_np["ln_pre"]["bias"]),
+    }
+    blocks = params_np["blocks"]
+    for i in range(cfg.layers):
+        pre = f"encoder.layers.{i}."
+        wqkv = np.asarray(blocks["attn"]["wqkv"][i])
+        bqkv = np.asarray(blocks["attn"]["bqkv"][i])
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{pre}self_attn.{name}.weight"] = _t(wqkv[:, j * w:(j + 1) * w].T)
+            out[f"{pre}self_attn.{name}.bias"] = _t(bqkv[j * w:(j + 1) * w])
+        for group, leaf, name, transpose in _CLIP_BLOCK_LEAVES:
+            a = np.asarray(blocks[group][leaf][i])
+            out[pre + name] = _t(a.T if transpose else a)
+    out["post_layernorm.weight"] = _t(params_np["ln_post"]["scale"])
+    out["post_layernorm.bias"] = _t(params_np["ln_post"]["bias"])
+    return out

@@ -19,6 +19,9 @@ zero-padded to ``cfg.padded_vocab_size``, ``lm_head.weight`` tied to
   * ``linear_bridge_from_torch`` / ``qformer_bridge_from_torch``: the bridge
     half of a GPT_Caption ``.pt`` (gpt2_linear/train.py:170-216), whose packed
     ``in_proj_weight`` is already the port's layout (models/bridges.py);
+  * ``clip_from_hf_state_dict``: HF CLIPVisionModel (or full CLIPModel)
+    weights into the port's CLIP encoder (models/clip_vit.py), read from a
+    directory or file by ``load_hf_state_dict``, without ``transformers``;
   * ``read_checkpoint``: any of these files, or a JAX ``.npz``
     (ckpt/checkpoint.load_jax_checkpoint), as read, the one place that tells
     the formats apart; ``gpt2_from_checkpoint`` / ``bridge_from_checkpoint``
@@ -39,7 +42,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.config import BridgeConfig, GPTConfig
+from ..core.config import BridgeConfig, CLIPConfig, GPTConfig
 from .checkpoint import load_jax_checkpoint
 from .convert import (
     _BLOCK_LEAVES, _QFORMER_LAYER_LEAVES, _XATTN_BLOCK_LEAVES, bridge_from_jax_params,
@@ -240,6 +243,46 @@ def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if path.endswith(".safetensors"):
         return read_safetensors(path)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+# keys of an HF CLIP file that the vision tower does not use, accepted by
+# name: the rest of a full CLIPModel file, and the position-id buffer
+_CLIP_UNUSED = {"visual_projection.weight", "text_projection.weight", "logit_scale",
+                "vision_model.embeddings.position_ids"}
+
+
+def clip_from_hf_state_dict(sd: Mapping, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """HF ``CLIPVisionModel`` (or full ``CLIPModel``) weights -> the state
+    dict of the port's ``CLIPVisionTower``: ``vision_model.*`` with the prefix
+    removed, fp32 CPU copies, key for key (the tower has HF's names and
+    shapes). The keys of a full CLIPModel file that the vision tower does
+    not use (``text_model.*``, ``visual_projection.weight``,
+    ``text_projection.weight``, ``logit_scale``) and the ``position_ids``
+    buffer are accepted by name and not read; any other key raises, and so
+    does a key the tower needs that is missing or of another shape."""
+    from ..models.clip_vit import CLIPVisionTower
+
+    with torch.device("meta"):
+        want = {k: tuple(v.shape) for k, v in CLIPVisionTower(cfg).state_dict().items()}
+    out, unknown = {}, []
+    for key, val in sd.items():
+        if key in _CLIP_UNUSED or key.startswith("text_model."):
+            continue
+        name = key.removeprefix("vision_model.")
+        if name == key or name not in want:
+            unknown.append(key)
+            continue
+        t = _f32(val)
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"CLIP key {key!r}: shape {tuple(t.shape)}, the encoder of "
+                             f"{cfg} needs {want[name]}")
+        out[name] = t
+    if unknown:
+        raise KeyError(f"unrecognised CLIP state-dict keys: {unknown[:8]}")
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise KeyError(f"the CLIP state dict lacks {missing[:8]}")
+    return out
 
 
 def checkpoint_format(path: str) -> str:

@@ -33,14 +33,12 @@ formats (ckpt/torch_import.py, ckpt/checkpoint.load_jax_checkpoint):
 
 The GPT architecture comes from the checkpoint itself (n_layer from the h.N
 keys, n_embd and vocab from wte, block_size from wpe, n_head from the GPT-2
-family map). ``--policy bf16`` puts the HellaSwag forward's self-attention
-on the K1 forward kernel wherever a batch pads to 512 positions or more
-(ops/attention.AUTO_FLASH_MIN_T). The JAX package runs its flash kernel on
-fp32 operands there; the port's kernels take bf16 only, so ``--hellaswag``
-under ``--policy fp32`` (the default, as in JAX) raises on the card and
-runs on the CPU (``--device cpu``, the plain path). Caption eval runs under
-either policy on the card: its attention is below that threshold, on the
-plain path in both packages.
+family map). On the card the HellaSwag forward's self-attention runs on
+the K1 forward kernels wherever a batch pads to 512 positions or more
+(ops/attention.AUTO_FLASH_MIN_T): the fp32 kernel under ``--policy fp32``
+(the default, as in JAX, whose flash kernel takes fp32 operands there), the
+bf16 one under ``--policy bf16``. Caption eval's attention is below that
+threshold, on the plain path in both packages.
 """
 
 from __future__ import annotations
@@ -164,12 +162,6 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("eval_quality: no CUDA device (torch.cuda.is_available() is "
                            "False); pass --device cpu to run on the CPU")
-    if args.hellaswag and device.type == "cuda" and args.policy == "fp32":
-        raise SystemExit(
-            "eval_quality: --hellaswag under --policy fp32 on the card: its self-attention "
-            "from 512 positions on runs on the flash kernels, which take bf16 operands "
-            "(the JAX package's kernel takes fp32; the port has no fp32 kernel). Pass "
-            "--policy bf16, or --device cpu for fp32 on the plain path")
     policy = FP32_POLICY if args.policy == "fp32" else DEFAULT_POLICY
     tokenizer = get_tokenizer()
     gpt_sd, cfg, raw, source = load_gpt(args)

@@ -1,12 +1,13 @@
 """GPT-2 decoder, bridge, pretraining and fine-tune configuration.
 
 Counterpart of gpt2_vision_language_tpu/core/config.py: GPTConfig and the
-GPT-2 family presets (:21-65), BridgeConfig (:95-111), ScheduleConfig,
-OptimizerConfig and PretrainConfig (:114-240), FinetuneConfig and the three
-fine-tune presets (:243-309). They are carried here rather than imported
-because the JAX package's ``core/__init__`` imports jax. GPTConfig,
-BridgeConfig, ScheduleConfig, OptimizerConfig and FinetuneConfig are the JAX
-dataclasses field for field; PretrainConfig carries the fields the
+GPT-2 family presets (:21-65), CLIPConfig and its presets (:69-92),
+BridgeConfig (:95-111), ScheduleConfig, OptimizerConfig and PretrainConfig
+(:114-240), FinetuneConfig and the three fine-tune presets (:243-309). They
+are carried here rather than imported because the JAX package's
+``core/__init__`` imports jax. GPTConfig, CLIPConfig, BridgeConfig,
+ScheduleConfig, OptimizerConfig and FinetuneConfig are the JAX dataclasses
+field for field; PretrainConfig carries the fields the
 single-device trainer honors, and tests/test_torch_import.py names every JAX
 field it leaves out.
 """
@@ -58,6 +59,32 @@ GPT2_124M = GPTConfig()
 GPT2_350M = GPTConfig(n_layer=24, n_head=16, n_embd=1024)
 GPT2_774M = GPTConfig(n_layer=36, n_head=20, n_embd=1280)
 GPT2_1558M = GPTConfig(n_layer=48, n_head=25, n_embd=1600)
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    """CLIP ViT image encoder architecture (JAX core/config.py:69-88): the
+    defaults are ViT-L/14 (reference README:44-46); the reference bridges are
+    built with enc_dim=768 (ViT-B/16), so both are presets."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    width: int = 1024
+    layers: int = 24
+    heads: int = 16
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_tokens(self) -> int:
+        return self.grid * self.grid + 1  # + CLS
+
+
+CLIP_VIT_L14 = CLIPConfig()
+CLIP_VIT_B16 = CLIPConfig(patch_size=16, width=768, layers=12, heads=12)
+CLIP_TINY = CLIPConfig(image_size=32, patch_size=16, width=32, layers=2, heads=2)  # tests
 
 
 @dataclass(frozen=True)

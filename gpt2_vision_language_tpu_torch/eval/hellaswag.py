@@ -57,19 +57,23 @@ def render_example(example: dict, tokenizer):
     return tokens, mask, int(example["label"])
 
 
-def most_likely_row(tokens, mask, logits):
-    """Masked-mean shifted CE argmin (train_gpt2.py:190-202). tokens
-    (..., N, L), mask (..., N, L) over completion tokens, logits
-    (..., N, L, V); the argmin runs over N. The logsumexp and the gold logit
-    are taken in fp32 (the upcast of bf16 logits is exact)."""
+def ending_losses(tokens, mask, logits):
+    """Masked-mean shifted CE of each candidate (train_gpt2.py:190-202):
+    tokens (..., N, L), mask (..., N, L) over completion tokens, logits
+    (..., N, L, V) -> (..., N) fp32. The logsumexp and the gold logit are
+    taken in fp32 (the upcast of bf16 logits is exact)."""
     shift_logits = logits[..., :-1, :]
     shift_tokens = tokens[..., 1:].long()
     logz = torch.logsumexp(shift_logits.float(), dim=-1)
     gold = shift_logits.gather(-1, shift_tokens[..., None])[..., 0].float()
     losses = logz - gold
     shift_mask = mask[..., 1:].to(losses.dtype)
-    avg = (losses * shift_mask).sum(-1) / shift_mask.sum(-1).clamp(min=1)
-    return avg.argmin(-1)
+    return (losses * shift_mask).sum(-1) / shift_mask.sum(-1).clamp(min=1)
+
+
+def most_likely_row(tokens, mask, logits):
+    """The candidate of least ``ending_losses``: the argmin over N."""
+    return ending_losses(tokens, mask, logits).argmin(-1)
 
 
 class HellaSwagEvaluator:

@@ -6,9 +6,11 @@ families behind ``flash_attention`` (:1089 there) and
 ``flash_attention_with_lse`` (:752):
 
   * the self-attention family (Tq == Tk, T <= K1_MAX_T): ``csrc/flash_fwd.cu``
-    replaces ``_fwd_dt_kernel`` (:841, launched by ``_fwd_dt`` :956) and
-    ``csrc/flash_bwd.cu`` replaces ``_bwd_dt_kernel`` (:887, ``_bwd_dt``
-    :989);
+    (bf16) and ``csrc/flash_fwd_f32.cu`` (fp32 operands, true fp32 products)
+    replace ``_fwd_dt_kernel`` (:841, launched by ``_fwd_dt`` :956), which
+    takes either, and ``csrc/flash_bwd.cu`` replaces ``_bwd_dt_kernel`` (:887,
+    ``_bwd_dt`` :989) for bf16; the fp32 backward is not ported, so fp32
+    operands that need a gradient raise;
   * the general family (Tq != Tk, any length, right-aligned causal or
     non-causal): ``csrc/flash_general_fwd.cu`` replaces the streamed-K/V
     forward ``_fwd_kernel_grid`` (:221, launched by ``_fwd`` :265),
@@ -40,12 +42,13 @@ versions, ``flash_attention_reference``, ``rowdot_reference``,
 and plain version, and there is no fallback from one to the other, from one
 family to the other, or to any library call: what a kernel does not take
 raises. Each launch adds one to its wrapper's count:
-``flash_attention.launches`` and ``flash_attention_backward.launches`` for
-the self-attention family, ``flash_general_forward.launches``,
-``flash_general_dq.launches``, ``flash_general_dkv.launches`` and
-``flash_rowdot.launches`` for the general one, ``flash_lse_forward.launches``
-and ``flash_fused_backward.launches`` (and ``flash_rowdot.launches`` for its
-D) for the lse family.
+``flash_attention.launches``, ``flash_forward_f32.launches`` and
+``flash_attention_backward.launches`` for the self-attention family,
+``flash_general_forward.launches``, ``flash_general_dq.launches``,
+``flash_general_dkv.launches`` and ``flash_rowdot.launches`` for the
+general one, ``flash_lse_forward.launches`` and
+``flash_fused_backward.launches`` (and ``flash_rowdot.launches`` for its D)
+for the lse family.
 """
 
 from __future__ import annotations
@@ -217,6 +220,44 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
     return dq, dk, dv
 
 
+def _check_f32_operand(name, a):
+    if a.dtype != torch.float32:
+        raise ValueError(f"flash_forward_f32 kernel takes fp32, got {name} {a.dtype}")
+    if a.stride(-1) != 1 or any(s % 4 for s in a.stride()[:3]):
+        raise ValueError(
+            f"flash_forward_f32 kernel: {name} needs unit stride on hs and the "
+            f"other strides multiples of 4, got {a.stride()}"
+        )
+    if a.data_ptr() % 16:
+        raise ValueError(f"flash_forward_f32 kernel: {name} is not 16-byte aligned")
+
+
+def flash_forward_f32(q, k, v, *, causal: bool = True):
+    """Self-attention forward (Tq == Tk) on fp32 operands, (o (B, T, H, hs)
+    fp32, lse (B, H, T) fp32): the kernel of csrc/flash_fwd_f32.cu for CUDA
+    tensors (every product an fp32 FMA, no TF32, as the JAX kernel's products
+    on fp32 operands), the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal)
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        _check_f32_operand(name, a)
+    b, t, h, hs = q.shape
+    o = torch.empty((b, t, h, hs), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, t, h, hs, *_strides(q, k, v), int(causal), _stream(q),
+        )
+    _build.check(err, "flash_fwd_f32")
+    flash_forward_f32.launches += 1
+    return o, lse
+
+
+flash_forward_f32.launches = 0
+
+
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of self-attention (Tq == Tk) from the forward's o and
     lse: the kernel for CUDA tensors, the plain version for CPU tensors."""
@@ -232,11 +273,14 @@ flash_attention_backward.launches = 0
 
 class _FlashAttn(torch.autograd.Function):
     """Forward and backward of the self-attention family; saves
-    (q, k, v, o, lse)."""
+    (q, k, v, o, lse). On CUDA tensors fp32 q goes to the fp32 forward
+    kernel, anything else to the bf16 one."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.is_cuda:
+        if q.is_cuda and q.dtype == torch.float32:
+            o, lse = flash_forward_f32(q, k, v, causal=causal)
+        elif q.is_cuda:
             o, lse = flash_fwd_cuda(q, k, v, causal=causal)
         else:
             o, lse = flash_attention_reference(q, k, v, causal=causal)
@@ -537,9 +581,10 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
     Tq <= Tk. ``stream_kv`` is select_family's: None picks the kernel family
     by shape.
 
-    CUDA tensors go to the kernels (bf16, head size 64, hs contiguous) and
-    anything they do not take raises; CPU tensors go to the plain versions.
-    Differentiable in q, k and v (not in lse).
+    CUDA tensors go to the kernels (bf16, head size 64, hs contiguous; fp32
+    too for the self-attention forward without a gradient) and anything they
+    do not take raises; CPU tensors go to the plain versions. Differentiable
+    in q, k and v (not in lse).
     """
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"flash_attention: unknown layout {layout!r}")
@@ -547,6 +592,11 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
     _check(q, k, v, causal)
     family = select_family(q.shape[1], k.shape[1], stream_kv)
+    if (family == "self" and q.is_cuda and q.dtype == torch.float32 and torch.is_grad_enabled()
+            and any(a.requires_grad for a in (q, k, v))):
+        raise NotImplementedError(
+            "flash_attention: fp32 operands run the fp32 forward kernel only; its backward "
+            "is not ported (call under torch.no_grad(), or pass bf16 operands)")
     o, lse = _FAMILIES[family].apply(q, k, v, causal)
     if family == "lse":
         lse = lse.detach()  # flash_attention's lse carries no gradient

@@ -162,10 +162,20 @@ def test_entry_point_needs_cuda_unless_asked_for_the_cpu(tmp_path, tiny_params, 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             eval_quality.main(["--gpt-ckpt", str(pt), "--hellaswag"])
-    # HellaSwag under the fp32 policy (the default) on the card is refused
-    # before any weight is read: the flash kernels take bf16 operands
+    # HellaSwag under the fp32 policy (the default) on the card passes the
+    # device check and goes on to read the checkpoint (it was refused before
+    # the fp32 forward kernel existed); the forward's route is held by
+    # test_fp32_hellaswag_reaches_the_fp32_kernel below
+    class Reached(Exception):
+        pass
+
+    def load_gpt(args):
+        assert args.policy == "fp32" and args.device == "cuda" and args.hellaswag
+        raise Reached
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit, match="--policy bf16"):
+    monkeypatch.setattr(eval_quality, "load_gpt", load_gpt)
+    with pytest.raises(Reached):
         eval_quality.main(["--gpt-ckpt", str(pt), "--hellaswag"])
     monkeypatch.undo()
     with pytest.raises(SystemExit):
@@ -173,3 +183,54 @@ def test_entry_point_needs_cuda_unless_asked_for_the_cpu(tmp_path, tiny_params, 
     with pytest.raises(SystemExit):
         eval_quality.main(["--gpt-ckpt", str(pt), "--coco-tokens", "x", "--coco-ann", "y",
                            "--device", "cpu"])
+
+
+def test_fp32_hellaswag_reaches_the_fp32_kernel(tmp_path, monkeypatch):
+    """--hellaswag at the default policy (fp32) on activations that report
+    the card: every self-attention of a batch padded to 512 goes through
+    ops.attention.sdpa to the fp32 forward kernel's launcher (stubbed with
+    its plain version), none to the bf16 one, and the counts equal the CPU
+    run's."""
+    from test_torch_flash_attention import _OnCard
+
+    from gpt2_vision_language_tpu_torch.models import gpt2 as pgpt2
+    from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
+
+    cfg = JaxGPTConfig(block_size=1024, vocab_size=256, n_layer=2, n_head=2, n_embd=128)
+    params = jax.tree.map(lambda a: a * 4.0, jgpt2.init(jax.random.PRNGKey(1), cfg))
+    pt = str(tmp_path / "model.pt")
+    save_torch_checkpoint(pt, params, cfg)
+    hs = tmp_path / "hs"
+    os.makedirs(hs)
+    with open(hs / "hellaswag_val.jsonl", "w") as f:
+        for i in range(3):  # contexts of 300+ byte tokens: one batch padded to 512
+            f.write(json.dumps({"ctx": f"Number {i} is " + "la " * 100,
+                                "endings": ["small", "big", "word", "none of these"],
+                                "label": i % 4}) + "\n")
+    argv = ["--gpt-ckpt", pt, "--n-head", "2", "--hellaswag", "--hellaswag-dir", str(hs),
+            "--device", "cpu"]
+    want = eval_quality.main(argv)
+
+    calls = []
+
+    def f32_stub(q, k, v, *, causal=True):
+        calls.append(("f32", q.dtype, tuple(q.shape), causal))
+        plain = [a.as_subclass(torch.Tensor) for a in (q, k, v)]
+        return fa.flash_attention_reference(*plain, causal=causal)
+
+    def bf16_stub(q, k, v, *, causal=True):
+        calls.append(("bf16", q.dtype))
+        raise AssertionError("fp32 q reached the bf16 kernel")
+
+    embed = pgpt2.embed_tokens
+    monkeypatch.setattr(pgpt2, "embed_tokens",
+                        lambda *a, **kw: embed(*a, **kw).as_subclass(_OnCard))
+    monkeypatch.setattr(fa, "flash_forward_f32", f32_stub)
+    monkeypatch.setattr(fa, "flash_fwd_cuda", bf16_stub)
+    got = eval_quality.main(argv)
+    # one batch: 8 examples (3 and 5 padding) x 4 endings
+    assert calls == [("f32", torch.float32, (32, 512, 2, 64), True)] * cfg.n_layer
+    assert got["policy"] == "fp32"
+    for key in ("hellaswag_correct", "hellaswag_total"):
+        assert got[key] == want[key]
+    assert got["hellaswag_total"] == 3

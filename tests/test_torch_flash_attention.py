@@ -151,3 +151,76 @@ def test_lse_is_not_differentiable():
     q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 64, 1, 64, seed=7))
     o, lse = fa.flash_attention(q, k, v, return_lse=True)
     assert o.requires_grad and not lse.requires_grad
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_forward_matches_jax_dt_kernel(causal):
+    """flash_forward_f32, the fp32 kernel's wrapper, on CPU tensors (its plain
+    version) against _fwd_dt_kernel on fp32 operands: out and lse within
+    1e-5, o in fp32."""
+    b, t, h, hs = 2, 256, 2, 64
+    q, k, v = _qkv(b, t, h, hs, seed=4)
+    bq = jfa._dt_block(t, jfa.DEFAULT_BLOCK_Q)
+    o_dt, lse_dt = jfa._fwd_dt(
+        _to_dt(q) * (1.0 / hs**0.5), _to_dt(k), _to_dt(v), b=b, t=t,
+        causal=causal, bq=bq, bk=bq, interpret=True,
+    )
+    assert o_dt.dtype == jnp.float32
+    want_o = np.asarray(o_dt).reshape(h, hs, b, t).transpose(2, 3, 0, 1)
+    want_lse = np.asarray(lse_dt)[:, 0, :].reshape(h, b, t).transpose(1, 0, 2)
+    o, lse = fa.flash_forward_f32(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert fa.flash_forward_f32.launches == 0 and o.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), want_o, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports is_cuda, so that the routers take the card's
+    routes; the launchers are replaced by recording stubs."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize(
+    "dtype, tq, tk, grad, want",
+    [(torch.float32, 1024, 1024, False, "f32"),     # eval_quality's HellaSwag at fp32
+     (torch.float32, 1000, 1000, False, "f32"),     # ragged T
+     (torch.bfloat16, 1024, 1024, False, "bf16"),
+     (torch.bfloat16, 1024, 1024, True, "bf16"),
+     (torch.float32, 1024, 1024, True, NotImplementedError),  # no fp32 backward
+     (torch.float32, 64, 1024, False, ValueError)],  # the general family takes bf16
+)
+def test_fp32_routing_with_stubs(monkeypatch, dtype, tq, tk, grad, want):
+    """sdpa(impl='auto') and flash_attention on operands that report the card:
+    fp32 q of the self-attention family goes to the fp32 forward kernel, bf16
+    to the bf16 one; fp32 that needs a gradient raises before any launch, and
+    so does fp32 q of the general family."""
+    calls = []
+
+    def stub(name):
+        def launch(q, k, v, *, causal=True):
+            calls.append(name)
+            plain = [a.as_subclass(torch.Tensor) for a in (q, k, v)]
+            return fa.flash_attention_reference(*plain, causal=causal)
+        return launch
+
+    monkeypatch.setattr(fa, "flash_forward_f32", stub("f32"))
+    monkeypatch.setattr(fa, "flash_fwd_cuda", stub("bf16"))
+    rng = np.random.RandomState(9)
+    q = torch.from_numpy(rng.randn(1, tq, 2, 64).astype(np.float32)).to(dtype)
+    kv = torch.from_numpy(rng.randn(1, tk, 4, 64).astype(np.float32)).to(dtype)
+    q, k, v = (a.as_subclass(_OnCard) for a in (q, kv[:, :, :2], kv[:, :, 2:]))
+    if grad:
+        q.requires_grad_(True)
+    if isinstance(want, type):
+        with pytest.raises(want):
+            attention.sdpa(q, k, v, causal=True, impl="flash", layout="bthd")
+        assert calls == []
+        return
+    got = attention.sdpa(q, k, v, causal=True, layout="bthd")  # auto: T >= 512
+    assert calls == [want]
+    ref = fa.flash_attention_reference(*[a.as_subclass(torch.Tensor).detach() for a in (q, k, v)],
+                                       causal=True)[0]
+    torch.testing.assert_close(got.as_subclass(torch.Tensor).detach(), ref)

@@ -33,10 +33,10 @@ def _port_sources():
 def test_no_source_imports_the_jax_package():
     """No file of the port, nor chip_smoke.py, holds an import of jax or of
     gpt2_vision_language_tpu (a '.' or a space after the name: the port's own
-    name has '_torch' there), nor of safetensors or ml_dtypes, which the card's
-    machine lacks."""
+    name has '_torch' there), nor of safetensors, ml_dtypes or transformers,
+    which the card's machine lacks."""
     pat = re.compile(r"(?:import|from)\s+(?:gpt2_vision_language_tpu[. ]|jax\b"
-                     r"|safetensors\b|ml_dtypes\b)")
+                     r"|safetensors\b|ml_dtypes\b|transformers\b)")
     files = _port_sources()
     assert len(files) > 45
     bad = [(f, line.strip()) for f in files for line in open(f, encoding="utf-8")
@@ -76,12 +76,14 @@ def test_importing_every_port_module_loads_no_jax():
             port.__name__ + ".eval.caption_eval", port.__name__ + ".models.bridges",
             port.__name__ + ".tools.ab_dt_flash", port.__name__ + ".ckpt.torch_import",
             port.__name__ + ".eval.meteor", port.__name__ + ".eval.synonyms",
-            port.__name__ + ".cli.eval_quality"} <= set(mods)
+            port.__name__ + ".cli.eval_quality", port.__name__ + ".models.clip_vit",
+            port.__name__ + ".cli.extract_clip_features",
+            port.__name__ + ".cli.caption"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'gpt2_vision_language_tpu', 'safetensors', 'ml_dtypes')]\n"
+        "('jax', 'gpt2_vision_language_tpu', 'safetensors', 'ml_dtypes', 'transformers')]\n"
         "assert not bad, bad\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

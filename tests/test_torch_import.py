@@ -54,6 +54,10 @@ PORT_MODULES = (
     "gpt2_vision_language_tpu_torch.eval.meteor",
     "gpt2_vision_language_tpu_torch.eval.synonyms",
     "gpt2_vision_language_tpu_torch.cli.eval_quality",
+    # images in, captions out: the CLIP encoder and its two CLIs
+    "gpt2_vision_language_tpu_torch.models.clip_vit",
+    "gpt2_vision_language_tpu_torch.cli.extract_clip_features",
+    "gpt2_vision_language_tpu_torch.cli.caption",
 )
 
 
