@@ -26,6 +26,18 @@ Phases (any failure raises and the script exits non-zero):
      tile); timed beside K1-fwd on the same inputs in bf16 and
      F.scaled_dot_product_attention on the fp32 operands (a library probe, as
      in phase 12);
+  2c. the fp32 flash-attention backward kernel (csrc/flash_bwd_f32.cu) vs its
+     plain version in fp32 on the fp32 forward kernel's o and lse, strided
+     q/k/v views of a fused fp32 QKV, at B=8, T=1024, H=12 causal and without
+     the mask, B=1, T=8192 (the plain side two heads at a time), B=8, T=1000
+     and B=2, T=1024, H=25 (the 1558M head count), on the fp32 forward
+     kernel's o and lse: dq, dk and dv within 1e-5 of max|ref| and each row within 2e-5 of its
+     norm plus the mean row norm (``f32_row_err``: a causal dq's first row
+     is 0 in exact arithmetic), twice on one input bit for bit; both sides
+     against the same backward in fp64, printed; two controls that must fail the row rule (dq without the last
+     key tile each query sees, dk/dv without the last 64 query rows); timed
+     plain, kernel, kernel, plain beside SDPA's backward on the same fp32
+     operands;
   3. fused LM-head + CE forward kernel vs its plain version, nll and lse
      within 1e-4, at (N, D, V) = (8192, 768, 50304), (1000, 768, 50304),
      (1000, 768, 50257) (a V no tile width divides) and (1000, 1600, 50304)
@@ -183,7 +195,8 @@ Phases (any failure raises and the script exits non-zero):
      per-ending losses within 1e-4 and the predictions equal wherever the
      two lowest endings are more than 2e-4 apart; the router
      (ops/attention.sdpa) on fp32 q at T=1024 runs the fp32 kernel without
-     a gradient and raises with one (its backward is not ported); CIDEr and
+     a gradient, and the fp32 forward and backward kernels with one (dq
+     within 1e-5 of the plain path's); CIDEr and
      METEOR from a linear and a Q-Former GPT_Caption .pt at bf16, the served
      Q-Former's query_tokens fp32;
  27. the CLIP encoder at full width: ViT-L/14 (width 1024, 24 layers, 16
@@ -204,11 +217,34 @@ Phases (any failure raises and the script exits non-zero):
      at vit-b-16 with phase 23's linear fine-tune checkpoint as --gpt-ckpt
      and --bridge-ckpt. Where PIL does not import, a line says so and the
      CLIs' device steps (everything after the JPEG decode) run on numpy uint8
-     crops.
+     crops;
+ 29. the train step under FP32_POLICY: GPT-2 124M, 2 x (B=8, T=1024), the
+     kernel path (12 fp32 forward and 12 fp32 backward launches per
+     micro-batch, no bf16 K1 launch, one AdamW launch) against the plain path
+     from one state: loss within 1e-4, grad norm within 1e-4 relative, grads
+     within 1e-4 relative L2; tokens/s of both;
+ 30. K1-fwd and K1-bwd (bf16) at the head counts of 350M, 774M and 1558M (H=16,
+     20, 25; B=4, T=1024) against their plain versions under phases 2 and 6's
+     rules (o, dq, dk and dv also row by row), timed;
+ 31. GPT-2 1558M at full width and depth: (a) the state's bytes under each
+     memory recipe (utils/trees, on the meta device); (b) the peak device
+     memory of one micro-batch step (B=8, T=1024; B=4 too without a recipe)
+     under each stack of BIG_STACKS, and of 774M without a recipe and with
+     full remat: the least stack that fits, which FIT_1CHIP's rows are written
+     from, the table's 1558M stack required to fit; (c) cli.pretrain --model
+     1558M --fit-1chip --synthetic for 3 steps of 2 micro-batches (tokens/s,
+     peak memory; K1-bwd 48 launches a micro-batch, K1-fwd 96 where the stack
+     recomputes the forward, else 48); (d) at 2 layers of the 1558M width, the
+     layerwise backward and each remat mode against the standard step (loss
+     1e-2, grad norm 2%, grads 2e-2), and two updates with 8-bit moments, bf16
+     moments and bf16 params on the card against the same on the CPU (3e-2);
+     (e) 2 trainer steps with --opt-state-dtype int8, then a resume with
+     bfloat16 that ends with bf16 moments.
 
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
-phase 20 and, for the fp32 forward kernel, phase 26's fp32 HellaSwag run;
+phase 20 and, for the fp32 forward kernel, phase 26's fp32 HellaSwag run,
+for the fp32 backward kernel phase 29's fp32 train step;
 the fine-tune runs of phase 23 and the HellaSwag runs of phase 26 beside
 them), error, times, bound and library-call time, the whole run's seconds,
 and last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -449,6 +485,165 @@ def phase_flash_f32(torch, fa, dev):
                   f"{timing['sdpa_ms']:.4f} ms", flush=True)
             del qb, kb, vb
         del q, k, v, qkv, o, o2, ro
+    return errs, timing
+
+
+def masked_bwd_reference(torch, q, k, v, do, lse, dd, hide, heads=2):
+    """(dq, dk, dv) of the plain backward in fp32 on the forward's lse and D
+    with the (Tq, Tk) bool mask ``hide`` over the keys a query does not see,
+    ``heads`` heads at a time: the plain version that phase 2c's controls
+    bend (a pair that ``hide`` drops adds nothing to dq, dk or dv)."""
+    hs = q.shape[-1]
+    dqs, dks, dvs = [], [], []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        q32, k32, v32, do32 = (a[:, :, c].float() for a in (q, k, v, do))
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * hs**-0.5
+        p = torch.exp(s.masked_fill(hide, float("-inf")) - lse[:, c, :, None])
+        del s
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, do32))
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", do32, v32) - dd[:, c, :, None])
+        del p
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, k32) * hs**-0.5)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, q32) * hs**-0.5)
+        del ds
+    return [torch.cat(x, dim=2) for x in (dqs, dks, dvs)]
+
+
+def f64_bwd(torch, q, k, v, o, lse, do, heads=2):
+    """The plain backward of causal attention in fp64 on the given (fp32)
+    inputs, the forward's o and lse included, ``heads`` heads at a time: what
+    both fp32 sides of phase 2c would give without rounding."""
+    tq, hs = q.shape[1], q.shape[-1]
+    hide = torch.ones(tq, tq, dtype=torch.bool, device=q.device).triu(1)
+    dqs, dks, dvs = [], [], []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        q64, k64, v64, do64, o64 = (a[:, :, c].double() for a in (q, k, v, do, o))
+        s = (torch.einsum("bqhd,bkhd->bhqk", q64, k64) * hs**-0.5).masked_fill(hide, float("-inf"))
+        p = torch.exp(s - lse[:, c, :, None].double())
+        del s
+        dd = (do64 * o64).sum(-1).transpose(1, 2)
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, do64))
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", do64, v64) - dd[..., None])
+        del p
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, k64) * hs**-0.5)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, q64) * hs**-0.5)
+        del ds
+    return [torch.cat(x, dim=2) for x in (dqs, dks, dvs)]
+
+
+def f32_row_err(x, ref, causal_dq=False, floor=None):
+    """max over the rows of hs values of |x - ref| / (|ref| + floor), for
+    each query row of dq and each key row of dk and dv; ``floor`` defaults to
+    the mean row norm of ref. Phase 2b's rule (the forward's rows, floor 0)
+    cannot hold a backward's rows alone: a dq row is a sum of dS_ij k_j whose
+    dS sum to 0 over the row, so its norm can be far below its terms', and
+    any fp32 evaluation of it carries their rounding (on an H100 one dq row
+    at B=8, T=1024 read 3.6e-5 of its norm against the plain version, whose
+    own row read 5.2e-5 against fp64 where the kernel's read 1.6e-5; the dk
+    and dv rows 5.6e-7). With ``causal_dq`` the first query row, which sees one
+    key and is 0 in exact arithmetic, is left to the elementwise rule."""
+    if causal_dq:
+        x, ref = x[:, 1:], ref[:, 1:]
+    norms = ref.norm(dim=-1)
+    if floor is None:
+        floor = norms.mean()
+    return ((x - ref).norm(dim=-1) / (norms + floor)).max().item()
+
+
+def phase_flash_bwd_f32(torch, fa, dev):
+    print("[2c] flash-attention backward on fp32 operands vs plain (fp32, no TF32)", flush=True)
+    g = torch.Generator(dev).manual_seed(29)
+    errs = {"max_rel": 0.0, "row": 0.0}
+    timing = {}
+    # the training shape of an fp32 step, K1_MAX_T (the plain side two heads
+    # at a time), a ragged T, the 1558M head count, and no mask
+    for b, t, h, causal in ((8, 1024, 12, True), (1, fa.K1_MAX_T, 12, True),
+                            (8, 1000, 12, True), (2, 1024, 25, True), (8, 1024, 12, False)):
+        hs = 64
+        qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g)
+        q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
+        do = torch.randn(b, t, h, hs, device=dev, generator=g)
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        n0 = fa.flash_bwd_f32_cuda.launches
+        got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+        again = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        require(fa.flash_bwd_f32_cuda.launches == n0 + 2, "the fp32 backward kernel did not run")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        want = bwd_by_heads(torch, fa, q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        rels = [rel_err(x, r) for x, r in zip(got, want)]
+        rows = [f32_row_err(x, r, causal_dq=causal and i == 0)
+                for i, (x, r) in enumerate(zip(got, want))]
+        bare = [f32_row_err(x, r, causal_dq=causal and i == 0, floor=0.0)
+                for i, (x, r) in enumerate(zip(got, want))]
+        print(f"  B={b} T={t} H={h} {'causal' if causal else 'no mask'}: dq, dk, dv max|err| / "
+              f"max|ref| " + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {F32_TOL}), max row "
+              f"|err| / (|ref| + mean row norm) " + ", ".join(f"{r:.3e}" for r in rows)
+              + f" (tol {F32_ROW_TOL}; / |ref| alone " + ", ".join(f"{r:.3e}" for r in bare)
+              + f"); {got[0].dtype}; bit-equal twice: {same}", flush=True)
+        require(all(x.dtype == torch.float32 for x in got), "the fp32 backward is not fp32")
+        require(same, f"two runs of the fp32 backward differ at T={t}")
+        require(max(rels) <= F32_TOL and max(rows) <= F32_ROW_TOL,
+                f"the fp32 flash backward disagrees at B={b} T={t} H={h}")
+        errs["max_rel"], errs["row"] = max(errs["max_rel"], *rels), max(errs["row"], *rows)
+        if (b, t, h, causal) == (8, 1024, 12, True):
+            # both sides against fp64 (forward and backward recomputed in fp64
+            # from the same fp32 inputs), printed: which side the difference is
+            truth = f64_bwd(torch, q, k, v, o, lse, do)
+            errs["vs_fp64_row"] = {
+                side: [f32_row_err(x.double(), r, causal_dq=i == 0, floor=0.0)
+                       for i, (x, r) in enumerate(zip(xs, truth))]
+                for side, xs in (("kernel", got), ("plain", want))}
+            print(f"  against the same backward in fp64 on the same inputs, max row |err| / "
+                  f"|ref| of dq, dk, dv: kernel "
+                  + ", ".join(f"{e:.3e}" for e in errs["vs_fp64_row"]["kernel"]) + "; plain "
+                  + ", ".join(f"{e:.3e}" for e in errs["vs_fp64_row"]["plain"]), flush=True)
+            del truth
+            # controls: dq without the last key tile each query sees (its
+            # diagonal tile), and dk/dv without the late query rows (the last
+            # 64); the row rule must fail both
+            dd = fa.rowdot_reference(do, o)
+            qpos = torch.arange(t, device=dev)[:, None]
+            kpos = torch.arange(t, device=dev)[None, :]
+            causal_hide = kpos > qpos
+            cq = masked_bwd_reference(torch, q, k, v, do, lse, dd,
+                                      causal_hide | (kpos >= qpos // 64 * 64))[0]
+            ckv = masked_bwd_reference(torch, q, k, v, do, lse, dd,
+                                       causal_hide | (qpos >= t - 64))[1:]
+            controls = {"dq_without_last_key_tile": f32_row_err(cq, want[0], causal_dq=True),
+                        "dkv_without_late_queries": max(f32_row_err(x, r)
+                                                        for x, r in zip(ckv, want[1:]))}
+            del cq, ckv
+            print(f"  controls (max row |err| / (|ref| + mean row norm), must be > {F32_ROW_TOL}): "
+                  + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in controls.items()), flush=True)
+            require(all(v_ > F32_ROW_TOL for v_ in controls.values()),
+                    "a control passed the fp32 backward's row check")
+            errs["controls"] = controls
+            timing["f32"] = interleaved(
+                lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True),
+                lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, causal=True),
+                10, 2)
+            # the library's backward on the same fp32 operands: autograd.grad of
+            # q, k and v through SDPA (no TF32: main() turned it off)
+            import torch.nn.functional as F
+
+            leaves = [a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            dot = do.transpose(1, 2)
+            timing["sdpa_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                                                    retain_graph=True), 10)
+            bound = attention_bound("bwd", b, t, t, h, hs, True, elem_bytes=4,
+                                    peak=PEAK_FP32_FLOPS)
+            print(f"  B=8 T=1024 H=12: fp32 backward {timing['f32'][0]:.4f} ms (bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}, {bound[0] / timing['f32'][0]:.1%}), plain "
+                  f"{timing['f32'][1]:.4f} ms, SDPA's backward on the fp32 operands "
+                  f"{timing['sdpa_ms']:.4f} ms", flush=True)
+            del leaves, out
+        del q, k, v, qkv, do, o, lse, got, want
     return errs, timing
 
 
@@ -729,7 +924,7 @@ def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
 
 def _counters(fa, fc, fw):
     return {"flash_fwd": fa.flash_attention, "flash_fwd_f32": fa.flash_forward_f32,
-            "flash_bwd": fa.flash_attention_backward,
+            "flash_bwd": fa.flash_attention_backward, "flash_bwd_f32": fa.flash_bwd_f32_cuda,
             "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
             "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
             "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
@@ -747,7 +942,8 @@ def read_counts(fa, fc, fw):
 
 def with_zeros(counts):
     """Expected launch counts: the named ones, every other kernel 0."""
-    return {**dict.fromkeys(("flash_fwd", "flash_fwd_f32", "flash_bwd", "ce_fwd", "adamw",
+    return {**dict.fromkeys(("flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32",
+                             "ce_fwd", "adamw",
                              "flash_general_fwd", "flash_rowdot", "flash_general_dq",
                              "flash_general_dkv", "flash_lse_fwd", "flash_fused_bwd"), 0),
             **counts}
@@ -2474,8 +2670,14 @@ def phase_finetune_ops(torch, np, ft, mods, dev):
               f"{kk['moments']} with moments; frozen bit-identical {frozen_same}, frozen "
               f"without .grad {no_grad}, trainable leaves moved {len(moved)}/{n_train}",
               flush=True)
-        require(kk["launches"] == 1 and pp["launches"] == 0 and table_sizes == [n_train]
-                and kk["moments"] == n_train, "the AdamW kernel's table is not the trainable leaves")
+        # the kernel takes the trainable leaves whose JAX leaf passes the JAX
+        # gate (train/optimizer.py kernel_leaves); the others the plain update
+        n_kernel = len(mods["kernel_leaves"](gpt2.named_params(plain_model), states["plain"],
+                                             trainable))
+        print(f"    leaves the JAX gate gives the kernel: {n_kernel} of {n_train}", flush=True)
+        require(kk["launches"] == 1 and pp["launches"] == 0 and table_sizes == [n_kernel]
+                and 0 < n_kernel <= n_train and kk["moments"] == n_train,
+                "the AdamW kernel's table is not the trainable leaves the JAX gate admits")
         require(frozen_same and no_grad, "a frozen leaf changed or got a gradient")
         if kind == "xattn":
             # closed gates: only the gates have a gradient at step 0 (tanh'(0) = 1);
@@ -2865,8 +3067,8 @@ def phase_eval_quality(torch, np, mods, ft, cfg, dev):
                                     "decisive_examples": int(decisive.sum()),
                                     "predictions_differ": int(differ.sum()),
                                     "plain": fp32["reference_pt_fp32_plain"]}
-        # the router on fp32 q at T=1024: the fp32 kernel without a gradient,
-        # a refusal with one (its backward is not ported)
+        # the router on fp32 q at T=1024: the fp32 forward kernel without a
+        # gradient; with one, the fp32 forward and backward kernels
         q = torch.randn(1, 1024, 12, 64, device=dev)
         reset_counts(fa, fc, fw)
         with torch.no_grad():
@@ -2874,19 +3076,25 @@ def phase_eval_quality(torch, np, mods, ft, cfg, dev):
         o_err = (o - mods["attention"].xla_sdpa(q, q, q, causal=True, layout="bthd")
                  ).abs().max().item()
         routed = read_counts(fa, fc, fw)
-        refused = None
-        try:
-            mods["attention"].sdpa(q.requires_grad_(True), q, q, causal=True, layout="bthd")
-        except NotImplementedError as e:
-            refused = f"NotImplementedError: {e}"
+        grads = []
+        for impl in ("auto", "xla"):
+            qq = q.clone().requires_grad_(True)
+            mods["attention"].sdpa(qq, qq, qq, causal=True, impl=impl, layout="bthd").sum().backward()
+            grads.append(qq.grad)
+            if impl == "auto":
+                with_grad = read_counts(fa, fc, fw)
+        g_err = rel_err(grads[0], grads[1])
         print(f"  ops.attention.sdpa on fp32 q at T=1024: without grad launches {routed} "
-              f"(max|err| {o_err:.3e} against the plain path); with grad: {refused}", flush=True)
+              f"(max|err| {o_err:.3e} against the plain path); forward + backward launches "
+              f"{with_grad} (dq max|err| / max|ref| {g_err:.3e} against the plain path, tol "
+              f"{F32_TOL})", flush=True)
         require(routed == with_zeros({"flash_fwd_f32": 1}) and o_err <= F32_TOL,
                 "the router did not run fp32 q at T=1024 on the fp32 kernel")
-        require(refused is not None and read_counts(fa, fc, fw) == routed,
-                "the router took fp32 q that needs a gradient")
+        require(with_grad == with_zeros({"flash_fwd_f32": 2, "flash_bwd_f32": 1})
+                and read_counts(fa, fc, fw) == with_grad and g_err <= F32_TOL,
+                "the router did not run fp32 q that needs a gradient on the fp32 kernels")
         out["sdpa_fp32"] = {"no_grad_launches": routed, "max_abs_err": o_err,
-                            "with_grad": refused}
+                            "with_grad_launches": with_grad, "dq_max_rel_err": g_err}
 
         seen = []
         cast = caption_eval.cast_decode_params
@@ -3164,6 +3372,441 @@ def phase_clip_clis(torch, np, mods, dev, tokenizer, linear_ckpt):
         shutil.rmtree(os.path.dirname(linear_ckpt), ignore_errors=True)
 
 
+def phase_fp32_train_step(torch, np, gpt2, mods, cfgs, dev):
+    print("[29] train step under FP32_POLICY: GPT-2 124M, 2 x (B=8, T=1024), kernel path vs "
+          "plain path", flush=True)
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    cfg = cfgs["gpt"]
+    accum, b, t = 2, 8, 1024
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    plain_model = copy.deepcopy(model)
+    rows = np.random.RandomState(29).randint(0, cfg.vocab_size, (accum, b, t + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+
+    def make(m, attn_impl, ce_impl, fused):
+        loss_fn = lambda mm, r: gpt2.loss(mm, r[:, :-1], cfg, targets=r[:, 1:],  # noqa: E731
+                                          policy=mods["fp32_policy"], attn_impl=attn_impl,
+                                          ce_impl=ce_impl)
+        return (mods["make_train_step"](loss_fn, cfgs["opt"], cfgs["sched"],
+                                        decay_mask=gpt2.decay_mask(m), use_fused_adamw=fused),
+                mods["adamw_init"](gpt2.named_params(m)))
+
+    (step_k, st_k), (step_p, st_p) = make(model, "auto", "auto", True), make(
+        plain_model, "xla", "xla", False)
+    reset_counts(fa, fc, fw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk = step_k(model, st_k, batch, 0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts(fa, fc, fw)
+    want = with_zeros({"flash_fwd_f32": accum * cfg.n_layer, "flash_bwd_f32": accum * cfg.n_layer,
+                       "adamw": 1})
+    print(f"  kernel path: loss {mk['loss']:.6f}, grad_norm {mk['grad_norm']:.6f}; launches "
+          f"{counts}", flush=True)
+    require(counts == want, f"expected launches {want}, got {counts}")
+    mp = step_p(plain_model, st_p, batch, 0)
+    require(read_counts(fa, fc, fw) == counts, "the plain-path step launched a kernel")
+    dl = abs(mk["loss"] - mp["loss"])
+    dn = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    pk, pp = gpt2.named_params(model), gpt2.named_params(plain_model)
+    sq = lambda ts: sum(x.float().square().sum().item() for x in ts)  # noqa: E731
+    dg = math.sqrt(sq(pk[n].grad - p.grad for n, p in pp.items()) / sq(p.grad for p in pp.values()))
+    print(f"  vs the plain path (attn 'xla', CE 'xla', AdamW plain): loss {mp['loss']:.6f} "
+          f"(|diff| {dl:.3e}, tol 1e-4), grad_norm {mp['grad_norm']:.6f} (rel diff {dn:.3e}, "
+          f"tol 1e-4), grads ||err|| / ||ref|| {dg:.3e} (tol 1e-4)", flush=True)
+    require(dl <= 1e-4 and dn <= 1e-4 and dg <= 1e-4,
+            "the fp32 train step on the kernels disagrees with the plain path")
+    times = []
+    for i in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_k(model, st_k, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_p(plain_model, st_p, batch, 1)
+    torch.cuda.synchronize()
+    n_tok = accum * b * t
+    out = {"counts": counts, "kernel_tps": n_tok / (sum(times) / 2),
+           "plain_tps": n_tok / (time.perf_counter() - t0), "first_step_s": first_s,
+           "loss_abs_err": dl, "grad_norm_rel_err": dn, "grads_rel_l2": dg,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"  tokens/s: kernel path {out['kernel_tps']:.1f} (steps 1-2), plain path "
+          f"{out['plain_tps']:.1f}", flush=True)
+    del model, plain_model, st_k, st_p
+    return out
+
+
+def phase_k1_heads(torch, fa, dev):
+    print("[30] K1-fwd and K1-bwd (bf16) at the big presets' head counts, B=4, T=1024",
+          flush=True)
+    g = torch.Generator(dev).manual_seed(30)
+    out = {}
+    for h, preset in ((16, "350M"), (20, "774M"), (25, "1558M")):
+        b, t = 4, 1024
+        q, k, v, do = qkv_inputs(torch, b, t, t, h, dev, g)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        ro, rlse = fwd_by_heads(torch, fa, q, k, v, True)
+        eo, excess = out_excess(o, ro)
+        erow, row_over = row_excess(o, ro)
+        el = (lse - rlse).abs().max().item()
+        got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True)
+        want = bwd_by_heads(torch, fa, q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        rels = [rel_err(x, r) for x, r in zip(got, want)]
+        rows = [grad_row_excess(x, r) for x, r in zip(got, want)]
+        fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+        bwd_ms = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), 20)
+        print(f"  H={h} ({preset}): o max|err| {eo:.3e}, max row |err| / |ref| {erow:.3e} "
+              f"(tol 2^-6), lse {el:.3e}; dq, dk, dv max|err| / max|ref| "
+              + ", ".join(f"{e:.3e}" for e in rels) + ", max row |err| / (|ref| + 1e-3) "
+              + ", ".join(f"{r[0]:.3e}" for r in rows) + f" (tol 2^-6); fwd {fwd_ms:.4f} ms, "
+              f"bwd {bwd_ms:.4f} ms", flush=True)
+        require(excess <= 0 and row_over <= 0 and el <= 1e-3, f"K1-fwd disagrees at H={h}")
+        require(max(rels) <= 3e-2 and max(r[1] for r in rows) <= 0,
+                f"K1-bwd disagrees at H={h}")
+        out[f"H{h}"] = {"o_row_err": erow, "lse_err": el, "grad_max_rel": max(rels),
+                        "grad_row_err": max(r[0] for r in rows), "fwd_ms": fwd_ms,
+                        "bwd_ms": bwd_ms,
+                        "fwd_bound_ms": attention_bound("fwd", b, t, t, h, 64, True)[0],
+                        "bwd_bound_ms": attention_bound("bwd", b, t, t, h, 64, True)[0]}
+        del q, k, v, do, o, lse, ro, got, want
+    return out
+
+
+def _csv_train_tps(log_dir):
+    rows = [line.split(",") for f in sorted(glob.glob(os.path.join(log_dir, "*.csv")))
+            for line in open(f).read().splitlines()[1:]]
+    return [(int(r[2]), float(r[7])) for r in rows if r[1] == "train"]
+
+
+# the stacks phase 31 reads the peak memory of, in the order of their cost:
+# (label, micro-batch, param dtype, moment storage, accumulator dtype, remat,
+# layerwise). The remat modes alone at fp32, then the JAX table's stack
+# (cli/pretrain.py FIT_1CHIP there) added one mechanism at a time.
+BIG_STACKS = (
+    ("none B=4", 4, None, None, None, "none", False),
+    ("none", 8, None, None, None, "none", False),
+    ("none B=16", 16, None, None, None, "none", False),
+    ("remat recompute_gelu", 8, None, None, None, "recompute_gelu", False),
+    ("remat recompute_mlp", 8, None, None, None, "recompute_mlp", False),
+    ("remat save_attn", 8, None, None, None, "save_attn", False),
+    ("remat full", 8, None, None, None, "full", False),
+    ("layerwise", 8, None, None, None, "none", True),
+    ("bf16 moments", 8, None, "bfloat16", None, "none", False),
+    ("int8 moments", 8, None, "int8", None, "none", False),
+    ("bf16 params", 8, "bfloat16", None, None, "none", False),
+    ("bf16 params + int8 moments", 8, "bfloat16", "int8", None, "none", False),
+    ("+ bf16 accumulators", 8, "bfloat16", "int8", "bfloat16", "none", False),
+    ("+ remat full", 8, "bfloat16", "int8", "bfloat16", "full", False),
+    ("+ layerwise", 8, "bfloat16", "int8", "bfloat16", "full", True),
+)
+# a stack fits when one micro-batch step's peak stays under this share of the
+# card's memory (room for the allocator's fragmentation and the validation pass)
+FIT_SHARE = 0.9
+
+
+def _fit_row(label, stacks):
+    """The FIT_1CHIP row of one of BIG_STACKS' labels."""
+    _, b, pdt, odt, adt, remat, lw = next(s for s in stacks if s[0] == label)
+    row = {k: v for k, v in (("param_dtype", pdt), ("opt_state_dtype", odt),
+                             ("grad_accum_dtype", adt)) if v}
+    if remat != "none":
+        row["remat"] = remat
+    if lw:
+        row["layerwise_grad"] = True
+    if b != 8:
+        row["micro_batch"] = b
+    return row
+
+
+def big_peaks(torch, np, gpt2, mods, cfgs, dev, cfg, stacks, seed):
+    """Peak device memory (torch.cuda.max_memory_allocated) of a step of two
+    micro-batches of GPT-2 ``cfg`` at T=1024 under each stack of ``stacks``
+    (the second micro-batch's forward runs beside the first one's grads, as
+    every later one of a 64-micro-batch step does), fresh moments each time,
+    the bf16 policy; None where the step ran out of memory. The fp32 stacks
+    come first, then the model is cast."""
+    from gpt2_vision_language_tpu_torch.train.step import make_train_step
+
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    rows = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (2, 16, 1025)).astype(np.int32)).to(dev)
+    policy = mods["policy"]
+    out = {}
+    for label, b, pdt, odt, adt, remat, lw in stacks:
+        if pdt == "bfloat16" and next(model.parameters()).dtype != torch.bfloat16:
+            model.to(torch.bfloat16)
+        loss_fn = lambda m, r, remat=remat: gpt2.loss(  # noqa: E731
+            m, r[:, :-1], cfg, targets=r[:, 1:], policy=policy, remat=remat)
+        layerwise = (lambda m, r, acc: gpt2.loss_grad_layerwise(  # noqa: E731
+            m, r[:, :-1], cfg, targets=r[:, 1:], acc=acc, policy=policy)) if lw else None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, state = {"peak_gib": None}, None
+        try:
+            state = mods["adamw_init"](gpt2.named_params(model), state_dtype=odt)
+            step = make_train_step(loss_fn, cfgs["opt"], cfgs["sched"],
+                                   decay_mask=gpt2.decay_mask(model), grad_accum_dtype=adt,
+                                   layerwise_loss_grad=layerwise)
+            t0 = time.perf_counter()
+            m = step(model, state, rows[:, :b], 0)
+            torch.cuda.synchronize()
+            res = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "step_s": time.perf_counter() - t0, "loss": m["loss"]}
+            require(math.isfinite(m["loss"]), f"{label}: the loss is not finite")
+        except torch.cuda.OutOfMemoryError:
+            res["oom"] = True
+        for p in model.parameters():
+            p.grad = None
+        del state
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out[label] = res
+        print(f"    {label} (B={b}): " + ("out of memory" if res.get("oom") else
+              f"peak {res['peak_gib']:.2f} GiB, step {res['step_s']:.2f} s"), flush=True)
+    del model, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def moment_gap(torch, a, b):
+    """How far two AdamW states' moments are apart: the largest gap of 8-bit
+    codes, the largest relative gap of their scales and of the tensor moments
+    (bf16: one rounding is 2^-8 relative)."""
+    gap = {"codes_max_gap": 0, "scales_max_rel": 0.0, "tensor_max_rel": 0.0}
+    for key in ("m", "v"):
+        for n, x in a[key].items():
+            y = b[key][n]
+            if isinstance(x, dict):
+                gap["codes_max_gap"] = max(gap["codes_max_gap"], (
+                    x["q"].cpu().int() - y["q"].cpu().int()).abs().max().item())
+                gap["scales_max_rel"] = max(gap["scales_max_rel"], (
+                    (x["s"].cpu() - y["s"].cpu()).abs() / y["s"].cpu().abs()).max().item())
+            else:
+                x, y = x.cpu().float(), y.cpu().float()
+                gap["tensor_max_rel"] = max(gap["tensor_max_rel"], (
+                    (x - y).abs() / y.abs().clamp(min=1e-30)).max().item())
+    return gap
+
+
+def phase_big_model(torch, np, gpt2, mods, cfgs, dev):
+    print("[31] GPT-2 1558M at full width and depth (48 x 1600, 25 heads)", flush=True)
+    from gpt2_vision_language_tpu_torch.core.config import GPT2_774M, GPT2_1558M
+    from gpt2_vision_language_tpu_torch.train.step import GradAccumulators
+    from gpt2_vision_language_tpu_torch.utils import fmt_count, tree_bytes
+
+    fa, fc, fw, cli = mods["fa"], mods["fc"], mods["fw"], mods["pretrain"]
+    out = {}
+    limit_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    # (a) state bytes of each stack (params, moments, grad accumulators), on
+    # the meta device
+    with torch.device("meta"):
+        meta = gpt2.GPT2(GPT2_1558M)
+    n = sum(p.numel() for p in gpt2.named_params(meta).values())
+    states = {}
+    for label, pdt, odt, adt in (("fp32", None, None, None), ("bf16 moments", None, "bfloat16", None),
+                                 ("int8 moments", None, "int8", None),
+                                 ("bf16 params + int8 moments + bf16 accumulators", "bfloat16",
+                                  "int8", "bfloat16")):
+        pd = torch.bfloat16 if pdt else torch.float32
+        params = {k: torch.empty(v.shape, dtype=pd, device="meta")
+                  for k, v in gpt2.named_params(meta).items()}
+        st = mods["adamw_init"](params, state_dtype=odt)
+        gib = {"params": tree_bytes(params) / 2**30,
+               "moments": tree_bytes([st["m"], st["v"]]) / 2**30,
+               "grads": n * (2 if adt else 4) / 2**30}
+        gib["total"] = sum(gib.values())
+        states[label] = gib
+        print(f"  (a) {label}: params {gib['params']:.2f} GiB, moments {gib['moments']:.2f} GiB, "
+              f"grads {gib['grads']:.2f} GiB, total {gib['total']:.2f} GiB "
+              f"({fmt_count(n)} parameters)", flush=True)
+    out["state_gib"] = states
+    del meta
+
+    # (b) peak memory of one micro-batch step per stack, 1558M then 774M
+    print(f"  (b) peak memory of a step of 2 micro-batches (T=1024, bf16 policy), card "
+          f"{limit_gib:.1f} GiB, a stack fits under {FIT_SHARE:.0%} of it:", flush=True)
+    t0 = time.perf_counter()
+    peaks = big_peaks(torch, np, gpt2, mods, cfgs, dev, GPT2_1558M, BIG_STACKS, 31)
+    small_stacks = tuple(s for s in BIG_STACKS if s[0] in ("none", "remat full"))
+    print("  (b) GPT-2 774M:", flush=True)
+    peaks_774 = big_peaks(torch, np, gpt2, mods, cfgs, dev, GPT2_774M, small_stacks, 32)
+    fits = lambda r: r["peak_gib"] is not None and r["peak_gib"] <= FIT_SHARE * limit_gib  # noqa: E731
+    order = [s[0] for s in BIG_STACKS if s[1] == 8]
+    least = {"1558M": next((lb for lb in order if fits(peaks[lb])), None),
+             "774M": next((lb for lb in order if lb in peaks_774 and fits(peaks_774[lb])), None)}
+    read = {m: None if lb is None else _fit_row(lb, BIG_STACKS) for m, lb in least.items()}
+    print(f"  least stack that fits at B=8: 1558M {least['1558M']!r} -> {read['1558M']}, 774M "
+          f"{least['774M']!r} -> {read['774M']}; FIT_1CHIP has {cli.FIT_1CHIP['1558M']} and "
+          f"{cli.FIT_1CHIP['774M']} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    table_label = next((s[0] for s in BIG_STACKS if _fit_row(s[0], BIG_STACKS)
+                        == cli.FIT_1CHIP["1558M"]), None)
+    require(table_label is not None and fits(peaks[table_label]),
+            f"FIT_1CHIP['1558M'] = {cli.FIT_1CHIP['1558M']} does not fit this card's reading")
+    out.update({"peaks_1558M": peaks, "peaks_774M": peaks_774, "least": least,
+                "least_rows": read, "card_gib": limit_gib})
+
+    # (c) the trainer entry point with --fit-1chip
+    row = cli.FIT_1CHIP["1558M"]
+    b = row.get("micro_batch", 8)
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_1558m_")
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = log_dir
+    try:
+        argv = ["--model", "1558M", "--fit-1chip", "--synthetic", "--steps", "3",
+                "--total-batch", str(2 * b * 1024), "--val-every", "0", "--no-hellaswag",
+                "--sample-every", "0", "--no-ckpt", "--log-dir", os.path.join(log_dir, "log")]
+        reset_counts(fa, fc, fw)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts(fa, fc, fw)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        recompute = row.get("layerwise_grad") or row.get("remat") in ("full", "save_attn")
+        n_layer = GPT2_1558M.n_layer
+        fused = bool(mods["kernel_leaves"](gpt2.named_params(res["model"]), res["opt_state"]))
+        want = with_zeros({"flash_fwd": 3 * 2 * n_layer * (2 if recompute else 1),
+                           "flash_bwd": 3 * 2 * n_layer, "adamw": 3 if fused else 0})
+        tps = _csv_train_tps(os.path.join(log_dir, "log"))
+        print(f"  (c) cli.pretrain --model 1558M --fit-1chip ({row}), 3 steps of 2 x (B={b}, "
+              f"T=1024): {wall:.1f} s, tokens/s by step {tps}, peak {peak:.2f} GiB; launches "
+              f"{counts}", flush=True)
+        require(counts == want, f"expected launches {want}, got {counts}")
+        require(res["opt_state"]["step"] == 3 and [s for s, _ in tps] == [0, 1, 2],
+                "the 1558M trainer did not take 3 steps")
+        out["trainer"] = {"row": row, "tokens_per_s": [x for _, x in tps],
+                          "tokens_per_s_steps_1_2": sum(x for _, x in tps[1:]) / 2,
+                          "peak_gib": peak, "wall_s": wall, "launches": counts,
+                          "launches_per_micro_batch": {"flash_fwd": counts["flash_fwd"] // 6,
+                                                       "flash_bwd": counts["flash_bwd"] // 6}}
+        del res
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(log_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) at 2 layers of the 1558M width, from one state: each mechanism
+    # against the same step without it
+    small = GPT2_1558M.replace(n_layer=2)
+    model = gpt2.init(small, generator=torch.Generator(dev).manual_seed(33), device=dev)
+    params = gpt2.named_params(model)
+    r = torch.from_numpy(np.random.RandomState(33).randint(
+        0, small.vocab_size, (8, 1025)).astype(np.int32)).to(dev)
+    x, y = r[:, :-1], r[:, 1:]
+    policy = mods["policy"]
+
+    def standard(remat=False):
+        for p in params.values():
+            p.grad = None
+        loss = gpt2.loss(model, x, small, targets=y, policy=policy, remat=remat)
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return loss.item(), grads
+
+    def layerwise():
+        acc = GradAccumulators(params, {k: True for k in params}, torch.float32, 0)
+        loss = gpt2.loss_grad_layerwise(model, x, small, targets=y, acc=acc, policy=policy)
+        return loss.item(), acc.sums
+
+    base_loss, base = standard()
+    base_norm = mods["global_norm"](base).item()
+    sq = lambda ts: sum(t_.float().square().sum().item() for t_ in ts)  # noqa: E731
+    same = {}
+    for label, fn in (("layerwise", layerwise),
+                      *((f"remat {m}", lambda m=m: standard(m))
+                        for m in ("full", "save_attn", "recompute_gelu", "recompute_mlp"))):
+        reset_counts(fa, fc, fw)
+        loss, grads = fn()
+        counts = {k: v for k, v in read_counts(fa, fc, fw).items() if v}
+        dl = abs(loss - base_loss)
+        dn = abs(mods["global_norm"](grads).item() - base_norm) / base_norm
+        dg = math.sqrt(sq(grads[k] - base[k] for k in base) / sq(base.values()))
+        print(f"  (d) 2 layers x 1600: {label} vs standard: loss |diff| {dl:.3e} (tol 1e-2), "
+              f"grad norm rel {dn:.3e} (tol 2e-2), grads ||err|| / ||ref|| {dg:.3e} (tol 2e-2); "
+              f"launches {counts}", flush=True)
+        require(dl <= 1e-2 and dn <= 2e-2 and dg <= 2e-2, f"{label} disagrees with the standard step")
+        same[label] = {"loss_abs_err": dl, "grad_norm_rel_err": dn, "grads_rel_l2": dg,
+                       "launches": counts}
+    # the compact storages: two updates on the card against the same on the
+    # CPU, the block leaves (both layers) and ln_f
+    names = [k for k in params if k.startswith(("transformer.h.", "transformer.ln_f."))]
+    norm = mods["global_norm"]({k: base[k] for k in names})
+    upd = {}
+    for label, pdt, odt in (("int8 moments", torch.float32, "int8"),
+                            ("bf16 moments", torch.float32, "bfloat16"),
+                            ("bf16 params", torch.bfloat16, None)):
+        deltas, states = {}, {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            p = {k: params[k].detach().to(d, pdt, copy=True) for k in names}
+            g = {k: base[k].to(d) for k in names}
+            st = mods["adamw_init"](p, state_dtype=odt)
+            dmask = {k: gpt2.decay_mask(model)[k] for k in names}
+            mods["adamw_update"](p, g, st, 1e-3, cfgs["opt"], norm=norm.to(d), decay_mask=dmask)
+            before = {k: t_.float().clone() for k, t_ in p.items()}
+            g = {k: t_ * 0.5 for k, t_ in g.items()}
+            mods["adamw_update"](p, g, st, 1e-3, cfgs["opt"], norm=(norm * 0.5).to(d),
+                                 decay_mask=dmask)
+            deltas[where] = {k: (p[k].float() - before[k]).cpu() for k in names}
+            states[where] = st
+        # the parameter change as a relative L2 error: a moment one code (or
+        # one bf16 rounding) apart moves its element's update by up to the
+        # LR, which a max-based reading turns into one element's whole update
+        # (3.2e-2 of max|ref| for the 8-bit moments on an H100, one code
+        # apart); the moments themselves are held to one code / one rounding
+        l2 = math.sqrt(sum((deltas["card"][k] - deltas["cpu"][k]).square().sum().item()
+                           for k in names) / sum(deltas["cpu"][k].square().sum().item()
+                                                 for k in names))
+        err = max((deltas["card"][k] - deltas["cpu"][k]).abs().max().item() for k in names)
+        ref = max(deltas["cpu"][k].abs().max().item() for k in names)
+        codes = moment_gap(torch, states["card"], states["cpu"])
+        upd[label] = {"rel_l2": l2, "max_rel": err / ref, "moments": codes}
+        print(f"  (d) {label}: the second update on the card vs the CPU: ||err|| / ||ref|| "
+              f"{l2:.3e} (tol 3e-2), max|err| / max|ref| {err / ref:.3e}; moments {codes}",
+              flush=True)
+        require(l2 <= 3e-2 and codes["codes_max_gap"] <= 1 and codes["scales_max_rel"] <= 1e-5
+                and codes["tensor_max_rel"] <= 2.0 ** -7,
+                f"{label}: the update on the card disagrees with the CPU's")
+    out["mechanisms_2_layers"] = {**same, "updates_card_vs_cpu": upd}
+    del model, params, base
+    torch.cuda.empty_cache()
+
+    # (e) a resume under another --opt-state-dtype ends in the configured format
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_1558m_resume_")
+    tempfile.tempdir = log_dir
+    try:
+        argv = ["--synthetic", "--synthetic-shards", "1", "--micro-batch", "8", "--total-batch",
+                "16384", "--no-hellaswag", "--val-every", "0", "--sample-every", "0",
+                "--log-dir", os.path.join(log_dir, "log")]
+        first = cli.main(argv + ["--opt-state-dtype", "int8", "--steps", "2"], model=small)
+        q8 = sorted(k for k, v in first["opt_state"]["m"].items() if isinstance(v, dict))
+        del first
+        second = cli.main(argv + ["--opt-state-dtype", "bfloat16", "--steps", "3"], model=small)
+        m = second["opt_state"]["m"]
+        steps = [s for s, _ in _csv_train_tps(os.path.join(log_dir, "log"))]
+        ok = (second["opt_state"]["step"] == 3 and steps == [0, 1, 2]
+              and all(isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16 for v in m.values())
+              and set(m) == set(gpt2.named_params(second["model"])))
+        print(f"  (e) 2 steps with --opt-state-dtype int8 ({len(q8)} 8-bit JAX leaves, e.g. "
+              f"{q8[:3]}), then --steps 3 with bfloat16: train steps {steps}, every moment bf16 "
+              f"and keyed by name: {ok}", flush=True)
+        require(len(q8) > 0 and ok, "the resume under another --opt-state-dtype")
+        out["resume"] = {"q8_leaves": len(q8), "steps": steps}
+        del second
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(log_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def host_us(torch, fn, iters):
     """(host microseconds a call spends enqueueing fn(), microseconds a call
     of the same loop synchronised at its end): when the first is not below
@@ -3364,7 +4007,7 @@ def main() -> int:
     from gpt2_vision_language_tpu_torch.ops import ring_attention as ra
     from gpt2_vision_language_tpu_torch.train import schedule
     from gpt2_vision_language_tpu_torch.train.optimizer import (
-        adamw_init, adamw_update, global_norm,
+        adamw_init, adamw_update, global_norm, kernel_leaves,
     )
     from gpt2_vision_language_tpu_torch.train.step import make_eval_step, make_train_step
     from gpt2_vision_language_tpu_torch.tools import ab_dt_flash as ab
@@ -3399,6 +4042,8 @@ def main() -> int:
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
     f32_errs, f32_t = phase_flash_f32(torch, fa, dev)
+    torch.cuda.empty_cache()
+    f32b_errs, f32b_t = phase_flash_bwd_f32(torch, fa, dev)
     torch.cuda.empty_cache()
     ce_errs, ce_t = phase_ce(torch, fc, dev)
 
@@ -3475,7 +4120,7 @@ def main() -> int:
     mods = {"fa": fa, "fc": fc, "fw": fw, "ra": ra, "policy": DEFAULT_POLICY,
             "make_train_step": make_train_step, "adamw_init": adamw_init,
             "adamw_update": adamw_update, "global_norm": global_norm, "pretrain": pretrain,
-            "attention": attention}
+            "attention": attention, "fp32_policy": FP32_POLICY, "kernel_leaves": kernel_leaves}
     bwd_errs, bwd_t = phase_flash_bwd(torch, fa, attention, dev)
     adamw_err, adamw_t, adamw_kernel_ms = phase_adamw(torch, gpt2, fw, schedule, cfgs, dev)
     train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
@@ -3529,6 +4174,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     clip_clis = phase_clip_clis(torch, np, mods, dev, ft["tokenizer"], linear_ckpt)
     slice_s["clip_and_entry_points"] = time.perf_counter() - t_slice
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    fp32_train = phase_fp32_train_step(torch, np, gpt2, mods, cfgs, dev)
+    torch.cuda.empty_cache()
+    k1_heads = phase_k1_heads(torch, fa, dev)
+    torch.cuda.empty_cache()
+    big = phase_big_model(torch, np, gpt2, mods, cfgs, dev)
+    slice_s["fp32_step_heads_1558M"] = time.perf_counter() - t_slice
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
                "train_step": train["counts"], "trainer": trainer_counts,
@@ -3537,7 +4190,8 @@ def main() -> int:
                "ab_dt_flash": dt_counts,
                **{f"finetune_{kind}": c for kind, c in ft_counts.items()},
                **{f"eval_quality_{name}": quality[name]["launches"]
-                  for name in ("reference_pt_bf16", "hf_dir_bf16", "reference_pt_fp32")}}
+                  for name in ("reference_pt_bf16", "hf_dir_bf16", "reference_pt_fp32")},
+               "fp32_train_step": fp32_train["counts"], "trainer_1558M": big["trainer"]["launches"]}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
@@ -3558,6 +4212,11 @@ def main() -> int:
         ("flash_bwd", "flash_bwd.cu", f"{jfa}:887", "trainer", bwd_errs["max_rel"],
          bwd_t["B8_T1024"],
          attention_bound("bwd", *self_shape), lib_self["bwd"]),
+        # K1-bwd's function on fp32 operands: the fp32 train step of phase 29
+        ("flash_bwd_f32", "flash_bwd_f32.cu", f"{jfa}:887", "fp32_train_step",
+         f32b_errs["max_rel"], f32b_t["f32"],
+         attention_bound("bwd", *self_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         f32b_t["sdpa_ms"]),
         ("ce_fwd", "ce_fwd.cu", "gpt2_vision_language_tpu/ops/fused_ce.py:93", "trainer",
          ce_errs["max"], ce_t, bound_ms(2 * 8192 * 768 * 50304,
                                 2 * (8192 * 768 + 50304 * 768) + 3 * 4 * 8192), None),
@@ -3608,6 +4267,13 @@ def main() -> int:
                           "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
                           "bf16_flash_fwd_ms": f32_t["bf16_ms"],
                           "library_is": "F.scaled_dot_product_attention on fp32 operands"},
+        "flash_bwd_f32": {"err_is": "max|err| / max|ref|", "row_err": f32b_errs["row"],
+                          "row_controls": f32b_errs["controls"],
+                          "tol": {"max_rel": F32_TOL, "row": F32_ROW_TOL},
+                          "bit_equal_twice": True, "shape": "B=8 T=1024 H=12 causal fp32",
+                          "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
+                          "library_is": "autograd.grad of q, k and v through SDPA on fp32 "
+                                        "operands"},
         "flash_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": bwd_errs["dq_row"],
                       "dkv_row_err": bwd_errs["dkv_row"], "bit_equal_twice": True,
                       "dkv_row_control_excess": bwd_errs["dkv_control"],
@@ -3708,6 +4374,8 @@ def main() -> int:
                                   n_tok / dt_plain, "micro_batch_device_ms": score_ms,
                                   "micro_batch_device_ms_by_class": score_split}}))
     print(json.dumps({"finetune": ft_runs, "finetune_ops": ft_ops}))
+    print(json.dumps({"fp32_train_step": fp32_train, "k1_big_heads": k1_heads,
+                      "gpt2_1558M": big, "card": card}))
     print(json.dumps({"sampler": sampler, "decode": decode, "eval_quality": quality,
                       "clip": clip, "clip_entry_points": clip_clis, "seconds": slice_s,
                       "card": card}))

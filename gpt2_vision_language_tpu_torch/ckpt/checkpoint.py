@@ -11,8 +11,11 @@ reference's semantics (train_gpt2.py:307-329,363-391,494-508):
     run next and re-seeds ``best_val`` from ``model_best``.
 
 The format is the port's own: one ``torch.save`` file holding the model's
-state dict, the AdamW state {"m", "v", "step"} and a metadata dict. Writes
-are synchronous. ``load_jax_checkpoint`` reads the JAX package's ``.npz``
+state dict, the AdamW state {"m", "v", "step"} and a metadata dict. Every
+storage of the memory recipes goes through as it is: bf16 params, bf16
+moments and the 8-bit moments' {"q", "s"} dicts keyed by JAX leaf path
+(train/optimizer.py); the trainer converts a restored state to the
+configured storage (``convert_moments``). Writes are synchronous. ``load_jax_checkpoint`` reads the JAX package's ``.npz``
 (its ckpt/checkpoint.py:97-116) without jax or ``ml_dtypes``: a nested dict
 of numpy arrays, which ckpt/convert.py turns into the port's state dicts.
 

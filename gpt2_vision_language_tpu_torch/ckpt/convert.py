@@ -15,10 +15,12 @@ JAX CLIP ViT tree (models/clip_vit.py) into the state dict of the port's
 split into q/k/v projections, the patch matmul's weight back into the
 conv's (width, 3, p, p) shape.
 
-``opt_state_from_jax`` maps the JAX AdamW state (fp32 ``m``/``v``
-pytrees of the params' structure, and ``step``) to the port's
-``train/optimizer`` state by the same rule, so both start from the same
-params and moments.
+``opt_state_from_jax`` maps the JAX AdamW state (``m``/``v`` pytrees of the
+params' structure, and ``step``) to the port's ``train/optimizer`` state by
+the same rule, so both start from the same params and moments: fp32 and bf16
+moments keep their dtype, and an 8-bit moment ({"q", "s"} of a stacked JAX
+leaf) is taken as it is, keyed by its JAX leaf path, which is how the port
+lays out its 8-bit state.
 
 ``jax_leaf_name`` gives the JAX leaf name of a port parameter (the decode
 cast's rule is by that name), and ``check_jax_paths`` holds a JAX tree to the
@@ -74,24 +76,36 @@ _QFORMER_LEAVES = (
 )
 
 
-# port parameter names outside the layer tables -> the JAX leaf's name
-_TOP_LEAVES = {
-    "transformer.wte.weight": "wte", "lm_head.weight": "wte",
-    "transformer.wpe.weight": "wpe",
-    "transformer.ln_f.weight": "scale", "transformer.ln_f.bias": "bias",
-    "transformer.vis_proj.z_proj.weight": "w", "transformer.vis_proj.z_proj.bias": "b",
-    # the bridges (models/bridges.py), bare or under CaptionModel's bridge.*
-    "vis_proj.weight": "w", "vis_proj.bias": "b", "query_tokens": "query_tokens",
+# port parameter names outside the layer tables -> (JAX leaf path, stored
+# transposed), for jax_leaf_path
+_TOP_PATHS = {
+    "transformer.wte.weight": ("wte", False), "lm_head.weight": ("wte", False),
+    "transformer.wpe.weight": ("wpe", False),
+    "transformer.ln_f.weight": ("lnf/scale", False), "transformer.ln_f.bias": ("lnf/bias", False),
+    "transformer.vis_proj.z_proj.weight": ("vis_proj/w", True),
+    "transformer.vis_proj.z_proj.bias": ("vis_proj/b", False),
+    "vis_proj.weight": ("vis_proj/w", True), "vis_proj.bias": ("vis_proj/b", False),
+    "query_tokens": ("query_tokens", False),
 }
-_GPT_LAYER_LEAVES = {**{name: leaf for _, leaf, name, _ in _BLOCK_LEAVES + _XATTN_BLOCK_LEAVES},
-                     "cross_gate": "gate"}
-# every parameter of a Q-Former layer; in_proj_weight packs the JAX leaves wq,
-# wk and wv (in_proj_bias bq, bk and bv)
+_GPT_LAYER_PATHS = {name: (f"blocks/{group}/{leaf}", t)
+                    for group, leaf, name, t in _BLOCK_LEAVES + _XATTN_BLOCK_LEAVES}
+_GPT_LAYER_PATHS["cross_gate"] = ("blocks/gate", False)
+_QFORMER_LAYER_PATHS = {name: (f"layers/{group}/{leaf}", t)
+                        for group, leaf, name, t in _QFORMER_LEAVES}
+_QFORMER_LAYER_PATHS.update({f"{attn}.out_proj.{w}": (f"layers/{attn}/{leaf}", w == "weight")
+                             for attn in ("self_attn", "cross_attn")
+                             for w, leaf in (("weight", "wo"), ("bias", "bo"))})
+
+
+# the same names -> the last key of their JAX leaf path (jax_leaf_name); a
+# Q-Former in_proj packs the JAX leaves wq, wk and wv (bq, bk and bv), named
+# by the first
+_TOP_LEAVES = {n: path.rsplit("/", 1)[-1] for n, (path, _) in _TOP_PATHS.items()}
+_GPT_LAYER_LEAVES = {n: path.rsplit("/", 1)[-1] for n, (path, _) in _GPT_LAYER_PATHS.items()}
 _QFORMER_LAYER_LEAVES = {
-    **{name: leaf for _, leaf, name, _ in _QFORMER_LEAVES},
-    **{f"{attn}.{name}": leaf for attn in ("self_attn", "cross_attn")
-       for name, leaf in (("in_proj_weight", "wq"), ("in_proj_bias", "bq"),
-                          ("out_proj.weight", "wo"), ("out_proj.bias", "bo"))},
+    **{n: path.rsplit("/", 1)[-1] for n, (path, _) in _QFORMER_LAYER_PATHS.items()},
+    **{f"{attn}.in_proj_{w}": leaf for attn in ("self_attn", "cross_attn")
+       for w, leaf in (("weight", "wq"), ("bias", "bq"))},
 }
 
 
@@ -113,6 +127,34 @@ def jax_leaf_name(name: str) -> str:
     if leaf is None:
         raise KeyError(f"no JAX leaf maps to the port parameter {name!r}")
     return leaf
+
+
+def jax_leaf_path(name: str):
+    """Where the port parameter ``name`` sits in the JAX parameter tree:
+    (path, layer, transposed). ``path`` is the "/"-joined JAX leaf path
+    ("blocks/mlp/wfc", "wte"; "gpt/..." and "bridge/..." under a
+    CaptionModel), ``layer`` the index on the JAX leaf's stacked layer axis
+    (None for a leaf that is not stacked), ``transposed`` whether torch stores
+    the weight as the transpose of the JAX layer's. A parameter that no single
+    JAX leaf holds (the Q-Former's packed in-projections) or that no JAX leaf
+    maps to is its own path: (name, None, False)."""
+    prefix, bare = "", name
+    for pre in ("gpt.", "bridge."):
+        if name.startswith(pre):
+            prefix, bare = pre[:-1] + "/", name[len(pre):]
+    if bare in _TOP_PATHS:
+        path, t = _TOP_PATHS[bare]
+        return prefix + path, None, t
+    parts = bare.split(".")
+    table, i, rest = None, None, None
+    if parts[:2] == ["transformer", "h"] and len(parts) > 3 and parts[2].isdigit():
+        table, i, rest = _GPT_LAYER_PATHS, int(parts[2]), ".".join(parts[3:])
+    elif parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+        table, i, rest = _QFORMER_LAYER_PATHS, int(parts[1]), ".".join(parts[2:])
+    if table is not None and rest in table:
+        path, t = table[rest]
+        return prefix + path, i, t
+    return name, None, False
 
 
 def _paths(tree, prefix=""):
@@ -231,21 +273,59 @@ def caption_from_jax_params(params_np, cfg: GPTConfig, bridge_cfg) -> Dict[str, 
     return sd
 
 
+def _is_q8(a) -> bool:
+    return isinstance(a, Mapping) and set(a) == {"q", "s"}
+
+
+def _split_q8(tree, prefix=""):
+    """(the tree with each 8-bit moment replaced by a 0-d placeholder,
+    {JAX leaf path: {"q", "s"} as tensors})."""
+    q8, out = {}, {}
+    for k, v in tree.items():
+        if _is_q8(v):
+            q8[prefix + k] = {n: torch.from_numpy(np.array(a, copy=True)) for n, a in v.items()}
+            out[k] = np.zeros((), np.float32)
+        elif isinstance(v, Mapping):
+            out[k], sub = _split_q8(v, f"{prefix}{k}/")
+            q8.update(sub)
+        else:
+            out[k] = v
+    return out, q8
+
+
+def _leaf_dtype(tree, name):
+    """The dtype of the JAX leaf that the port parameter ``name`` comes from
+    ("float32" for one that no single JAX leaf holds)."""
+    node = tree
+    for part in jax_leaf_path(name)[0].split("/"):
+        if not isinstance(node, Mapping) or part not in node:
+            return "float32"
+        node = node[part]
+    return str(np.asarray(node).dtype)
+
+
 def opt_state_from_jax(opt_state_np, cfg: GPTConfig, bridge_cfg=None) -> dict:
     """The port's AdamW state {"m", "v", "step"} from the JAX one: moments
     keyed by the state-dict names of ``models.gpt2.named_params`` (the tied
-    weight once, as transformer.wte.weight). With ``bridge_cfg`` the trees are
-    the prefix fine-tunes' {"gpt", "bridge"}: the frozen decoder's placeholder
-    moments are left out and the bridge's come back under ``bridge.*``."""
+    weight once, as transformer.wte.weight), bf16 where the JAX moment is
+    bf16, and the 8-bit moments keyed by their JAX leaf paths. With
+    ``bridge_cfg`` the trees are the prefix fine-tunes' {"gpt", "bridge"}:
+    the frozen decoder's placeholder moments are left out and the bridge's
+    come back under ``bridge.*``."""
     def moments(tree):
+        dense, q8 = _split_q8(tree)
         if bridge_cfg is None:
-            sd = gpt2_from_jax_params(tree, cfg)
+            sd = gpt2_from_jax_params(dense, cfg)
             sd.pop("lm_head.weight", None)
-            return sd
-        sd = {f"gpt.{k}": v for k, v in gpt2_from_jax_params(tree["gpt"], cfg).items()
-              if k != "lm_head.weight"}
-        sd.update({f"bridge.{k}": v
-                   for k, v in bridge_from_jax_params(tree["bridge"], bridge_cfg).items()})
+        else:
+            sd = {f"gpt.{k}": v for k, v in gpt2_from_jax_params(dense["gpt"], cfg).items()
+                  if k != "lm_head.weight"}
+            sd.update({f"bridge.{k}": v
+                       for k, v in bridge_from_jax_params(dense["bridge"], bridge_cfg).items()})
+        for n, a in sd.items():
+            if _leaf_dtype(dense, n) == "bfloat16":  # exact: bf16 widened to fp32 and back
+                sd[n] = a.to(torch.bfloat16)
+        sd.update(q8)
         return sd
 
     return {"m": moments(opt_state_np["m"]), "v": moments(opt_state_np["v"]),

@@ -132,9 +132,12 @@ class PretrainConfig:
     """FineWeb-Edu pretraining workload (train_gpt2.py:243-285), single
     device. ``tp`` is the ring size of ``attn_impl="ring"`` (the JAX package
     rings over the tensor-parallel mesh axis; Megatron tensor parallelism
-    itself is not ported). The JAX fields for the TPU's memory mechanisms, the
-    big-model recipes and the other parallel styles are not carried
-    (tests/test_torch_import.py lists them)."""
+    itself is not ported). The big-model memory recipes are the JAX fields
+    of the same names (``opt_state_dtype``, ``grad_accum_dtype``,
+    ``layerwise_grad``, ``param_dtype``; train/optimizer.py, train/step.py,
+    models/gpt2.py). The JAX fields for the TPU's memory mechanisms and the
+    other parallel styles are not carried (tests/test_torch_import.py lists
+    them)."""
 
     model: GPTConfig = field(
         default_factory=lambda: GPT2_124M.replace(unroll_layers=True)
@@ -153,8 +156,20 @@ class PretrainConfig:
     data_dir: Optional[str] = None  # defaults to $FW_OUT_DIR or edu_fineweb10B
     log_dir: Optional[str] = None  # defaults to $LOG_DIR or log
     seed: int = 1337
+    # AdamW m/v storage: None = fp32 (the reference's), "bfloat16", or "int8"
+    # (block-quantized, train/optimizer.py q8_*); the update math stays fp32
+    opt_state_dtype: Optional[str] = None
+    # None = fp32 grad accumulators; "bfloat16" = stochastically rounded bf16
+    # (train/step.py stochastic_round_bf16)
+    grad_accum_dtype: Optional[str] = None
     save_ckpt: bool = True  # False: no checkpoint is written or resumed
     nan_guard: bool = True  # skip the update of a step with a non-finite loss or norm
+    # True: each micro-batch's grads are formed layer by layer and folded into
+    # the accumulators at once (models/gpt2.py loss_grad_layerwise)
+    layerwise_grad: bool = False
+    # None = fp32 master params; "bfloat16" = the whole model in bf16, as the
+    # reference's CUDA run casts it (train_gpt2.py:264)
+    param_dtype: Optional[str] = None
     attn_impl: str = "auto"
     tp: int = 1  # ring size of attn_impl="ring" (sequence chunks)
 

@@ -20,8 +20,22 @@ recompute backward, so ``loss`` is differentiable end to end. The tied
 wte / lm_head weight gets its gradient from the embedding gather and the
 CE head into one fp32 ``.grad``. The parameter dicts below
 (``named_params``, ``decay_mask``) are keyed by state-dict name and hold the tied weight once, as
-``transformer.wte.weight``. The layer loop is always unrolled; the remat
-modes are not ported.
+``transformer.wte.weight``. The layer loop is always unrolled.
+
+The remat modes of the JAX ``run_blocks`` (:260-345 there) are
+``run_blocks(remat=...)``: False / "none", True / "full" (each block from
+its input alone, ``torch.utils.checkpoint``), "save_attn" (the attention
+output kept, the rest of the block recomputed), "recompute_mlp" (everything
+kept but the MLP's (B, T, 4C) hidden and its GELU, which the backward
+recomputes from the saved LayerNorm output) and "recompute_gelu" (only the
+GELU recomputed, from the saved hidden). Each saves what the JAX policy of
+the same name saves (the values named "attn_out", "mlp_hidden" and
+"mlp_gelu" there) and recomputes what it recomputes: the two MLP modes are
+autograd Functions (``_MlpRemat``) rather than ``torch.utils.checkpoint``,
+whose replay would also run the MLP's output projection again.
+``loss_grad_layerwise`` is the JAX function of that name (:463-560): the
+loss and its gradients formed layer by layer, each layer's folded into the
+train step's accumulators at once.
 
 The gated cross-attention variant (``cfg.cross_attention``) prepends
 ``x += tanh(cross_gate) * xattn(ln_x(x), z)`` to every block
@@ -38,13 +52,16 @@ over 33 keys and always takes the plain path, as in the JAX package.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.config import GPTConfig
 from ..core.precision import Policy, DEFAULT_POLICY
 from ..ops.attention import sdpa
 from ..ops.fused_ce import fused_linear_ce
-from ..ops.layers import embed, gelu_tanh, layer_norm, linear, matmul_f32
+from ..ops.layers import embed, gelu_tanh, layer_norm, linear, linear_backward, matmul_f32
+
+REMAT_MODES = ("none", "full", "save_attn", "recompute_gelu", "recompute_mlp")
 
 # ---------------------------------------------------------------------------
 # Module and init
@@ -203,6 +220,51 @@ def mlp(m: MLP, x, *, policy: Policy):
     return linear(h, m.c_proj.weight, m.c_proj.bias, policy=policy)
 
 
+class _MlpRemat(torch.autograd.Function):
+    """c_proj(gelu(fc)) whose backward recomputes the GELU output instead of
+    keeping it. Given fc (``x`` with wfc None: "recompute_gelu") it saves fc;
+    given the c_fc input ``x`` with wfc and bfc ("recompute_mlp") it saves x
+    and recomputes fc as well. The output projection is not run again."""
+
+    @staticmethod
+    def forward(ctx, x, wfc, bfc, wproj, bproj, policy):
+        with torch.no_grad():
+            fc = x if wfc is None else linear(x, wfc, bfc, policy=policy)
+            h = gelu_tanh(fc)
+            y = linear(h, wproj, bproj, policy=policy)
+        ctx.policy, ctx.h_dtype = policy, h.dtype
+        ctx.recompute_fc = wfc is not None
+        ctx.has_bias = bproj is not None
+        ctx.save_for_backward(x, wfc, bfc, wproj)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wfc, bfc, wproj = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(needs[0])
+            fc = linear(xr, wfc, bfc, policy=ctx.policy) if ctx.recompute_fc else xr
+            h = gelu_tanh(fc)
+        dh, dwproj, dbproj = linear_backward(dy, ctx.policy.cast_compute(h.detach()), wproj,
+                                             ctx.policy, ctx.h_dtype, ctx.has_bias,
+                                             (True, needs[3], needs[4]))
+        wrt = [(i, a) for i, a in enumerate((xr, wfc, bfc)) if needs[i]]
+        got = torch.autograd.grad(h, [a for _, a in wrt], dh) if wrt else ()
+        grads = [None, None, None]
+        for (i, _), g in zip(wrt, got):
+            grads[i] = g
+        return (*grads, dwproj, dbproj, None)
+
+
+def _mlp_remat(m: MLP, x, policy: Policy, mode: str):
+    if mode == "recompute_gelu":
+        fc = linear(x, m.c_fc.weight, m.c_fc.bias, policy=policy)
+        return _MlpRemat.apply(fc, None, None, m.c_proj.weight, m.c_proj.bias, policy)
+    return _MlpRemat.apply(x, m.c_fc.weight, m.c_fc.bias, m.c_proj.weight, m.c_proj.bias,
+                           policy)
+
+
 def cross_attention(xattn: CrossAttention, x, z, cfg: GPTConfig, *, policy: Policy):
     """Non-causal text -> vision cross-attention (gpt2_cross-att/model.py:34-58)
     over the projected visual memory z (B, N, C). 33 keys: always the plain
@@ -228,22 +290,62 @@ def _xblock(layer: Block, x, z, cfg: GPTConfig, policy: Policy):
     return x + torch.tanh(layer.cross_gate).to(x.dtype) * xa
 
 
+def _attn_out(layer: Block, x, cfg: GPTConfig, policy: Policy, attn_impl: str):
+    return self_attention(layer.attn, _ln(x, layer.ln_1), cfg, policy=policy,
+                          attn_impl=attn_impl)
+
+
+def _mlp_out(layer: Block, x, policy: Policy):
+    return mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy)
+
+
 def block(layer: Block, x, cfg: GPTConfig, *, policy: Policy,
-          attn_impl: str, z=None):
+          attn_impl: str, z=None, remat="none"):
     """Pre-LN residual block (train_gpt2.py:62-74), with the gated
-    cross-attention prologue when the model has one and z is given."""
+    cross-attention prologue when the model has one and z is given.
+    ``remat``: one of REMAT_MODES, the selective ones here ("full" is
+    run_blocks' checkpoint of the whole block)."""
     x = _xblock(layer, x, z, cfg, policy)
-    x = x + self_attention(layer.attn, _ln(x, layer.ln_1), cfg, policy=policy,
-                           attn_impl=attn_impl)
-    return x + mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy)
+    if remat == "save_attn":
+        # kept: the block input and x + attn_out; the attention's inside and
+        # the MLP are recomputed in the backward
+        ckpt = torch.utils.checkpoint.checkpoint
+        x = x + ckpt(_attn_out, layer, x, cfg, policy, attn_impl, use_reentrant=False,
+                     preserve_rng_state=False)
+        return x + ckpt(_mlp_out, layer, x, policy, use_reentrant=False,
+                        preserve_rng_state=False)
+    x = x + _attn_out(layer, x, cfg, policy, attn_impl)
+    if remat in ("recompute_gelu", "recompute_mlp"):
+        return x + _mlp_remat(layer.mlp, _ln(x, layer.ln_2), policy, remat)
+    return x + _mlp_out(layer, x, policy)
+
+
+def _remat_mode(remat) -> str:
+    """The JAX remat argument (False, True or a policy name) as a name of
+    REMAT_MODES."""
+    mode = {False: "none", True: "full", None: "none"}.get(remat, remat)
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_MODES} (or False / True)")
+    return mode
 
 
 def run_blocks(model: GPT2, x, cfg: GPTConfig, *, z=None,
-               policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto"):
+               policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto", remat=False):
     """The blocks in order, as a Python loop (the JAX unrolled path). ``z``
-    is the projected visual memory of the cross-attention variant."""
+    is the projected visual memory of the cross-attention variant.
+    ``remat``: False / "none", True / "full", "save_attn",
+    "recompute_gelu", "recompute_mlp" (the module docstring); it matters
+    only where autograd records the forward."""
+    mode = _remat_mode(remat)
+    if not torch.is_grad_enabled():
+        mode = "none"
     for layer in model.transformer.h:
-        x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z)
+        if mode == "full":
+            x = torch.utils.checkpoint.checkpoint(
+                block, layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z, remat=mode)
     return x
 
 
@@ -307,22 +409,79 @@ def apply(model: GPT2, idx, cfg: GPTConfig, *, targets=None, target_mask=None,
 
 def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
          policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
-         ce_chunks: int = 8, ce_impl: str = "auto"):
+         ce_chunks: int = 8, ce_impl: str = "auto", remat=False):
     """CE loss without the (B, T, V) logits: apply(...)[1]'s semantics with
     lm_head + CE through fused_linear_ce. The scoring forward: called without
     autograd (train/step.py make_eval_step) under the bf16 policy on CUDA it
     runs the flash kernel in every layer and the fused CE kernel once. The
     training loss: under autograd on CUDA every layer runs the flash forward
     and, in the backward, the flash backward kernel; CE takes the chunked
-    plain forward and backward. ``ce_impl`` is fused_linear_ce's ``impl``."""
+    plain forward and backward. ``ce_impl`` is fused_linear_ce's ``impl``,
+    ``remat`` run_blocks'."""
     _check_len(idx, cfg)
     x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
     z = project_visual(model, z, cfg, x.dtype, policy=policy)
-    x = run_blocks(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl)
+    x = run_blocks(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl, remat=remat)
     x = _ln(x, model.transformer.ln_f)
     return fused_ce_loss(x, model.transformer.wte.weight, targets,
                          mask=target_mask, policy=policy, ce_chunks=ce_chunks,
                          impl=ce_impl)
+
+
+def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, target_mask=None,
+                        policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
+                        ce_chunks: int = 8):
+    """The loss of ``loss`` and its gradients, formed layer by layer and
+    folded into the train step's accumulators as they come (JAX
+    loss_grad_layerwise, :463-560): no tree of every parameter's gradient
+    exists at once.
+
+    A forward without autograd keeps each block's input; the tail (ln_f and
+    the CE head) is differentiated first; then, layer by layer in reverse,
+    each block is recomputed from its saved input and differentiated with
+    ``torch.autograd.grad``, its parameters' gradients handed to
+    ``acc.add(name, grad)`` at once. The tied wte gets its head and
+    embedding gradients summed in fp32 before its one accumulate (:552-556
+    there). Peak gradient memory is one layer's; every block's forward runs
+    twice. Returns the loss, detached. Plain decoder only, every parameter
+    trainable (the pretraining workload)."""
+    if cfg.cross_attention:
+        raise ValueError("loss_grad_layerwise: plain decoder only")
+    _check_len(idx, cfg)
+    tr = model.transformer
+    layers = list(tr.h)
+    saved = []
+    with torch.no_grad():
+        x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
+        for layer in layers:
+            saved.append(x)
+            x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl)
+    with torch.enable_grad():
+        xl = x.requires_grad_(True)
+        loss_val = fused_ce_loss(_ln(xl, tr.ln_f), tr.wte.weight, targets, mask=target_mask,
+                                 policy=policy, ce_chunks=ce_chunks)
+        dx, dwte_head, dlnf_w, dlnf_b = torch.autograd.grad(
+            loss_val, [xl, tr.wte.weight, tr.ln_f.weight, tr.ln_f.bias])
+    del xl, x
+    for i in reversed(range(len(layers))):
+        names, params = zip(*layers[i].named_parameters())
+        with torch.enable_grad():
+            x_in = saved[i].requires_grad_(True)
+            y = block(layers[i], x_in, cfg, policy=policy, attn_impl=attn_impl)
+            grads = torch.autograd.grad(y, [x_in, *params], dx)
+        saved[i] = None
+        dx = grads[0]
+        for n, g in zip(names, grads[1:]):
+            acc.add(f"transformer.h.{i}.{n}", g)
+        del y, x_in, grads
+    with torch.enable_grad():
+        x0 = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
+        dwte_embed, dwpe = torch.autograd.grad(x0, [tr.wte.weight, tr.wpe.weight], dx)
+    acc.add("transformer.wte.weight", dwte_head.float() + dwte_embed.float())
+    acc.add("transformer.wpe.weight", dwpe)
+    acc.add("transformer.ln_f.weight", dlnf_w)
+    acc.add("transformer.ln_f.bias", dlnf_b)
+    return loss_val.detach()
 
 
 def fused_ce_loss(x, wte, targets, *, mask=None, policy: Policy = DEFAULT_POLICY,

@@ -8,9 +8,9 @@ families behind ``flash_attention`` (:1089 there) and
   * the self-attention family (Tq == Tk, T <= K1_MAX_T): ``csrc/flash_fwd.cu``
     (bf16) and ``csrc/flash_fwd_f32.cu`` (fp32 operands, true fp32 products)
     replace ``_fwd_dt_kernel`` (:841, launched by ``_fwd_dt`` :956), which
-    takes either, and ``csrc/flash_bwd.cu`` replaces ``_bwd_dt_kernel`` (:887,
-    ``_bwd_dt`` :989) for bf16; the fp32 backward is not ported, so fp32
-    operands that need a gradient raise;
+    takes either, and ``csrc/flash_bwd.cu`` (bf16) and
+    ``csrc/flash_bwd_f32.cu`` (fp32, its own D kernel) replace
+    ``_bwd_dt_kernel`` (:887, ``_bwd_dt`` :989), which takes either too;
   * the general family (Tq != Tk, any length, right-aligned causal or
     non-causal): ``csrc/flash_general_fwd.cu`` replaces the streamed-K/V
     forward ``_fwd_kernel_grid`` (:221, launched by ``_fwd`` :265),
@@ -18,12 +18,14 @@ families behind ``flash_attention`` (:1089 there) and
     ``csrc/flash_dkv_bwd.cu`` ``_dkv_kernel_grid`` (:509), both launched by
     ``_bwd`` (:550). As there, the two backward kernels take D = rowsum(dO *
     O) as an input tensor; the small kernel of ``csrc/flash_general_bwd.cu``
-    forms it (``_bwd`` leaves it to XLA, :573);
+    forms it (``_bwd`` leaves it to XLA, :573). These kernels take bf16 only:
+    their fp32 cases (the JAX kernels are dtype-generic, :294, :607,
+    :636-637, :670-672) are still to port (ROADMAP Queue 2) and raise;
   * the lse family, the same shapes again, behind ``flash_attention_with_lse``
     and ``flash_attention(stream_kv=False)``: ``csrc/flash_lse_fwd.cu``
     replaces ``_fwd_kernel`` (:197, launched by ``_fwd`` :265 with
     stream_kv=False) and ``csrc/flash_fused_bwd.cu`` replaces the one-pass
-    ``_bwd_kernel_fused`` (:396, ``_bwd`` :550). Its logsumexp output is
+    ``_bwd_kernel_fused`` (:396, ``_bwd`` :550), bf16 only as well. Its logsumexp output is
     differentiable: the backward takes the cotangent of lse as
     dcap = D - dlse (:576-580 there), which is what makes the merge of ring
     attention's chunks exact in the gradient too.
@@ -42,8 +44,9 @@ versions, ``flash_attention_reference``, ``rowdot_reference``,
 and plain version, and there is no fallback from one to the other, from one
 family to the other, or to any library call: what a kernel does not take
 raises. Each launch adds one to its wrapper's count:
-``flash_attention.launches``, ``flash_forward_f32.launches`` and
-``flash_attention_backward.launches`` for the self-attention family,
+``flash_attention.launches``, ``flash_forward_f32.launches``,
+``flash_attention_backward.launches`` and ``flash_bwd_f32_cuda.launches``
+for the self-attention family,
 ``flash_general_forward.launches``, ``flash_general_dq.launches``,
 ``flash_general_dkv.launches`` and ``flash_rowdot.launches`` for the
 general one, ``flash_lse_forward.launches`` and
@@ -149,7 +152,10 @@ def _check(q, k, v, causal):
 
 def _check_kernel_operand(name, a):
     if a.dtype != torch.bfloat16:
-        raise ValueError(f"flash_attention kernel takes bf16, got {name} {a.dtype}")
+        raise ValueError(
+            f"flash_attention kernel takes bf16, got {name} {a.dtype} (fp32 runs on the "
+            "self-attention kernels only; the other families' fp32 cases are still to "
+            "port, ROADMAP Queue 2)")
     if a.stride(-1) != 1 or any(s % 8 for s in a.stride()[:3]):
         raise ValueError(
             f"flash_attention kernel: {name} needs unit stride on hs and the "
@@ -199,11 +205,13 @@ def flash_fwd_cuda(q, k, v, *, causal: bool):
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
-    """Launch the CUDA backward kernels: (dq, dk, dv), each (B, T, H, hs) bf16."""
+    """Launch the CUDA backward kernels: (dq, dk, dv), each (B, T, H, hs) bf16.
+    do is made contiguous first (the cotangent of a sum comes expanded, all
+    strides 0)."""
+    do = do.contiguous()
     for name, a in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_kernel_operand(name, a)
     _check_stats(o, lse)
-    do = do.contiguous()
     b, t, h, hs = q.shape
     dq, dk, dv = (torch.empty((b, t, h, hs), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -222,14 +230,14 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
 
 def _check_f32_operand(name, a):
     if a.dtype != torch.float32:
-        raise ValueError(f"flash_forward_f32 kernel takes fp32, got {name} {a.dtype}")
+        raise ValueError(f"flash_attention fp32 kernels take fp32, got {name} {a.dtype}")
     if a.stride(-1) != 1 or any(s % 4 for s in a.stride()[:3]):
         raise ValueError(
-            f"flash_forward_f32 kernel: {name} needs unit stride on hs and the "
+            f"flash_attention fp32 kernels: {name} needs unit stride on hs and the "
             f"other strides multiples of 4, got {a.stride()}"
         )
     if a.data_ptr() % 16:
-        raise ValueError(f"flash_forward_f32 kernel: {name} is not 16-byte aligned")
+        raise ValueError(f"flash_attention fp32 kernels: {name} is not 16-byte aligned")
 
 
 def flash_forward_f32(q, k, v, *, causal: bool = True):
@@ -258,9 +266,39 @@ def flash_forward_f32(q, k, v, *, causal: bool = True):
 flash_forward_f32.launches = 0
 
 
+def flash_bwd_f32_cuda(q, k, v, o, lse, do, *, causal: bool):
+    """Launch the fp32 backward kernels of csrc/flash_bwd_f32.cu (D, then dq
+    and dk/dv in one grid; every product an fp32 FMA, no TF32): (dq, dk, dv),
+    each (B, T, H, hs) fp32."""
+    do = do.contiguous()
+    for name, a in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_f32_operand(name, a)
+    _check_stats(o, lse)
+    b, t, h, hs = q.shape
+    dq, dk, dv = (torch.empty((b, t, h, hs), dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    dd = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, t, h, hs, *_strides(q, k, v), int(causal), _stream(q),
+        )
+    _build.check(err, "flash_bwd_f32")
+    flash_bwd_f32_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_f32_cuda.launches = 0
+
+
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of self-attention (Tq == Tk) from the forward's o and
-    lse: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    lse: for CUDA tensors the fp32 kernel on fp32 q, the bf16 one otherwise;
+    the plain version for CPU tensors."""
+    if q.is_cuda and q.dtype == torch.float32:
+        return flash_bwd_f32_cuda(q, k, v, o, lse, do, causal=causal)
     if q.is_cuda:
         return flash_bwd_cuda(q, k, v, o, lse, do, causal=causal)
     if q.device.type == "cpu":
@@ -273,8 +311,8 @@ flash_attention_backward.launches = 0
 
 class _FlashAttn(torch.autograd.Function):
     """Forward and backward of the self-attention family; saves
-    (q, k, v, o, lse). On CUDA tensors fp32 q goes to the fp32 forward
-    kernel, anything else to the bf16 one."""
+    (q, k, v, o, lse). On CUDA tensors fp32 q goes to the fp32 kernels,
+    anything else to the bf16 ones."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -582,9 +620,9 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
     by shape.
 
     CUDA tensors go to the kernels (bf16, head size 64, hs contiguous; fp32
-    too for the self-attention forward without a gradient) and anything they
-    do not take raises; CPU tensors go to the plain versions. Differentiable
-    in q, k and v (not in lse).
+    too for the self-attention family, forward and backward) and anything
+    they do not take raises; CPU tensors go to the plain versions.
+    Differentiable in q, k and v (not in lse).
     """
     if layout not in ("bthd", "bhtd"):
         raise ValueError(f"flash_attention: unknown layout {layout!r}")
@@ -592,11 +630,6 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
     _check(q, k, v, causal)
     family = select_family(q.shape[1], k.shape[1], stream_kv)
-    if (family == "self" and q.is_cuda and q.dtype == torch.float32 and torch.is_grad_enabled()
-            and any(a.requires_grad for a in (q, k, v))):
-        raise NotImplementedError(
-            "flash_attention: fp32 operands run the fp32 forward kernel only; its backward "
-            "is not ported (call under torch.no_grad(), or pass bf16 operands)")
     o, lse = _FAMILIES[family].apply(q, k, v, causal)
     if family == "lse":
         lse = lse.detach()  # flash_attention's lse carries no gradient

@@ -62,17 +62,26 @@ class _Linear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xc, w = ctx.saved_tensors
-        cc = ctx.policy.cast_compute
-        dyc = cc(dy)
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = matmul_f32(dyc, cc(w)).to(ctx.x_dtype)
-        if ctx.needs_input_grad[1]:
-            d = xc.shape[-1]
-            dw = matmul_f32(dyc.reshape(-1, dy.shape[-1]).t(), xc.reshape(-1, d)).to(w.dtype)
-        if ctx.has_bias and ctx.needs_input_grad[2]:
-            db = dy.float().reshape(-1, dy.shape[-1]).sum(0)
+        dx, dw, db = linear_backward(dy, xc, w, ctx.policy, ctx.x_dtype, ctx.has_bias,
+                                     ctx.needs_input_grad[:3])
         return dx, dw, db, None
+
+
+def linear_backward(dy, xc, w, policy: Policy, x_dtype, has_bias: bool, needs):
+    """(dx, dw, db) of ``linear`` from the output cotangent, the forward's
+    compute-dtype input xc and the weight; ``needs`` says which of the three
+    are wanted (None for the others)."""
+    cc = policy.cast_compute
+    dyc = cc(dy)
+    dx = dw = db = None
+    if needs[0]:
+        dx = matmul_f32(dyc, cc(w)).to(x_dtype)
+    if needs[1]:
+        d = xc.shape[-1]
+        dw = matmul_f32(dyc.reshape(-1, dy.shape[-1]).t(), xc.reshape(-1, d)).to(w.dtype)
+    if has_bias and needs[2]:
+        db = dy.float().reshape(-1, dy.shape[-1]).sum(0)
+    return dx, dw, db
 
 
 def linear(x, w, b=None, *, policy: Policy = DEFAULT_POLICY):

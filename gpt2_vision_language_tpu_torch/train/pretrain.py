@@ -17,6 +17,15 @@ and ``$HELLASWAG_DIR`` (default ``./hellaswag``) is a directory. ``attn_impl="ri
 run in turn by this one process (``ops.ring_attention.LocalRing``), installed
 before the first step and removed when the run ends. ``tp > 1`` with any
 other ``attn_impl`` would be Megatron tensor parallelism, which is not ported.
+
+The big-model memory recipes are the JAX ones (:164-171, :208-212,
+:253-272, :309-325 there): ``param_dtype`` casts the params at init and
+again on a resume, ``opt_state_dtype`` picks the moments' storage (and a
+resumed state is converted to it, ``convert_moments``), ``grad_accum_dtype``
+the accumulators', ``layerwise_grad`` forms each micro-batch's grads layer
+by layer (``models.gpt2.loss_grad_layerwise``), and ``remat`` is
+``run_blocks``'. A ``[mem]`` line prints the state's bytes
+(``utils/trees``).
 """
 
 from __future__ import annotations
@@ -42,8 +51,11 @@ from ..infer.sampling import sample_top_k
 from ..models import gpt2
 from ..obs.csvlog import MetricsLogger
 from ..ops import ring_attention
-from .optimizer import adamw_init
+from ..utils.trees import fmt_count, tree_bytes
+from .optimizer import adamw_init, convert_moments
 from .step import make_eval_step, make_train_step
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -81,21 +93,22 @@ def check_parallel(cfg: PretrainConfig) -> None:
 
 
 def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY,
-                 max_steps_override: Optional[int] = None) -> dict:
+                 max_steps_override: Optional[int] = None, remat=False) -> dict:
     """Run the pretrain loop on ``device``. Returns {"model", "opt_state",
-    "val_loss"}."""
+    "val_loss"}. ``remat`` is models.gpt2.run_blocks' (False, True or a mode
+    name)."""
     check_parallel(cfg)
     ring = cfg.attn_impl == "ring"
     if ring:
         ring_attention.set_ring(cfg.tp)
     try:
-        return _run_pretrain(cfg, torch.device(device), policy, max_steps_override)
+        return _run_pretrain(cfg, torch.device(device), policy, max_steps_override, remat)
     finally:
         if ring:
             ring_attention.set_ring(None)
 
 
-def _run_pretrain(cfg, device, policy, max_steps_override) -> dict:
+def _run_pretrain(cfg, device, policy, max_steps_override, remat) -> dict:
     accum = cfg.grad_accum_steps(1)
     print(f"total desired batch size: {cfg.total_batch_size}")
     print(f"=> calculated gradient accumulation steps: {accum}")
@@ -107,17 +120,34 @@ def _run_pretrain(cfg, device, policy, max_steps_override) -> dict:
 
     model = gpt2.init(cfg.model, generator=torch.Generator(device).manual_seed(cfg.seed),
                       device=device)
-    opt_state = adamw_init(gpt2.named_params(model))
+    if cfg.param_dtype:
+        # the whole-model cast, the reference's CUDA run (train_gpt2.py:264);
+        # AdamW's arithmetic stays fp32 (train/optimizer.py)
+        model.to(_DTYPES[cfg.param_dtype])
+    opt_state = adamw_init(gpt2.named_params(model), state_dtype=cfg.opt_state_dtype)
+    params = gpt2.named_params(model)
     print(f"[init] parameters: {gpt2.param_count(model):,}")
+    print(f"[mem] params {fmt_count(gpt2.param_count(model))} in "
+          f"{tree_bytes(params) / 2**30:.3f} GiB, moments "
+          f"{tree_bytes([opt_state['m'], opt_state['v']]) / 2**30:.3f} GiB "
+          f"({cfg.opt_state_dtype or 'param dtype'}), grad accumulators "
+          f"{cfg.grad_accum_dtype or 'float32'}")
 
     def loss_fn(model, micro):
         # micro: {"x", "y"}, (B, T) int32 each
         return gpt2.loss(model, micro["x"], cfg.model, targets=micro["y"],
-                         policy=policy, attn_impl=cfg.attn_impl)
+                         policy=policy, attn_impl=cfg.attn_impl, remat=remat)
+
+    layerwise_fn = None
+    if cfg.layerwise_grad:
+        def layerwise_fn(model, micro, acc):
+            return gpt2.loss_grad_layerwise(model, micro["x"], cfg.model, targets=micro["y"],
+                                            acc=acc, policy=policy, attn_impl=cfg.attn_impl)
 
     train_step = make_train_step(
         loss_fn, cfg.optimizer, cfg.schedule, decay_mask=gpt2.decay_mask(model),
-        nan_guard=cfg.nan_guard,
+        nan_guard=cfg.nan_guard, grad_accum_dtype=cfg.grad_accum_dtype,
+        layerwise_loss_grad=layerwise_fn,
     )
     eval_step = make_eval_step(loss_fn)
 
@@ -134,13 +164,12 @@ def _run_pretrain(cfg, device, policy, max_steps_override) -> dict:
     resumed = manager.maybe_resume(map_location=device)
     if resumed is not None:
         tree, meta = resumed
+        # load_state_dict copies into the params as they are, so a checkpoint
+        # of another dtype comes in at the configured param_dtype
         model.load_state_dict(tree["model"])
-        saved = tree["opt_state"]
-        with torch.no_grad():
-            for key in ("m", "v"):
-                for n, a in opt_state[key].items():
-                    a.copy_(saved[key][n])
-        opt_state["step"] = int(saved["step"])
+        # the configured moment storage, whatever the checkpoint's
+        opt_state = convert_moments(params, tree["opt_state"], cfg.opt_state_dtype)
+        opt_state["step"] = int(opt_state["step"])
         start_step = int(meta["next_step"])
         # the data stream goes on where the uninterrupted run would be
         train_loader.seek(start_step * accum)

@@ -205,8 +205,8 @@ def test_kernel_sources_and_signatures_are_registered():
     from gpt2_vision_language_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    # thirteen sources since the fp32 self-attention forward (flash_fwd_f32.cu)
-    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 13
+    # fourteen sources since the fp32 self-attention backward (flash_bwd_f32.cu)
+    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 14
     assert len(_build.SIGNATURES["gpt2vl_flash_dt_fwd"]) == 12
     assert len(_build.SIGNATURES["gpt2vl_flash_dt_bwd"]) == 17
     for name in ("flash_dt_fwd", "flash_dt_bwd"):

@@ -189,14 +189,16 @@ class _OnCard(torch.Tensor):
      (torch.float32, 1000, 1000, False, "f32"),     # ragged T
      (torch.bfloat16, 1024, 1024, False, "bf16"),
      (torch.bfloat16, 1024, 1024, True, "bf16"),
-     (torch.float32, 1024, 1024, True, NotImplementedError),  # no fp32 backward
-     (torch.float32, 64, 1024, False, ValueError)],  # the general family takes bf16
+     (torch.float32, 1024, 1024, True, "f32"),      # the fp32 train step's attention
+     (torch.float32, 64, 1024, False, ValueError),  # the general family takes bf16
+     (torch.float32, 64, 1024, True, ValueError)],  # ... and its backward too
 )
 def test_fp32_routing_with_stubs(monkeypatch, dtype, tq, tk, grad, want):
     """sdpa(impl='auto') and flash_attention on operands that report the card:
-    fp32 q of the self-attention family goes to the fp32 forward kernel, bf16
-    to the bf16 one; fp32 that needs a gradient raises before any launch, and
-    so does fp32 q of the general family."""
+    fp32 q of the self-attention family goes to the fp32 forward kernel and,
+    with a gradient, to the fp32 backward kernel; bf16 to the bf16 ones. fp32
+    q of the general family raises before any launch, with a gradient or
+    without."""
     calls = []
 
     def stub(name):
@@ -206,8 +208,17 @@ def test_fp32_routing_with_stubs(monkeypatch, dtype, tq, tk, grad, want):
             return fa.flash_attention_reference(*plain, causal=causal)
         return launch
 
+    def bwd_stub(name):
+        def launch(q, k, v, o, lse, do, *, causal):
+            calls.append(name)
+            plain = [a.as_subclass(torch.Tensor) for a in (q, k, v, o, lse, do)]
+            return fa.flash_attention_backward_reference(*plain, causal=causal)
+        return launch
+
     monkeypatch.setattr(fa, "flash_forward_f32", stub("f32"))
     monkeypatch.setattr(fa, "flash_fwd_cuda", stub("bf16"))
+    monkeypatch.setattr(fa, "flash_bwd_f32_cuda", bwd_stub("f32_bwd"))
+    monkeypatch.setattr(fa, "flash_bwd_cuda", bwd_stub("bf16_bwd"))
     rng = np.random.RandomState(9)
     q = torch.from_numpy(rng.randn(1, tq, 2, 64).astype(np.float32)).to(dtype)
     kv = torch.from_numpy(rng.randn(1, tk, 4, 64).astype(np.float32)).to(dtype)
@@ -215,12 +226,63 @@ def test_fp32_routing_with_stubs(monkeypatch, dtype, tq, tk, grad, want):
     if grad:
         q.requires_grad_(True)
     if isinstance(want, type):
-        with pytest.raises(want):
+        with pytest.raises(want, match="Queue 2"):
             attention.sdpa(q, k, v, causal=True, impl="flash", layout="bthd")
         assert calls == []
         return
     got = attention.sdpa(q, k, v, causal=True, layout="bthd")  # auto: T >= 512
     assert calls == [want]
-    ref = fa.flash_attention_reference(*[a.as_subclass(torch.Tensor).detach() for a in (q, k, v)],
-                                       causal=True)[0]
+    plain = [a.as_subclass(torch.Tensor).detach() for a in (q, k, v)]
+    ref = fa.flash_attention_reference(*plain, causal=True)[0]
     torch.testing.assert_close(got.as_subclass(torch.Tensor).detach(), ref)
+    if grad:
+        g = torch.from_numpy(rng.randn(*ref.shape).astype(np.float32)).to(dtype)
+        got.backward(g)
+        assert calls == [want, want + "_bwd"]
+        o, lse = fa.flash_attention_reference(*plain, causal=True)
+        dq = fa.flash_attention_backward_reference(*plain, o, lse, g, causal=True)[0]
+        torch.testing.assert_close(q.grad.as_subclass(torch.Tensor), dq)
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_wrappers_take_an_expanded_cotangent(monkeypatch, dtype):
+    """The cotangent of o.sum() comes expanded (every stride 0): both
+    backward wrappers make it contiguous before they check it, and get as far
+    as the kernel library (replaced here by one that raises)."""
+    from gpt2_vision_language_tpu_torch import _build
+
+    def built():
+        raise _Built
+
+    monkeypatch.setattr(_build, "load", built)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(1, 64, 2, 64, seed=12))
+    o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    o = o.contiguous()  # as the kernels' forward gives it
+    do = torch.ones((), dtype=dtype).expand(o.shape)
+    assert do.stride() == (0, 0, 0, 0)
+    launch = fa.flash_bwd_f32_cuda if dtype == torch.float32 else fa.flash_bwd_cuda
+    with pytest.raises(_Built):
+        launch(q, k, v, o, lse, do, causal=True)
+
+
+@pytest.mark.parametrize("bad", ["bf16", "stride", "stats"])
+def test_f32_backward_wrapper_refuses(bad):
+    """flash_bwd_f32_cuda checks its operands before it builds or launches
+    anything: fp32 only, strides multiples of 4 with unit stride on hs, the
+    forward's contiguous o and fp32 lse."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 2, 64, seed=11))
+    o, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    do = torch.ones_like(o)
+    if bad == "bf16":
+        q = q.to(torch.bfloat16)
+    elif bad == "stride":
+        q = torch.from_numpy(_qkv(1, 64, 2, 66, seed=11)[0])[..., :64]
+    else:
+        lse = lse.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_f32_cuda(q, k, v, o, lse, do, causal=True)
+    assert fa.flash_bwd_f32_cuda.launches == 0

@@ -93,9 +93,6 @@ def test_presets_match_jax(preset):
 LEFT_OUT = {
     # TPU-only memory and dispatch mechanisms
     "pin_layouts": "TPU-only", "split_accum": "TPU-only", "sync_accum": "TPU-only",
-    # big-model memory recipes (ROADMAP Queue 1 item 11)
-    "opt_state_dtype": "Queue 1 item 11", "grad_accum_dtype": "Queue 1 item 11",
-    "layerwise_grad": "Queue 1 item 11", "param_dtype": "Queue 1 item 11",
     # model parallelism (ROADMAP Queue 1 item 10); tp is carried as the ring
     # size of attn_impl="ring"
     "seq_parallel": "Queue 1 item 10",
