@@ -6,7 +6,9 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc (their
-     registers, spills and SASS instruction counts printed);
+     registers, spills and SASS instruction counts printed; for the fp32
+     pair also the warps resident per SM and its SASS opcodes: no HMMA or
+     HGMMA in either kernel, no atomics in the backward, no spills);
   2. flash-attention forward kernel vs its plain version, bf16, at the
      scoring shape (B=8, T=1024, H=12, hs=64, causal, q/k/v strided views of
      the fused QKV output), at a ragged T=1000, at the HellaSwag shape of
@@ -19,11 +21,14 @@ Phases (any failure raises and the script exits non-zero):
   2b. the fp32 flash-attention forward kernel vs its plain version in fp32
      (no TF32 on either side), strided q/k/v views of a fused fp32 QKV, at
      the HellaSwag shape (B=32, T=1024, H=12, causal), at B=8, T=1000 with
-     and without the mask and at B=1, T=8192 (the plain version four heads
-     at a time): o elementwise and lse within 1e-5, each row of o within
-     2e-5 of its norm; twice on one input bit for bit; a control that must
-     fail the row check (the last 128 rows at T=8192 without their first key
-     tile); timed beside K1-fwd on the same inputs in bf16 and
+     and without the mask, at B=1, T=8192 (the plain version four heads
+     at a time) and at B=2, T=1024, H=25 (the 1558M head count): o
+     elementwise and lse within 1e-5, each row of o within 2e-5 of its norm
+     (``f32_fwd_row_err``); twice on one input bit for bit; two controls at
+     T=8192 that must fail the row check (``fwd_controls``: the last 128 rows
+     without their first key tile; the kernel's last query tile of 128 rows
+     without the diagonal's last key tile of 64); timed beside K1-fwd on the
+     same inputs in bf16 and
      F.scaled_dot_product_attention on the fp32 operands (a library probe, as
      in phase 12);
   2c. the fp32 flash-attention backward kernel (csrc/flash_bwd_f32.cu) vs its
@@ -253,7 +258,9 @@ without a CUDA device.
 With --flash-times it only builds the kernels, counts each one's SASS
 instructions and times K1-fwd (with the host side of its launch), K1-bwd,
 P1, K2a, K2b, K3a, K3b and K3c at the shapes of the kernels line, P2 at
-B=8, T=1024 and B=1, T=8192, K4 at N=8192 and 4096 and the logits GEMM alone
+B=8, T=1024 and B=1, T=8192, the fp32 pair (forward at B=32, T=1024 and
+B=1, T=8192, backward at B=8, T=1024 and B=1, T=8192, SDPA on the same fp32
+operands beside them), K4 at N=8192 and 4096 and the logits GEMM alone
 (``flash_times``). Copied into the root of another checkout and
 run there, it times that checkout's kernels, so two trees compare on one
 card in the order parent, change, change, parent.
@@ -421,6 +428,49 @@ def phase_flash(torch, fa, dev):
 # larger than their sum: a numpy model of the kernel's order read 1.2e-6 to
 # 1.8e-6 of the row's norm against fp64, and the plain version has its own
 F32_TOL, F32_ROW_TOL = 1e-5, 2e-5
+# the fp32 forward kernel's query rows a block and keys a tile
+# (csrc/flash_fwd_f32.cu): its causal diagonal spans F32_FWD_BQ / F32_FWD_BK
+# key tiles, which the diagonal control of phase 2b stands for
+F32_FWD_BQ, F32_FWD_BK = 128, 64
+
+
+def f32_fwd_row_err(o, ref):
+    """Phase 2b's row rule: max over the rows of hs values of |o - ref| /
+    |ref| (held to F32_ROW_TOL)."""
+    return ((o - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+
+
+def masked_fwd_reference(torch, q, k, v, rows, hide, heads=4):
+    """o of the plain forward, softmax(q k^T / sqrt(hs)) v in the operands'
+    dtype, for the query rows ``rows`` (a slice) over every key, with the
+    (rows, Tk) bool mask ``hide`` over the keys a row does not see, ``heads``
+    heads at a time: the fp64 evaluation (on fp64 operands) and the controls
+    of phase 2b."""
+    hs = q.shape[-1]
+    outs = []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, rows, c], k[:, :, c]) * hs**-0.5
+        p = torch.softmax(s.masked_fill(hide, float("-inf")), dim=-1)
+        del s
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v[:, :, c]))
+    return torch.cat(outs, dim=2)
+
+
+def fwd_controls(torch, q, k, v, bq=F32_FWD_BQ, bk=F32_FWD_BK):
+    """{name: (rows, o the plain forward gives them with a fault)} at a causal
+    T: "late", the last 128 rows without their first key tile (a key sweep
+    that starts one tile late); "diagonal", the rows of the last query tile of
+    ``bq`` rows without the diagonal's last key tile of ``bk`` keys (a sweep
+    that stops one tile short where the diagonal spans bq / bk tiles). A
+    kernel's o must fail the row rule against both."""
+    t = q.shape[1]
+    pos = torch.arange(t, device=q.device)
+    late, diag = slice(t - 128, t), slice((t - 1) // bq * bq, t)
+    hide_late = (pos[None, :] > pos[late, None]) | (pos[None, :] < 128)
+    hide_diag = (pos[None, :] > pos[diag, None]) | (pos[None, :] >= (t - 1) // bk * bk)
+    return {"late": (late, masked_fwd_reference(torch, q, k, v, late, hide_late)),
+            "diagonal": (diag, masked_fwd_reference(torch, q, k, v, diag, hide_diag))}
 
 
 def phase_flash_f32(torch, fa, dev):
@@ -431,10 +481,10 @@ def phase_flash_f32(torch, fa, dev):
     errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0}
     timing = {}
     # the HellaSwag forward's shape at fp32 (phase 26), a ragged T with and
-    # without the mask, K1_MAX_T
-    for b, t, causal in ((32, 1024, True), (8, 1000, True), (8, 1000, False),
-                         (1, fa.K1_MAX_T, True)):
-        h, hs = 12, 64
+    # without the mask, K1_MAX_T, the 1558M head count
+    for b, t, h, causal in ((32, 1024, 12, True), (8, 1000, 12, True), (8, 1000, 12, False),
+                            (1, fa.K1_MAX_T, 12, True), (2, 1024, 25, True)):
+        hs = 64
         qkv = torch.randn(b, t, 3 * h * hs, device=dev, generator=g)
         q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
         o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
@@ -442,7 +492,7 @@ def phase_flash_f32(torch, fa, dev):
         ro, rlse = fwd_by_heads(torch, fa, q, k, v, causal)
         torch.cuda.synchronize()
         eo = (o - ro).abs().max().item()
-        erow = ((o - ro).norm(dim=-1) / ro.norm(dim=-1)).max().item()
+        erow = f32_fwd_row_err(o, ro)
         el = (lse - rlse).abs().max().item()
         same = torch.equal(o, o2) and torch.equal(lse, lse2)
         print(f"  B={b} T={t} H={h} hs={hs} {'causal' if causal else 'no mask'}: out max|err| "
@@ -450,23 +500,33 @@ def phase_flash_f32(torch, fa, dev):
               f"|err| / |ref| {erow:.3e} (tol {F32_ROW_TOL}), lse max|err| {el:.3e} (tol "
               f"{F32_TOL}); o {o.dtype}; bit-equal twice: {same}", flush=True)
         require(o.dtype == torch.float32 and max(eo, el) <= F32_TOL and erow <= F32_ROW_TOL,
-                f"the fp32 flash forward disagrees at B={b} T={t}")
+                f"the fp32 flash forward disagrees at B={b} T={t} H={h}")
         require(same, f"the fp32 flash forward is not bit-equal on one input at T={t}")
         errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
         errs["o_row"] = max(errs["o_row"], erow)
         if t == fa.K1_MAX_T:
-            # control: the last 128 rows without their first key tile, as a
-            # kernel whose key sweep starts one tile late would give them
-            r = slice(t - 128, t)
-            late = fa.flash_attention_reference(q[:, r], k[:, 128:], v[:, 128:], causal=True)[0]
-            control = ((o[:, r] - late).norm(dim=-1) / late.norm(dim=-1)).max().item()
-            loose = (o[:, r] - late).abs().max().item()
+            # controls: the last 128 rows without their first key tile, as a
+            # kernel whose key sweep starts one tile late would give them; the
+            # last query tile without the diagonal's last key tile, as one
+            # whose sweep stops a tile short would
+            ctrl = fwd_controls(torch, q, k, v)
+            rows, late = ctrl["late"]
+            control = f32_fwd_row_err(o[:, rows], late)
+            loose = (o[:, rows] - late).abs().max().item()
+            rows, diag = ctrl["diagonal"]
+            control_diag = f32_fwd_row_err(o[:, rows], diag)
             print(f"  control: the last 128 rows without their first key tile read max row "
                   f"|err| / |ref| {control:.3e} (must be > {F32_ROW_TOL}), max|err| "
-                  f"{loose:.3e}", flush=True)
+                  f"{loose:.3e}; the last query tile ({F32_FWD_BQ} rows) without the "
+                  f"diagonal's last key tile ({F32_FWD_BK} keys) {control_diag:.3e} (must be "
+                  f"> {F32_ROW_TOL})", flush=True)
             require(control > F32_ROW_TOL, "the fp32 kernel's o passed the row check against "
                     "o without the first key tile")
+            require(control_diag > F32_ROW_TOL, "the fp32 kernel's o passed the row check "
+                    "against o without the diagonal's last key tile")
             errs["o_control_row"], errs["o_control_elementwise"] = control, loose
+            errs["o_control_diagonal_row"] = control_diag
+            del ctrl, late, diag
         if (b, t) == (32, 1024):
             timing["f32"] = interleaved(
                 lambda: fa.flash_attention(q, k, v, causal=True),
@@ -3840,36 +3900,90 @@ def kernel_name(mangled):
     return found
 
 
-def sass_counts(so):
-    """{kernel function: its SASS instructions} in the built library, read
-    with the toolkit's cuobjdump -sass: a refactor of a tuned kernel is held
-    to its parent's count."""
+def _sass(so):
+    """The built library's SASS, by the toolkit's cuobjdump -sass."""
     from gpt2_vision_language_tpu_torch import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     dump = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=300)
     require(dump.returncode == 0, f"cuobjdump failed: {dump.stderr.strip()[:500]}")
-    counts, name = {}, None
-    for line in dump.stdout.splitlines():
+    return dump.stdout
+
+
+def _sass_functions(so):
+    """[(kernel function, [its SASS instruction lines])] of the built library."""
+    funcs = []
+    for line in _sass(so).splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            name = kernel_name(fn.group(1))
-            while name in counts:
-                name += "'"
-            counts[name] = 0
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            counts[name] += 1
+            funcs.append((kernel_name(fn.group(1)), []))
+        elif funcs and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            funcs[-1][1].append(line)
+    return funcs
+
+
+def sass_counts(so):
+    """{kernel function: its SASS instructions} in the built library, read
+    with the toolkit's cuobjdump -sass: a refactor of a tuned kernel is held
+    to its parent's count."""
+    counts = {}
+    for name, lines in _sass_functions(so):
+        while name in counts:
+            name += "'"
+        counts[name] = len(lines)
     return counts
 
 
-def flash_times(torch, fa, fc, ab, dev, so, build_s, card):
+# SASS opcodes counted in the fp32 pair: tensor-core products (there must be
+# none: every product is an FFMA) and atomics or reductions to memory (none in
+# the backward: dq, dk, dv are bit-equal run to run), beside the FFMAs, the
+# shared-memory reads and the asynchronous copies
+F32_OPCODES = ("HMMA", "HGMMA", "RED", "REDG", "REDS", "ATOM", "ATOMG", "ATOMS", "FFMA", "LDS",
+               "LDGSTS")
+
+
+def f32_pair_report(so, lib):
+    """{kernel: registers, spill bytes (ptxas -v), SASS instructions, counts of
+    F32_OPCODES} for the kernels of the fp32 pair, and the warps each kernel
+    keeps resident on an SM (the occupancy calculator, through the library's
+    entry points where the checkout has them)."""
+    names = ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel", "rowdot_f32_kernel")
+    report = {}
+    log = so.with_suffix(".log").read_text()
+    for part in log.split("Compiling entry function '")[1:]:
+        name = kernel_name(part.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        if name in names and regs:
+            report[name] = {"registers": int(regs.group(1)),
+                            "spill_bytes": sum(map(int, spill.groups())) if spill else None}
+    for name, lines in _sass_functions(so):
+        if name in names:
+            ops = [re.sub(r"^\s*/\*[0-9a-f]+\*/\s*(@!?U?P\w+\s+)?", "", ln).split(" ")[0]
+                   .split(".")[0] for ln in lines]
+            report.setdefault(name, {}).update(
+                sass=len(lines), opcodes={op: ops.count(op) for op in F32_OPCODES})
+    for name, entry in (("flash_fwd_f32_kernel", "gpt2vl_flash_fwd_f32_warps_per_sm"),
+                        ("flash_bwd_f32_kernel", "gpt2vl_flash_bwd_f32_warps_per_sm")):
+        fn = getattr(lib, entry, None)
+        report.setdefault(name, {})["warps_per_sm"] = fn() if fn is not None else None
+    return report
+
+
+def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
     """K1-fwd at B=8, T=1024 and B=2, T=4096 causal and at the fine-tune's
     B=128, T=65 (q, k, v views of one fused projection), and at B=8, T=1024
     the host time of a launch beside the kernel's device time; K1-bwd at
     B=8, T=1024 and B=1, T=8192 causal on K1-fwd's o and lse; P1 at the A/B
     tool's B=8, T=1024 causal (its own inputs, dt layout); K2b, K3a and
     K3b at B=1, T=16384, H=12 causal (K3a's and K3b's lse from K2b, their D
-    from the D pre-kernel); K2a, K2b and K3c on one ring chunk pair, B=1,
+    from the D pre-kernel); the fp32 pair through the same wrappers on fp32
+    q/k/v views of one fused projection, the forward at B=32, T=1024 and
+    B=1, T=8192, the backward (D and dq, dk, dv) at B=8, T=1024 and B=1,
+    T=8192 on the fp32 forward's o and lse, all causal, and SDPA's forward
+    at B=32 and whole backward at B=8 on the same fp32 operands (yardsticks
+    that the package never calls), with the pair's registers, spills, warps
+    resident per SM and SASS opcodes (``f32_pair_report``); K2a, K2b and K3c on one ring chunk pair, B=1,
     Tq=Tk=4096, H=12, unmasked and causal (chunk views; lse and dcap from the
     plain forward); P2 at B=8, T=1024 and B=1, T=8192 causal (dt inputs, lse
     and dcap from the plain forward); K4 at N=8192 and 4096, D=768,
@@ -3897,6 +4011,35 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card):
         o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
         out[f"k1bwd_B{b}_T{t}_causal_ms"] = cuda_ms(
             lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), 20)
+    # the fp32 pair (flash_fwd_f32.cu, flash_bwd_f32.cu) through the routing
+    # wrappers, SDPA on the same fp32 operands beside it (main turned TF32 off)
+    import torch.nn.functional as F
+
+    out["f32_pair"] = f32_pair_report(so, lib)
+    for b, t in ((32, 1024), (1, 8192), (8, 1024)):
+        qkv = torch.randn(b, t, 3 * 768, device=dev, generator=g)
+        q, k, v = (a.view(b, t, 12, 64) for a in qkv.split(768, dim=-1))
+        if b != 8:
+            out[f"f32fwd_B{b}_T{t}_causal_ms"] = cuda_ms(
+                lambda: fa.flash_attention(q, k, v, causal=True), 20)
+        if b == 32:
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            out["sdpa_f32fwd_B32_T1024_causal_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+            del qkv, q, k, v, qt, kt, vt
+            continue
+        do = torch.randn(b, t, 12, 64, device=dev, generator=g)
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        out[f"f32bwd_B{b}_T{t}_causal_ms"] = cuda_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o, lse, do, causal=True), 10)
+        if b == 8:
+            leaves = [a.transpose(1, 2).detach().requires_grad_(True) for a in (q, k, v)]
+            sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            dot = do.transpose(1, 2)
+            out["sdpa_f32bwd_B8_T1024_causal_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(sdpa_o, leaves, dot, retain_graph=True), 10)
+            del leaves, sdpa_o
+        del qkv, q, k, v, do, o, lse
     (qd, kd, vd, _), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
     out["p1_B8_T1024_causal_ms"] = cuda_ms(
         lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True), 50)
@@ -4025,9 +4168,9 @@ def main() -> int:
 
     print("[1] build", flush=True)
     so, build_s = _build.build()
-    _build.load()
+    lib = _build.load()
     if sys.argv[1:] == ["--flash-times"]:
-        flash_times(torch, fa, fc, ab, dev, so, build_s, card)
+        flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib)
         return 0
     print(f"  {so.name}: nvcc {build_s:.2f} s", flush=True)
     # registers and spills of every kernel, from the compiler's report
@@ -4039,6 +4182,15 @@ def main() -> int:
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
     print(f"    spill stores: {sum(spills)} bytes over {len(spills)} functions", flush=True)
     print(f"    SASS instructions: {json.dumps(sass_counts(so))}", flush=True)
+    f32_report = f32_pair_report(so, lib)
+    print(f"    the fp32 pair: {json.dumps(f32_report)}", flush=True)
+    for name in ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel"):
+        ops = f32_report[name]["opcodes"]
+        require(ops["HMMA"] + ops["HGMMA"] == 0, f"{name} has tensor-core products")
+        require(f32_report[name]["spill_bytes"] == 0, f"{name} spills")
+    require(sum(f32_report["flash_bwd_f32_kernel"]["opcodes"][op]
+                for op in ("RED", "REDG", "REDS", "ATOM", "ATOMG", "ATOMS")) == 0,
+            "the fp32 backward has atomics")
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
     f32_errs, f32_t = phase_flash_f32(torch, fa, dev)
@@ -4262,6 +4414,8 @@ def main() -> int:
         "flash_fwd_f32": {"lse_max_abs_err": f32_errs["lse"], "row_err": f32_errs["o_row"],
                           "row_control": f32_errs["o_control_row"],
                           "row_control_elementwise": f32_errs["o_control_elementwise"],
+                          "row_control_diagonal": f32_errs["o_control_diagonal_row"],
+                          "build": f32_report["flash_fwd_f32_kernel"],
                           "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL},
                           "bit_equal_twice": True, "shape": "B=32 T=1024 H=12 causal fp32",
                           "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
@@ -4269,6 +4423,7 @@ def main() -> int:
                           "library_is": "F.scaled_dot_product_attention on fp32 operands"},
         "flash_bwd_f32": {"err_is": "max|err| / max|ref|", "row_err": f32b_errs["row"],
                           "row_controls": f32b_errs["controls"],
+                          "build": f32_report["flash_bwd_f32_kernel"],
                           "tol": {"max_rel": F32_TOL, "row": F32_ROW_TOL},
                           "bit_equal_twice": True, "shape": "B=8 T=1024 H=12 causal fp32",
                           "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",

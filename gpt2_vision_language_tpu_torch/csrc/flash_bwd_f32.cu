@@ -1,6 +1,6 @@
 // Self-attention flash backward on fp32 operands for Hopper (sm_90a): dq, dk,
 // dv from the saved lse, Tq == Tk = T, causal or not, T ragged; fp32
-// q/k/v/o/dO, true fp32 products (FMAs on the CUDA cores, no TF32).
+// q/k/v/o/dO, true fp32 products (FFMAs on the CUDA cores, no TF32).
 //
 // Replaces the TPU kernel gpt2_vision_language_tpu/ops/flash_attention.py
 // _bwd_dt_kernel (launcher _bwd_dt) where it runs on fp32 operands: its
@@ -19,58 +19,83 @@
 // sheet, SXM, 700 W). At the training shape (B=8, T=1024, H=12, hs=64,
 // causal) the five products of the visible pairs are 2 * 5 * B * H * T(T+1)/2
 // * hs = 32.2 GFLOP, 0.48 ms, against 0.06 ms for the 201 MB of q/k/v/o/dO/
-// dq/dk/dv: operations bound it, and the shared-memory reads that feed the
-// FFMAs come next.
+// dq/dk/dv: operations bound it. The kernel runs seven products a visible
+// pair (below), so 0.67 ms is its own ceiling. What keeps an FFMA kernel off
+// that rate is the share of instruction slots spent on shared-memory reads, and
+// latency (of those reads and of the tile copies) that no other warp or
+// independent FFMA hides.
 //
-// What the design does about it (a simple kernel, right first; the layout of
-// flash_fwd_f32.cu): one grid of two kinds of block of 256 threads, 16 x 16,
-// each thread a 4 x 4 register tile. A dk/dv block owns 64 keys of one
-// (b, h), keeps their K and V in shared memory and sweeps the 64-row query
-// tiles from the diagonal on: S and dP as 4 x 4 register tiles from float4
-// reads of q/k and dO/v rows, P and dS stored transposed (keys x rows) in
-// shared memory, then dV += P^T dO and dK += dS^T Q into two 4 x 4 register
-// tiles of (key, channel). A dq block owns 64 queries, keeps q and dO and
-// sweeps the key tiles up to the diagonal: S, dP, dS as above, dS through
-// shared memory, dQ += dS K into a 4 x 4 register tile. Seven products per
-// visited pair where a one-pass block does five, but no atomics: dq, dk and dv
-// are summed in a fixed order and are bit-equal from run to run, as the bf16
-// kernel's are. Rows are padded to 68 floats against bank conflicts; causal
-// tiles past the diagonal are skipped; in each (b, h) the dk/dv blocks come
-// first, key tile 0 (the longest causal sweep) leading, then the dq blocks,
-// the last query tile leading. Six tiles of 64 x 68 fp32 are 104 KB of shared
-// memory: the kernel's limit is raised once per device.
+// What the design does about it (flash_f32.cuh holds the pieces): one grid
+// of two kinds of block of 128 threads (4 warps), every product from
+// outer-product register tiles of 32 values a thread, as in an SGEMM.
+//   - A dk/dv block owns 64 keys of one (b, h), a warp 16 of them; K^T / sqrt(hs)
+//     and V^T are resident (d-major, transposed once). It sweeps the 64-row
+//     query tiles from the diagonal on: q, dO, lse and D in two slots, tile
+//     i + 1 copied by cp.async while tile i is computed on. S and dP are 4
+//     rows x 8 keys a thread (per 4 channels 4 float4 of q or dO rows and 8
+//     float4 of K^T or V^T for 128 FFMAs); P and dS go, 16 rows at a time,
+//     into the warp's 16 columns of a shared [row][key] tile, read back by the
+//     same warp for dV += P^T dO and dK += dS^T q, 4 keys x 8 channels a
+//     thread (per row 1 float4 of P and 2 of dO or q for 32 FFMAs).
+//   - A dq block owns 64 queries, a warp 16; q^T / sqrt(hs), dO^T, lse and D
+//     are resident. It sweeps the key tiles up to the diagonal, K and V in
+//     two slots by cp.async. S and dP are 8 rows x 4 keys a thread (the
+//     forward's product at half its keys); dS goes, 16 keys at a time, into
+//     the warp's dS^T quarter, read back for dQ += dS K, 8 rows x 4 channels
+//     a thread.
+//   - Seven products per visited pair where a one-pass block does five, but
+//     no atomics: dq, dk and dv are summed in a fixed order and are bit-equal
+//     from run to run. S is summed in the forward kernel's order in both
+//     blocks, so P here is the forward's P.
+//   - Occupancy: shared memory sets it, at 110 KB for a dk/dv block (two slots
+//     of q and dO, resident K^T and V^T): two blocks, 8 warps, an SM
+//     (__launch_bounds__(128, 2)). Four 32-value tiles (S, dP, dK, dV) are
+//     live in a dk/dv thread (215 registers by ptxas, no spills), so 16
+//     warps would need both half the shared memory and 128 registers: the
+//     dk/dv block would lose its second slot or its 8 x 4 tiles. Each thread
+//     hides latency with its own 32 independent accumulators instead.
+// Kept from the previous design: the causal tile skip; in each (b, h) the
+// dk/dv blocks first, key tile 0 (the longest causal sweep) leading, then
+// the dq blocks, the last query tile leading; P = 0 on padded rows; zero-
+// filled rows past T; 64-bit offsets.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_f32.cuh"
+
 namespace {
 
-constexpr int HS = 64;        // head size the kernel is built for
-constexpr int TILE = 64;      // query rows of a tile == keys of a tile (the diagonal is one tile)
-constexpr int THREADS = 256;  // 16 x 16: ty picks rows, tx keys / channels
-constexpr int LD = HS + 4;    // row stride of the shared tiles, in floats
+using namespace f32;
 
-// a dk/dv block: K, V resident; a query tile of q and dO; P^T and dS^T
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MIN_BLOCKS = 2;      // resident blocks an SM (shared memory allows two)
+constexpr int ROWDOT_THREADS = 256;
+
+// a dk/dv block: K^T, V^T resident; a query tile of q, dO, lse, D in two
+// slots; P and dS of 16 query rows
 struct SmemDkv {
-  float k[TILE][LD];
-  float v[TILE][LD];
-  float q[TILE][LD];
-  float dO[TILE][LD];
-  float pt[TILE][LD];   // P^T: [key][row]
-  float dst[TILE][LD];  // dS^T: [key][row]
-  float lse[TILE];
-  float dd[TILE];
+  float kt[HS][TILE];  // K^T / sqrt(hs): [channel][key]
+  float vt[HS][TILE];  // V^T: [channel][key]
+  Tile q[2];
+  Tile dO[2];
+  float lse[2][TILE];
+  float dd[2][TILE];
+  float p[16][LDT];    // P: [row][key]
+  float ds[16][LDT];   // dS: [row][key]
 };
 
-// a dq block: q, dO resident; a key tile of K and V; dS
+// a dq block: q^T, dO^T, lse, D resident; a key tile of K and V in two slots;
+// per warp dS^T of 16 keys
 struct SmemDq {
-  float q[TILE][LD];
-  float dO[TILE][LD];
-  float k[TILE][LD];
-  float v[TILE][LD];
-  float ds[TILE][LD];  // dS: [row][key]
+  float qt[HS][TILE];  // q^T / sqrt(hs): [channel][row]
+  float dOt[HS][TILE]; // dO^T: [channel][row]
   float lse[TILE];
   float dd[TILE];
+  Tile k[2];
+  Tile v[2];
+  Quarter<16> dst[WARPS];  // per warp: dS^T of 16 keys
 };
 
 constexpr int SMEM = sizeof(SmemDkv) > sizeof(SmemDq) ? (int)sizeof(SmemDkv) : (int)sizeof(SmemDq);
@@ -79,155 +104,48 @@ struct Strides {
   long long sb, st, sh;
 };
 
-// rows row0 .. row0 + 63 of one (sequence, head) of a (B, T, H, hs) tensor
-// into dst; rows at or past T are zeros
-__device__ __forceinline__ void load_tile(float (*dst)[LD], const float* __restrict__ src,
-                                          Strides s, int b, int h, int row0, int T, int tid) {
-  const float* base = src + (long long)b * s.sb + (long long)h * s.sh;
-#pragma unroll
-  for (int i = 0; i < (TILE * HS / 4) / THREADS; ++i) {
-    const int f = tid + i * THREADS;
-    const int r = f >> 4, c4 = f & 15;
-    const int t = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < T) val = __ldg(reinterpret_cast<const float4*>(base + (long long)t * s.st) + c4);
-    *reinterpret_cast<float4*>(&dst[r][c4 * 4]) = val;
-  }
+// q and dO rows q0 .. q0 + 63 of (b, h) and their lse and D into slot `slot`
+// of a dk/dv block, asynchronously; zeros past T
+__device__ __forceinline__ void load_query_tile(SmemDkv& s, int slot, const float* qb,
+                                                long long qst, const float* dob, long long dost,
+                                                const float* lse_bh, const float* dd_bh, int q0,
+                                                int T, int tid) {
+  load_tile_async<THREADS>(s.q[slot], qb, qst, q0, T, tid);
+  load_tile_async<THREADS>(s.dO[slot], dob, dost, q0, T, tid);
+  const int r = tid & (TILE - 1), t = q0 + r;
+  if (tid < TILE)
+    cp_async4(&s.lse[slot][r], lse_bh + (t < T ? t : 0), t < T ? 4 : 0);
+  else
+    cp_async4(&s.dd[slot][r], dd_bh + (t < T ? t : 0), t < T ? 4 : 0);
 }
 
-// lse and D of rows row0 .. row0 + 63 of one (b, h); zeros past T
-__device__ __forceinline__ void load_stats(float* lse_s, float* dd_s, const float* __restrict__ lse,
-                                           const float* __restrict__ dd, long long bh, int row0,
-                                           int T, int tid) {
-  if (tid < TILE) {
-    const int t = row0 + tid;
-    lse_s[tid] = t < T ? lse[bh * T + t] : 0.f;
-    dd_s[tid] = t < T ? dd[bh * T + t] : 0.f;
-  }
-}
-
-// S = q k^T and dP = dO v^T for rows ty + 16 i, keys tx + 16 c
-__device__ __forceinline__ void s_and_dp(const float (*q)[LD], const float (*k)[LD],
-                                         const float (*dO)[LD], const float (*v)[LD],
-                                         float sc[4][4], float dp[4][4], int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) sc[i][c] = dp[i][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HS; d += 4) {
-    float4 qa[4], kb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(&q[ty + 16 * i][d]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) kb[c] = *reinterpret_cast<const float4*>(&k[tx + 16 * c][d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[i][c] = fmaf(qa[i].x, kb[c].x, sc[i][c]);
-        sc[i][c] = fmaf(qa[i].y, kb[c].y, sc[i][c]);
-        sc[i][c] = fmaf(qa[i].z, kb[c].z, sc[i][c]);
-        sc[i][c] = fmaf(qa[i].w, kb[c].w, sc[i][c]);
-      }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(&dO[ty + 16 * i][d]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) kb[c] = *reinterpret_cast<const float4*>(&v[tx + 16 * c][d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        dp[i][c] = fmaf(qa[i].x, kb[c].x, dp[i][c]);
-        dp[i][c] = fmaf(qa[i].y, kb[c].y, dp[i][c]);
-        dp[i][c] = fmaf(qa[i].z, kb[c].z, dp[i][c]);
-        dp[i][c] = fmaf(qa[i].w, kb[c].w, dp[i][c]);
-      }
-  }
-}
-
-// P = exp(S / sqrt(hs) - lse) where visible, else 0, and dS = P (dP - D), in
-// place of sc and dp
-__device__ __forceinline__ void p_and_ds(float sc[4][4], float dp[4][4], const float* lse_s,
-                                         const float* dd_s, int q0, int k0, int T, int causal,
-                                         int tx, int ty) {
-  const float scale = 0.125f;  // 1 / sqrt(64), exact
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qq = q0 + ty + 16 * i;
-    const float l = lse_s[ty + 16 * i], dr = dd_s[ty + 16 * i];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int kk = k0 + tx + 16 * c;
-      const bool masked = qq >= T || kk >= T || (causal && kk > qq);
-      const float p = masked ? 0.f : expf(sc[i][c] * scale - l);
-      sc[i][c] = p;
-      dp[i][c] = p * (dp[i][c] - dr);
-    }
-  }
-}
-
-// acc[i][e] += sum_r a[ty + 16 i][r] * b[r][4 tx + e] over r < 64: the rows of
-// a are keys (P^T, dS^T) or queries (dS), the rows of b the positions summed
-__device__ __forceinline__ void acc_product(float acc[4][4], const float (*a)[LD],
-                                            const float (*b)[LD], int tx, int ty) {
-#pragma unroll 4
-  for (int r = 0; r < TILE; r += 4) {
-    float4 pa[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(&a[ty + 16 * i][r]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) vb[j] = *reinterpret_cast<const float4*>(&b[r + j][tx * 4]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[i][0] = fmaf(pa[i].x, vb[0].x, acc[i][0]);
-      acc[i][1] = fmaf(pa[i].x, vb[0].y, acc[i][1]);
-      acc[i][2] = fmaf(pa[i].x, vb[0].z, acc[i][2]);
-      acc[i][3] = fmaf(pa[i].x, vb[0].w, acc[i][3]);
-      acc[i][0] = fmaf(pa[i].y, vb[1].x, acc[i][0]);
-      acc[i][1] = fmaf(pa[i].y, vb[1].y, acc[i][1]);
-      acc[i][2] = fmaf(pa[i].y, vb[1].z, acc[i][2]);
-      acc[i][3] = fmaf(pa[i].y, vb[1].w, acc[i][3]);
-      acc[i][0] = fmaf(pa[i].z, vb[2].x, acc[i][0]);
-      acc[i][1] = fmaf(pa[i].z, vb[2].y, acc[i][1]);
-      acc[i][2] = fmaf(pa[i].z, vb[2].z, acc[i][2]);
-      acc[i][3] = fmaf(pa[i].z, vb[2].w, acc[i][3]);
-      acc[i][0] = fmaf(pa[i].w, vb[3].x, acc[i][0]);
-      acc[i][1] = fmaf(pa[i].w, vb[3].y, acc[i][1]);
-      acc[i][2] = fmaf(pa[i].w, vb[3].z, acc[i][2]);
-      acc[i][3] = fmaf(pa[i].w, vb[3].w, acc[i][3]);
-    }
-  }
-}
-
-// rows ty + 16 i of a 64-row tile starting at row0, channels 4 tx .. 4 tx + 3,
-// times scale, into a contiguous (B, T, H, hs) output
-__device__ __forceinline__ void store_tile(float* __restrict__ out, const float acc[4][4],
+// rows row0 + r of a (B, T, H, hs) contiguous output, 8 channels a thread
+// (4g .. 4g + 3, 32 + 4g .. 32 + 4g + 3) times scale, for the 4 rows
+// key0 + kk of the tile
+__device__ __forceinline__ void store_keys(float* __restrict__ out, const float (&acc)[4][8],
                                            float scale, int b, int h, int H, int row0, int T,
-                                           int tx, int ty) {
+                                           int g) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = row0 + ty + 16 * i;
-    if (t < T)
-      *reinterpret_cast<float4*>(out + (((long long)b * T + t) * H + h) * HS + tx * 4) =
-          make_float4(acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale,
-                      acc[i][3] * scale);
+  for (int kk = 0; kk < 4; ++kk) {
+    const int t = row0 + kk;
+    if (t < T) {
+      float* dst = out + (((long long)b * T + t) * H + h) * HS;
+      *reinterpret_cast<float4*>(dst + 4 * g) =
+          make_float4(acc[kk][0] * scale, acc[kk][1] * scale, acc[kk][2] * scale,
+                      acc[kk][3] * scale);
+      *reinterpret_cast<float4*>(dst + 32 + 4 * g) =
+          make_float4(acc[kk][4] * scale, acc[kk][5] * scale, acc[kk][6] * scale,
+                      acc[kk][7] * scale);
+    }
   }
-}
-
-__device__ __forceinline__ void zero(float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 }
 
 // D = rowsum(dO * O) over contiguous (B, T, H, hs) fp32: 16 threads a row, one
 // float4 each, D written (B, H, T)
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ROWDOT_THREADS)
 rowdot_f32_kernel(const float* __restrict__ dO, const float* __restrict__ o,
                   float* __restrict__ dd, int T, int H, long long rows) {
-  const long long r = (long long)blockIdx.x * (THREADS / 16) + (threadIdx.x >> 4);
+  const long long r = (long long)blockIdx.x * (ROWDOT_THREADS / 16) + (threadIdx.x >> 4);
   const int c4 = threadIdx.x & 15;
   float acc = 0.f;
   if (r < rows) {
@@ -248,79 +166,177 @@ rowdot_f32_kernel(const float* __restrict__ dO, const float* __restrict__ o,
 
 // Block x of (h, b): x < nt is the dk/dv block of key tile x, x >= nt the dq
 // block of query tile 2 nt - 1 - x.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dO, const float* __restrict__ lse,
-                     const float* __restrict__ dd, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv, int T, int H, Strides qs,
-                     Strides ks, Strides vs, int causal) {
+                     const float* __restrict__ v, const float* __restrict__ dO,
+                     const float* __restrict__ lse, const float* __restrict__ dd,
+                     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+                     int T, int H, Strides qs, Strides ks, Strides vs, int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nt = (T + TILE - 1) / TILE;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
-  const Strides os = {(long long)T * H * HS, (long long)H * HS, HS};  // dO, contiguous
-  const float scale = 0.125f;
-  float sc[4][4], dp[4][4];
+  const float* qb = q + (long long)b * qs.sb + (long long)h * qs.sh;
+  const float* kb = k + (long long)b * ks.sb + (long long)h * ks.sh;
+  const float* vb = v + (long long)b * vs.sb + (long long)h * vs.sh;
+  const float* dob = dO + ((long long)b * T * H + h) * HS;  // contiguous (B, T, H, hs)
+  const long long dost = (long long)H * HS;
+  const float scale = 0.125f;  // 1 / sqrt(64), exact
 
   if ((int)blockIdx.x < nt) {
-    // dk/dv block: keys kt * 64 .. + 63, query tiles from the diagonal on
+    // dk/dv block: keys k0 .. k0 + 63, query tiles from the diagonal on
     SmemDkv& s = *reinterpret_cast<SmemDkv*>(smem_raw);
     const int kt = blockIdx.x, k0 = kt * TILE;
-    load_tile(s.k, k, ks, b, h, k0, T, tid);
-    load_tile(s.v, v, vs, b, h, k0, T, tid);
-    float acc_k[4][4], acc_v[4][4];
+    const int rg = lane & 15, kg = lane >> 4;  // S, dP: rows rg + 16 i, keys 16 warp + 8 kg + j
+    // dK, dV: keys 16 warp + 4 kq + kk, channels by g; a quarter-warp spans
+    // 4 kq x 2 g, so its reads of dO and q rows ask for two addresses
+    const int kq = (lane & 7) >> 1, g = 2 * (lane >> 3) + (lane & 1);
+    const int it0 = causal ? kt : 0;
+    load_query_tile(s, 0, qb, qs.st, dob, dost, lse + bh * T, dd + bh * T, it0 * TILE, T, tid);
+    cp_async_commit();
+    load_transposed<THREADS, TILE>(&s.kt[0][0], kb, ks.st, k0, T, scale, tid);
+    load_transposed<THREADS, TILE>(&s.vt[0][0], vb, vs.st, k0, T, 1.f, tid);
+    float acc_k[4][8], acc_v[4][8];
     zero(acc_k);
     zero(acc_v);
-    for (int it = causal ? kt : 0; it < nt; ++it) {
-      const int q0 = it * TILE;
-      __syncthreads();  // the last tile's products are done with q, dO, P^T and dS^T
-      load_tile(s.q, q, qs, b, h, q0, T, tid);
-      load_tile(s.dO, dO, os, b, h, q0, T, tid);
-      load_stats(s.lse, s.dd, lse, dd, bh, q0, T, tid);
-      __syncthreads();
-      s_and_dp(s.q, s.k, s.dO, s.v, sc, dp, tx, ty);
-      p_and_ds(sc, dp, s.lse, s.dd, q0, k0, T, causal, tx, ty);
+    for (int it = it0; it < nt; ++it) {
+      const int slot = (it - it0) & 1, q0 = it * TILE;
+      cp_async_wait_all();
+      __syncthreads();  // tile it is in; every warp is done with tile it - 1's slot
+      if (it + 1 < nt)
+        load_query_tile(s, slot ^ 1, qb, qs.st, dob, dost, lse + bh * T, dd + bh * T, q0 + TILE, T,
+                        tid);
+      cp_async_commit();
+
+      float sc[4][8], dp[4][8];
+      zero(sc);
+      zero(dp);
+      keys_by_rows(sc, s.q[slot], &s.kt[0][16 * warp + 8 * kg], rg);
+      keys_by_rows(dp, s.dO[slot], &s.vt[0][16 * warp + 8 * kg], rg);
+      // P = exp(S - lse) where visible, else 0; dS = P (dP - D)
+      const bool edge = (causal && it == kt) || q0 + TILE > T || k0 + TILE > T;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + 16 * i, qq = q0 + r;
+        const float l = s.lse[slot][r], dr = s.dd[slot][r];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s.pt[tx + 16 * c][ty + 16 * i] = sc[i][c];
-          s.dst[tx + 16 * c][ty + 16 * i] = dp[i][c];
+        for (int j = 0; j < 8; ++j) {
+          const int kk = k0 + 16 * warp + 8 * kg + j;
+          const bool masked = edge && (qq >= T || kk >= T || (causal && kk > qq));
+          const float p = masked ? 0.f : expf(sc[i][j] - l);
+          sc[i][j] = p;
+          dp[i][j] = p * (dp[i][j] - dr);
         }
-      __syncthreads();
-      acc_product(acc_v, s.pt, s.dO, tx, ty);   // dV += P^T dO
-      acc_product(acc_k, s.dst, s.q, tx, ty);   // dK += dS^T Q
+      }
+      // dV += P^T dO, dK += dS^T q, 16 query rows at a time through the
+      // warp's columns of P and dS
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* prow = &s.p[rg][16 * warp + 8 * kg];
+        float* drow = &s.ds[rg][16 * warp + 8 * kg];
+        *reinterpret_cast<float4*>(prow) = make_float4(sc[i][0], sc[i][1], sc[i][2], sc[i][3]);
+        *reinterpret_cast<float4*>(prow + 4) =
+            make_float4(sc[i][4], sc[i][5], sc[i][6], sc[i][7]);
+        *reinterpret_cast<float4*>(drow) = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+        *reinterpret_cast<float4*>(drow + 4) =
+            make_float4(dp[i][4], dp[i][5], dp[i][6], dp[i][7]);
+        __syncwarp();
+        acc_rows(acc_v, s.p, 16 * warp + 4 * kq, s.dO[slot], 16 * i, g);
+        acc_rows(acc_k, s.ds, 16 * warp + 4 * kq, s.q[slot], 16 * i, g);
+        __syncwarp();
+      }
     }
-    store_tile(dk, acc_k, scale, b, h, H, k0, T, tx, ty);
-    store_tile(dv, acc_v, 1.f, b, h, H, k0, T, tx, ty);
+    cp_async_wait_all();
+    store_keys(dk, acc_k, scale, b, h, H, k0 + 16 * warp + 4 * kq, T, g);
+    store_keys(dv, acc_v, 1.f, b, h, H, k0 + 16 * warp + 4 * kq, T, g);
   } else {
-    // dq block: queries qt * 64 .. + 63, key tiles up to the diagonal
+    // dq block: queries q0 .. q0 + 63, key tiles up to the diagonal
     SmemDq& s = *reinterpret_cast<SmemDq*>(smem_raw);
     const int qt = 2 * nt - 1 - (int)blockIdx.x, q0 = qt * TILE;
-    load_tile(s.q, q, qs, b, h, q0, T, tid);
-    load_tile(s.dO, dO, os, b, h, q0, T, tid);
-    load_stats(s.lse, s.dd, lse, dd, bh, q0, T, tid);
-    float acc_q[4][4];
+    const int hf = lane >> 4, tc = lane & 15;  // rows 16 warp + 8 hf + i, keys tc + 16 j
+    const int r0 = 16 * warp + 8 * hf;
+    load_tile_async<THREADS>(s.k[0], kb, ks.st, 0, T, tid);
+    load_tile_async<THREADS>(s.v[0], vb, vs.st, 0, T, tid);
+    cp_async_commit();
+    load_transposed<THREADS, TILE>(&s.qt[0][0], qb, qs.st, q0, T, scale, tid);
+    load_transposed<THREADS, TILE>(&s.dOt[0][0], dob, dost, q0, T, 1.f, tid);
+    if (tid < TILE) {
+      const int t = q0 + tid;
+      s.lse[tid] = t < T ? lse[bh * T + t] : 0.f;
+      s.dd[tid] = t < T ? dd[bh * T + t] : 0.f;
+    }
+    float acc_q[8][4];
     zero(acc_q);
     const int n_kv = causal ? qt + 1 : nt;
     for (int j = 0; j < n_kv; ++j) {
-      const int k0 = j * TILE;
-      __syncthreads();  // the last tile's dS K is done with k and dS
-      load_tile(s.k, k, ks, b, h, k0, T, tid);
-      load_tile(s.v, v, vs, b, h, k0, T, tid);
-      __syncthreads();
-      s_and_dp(s.q, s.k, s.dO, s.v, sc, dp, tx, ty);
-      p_and_ds(sc, dp, s.lse, s.dd, q0, k0, T, causal, tx, ty);
+      const int slot = j & 1, k0 = j * TILE;
+      cp_async_wait_all();
+      __syncthreads();  // tile j is in; every warp is done with tile j - 1's slot
+      if (j + 1 < n_kv) {
+        load_tile_async<THREADS>(s.k[slot ^ 1], kb, ks.st, k0 + TILE, T, tid);
+        load_tile_async<THREADS>(s.v[slot ^ 1], vb, vs.st, k0 + TILE, T, tid);
+      }
+      cp_async_commit();
+
+      float sc[8][4], dp[8][4];
+      zero(sc);
+      zero(dp);
+      rows_by_keys<TILE, 4, 16>(sc, &s.qt[0][r0], s.k[slot], tc);
+      rows_by_keys<TILE, 4, 16>(dp, &s.dOt[0][r0], s.v[slot], tc);
+      const bool edge = (causal && j == qt) || q0 + TILE > T || k0 + TILE > T;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const int qq = q0 + r0 + i;
+        const float l = s.lse[r0 + i], dr = s.dd[r0 + i];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s.ds[ty + 16 * i][tx + 16 * c] = dp[i][c];
-      __syncthreads();
-      acc_product(acc_q, s.ds, s.k, tx, ty);  // dQ += dS K
+        for (int c = 0; c < 4; ++c) {
+          const int kk = k0 + tc + 16 * c;
+          const bool masked = edge && (qq >= T || kk >= T || (causal && kk > qq));
+          const float p = masked ? 0.f : expf(sc[i][c] - l);
+          dp[i][c] = p * (dp[i][c] - dr);
+        }
+      }
+      // dQ += dS K, 16 keys at a time through the warp's dS^T
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        store_quarter_t(s.dst[warp], dp, c, tc, 8 * hf);
+        __syncwarp();
+        acc_keys(acc_q, s.dst[warp], s.k[slot], QK * c, 8 * hf, 4 * tc);
+        __syncwarp();
+      }
     }
-    store_tile(dq, acc_q, scale, b, h, H, q0, T, tx, ty);
+    cp_async_wait_all();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = q0 + r0 + i;
+      if (t < T)
+        *reinterpret_cast<float4*>(dq + (((long long)b * T + t) * H + h) * HS + 4 * tc) =
+            make_float4(acc_q[i][0] * scale, acc_q[i][1] * scale, acc_q[i][2] * scale,
+                        acc_q[i][3] * scale);
+    }
   }
+}
+
+// more than 48 KB of dynamic shared memory and the largest carveout: set
+// once per device
+cudaError_t configure() {
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!((configured >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(flash_bwd_f32_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << dev;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -340,23 +356,12 @@ extern "C" int gpt2vl_flash_bwd_f32(const void* q, const void* k, const void* v,
                                     int causal, void* stream) {
   if (hs != HS || B <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  // more than 48 KB of dynamic shared memory: raise the kernel's limit, once
-  // per device
-  static unsigned long long configured = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!((configured >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured |= 1ull << dev;
-  }
   const long long rows = (long long)B * T * H;
-  const long long row_blocks = (rows + THREADS / 16 - 1) / (THREADS / 16);
+  const long long row_blocks = (rows + ROWDOT_THREADS / 16 - 1) / (ROWDOT_THREADS / 16);
   if (row_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  rowdot_f32_kernel<<<(unsigned)row_blocks, THREADS, 0, (cudaStream_t)stream>>>(
+  rowdot_f32_kernel<<<(unsigned)row_blocks, ROWDOT_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)dO, (const float*)o, (float*)dd, T, H, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -366,4 +371,15 @@ extern "C" int gpt2vl_flash_bwd_f32(const void* q, const void* k, const void* v,
       (const float*)lse, (const float*)dd, (float*)dq, (float*)dk, (float*)dv, T, H,
       Strides{qsb, qst, qsh}, Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, causal);
   return (int)cudaGetLastError();
+}
+
+// Warps of the backward kernel resident on one SM, from the occupancy
+// calculator (its registers, shared memory and launch bounds); 0 on an error.
+extern "C" int gpt2vl_flash_bwd_f32_warps_per_sm() {
+  int blocks = 0;
+  if (configure() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_bwd_f32_kernel, THREADS,
+                                                    SMEM) != cudaSuccess)
+    return 0;
+  return blocks * WARPS;
 }

@@ -70,7 +70,9 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_dq_bwd.cu": {"flash_dq_sm90.cuh", "hopper.cuh"},
           "flash_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
           "flash_dt_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
-          "ce_fwd.cu": {"hopper.cuh"}}
+          "ce_fwd.cu": {"hopper.cuh"},
+          "flash_fwd_f32.cu": {"flash_f32.cuh"},
+          "flash_bwd_f32.cu": {"flash_f32.cuh"}}
 
 
 def test_sources_include_only_their_own_headers():
@@ -79,12 +81,14 @@ def test_sources_include_only_their_own_headers():
     key-major backward (K3c, K3b) and the query-major dq block (K3a); the
     self-attention backward (K1-bwd) and the dt-layout backward (P2) run both
     backward blocks, and the fused LM-head + CE forward (K4) includes
-    hopper.cuh alone. The library name hashes every header with the sources,
-    so an edit of one rebuilds them. Those sources issue wgmma and load by
-    TMA, and none of them, nor the headers, uses nvcuda::wmma."""
+    hopper.cuh alone. The fp32 self-attention pair shares csrc/flash_f32.cuh
+    (its FFMA register tiles and cp.async copies). The library name hashes
+    every header with the sources, so an edit of one rebuilds them. The
+    Hopper sources run wgmma and load by TMA, and none of them, nor the
+    headers, uses nvcuda::wmma."""
     heads = {p.name for p in _build.headers()}
     assert heads == {"hopper.cuh", "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh",
-                     "flash_dq_sm90.cuh"}
+                     "flash_dq_sm90.cuh", "flash_f32.cuh"}
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     assert "wgmma.mma_async" in hopper and "cp.async.bulk.tensor" in hopper
     for name, headers in SHARED.items():
@@ -206,3 +210,22 @@ def test_ce_forward_is_a_wgmma_gemm_with_a_row_epilogue():
         assert gone not in text, gone
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     assert "m64n256k16.f32.bf16.bf16" in hopper and "cp.async.bulk.tensor.2d" in hopper
+
+
+@pytest.mark.parametrize("name,entry", [("flash_fwd_f32.cu", "gpt2vl_flash_fwd_f32"),
+                                        ("flash_bwd_f32.cu", "gpt2vl_flash_bwd_f32")])
+def test_fp32_pair_is_ffma_only(name, entry):
+    """The fp32 self-attention pair keeps every product an fp32 FFMA: no
+    tensor-core instruction (wgmma, mma, wmma: TF32 would keep 10 bits of the
+    operands' 23) and no atomics (dq, dk, dv bit-equal run to run); its swept
+    tiles arrive by cp.async through csrc/flash_f32.cuh, and each kernel
+    states its resident blocks in __launch_bounds__."""
+    text = (_build.CSRC / name).read_text()
+    header = (_build.CSRC / "flash_f32.cuh").read_text()
+    assert f'extern "C" int {entry}(' in text and f'extern "C" int {entry}_warps_per_sm(' in text
+    assert "load_tile_async<THREADS>" in text and "cp.async.cg.shared.global" in header
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in text
+    for body in (text, header):
+        for gone in (r"wgmma", r"mma\.sync", r"wmma", r"atomic[A-Z]", r"\batom\.", r"\bred\.",
+                     r"tf32"):
+            assert not re.search(gone, body), (name, gone)
