@@ -7,8 +7,10 @@ Phases (any failure raises and the script exits non-zero):
 
   1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc (their
      registers, spills and SASS instruction counts printed; for the fp32
-     pair also the warps resident per SM and its SASS opcodes: no HMMA or
-     HGMMA in either kernel, no atomics in the backward, no spills);
+     kernels, the self-attention pair and the general pair, also the warps
+     resident per SM and their SASS opcodes: no HMMA or HGMMA in any, no
+     atomics in either backward, no spills; the self pair's SASS counts
+     beside those it had before its blocks were shared, F32_PAIR_SASS_OWN);
   2. flash-attention forward kernel vs its plain version, bf16, at the
      scoring shape (B=8, T=1024, H=12, hs=64, causal, q/k/v strided views of
      the fused QKV output), at a ragged T=1000, at the HellaSwag shape of
@@ -143,6 +145,41 @@ Phases (any failure raises and the script exits non-zero):
      1 --total-batch 32768 --attn-impl ring --tp 4 --steps 2 (validation
      through the ring on the lse forward and the CE kernel, checkpoints), then
      --steps 3 resumes; --tp 4 without --attn-impl ring must raise;
+ 10b. (run after 18) the general kernels on fp32 operands
+     (csrc/flash_general_fwd_f32.cu: K2b's function; the fp32 D;
+     csrc/flash_general_bwd_f32.cu: K3a's and K3b's in one launch) vs their
+     plain versions in fp32 at (B, Tq, Tk) = (1, 16384, 16384) causal, (2,
+     130, 385) causal and not, (4, 1, 193), (2, 64, 256) and (1, 3000, 4133)
+     causal, H=12 (GENERAL_F32_SHAPES): o and lse within F32_TOL, o row by
+     row within F32_ROW_TOL, D, and dq, dk, dv on the kernel's D within
+     F32_TOL of max|ref| and row by row (phase 2c's rule); every kernel twice
+     bit for bit; two controls that must fail both row rules: the causal mask
+     aligned at the top left at Tq != Tk, and the last key tile dropped at
+     the ragged Tk=4133 (``general_hide``); timed at T=16384 beside SDPA on
+     the same fp32 operands;
+ 15b. the lse kernels on fp32 operands (K2a's function on
+     csrc/flash_general_fwd_f32.cu, K3c's on csrc/flash_general_bwd_f32.cu)
+     on the ring's chunk pairs (B=1, Tq=Tk=4096, H=12, chunk views, unmasked
+     and causal) with a random lse cotangent (dcap = D - dlse), under phase
+     10b's rules, twice bit for bit, a control without the cotangent that
+     must fail, timed beside SDPA;
+ 13b. the long-context train step under FP32_POLICY: GPT-2 124M, block_size
+     16384, 2 x (B=1, T=16384) a step, attn_impl auto, 2 steps: 24 launches
+     each of the fp32 general forward, the fp32 D and the fp32 general
+     backward a step, none of the bf16 kernels (so no plain attention);
+     tokens/s and peak memory; at 2 layers and T=8320 one step on the kernel
+     path against the plain paths from one state (loss within 1e-4, grad norm
+     and grads within 1e-4 relative, the update against the plain AdamW);
+ 17b. the ring train step under FP32_POLICY, a ring of 4: 240 launches each
+     of K2a's and K3c's fp32 kernels and the fp32 D a step, none of any
+     other flash kernel; tokens/s, peak memory; one step from one state
+     against phase 13b's whole-sequence fp32 step on the same batch (loss,
+     grad norm and grads within 1e-4), with a control (merge weights
+     dropped) that must fail;
+ 18b. train.pretrain.run_pretrain(cfg, device="cuda", policy=FP32_POLICY,
+     max_steps_override=2) with cfg from cli.pretrain --synthetic --seq-len
+     16384 --micro-batch 1 --total-batch 32768 --attn-impl flash, then
+     --attn-impl ring --tp 4: launch counts, CSV rows, finite losses;
  19. the dt-layout kernels of the A/B tool vs their plain versions, H=12,
      hs=64, causal: the forward (o elementwise and row by row, lse) on the
      tool's own bf16 inputs (B=8, T=1024), at B=3, T=1088 (sequences that end
@@ -249,7 +286,8 @@ Phases (any failure raises and the script exits non-zero):
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
 phase 20 and, for the fp32 forward kernel, phase 26's fp32 HellaSwag run,
-for the fp32 backward kernel phase 29's fp32 train step;
+for the fp32 backward kernel phase 29's fp32 train step, for the fp32
+general and lse kernels the fp32 trainer runs of phase 18b;
 the fine-tune runs of phase 23 and the HellaSwag runs of phase 26 beside
 them), error, times, bound and library-call time, the whole run's seconds,
 and last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -260,7 +298,10 @@ instructions and times K1-fwd (with the host side of its launch), K1-bwd,
 P1, K2a, K2b, K3a, K3b and K3c at the shapes of the kernels line, P2 at
 B=8, T=1024 and B=1, T=8192, the fp32 pair (forward at B=32, T=1024 and
 B=1, T=8192, backward at B=8, T=1024 and B=1, T=8192, SDPA on the same fp32
-operands beside them), K4 at N=8192 and 4096 and the logits GEMM alone
+operands beside them), the fp32 general and lse kernels (K2b's function,
+the fp32 D and the fp32 general backward at B=1, T=16384; K2a's and K3c's
+on the ring's chunk pair; SDPA and each one's bound beside them;
+``f32_general_times``), K4 at N=8192 and 4096 and the logits GEMM alone
 (``flash_times``). Copied into the root of another checkout and
 run there, it times that checkout's kernels, so two trees compare on one
 card in the order parent, change, change, parent.
@@ -635,9 +676,7 @@ def phase_flash_bwd_f32(torch, fa, dev):
         del again
         want = bwd_by_heads(torch, fa, q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
-        rels = [rel_err(x, r) for x, r in zip(got, want)]
-        rows = [f32_row_err(x, r, causal_dq=causal and i == 0)
-                for i, (x, r) in enumerate(zip(got, want))]
+        rels, rows = f32_bwd_errs(got, want, causal)
         bare = [f32_row_err(x, r, causal_dq=causal and i == 0, floor=0.0)
                 for i, (x, r) in enumerate(zip(got, want))]
         print(f"  B={b} T={t} H={h} {'causal' if causal else 'no mask'}: dq, dk, dv max|err| / "
@@ -842,13 +881,17 @@ K1_DKV_DROP_AFTER = 7680
 K1_DQ_DROP_BEFORE = 7936
 
 
-def bwd_by_heads(torch, fa, q, k, v, o, lse, do, causal, heads=2):
+def bwd_by_heads(torch, fa, q, k, v, o, lse, do, causal, heads=2, dd=None):
     """The plain backward, `heads` heads at a time (its (B, H, T, T) fp32
-    matrices do not fit at once at T=8192, H=12): [dq, dk, dv]."""
-    parts = [fa.flash_attention_backward_reference(q[:, :, c], k[:, :, c], v[:, :, c],
-                                                   o[:, :, c], lse[:, c], do[:, :, c],
-                                                   causal=causal)
-             for c in (slice(i, i + heads) for i in range(0, q.shape[2], heads))]
+    matrices do not fit at once at T=8192, H=12): [dq, dk, dv]. With ``dd``
+    (B, H, Tq), the row term (D, or D - dlse) given as the general and lse
+    backward kernels take it, ``o`` is not read."""
+    parts = []
+    for i in range(0, q.shape[2], heads):
+        c = slice(i, i + heads)
+        parts.append(fa.flash_attention_backward_reference(
+            q[:, :, c], k[:, :, c], v[:, :, c], None if dd is not None else o[:, :, c],
+            lse[:, c], do[:, :, c], causal=causal, dd=None if dd is None else dd[:, c]))
     return [torch.cat([p[j] for p in parts], dim=2) for j in range(3)]
 
 
@@ -988,7 +1031,11 @@ def _counters(fa, fc, fw):
             "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
             "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
             "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
-            "flash_lse_fwd": fa.flash_lse_forward, "flash_fused_bwd": fa.flash_fused_backward}
+            "flash_lse_fwd": fa.flash_lse_forward, "flash_fused_bwd": fa.flash_fused_backward,
+            "flash_general_fwd_f32": fa.flash_general_forward_f32,
+            "flash_general_bwd_f32": fa.flash_general_backward_f32,
+            "flash_rowdot_f32": fa.flash_rowdot_f32, "flash_lse_fwd_f32": fa.flash_lse_forward_f32,
+            "flash_fused_bwd_f32": fa.flash_fused_backward_f32}
 
 
 def reset_counts(fa, fc, fw):
@@ -1005,7 +1052,9 @@ def with_zeros(counts):
     return {**dict.fromkeys(("flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32",
                              "ce_fwd", "adamw",
                              "flash_general_fwd", "flash_rowdot", "flash_general_dq",
-                             "flash_general_dkv", "flash_lse_fwd", "flash_fused_bwd"), 0),
+                             "flash_general_dkv", "flash_lse_fwd", "flash_fused_bwd",
+                             "flash_general_fwd_f32", "flash_general_bwd_f32", "flash_rowdot_f32",
+                             "flash_lse_fwd_f32", "flash_fused_bwd_f32"), 0),
             **counts}
 
 
@@ -1015,9 +1064,11 @@ def update_err(delta, ref):
     return num / max(r.abs().max().item() for r in ref.values())
 
 
-def compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch):
+def compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch, tols=(1e-2, 2e-2, 2e-2)):
     """One step on each path from one state (params and moments after the
-    kernel path's steps) and one batch, at the schedule's peak LR.
+    kernel path's steps) and one batch, at the schedule's peak LR. ``tols``:
+    the limits of the loss (absolute), the grad norm and the grads (relative),
+    the bf16 policy's by default. Returns the readings.
 
     Gradients: the two paths' accumulated .grad, as a relative L2 error.
     Update: the kernel path's parameter change against the plain AdamW
@@ -1030,7 +1081,7 @@ def compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch):
     (model, state_k, step_k), (plain_model, state_p, step_p) = kernel, plain
     fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
     ocfg = cfgs["opt"]
-    g_tol, upd_tol = 2e-2, 1e-3
+    (l_tol, n_tol, g_tol), upd_tol = tols, 1e-3
     params_k, params_p = gpt2.named_params(model), gpt2.named_params(plain_model)
     with torch.no_grad():
         for n, p in params_k.items():
@@ -1056,10 +1107,10 @@ def compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch):
                    / sq(p.grad for p in params_p.values()))
     print(f"  kernel vs plain paths (attn 'xla', CE 'xla', AdamW plain), one step from "
           f"one state at lr {mk['lr']:.4e}: loss {mk['loss']:.6f} vs {mp['loss']:.6f} "
-          f"(|diff| {dl:.3e}, tol 1e-2), grad_norm {mk['grad_norm']:.6f} vs "
-          f"{mp['grad_norm']:.6f} (rel diff {dn:.3e}, tol 2e-2), grads ||err|| / ||ref|| "
+          f"(|diff| {dl:.3e}, tol {l_tol}), grad_norm {mk['grad_norm']:.6f} vs "
+          f"{mp['grad_norm']:.6f} (rel diff {dn:.3e}, tol {n_tol}), grads ||err|| / ||ref|| "
           f"{dg:.3e} (tol {g_tol})", flush=True)
-    require(dl <= 1e-2 and dn <= 2e-2 and dg <= g_tol, "kernel and plain train steps disagree")
+    require(dl <= l_tol and dn <= n_tol and dg <= g_tol, "kernel and plain train steps disagree")
 
     inv = 1.0 / batch.shape[0]
     norm = mods["global_norm"](grads) * inv
@@ -1092,6 +1143,8 @@ def compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch):
     require(err <= upd_tol, "the kernel path's update differs from the plain AdamW's")
     require(all(v > upd_tol for v in controls.values()),
             "a control update passed the update check: the check cannot see it")
+    return {"loss_abs_err": dl, "grad_norm_rel_err": dn, "grads_rel_l2": dg,
+            "update_max_rel": err, "update_controls": controls}
 
 
 def phase_train_step(torch, np, gpt2, mods, cfgs, dev):
@@ -1260,19 +1313,19 @@ def attention_bound(kind, b, tq, tk, h, hs, causal, elem_bytes=2, peak=PEAK_BF16
                     + n_stats * stats, peak)
 
 
-def qkv_inputs(torch, b, tq, tk, h, dev, g):
-    """bf16 q (B, Tq, H, 64) and k, v (B, Tk, H, 64), strided views of fused
-    projections as the model makes them (one QKV tensor when Tq == Tk), and
-    an output cotangent."""
-    hs = 64
+def qkv_inputs(torch, b, tq, tk, h, dev, g, dtype=None):
+    """q (B, Tq, H, 64) and k, v (B, Tk, H, 64) in ``dtype`` (bf16 by
+    default), strided views of fused projections as the model makes them
+    (one QKV tensor when Tq == Tk), and an output cotangent."""
+    hs, dtype = 64, dtype or torch.bfloat16
     if tq == tk:
-        qkv = torch.randn(b, tq, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+        qkv = torch.randn(b, tq, 3 * h * hs, device=dev, generator=g).to(dtype)
         q, k, v = (a.view(b, tq, h, hs) for a in qkv.split(h * hs, dim=-1))
     else:
-        q = torch.randn(b, tq, h, hs, device=dev, generator=g).to(torch.bfloat16)
-        kv = torch.randn(b, tk, 2 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+        q = torch.randn(b, tq, h, hs, device=dev, generator=g).to(dtype)
+        kv = torch.randn(b, tk, 2 * h * hs, device=dev, generator=g).to(dtype)
         k, v = (a.view(b, tk, h, hs) for a in kv.split(h * hs, dim=-1))
-    do = torch.randn(b, tq, h, hs, device=dev, generator=g).to(torch.bfloat16)
+    do = torch.randn(b, tq, h, hs, device=dev, generator=g).to(dtype)
     return q, k, v, do
 
 
@@ -1766,15 +1819,16 @@ def phase_long_trainer(torch, np, mods, cfgs):
         shutil.rmtree(log_dir, ignore_errors=True)
 
 
-def chunk_views(torch, b, tq, tk, h, dev, g):
-    """bf16 q (B, Tq, H, 64) and k, v (B, Tk, H, 64) as the ring passes them:
-    views of one fused (B, Tk + Tq, 3 * H * 64) projection, K/V the first Tk
-    positions and q the last Tq, so every sequence stride is the long
-    tensor's; an output cotangent and a logsumexp cotangent."""
-    hs = 64
-    qkv = torch.randn(b, tk + tq, 3 * h * hs, device=dev, generator=g).to(torch.bfloat16)
+def chunk_views(torch, b, tq, tk, h, dev, g, dtype=None):
+    """q (B, Tq, H, 64) and k, v (B, Tk, H, 64) in ``dtype`` (bf16 by
+    default) as the ring passes them: views of one fused (B, Tk + Tq,
+    3 * H * 64) projection, K/V the first Tk positions and q the last Tq, so
+    every sequence stride is the long tensor's; an output cotangent and a
+    logsumexp cotangent."""
+    hs, dtype = 64, dtype or torch.bfloat16
+    qkv = torch.randn(b, tk + tq, 3 * h * hs, device=dev, generator=g).to(dtype)
     q, k, v = (a.view(b, tk + tq, h, hs) for a in qkv.split(h * hs, dim=-1))
-    do = torch.randn(b, tq, h, hs, device=dev, generator=g).to(torch.bfloat16)
+    do = torch.randn(b, tq, h, hs, device=dev, generator=g).to(dtype)
     dlse = torch.randn(b, h, tq, device=dev, generator=g)
     return q[:, tk:], k[:, :tk], v[:, :tk], do, dlse
 
@@ -2134,6 +2188,446 @@ def phase_ring_trainer(torch, mods, cfgs):
     finally:
         tempfile.tempdir = old_tmp
         shutil.rmtree(log_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# fp32 long context and the fp32 ring: the fp32 general and lse kernels
+# ---------------------------------------------------------------------------
+
+
+def general_hide(torch, tq, tk, causal, device, left=False, drop_last_tile=False):
+    """(Tq, Tk) bool, True where a query does not see a key: the right-aligned
+    causal mask (query i sees the keys j <= i + Tk - Tq), or none. The faults
+    that phase 10b's controls stand for: ``left``, the causal mask aligned at
+    the top left (j <= i), which agrees with the right one only at Tq == Tk;
+    ``drop_last_tile``, the last key tile of 64 hidden from every row as
+    well (a key sweep that stops one tile short at a ragged Tk)."""
+    qpos = torch.arange(tq, device=device)[:, None] + (0 if left else tk - tq)
+    kpos = torch.arange(tk, device=device)[None, :]
+    hide = kpos > qpos if causal else torch.zeros(tq, tk, dtype=torch.bool, device=device)
+    if drop_last_tile:
+        hide = hide | (kpos >= (tk - 1) // 64 * 64)
+    return hide
+
+
+def f32_bwd_errs(got, want, causal_dq):
+    """([max|err| / max|ref| of dq, dk, dv], [their f32_row_err]): phase 2c's
+    rules. ``causal_dq``: dq's first row is 0 in exact arithmetic (a causal
+    Tq == Tk) and is left to the elementwise rule."""
+    rels = [rel_err(x, r) for x, r in zip(got, want)]
+    rows = [f32_row_err(x, r, causal_dq=causal_dq and i == 0)
+            for i, (x, r) in enumerate(zip(got, want))]
+    return rels, rows
+
+
+def f32_control_errs(torch, q, k, v, do, lse, dd, o, got, hide):
+    """(the forward's o, the backward's dq, dk, dv) of a kernel against the
+    plain version with the (Tq, Tk) bool mask ``hide``, by the row rules of
+    phases 2b and 2c: (f32_fwd_row_err of o, the largest f32_row_err of the
+    three gradients). A control's mask must fail both."""
+    fwd = f32_fwd_row_err(o, masked_fwd_reference(torch, q, k, v, slice(None), hide))
+    ctrl = masked_bwd_reference(torch, q, k, v, do, lse, dd, hide)
+    return fwd, max(f32_row_err(x, r) for x, r in zip(got, ctrl))
+
+
+# phase 10b's shapes (B, Tq, Tk, causal): the long-context layer, a ragged
+# pair with Tq != Tk with the mask and without, a single query row, a short
+# query tile, and a pair of several thousand whose Tk is no multiple of 64
+GENERAL_F32_SHAPES = ((1, 16384, 16384, True), (2, 130, 385, True), (2, 130, 385, False),
+                      (4, 1, 193, True), (2, 64, 256, True), (1, 3000, 4133, True))
+
+
+def phase_general_f32(torch, fa, dev):
+    print("[10b] the general kernels on fp32 operands (csrc/flash_general_fwd_f32.cu, "
+          "flash_general_bwd_f32.cu, the fp32 D) vs plain (fp32, no TF32)", flush=True)
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(101)
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dd": 0.0, "max_rel": 0.0, "row": 0.0,
+            "controls": {}}
+    timing = {}
+    for b, tq, tk, causal in GENERAL_F32_SHAPES:
+        h = 12
+        q, k, v, do = qkv_inputs(torch, b, tq, tk, h, dev, g, dtype=torch.float32)
+        n0 = (fa.flash_general_forward_f32.launches, fa.flash_rowdot_f32.launches,
+              fa.flash_general_backward_f32.launches)
+        o, lse = fa.flash_general_forward_f32(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_general_forward_f32(q, k, v, causal=causal)
+        dd = fa.flash_rowdot(do, o)
+        got = fa.flash_general_backward_f32(q, k, v, do, lse, dd, causal=causal)
+        again = fa.flash_general_backward_f32(q, k, v, do, lse, dd, causal=causal)
+        torch.cuda.synchronize()
+        require((fa.flash_general_forward_f32.launches, fa.flash_rowdot_f32.launches,
+                 fa.flash_general_backward_f32.launches) == (n0[0] + 2, n0[1] + 1, n0[2] + 2),
+                "the fp32 general kernels did not run")
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(got, again)))
+        del o2, lse2, again
+        ro, rlse = fwd_by_heads(torch, fa, q, k, v, causal)
+        rdd = fa.rowdot_reference(do, o)
+        want = bwd_by_heads(torch, fa, q, k, v, None, lse, do, causal, dd=dd)
+        torch.cuda.synchronize()
+        eo, el = (o - ro).abs().max().item(), (lse - rlse).abs().max().item()
+        erow = f32_fwd_row_err(o, ro)
+        edd = ((dd - rdd).abs().max() / rdd.abs().max()).item()
+        rels, rows = f32_bwd_errs(got, want, causal and tq == tk)
+        print(f"  B={b} Tq={tq} Tk={tk} H={h} {'causal' if causal else 'no mask'}: o max|err| "
+              f"{eo:.3e}, lse {el:.3e} (tol {F32_TOL}), max row |err| / |ref| {erow:.3e} (tol "
+              f"{F32_ROW_TOL}); D max|err| / max|ref| {edd:.3e}; dq, dk, dv max|err| / max|ref| "
+              + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {F32_TOL}), max row |err| / "
+              "(|ref| + mean row norm) " + ", ".join(f"{r:.3e}" for r in rows)
+              + f" (tol {F32_ROW_TOL}); bit-equal twice: {same}", flush=True)
+        require(all(x.dtype == torch.float32 for x in (o, *got)), "the fp32 kernels are not fp32")
+        require(max(eo, el, edd) <= F32_TOL and erow <= F32_ROW_TOL,
+                f"the fp32 general forward or D disagrees at B={b} Tq={tq} Tk={tk}")
+        require(max(rels) <= F32_TOL and max(rows) <= F32_ROW_TOL,
+                f"the fp32 general backward disagrees at B={b} Tq={tq} Tk={tk}")
+        require(same, f"two runs of the fp32 general kernels differ at Tq={tq} Tk={tk}")
+        errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["o_row"], errs["dd"] = max(errs["o_row"], erow), max(errs["dd"], edd)
+        errs["max_rel"], errs["row"] = max(errs["max_rel"], *rels), max(errs["row"], *rows)
+        # controls, each a fault the checks above must see: the causal mask
+        # aligned at the top left where Tq != Tk; the last key tile dropped at
+        # a ragged Tk
+        ctrl = {}
+        if (tq, tk, causal) == (130, 385, True):
+            ctrl["left_aligned_mask"] = general_hide(torch, tq, tk, True, dev, left=True)
+        if (tq, tk) == (3000, 4133):
+            ctrl["last_key_tile_dropped"] = general_hide(torch, tq, tk, causal, dev,
+                                                         drop_last_tile=True)
+        for name, hide in ctrl.items():
+            fwd_c, bwd_c = f32_control_errs(torch, q, k, v, do, lse, dd, o, got, hide)
+            print(f"  control {name}: o max row |err| / |ref| {fwd_c:.3e}, dq/dk/dv max row "
+                  f"|err| / (|ref| + mean row norm) {bwd_c:.3e} (both must be > {F32_ROW_TOL})",
+                  flush=True)
+            require(fwd_c > F32_ROW_TOL and bwd_c > F32_ROW_TOL,
+                    f"the control {name} passed the fp32 general kernels' row checks")
+            errs["controls"][name] = {"o_row": fwd_c, "grad_row": bwd_c}
+        if tq == 16384:
+            timing["fwd"] = interleaved(
+                lambda: fa.flash_general_forward_f32(q, k, v, causal=True),
+                lambda: fwd_by_heads(torch, fa, q, k, v, True), 5, 1)
+            timing["dd"] = interleaved(lambda: fa.flash_rowdot(do, o),
+                                       lambda: fa.rowdot_reference(do, o), 20, 5)
+            timing["bwd"] = interleaved(
+                lambda: fa.flash_general_backward_f32(q, k, v, do, lse, dd, causal=True),
+                lambda: bwd_by_heads(torch, fa, q, k, v, None, lse, do, True, dd=dd), 3, 1)
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            timing["sdpa_fwd_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 5)
+            leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            dot = do.transpose(1, 2)
+            timing["sdpa_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True), 3)
+            del qt, kt, vt, leaves, out
+        del q, k, v, do, o, lse, dd, got, want, ro, rlse
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
+def phase_lse_f32(torch, fa, dev):
+    print("[15b] the lse kernels on fp32 operands on the ring's chunk pairs (B=1, Tq=Tk=4096, "
+          "H=12, chunk views), with a non-zero lse cotangent, vs plain (fp32, no TF32)",
+          flush=True)
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(151)
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "max_rel": 0.0, "row": 0.0, "controls": {}}
+    timing = {}
+    for causal in (False, True):
+        b, t, h = 1, 4096, 12
+        key = "causal" if causal else "nomask"
+        q, k, v, do, dlse = chunk_views(torch, b, t, t, h, dev, g, dtype=torch.float32)
+        n0 = (fa.flash_lse_forward_f32.launches, fa.flash_fused_backward_f32.launches)
+        o, lse = fa.flash_lse_forward_f32(q, k, v, causal=causal)
+        o2, lse2 = fa.flash_lse_forward_f32(q, k, v, causal=causal)
+        dcap = (fa.flash_rowdot(do, o) - dlse).contiguous()  # as _FlashAttnLse.backward forms it
+        got = fa.flash_fused_backward_f32(q, k, v, do, lse, dcap, causal=causal)
+        again = fa.flash_fused_backward_f32(q, k, v, do, lse, dcap, causal=causal)
+        torch.cuda.synchronize()
+        require((fa.flash_lse_forward_f32.launches, fa.flash_fused_backward_f32.launches)
+                == (n0[0] + 2, n0[1] + 2), "the fp32 lse kernels did not run")
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(got, again)))
+        del o2, lse2, again
+        ro, rlse = fwd_by_heads(torch, fa, q, k, v, causal)
+        want = bwd_by_heads(torch, fa, q, k, v, None, lse, do, causal, dd=dcap)
+        # control: the lse cotangent dropped (dcap = D), as a backward that
+        # ignores it would give
+        dd = fa.rowdot_reference(do, o)
+        ctrl = bwd_by_heads(torch, fa, q, k, v, None, lse, do, causal, dd=dd)
+        torch.cuda.synchronize()
+        eo, el = (o - ro).abs().max().item(), (lse - rlse).abs().max().item()
+        erow = f32_fwd_row_err(o, ro)
+        rels, rows = f32_bwd_errs(got, want, causal)
+        control = max(f32_row_err(x, r) for x, r in zip(got, ctrl))
+        print(f"  {key}: o max|err| {eo:.3e}, lse {el:.3e} (tol {F32_TOL}), max row |err| / "
+              f"|ref| {erow:.3e} (tol {F32_ROW_TOL}); dq, dk, dv max|err| / max|ref| "
+              + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {F32_TOL}), max row |err| / "
+              "(|ref| + mean row norm) " + ", ".join(f"{r:.3e}" for r in rows)
+              + f" (tol {F32_ROW_TOL}); bit-equal twice: {same}; control without the lse "
+              f"cotangent {control:.3e} (must be > {F32_ROW_TOL})", flush=True)
+        require(max(eo, el) <= F32_TOL and erow <= F32_ROW_TOL,
+                f"the fp32 lse forward disagrees on the {key} pair")
+        require(max(rels) <= F32_TOL and max(rows) <= F32_ROW_TOL,
+                f"the fp32 one-pass backward disagrees on the {key} pair")
+        require(same, f"two runs of the fp32 lse kernels differ on the {key} pair")
+        require(control > F32_ROW_TOL, "the fp32 one-pass backward passed the check against "
+                "the plain backward without the lse cotangent")
+        errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["o_row"] = max(errs["o_row"], erow)
+        errs["max_rel"], errs["row"] = max(errs["max_rel"], *rels), max(errs["row"], *rows)
+        errs["controls"][f"{key}_without_dlse"] = control
+        fwd_t = interleaved(lambda: fa.flash_lse_forward_f32(q, k, v, causal=causal),
+                            lambda: fa.flash_attention_reference(q, k, v, causal=causal), 10, 2)
+        bwd_t = interleaved(
+            lambda: fa.flash_fused_backward_f32(q, k, v, do, lse, dcap, causal=causal),
+            lambda: fa.flash_fused_backward_reference(q, k, v, do, lse, dcap, causal=causal),
+            10, 2)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        dot = do.transpose(1, 2)
+        timing[key] = {
+            "fwd": fwd_t, "bwd": bwd_t,
+            "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), 10),
+            "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                                               retain_graph=True), 10)}
+        del q, k, v, do, dlse, o, lse, dcap, got, want, ctrl, ro, rlse, qt, kt, vt, leaves, out
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
+def fp32_steps(torch, gpt2, mods, cfgs, cfg, model, attn_impl, ce_impl="auto", fused=True):
+    """make_train_step under FP32_POLICY on ``model`` (the trainer's loss:
+    ce_chunks 8) and a fresh AdamW state."""
+    step = mods["make_train_step"](
+        lambda m, r: gpt2.loss(m, r[:, :-1], cfg, targets=r[:, 1:], policy=mods["fp32_policy"],
+                               attn_impl=attn_impl, ce_impl=ce_impl),
+        cfgs["opt"], cfgs["sched"], decay_mask=gpt2.decay_mask(model), use_fused_adamw=fused)
+    return step, mods["adamw_init"](gpt2.named_params(model))
+
+
+def timed_steps(torch, mods, step, model, state, batch, per_step, n_steps, label):
+    """n_steps of ``step`` with the launch counts checked after each:
+    (the metrics of each step, its wall seconds, the counts)."""
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    n_tok = batch.shape[0] * batch.shape[1] * (batch.shape[2] - 1)
+    reset_counts(fa, fc, fw)
+    ms, times = [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms.append(step(model, state, batch, i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_counts(fa, fc, fw)
+        m = ms[-1]
+        print(f"  step {i}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+              f"{n_tok / times[-1]:.1f} tokens/s; launches "
+              f"{ {k_: v_ for k_, v_ in counts.items() if v_} }", flush=True)
+        require(counts == {k_: (i + 1) * v_ for k_, v_ in per_step.items()},
+                f"{label}: expected {per_step} launches per step, got {counts} after {i + 1}")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"{label}: loss or grad norm is not finite")
+    return ms, times, read_counts(fa, fc, fw)
+
+
+def phase_fp32_long_train_step(torch, np, gpt2, mods, cfgs, dev):
+    accum, b, t = 2, 1, 16384
+    print(f"[13b] long-context train step under FP32_POLICY: GPT-2 124M, block_size {t}, "
+          f"{accum} x (B={b}, T={t}) per step, attn_impl auto", flush=True)
+    cfg = cfgs["gpt"].replace(block_size=t)
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    rows = np.random.RandomState(131).randint(0, cfg.vocab_size, (accum, b, t + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    step, state = fp32_steps(torch, gpt2, mods, cfgs, cfg, model, "auto")
+    n = accum * cfg.n_layer
+    per_step = with_zeros({"flash_general_fwd_f32": n, "flash_rowdot_f32": n,
+                           "flash_general_bwd_f32": n, "adamw": 1})
+    torch.cuda.reset_peak_memory_stats()
+    ms, times, counts = timed_steps(torch, mods, step, model, state, batch, per_step, 2,
+                                    "the fp32 long-context step")
+    require(abs(ms[0]["loss"] - math.log(cfg.padded_vocab_size)) < 0.5,
+            "the first fp32 long-context loss is not near ln(V)")
+    tps = accum * b * t / times[1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  tokens/s {tps:.1f} (step 1), peak device memory {peak:.2f} GiB", flush=True)
+    out = {"tps": tps, "peak_gib": peak, "counts": counts, "first_step_s": times[0]}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+
+    # against the plain paths where fp32 einsum attention fits: full width, 2
+    # layers, T just above the self-attention kernels' longest; the fp32
+    # tolerances of phase 29 for the loss, the grad norm and the grads, and
+    # the update against the plain AdamW
+    t2 = 8320
+    cfg2 = cfgs["gpt"].replace(block_size=t2, n_layer=2)
+    print(f"  kernel path vs plain paths at {cfg2.n_layer} layers, B=1, T={t2}, FP32_POLICY:",
+          flush=True)
+    model = gpt2.init(cfg2, generator=torch.Generator(dev).manual_seed(1339), device=dev)
+    plain_model = copy.deepcopy(model)
+    rows = np.random.RandomState(132).randint(0, cfg2.vocab_size, (1, 1, t2 + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    kernel = (model, *reversed(fp32_steps(torch, gpt2, mods, cfgs, cfg2, model, "auto")))
+    plain = (plain_model, *reversed(fp32_steps(torch, gpt2, mods, cfgs, cfg2, plain_model,
+                                               "xla", "xla", False)))
+    kernel[2](model, kernel[1], batch, 0)  # one step first, so the moments are not zero
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    reset_counts(fa, fc, fw)
+    out["vs_plain_T8320_2_layers"] = compare_train_steps(
+        torch, gpt2, mods, cfgs, kernel, plain, batch, tols=(1e-4, 1e-4, 1e-4))
+    got = read_counts(fa, fc, fw)
+    require(got == with_zeros({"flash_general_fwd_f32": 2, "flash_rowdot_f32": 2,
+                               "flash_general_bwd_f32": 2, "adamw": 1}),
+            f"the T={t2} fp32 kernel-path step did not run on the fp32 general kernels: {got}")
+    del model, plain_model, kernel, plain, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fp32_ring_train_step(torch, np, gpt2, mods, cfgs, dev, whole):
+    """`whole`: phase 13b's result, printed beside this one's."""
+    accum, b, t, n = 2, 1, 16384, 4
+    ra, fa, fc, fw = mods["ra"], mods["fa"], mods["fc"], mods["fw"]
+    print(f"[17b] ring train step under FP32_POLICY: GPT-2 124M, block_size {t}, a ring of {n} "
+          f"chunks, {accum} x (B={b}, T={t}) per step", flush=True)
+    cfg = cfgs["gpt"].replace(block_size=t)
+    model = gpt2.init(cfg, generator=torch.Generator(dev).manual_seed(1337), device=dev)
+    rows = np.random.RandomState(171).randint(0, cfg.vocab_size, (accum, b, t + 1))
+    batch = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    step_r, state_r = fp32_steps(torch, gpt2, mods, cfgs, cfg, model, "ring")
+    pairs = accum * cfg.n_layer * n * (n + 1) // 2
+    per_step = with_zeros({"flash_lse_fwd_f32": pairs, "flash_rowdot_f32": pairs,
+                           "flash_fused_bwd_f32": pairs, "adamw": 1})
+    ra.set_ring(n)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ms, times, counts = timed_steps(torch, mods, step_r, model, state_r, batch, per_step, 2,
+                                        "the fp32 ring step")
+        tps = accum * b * t / times[1]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  tokens/s {tps:.1f} (step 1), peak device memory {peak:.2f} GiB; the fp32 "
+              f"general kernels on the whole sequence (phase 13b): {whole['tps']:.1f} tokens/s, "
+              f"{whole['peak_gib']:.2f} GiB", flush=True)
+
+        # one step from one state on the ring, on the whole sequence (phase
+        # 13b's path, the fp32 general kernels), and on a ring whose merge
+        # drops its weights
+        def twin(attn_impl):
+            m2 = copy.deepcopy(model)
+            step, state = fp32_steps(torch, gpt2, mods, cfgs, cfg, m2, attn_impl)
+            with torch.no_grad():
+                for key in ("m", "v"):
+                    for name, a in state_r[key].items():
+                        state[key][name].copy_(a)
+            state["step"] = state_r["step"]
+            return m2, step, state
+
+        flash_model, step_f, state_f = twin("auto")
+        ctrl_model, step_c, state_c = twin("ring")
+        idx = cfgs["sched"].warmup_steps  # the peak LR
+        m_ring = step_r(model, state_r, batch, idx)
+        reset_counts(fa, fc, fw)
+        m_flash = step_f(flash_model, state_f, batch, idx)
+        got = read_counts(fa, fc, fw)
+        w = accum * cfg.n_layer
+        require(got == with_zeros({"flash_general_fwd_f32": w, "flash_rowdot_f32": w,
+                                   "flash_general_bwd_f32": w, "adamw": 1}),
+                f"the whole-sequence fp32 step did not run on the fp32 general kernels: {got}")
+        real_merge = ra._merge
+        ra._merge = lambda c, u: (c[0] + u[0], torch.logaddexp(c[1], u[1]))
+        try:
+            m_ctrl = step_c(ctrl_model, state_c, batch, idx)
+        finally:
+            ra._merge = real_merge
+    finally:
+        ra.set_ring(None)
+
+    def diffs(m, other):
+        sq = lambda ts: sum(x.float().square().sum().item() for x in ts)  # noqa: E731
+        ref = [p.grad for p in flash_model.parameters()]
+        dg = math.sqrt(sq(p.grad - r for p, r in zip(other.parameters(), ref)) / sq(ref))
+        return (abs(m["loss"] - m_flash["loss"]),
+                abs(m["grad_norm"] - m_flash["grad_norm"]) / m_flash["grad_norm"], dg)
+
+    dl, dn, dg = diffs(m_ring, model)
+    cl, cn, cg = diffs(m_ctrl, ctrl_model)
+    print(f"  fp32 ring vs the fp32 whole sequence, one step from one state on one batch at lr "
+          f"{m_ring['lr']:.4e}: loss {m_ring['loss']:.6f} vs {m_flash['loss']:.6f} (|diff| "
+          f"{dl:.3e}, tol 1e-4), grad_norm rel diff {dn:.3e} (tol 1e-4), grads ||err|| / "
+          f"||ref|| {dg:.3e} (tol 1e-4); control with the merge weights dropped: loss |diff| "
+          f"{cl:.3e}, grad_norm {cn:.3e}, grads {cg:.3e}", flush=True)
+    require(dl <= 1e-4 and dn <= 1e-4 and dg <= 1e-4,
+            "the fp32 ring and whole-sequence train steps disagree")
+    require(cg > 1e-4, "the control ring passed the check: it cannot see the merge")
+    del model, flash_model, ctrl_model, state_r, state_f, state_c, batch
+    torch.cuda.empty_cache()
+    return {"tps": tps, "peak_gib": peak, "counts": counts,
+            "vs_whole": {"loss_abs_err": dl, "grad_norm_rel_err": dn, "grads_rel_l2": dg,
+                         "control_grads_rel_l2": cg}}
+
+
+def phase_fp32_trainers(torch, mods, cfgs):
+    print("[18b] train.pretrain.run_pretrain(cfg, device='cuda', policy=FP32_POLICY, "
+          "max_steps_override=2), cfg from cli.pretrain --synthetic --seq-len 16384 "
+          "--micro-batch 1 --total-batch 32768: --attn-impl flash, and --attn-impl ring --tp 4",
+          flush=True)
+    from gpt2_vision_language_tpu_torch.train.pretrain import run_pretrain
+
+    fa, fc, fw = mods["fa"], mods["fc"], mods["fw"]
+    n_layer, pairs, accum, steps = cfgs["gpt"].n_layer, 10, 2, 2
+    runs = {}
+    for form, extra, fwd, n_att in (
+            ("flash", ["--attn-impl", "flash"], "flash_general_fwd_f32", 1),
+            ("ring", ["--attn-impl", "ring", "--tp", "4"], "flash_lse_fwd_f32", pairs)):
+        log_dir = tempfile.mkdtemp(prefix=f"chip_smoke_fp32_{form}_")
+        old_tmp = tempfile.tempdir
+        tempfile.tempdir = log_dir  # the synthetic shards go under it too
+        try:
+            cfg, _ = mods["pretrain"].parse_and_build(
+                ["--synthetic", "--seq-len", "16384", "--micro-batch", "1", "--total-batch",
+                 "32768", "--no-hellaswag", "--log-dir", os.path.join(log_dir, "log")] + extra)
+            reset_counts(fa, fc, fw)
+            t0 = time.perf_counter()
+            out = run_pretrain(cfg, device="cuda", policy=mods["fp32_policy"],
+                               max_steps_override=steps)
+            dt = time.perf_counter() - t0
+            counts = read_counts(fa, fc, fw)
+            bwd = "flash_general_bwd_f32" if form == "flash" else "flash_fused_bwd_f32"
+            n_bwd = n_layer * n_att * accum * steps
+            want = with_zeros({fwd: n_layer * n_att * (accum * steps + 2 * cfg.val_steps),
+                               "flash_rowdot_f32": n_bwd, bwd: n_bwd, "adamw": steps,
+                               "ce_fwd": counts["ce_fwd"]})
+            rows = [line.split(",")
+                    for f in sorted(glob.glob(os.path.join(log_dir, "log", "*.csv")))
+                    for line in open(f).read().splitlines()[1:]]
+            train = [(int(r[2]), float(r[3]), float(r[7])) for r in rows if r[1] == "train"]
+            val = [float(r[3]) for r in rows if r[1] == "val"]
+            print(f"  {form}: {steps} steps in {dt:.1f} s (val at steps 0 and 1, samples, "
+                  f"checkpoints); train rows (step, loss, tokens/s) {train}, val losses {val}; "
+                  f"launches { {k_: v_ for k_, v_ in counts.items() if v_} }", flush=True)
+            require(counts == want, f"fp32 trainer ({form}): expected launches {want}, got "
+                    f"{counts}")
+            require(out["opt_state"]["step"] == steps and math.isfinite(out["val_loss"])
+                    and out["model"].transformer.wpe.weight.dtype == torch.float32
+                    and out["model"].transformer.wpe.weight.shape[0] == 16384,
+                    f"fp32 trainer ({form}) did not take {steps} finite steps at block_size "
+                    "16384")
+            require([s for s, _, _ in train] == list(range(steps)) and len(val) == 2
+                    and all(math.isfinite(x) for _, x, _ in train)
+                    and all(math.isfinite(x) for x in val),
+                    f"fp32 trainer ({form}): the CSV does not hold {steps} finite train rows and "
+                    "2 finite val rows")
+            require(mods["ra"].RING is None, "the trainer left its ring installed")
+            runs[form] = {"counts": counts, "seconds": dt, "train_rows": train, "val": val}
+        finally:
+            tempfile.tempdir = old_tmp
+            shutil.rmtree(log_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return runs
 
 
 def dt_inputs(torch, ab, dev, seed):
@@ -3942,12 +4436,26 @@ F32_OPCODES = ("HMMA", "HGMMA", "RED", "REDG", "REDS", "ATOM", "ATOMG", "ATOMS",
                "LDGSTS")
 
 
+# the fp32 kernels and their entry points that report warps resident per SM
+# (a checkout from before the general fp32 kernels lacks that pair)
+F32_KERNELS = {"flash_fwd_f32_kernel": "gpt2vl_flash_fwd_f32_warps_per_sm",
+               "flash_bwd_f32_kernel": "gpt2vl_flash_bwd_f32_warps_per_sm",
+               "rowdot_f32_kernel": None,
+               "flash_general_fwd_f32_kernel": "gpt2vl_flash_general_fwd_f32_warps_per_sm",
+               "flash_general_bwd_f32_kernel": "gpt2vl_flash_general_bwd_f32_warps_per_sm"}
+# the SASS instruction counts of the fp32 self-attention pair when its blocks
+# were its own, before the general fp32 kernels shared them (cuobjdump -sass
+# of the sm_90a build): the counts printed beside this build's
+F32_PAIR_SASS_OWN = {"flash_fwd_f32_kernel": 6488, "flash_bwd_f32_kernel": 7216,
+                      "rowdot_f32_kernel": 352}
+
+
 def f32_pair_report(so, lib):
     """{kernel: registers, spill bytes (ptxas -v), SASS instructions, counts of
-    F32_OPCODES} for the kernels of the fp32 pair, and the warps each kernel
-    keeps resident on an SM (the occupancy calculator, through the library's
-    entry points where the checkout has them)."""
-    names = ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel", "rowdot_f32_kernel")
+    F32_OPCODES} for the fp32 kernels (F32_KERNELS) the library holds, and
+    the warps each keeps resident on an SM (the occupancy calculator, through
+    the library's entry points where the checkout has them)."""
+    names = tuple(F32_KERNELS)
     report = {}
     log = so.with_suffix(".log").read_text()
     for part in log.split("Compiling entry function '")[1:]:
@@ -3963,11 +4471,64 @@ def f32_pair_report(so, lib):
                    .split(".")[0] for ln in lines]
             report.setdefault(name, {}).update(
                 sass=len(lines), opcodes={op: ops.count(op) for op in F32_OPCODES})
-    for name, entry in (("flash_fwd_f32_kernel", "gpt2vl_flash_fwd_f32_warps_per_sm"),
-                        ("flash_bwd_f32_kernel", "gpt2vl_flash_bwd_f32_warps_per_sm")):
-        fn = getattr(lib, entry, None)
-        report.setdefault(name, {})["warps_per_sm"] = fn() if fn is not None else None
+    for name, entry in F32_KERNELS.items():
+        fn = getattr(lib, entry, None) if entry else None
+        if name in report:
+            report[name]["warps_per_sm"] = fn() if fn is not None else None
     return report
+
+
+def f32_general_times(torch, fa, dev, g, out):
+    """The fp32 general and lse kernels (where the checkout has them) into
+    ``out``: K2b's function (flash_general_forward_f32), the fp32 D and the
+    fp32 general backward (K3a's and K3b's functions in one launch) at B=1,
+    T=16384, H=12 causal on fp32 views of one fused projection, K2a's and
+    K3c's (flash_lse_forward_f32, flash_fused_backward_f32, on D - dlse) on
+    the ring's chunk pair (B=1, Tq=Tk=4096) unmasked and causal; SDPA's
+    forward and whole backward on the same fp32 operands beside each (Tq ==
+    Tk in all, so SDPA's top-left causal mask is the same mask); each one's
+    bound at 67 TFLOP/s of fp32 FFMAs or 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    def sdpa(q, k, v, do, causal, key):
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        out[f"sdpa_f32fwd_{key}_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 5)
+        leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        dot = do.transpose(1, 2)
+        out[f"sdpa_f32bwd_{key}_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True), 3)
+
+    bound = lambda kind, *shape: attention_bound(  # noqa: E731
+        kind, *shape, elem_bytes=4, peak=PEAK_FP32_FLOPS)[0]
+    q, k, v, do = qkv_inputs(torch, 1, 16384, 16384, 12, dev, g, dtype=torch.float32)
+    out["f32_k2b_T16384_causal_ms"] = cuda_ms(
+        lambda: fa.flash_general_forward_f32(q, k, v, causal=True), 5)
+    o, lse = fa.flash_general_forward_f32(q, k, v, causal=True)
+    out["f32_rowdot_T16384_ms"] = cuda_ms(lambda: fa.flash_rowdot(do, o), 20)
+    dd = fa.flash_rowdot(do, o)
+    out["f32_k3ab_T16384_causal_ms"] = cuda_ms(
+        lambda: fa.flash_general_backward_f32(q, k, v, do, lse, dd, causal=True), 3)
+    sdpa(q, k, v, do, True, "T16384_causal")
+    long_shape = (1, 16384, 16384, 12, 64, True)
+    out["f32_bounds_ms"] = {"k2b_T16384": bound("fwd", *long_shape),
+                            "k3ab_T16384": bound("fused_bwd", *long_shape)}
+    del q, k, v, do, o, lse, dd
+    for causal in (False, True):
+        key = "causal" if causal else "nomask"
+        q, k, v, do, dlse = chunk_views(torch, 1, 4096, 4096, 12, dev, g, dtype=torch.float32)
+        out[f"f32_k2a_pair_{key}_ms"] = cuda_ms(
+            lambda: fa.flash_lse_forward_f32(q, k, v, causal=causal), 20)
+        o, lse = fa.flash_lse_forward_f32(q, k, v, causal=causal)
+        dcap = (fa.flash_rowdot(do, o) - dlse).contiguous()
+        out[f"f32_k3c_pair_{key}_ms"] = cuda_ms(
+            lambda: fa.flash_fused_backward_f32(q, k, v, do, lse, dcap, causal=causal), 10)
+        sdpa(q, k, v, do, causal, f"pair_{key}")
+        pair = (1, 4096, 4096, 12, 64, causal)
+        out["f32_bounds_ms"].update({f"k2a_pair_{key}": bound("fwd", *pair),
+                                     f"k3c_pair_{key}": bound("fused_bwd", *pair)})
+        del q, k, v, do, dlse, o, lse, dcap
 
 
 def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
@@ -3982,8 +4543,10 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
     B=1, T=8192, the backward (D and dq, dk, dv) at B=8, T=1024 and B=1,
     T=8192 on the fp32 forward's o and lse, all causal, and SDPA's forward
     at B=32 and whole backward at B=8 on the same fp32 operands (yardsticks
-    that the package never calls), with the pair's registers, spills, warps
-    resident per SM and SASS opcodes (``f32_pair_report``); K2a, K2b and K3c on one ring chunk pair, B=1,
+    that the package never calls), with the registers, spills, warps
+    resident per SM and SASS opcodes of every fp32 kernel
+    (``f32_pair_report``); the fp32 general and lse kernels where the
+    checkout has them (``f32_general_times``); K2a, K2b and K3c on one ring chunk pair, B=1,
     Tq=Tk=4096, H=12, unmasked and causal (chunk views; lse and dcap from the
     plain forward); P2 at B=8, T=1024 and B=1, T=8192 causal (dt inputs, lse
     and dcap from the plain forward); K4 at N=8192 and 4096, D=768,
@@ -4063,6 +4626,8 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
             lambda: fa.flash_general_forward(q, k, v, causal=causal), 20)
         out[f"k3c_pair_{key}_ms"] = cuda_ms(
             lambda: fa.flash_fused_backward(q, k, v, do, lse, dcap, causal=causal), 20)
+    if hasattr(fa, "flash_general_forward_f32"):
+        f32_general_times(torch, fa, dev, g, out)
     # P2 at the tool's B=8, T=1024 and at B=1, T=8192, causal, dt inputs;
     # lse and dcap from the plain forward
     (qd, kd, vd, dod), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
@@ -4183,14 +4748,19 @@ def main() -> int:
     print(f"    spill stores: {sum(spills)} bytes over {len(spills)} functions", flush=True)
     print(f"    SASS instructions: {json.dumps(sass_counts(so))}", flush=True)
     f32_report = f32_pair_report(so, lib)
-    print(f"    the fp32 pair: {json.dumps(f32_report)}", flush=True)
-    for name in ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel"):
+    print(f"    the fp32 kernels: {json.dumps(f32_report)}", flush=True)
+    print("    SASS instructions of the fp32 pair, this build (its blocks' own build): "
+          + ", ".join(f"{n} {f32_report[n]['sass']} ({w})" for n, w in F32_PAIR_SASS_OWN.items()),
+          flush=True)
+    for name in ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel", "flash_general_fwd_f32_kernel",
+                 "flash_general_bwd_f32_kernel"):
         ops = f32_report[name]["opcodes"]
         require(ops["HMMA"] + ops["HGMMA"] == 0, f"{name} has tensor-core products")
         require(f32_report[name]["spill_bytes"] == 0, f"{name} spills")
-    require(sum(f32_report["flash_bwd_f32_kernel"]["opcodes"][op]
-                for op in ("RED", "REDG", "REDS", "ATOM", "ATOMG", "ATOMS")) == 0,
-            "the fp32 backward has atomics")
+    for name in ("flash_bwd_f32_kernel", "flash_general_bwd_f32_kernel"):
+        require(sum(f32_report[name]["opcodes"][op]
+                    for op in ("RED", "REDG", "REDS", "ATOM", "ATOMG", "ATOMS")) == 0,
+                f"{name} has atomics")
 
     flash_errs, flash_t = phase_flash(torch, fa, dev)
     f32_errs, f32_t = phase_flash_f32(torch, fa, dev)
@@ -4298,6 +4868,14 @@ def main() -> int:
     ring_counts, ring_tps = phase_ring_trainer(torch, mods, cfgs)
     torch.cuda.empty_cache()
 
+    t_slice = time.perf_counter()
+    gen32_errs, gen32_t = phase_general_f32(torch, fa, dev)
+    lse32_errs, lse32_t = phase_lse_f32(torch, fa, dev)
+    long32 = phase_fp32_long_train_step(torch, np, gpt2, mods, cfgs, dev)
+    ring32 = phase_fp32_ring_train_step(torch, np, gpt2, mods, cfgs, dev, long32)
+    trainers32 = phase_fp32_trainers(torch, mods, cfgs)
+    fp32_long_s = time.perf_counter() - t_slice
+
     dt_errs, dt_t = phase_dt_kernels(torch, ab, fa, dev)
     torch.cuda.empty_cache()
     dt_counts, dt_bench = phase_dt_tool(ab)
@@ -4334,6 +4912,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     big = phase_big_model(torch, np, gpt2, mods, cfgs, dev)
     slice_s["fp32_step_heads_1558M"] = time.perf_counter() - t_slice
+    slice_s["fp32_long_context_and_ring"] = fp32_long_s
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
                "train_step": train["counts"], "trainer": trainer_counts,
@@ -4343,7 +4922,10 @@ def main() -> int:
                **{f"finetune_{kind}": c for kind, c in ft_counts.items()},
                **{f"eval_quality_{name}": quality[name]["launches"]
                   for name in ("reference_pt_bf16", "hf_dir_bf16", "reference_pt_fp32")},
-               "fp32_train_step": fp32_train["counts"], "trainer_1558M": big["trainer"]["launches"]}
+               "fp32_train_step": fp32_train["counts"], "trainer_1558M": big["trainer"]["launches"],
+               "fp32_long_train_step": long32["counts"], "fp32_ring_train_step": ring32["counts"],
+               "fp32_long_trainer": trainers32["flash"]["counts"],
+               "fp32_ring_trainer": trainers32["ring"]["counts"]}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
@@ -4388,6 +4970,28 @@ def main() -> int:
          lse_t["nomask"]["fwd"], attention_bound("fwd", *chunk_shape), lib_chunk["fwd"]),
         ("flash_fused_bwd", "flash_fused_bwd.cu", f"{jfa}:396", "ring_trainer", lse_errs["bwd"],
          lse_t["nomask"]["bwd"], attention_bound("fused_bwd", *chunk_shape), lib_chunk["bwd"]),
+        # the fp32 cases of the general and lse families (FFMAs, no TF32):
+        # the fp32 trainer runs of phase 18b, --attn-impl flash and ring
+        ("flash_general_fwd_f32", "flash_general_fwd_f32.cu", f"{jfa}:221", "fp32_long_trainer",
+         gen32_errs["o"], gen32_t["fwd"],
+         attention_bound("fwd", *long_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         gen32_t["sdpa_fwd_ms"]),
+        # K3a's and K3b's functions in one launch (also :509, K3b)
+        ("flash_general_bwd_f32", "flash_general_bwd_f32.cu", f"{jfa}:369", "fp32_long_trainer",
+         gen32_errs["max_rel"], gen32_t["bwd"],
+         attention_bound("fused_bwd", *long_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         gen32_t["sdpa_bwd_ms"]),
+        ("flash_rowdot_f32", "flash_bwd_f32.cu", f"{jfa}:573", "fp32_long_trainer",
+         gen32_errs["dd"], gen32_t["dd"],
+         bound_ms(2 * 16384 * 768, 4 * 2 * 16384 * 768 + 4 * 16384 * 12, PEAK_FP32_FLOPS), None),
+        ("flash_lse_fwd_f32", "flash_general_fwd_f32.cu", f"{jfa}:197", "fp32_ring_trainer",
+         lse32_errs["o"], lse32_t["nomask"]["fwd"],
+         attention_bound("fwd", *chunk_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         lse32_t["nomask"]["sdpa_fwd_ms"]),
+        ("flash_fused_bwd_f32", "flash_general_bwd_f32.cu", f"{jfa}:396", "fp32_ring_trainer",
+         lse32_errs["max_rel"], lse32_t["nomask"]["bwd"],
+         attention_bound("fused_bwd", *chunk_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         lse32_t["nomask"]["sdpa_bwd_ms"]),
         # the dt-layout pair: the A/B tool's own path (its main, phase 20)
         ("flash_dt_fwd", "flash_dt_fwd.cu", "tools/ab_dt_flash.py:48", "ab_dt_flash",
          dt_errs["o"], dt_t["fwd"], attention_bound("fwd", *self_shape), lib_self["fwd"]),
@@ -4481,6 +5085,47 @@ def main() -> int:
                             "dq_row_err": lse_errs["dq_row"], "dkv_row_err": lse_errs["dkv_row"],
                             "dq_two_runs_max_diff_over_max": lse_errs["rerun"],
                             "library_is": "autograd.grad of q, k and v through SDPA"},
+        "flash_general_fwd_f32": {
+            "lse_max_abs_err": gen32_errs["lse"], "row_err": gen32_errs["o_row"],
+            "controls": gen32_errs["controls"], "build": f32_report["flash_general_fwd_f32_kernel"],
+            "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
+            "library_is": "F.scaled_dot_product_attention on fp32 operands"},
+        "flash_general_bwd_f32": {
+            "err_is": "max|err| / max|ref|", "row_err": gen32_errs["row"],
+            "also_replaces": f"{jfa}:509", "controls": gen32_errs["controls"],
+            "build": f32_report["flash_general_bwd_f32_kernel"],
+            "tol": {"max_rel": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
+            "plain_is": "the plain backward on the kernel's D",
+            "library_is": "autograd.grad of q, k and v through SDPA on fp32 operands (D "
+                          "included; flash_rowdot_f32 launches it here)"},
+        "flash_rowdot_f32": {"err_is": "max|err| / max|ref|",
+                             "general_backward": {
+                                 "is": "D + the fp32 general backward",
+                                 "ms": gen32_t["dd"][0] + gen32_t["bwd"][0],
+                                 "library_ms": gen32_t["sdpa_bwd_ms"]}},
+        "flash_lse_fwd_f32": {
+            "lse_max_abs_err": lse32_errs["lse"], "row_err": lse32_errs["o_row"],
+            "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "shape": "B=1 Tq=Tk=4096 H=12 no mask, chunk views",
+            "causal_pair": {"ms": lse32_t["causal"]["fwd"][0],
+                            "plain_ms": lse32_t["causal"]["fwd"][1],
+                            "bound_ms": attention_bound("fwd", *chunk_shape[:5], True,
+                                                        elem_bytes=4, peak=PEAK_FP32_FLOPS)[0],
+                            "library_ms": lse32_t["causal"]["sdpa_fwd_ms"]},
+            "library_is": "F.scaled_dot_product_attention on fp32 operands"},
+        "flash_fused_bwd_f32": {
+            "err_is": "max|err| / max|ref|, with a random lse cotangent",
+            "row_err": lse32_errs["row"], "controls": lse32_errs["controls"],
+            "tol": {"max_rel": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "shape": "B=1 Tq=Tk=4096 H=12 no mask, chunk views",
+            "causal_pair": {"ms": lse32_t["causal"]["bwd"][0],
+                            "plain_ms": lse32_t["causal"]["bwd"][1],
+                            "bound_ms": attention_bound("fused_bwd", *chunk_shape[:5], True,
+                                                        elem_bytes=4, peak=PEAK_FP32_FLOPS)[0],
+                            "library_ms": lse32_t["causal"]["sdpa_bwd_ms"]},
+            "library_is": "autograd.grad of q, k and v through SDPA on fp32 operands"},
         "flash_dt_fwd": {"lse_max_abs_err": dt_errs["lse"], "row_err": dt_errs["o_row"],
                          "row_control_excess": dt_errs["o_control"],
                          "row_control_elementwise_excess": dt_errs["o_control_elementwise"],
@@ -4500,7 +5145,7 @@ def main() -> int:
     lib_causal = library["B1_T4096"]
     for k in kernels:
         k.update(notes[k["name"]])
-        if k["name"].startswith("flash_general") or k["name"] == "flash_rowdot":
+        if k["name"].startswith("flash_general") or k["name"].startswith("flash_rowdot"):
             k["shape"] = "B=1 T=16384 H=12 causal"
         if k["name"] in ("flash_lse_fwd", "flash_fused_bwd"):
             # the row is the ring's unmasked chunk pair (6 of its 10 launches at 4
@@ -4529,6 +5174,10 @@ def main() -> int:
                                   n_tok / dt_plain, "micro_batch_device_ms": score_ms,
                                   "micro_batch_device_ms_by_class": score_split}}))
     print(json.dumps({"finetune": ft_runs, "finetune_ops": ft_ops}))
+    print(json.dumps({"fp32_long_context": {
+        "train_step": long32, "ring_train_step": ring32, "trainers": trainers32,
+        "general_f32_ms": gen32_t, "lse_f32_ms": lse32_t, "seconds": fp32_long_s},
+        "card": card}))
     print(json.dumps({"fp32_train_step": fp32_train, "k1_big_heads": k1_heads,
                       "gpt2_1558M": big, "card": card}))
     print(json.dumps({"sampler": sampler, "decode": decode, "eval_quality": quality,

@@ -1,14 +1,22 @@
-// Building blocks of the self-attention kernels on fp32 operands
-// (flash_fwd_f32.cu, flash_bwd_f32.cu): every product an fp32 FFMA on the
-// CUDA cores, from register tiles that a thread sums as outer products, fed
-// from shared memory by 16-byte reads.
+// Building blocks of the attention kernels on fp32 operands: every product
+// an fp32 FFMA on the CUDA cores, from register tiles that a thread sums as
+// outer products, fed from shared memory by 16-byte reads. The blocks at the
+// end of this file (the forward block, the dk/dv block and the dq block) are
+// written once and instanced twice: with GENERAL = false by the
+// self-attention kernels (flash_fwd_f32.cu, flash_bwd_f32.cu: Tq == Tk = T),
+// with GENERAL = true by the general ones (flash_general_fwd_f32.cu,
+// flash_general_bwd_f32.cu: a query length Tq and a key length Tk, causal
+// masks right-aligned). The self instance is the general one at Tq == Tk with
+// the offset a compile-time 0: it keeps the self kernels' arithmetic and
+// carries none of the general case's index work.
 //
 // Tiles in shared memory, hs = 64:
 //   - a swept tile (the K and V tiles that a forward or dq block sweeps, the
 //     q and dO tiles that a dk/dv block sweeps): 64 positions x 64 channels,
 //     [position][channel], rows padded to LDT = 68 floats, copied from global
-//     memory with cp.async (16 bytes a copy, rows at or past T zero-filled)
-//     into one of two slots while the other slot is being computed on;
+//     memory with cp.async (16 bytes a copy, rows at or past the length of
+//     the swept tensor -- Tk for K/V, Tq for q/dO -- zero-filled) into one of
+//     two slots while the other slot is being computed on;
 //   - a resident tile (q^T and dO^T of a forward or dq block, K^T and V^T of
 //     a dk/dv block): d-major, [channel][position], transposed once when the
 //     block starts;
@@ -43,6 +51,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace f32 {
@@ -238,6 +247,458 @@ __device__ __forceinline__ void zero(float (&a)[R][C]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < C; ++j) a[i][j] = 0.f;
+}
+
+
+// ---- the blocks ----------------------------------------------------------------
+//
+// Every block is 128 threads (4 warps) and keeps two blocks an SM
+// (__launch_bounds__(THREADS, MIN_BLOCKS) on each kernel): shared memory
+// allows two. q, o and dO are (B, Tq, H, hs), k, v, dk, dv (B, Tk, H, hs);
+// q/k/v are read through their strides (the views of the fused QKV
+// projection, the ring's chunk views), o, dO, dq, dk, dv are contiguous; lse
+// and the row term (D, or D - dlse) are (B, H, Tq). With GENERAL = false, Tk
+// is Tq and the causal offset is 0 at compile time; with GENERAL = true a
+// causal query i sees the keys j <= i + Tk - Tq (right-aligned, Tq <= Tk),
+// the rule of the JAX kernels.
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MIN_BLOCKS = 2;  // resident blocks an SM (shared memory allows two)
+
+// the forward block's query rows: 32 a warp, 128 a block
+constexpr int FWD_WR = 32;
+constexpr int FWD_BQ = FWD_WR * WARPS;
+
+struct FwdSmem {
+  float qt[HS][FWD_BQ];       // q^T / sqrt(hs): [channel][row]
+  Tile k[2];                  // K tiles, two slots
+  Tile v[2];                  // V tiles, two slots
+  Quarter<FWD_WR> pt[WARPS];  // per warp: P^T of 16 keys
+};
+
+// Query tile qt of (hh, b) in blockIdx order: the tile with the longest
+// causal sweep (the last) first. Keys in tiles of 64 from 0 to the last one
+// the block's last row sees; o = softmax(q k^T / sqrt(hs)) v and the
+// natural-log logsumexp of each row. A warp skips a tile that none of its
+// rows sees; a tile that the diagonal or the end of the keys crosses is
+// masked element by element.
+template <bool GENERAL>
+__device__ __forceinline__ void forward_block(const float* __restrict__ q,
+                                              const float* __restrict__ k,
+                                              const float* __restrict__ v, float* __restrict__ o,
+                                              float* __restrict__ lse, int Tq, int Tk_, int H,
+                                              long long qsb, long long qst, long long qsh,
+                                              long long ksb, long long kst, long long ksh,
+                                              long long vsb, long long vst, long long vsh,
+                                              int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
+  const int Tk = GENERAL ? Tk_ : Tq;
+  const int off = GENERAL ? Tk - Tq : 0;  // a causal row i sees keys <= i + off
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, kg = lane & 7;  // rows FWD_WR warp + 8 rg + i; keys kg + 8 j; channels 4 kg
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * FWD_BQ;
+  const float* kb = k + (long long)b * ksb + (long long)hh * ksh;
+  const float* vb = v + (long long)b * vsb + (long long)hh * vsh;
+  const int q_end = min(q0 + FWD_BQ, Tq);
+  // causal: Tq <= Tk, so the last row's last key q_end - 1 + off < Tk
+  const int n_kv = causal ? (q_end - 1 + off) / TILE + 1 : (Tk + TILE - 1) / TILE;
+
+  load_tile_async<THREADS>(s.k[0], kb, kst, 0, Tk, tid);
+  load_tile_async<THREADS>(s.v[0], vb, vst, 0, Tk, tid);
+  cp_async_commit();
+  load_transposed<THREADS, FWD_BQ>(&s.qt[0][0], q + (long long)b * qsb + (long long)hh * qsh, qst,
+                                   q0, Tq, 0.125f, tid);
+
+  const int wrow = q0 + FWD_WR * warp;  // the warp's first row
+  const int r0 = FWD_WR * warp + 8 * rg;  // the thread's first row in the block
+  float m[8], l[8], acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG_BIG;
+    l[i] = 0.f;
+  }
+  zero(acc);
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int slot = j & 1, k0 = j * TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1's slot
+    if (j + 1 < n_kv) {
+      load_tile_async<THREADS>(s.k[slot ^ 1], kb, kst, k0 + TILE, Tk, tid);
+      load_tile_async<THREADS>(s.v[slot ^ 1], vb, vst, k0 + TILE, Tk, tid);
+    }
+    cp_async_commit();
+    // the warp's rows are all past Tq, or all before this tile's first key
+    if (wrow >= Tq || (causal && wrow + FWD_WR - 1 + off < k0)) continue;
+
+    // S = (q / sqrt(hs)) k^T for rows r0 + i, keys k0 + kg + 8 c
+    float sc[8][8];
+    zero(sc);
+    rows_by_keys<FWD_BQ, 8, 8>(sc, &s.qt[0][r0], s.k[slot], kg);
+    if ((causal && k0 + TILE - 1 > wrow + off) || k0 + TILE > Tk) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int kk = k0 + kg + 8 * c;
+          if (kk >= Tk || (causal && kk > q0 + r0 + i + off)) sc[i][c] = -INFINITY;
+        }
+    }
+
+    // online softmax; the row max over the 8 lanes of a quarter-warp
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mx = NEG_BIG;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, sc[i][c]);
+#pragma unroll
+      for (int sh = 4; sh > 0; sh >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        sc[i][c] = expf(sc[i][c] - m_new);
+        sum += sc[i][c];
+      }
+      l[i] = l[i] * corr + sum;  // this thread's share of the row sum
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] *= corr;
+    }
+
+    // O += P V, a quarter (16 keys: columns 2c and 2c + 1) at a time through
+    // the warp's P^T
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      store_quarter_t(s.pt[warp], sc, 2 * c, kg, 8 * rg);
+      store_quarter_t(s.pt[warp], sc, 2 * c + 1, kg + 8, 8 * rg);
+      __syncwarp();
+      acc_keys(acc, s.pt[warp], s.v[slot], QK * c, 8 * rg, 4 * kg);
+      __syncwarp();
+    }
+  }
+  cp_async_wait_all();
+
+  // the row sums over the 8 lanes of a row; o = acc / l, lse = m + log l
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int sh = 4; sh > 0; sh >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+    const int qq = q0 + r0 + i;
+    if (qq < Tq) {
+      float* dst = o + (((long long)b * Tq + qq) * H + hh) * HS;
+      *reinterpret_cast<float4*>(dst + 4 * kg) =
+          make_float4(acc[i][0] / l[i], acc[i][1] / l[i], acc[i][2] / l[i], acc[i][3] / l[i]);
+      *reinterpret_cast<float4*>(dst + 32 + 4 * kg) =
+          make_float4(acc[i][4] / l[i], acc[i][5] / l[i], acc[i][6] / l[i], acc[i][7] / l[i]);
+      if (kg == 0) lse[((long long)b * H + hh) * Tq + qq] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// a dk/dv block: K^T, V^T resident; a query tile of q, dO, lse, D in two
+// slots; P and dS of 16 query rows
+struct DkvSmem {
+  float kt[HS][TILE];  // K^T / sqrt(hs): [channel][key]
+  float vt[HS][TILE];  // V^T: [channel][key]
+  Tile q[2];
+  Tile dO[2];
+  float lse[2][TILE];
+  float dd[2][TILE];
+  float p[16][LDT];    // P: [row][key]
+  float ds[16][LDT];   // dS: [row][key]
+};
+
+// a dq block: q^T, dO^T, lse, D resident; a key tile of K and V in two slots;
+// per warp dS^T of 16 keys
+struct DqSmem {
+  float qt[HS][TILE];  // q^T / sqrt(hs): [channel][row]
+  float dOt[HS][TILE]; // dO^T: [channel][row]
+  float lse[TILE];
+  float dd[TILE];
+  Tile k[2];
+  Tile v[2];
+  Quarter<16> dst[WARPS];  // per warp: dS^T of 16 keys
+};
+
+constexpr int BWD_SMEM =
+    sizeof(DkvSmem) > sizeof(DqSmem) ? (int)sizeof(DkvSmem) : (int)sizeof(DqSmem);
+
+struct Strides {
+  long long sb, st, sh;
+};
+
+// the operands of a backward block
+struct BwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dO;
+  const float* lse;
+  const float* dd;  // the row term: D = rowsum(dO * O), or D - dlse
+  float* dq;
+  float* dk;
+  float* dv;
+  Strides qs, ks, vs;
+};
+
+// q and dO rows q0 .. q0 + 63 of (b, h) and their lse and row term into slot
+// `slot` of a dk/dv block, asynchronously; zeros at or past Tq (P = 0 there,
+// and nothing is read past the end of lse or D)
+__device__ __forceinline__ void load_query_tile(DkvSmem& s, int slot, const float* qb,
+                                                long long qst, const float* dob, long long dost,
+                                                const float* lse_bh, const float* dd_bh, int q0,
+                                                int Tq, int tid) {
+  load_tile_async<THREADS>(s.q[slot], qb, qst, q0, Tq, tid);
+  load_tile_async<THREADS>(s.dO[slot], dob, dost, q0, Tq, tid);
+  const int r = tid & (TILE - 1), t = q0 + r;
+  if (tid < TILE)
+    cp_async4(&s.lse[slot][r], lse_bh + (t < Tq ? t : 0), t < Tq ? 4 : 0);
+  else
+    cp_async4(&s.dd[slot][r], dd_bh + (t < Tq ? t : 0), t < Tq ? 4 : 0);
+}
+
+// rows row0 + kk of a (B, T, H, hs) contiguous output, 8 channels a thread
+// (4g .. 4g + 3, 32 + 4g .. 32 + 4g + 3) times scale, for the 4 rows
+// key0 + kk of the tile
+__device__ __forceinline__ void store_keys(float* __restrict__ out, const float (&acc)[4][8],
+                                           float scale, int b, int h, int H, int row0, int T,
+                                           int g) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int t = row0 + kk;
+    if (t < T) {
+      float* dst = out + (((long long)b * T + t) * H + h) * HS;
+      *reinterpret_cast<float4*>(dst + 4 * g) =
+          make_float4(acc[kk][0] * scale, acc[kk][1] * scale, acc[kk][2] * scale,
+                      acc[kk][3] * scale);
+      *reinterpret_cast<float4*>(dst + 32 + 4 * g) =
+          make_float4(acc[kk][4] * scale, acc[kk][5] * scale, acc[kk][6] * scale,
+                      acc[kk][7] * scale);
+    }
+  }
+}
+
+// dk, dv of key tile kt of (h, b): keys k0 .. k0 + 63, the query tiles from
+// the first that sees one of them (causal: the row k0 - (Tk - Tq)) on
+template <bool GENERAL>
+__device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int Tk_, int H,
+                                          int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
+  const int Tk = GENERAL ? Tk_ : Tq;
+  const int off = GENERAL ? Tk - Tq : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntq = (Tq + TILE - 1) / TILE;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
+  const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
+  const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
+  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;  // contiguous (B, Tq, H, hs)
+  const long long dost = (long long)H * HS;
+  const float scale = 0.125f;  // 1 / sqrt(64), exact
+  const int k0 = kt * TILE;
+  const int rg = lane & 15, kg = lane >> 4;  // S, dP: rows rg + 16 i, keys 16 warp + 8 kg + j
+  // dK, dV: keys 16 warp + 4 kq + kk, channels by g; a quarter-warp spans
+  // 4 kq x 2 g, so its reads of dO and q rows ask for two addresses
+  const int kq = (lane & 7) >> 1, g = 2 * (lane >> 3) + (lane & 1);
+  // causal: the first row that sees key k0 is k0 - off (< Tq, since k0 < Tk)
+  const int it0 = !causal ? 0 : GENERAL ? max(k0 - off, 0) / TILE : kt;
+  load_query_tile(s, 0, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, it0 * TILE, Tq,
+                  tid);
+  cp_async_commit();
+  load_transposed<THREADS, TILE>(&s.kt[0][0], kb, a.ks.st, k0, Tk, scale, tid);
+  load_transposed<THREADS, TILE>(&s.vt[0][0], vb, a.vs.st, k0, Tk, 1.f, tid);
+  float acc_k[4][8], acc_v[4][8];
+  zero(acc_k);
+  zero(acc_v);
+  for (int it = it0; it < ntq; ++it) {
+    const int slot = (it - it0) & 1, q0 = it * TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile it is in; every warp is done with tile it - 1's slot
+    if (it + 1 < ntq)
+      load_query_tile(s, slot ^ 1, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq,
+                      q0 + TILE, Tq, tid);
+    cp_async_commit();
+
+    float sc[4][8], dp[4][8];
+    zero(sc);
+    zero(dp);
+    keys_by_rows(sc, s.q[slot], &s.kt[0][16 * warp + 8 * kg], rg);
+    keys_by_rows(dp, s.dO[slot], &s.vt[0][16 * warp + 8 * kg], rg);
+    // P = exp(S - lse) where visible, else 0; dS = P (dP - D)
+    const bool diag = GENERAL ? k0 + TILE - 1 > q0 + off : it == kt;
+    const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg + 16 * i, qq = q0 + r;
+      const float l = s.lse[slot][r], dr = s.dd[slot][r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kk = k0 + 16 * warp + 8 * kg + j;
+        const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq + off));
+        const float p = masked ? 0.f : expf(sc[i][j] - l);
+        sc[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - dr);
+      }
+    }
+    // dV += P^T dO, dK += dS^T q, 16 query rows at a time through the
+    // warp's columns of P and dS
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* prow = &s.p[rg][16 * warp + 8 * kg];
+      float* drow = &s.ds[rg][16 * warp + 8 * kg];
+      *reinterpret_cast<float4*>(prow) = make_float4(sc[i][0], sc[i][1], sc[i][2], sc[i][3]);
+      *reinterpret_cast<float4*>(prow + 4) =
+          make_float4(sc[i][4], sc[i][5], sc[i][6], sc[i][7]);
+      *reinterpret_cast<float4*>(drow) = make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      *reinterpret_cast<float4*>(drow + 4) =
+          make_float4(dp[i][4], dp[i][5], dp[i][6], dp[i][7]);
+      __syncwarp();
+      acc_rows(acc_v, s.p, 16 * warp + 4 * kq, s.dO[slot], 16 * i, g);
+      acc_rows(acc_k, s.ds, 16 * warp + 4 * kq, s.q[slot], 16 * i, g);
+      __syncwarp();
+    }
+  }
+  cp_async_wait_all();
+  store_keys(a.dk, acc_k, scale, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
+  store_keys(a.dv, acc_v, 1.f, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
+}
+
+// dq of query tile qt of (h, b): queries q0 .. q0 + 63, the key tiles up to
+// the last one its last row sees
+template <bool GENERAL>
+__device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int Tk_, int H,
+                                         int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
+  const int Tk = GENERAL ? Tk_ : Tq;
+  const int off = GENERAL ? Tk - Tq : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * H + h;
+  const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
+  const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
+  const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
+  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;  // contiguous (B, Tq, H, hs)
+  const long long dost = (long long)H * HS;
+  const float scale = 0.125f;  // 1 / sqrt(64), exact
+  const int q0 = qt * TILE;
+  const int hf = lane >> 4, tc = lane & 15;  // rows 16 warp + 8 hf + i, keys tc + 16 j
+  const int r0 = 16 * warp + 8 * hf;
+  load_tile_async<THREADS>(s.k[0], kb, a.ks.st, 0, Tk, tid);
+  load_tile_async<THREADS>(s.v[0], vb, a.vs.st, 0, Tk, tid);
+  cp_async_commit();
+  load_transposed<THREADS, TILE>(&s.qt[0][0], qb, a.qs.st, q0, Tq, scale, tid);
+  load_transposed<THREADS, TILE>(&s.dOt[0][0], dob, dost, q0, Tq, 1.f, tid);
+  if (tid < TILE) {
+    const int t = q0 + tid;
+    s.lse[tid] = t < Tq ? a.lse[bh * Tq + t] : 0.f;
+    s.dd[tid] = t < Tq ? a.dd[bh * Tq + t] : 0.f;
+  }
+  float acc_q[8][4];
+  zero(acc_q);
+  // causal: Tq <= Tk, so the last row's last key min(q0 + 64, Tq) - 1 + off < Tk
+  const int n_kv = !causal ? (Tk + TILE - 1) / TILE
+                   : GENERAL ? (min(q0 + TILE, Tq) - 1 + off) / TILE + 1 : qt + 1;
+  for (int j = 0; j < n_kv; ++j) {
+    const int slot = j & 1, k0 = j * TILE;
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1's slot
+    if (j + 1 < n_kv) {
+      load_tile_async<THREADS>(s.k[slot ^ 1], kb, a.ks.st, k0 + TILE, Tk, tid);
+      load_tile_async<THREADS>(s.v[slot ^ 1], vb, a.vs.st, k0 + TILE, Tk, tid);
+    }
+    cp_async_commit();
+
+    float sc[8][4], dp[8][4];
+    zero(sc);
+    zero(dp);
+    rows_by_keys<TILE, 4, 16>(sc, &s.qt[0][r0], s.k[slot], tc);
+    rows_by_keys<TILE, 4, 16>(dp, &s.dOt[0][r0], s.v[slot], tc);
+    const bool diag = GENERAL ? k0 + TILE - 1 > q0 + off : j == qt;
+    const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qq = q0 + r0 + i;
+      const float l = s.lse[r0 + i], dr = s.dd[r0 + i];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kk = k0 + tc + 16 * c;
+        const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq + off));
+        const float p = masked ? 0.f : expf(sc[i][c] - l);
+        dp[i][c] = p * (dp[i][c] - dr);
+      }
+    }
+    // dQ += dS K, 16 keys at a time through the warp's dS^T
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      store_quarter_t(s.dst[warp], dp, c, tc, 8 * hf);
+      __syncwarp();
+      acc_keys(acc_q, s.dst[warp], s.k[slot], QK * c, 8 * hf, 4 * tc);
+      __syncwarp();
+    }
+  }
+  cp_async_wait_all();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = q0 + r0 + i;
+    if (t < Tq)
+      *reinterpret_cast<float4*>(a.dq + (((long long)b * Tq + t) * H + h) * HS + 4 * tc) =
+          make_float4(acc_q[i][0] * scale, acc_q[i][1] * scale, acc_q[i][2] * scale,
+                      acc_q[i][3] * scale);
+  }
+}
+
+// The backward grid of (h, b): block x < ntk is the dk/dv block of key tile
+// x (tile 0, the longest causal sweep, first), x >= ntk the dq block of query
+// tile ntq - 1 - (x - ntk) (the last, the longest, first).
+template <bool GENERAL>
+__device__ __forceinline__ void backward_grid(const BwdArgs& a, int Tq, int Tk, int H,
+                                              int causal) {
+  const int ntk = ((GENERAL ? Tk : Tq) + TILE - 1) / TILE;
+  const int ntq = (Tq + TILE - 1) / TILE;
+  if ((int)blockIdx.x < ntk)
+    dkv_block<GENERAL>(a, blockIdx.x, Tq, Tk, H, causal);
+  else
+    dq_block<GENERAL>(a, ntq - 1 - ((int)blockIdx.x - ntk), Tq, Tk, H, causal);
+}
+
+// more than 48 KB of dynamic shared memory and the largest carveout for
+// `kernel`: set once per device (`configured` holds a bit per device)
+template <typename Kernel>
+cudaError_t configure_once(Kernel kernel, int smem, unsigned long long& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!((configured >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured |= 1ull << dev;
+  }
+  return cudaSuccess;
+}
+
+// warps of `kernel` resident on one SM, from the occupancy calculator (its
+// registers, shared memory and launch bounds); 0 on an error
+template <typename Kernel>
+int warps_per_sm(Kernel kernel, int smem, unsigned long long& configured) {
+  int blocks = 0;
+  if (configure_once(kernel, smem, configured) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) !=
+          cudaSuccess)
+    return 0;
+  return blocks * WARPS;
 }
 
 }  // namespace f32

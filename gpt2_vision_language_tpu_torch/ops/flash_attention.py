@@ -18,17 +18,28 @@ families behind ``flash_attention`` (:1089 there) and
     ``csrc/flash_dkv_bwd.cu`` ``_dkv_kernel_grid`` (:509), both launched by
     ``_bwd`` (:550). As there, the two backward kernels take D = rowsum(dO *
     O) as an input tensor; the small kernel of ``csrc/flash_general_bwd.cu``
-    forms it (``_bwd`` leaves it to XLA, :573). These kernels take bf16 only:
-    their fp32 cases (the JAX kernels are dtype-generic, :294, :607,
-    :636-637, :670-672) are still to port (ROADMAP Queue 2) and raise;
+    forms it (``_bwd`` leaves it to XLA, :573);
   * the lse family, the same shapes again, behind ``flash_attention_with_lse``
     and ``flash_attention(stream_kv=False)``: ``csrc/flash_lse_fwd.cu``
     replaces ``_fwd_kernel`` (:197, launched by ``_fwd`` :265 with
     stream_kv=False) and ``csrc/flash_fused_bwd.cu`` replaces the one-pass
-    ``_bwd_kernel_fused`` (:396, ``_bwd`` :550), bf16 only as well. Its logsumexp output is
+    ``_bwd_kernel_fused`` (:396, ``_bwd`` :550). Its logsumexp output is
     differentiable: the backward takes the cotangent of lse as
     dcap = D - dlse (:576-580 there), which is what makes the merge of ring
     attention's chunks exact in the gradient too.
+
+The JAX kernels are dtype-generic (their outputs take q.dtype, :294, :607,
+:636-637, :670-672), and so are the three families here: inside each, fp32
+operands go to kernels of true fp32 products (FFMAs, no TF32), anything else
+to the bf16 ones. The fp32 kernels: ``csrc/flash_fwd_f32.cu`` and
+``csrc/flash_bwd_f32.cu`` (the self-attention family, the backward with its
+own D kernel); ``csrc/flash_general_fwd_f32.cu``, one kernel behind two
+wrappers, ``flash_general_forward_f32`` (K2b's function) and
+``flash_lse_forward_f32`` (K2a's); ``csrc/flash_general_bwd_f32.cu``, one
+kernel that takes the row term as an input, behind
+``flash_general_backward_f32`` (K3a's and K3b's, on D) and
+``flash_fused_backward_f32`` (K3c's, on D - dlse); and the fp32 D kernel of
+``csrc/flash_bwd_f32.cu`` behind ``flash_rowdot_f32``.
 
 All take q as (B, Tq, H, hs) and k/v as (B, Tk, H, hs), strided views
 included, so the fused QKV output feeds them without a copy. The softmax
@@ -42,16 +53,19 @@ versions, ``flash_attention_reference``, ``rowdot_reference``,
 ``flash_attention_backward_reference`` and
 ``flash_fused_backward_reference``. Nothing else selects between kernel
 and plain version, and there is no fallback from one to the other, from one
-family to the other, or to any library call: what a kernel does not take
-raises. Each launch adds one to its wrapper's count:
+family or dtype to the other, or to any library call: what a kernel does not
+take raises. Each launch adds one to its wrapper's count:
 ``flash_attention.launches``, ``flash_forward_f32.launches``,
 ``flash_attention_backward.launches`` and ``flash_bwd_f32_cuda.launches``
 for the self-attention family,
 ``flash_general_forward.launches``, ``flash_general_dq.launches``,
 ``flash_general_dkv.launches`` and ``flash_rowdot.launches`` for the
-general one, ``flash_lse_forward.launches`` and
-``flash_fused_backward.launches`` (and ``flash_rowdot.launches`` for its D)
-for the lse family.
+general one (fp32: ``flash_general_forward_f32.launches``,
+``flash_general_backward_f32.launches``, ``flash_rowdot_f32.launches``),
+``flash_lse_forward.launches`` and ``flash_fused_backward.launches`` (and
+``flash_rowdot.launches`` for its D) for the lse family (fp32:
+``flash_lse_forward_f32.launches``, ``flash_fused_backward_f32.launches``,
+``flash_rowdot_f32.launches``).
 """
 
 from __future__ import annotations
@@ -153,9 +167,8 @@ def _check(q, k, v, causal):
 def _check_kernel_operand(name, a):
     if a.dtype != torch.bfloat16:
         raise ValueError(
-            f"flash_attention kernel takes bf16, got {name} {a.dtype} (fp32 runs on the "
-            "self-attention kernels only; the other families' fp32 cases are still to "
-            "port, ROADMAP Queue 2)")
+            f"flash_attention bf16 kernel takes bf16, got {name} {a.dtype} (fp32 operands "
+            "go to the fp32 kernels of each family; no kernel takes another dtype)")
     if a.stride(-1) != 1 or any(s % 8 for s in a.stride()[:3]):
         raise ValueError(
             f"flash_attention kernel: {name} needs unit stride on hs and the "
@@ -229,6 +242,10 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, causal: bool):
 
 
 def _check_f32_operand(name, a):
+    """The fp32 kernels read q/k/v through strides 16 bytes at a time: fp32,
+    unit stride on hs, the other strides multiples of 4 floats, 16-byte
+    aligned. The fused QKV view (strides (T 3C, 3C, hs, 1)) and the ring's
+    chunk views of it pass without a copy."""
     if a.dtype != torch.float32:
         raise ValueError(f"flash_attention fp32 kernels take fp32, got {name} {a.dtype}")
     if a.stride(-1) != 1 or any(s % 4 for s in a.stride()[:3]):
@@ -340,8 +357,8 @@ class _FlashAttn(torch.autograd.Function):
 
 
 def flash_general_forward(q, k, v, *, causal: bool = True):
-    """General forward, (o (B, Tq, H, hs), lse (B, H, Tq) fp32): the kernel
-    for CUDA tensors (bf16), the plain version for CPU tensors."""
+    """General forward, (o (B, Tq, H, hs), lse (B, H, Tq) fp32): the bf16
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, causal=causal)
     for name, a in (("q", q), ("k", k), ("v", v)):
@@ -363,12 +380,46 @@ def flash_general_forward(q, k, v, *, causal: bool = True):
 flash_general_forward.launches = 0
 
 
+def _f32_forward(entry, q, k, v, causal):
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        _check_f32_operand(name, a)
+    b, tq, h, hs = q.shape
+    o = torch.empty((b, tq, h, hs), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_general_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, tq, k.shape[1], h, hs, *_strides(q, k, v), int(causal), _stream(q),
+        )
+    _build.check(err, entry)
+    return o, lse
+
+
+def flash_general_forward_f32(q, k, v, *, causal: bool = True):
+    """General forward on fp32 operands (K2b's function), (o (B, Tq, H, hs)
+    fp32, lse (B, H, Tq) fp32): the kernel of csrc/flash_general_fwd_f32.cu
+    for CUDA tensors (every product an fp32 FMA, no TF32), the plain version
+    for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal)
+    out = _f32_forward("flash_general_fwd_f32", q, k, v, causal)
+    flash_general_forward_f32.launches += 1
+    return out
+
+
+flash_general_forward_f32.launches = 0
+
+
 def flash_rowdot(do, o):
     """D = rowsum(dO * O), (B, H, T) fp32, from contiguous (B, T, H, hs)
-    tensors: the pre-kernel of the general backward for CUDA tensors, the
-    plain version for CPU tensors."""
+    tensors: for CUDA tensors the pre-kernel of the general backward, or on
+    fp32 operands the fp32 one (flash_rowdot_f32); the plain version for CPU
+    tensors."""
     if not do.is_cuda:
         return rowdot_reference(do, o)
+    if do.dtype == torch.float32:
+        return flash_rowdot_f32(do, o)
     for name, a in (("do", do), ("o", o)):
         _check_kernel_operand(name, a)
     if not (do.is_contiguous() and o.is_contiguous() and do.shape == o.shape):
@@ -387,9 +438,33 @@ def flash_rowdot(do, o):
 flash_rowdot.launches = 0
 
 
-def _general_bwd_args(q, k, v, do, lse, dd, causal):
+def flash_rowdot_f32(do, o):
+    """D = rowsum(dO * O), (B, H, T) fp32, from contiguous fp32 (B, T, H, hs)
+    tensors: the D kernel of csrc/flash_bwd_f32.cu for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not do.is_cuda:
+        return rowdot_reference(do, o)
+    for name, a in (("do", do), ("o", o)):
+        _check_f32_operand(name, a)
+    if not (do.is_contiguous() and o.is_contiguous() and do.shape == o.shape):
+        raise ValueError("flash_rowdot_f32 takes contiguous do and o of one shape")
+    b, t, h, hs = o.shape
+    dd = torch.empty((b, h, t), dtype=torch.float32, device=o.device)
+    lib = _build.load()
+    with torch.cuda.device(o.device):
+        err = lib.gpt2vl_flash_rowdot_f32(do.data_ptr(), o.data_ptr(), dd.data_ptr(),
+                                          b, t, h, hs, _stream(o))
+    _build.check(err, "flash_rowdot_f32")
+    flash_rowdot_f32.launches += 1
+    return dd
+
+
+flash_rowdot_f32.launches = 0
+
+
+def _general_bwd_args(q, k, v, do, lse, dd, causal, check=_check_kernel_operand):
     for name, a in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _check_kernel_operand(name, a)
+        check(name, a)
     _check_stats(do, lse, dd)
     b, tq, h, hs = q.shape
     if lse.shape != (b, h, tq) or dd.shape != (b, h, tq):
@@ -443,12 +518,45 @@ def flash_general_dkv(q, k, v, do, lse, dd, *, causal: bool = True):
 flash_general_dkv.launches = 0
 
 
+def _f32_backward(entry, q, k, v, do, lse, dd, causal):
+    tail = _general_bwd_args(q, k, v, do, lse, dd, causal, check=_check_f32_operand)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty(k.shape, dtype=torch.float32, device=k.device) for _ in range(2))
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_general_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail,
+        )
+    _build.check(err, entry)
+    return dq, dk, dv
+
+
+def flash_general_backward_f32(q, k, v, do, lse, dd, *, causal: bool = True):
+    """(dq, dk, dv) of general attention on fp32 operands (K3a's and K3b's
+    functions, in one launch) from lse and D (both (B, H, Tq) fp32) and a
+    contiguous do: the kernel of csrc/flash_general_bwd_f32.cu for CUDA
+    tensors (every product an fp32 FMA, no TF32, no atomics), the plain
+    version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_backward_reference(q, k, v, None, lse, do, causal=causal, dd=dd)
+    out = _f32_backward("flash_general_bwd_f32", q, k, v, do, lse, dd, causal)
+    flash_general_backward_f32.launches += 1
+    return out
+
+
+flash_general_backward_f32.launches = 0
+
+
 def flash_general_backward(q, k, v, o, lse, do, *, causal: bool = True):
     """(dq, dk, dv) of general attention from the forward's o and lse: D from
-    flash_rowdot, then the dq and the dk/dv kernels (CUDA tensors), or the
-    plain version with that D passed in (CPU tensors)."""
+    flash_rowdot, then for CUDA tensors the fp32 kernel on fp32 q
+    (flash_general_backward_f32), else the dq and the dk/dv kernels; for CPU
+    tensors the plain version with that D passed in."""
     do = do.contiguous()
     dd = flash_rowdot(do, o)
+    if q.is_cuda and q.dtype == torch.float32:
+        return flash_general_backward_f32(q, k, v, do, lse, dd, causal=causal)
     if q.is_cuda:
         dq = flash_general_dq(q, k, v, do, lse, dd, causal=causal)
         dk, dv = flash_general_dkv(q, k, v, do, lse, dd, causal=causal)
@@ -457,11 +565,16 @@ def flash_general_backward(q, k, v, o, lse, do, *, causal: bool = True):
 
 
 class _FlashAttnGeneral(torch.autograd.Function):
-    """Forward and backward of the general family; saves (q, k, v, o, lse)."""
+    """Forward and backward of the general family; saves (q, k, v, o, lse).
+    On CUDA tensors fp32 q goes to the fp32 kernels, anything else to the
+    bf16 ones."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_general_forward(q, k, v, causal=causal)
+        if q.is_cuda and q.dtype == torch.float32:
+            o, lse = flash_general_forward_f32(q, k, v, causal=causal)
+        else:
+            o, lse = flash_general_forward(q, k, v, causal=causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mark_non_differentiable(lse)
@@ -494,7 +607,7 @@ def flash_fused_backward_reference(q, k, v, do, lse, dcap, *, causal: bool = Tru
 
 def flash_lse_forward(q, k, v, *, causal: bool = True):
     """Forward with logsumexp, (o (B, Tq, H, hs), lse (B, H, Tq) fp32): the
-    kernel for CUDA tensors (bf16), the plain version for CPU tensors."""
+    bf16 kernel for CUDA tensors, the plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_attention_with_lse_reference(q, k, v, causal=causal)
     for name, a in (("q", q), ("k", k), ("v", v)):
@@ -514,6 +627,21 @@ def flash_lse_forward(q, k, v, *, causal: bool = True):
 
 
 flash_lse_forward.launches = 0
+
+
+def flash_lse_forward_f32(q, k, v, *, causal: bool = True):
+    """Forward with logsumexp on fp32 operands (K2a's function), (o
+    (B, Tq, H, hs) fp32, lse (B, H, Tq) fp32): the kernel of
+    csrc/flash_general_fwd_f32.cu, which computes K2b's function too, for
+    CUDA tensors; the plain version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_with_lse_reference(q, k, v, causal=causal)
+    out = _f32_forward("flash_lse_fwd_f32", q, k, v, causal)
+    flash_lse_forward_f32.launches += 1
+    return out
+
+
+flash_lse_forward_f32.launches = 0
 
 
 def flash_fused_backward(q, k, v, do, lse, dcap, *, causal: bool = True):
@@ -543,15 +671,35 @@ def flash_fused_backward(q, k, v, do, lse, dcap, *, causal: bool = True):
 flash_fused_backward.launches = 0
 
 
+def flash_fused_backward_f32(q, k, v, do, lse, dcap, *, causal: bool = True):
+    """(dq, dk, dv) on fp32 operands (K3c's function) from lse and dcap = D -
+    dlse (both (B, H, Tq) fp32) and a contiguous do: the kernel of
+    csrc/flash_general_bwd_f32.cu, which takes the row term as an input, for
+    CUDA tensors (no atomics: dq too is bit-equal run to run); the plain
+    version for CPU tensors."""
+    if not q.is_cuda:
+        return flash_fused_backward_reference(q, k, v, do, lse, dcap, causal=causal)
+    out = _f32_backward("flash_fused_bwd_f32", q, k, v, do, lse, dcap, causal)
+    flash_fused_backward_f32.launches += 1
+    return out
+
+
+flash_fused_backward_f32.launches = 0
+
+
 class _FlashAttnLse(torch.autograd.Function):
     """Forward and backward of the lse family, differentiable in o and in
     lse; saves (q, k, v, o, lse). The backward forms D with flash_rowdot,
     subtracts the cotangent of lse in plain torch (XLA code in the JAX
-    package too) and hands dcap to the one-pass kernel."""
+    package too) and hands dcap to the one-pass kernel. On CUDA tensors fp32
+    q goes to the fp32 kernels, anything else to the bf16 ones."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_lse_forward(q, k, v, causal=causal)
+        if q.is_cuda and q.dtype == torch.float32:
+            o, lse = flash_lse_forward_f32(q, k, v, causal=causal)
+        else:
+            o, lse = flash_lse_forward(q, k, v, causal=causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.set_materialize_grads(False)
@@ -564,7 +712,9 @@ class _FlashAttnLse(torch.autograd.Function):
         dcap = flash_rowdot(do, o)
         if dlse is not None:
             dcap = (dcap - dlse.float()).contiguous()
-        dq, dk, dv = flash_fused_backward(q, k, v, do, lse, dcap, causal=ctx.causal)
+        fused = (flash_fused_backward_f32 if q.is_cuda and q.dtype == torch.float32
+                 else flash_fused_backward)
+        dq, dk, dv = fused(q, k, v, do, lse, dcap, causal=ctx.causal)
         return dq, dk, dv, None
 
 
@@ -576,9 +726,9 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True):
     sum_c out_c * exp(lse_c - logaddexp_c lse_c) (ops/ring_attention.py).
 
     Causal masking is right-aligned and needs Tq <= Tk. CUDA tensors go to
-    the lse-forward and one-pass backward kernels (bf16, head size 64, hs
-    contiguous; strided views welcome) and anything they do not take raises;
-    CPU tensors go to the plain versions.
+    the lse-forward and one-pass backward kernels (bf16 or fp32, head size
+    64, hs contiguous; strided views welcome) and anything they do not take
+    raises; CPU tensors go to the plain versions.
     """
     _check(q, k, v, causal)
     return _FlashAttnLse.apply(q, k, v, causal)
@@ -619,9 +769,9 @@ def flash_attention(q, k, v, *, causal: bool = True, layout: str = "bthd",
     Tq <= Tk. ``stream_kv`` is select_family's: None picks the kernel family
     by shape.
 
-    CUDA tensors go to the kernels (bf16, head size 64, hs contiguous; fp32
-    too for the self-attention family, forward and backward) and anything
-    they do not take raises; CPU tensors go to the plain versions.
+    CUDA tensors go to the kernels (bf16 or fp32 in every family, head size
+    64, hs contiguous) and anything they do not take raises; CPU tensors go
+    to the plain versions.
     Differentiable in q, k and v (not in lse).
     """
     if layout not in ("bthd", "bhtd"):

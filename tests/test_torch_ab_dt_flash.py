@@ -13,6 +13,7 @@ import torch
 
 from gpt2_vision_language_tpu_torch.ops.flash_attention import flash_attention_reference
 from gpt2_vision_language_tpu_torch.tools import ab_dt_flash as ab
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, T, HS = 2, 2, 256, 64
@@ -205,8 +206,9 @@ def test_kernel_sources_and_signatures_are_registered():
     from gpt2_vision_language_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    # fourteen sources since the fp32 self-attention backward (flash_bwd_f32.cu)
-    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 14
+    # sixteen sources since the fp32 general pair (flash_general_fwd_f32.cu,
+    # flash_general_bwd_f32.cu)
+    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 16
     assert len(_build.SIGNATURES["gpt2vl_flash_dt_fwd"]) == 12
     assert len(_build.SIGNATURES["gpt2vl_flash_dt_bwd"]) == 17
     for name in ("flash_dt_fwd", "flash_dt_bwd"):

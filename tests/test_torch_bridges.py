@@ -17,6 +17,7 @@ from gpt2_vision_language_tpu_torch.ckpt.convert import bridge_from_jax_params
 from gpt2_vision_language_tpu_torch.core.config import BridgeConfig
 from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY
 from gpt2_vision_language_tpu_torch.models import bridges
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 D_LM = 32
 KW = dict(enc_dim=24, n_queries=8, n_layers=2, n_heads=2)

@@ -20,6 +20,7 @@ from gpt2_vision_language_tpu_torch.ckpt.convert import (
 from gpt2_vision_language_tpu_torch.core.config import BridgeConfig, GPTConfig
 from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY
 from gpt2_vision_language_tpu_torch.models import bridges, caption, gpt2
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 ARCH = dict(block_size=64, vocab_size=300, n_layer=2, n_head=2, n_embd=32)
 XARCH = dict(ARCH, img_embd=24, cross_attention=True)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from gpt2_vision_language_tpu_torch.cli import caption as caption_cli
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from gpt2_vision_language_tpu_torch.eval import caption_eval, cider
 from gpt2_vision_language_tpu_torch.infer.decode import Decoder
 from gpt2_vision_language_tpu_torch.infer.sampling import greedy
 from gpt2_vision_language_tpu_torch.models import bridges, caption, gpt2
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 GTS = {
     0: ["a man riding a wave on a surfboard", "a surfer rides a large wave"],

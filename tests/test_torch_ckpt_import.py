@@ -27,6 +27,7 @@ from gpt2_vision_language_tpu_torch.ckpt.convert import (
 )
 from gpt2_vision_language_tpu_torch.core.config import BridgeConfig, GPTConfig
 from gpt2_vision_language_tpu_torch.models import bridges, gpt2
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 KW = dict(block_size=32, vocab_size=50257, n_layer=2, n_head=2, n_embd=16)
 CFG, JCFG = GPTConfig(**KW), JaxGPTConfig(**KW)

@@ -23,6 +23,7 @@ from gpt2_vision_language_tpu_torch.ckpt.convert import clip_from_jax_params
 from gpt2_vision_language_tpu_torch.core import config as port_config
 from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY, FP32_POLICY
 from gpt2_vision_language_tpu_torch.models import clip_vit
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 TINY = port_config.CLIP_TINY
 

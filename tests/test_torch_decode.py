@@ -26,6 +26,7 @@ from gpt2_vision_language_tpu_torch.core.precision import DEFAULT_POLICY, FP32_P
 from gpt2_vision_language_tpu_torch.infer import sampling
 from gpt2_vision_language_tpu_torch.infer.decode import Decoder, cast_decode_params, generate
 from gpt2_vision_language_tpu_torch.models import bridges, caption, gpt2
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 KW = dict(block_size=64, vocab_size=128, n_layer=2, n_head=2, n_embd=64)
 CFG, JCFG = GPTConfig(**KW), JaxGPTConfig(**KW)

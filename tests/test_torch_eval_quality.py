@@ -25,6 +25,7 @@ from gpt2_vision_language_tpu.models import caption as jcaption
 from gpt2_vision_language_tpu.models import gpt2 as jgpt2
 from gpt2_vision_language_tpu_torch.cli import eval_quality
 from gpt2_vision_language_tpu_torch.data.coco import write_synthetic_coco
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 TINY = JaxGPTConfig(block_size=64, vocab_size=256, n_layer=2, n_head=2, n_embd=32)
 

@@ -16,6 +16,7 @@ from gpt2_vision_language_tpu.ckpt.torch_export import (
     save_torch_checkpoint,
 )
 from gpt2_vision_language_tpu.ckpt.torch_import import gpt2_from_torch_state_dict
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 SMALL = GPTConfig(block_size=32, vocab_size=128, n_layer=2, n_head=2, n_embd=32)
 SMALL_X = SMALL.replace(img_embd=16, cross_attention=True)

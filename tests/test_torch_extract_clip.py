@@ -16,6 +16,7 @@ from gpt2_vision_language_tpu_torch.core.config import CLIP_TINY
 from gpt2_vision_language_tpu_torch.data.coco import CocoClipTokensDataset
 from gpt2_vision_language_tpu_torch.data.tokenizer import ByteFallbackTokenizer
 from gpt2_vision_language_tpu_torch.models import clip_vit
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 
 def _make_fake_coco(root, n=10):

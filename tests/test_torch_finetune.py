@@ -34,6 +34,7 @@ from gpt2_vision_language_tpu_torch.ops import fused_adamw as fw
 from gpt2_vision_language_tpu_torch.train import finetune
 from gpt2_vision_language_tpu_torch.train.optimizer import adamw_init
 from gpt2_vision_language_tpu_torch.train.step import make_train_step
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 ARCH = dict(block_size=64, vocab_size=300, n_layer=2, n_head=2, n_embd=32)
 XARCH = dict(ARCH, img_embd=24, cross_attention=True)

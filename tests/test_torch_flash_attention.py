@@ -190,15 +190,15 @@ class _OnCard(torch.Tensor):
      (torch.bfloat16, 1024, 1024, False, "bf16"),
      (torch.bfloat16, 1024, 1024, True, "bf16"),
      (torch.float32, 1024, 1024, True, "f32"),      # the fp32 train step's attention
-     (torch.float32, 64, 1024, False, ValueError),  # the general family takes bf16
-     (torch.float32, 64, 1024, True, ValueError)],  # ... and its backward too
+     (torch.float32, 64, 1024, False, "gen_f32"),  # the general family's fp32 kernels
+     (torch.float32, 64, 1024, True, "gen_f32")],  # ... and its fp32 backward
 )
 def test_fp32_routing_with_stubs(monkeypatch, dtype, tq, tk, grad, want):
-    """sdpa(impl='auto') and flash_attention on operands that report the card:
-    fp32 q of the self-attention family goes to the fp32 forward kernel and,
-    with a gradient, to the fp32 backward kernel; bf16 to the bf16 ones. fp32
-    q of the general family raises before any launch, with a gradient or
-    without."""
+    """sdpa and flash_attention on operands that report the card: fp32 q of
+    the self-attention family goes to the fp32 forward kernel and, with a
+    gradient, to the fp32 backward kernel; bf16 to the bf16 ones. fp32 q of
+    the general family goes to its fp32 forward and, with a gradient, its
+    fp32 backward (no longer a raise: its fp32 kernels are ported)."""
     calls = []
 
     def stub(name):
@@ -219,18 +219,24 @@ def test_fp32_routing_with_stubs(monkeypatch, dtype, tq, tk, grad, want):
     monkeypatch.setattr(fa, "flash_fwd_cuda", stub("bf16"))
     monkeypatch.setattr(fa, "flash_bwd_f32_cuda", bwd_stub("f32_bwd"))
     monkeypatch.setattr(fa, "flash_bwd_cuda", bwd_stub("bf16_bwd"))
+    monkeypatch.setattr(fa, "flash_general_forward_f32", stub("gen_f32"))
+
+    def general_bwd_stub(q, k, v, do, lse, dd, *, causal):
+        calls.append("gen_f32_bwd")
+        plain = [a.as_subclass(torch.Tensor) for a in (q, k, v, do, lse, dd)]
+        return fa.flash_attention_backward_reference(*plain[:3], None, plain[4], plain[3],
+                                                     causal=causal, dd=plain[5])
+
+    monkeypatch.setattr(fa, "flash_general_backward_f32", general_bwd_stub)
     rng = np.random.RandomState(9)
     q = torch.from_numpy(rng.randn(1, tq, 2, 64).astype(np.float32)).to(dtype)
     kv = torch.from_numpy(rng.randn(1, tk, 4, 64).astype(np.float32)).to(dtype)
     q, k, v = (a.as_subclass(_OnCard) for a in (q, kv[:, :, :2], kv[:, :, 2:]))
     if grad:
         q.requires_grad_(True)
-    if isinstance(want, type):
-        with pytest.raises(want, match="Queue 2"):
-            attention.sdpa(q, k, v, causal=True, impl="flash", layout="bthd")
-        assert calls == []
-        return
-    got = attention.sdpa(q, k, v, causal=True, layout="bthd")  # auto: T >= 512
+    # auto (T >= 512) where Tq == Tk; flash where it is not, as the ring does
+    impl = "auto" if tq == tk else "flash"
+    got = attention.sdpa(q, k, v, causal=True, impl=impl, layout="bthd")
     assert calls == [want]
     plain = [a.as_subclass(torch.Tensor).detach() for a in (q, k, v)]
     ref = fa.flash_attention_reference(*plain, causal=True)[0]

@@ -31,6 +31,7 @@ from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
 from gpt2_vision_language_tpu_torch.ops import fused_ce as fc
 from gpt2_vision_language_tpu_torch.train.step import make_eval_step
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 KW = dict(block_size=256, vocab_size=500, n_layer=2, n_head=2, n_embd=128)
 CFG, JCFG = GPTConfig(**KW), JaxGPTConfig(**KW)  # hs 64, padded V 512

@@ -21,6 +21,7 @@ from gpt2_vision_language_tpu_torch.core.precision import FP32_POLICY
 from gpt2_vision_language_tpu_torch.data.tokenizer import ByteFallbackTokenizer
 from gpt2_vision_language_tpu_torch.eval import hellaswag as hs
 from gpt2_vision_language_tpu_torch.models import gpt2
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 KW = dict(block_size=160, vocab_size=300, n_layer=2, n_head=2, n_embd=64)
 CFG, JCFG = GPTConfig(**KW), JaxGPTConfig(**KW)

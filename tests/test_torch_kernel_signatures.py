@@ -72,7 +72,9 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_dt_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
           "ce_fwd.cu": {"hopper.cuh"},
           "flash_fwd_f32.cu": {"flash_f32.cuh"},
-          "flash_bwd_f32.cu": {"flash_f32.cuh"}}
+          "flash_bwd_f32.cu": {"flash_f32.cuh"},
+          "flash_general_fwd_f32.cu": {"flash_f32.cuh"},
+          "flash_general_bwd_f32.cu": {"flash_f32.cuh"}}
 
 
 def test_sources_include_only_their_own_headers():
@@ -81,8 +83,9 @@ def test_sources_include_only_their_own_headers():
     key-major backward (K3c, K3b) and the query-major dq block (K3a); the
     self-attention backward (K1-bwd) and the dt-layout backward (P2) run both
     backward blocks, and the fused LM-head + CE forward (K4) includes
-    hopper.cuh alone. The fp32 self-attention pair shares csrc/flash_f32.cuh
-    (its FFMA register tiles and cp.async copies). The library name hashes
+    hopper.cuh alone. The fp32 kernels, the self-attention pair and the
+    general pair, share csrc/flash_f32.cuh (its FFMA register tiles,
+    cp.async copies and blocks). The library name hashes
     every header with the sources, so an edit of one rebuilds them. The
     Hopper sources run wgmma and load by TMA, and none of them, nor the
     headers, uses nvcuda::wmma."""
@@ -213,19 +216,48 @@ def test_ce_forward_is_a_wgmma_gemm_with_a_row_epilogue():
 
 
 @pytest.mark.parametrize("name,entry", [("flash_fwd_f32.cu", "gpt2vl_flash_fwd_f32"),
-                                        ("flash_bwd_f32.cu", "gpt2vl_flash_bwd_f32")])
+                                        ("flash_bwd_f32.cu", "gpt2vl_flash_bwd_f32"),
+                                        ("flash_general_fwd_f32.cu",
+                                         "gpt2vl_flash_general_fwd_f32"),
+                                        ("flash_general_bwd_f32.cu",
+                                         "gpt2vl_flash_general_bwd_f32")])
 def test_fp32_pair_is_ffma_only(name, entry):
-    """The fp32 self-attention pair keeps every product an fp32 FFMA: no
-    tensor-core instruction (wgmma, mma, wmma: TF32 would keep 10 bits of the
-    operands' 23) and no atomics (dq, dk, dv bit-equal run to run); its swept
-    tiles arrive by cp.async through csrc/flash_f32.cuh, and each kernel
-    states its resident blocks in __launch_bounds__."""
+    """The fp32 kernels, the self-attention pair and the general pair, keep
+    every product an fp32 FFMA: no tensor-core instruction (wgmma, mma,
+    wmma: TF32 would keep 10 bits of the operands' 23) and no atomics (dq,
+    dk, dv bit-equal run to run); their swept tiles arrive by cp.async
+    through csrc/flash_f32.cuh, and each kernel states its resident blocks in
+    __launch_bounds__."""
     text = (_build.CSRC / name).read_text()
     header = (_build.CSRC / "flash_f32.cuh").read_text()
     assert f'extern "C" int {entry}(' in text and f'extern "C" int {entry}_warps_per_sm(' in text
-    assert "load_tile_async<THREADS>" in text and "cp.async.cg.shared.global" in header
+    assert "load_tile_async<THREADS>" in header and "cp.async.cg.shared.global" in header
     assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in text
     for body in (text, header):
         for gone in (r"wgmma", r"mma\.sync", r"wmma", r"atomic[A-Z]", r"\batom\.", r"\bred\.",
                      r"tf32"):
             assert not re.search(gone, body), (name, gone)
+
+
+@pytest.mark.parametrize("name,instance", [("flash_fwd_f32.cu", "forward_block<false>("),
+                                           ("flash_general_fwd_f32.cu", "forward_block<true>("),
+                                           ("flash_bwd_f32.cu", "backward_grid<false>("),
+                                           ("flash_general_bwd_f32.cu", "backward_grid<true>(")])
+def test_fp32_blocks_are_written_once(name, instance):
+    """The fp32 forward block and the backward grid (its dk/dv and dq blocks)
+    are written once, in csrc/flash_f32.cuh, with the general case (Tq != Tk,
+    the right-aligned causal offset) a compile-time parameter: the
+    self-attention kernels instance them with GENERAL = false, the general
+    ones with true, and no source repeats their products. The fp32 D kernel
+    stays in flash_bwd_f32.cu, whose C entry point gpt2vl_flash_rowdot_f32
+    gives the general backward its row term."""
+    header = (_build.CSRC / "flash_f32.cuh").read_text()
+    for body in ("void forward_block(", "void dkv_block(", "void dq_block(",
+                 "void backward_grid("):
+        assert body in header
+    text = (_build.CSRC / name).read_text()
+    assert instance in text and text.count("__global__") == (2 if name == "flash_bwd_f32.cu"
+                                                             else 1)
+    for product in ("rows_by_keys<", "keys_by_rows(", "acc_keys(", "acc_rows("):
+        assert product not in text, (name, product)
+    assert ('extern "C" int gpt2vl_flash_rowdot_f32(' in text) == (name == "flash_bwd_f32.cu")

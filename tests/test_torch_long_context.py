@@ -27,6 +27,7 @@ from gpt2_vision_language_tpu_torch.core.config import GPTConfig
 from gpt2_vision_language_tpu_torch.core.precision import FP32_POLICY
 from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 T = 384
 KW = dict(block_size=T, vocab_size=500, n_layer=2, n_head=2, n_embd=128)  # hs 64

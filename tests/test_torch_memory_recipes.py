@@ -21,6 +21,7 @@ from gpt2_vision_language_tpu_torch.ckpt.convert import gpt2_from_jax_params, op
 from gpt2_vision_language_tpu_torch.core.config import GPTConfig, OptimizerConfig
 from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.train import optimizer as popt
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 ARCH = dict(block_size=32, vocab_size=128, n_layer=2, n_head=2, n_embd=64)
 JCFG, PCFG = jcfg.GPTConfig(**ARCH), GPTConfig(**ARCH)

@@ -23,6 +23,7 @@ from gpt2_vision_language_tpu_torch.core.config import GPTConfig, OptimizerConfi
 from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.ops import fused_adamw as fw
 from gpt2_vision_language_tpu_torch.train import optimizer, schedule
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 CFG = GPTConfig(block_size=64, vocab_size=300, n_layer=2, n_head=2, n_embd=64)
 JCFG = jcfg.GPTConfig(block_size=64, vocab_size=300, n_layer=2, n_head=2, n_embd=64)

@@ -11,6 +11,7 @@ import torch
 
 from gpt2_vision_language_tpu_torch.cli import pretrain
 from gpt2_vision_language_tpu_torch.core.config import GPTConfig
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 TINY = GPTConfig(block_size=64, n_layer=2, n_head=2, n_embd=64)
 ARGS = ["--synthetic", "--synthetic-shards", "1", "--micro-batch", "2", "--seq-len", "64",

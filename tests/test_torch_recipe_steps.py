@@ -22,18 +22,10 @@ from gpt2_vision_language_tpu_torch.core.precision import FP32_POLICY
 from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.train import optimizer as popt
 from gpt2_vision_language_tpu_torch.train.step import make_train_step, stochastic_round_bf16
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 ARCH = dict(block_size=32, vocab_size=128, n_layer=2, n_head=2, n_embd=64)
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These steps run thousands of small ops: on one thread they do not
-    wait on a pool's barriers beside the other test processes on the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 JCFG, PCFG = jcfg.GPTConfig(**ARCH), GPTConfig(**ARCH)
 SCHED = dict(max_lr=1e-3, min_lr=1e-4, warmup_steps=2, max_steps=10)
 

@@ -24,6 +24,7 @@ from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.ops import attention
 from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
 from gpt2_vision_language_tpu_torch.ops import ring_attention as ra
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 
 def _qkvw(b, h, t, hs, seed):

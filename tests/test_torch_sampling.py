@@ -12,6 +12,7 @@ import torch
 
 from gpt2_vision_language_tpu.infer import sampling as jsampling
 from gpt2_vision_language_tpu_torch.infer import sampling
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 N = 1 << 20  # dyadic rows: counts of 2^-20 summing to 2^20
 

@@ -21,6 +21,7 @@ from gpt2_vision_language_tpu_torch.ops import flash_attention as fa
 from gpt2_vision_language_tpu_torch.ops import fused_adamw as fw
 from gpt2_vision_language_tpu_torch.train.optimizer import adamw_init
 from gpt2_vision_language_tpu_torch.train.step import make_train_step
+from torch_threads import share_cores  # noqa: F401  (autouse)
 
 ARCH = dict(block_size=256, vocab_size=500, n_layer=2, n_head=2, n_embd=128)
 SCHED = dict(max_lr=1e-3, min_lr=1e-4, warmup_steps=2, max_steps=10)
