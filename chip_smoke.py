@@ -7,10 +7,11 @@ Phases (any failure raises and the script exits non-zero):
 
   1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc (their
      registers, spills and SASS instruction counts printed; for the fp32
-     kernels, the self-attention pair and the general pair, also the warps
-     resident per SM and their SASS opcodes: no HMMA or HGMMA in any, no
-     atomics in either backward, no spills; the self pair's SASS counts
-     beside those it had before its blocks were shared, F32_PAIR_SASS_OWN);
+     kernels, the self-attention pair, the general pair and the dt-layout
+     pair, also the warps resident per SM and their SASS opcodes: no HMMA or
+     HGMMA in any, no atomics in any backward, no spills; the self pair's
+     SASS counts beside those it had before its blocks were shared,
+     F32_PAIR_SASS_OWN, and every kernel's beside SASS_BEFORE_DT_F32);
   2. flash-attention forward kernel vs its plain version, bf16, at the
      scoring shape (B=8, T=1024, H=12, hs=64, causal, q/k/v strided views of
      the fused QKV output), at a ragged T=1000, at the HellaSwag shape of
@@ -196,9 +197,26 @@ Phases (any failure raises and the script exits non-zero):
      queries from K1_DKV_DROP_AFTER after each key tile, ``dt_dq_reference``
      without the keys more than K1_DQ_DROP_BEFORE before each query tile),
      the check against max|ref| printed beside;
- 20. the A/B tool through its main: --check, --check-bwd, the forward bench
-     and --bwd (device ms per layer of the shipping path, of the dt kernels,
-     and of the copies into and out of the dt layout);
+ 19b. the dt-layout kernels on fp32 operands (csrc/flash_dt_fwd_f32.cu,
+     flash_dt_bwd_f32.cu) vs their plain versions in fp32 (no TF32), H=12,
+     hs=64 causal, at P1's four shapes of phase 19 (DT_F32_SHAPES): o and lse
+     within 1e-5 and each row of o within 2e-5 of its norm (phase 2b's
+     rules); on the kernel's o, lse and dcap, dq, dk and dv within 1e-5 of
+     max|ref| and each row within 2e-5 of its norm plus the mean row norm
+     (phase 2c's); each kernel twice on one input bit for bit; four controls
+     that must fail those row rules: at T=8192 phase 19's three (the last
+     128 rows without their first key tile, ``dt_dkv_reference``,
+     ``dt_dq_reference``), and at Tq=512, Tk=1024 the causal mask
+     right-aligned (``dt_f32_masked``: the general kernels' rule, o and the
+     gradients); timed plain, kernel, kernel, plain at the tool's B=8,
+     T=1024 beside SDPA's forward and whole backward on the fp32 operands;
+ 20. the A/B tool through its main in both dtypes (--dtype fp32, the TPU
+     tool's check dtype and limits, 2e-5 and 1e-5; --dtype bf16, 2e-2 and
+     3e-2): --check, --check-bwd, the forward bench and --bwd (device ms per
+     layer of the shipping path, of the dt kernels, and of the copies into
+     and out of the dt layout), then --check and --check-bwd at their
+     default dtype, fp32; the launch count of each of the four dt kernels
+     exact;
  21. the self-attention kernels against the plain path at the fine-tune shape
      (B=128, T=65), o, dq, dk and dv also row by row, forward and forward +
      backward:
@@ -285,7 +303,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
-phase 20 and, for the fp32 forward kernel, phase 26's fp32 HellaSwag run,
+phase 20 (both dtypes) and, for the fp32 forward kernel, phase 26's fp32
+HellaSwag run,
 for the fp32 backward kernel phase 29's fp32 train step, for the fp32
 general and lse kernels the fp32 trainer runs of phase 18b;
 the fine-tune runs of phase 23 and the HellaSwag runs of phase 26 beside
@@ -301,8 +320,11 @@ B=1, T=8192, backward at B=8, T=1024 and B=1, T=8192, SDPA on the same fp32
 operands beside them), the fp32 general and lse kernels (K2b's function,
 the fp32 D and the fp32 general backward at B=1, T=16384; K2a's and K3c's
 on the ring's chunk pair; SDPA and each one's bound beside them;
-``f32_general_times``), K4 at N=8192 and 4096 and the logits GEMM alone
-(``flash_times``). Copied into the root of another checkout and
+``f32_general_times``), P1 and P2 on fp32 operands at B=8, T=1024 and B=1,
+T=8192 beside the fp32 K1 pair and SDPA on the same values
+(``dt_f32_times``), K4 at N=8192 and 4096 and the logits GEMM alone
+(``flash_times``), and fails if a kernel's SASS instruction count moved
+from SASS_BEFORE_DT_F32. Copied into the root of another checkout and
 run there, it times that checkout's kernels, so two trees compare on one
 card in the order parent, change, change, parent.
 """
@@ -2630,11 +2652,13 @@ def phase_fp32_trainers(torch, mods, cfgs):
     return runs
 
 
-def dt_inputs(torch, ab, dev, seed):
+def dt_inputs(torch, ab, dev, seed, dtype="bf16"):
     """The tool's own inputs at its bench shape: q (pre-scaled), k, v, dO in the
-    dt layout (H, 64, B*T) bf16, the (B, T, H, hs) strided views they were copied
+    dt layout (H, 64, B*T) in ``dtype`` (bf16, or fp32 where the checkout has
+    the fp32 dt kernels), the (B, T, H, hs) strided views they were copied
     from, and the shape."""
-    qkv, dout, (b, h, t, hs) = ab._bench_inputs(dev, seed)
+    qkv, dout, (b, h, t, hs) = (ab._bench_inputs(dev, seed) if dtype == "bf16"
+                                else ab._bench_inputs(dev, seed, dtype))
     q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
     scale = hs ** -0.5
     dt = (ab.to_dt(q * scale), ab.to_dt(k), ab.to_dt(v), ab.to_dt(dout))
@@ -2889,21 +2913,193 @@ def phase_dt_kernels(torch, ab, fa, dev):
             {"fwd": fwd_t, "bwd": bwd_t})
 
 
+# phase 19b's shapes (B, Tq, Tk), all H=12 causal: P1's four of phase 19
+DT_F32_SHAPES = ((2, 1024, 1024), (3, 1088, 1088), (2, 512, 1024), (1, 8192, 8192))
+
+
+def dt_f32_inputs(torch, ab, b, tq, tk, h, dev, g):
+    """q (pre-scaled by 1/sqrt(hs)), k, v, dO in the dt layout (H, 64, B*T),
+    fp32, from one generator."""
+    hs = 64
+    q, do = (torch.randn(b, tq, h, hs, device=dev, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, tk, h, hs, device=dev, generator=g) for _ in range(2))
+    return ab.to_dt(q * hs ** -0.5), ab.to_dt(k), ab.to_dt(v), ab.to_dt(do)
+
+
+def dt_f32_masked(torch, qd, kd, vd, dod, b, tq, tk, hide, dq_scale):
+    """The dt forward and backward in fp32 with the (Tq, Tk) bool mask
+    ``hide`` (True: a key the query does not see) in place of the no-offset
+    causal one, the softmax statistics and dcap its own: (o, dq * dq_scale,
+    dk, dv) in the dt layout, what a kernel with that mask would give. The
+    control of phase 19b."""
+    h, hs, _ = qd.shape
+    q4, do4 = (a.reshape(h, hs, b, tq) for a in (qd, dod))
+    k4, v4 = (a.reshape(h, hs, b, tk) for a in (kd, vd))
+    s = torch.einsum("hdbq,hdbk->hbqk", q4, k4).masked_fill(hide, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    o = torch.einsum("hbqk,hdbk->hdbq", p, v4)
+    dv = torch.einsum("hbqk,hdbq->hdbk", p, do4)
+    ds = p * (torch.einsum("hdbq,hdbk->hbqk", do4, v4) - (o * do4).sum(1)[..., None])
+    del p
+    dk = torch.einsum("hbqk,hdbq->hdbk", ds, q4)
+    dq = torch.einsum("hbqk,hdbk->hdbq", ds, k4) * dq_scale
+    return [x.reshape(h, hs, -1) for x in (o, dq, dk, dv)]
+
+
+def phase_dt_kernels_f32(torch, ab, dev):
+    print("[19b] dt-layout forward (P1) and one-pass backward (P2) on fp32 operands "
+          "(csrc/flash_dt_fwd_f32.cu, flash_dt_bwd_f32.cu) vs plain (fp32, no TF32), H=12 "
+          "hs=64 causal", flush=True)
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(191)
+    h, hs = 12, 64
+    scale = hs ** -0.5
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "max_rel": 0.0, "row": 0.0, "controls": {}}
+    timing = {}
+    for b, tq, tk in DT_F32_SHAPES:
+        qd, kd, vd, dod = dt_f32_inputs(torch, ab, b, tq, tk, h, dev, g)
+        n0 = (ab.flash_fwd_dt_b.launches_f32, ab.flash_bwd_dt_b.launches_f32)
+        o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, tq, tk, causal=True)
+        o2, lse2 = ab.flash_fwd_dt_b(qd, kd, vd, b, tq, tk, causal=True)
+        dcap = ab.dcap_dt(o, dod)
+        args = (qd, kd, vd, dod, lse, dcap, b, tq, tk)
+        got = ab.flash_bwd_dt_b(*args, causal=True, dq_scale=scale)
+        again = ab.flash_bwd_dt_b(*args, causal=True, dq_scale=scale)
+        torch.cuda.synchronize()
+        require((ab.flash_fwd_dt_b.launches_f32, ab.flash_bwd_dt_b.launches_f32)
+                == (n0[0] + 2, n0[1] + 2), "the fp32 dt kernels did not run")
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(got, again)))
+        del o2, lse2, again
+        ro, rlse = dt_fwd_by_heads(torch, ab, qd, kd, vd, b, tq, tk)
+        heads = 2 if tq * tk > 1024 * 1024 else h
+        want = _dt_by_heads(torch, lambda *a: ab.flash_bwd_dt_b_reference(
+            *a, b, tq, tk, causal=True, dq_scale=scale), (qd, kd, vd, dod, lse, dcap), heads)
+        torch.cuda.synchronize()
+        eo, el = (o - ro).abs().max().item(), (lse - rlse).abs().max().item()
+        erow = f32_fwd_row_err(ab.from_dt(o, b, tq), ab.from_dt(ro, b, tq))
+        # (B, T, H, hs) views: each query row of dq, key row of dk and dv; a
+        # sequence's first query sees one key, its dq row 0 in exact arithmetic
+        bthd = [ab.from_dt(x, b, n) for x, n in zip(got, (tq, tk, tk))]
+        rthd = [ab.from_dt(x, b, n) for x, n in zip(want, (tq, tk, tk))]
+        rels, rows = f32_bwd_errs(bthd, rthd, True)
+        print(f"  B={b} Tq={tq} Tk={tk}: o max|err| {eo:.3e}, lse {el:.3e} (tol {F32_TOL}), "
+              f"max row |err| / |ref| {erow:.3e} (tol {F32_ROW_TOL}); dq, dk, dv max|err| / "
+              "max|ref| " + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {F32_TOL}), max row "
+              "|err| / (|ref| + mean row norm) " + ", ".join(f"{r:.3e}" for r in rows)
+              + f" (tol {F32_ROW_TOL}); {o.dtype}; bit-equal twice: {same}", flush=True)
+        require(all(x.dtype == torch.float32 for x in (o, *got)),
+                "the fp32 dt kernels are not fp32")
+        require(max(eo, el) <= F32_TOL and erow <= F32_ROW_TOL,
+                f"the fp32 dt forward disagrees at B={b} Tq={tq} Tk={tk}")
+        require(max(rels) <= F32_TOL and max(rows) <= F32_ROW_TOL,
+                f"the fp32 dt backward disagrees at B={b} Tq={tq} Tk={tk}")
+        require(same, f"two runs of the fp32 dt kernels differ at B={b} Tq={tq} Tk={tk}")
+        errs["o"], errs["lse"] = max(errs["o"], eo), max(errs["lse"], el)
+        errs["o_row"] = max(errs["o_row"], erow)
+        errs["max_rel"], errs["row"] = max(errs["max_rel"], *rels), max(errs["row"], *rows)
+        # controls, each a fault the rules above must see
+        ctrl = {}
+        if tq == 8192:
+            # the last 128 rows without their first key tile (a late key sweep)
+            late = dt_rows_without_first_keys(torch, qd, kd, vd, tq)
+            ctrl["rows_without_first_keys"] = {"o_row": f32_fwd_row_err(
+                ab.from_dt(o[:, :, tq - 128:], 1, 128), ab.from_dt(late, 1, 128))}
+            del late
+            # dk/dv without the far queries, dq without the far keys
+            sk, sv = dt_dkv_reference(torch, qd, kd, vd, dod, lse, dcap, b, tq, tk,
+                                      drop_after=K1_DKV_DROP_AFTER)
+            ctrl["dkv_reference"] = {"grad_row": max(
+                f32_row_err(ab.from_dt(x, b, tk), r) for x, r in zip((sk, sv), rthd[1:]))}
+            del sk, sv
+            sq = dt_dq_reference(torch, qd, kd, vd, dod, lse, dcap, b, tq, tk, dq_scale=scale,
+                                 drop_before=K1_DQ_DROP_BEFORE)
+            ctrl["dq_reference"] = {"grad_row": f32_row_err(ab.from_dt(sq, b, tq), rthd[0],
+                                                            causal_dq=True)}
+            del sq
+        if tq < tk:
+            # the causal mask right-aligned (query i sees keys <= i + Tk - Tq),
+            # the general kernels' rule, which the dt kernels must not follow
+            wrong = dt_f32_masked(torch, qd, kd, vd, dod, b, tq, tk,
+                                  general_hide(torch, tq, tk, True, dev), scale)
+            ctrl["right_aligned_mask"] = {
+                "o_row": f32_fwd_row_err(ab.from_dt(o, b, tq), ab.from_dt(wrong[0], b, tq)),
+                "grad_row": max(f32_row_err(x, ab.from_dt(w, b, n)) for x, w, n in
+                                zip(bthd, wrong[1:], (tq, tk, tk)))}
+            del wrong
+        for name, c in ctrl.items():
+            print(f"  control {name}: " + ", ".join(f"{k_} {v_:.3e}" for k_, v_ in c.items())
+                  + f" (each must be > {F32_ROW_TOL})", flush=True)
+            require(all(v_ > F32_ROW_TOL for v_ in c.values()),
+                    f"the control {name} passed the fp32 dt kernels' row checks")
+            errs["controls"][name] = c
+        del qd, kd, vd, dod, o, lse, dcap, got, want, ro, rlse, bthd, rthd
+        torch.cuda.empty_cache()
+    # times at the A/B tool's shape (B=8, T=1024), its own inputs in fp32:
+    # plain, kernel, kernel, plain; SDPA on the same fp32 operands (q pre-scaled,
+    # so its scale 1) beside them, forward and whole backward
+    (qd, kd, vd, dod), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19, dtype="fp32")
+    o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
+    dcap = ab.dcap_dt(o, dod)
+    timing["fwd"] = interleaved(lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True),
+                                lambda: ab.flash_fwd_dt_b_reference(qd, kd, vd, b, t, t,
+                                                                    causal=True), 20, 3)
+    timing["bwd"] = interleaved(
+        lambda: ab.flash_bwd_dt_b(qd, kd, vd, dod, lse, dcap, b, t, t, causal=True,
+                                  dq_scale=scale),
+        lambda: ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, dcap, b, t, t, causal=True,
+                                            dq_scale=scale), 10, 2)
+    qt, kt, vt, dot = (ab.from_dt(x, b, t).transpose(1, 2).contiguous()
+                       for x in (qd, kd, vd, dod))
+    timing["sdpa_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=1.0), 20)
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=1.0)
+    timing["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                                                retain_graph=True), 10)
+    bounds = [attention_bound(kind, b, t, t, h, hs, True, elem_bytes=4, peak=PEAK_FP32_FLOPS)[0]
+              for kind in ("fwd", "fused_bwd")]
+    print(f"  B={b} T={t}: P1 fp32 {timing['fwd'][0]:.4f} ms (bound {bounds[0]:.4f}, "
+          f"{bounds[0] / timing['fwd'][0]:.1%}), SDPA forward on the fp32 operands "
+          f"{timing['sdpa_fwd_ms']:.4f}; P2 fp32 {timing['bwd'][0]:.4f} ms (bound "
+          f"{bounds[1]:.4f}, {bounds[1] / timing['bwd'][0]:.1%}), SDPA's whole backward "
+          f"{timing['sdpa_bwd_ms']:.4f}", flush=True)
+    del qd, kd, vd, dod, o, lse, dcap, qt, kt, vt, dot, leaves, out
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
 def phase_dt_tool(ab):
-    print("[20] the A/B tool through its main: --check, --check-bwd, forward bench, --bwd",
-          flush=True)
+    print("[20] the A/B tool through its main in both dtypes: --check, --check-bwd, forward "
+          "bench, --bwd", flush=True)
     ab.flash_fwd_dt_b.launches = ab.flash_bwd_dt_b.launches = 0
-    ab.main(["--check"])
-    rels = ab.main(["--check-bwd"])
-    fwd = ab.main([])
-    bwd = ab.main(["--bwd"])
-    counts = {"flash_dt_fwd": ab.flash_fwd_dt_b.launches, "flash_dt_bwd": ab.flash_bwd_dt_b.launches}
-    # check 1; check-bwd 1 + 1; each bench one set-up call and a warm-up + 12 timed
-    want = {"flash_dt_fwd": 1 + 1 + 14 + 14, "flash_dt_bwd": 1 + 14}
+    ab.flash_fwd_dt_b.launches_f32 = ab.flash_bwd_dt_b.launches_f32 = 0
+    checks, benches = {}, {}
+    for dtype in ("fp32", "bf16"):
+        flag = ["--dtype", dtype]
+        checks[dtype] = {"o": ab.main(["--check", *flag]), **ab.main(["--check-bwd", *flag])}
+        benches[dtype] = {"forward_ms_per_layer": ab.main(flag),
+                          "forward_backward_ms_per_layer": ab.main(["--bwd", *flag])}
+    # the checks' default dtype is fp32: one more of each, on the fp32 kernels
+    checks["default"] = {"o": ab.main(["--check"]), **ab.main(["--check-bwd"])}
+    counts = {"flash_dt_fwd": ab.flash_fwd_dt_b.launches, "flash_dt_bwd": ab.flash_bwd_dt_b.launches,
+              "flash_dt_fwd_f32": ab.flash_fwd_dt_b.launches_f32,
+              "flash_dt_bwd_f32": ab.flash_bwd_dt_b.launches_f32}
+    # per dtype: check 1; check-bwd 1 + 1; each bench one set-up call and a
+    # warm-up + 12 timed; the default checks 1 + 1 and 1 more on fp32
+    want = {"flash_dt_fwd": 1 + 1 + 14 + 14, "flash_dt_bwd": 1 + 14,
+            "flash_dt_fwd_f32": 1 + 1 + 14 + 14 + 2, "flash_dt_bwd_f32": 1 + 14 + 1}
     print(f"  launches {counts}", flush=True)
     require(counts == want, f"expected launches {want}, got {counts}")
-    require(max(rels.values()) < 3e-2, "the tool's backward check disagrees")
-    return counts, {"forward_ms_per_layer": fwd, "forward_backward_ms_per_layer": bwd}
+    # the limits of the tool's checks by dtype: fp32 the TPU tool's own
+    for key, (o_lim, grad_lim) in (("fp32", (2e-5, 1e-5)), ("default", (2e-5, 1e-5)),
+                                   ("bf16", (2e-2, 3e-2))):
+        c = checks[key]
+        require(c["o"] < o_lim and max(c[n] for n in ("dq", "dk", "dv")) < grad_lim,
+                f"the tool's {key} checks disagree: {c}")
+    return counts, {"checks": checks, **benches}
 
 
 def phase_k1_short(torch, fa, attention, dev):
@@ -4442,12 +4638,26 @@ F32_KERNELS = {"flash_fwd_f32_kernel": "gpt2vl_flash_fwd_f32_warps_per_sm",
                "flash_bwd_f32_kernel": "gpt2vl_flash_bwd_f32_warps_per_sm",
                "rowdot_f32_kernel": None,
                "flash_general_fwd_f32_kernel": "gpt2vl_flash_general_fwd_f32_warps_per_sm",
-               "flash_general_bwd_f32_kernel": "gpt2vl_flash_general_bwd_f32_warps_per_sm"}
+               "flash_general_bwd_f32_kernel": "gpt2vl_flash_general_bwd_f32_warps_per_sm",
+               "flash_dt_fwd_f32_kernel": "gpt2vl_flash_dt_fwd_f32_warps_per_sm",
+               "flash_dt_bwd_f32_kernel": "gpt2vl_flash_dt_bwd_f32_warps_per_sm"}
 # the SASS instruction counts of the fp32 self-attention pair when its blocks
 # were its own, before the general fp32 kernels shared them (cuobjdump -sass
 # of the sm_90a build): the counts printed beside this build's
 F32_PAIR_SASS_OWN = {"flash_fwd_f32_kernel": 6488, "flash_bwd_f32_kernel": 7216,
                       "rowdot_f32_kernel": 352}
+# the SASS instruction counts of every kernel before the fp32 dt kernels
+# joined the fp32 blocks as their third case (cuobjdump -sass of the sm_90a
+# build on the H100's machine): a refactor of the shared blocks must leave
+# the other kernels' code as it was, which --flash-times holds them to
+SASS_BEFORE_DT_F32 = {"adamw_kernel": 1976, "ce_fwd_combine_kernel": 376, "ce_fwd_partial_kernel": 1632,
+             "flash_bwd_kernel": 3136, "flash_bwd_f32_kernel": 7288, "rowdot_f32_kernel": 352,
+             "flash_general_dkv_kernel": 1600, "flash_general_dq_kernel": 2512,
+             "flash_dt_bwd_kernel": 3720, "flash_dt_fwd_kernel": 2464,
+             "flash_fused_dq_cast_kernel": 48, "flash_fused_bwd_kernel": 1952,
+             "flash_fwd_kernel": 2136, "flash_fwd_f32_kernel": 6512, "flash_rowdot_kernel": 272,
+             "flash_general_bwd_f32_kernel": 7336, "flash_general_fwd_kernel": 2168,
+             "flash_general_fwd_f32_kernel": 6536, "flash_lse_fwd_kernel": 2144}
 
 
 def f32_pair_report(so, lib):
@@ -4531,6 +4741,51 @@ def f32_general_times(torch, fa, dev, g, out):
         del q, k, v, do, dlse, o, lse, dcap
 
 
+def dt_f32_times(torch, fa, ab, dev, g, out):
+    """P1 fp32 and P2 fp32 (csrc/flash_dt_fwd_f32.cu, flash_dt_bwd_f32.cu) at
+    the A/B tool's B=8, T=1024 and at B=1, T=8192, H=12 causal, into
+    ``out``: beside them, on the same values, the fp32 K1 pair through
+    flash_attention (its (B, T, H, hs) views of one fused fp32 projection,
+    the side A of ``ab_dt_flash --dtype fp32``; its backward includes its D)
+    and SDPA's forward and whole backward on the fp32 operands (a yardstick
+    the package never calls); each one's bound at 67 TFLOP/s of fp32 FFMAs."""
+    import torch.nn.functional as F
+
+    hs = 64
+    out["dt_f32_bounds_ms"] = {}
+    for b, t in ((8, 1024), (1, 8192)):
+        q, k, v, do = qkv_inputs(torch, b, t, t, 12, dev, g, dtype=torch.float32)
+        qd, kd, vd, dod = ab.to_dt(q * hs ** -0.5), ab.to_dt(k), ab.to_dt(v), ab.to_dt(do)
+        key, iters = f"B{b}_T{t}_causal", (20, 10) if t == 1024 else (5, 3)
+        out[f"p1f32_{key}_ms"] = cuda_ms(
+            lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True), iters[0])
+        out[f"k1fwd_f32_same_inputs_{key}_ms"] = cuda_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True), iters[0])
+        o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
+        dcap = ab.dcap_dt(o, dod)
+        out[f"p2f32_{key}_ms"] = cuda_ms(
+            lambda: ab.flash_bwd_dt_b(qd, kd, vd, dod, lse, dcap, b, t, t, causal=True,
+                                      dq_scale=hs ** -0.5), iters[1])
+        o1, lse1 = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        out[f"k1bwd_f32_same_inputs_{key}_ms"] = cuda_ms(
+            lambda: fa.flash_attention_backward(q, k, v, o1, lse1, do, causal=True), iters[1])
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        out[f"sdpa_f32fwd_dt_{key}_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), iters[0])
+        leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
+        sdpa_o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        dot = do.transpose(1, 2)
+        out[f"sdpa_f32bwd_dt_{key}_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(sdpa_o, leaves, dot, retain_graph=True), iters[1])
+        out["dt_f32_bounds_ms"].update({
+            f"p1f32_{key}": attention_bound("fwd", b, t, t, 12, hs, True, elem_bytes=4,
+                                            peak=PEAK_FP32_FLOPS)[0],
+            f"p2f32_{key}": attention_bound("fused_bwd", b, t, t, 12, hs, True, elem_bytes=4,
+                                            peak=PEAK_FP32_FLOPS)[0]})
+        del q, k, v, do, qd, kd, vd, dod, o, lse, dcap, o1, lse1, qt, kt, vt, leaves, sdpa_o, dot
+        torch.cuda.empty_cache()
+
+
 def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
     """K1-fwd at B=8, T=1024 and B=2, T=4096 causal and at the fine-tune's
     B=128, T=65 (q, k, v views of one fused projection), and at B=8, T=1024
@@ -4546,7 +4801,8 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
     that the package never calls), with the registers, spills, warps
     resident per SM and SASS opcodes of every fp32 kernel
     (``f32_pair_report``); the fp32 general and lse kernels where the
-    checkout has them (``f32_general_times``); K2a, K2b and K3c on one ring chunk pair, B=1,
+    checkout has them (``f32_general_times``); the fp32 dt kernels where the
+    checkout has them (``dt_f32_times``); K2a, K2b and K3c on one ring chunk pair, B=1,
     Tq=Tk=4096, H=12, unmasked and causal (chunk views; lse and dcap from the
     plain forward); P2 at B=8, T=1024 and B=1, T=8192 causal (dt inputs, lse
     and dcap from the plain forward); K4 at N=8192 and 4096, D=768,
@@ -4555,11 +4811,15 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
     of 20 launches after a warm-up (10 for K3a and K3b, 50 for K1-fwd and
     P1; ``cuda_ms``); and one micro-batch of 124M's scoring forward (B=8,
     T=1024) by kernel class under torch.profiler; in one JSON line
-    with the build time, the SASS instruction count of every kernel and the
-    card. It calls only wrappers that earlier checkouts of the port have too,
-    so copied into one it times that checkout's kernels."""
+    with the build time, the SASS instruction count of every kernel, those
+    that moved from SASS_BEFORE_DT_F32 (the run fails, after its line, if any did)
+    and the card. It calls only wrappers that earlier checkouts of the port
+    have too, so copied into one it times that checkout's kernels."""
     g = torch.Generator(dev).manual_seed(0)
     out = {"build_s": build_s, "sass": sass_counts(so)}
+    # every kernel that was there before the fp32 dt kernels keeps its code
+    out["sass_moved"] = {n: [out["sass"].get(n), w] for n, w in SASS_BEFORE_DT_F32.items()
+                                      if out["sass"].get(n) != w}
     for b, t in ((8, 1024), (2, 4096), (128, 65)):
         q, k, v, _ = qkv_inputs(torch, b, t, t, 12, dev, g)
         out[f"k1fwd_B{b}_T{t}_causal_ms"] = cuda_ms(
@@ -4628,6 +4888,8 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
             lambda: fa.flash_fused_backward(q, k, v, do, lse, dcap, causal=causal), 20)
     if hasattr(fa, "flash_general_forward_f32"):
         f32_general_times(torch, fa, dev, g, out)
+    if hasattr(ab.flash_fwd_dt_b, "launches_f32"):
+        dt_f32_times(torch, fa, ab, dev, g, out)
     # P2 at the tool's B=8, T=1024 and at B=1, T=8192, causal, dt inputs;
     # lse and dcap from the plain forward
     (qd, kd, vd, dod), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
@@ -4669,6 +4931,8 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
     out["scoring_micro_batch_device_ms"] = {"total": ms, **by_class}
     out["card"] = card
     print(json.dumps(out), flush=True)
+    require(not out["sass_moved"], "a kernel's SASS instruction count moved from "
+            f"SASS_BEFORE_DT_F32: {out['sass_moved']}")
 
 
 T_START = time.perf_counter()
@@ -4746,18 +5010,23 @@ def main() -> int:
         print(f"    {kernel_name(mangled)}: {regs} registers", flush=True)
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", report)]
     print(f"    spill stores: {sum(spills)} bytes over {len(spills)} functions", flush=True)
-    print(f"    SASS instructions: {json.dumps(sass_counts(so))}", flush=True)
+    sass = sass_counts(so)
+    print(f"    SASS instructions: {json.dumps(sass)}", flush=True)
     f32_report = f32_pair_report(so, lib)
     print(f"    the fp32 kernels: {json.dumps(f32_report)}", flush=True)
     print("    SASS instructions of the fp32 pair, this build (its blocks' own build): "
           + ", ".join(f"{n} {f32_report[n]['sass']} ({w})" for n, w in F32_PAIR_SASS_OWN.items()),
           flush=True)
+    print("    SASS instructions, this build (before the fp32 dt kernels): " + ", ".join(
+        f"{n} {sass.get(n)} ({w})" for n, w in SASS_BEFORE_DT_F32.items()), flush=True)
     for name in ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel", "flash_general_fwd_f32_kernel",
-                 "flash_general_bwd_f32_kernel"):
+                 "flash_general_bwd_f32_kernel", "flash_dt_fwd_f32_kernel",
+                 "flash_dt_bwd_f32_kernel"):
         ops = f32_report[name]["opcodes"]
         require(ops["HMMA"] + ops["HGMMA"] == 0, f"{name} has tensor-core products")
         require(f32_report[name]["spill_bytes"] == 0, f"{name} spills")
-    for name in ("flash_bwd_f32_kernel", "flash_general_bwd_f32_kernel"):
+    for name in ("flash_bwd_f32_kernel", "flash_general_bwd_f32_kernel",
+                 "flash_dt_bwd_f32_kernel"):
         require(sum(f32_report[name]["opcodes"][op]
                     for op in ("RED", "REDG", "REDS", "ATOM", "ATOMG", "ATOMS")) == 0,
                 f"{name} has atomics")
@@ -4878,6 +5147,9 @@ def main() -> int:
 
     dt_errs, dt_t = phase_dt_kernels(torch, ab, fa, dev)
     torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    dt32_errs, dt32_t = phase_dt_kernels_f32(torch, ab, dev)
+    dt32_s = time.perf_counter() - t_slice
     dt_counts, dt_bench = phase_dt_tool(ab)
     k1_short = phase_k1_short(torch, fa, attention, dev)
     torch.cuda.empty_cache()
@@ -4998,6 +5270,16 @@ def main() -> int:
         ("flash_dt_bwd", "flash_dt_bwd.cu", "tools/ab_dt_flash.py:132", "ab_dt_flash",
          dt_errs["bwd"], dt_t["bwd"], attention_bound("fused_bwd", *self_shape),
          lib_self["bwd"]),
+        # the dt-layout pair on fp32 operands (FFMAs, no TF32): the tool's
+        # fp32 checks and benches in its main (phase 20)
+        ("flash_dt_fwd_f32", "flash_dt_fwd_f32.cu", "tools/ab_dt_flash.py:48", "ab_dt_flash",
+         dt32_errs["o"], dt32_t["fwd"],
+         attention_bound("fwd", *self_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         dt32_t["sdpa_fwd_ms"]),
+        ("flash_dt_bwd_f32", "flash_dt_bwd_f32.cu", "tools/ab_dt_flash.py:132", "ab_dt_flash",
+         dt32_errs["max_rel"], dt32_t["bwd"],
+         attention_bound("fused_bwd", *self_shape, elem_bytes=4, peak=PEAK_FP32_FLOPS),
+         dt32_t["sdpa_bwd_ms"]),
     ]
     kernels = []
     for name, src, replaces, path, err, (ms, plain_ms), (b_ms, b_by), lib_ms in table:
@@ -5132,6 +5414,20 @@ def main() -> int:
                          "vs_flash_fwd_max_abs_err": dt_errs["vs_k1"],
                          "shape": "B=8 T=1024 H=12 causal, dt layout (H, hs, B*T)",
                          "library_is": "F.scaled_dot_product_attention"},
+        "flash_dt_fwd_f32": {
+            "lse_max_abs_err": dt32_errs["lse"], "row_err": dt32_errs["o_row"],
+            "controls": dt32_errs["controls"], "build": f32_report["flash_dt_fwd_f32_kernel"],
+            "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "shape": "B=8 T=1024 H=12 causal fp32, dt layout (H, hs, B*T)",
+            "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
+            "library_is": "F.scaled_dot_product_attention on the fp32 operands"},
+        "flash_dt_bwd_f32": {
+            "err_is": "max|err| / max|ref|", "row_err": dt32_errs["row"],
+            "controls": dt32_errs["controls"], "build": f32_report["flash_dt_bwd_f32_kernel"],
+            "tol": {"max_rel": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "shape": "B=8 T=1024 H=12 causal fp32, dt layout (H, hs, B*T)",
+            "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
+            "library_is": "autograd.grad of q, k and v through SDPA on the fp32 operands"},
         "flash_dt_bwd": {"err_is": "max|err| / max|ref|", "dq_row_err": dt_errs["dq_row"],
                          "dkv_row_err": dt_errs["dkv_row"], "bit_equal_twice": True,
                          "dkv_row_control_excess": dt_errs["dkv_control"],
@@ -5169,7 +5465,8 @@ def main() -> int:
                                "trainer_tokens_per_s": ring_tps, "op_T16384": ring_op,
                                "sdpa_ms": {"B1_T4096": lib_causal,
                                            "B1_T4096_nomask": lib_chunk}}}))
-    print(json.dumps({"ab_dt_flash": dt_bench, "k1_at_finetune_shape": k1_short}))
+    print(json.dumps({"ab_dt_flash": dt_bench, "dt_f32_seconds": dt32_s,
+                      "k1_at_finetune_shape": k1_short, "card": card}))
     print(json.dumps({"scoring": {"tokens_per_s": n_tok / dt, "plain_tokens_per_s":
                                   n_tok / dt_plain, "micro_batch_device_ms": score_ms,
                                   "micro_batch_device_ms_by_class": score_split}}))

@@ -114,7 +114,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ dd,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                      int T, int H, Strides qs, Strides ks, Strides vs, int causal) {
-  backward_grid<false>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, T, T, H, causal);
+  backward_grid<Case::SELF>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, T, T, H,
+                            causal);
 }
 
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set

@@ -2,24 +2,36 @@
 // an fp32 FFMA on the CUDA cores, from register tiles that a thread sums as
 // outer products, fed from shared memory by 16-byte reads. The blocks at the
 // end of this file (the forward block, the dk/dv block and the dq block) are
-// written once and instanced twice: with GENERAL = false by the
-// self-attention kernels (flash_fwd_f32.cu, flash_bwd_f32.cu: Tq == Tk = T),
-// with GENERAL = true by the general ones (flash_general_fwd_f32.cu,
-// flash_general_bwd_f32.cu: a query length Tq and a key length Tk, causal
-// masks right-aligned). The self instance is the general one at Tq == Tk with
-// the offset a compile-time 0: it keeps the self kernels' arithmetic and
-// carries none of the general case's index work.
+// written once and instanced three times, by the compile-time Case:
+//   - SELF by the self-attention kernels (flash_fwd_f32.cu,
+//     flash_bwd_f32.cu: Tq == Tk = T): the general case at Tq == Tk with the
+//     offset a compile-time 0, keeping the self kernels' arithmetic and none
+//     of the general case's index work;
+//   - GENERAL by the general ones (flash_general_fwd_f32.cu,
+//     flash_general_bwd_f32.cu: a query length Tq and a key length Tk,
+//     causal masks right-aligned);
+//   - DT by the A/B tool's dt-layout kernels (flash_dt_fwd_f32.cu,
+//     flash_dt_bwd_f32.cu): q, k, v, o and the gradients (H, hs, B*T), the
+//     sequence contiguous, Tq and Tk multiples of 64 and either the larger,
+//     a causal mask without offset (query i sees the keys j <= i), q
+//     pre-scaled by 1 / sqrt(hs), lse and the row term (H, B*Tq), dq scaled
+//     by a runtime dq_scale. Only the loads, the stores and the index work
+//     differ: the products, the tiles and the sweeps are the other cases'.
 //
 // Tiles in shared memory, hs = 64:
 //   - a swept tile (the K and V tiles that a forward or dq block sweeps, the
 //     q and dO tiles that a dk/dv block sweeps): 64 positions x 64 channels,
 //     [position][channel], rows padded to LDT = 68 floats, copied from global
-//     memory with cp.async (16 bytes a copy, rows at or past the length of
-//     the swept tensor -- Tk for K/V, Tq for q/dO -- zero-filled) into one of
-//     two slots while the other slot is being computed on;
+//     memory with cp.async (rows at or past the length of the swept tensor
+//     -- Tk for K/V, Tq for q/dO -- zero-filled) into one of two slots while
+//     the other slot is being computed on. From the (B, T, H, hs) tensors of
+//     SELF and GENERAL a copy is 16 bytes, four channels of one position;
+//     from the dt layout it is 4 bytes, one element put in its transposed
+//     place, since a 16-byte run there holds four positions of one channel;
 //   - a resident tile (q^T and dO^T of a forward or dq block, K^T and V^T of
 //     a dk/dv block): d-major, [channel][position], transposed once when the
-//     block starts;
+//     block starts; in the dt layout it arrives d-major and is a straight
+//     copy;
 //   - per-warp staging of P^T or dS^T ([key][row], rows of the warp's 32 or
 //     16 query rows padded by 4 floats) or of P and dS ([row][key], padded to
 //     LDT), written from registers and read back by the same warp
@@ -61,6 +73,9 @@ constexpr int TILE = 64;         // positions of a swept tile
 constexpr int LDT = HS + 4;      // row stride of a swept tile and of P / dS, in floats
 constexpr int QK = 16;           // keys of a warp's P^T / dS^T quarter
 constexpr float NEG_BIG = -1e30f;  // finite start of the running max
+
+// the three instances of the blocks (see the top of this file)
+enum class Case { SELF, GENERAL, DT };
 
 typedef float Tile[TILE][LDT];
 // a warp's P^T or dS^T quarter, [key][row] for the warp's R rows, padded
@@ -134,6 +149,46 @@ __device__ __forceinline__ void load_transposed(float* __restrict__ dst,
     dst[(4 * c + 1) * ROWS + r] = v.y * scale;
     dst[(4 * c + 2) * ROWS + r] = v.z * scale;
     dst[(4 * c + 3) * ROWS + r] = v.w * scale;
+  }
+}
+
+// rows row0 .. row0 + 63 of one (sequence, head) slab of a dt-layout tensor
+// (base: its position 0 of channel 0, cs: the channel stride; positions
+// contiguous) into a swept tile [position][channel], asynchronously, one
+// element a copy: each element goes to its transposed place, which no
+// 16-byte copy can do. The slab's length T is a multiple of 64, so the tile
+// lies wholly before T or wholly past it (then zeros). NT = 128 threads: copy
+// i of a thread takes position 8 (i % 8) + lane % 8 and channel 4 warp +
+// 16 (i / 8) + (lane / 8) % 4, so a warp reads 32 contiguous bytes of each of
+// four channels and writes 32 distinct banks (rows padded to LDT = 68).
+template <int NT>
+__device__ __forceinline__ void load_tile_dt_async(Tile& dst, const float* __restrict__ base,
+                                                   long long cs, int row0, int T, int tid) {
+  static_assert(NT == 128, "the copy pattern is laid out for four warps");
+  const int lr = tid & 7, lc = (tid >> 3) & 3, c0 = 4 * (tid >> 5) + lc;
+  const int bytes = row0 < T ? 4 : 0;
+  const float* src = base + (long long)c0 * cs + (row0 < T ? row0 : 0) + lr;
+#pragma unroll
+  for (int i = 0; i < TILE * HS / NT; ++i) {
+    const int r = 8 * (i & 7) + lr, c = c0 + 16 * (i >> 3);
+    cp_async4(&dst[r][c], src + (long long)(16 * (i >> 3)) * cs + 8 * (i & 7), bytes);
+  }
+}
+
+// ROWS positions from row0 of a dt-layout slab (base, cs as above) into a
+// resident d-major tile dst[d * ROWS + row]: the layout is the tile's, so a
+// straight copy, 16 bytes (four positions) a load; zeros past T (T % 4 == 0);
+// synchronous, once a block. q arrives pre-scaled, so nothing is scaled.
+template <int NT, int ROWS>
+__device__ __forceinline__ void load_resident_dt(float* __restrict__ dst,
+                                                 const float* __restrict__ base, long long cs,
+                                                 int row0, int T, int tid) {
+#pragma unroll 4
+  for (int i = 0; i < ROWS * (HS / 4) / NT; ++i) {
+    const int f = tid + i * NT, r = 4 * (f % (ROWS / 4)), c = f / (ROWS / 4), t = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < T) v = __ldg(reinterpret_cast<const float4*>(base + (long long)c * cs + t));
+    *reinterpret_cast<float4*>(dst + c * ROWS + r) = v;
   }
 }
 
@@ -257,14 +312,43 @@ __device__ __forceinline__ void zero(float (&a)[R][C]) {
 // allows two. q, o and dO are (B, Tq, H, hs), k, v, dk, dv (B, Tk, H, hs);
 // q/k/v are read through their strides (the views of the fused QKV
 // projection, the ring's chunk views), o, dO, dq, dk, dv are contiguous; lse
-// and the row term (D, or D - dlse) are (B, H, Tq). With GENERAL = false, Tk
-// is Tq and the causal offset is 0 at compile time; with GENERAL = true a
-// causal query i sees the keys j <= i + Tk - Tq (right-aligned, Tq <= Tk),
-// the rule of the JAX kernels.
+// and the row term (D, or D - dlse) are (B, H, Tq). With Case::SELF, Tk is
+// Tq and the causal offset is 0 at compile time; with Case::GENERAL a causal
+// query i sees the keys j <= i + Tk - Tq (right-aligned, Tq <= Tk), the rule
+// of the JAX kernels. With Case::DT every tensor is (H, hs, B*T) and
+// contiguous, and the stride arguments say so: sb = T (a sequence's slab),
+// st = B*T (the channel stride, where the other cases have the position
+// stride), sh = hs*B*T; o and dq take q's strides, dk and dv k's; lse and the
+// row term are (H, B*Tq), row (b, h) at h*st + b*sb of q's strides. Its
+// causal mask has no offset (j <= i) at any Tq and Tk, so a query past Tk
+// sees every key and a key past Tq is seen by no query (dk = dv = 0).
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 2;  // resident blocks an SM (shared memory allows two)
+
+// a swept tile of case C, copied asynchronously: st is the position stride
+// of a (B, T, H, hs) tensor, or the channel stride of a dt-layout one
+template <Case C>
+__device__ __forceinline__ void load_swept(Tile& dst, const float* __restrict__ base, long long st,
+                                           int row0, int T, int tid) {
+  if constexpr (C == Case::DT)
+    load_tile_dt_async<THREADS>(dst, base, st, row0, T, tid);
+  else
+    load_tile_async<THREADS>(dst, base, st, row0, T, tid);
+}
+
+// a resident tile of case C, ROWS positions from row0 (st as in load_swept;
+// the dt case scales nothing)
+template <Case C, int ROWS>
+__device__ __forceinline__ void load_resident(float* __restrict__ dst,
+                                              const float* __restrict__ base, long long st,
+                                              int row0, int T, float scale, int tid) {
+  if constexpr (C == Case::DT)
+    load_resident_dt<THREADS, ROWS>(dst, base, st, row0, T, tid);
+  else
+    load_transposed<THREADS, ROWS>(dst, base, st, row0, T, scale, tid);
+}
 
 // the forward block's query rows: 32 a warp, 128 a block
 constexpr int FWD_WR = 32;
@@ -283,7 +367,7 @@ struct FwdSmem {
 // natural-log logsumexp of each row. A warp skips a tile that none of its
 // rows sees; a tile that the diagonal or the end of the keys crosses is
 // masked element by element.
-template <bool GENERAL>
+template <Case C>
 __device__ __forceinline__ void forward_block(const float* __restrict__ q,
                                               const float* __restrict__ k,
                                               const float* __restrict__ v, float* __restrict__ o,
@@ -294,8 +378,8 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
                                               int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
-  const int Tk = GENERAL ? Tk_ : Tq;
-  const int off = GENERAL ? Tk - Tq : 0;  // a causal row i sees keys <= i + off
+  const int Tk = C == Case::SELF ? Tq : Tk_;
+  const int off = C == Case::GENERAL ? Tk - Tq : 0;  // a causal row i sees keys <= i + off
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane >> 3, kg = lane & 7;  // rows FWD_WR warp + 8 rg + i; keys kg + 8 j; channels 4 kg
   const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
@@ -304,14 +388,20 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
   const float* kb = k + (long long)b * ksb + (long long)hh * ksh;
   const float* vb = v + (long long)b * vsb + (long long)hh * vsh;
   const int q_end = min(q0 + FWD_BQ, Tq);
-  // causal: Tq <= Tk, so the last row's last key q_end - 1 + off < Tk
-  const int n_kv = causal ? (q_end - 1 + off) / TILE + 1 : (Tk + TILE - 1) / TILE;
+  // causal: Tq <= Tk, so the last row's last key q_end - 1 + off < Tk; in the
+  // dt case a row past Tk sees every key, and the sweep stops at Tk
+  const int n_kv =
+      C == Case::DT ? (causal ? min((q_end - 1) / TILE + 1, (Tk + TILE - 1) / TILE)
+                              : (Tk + TILE - 1) / TILE)
+      : causal      ? (q_end - 1 + off) / TILE + 1
+                    : (Tk + TILE - 1) / TILE;
 
-  load_tile_async<THREADS>(s.k[0], kb, kst, 0, Tk, tid);
-  load_tile_async<THREADS>(s.v[0], vb, vst, 0, Tk, tid);
+  load_swept<C>(s.k[0], kb, kst, 0, Tk, tid);
+  load_swept<C>(s.v[0], vb, vst, 0, Tk, tid);
   cp_async_commit();
-  load_transposed<THREADS, FWD_BQ>(&s.qt[0][0], q + (long long)b * qsb + (long long)hh * qsh, qst,
-                                   q0, Tq, 0.125f, tid);
+  // q^T / sqrt(hs); in the dt case q arrives pre-scaled
+  load_resident<C, FWD_BQ>(&s.qt[0][0], q + (long long)b * qsb + (long long)hh * qsh, qst, q0, Tq,
+                           C == Case::DT ? 1.f : 0.125f, tid);
 
   const int wrow = q0 + FWD_WR * warp;  // the warp's first row
   const int r0 = FWD_WR * warp + 8 * rg;  // the thread's first row in the block
@@ -328,8 +418,8 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
     cp_async_wait_all();
     __syncthreads();  // tile j is in; every warp is done with tile j - 1's slot
     if (j + 1 < n_kv) {
-      load_tile_async<THREADS>(s.k[slot ^ 1], kb, kst, k0 + TILE, Tk, tid);
-      load_tile_async<THREADS>(s.v[slot ^ 1], vb, vst, k0 + TILE, Tk, tid);
+      load_swept<C>(s.k[slot ^ 1], kb, kst, k0 + TILE, Tk, tid);
+      load_swept<C>(s.v[slot ^ 1], vb, vst, k0 + TILE, Tk, tid);
     }
     cp_async_commit();
     // the warp's rows are all past Tq, or all before this tile's first key
@@ -384,19 +474,46 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
   }
   cp_async_wait_all();
 
-  // the row sums over the 8 lanes of a row; o = acc / l, lse = m + log l
+  if constexpr (C == Case::DT) {
+    // the row sums over the 8 lanes of a row; o = acc / l, by channel: the
+    // thread's 8 rows are 8 consecutive positions, all before Tq or all
+    // past it (Tq % 64 == 0), two 16-byte stores a channel; lse = m + log l
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int sh = 4; sh > 0; sh >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
-    const int qq = q0 + r0 + i;
+      for (int sh = 4; sh > 0; sh >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+    const int qq = q0 + r0;
     if (qq < Tq) {
-      float* dst = o + (((long long)b * Tq + qq) * H + hh) * HS;
-      *reinterpret_cast<float4*>(dst + 4 * kg) =
-          make_float4(acc[i][0] / l[i], acc[i][1] / l[i], acc[i][2] / l[i], acc[i][3] / l[i]);
-      *reinterpret_cast<float4*>(dst + 32 + 4 * kg) =
-          make_float4(acc[i][4] / l[i], acc[i][5] / l[i], acc[i][6] / l[i], acc[i][7] / l[i]);
-      if (kg == 0) lse[((long long)b * H + hh) * Tq + qq] = m[i] + logf(l[i]);
+      float* ob = o + (long long)b * qsb + (long long)hh * qsh + qq;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // channel 4 kg + e, and 32 + 4 kg + e - 4
+        float* dst = ob + (long long)(4 * kg + (e < 4 ? e : 28 + e)) * qst;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[0][e] / l[0], acc[1][e] / l[1], acc[2][e] / l[2], acc[3][e] / l[3]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(acc[4][e] / l[4], acc[5][e] / l[5], acc[6][e] / l[6], acc[7][e] / l[7]);
+      }
+      if (kg == 0) {
+        float* lb = lse + (long long)hh * qst + (long long)b * qsb + qq;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) lb[i] = m[i] + logf(l[i]);
+      }
+    }
+  } else {
+    // the row sums over the 8 lanes of a row; o = acc / l, lse = m + log l
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int sh = 4; sh > 0; sh >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+      const int qq = q0 + r0 + i;
+      if (qq < Tq) {
+        float* dst = o + (((long long)b * Tq + qq) * H + hh) * HS;
+        *reinterpret_cast<float4*>(dst + 4 * kg) =
+            make_float4(acc[i][0] / l[i], acc[i][1] / l[i], acc[i][2] / l[i], acc[i][3] / l[i]);
+        *reinterpret_cast<float4*>(dst + 32 + 4 * kg) =
+            make_float4(acc[i][4] / l[i], acc[i][5] / l[i], acc[i][6] / l[i], acc[i][7] / l[i]);
+        if (kg == 0) lse[((long long)b * H + hh) * Tq + qq] = m[i] + logf(l[i]);
+      }
     }
   }
 }
@@ -450,12 +567,13 @@ struct BwdArgs {
 // q and dO rows q0 .. q0 + 63 of (b, h) and their lse and row term into slot
 // `slot` of a dk/dv block, asynchronously; zeros at or past Tq (P = 0 there,
 // and nothing is read past the end of lse or D)
+template <Case C>
 __device__ __forceinline__ void load_query_tile(DkvSmem& s, int slot, const float* qb,
                                                 long long qst, const float* dob, long long dost,
                                                 const float* lse_bh, const float* dd_bh, int q0,
                                                 int Tq, int tid) {
-  load_tile_async<THREADS>(s.q[slot], qb, qst, q0, Tq, tid);
-  load_tile_async<THREADS>(s.dO[slot], dob, dost, q0, Tq, tid);
+  load_swept<C>(s.q[slot], qb, qst, q0, Tq, tid);
+  load_swept<C>(s.dO[slot], dob, dost, q0, Tq, tid);
   const int r = tid & (TILE - 1), t = q0 + r;
   if (tid < TILE)
     cp_async4(&s.lse[slot][r], lse_bh + (t < Tq ? t : 0), t < Tq ? 4 : 0);
@@ -484,15 +602,30 @@ __device__ __forceinline__ void store_keys(float* __restrict__ out, const float 
   }
 }
 
+// keys row0 .. row0 + 3 of a dt-layout output (ob: its (b, h) slab, cs: the
+// channel stride), times scale: one 16-byte store of four positions for each
+// of the thread's 8 channels (4g .. 4g + 3, 32 + 4g .. 32 + 4g + 3); the four
+// keys lie all before T or all past it (T % 64 == 0)
+__device__ __forceinline__ void store_keys_dt(float* __restrict__ ob, const float (&acc)[4][8],
+                                              float scale, long long cs, int row0, int T, int g) {
+  if (row0 < T) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      *reinterpret_cast<float4*>(ob + (long long)(4 * g + (e < 4 ? e : 28 + e)) * cs + row0) =
+          make_float4(acc[0][e] * scale, acc[1][e] * scale, acc[2][e] * scale, acc[3][e] * scale);
+  }
+}
+
 // dk, dv of key tile kt of (h, b): keys k0 .. k0 + 63, the query tiles from
-// the first that sees one of them (causal: the row k0 - (Tk - Tq)) on
-template <bool GENERAL>
+// the first that sees one of them (causal: the row k0 - (Tk - Tq), k0 in the
+// dt case, where there may be none) on
+template <Case C>
 __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int Tk_, int H,
                                           int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
-  const int Tk = GENERAL ? Tk_ : Tq;
-  const int off = GENERAL ? Tk - Tq : 0;
+  const int Tk = C == Case::SELF ? Tq : Tk_;
+  const int off = C == Case::GENERAL ? Tk - Tq : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ntq = (Tq + TILE - 1) / TILE;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -500,21 +633,31 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
   const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
   const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
   const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
-  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;  // contiguous (B, Tq, H, hs)
-  const long long dost = (long long)H * HS;
-  const float scale = 0.125f;  // 1 / sqrt(64), exact
+  // dO: contiguous (B, Tq, H, hs), or q's dt layout
+  const float* dob = C == Case::DT ? a.dO + (long long)b * a.qs.sb + (long long)h * a.qs.sh
+                                   : a.dO + ((long long)b * Tq * H + h) * HS;
+  const long long dost = C == Case::DT ? a.qs.st : (long long)H * HS;
+  // the dt case's row of (b, h) in lse and the row term; the others' row, bh *
+  // Tq, is written out where it is read (hoisted beside this one, it moved
+  // their kernels' code by 8 instructions)
+  const long long st0 = (long long)h * a.qs.st + (long long)b * a.qs.sb;
+  // 1 / sqrt(64), exact: K^T's and dK's; 1 in the dt case (q is pre-scaled)
+  const float scale = C == Case::DT ? 1.f : 0.125f;
   const int k0 = kt * TILE;
   const int rg = lane & 15, kg = lane >> 4;  // S, dP: rows rg + 16 i, keys 16 warp + 8 kg + j
   // dK, dV: keys 16 warp + 4 kq + kk, channels by g; a quarter-warp spans
   // 4 kq x 2 g, so its reads of dO and q rows ask for two addresses
   const int kq = (lane & 7) >> 1, g = 2 * (lane >> 3) + (lane & 1);
-  // causal: the first row that sees key k0 is k0 - off (< Tq, since k0 < Tk)
-  const int it0 = !causal ? 0 : GENERAL ? max(k0 - off, 0) / TILE : kt;
-  load_query_tile(s, 0, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, it0 * TILE, Tq,
-                  tid);
+  // causal: the first row that sees key k0 is k0 - off (< Tq, since k0 < Tk;
+  // in the dt case k0, which is past Tq for a key no query sees: then the
+  // sweep is empty and dk = dv = 0)
+  const int it0 = !causal ? 0 : C == Case::GENERAL ? max(k0 - off, 0) / TILE : kt;
+  load_query_tile<C>(s, 0, qb, a.qs.st, dob, dost,
+                     C == Case::DT ? a.lse + st0 : a.lse + bh * Tq,
+                     C == Case::DT ? a.dd + st0 : a.dd + bh * Tq, it0 * TILE, Tq, tid);
   cp_async_commit();
-  load_transposed<THREADS, TILE>(&s.kt[0][0], kb, a.ks.st, k0, Tk, scale, tid);
-  load_transposed<THREADS, TILE>(&s.vt[0][0], vb, a.vs.st, k0, Tk, 1.f, tid);
+  load_resident<C, TILE>(&s.kt[0][0], kb, a.ks.st, k0, Tk, scale, tid);
+  load_resident<C, TILE>(&s.vt[0][0], vb, a.vs.st, k0, Tk, 1.f, tid);
   float acc_k[4][8], acc_v[4][8];
   zero(acc_k);
   zero(acc_v);
@@ -523,8 +666,9 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
     cp_async_wait_all();
     __syncthreads();  // tile it is in; every warp is done with tile it - 1's slot
     if (it + 1 < ntq)
-      load_query_tile(s, slot ^ 1, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq,
-                      q0 + TILE, Tq, tid);
+      load_query_tile<C>(s, slot ^ 1, qb, a.qs.st, dob, dost,
+                         C == Case::DT ? a.lse + st0 : a.lse + bh * Tq,
+                         C == Case::DT ? a.dd + st0 : a.dd + bh * Tq, q0 + TILE, Tq, tid);
     cp_async_commit();
 
     float sc[4][8], dp[4][8];
@@ -532,8 +676,9 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
     zero(dp);
     keys_by_rows(sc, s.q[slot], &s.kt[0][16 * warp + 8 * kg], rg);
     keys_by_rows(dp, s.dO[slot], &s.vt[0][16 * warp + 8 * kg], rg);
-    // P = exp(S - lse) where visible, else 0; dS = P (dP - D)
-    const bool diag = GENERAL ? k0 + TILE - 1 > q0 + off : it == kt;
+    // P = exp(S - lse) where visible, else 0; dS = P (dP - D); without an
+    // offset (SELF, DT) the diagonal crosses the tile it == kt only
+    const bool diag = C == Case::GENERAL ? k0 + TILE - 1 > q0 + off : it == kt;
     const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -567,53 +712,71 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
     }
   }
   cp_async_wait_all();
-  store_keys(a.dk, acc_k, scale, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
-  store_keys(a.dv, acc_v, 1.f, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
+  if constexpr (C == Case::DT) {
+    const long long kvo = (long long)b * a.ks.sb + (long long)h * a.ks.sh;
+    store_keys_dt(a.dk + kvo, acc_k, scale, a.ks.st, k0 + 16 * warp + 4 * kq, Tk, g);
+    store_keys_dt(a.dv + kvo, acc_v, 1.f, a.ks.st, k0 + 16 * warp + 4 * kq, Tk, g);
+  } else {
+    store_keys(a.dk, acc_k, scale, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
+    store_keys(a.dv, acc_v, 1.f, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
+  }
 }
 
 // dq of query tile qt of (h, b): queries q0 .. q0 + 63, the key tiles up to
-// the last one its last row sees
-template <bool GENERAL>
+// the last one its last row sees; dq is scaled by 1 / sqrt(hs), or by
+// dq_scale in the dt case
+template <Case C>
 __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int Tk_, int H,
-                                         int causal) {
+                                         int causal, float dq_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
-  const int Tk = GENERAL ? Tk_ : Tq;
-  const int off = GENERAL ? Tk - Tq : 0;
+  const int Tk = C == Case::SELF ? Tq : Tk_;
+  const int off = C == Case::GENERAL ? Tk - Tq : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
   const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
   const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
   const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
-  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;  // contiguous (B, Tq, H, hs)
-  const long long dost = (long long)H * HS;
-  const float scale = 0.125f;  // 1 / sqrt(64), exact
+  // dO as in dkv_block
+  const float* dob = C == Case::DT ? a.dO + (long long)b * a.qs.sb + (long long)h * a.qs.sh
+                                   : a.dO + ((long long)b * Tq * H + h) * HS;
+  const long long dost = C == Case::DT ? a.qs.st : (long long)H * HS;
+  // the dt case's row of (b, h) in lse and the row term; the others' row, bh *
+  // Tq, is written out where it is read (hoisted beside this one, it moved
+  // their kernels' code by 8 instructions)
+  const long long st0 = (long long)h * a.qs.st + (long long)b * a.qs.sb;
+  // 1 / sqrt(64), exact: q^T's; 1 in the dt case (q is pre-scaled)
+  const float scale = C == Case::DT ? 1.f : 0.125f;
+  const float out_scale = C == Case::DT ? dq_scale : scale;
   const int q0 = qt * TILE;
   const int hf = lane >> 4, tc = lane & 15;  // rows 16 warp + 8 hf + i, keys tc + 16 j
   const int r0 = 16 * warp + 8 * hf;
-  load_tile_async<THREADS>(s.k[0], kb, a.ks.st, 0, Tk, tid);
-  load_tile_async<THREADS>(s.v[0], vb, a.vs.st, 0, Tk, tid);
+  load_swept<C>(s.k[0], kb, a.ks.st, 0, Tk, tid);
+  load_swept<C>(s.v[0], vb, a.vs.st, 0, Tk, tid);
   cp_async_commit();
-  load_transposed<THREADS, TILE>(&s.qt[0][0], qb, a.qs.st, q0, Tq, scale, tid);
-  load_transposed<THREADS, TILE>(&s.dOt[0][0], dob, dost, q0, Tq, 1.f, tid);
+  load_resident<C, TILE>(&s.qt[0][0], qb, a.qs.st, q0, Tq, scale, tid);
+  load_resident<C, TILE>(&s.dOt[0][0], dob, dost, q0, Tq, 1.f, tid);
   if (tid < TILE) {
     const int t = q0 + tid;
-    s.lse[tid] = t < Tq ? a.lse[bh * Tq + t] : 0.f;
-    s.dd[tid] = t < Tq ? a.dd[bh * Tq + t] : 0.f;
+    s.lse[tid] = t < Tq ? a.lse[C == Case::DT ? st0 + t : bh * Tq + t] : 0.f;
+    s.dd[tid] = t < Tq ? a.dd[C == Case::DT ? st0 + t : bh * Tq + t] : 0.f;
   }
   float acc_q[8][4];
   zero(acc_q);
-  // causal: Tq <= Tk, so the last row's last key min(q0 + 64, Tq) - 1 + off < Tk
-  const int n_kv = !causal ? (Tk + TILE - 1) / TILE
-                   : GENERAL ? (min(q0 + TILE, Tq) - 1 + off) / TILE + 1 : qt + 1;
+  // causal: Tq <= Tk, so the last row's last key min(q0 + 64, Tq) - 1 + off < Tk;
+  // in the dt case rows past Tk see every key, and the sweep stops at Tk
+  const int n_kv = !causal                ? (Tk + TILE - 1) / TILE
+                   : C == Case::GENERAL ? (min(q0 + TILE, Tq) - 1 + off) / TILE + 1
+                   : C == Case::DT      ? min(qt + 1, (Tk + TILE - 1) / TILE)
+                                        : qt + 1;
   for (int j = 0; j < n_kv; ++j) {
     const int slot = j & 1, k0 = j * TILE;
     cp_async_wait_all();
     __syncthreads();  // tile j is in; every warp is done with tile j - 1's slot
     if (j + 1 < n_kv) {
-      load_tile_async<THREADS>(s.k[slot ^ 1], kb, a.ks.st, k0 + TILE, Tk, tid);
-      load_tile_async<THREADS>(s.v[slot ^ 1], vb, a.vs.st, k0 + TILE, Tk, tid);
+      load_swept<C>(s.k[slot ^ 1], kb, a.ks.st, k0 + TILE, Tk, tid);
+      load_swept<C>(s.v[slot ^ 1], vb, a.vs.st, k0 + TILE, Tk, tid);
     }
     cp_async_commit();
 
@@ -622,7 +785,7 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
     zero(dp);
     rows_by_keys<TILE, 4, 16>(sc, &s.qt[0][r0], s.k[slot], tc);
     rows_by_keys<TILE, 4, 16>(dp, &s.dOt[0][r0], s.v[slot], tc);
-    const bool diag = GENERAL ? k0 + TILE - 1 > q0 + off : j == qt;
+    const bool diag = C == Case::GENERAL ? k0 + TILE - 1 > q0 + off : j == qt;
     const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -646,28 +809,47 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
     }
   }
   cp_async_wait_all();
+  if constexpr (C == Case::DT) {
+    // by channel 4 tc + e: the thread's 8 rows are 8 consecutive positions,
+    // all before Tq or all past it
+    if (q0 + r0 < Tq) {
+      float* qo = a.dq + (long long)b * a.qs.sb + (long long)h * a.qs.sh + q0 + r0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int t = q0 + r0 + i;
-    if (t < Tq)
-      *reinterpret_cast<float4*>(a.dq + (((long long)b * Tq + t) * H + h) * HS + 4 * tc) =
-          make_float4(acc_q[i][0] * scale, acc_q[i][1] * scale, acc_q[i][2] * scale,
-                      acc_q[i][3] * scale);
+      for (int e = 0; e < 4; ++e) {
+        float* dst = qo + (long long)(4 * tc + e) * a.qs.st;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc_q[0][e] * out_scale, acc_q[1][e] * out_scale,
+                        acc_q[2][e] * out_scale, acc_q[3][e] * out_scale);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(acc_q[4][e] * out_scale, acc_q[5][e] * out_scale,
+                        acc_q[6][e] * out_scale, acc_q[7][e] * out_scale);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = q0 + r0 + i;
+      if (t < Tq)
+        *reinterpret_cast<float4*>(a.dq + (((long long)b * Tq + t) * H + h) * HS + 4 * tc) =
+            make_float4(acc_q[i][0] * out_scale, acc_q[i][1] * out_scale,
+                        acc_q[i][2] * out_scale, acc_q[i][3] * out_scale);
+    }
   }
 }
 
 // The backward grid of (h, b): block x < ntk is the dk/dv block of key tile
 // x (tile 0, the longest causal sweep, first), x >= ntk the dq block of query
-// tile ntq - 1 - (x - ntk) (the last, the longest, first).
-template <bool GENERAL>
-__device__ __forceinline__ void backward_grid(const BwdArgs& a, int Tq, int Tk, int H,
-                                              int causal) {
-  const int ntk = ((GENERAL ? Tk : Tq) + TILE - 1) / TILE;
+// tile ntq - 1 - (x - ntk) (the last, the longest, first). dq_scale is the dt
+// case's (the others scale dq by 1 / sqrt(hs)).
+template <Case C>
+__device__ __forceinline__ void backward_grid(const BwdArgs& a, int Tq, int Tk, int H, int causal,
+                                              float dq_scale = 0.125f) {
+  const int ntk = ((C == Case::SELF ? Tq : Tk) + TILE - 1) / TILE;
   const int ntq = (Tq + TILE - 1) / TILE;
   if ((int)blockIdx.x < ntk)
-    dkv_block<GENERAL>(a, blockIdx.x, Tq, Tk, H, causal);
+    dkv_block<C>(a, blockIdx.x, Tq, Tk, H, causal);
   else
-    dq_block<GENERAL>(a, ntq - 1 - ((int)blockIdx.x - ntk), Tq, Tk, H, causal);
+    dq_block<C>(a, ntq - 1 - ((int)blockIdx.x - ntk), Tq, Tk, H, causal, dq_scale);
 }
 
 // more than 48 KB of dynamic shared memory and the largest carveout for

@@ -66,8 +66,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int T, int H, long long qsb, long long qst, long long qsh, long long ksb,
                      long long kst, long long ksh, long long vsb, long long vst, long long vsh,
                      int causal) {
-  forward_block<false>(q, k, v, o, lse, T, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                       causal);
+  forward_block<Case::SELF>(q, k, v, o, lse, T, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                            causal);
 }
 
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set

@@ -20,7 +20,7 @@
 // kernel of flash_bwd_f32.cu (gpt2vl_flash_rowdot_f32).
 //
 // It is the grid of the fp32 self-attention backward (flash_bwd_f32.cu),
-// instanced with GENERAL = true (flash_f32.cuh): the 64-key dk/dv blocks
+// instanced with Case::GENERAL (flash_f32.cuh): the 64-key dk/dv blocks
 // (key tile 0 first) and then the 64-query dq blocks (the last query tile
 // first), 8 x 4 outer-product register tiles, swept tiles copied by
 // cp.async into two slots. A dk/dv block sweeps the query tiles from the
@@ -48,7 +48,8 @@ flash_general_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
                              float* __restrict__ dq, float* __restrict__ dk,
                              float* __restrict__ dv, int Tq, int Tk, int H, Strides qs,
                              Strides ks, Strides vs, int causal) {
-  backward_grid<true>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, Tq, Tk, H, causal);
+  backward_grid<Case::GENERAL>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, Tq, Tk, H,
+                               causal);
 }
 
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set

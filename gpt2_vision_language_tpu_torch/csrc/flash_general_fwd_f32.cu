@@ -16,7 +16,7 @@
 // same functions are flash_general_fwd.cu and flash_lse_fwd.cu.
 //
 // It is the forward block of the fp32 self-attention kernel
-// (flash_fwd_f32.cu), instanced with GENERAL = true (flash_f32.cuh): 8 x 8
+// (flash_fwd_f32.cu), instanced with Case::GENERAL (flash_f32.cuh): 8 x 8
 // outer-product register tiles, 128 query rows a block (32 a warp), K/V tiles
 // of 64 keys copied by cp.async into two slots, the causal tile skip and the
 // longest sweep first, both shifted by the offset Tk - Tq; K/V rows at or
@@ -41,8 +41,8 @@ flash_general_fwd_f32_kernel(const float* __restrict__ q, const float* __restric
                              long long qst, long long qsh, long long ksb, long long kst,
                              long long ksh, long long vsb, long long vst, long long vsh,
                              int causal) {
-  forward_block<true>(q, k, v, o, lse, Tq, Tk, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                      causal);
+  forward_block<Case::GENERAL>(q, k, v, o, lse, Tq, Tk, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
+                               vsh, causal);
 }
 
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set

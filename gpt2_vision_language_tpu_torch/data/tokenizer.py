@@ -174,9 +174,12 @@ def get_tokenizer(prefer: Optional[str] = None):
         "tiktoken's GPT-2 data nor $GPT2_BPE_DIR/encoder.json+vocab.bpe are\n"
         "available. Token ids will NOT match the real GPT-2 BPE: decoding\n"
         "against real-vocab checkpoints produces garbage and eval numbers\n"
-        "are not comparable. Place GPT-2's BPE files, encoder.json and\n"
-        "vocab.bpe (the 'gpt2' files of OpenAI's release), in one directory\n"
-        "by hand and set GPT2_BPE_DIR to it.\n" + "=" * 70,
+        "are not comparable. Run\n"
+        "  python -m gpt2_vision_language_tpu_torch.cli.export_bpe --out gpt2_bpe\n"
+        "on an online machine (or with --from-hf PATH or --scan, offline, on\n"
+        "HuggingFace GPT-2 tokenizer files already on disk) and set\n"
+        "GPT2_BPE_DIR to the result, which holds encoder.json and vocab.bpe.\n"
+        + "=" * 70,
         file=sys.stderr,
     )
     return ByteFallbackTokenizer()

@@ -13,7 +13,10 @@ coalescing along the sequence against along the head: the shipping kernels
 sequence per channel and feed the tensor cores transposed fragments. On the
 TPU the QKV projection can emit the dt layout for free; here it is a copy, and
 the tool times that copy on its own line. It reports the three numbers and
-decides nothing.
+decides nothing. On fp32 operands (``--dtype fp32``) side A is the fp32
+self-attention pair (csrc/flash_fwd_f32.cu, csrc/flash_bwd_f32.cu) and side B
+the fp32 dt kernels (csrc/flash_dt_fwd_f32.cu, csrc/flash_dt_bwd_f32.cu), all
+four FFMAs on the CUDA cores.
 
   q (H, hs, B*Tq) pre-scaled by 1/sqrt(hs); k, v (H, hs, B*Tk); one slab of T
   positions per batch row; causal means query i sees keys <= i.
@@ -26,15 +29,20 @@ sublanes; here it is the one row. Their ``bq``/``bk`` arguments size VMEM
 blocks; the CUDA kernels' 64-position tiles are their own constants, so
 shapes must be multiples of 64.
 
-``flash_fwd_dt_b`` and ``flash_bwd_dt_b`` launch the kernels for CUDA tensors
-(bf16) and run the plain versions ``flash_fwd_dt_b_reference`` and
-``flash_bwd_dt_b_reference`` for CPU tensors; nothing falls back from one to
-the other. Each launch adds one to ``flash_fwd_dt_b.launches`` /
-``flash_bwd_dt_b.launches``.
+``flash_fwd_dt_b`` and ``flash_bwd_dt_b`` launch the kernels for CUDA tensors,
+routed by dtype: all bf16 to csrc/flash_dt_fwd.cu and csrc/flash_dt_bwd.cu,
+all fp32 to csrc/flash_dt_fwd_f32.cu and csrc/flash_dt_bwd_f32.cu, anything
+else refused; they run the plain versions ``flash_fwd_dt_b_reference`` and
+``flash_bwd_dt_b_reference`` for CPU tensors. Nothing falls back from one to
+the other. Each launch adds one to its kernel's counter:
+``flash_fwd_dt_b.launches`` / ``flash_bwd_dt_b.launches`` for the bf16
+kernels, ``.launches_f32`` beside them for the fp32 ones.
 
-Usage (on the card):
+Usage (on the card; ``--dtype bf16|fp32``, bf16 by default):
   python -m gpt2_vision_language_tpu_torch.tools.ab_dt_flash [--bwd] [--iters 12]
-Numerics (kernels on the card; ``--device cpu`` runs the plain versions):
+Numerics (kernels on the card; ``--device cpu`` runs the plain versions;
+``--dtype fp32|bf16``, fp32 by default: the TPU tool's own check dtype,
+inputs and limits):
   python -m gpt2_vision_language_tpu_torch.tools.ab_dt_flash --check | --check-bwd
 """
 
@@ -50,6 +58,9 @@ from ..ops.flash_attention import flash_attention, flash_attention_reference
 
 TILE = 64  # positions per tile of the CUDA kernels
 HEAD_SIZE = 64
+# the dtypes the dt kernels take, by the name --dtype gives them
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+KERNEL_DTYPES = {v: k for k, v in DTYPES.items()}
 
 
 def to_dt(x):
@@ -114,10 +125,16 @@ def _check_dt(name, a, h, hs, n):
 
 
 def _check_kernel(tensors, stats, tq, tk):
+    """Refuse what the dt kernels do not take; returns the operands' dtype,
+    bf16 or fp32, which picks the kernel."""
+    dtype = tensors[0][1].dtype
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"dt kernel takes bf16 or fp32 operands, got {tensors[0][0]} {dtype}")
     for name, a in tensors:
-        if a.dtype != torch.bfloat16 or not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError(f"dt kernel takes contiguous 16-byte aligned bf16, got {name} "
-                             f"{a.dtype} strides {a.stride()}")
+        if a.dtype != dtype or not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"dt kernel takes contiguous 16-byte aligned operands of one "
+                             f"dtype ({KERNEL_DTYPES[dtype]}), got {name} {a.dtype} strides "
+                             f"{a.stride()}")
     for name, a in stats:
         if a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError(f"dt kernel takes contiguous fp32 {name}, got {a.dtype}")
@@ -126,6 +143,7 @@ def _check_kernel(tensors, stats, tq, tk):
     if tq % TILE or tk % TILE:
         raise ValueError(f"dt kernel: aligned shapes only, Tq and Tk multiples of {TILE}, "
                          f"got {tq}, {tk}")
+    return dtype
 
 
 def _stream(t):
@@ -134,8 +152,8 @@ def _stream(t):
 
 def flash_fwd_dt_b(q, k, v, b, tq, tk, *, causal=True):
     """dt forward: q (H, hs, B*Tq) pre-scaled, k, v (H, hs, B*Tk) ->
-    (o (H, hs, B*Tq), lse (H, B*Tq) fp32). The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    (o (H, hs, B*Tq), lse (H, B*Tq) fp32). The kernel for CUDA tensors (bf16
+    or fp32, by the operands' dtype), the plain version for CPU tensors."""
     h, hs, _ = q.shape
     _check_dt("q", q, h, hs, b * tq)
     _check_dt("k", k, h, hs, b * tk)
@@ -144,28 +162,33 @@ def flash_fwd_dt_b(q, k, v, b, tq, tk, *, causal=True):
         if q.device.type != "cpu":
             raise ValueError(f"flash_fwd_dt_b: no kernel for device {q.device}")
         return flash_fwd_dt_b_reference(q, k, v, b, tq, tk, causal=causal)
-    _check_kernel((("q", q), ("k", k), ("v", v)), (), tq, tk)
+    f32 = _check_kernel((("q", q), ("k", k), ("v", v)), (), tq, tk) == torch.float32
     o = torch.empty_like(q)
     lse = torch.empty((h, b * tq), dtype=torch.float32, device=q.device)
     lib = _build.load()
+    launch = lib.gpt2vl_flash_dt_fwd_f32 if f32 else lib.gpt2vl_flash_dt_fwd
     with torch.cuda.device(q.device):
-        err = lib.gpt2vl_flash_dt_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                      lse.data_ptr(), b, tq, tk, h, hs, int(causal),
-                                      _stream(q))
-    _build.check(err, "flash_dt_fwd")
-    flash_fwd_dt_b.launches += 1
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                     b, tq, tk, h, hs, int(causal), _stream(q))
+    _build.check(err, "flash_dt_fwd_f32" if f32 else "flash_dt_fwd")
+    if f32:
+        flash_fwd_dt_b.launches_f32 += 1
+    else:
+        flash_fwd_dt_b.launches += 1
     return o, lse
 
 
 flash_fwd_dt_b.launches = 0
+flash_fwd_dt_b.launches_f32 = 0
 
 
 def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1.0):
     """dt backward: (dq * dq_scale, dk, dv) in dt layout from do (H, hs,
-    B*Tq), lse and dcap (H, B*Tq) fp32. The kernel for CUDA tensors, the plain
-    version for CPU tensors. The kernel sums each of dq, dk and dv in a fixed
-    order in one block, as the TPU kernel sums dq in one scratch in key
-    order: all three are bit-equal from run to run."""
+    B*Tq), lse and dcap (H, B*Tq) fp32. The kernel for CUDA tensors (bf16 or
+    fp32, by the operands' dtype), the plain version for CPU tensors. Both
+    kernels sum each of dq, dk and dv in a fixed order in one block, as the
+    TPU kernel sums dq in one scratch in key order: all three are bit-equal
+    from run to run."""
     h, hs, _ = q.shape
     _check_dt("q", q, h, hs, b * tq)
     _check_dt("do", do, h, hs, b * tq)
@@ -179,21 +202,25 @@ def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1
             raise ValueError(f"flash_bwd_dt_b: no kernel for device {q.device}")
         return flash_bwd_dt_b_reference(q, k, v, do, lse, dcap, b, tq, tk, causal=causal,
                                         dq_scale=dq_scale)
-    _check_kernel((("q", q), ("k", k), ("v", v), ("do", do)),
-                  (("lse", lse), ("dcap", dcap)), tq, tk)
+    f32 = _check_kernel((("q", q), ("k", k), ("v", v), ("do", do)),
+                        (("lse", lse), ("dcap", dcap)), tq, tk) == torch.float32
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load()
+    launch = lib.gpt2vl_flash_dt_bwd_f32 if f32 else lib.gpt2vl_flash_dt_bwd
     with torch.cuda.device(q.device):
-        err = lib.gpt2vl_flash_dt_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dcap.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, tq, tk, h, hs, int(causal), float(dq_scale), _stream(q))
-    _build.check(err, "flash_dt_bwd")
-    flash_bwd_dt_b.launches += 1
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     dcap.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     b, tq, tk, h, hs, int(causal), float(dq_scale), _stream(q))
+    _build.check(err, "flash_dt_bwd_f32" if f32 else "flash_dt_bwd")
+    if f32:
+        flash_bwd_dt_b.launches_f32 += 1
+    else:
+        flash_bwd_dt_b.launches += 1
     return dq, dk, dv
 
 
 flash_bwd_dt_b.launches = 0
+flash_bwd_dt_b.launches_f32 = 0
 
 
 def dcap_dt(o, do):
@@ -215,45 +242,52 @@ def _device(device):
     return device
 
 
-def _check_inputs(seed, n, device):
-    """n fp32 (B, T, H, hs) tensors at the TPU tool's check shape; on the card
-    they are rounded to bf16, which is what the kernels take."""
+# the checks' limits by dtype: fp32 the TPU tool's own (o, and the gradients
+# relative to max |ref|); bf16 about one bf16 ulp of an output of size up to
+# about 4, and P and dS rounded to bf16 before their products
+CHECK_LIMITS = {"fp32": (2e-5, 1e-5), "bf16": (2e-2, 3e-2)}
+
+
+def _check_inputs(seed, n, device, dtype):
+    """n (B, T, H, hs) tensors at the TPU tool's check shape, drawn in fp32 as
+    it draws them, in ``dtype`` ("fp32", or "bf16": rounded)."""
     b, h, t, hs = 2, 3, 1024, 64
     rng = np.random.RandomState(seed)
     xs = [torch.from_numpy(rng.randn(b, h, t, hs).astype(np.float32)).transpose(1, 2)
           for _ in range(n)]
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    return [x.to(device=device, dtype=dtype).contiguous() for x in xs], (b, h, t, hs)
+    return [x.to(device=device, dtype=DTYPES[dtype]).contiguous() for x in xs], (b, h, t, hs)
 
 
-def check_numerics(device="cuda"):
+def check_numerics(device="cuda", dtype="fp32"):
     """The dt forward against the shipping path's plain reference at
-    (2, 3, 1024, 64). Limit 2e-5 for the fp32 plain version (CPU, the TPU
-    tool's limit), 2e-2 for the bf16 kernel on the card (one bf16 ulp of an
-    output of size up to about 4)."""
+    (2, 3, 1024, 64) on ``dtype`` operands: on fp32 the TPU tool's own check
+    (its inputs, limit 2e-5), on bf16 limit 2e-2. The kernels on the card,
+    the plain versions on the CPU."""
     device = _device(device)
-    (q, k, v), (b, h, t, hs) = _check_inputs(0, 3, device)
+    limit = CHECK_LIMITS[dtype][0]
+    (q, k, v), (b, h, t, hs) = _check_inputs(0, 3, device, dtype)
     ref, _ = flash_attention_reference(q.float(), k.float(), v.float(), causal=True)
     scale = hs ** -0.5
     o_dt, lse = flash_fwd_dt_b(to_dt(q * scale), to_dt(k), to_dt(v), b, t, t, causal=True)
     got = from_dt(o_dt, b, t).float()
     err = float((got - ref).abs().max())
-    limit = 2e-2 if device.type == "cuda" else 2e-5
     print(f"dt fwd max |err| vs the shipping path's plain version: {err:.2e} "
-          f"(limit {limit:.0e}, {device.type})")
-    assert err < limit, err
+          f"(limit {limit:.0e}, {dtype}, {device.type})")
+    assert o_dt.dtype == q.dtype and err < limit, err
     assert lse.shape == (h, b * t) and bool(torch.isfinite(lse).all())
     print("OK")
     return err
 
 
-def check_bwd_numerics(device="cuda"):
+def check_bwd_numerics(device="cuda", dtype="fp32"):
     """The dt forward + backward against the gradients of the shipping path's
-    plain reference (autograd) at (2, 3, 1024, 64): relative to max |ref|,
-    limit 1e-5 for the fp32 plain versions (CPU, the TPU tool's limit), 3e-2
-    for the bf16 kernels on the card."""
+    plain reference (autograd) at (2, 3, 1024, 64) on ``dtype`` operands,
+    relative to max |ref|: on fp32 the TPU tool's own check (limit 1e-5), on
+    bf16 limit 3e-2. The kernels on the card, the plain versions on the
+    CPU."""
     device = _device(device)
-    (q, k, v, dout), (b, h, t, hs) = _check_inputs(1, 4, device)
+    limit = CHECK_LIMITS[dtype][1]
+    (q, k, v, dout), (b, h, t, hs) = _check_inputs(1, 4, device, dtype)
     q32, k32, v32 = (a.float().clone().requires_grad_() for a in (q, k, v))
     o_ref, _ = flash_attention_reference(q32, k32, v32, causal=True)
     refs = torch.autograd.grad((o_ref * dout.float()).sum(), (q32, k32, v32))
@@ -262,13 +296,12 @@ def check_bwd_numerics(device="cuda"):
     o, lse = flash_fwd_dt_b(qs, kd, vd, b, t, t, causal=True)
     dq, dk, dv = flash_bwd_dt_b(qs, kd, vd, dod, lse, dcap_dt(o, dod), b, t, t, causal=True,
                                 dq_scale=scale)
-    limit = 3e-2 if device.type == "cuda" else 1e-5
     rels = {}
     for name, got, ref in (("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])):
         err = float((from_dt(got, b, t).float() - ref).abs().max())
         rels[name] = err / float(ref.abs().max())
-        print(f"{name}: max |err| {err:.2e} (rel {rels[name]:.2e}, limit {limit:.0e})")
-        assert rels[name] < limit, (name, err)
+        print(f"{name}: max |err| {err:.2e} (rel {rels[name]:.2e}, limit {limit:.0e}, {dtype})")
+        assert got.dtype == q.dtype and rels[name] < limit, (name, err)
     print("OK")
     return rels
 
@@ -291,13 +324,13 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bench_inputs(device, seed=0):
+def _bench_inputs(device, seed=0, dtype="bf16"):
     """The fused QKV output of one layer at the pretrain shape and an output
-    cotangent: (B, T, 3C) and (B, T, H, hs) bf16."""
+    cotangent: (B, T, 3C) and (B, T, H, hs) in ``dtype`` (bf16 or fp32)."""
     b, h, t, hs = 8, 12, 1024, 64
     g = torch.Generator(device).manual_seed(seed)
-    qkv = torch.randn(b, t, 3 * h * hs, generator=g, device=device).to(torch.bfloat16)
-    dout = torch.randn(b, t, h, hs, generator=g, device=device).to(torch.bfloat16)
+    qkv = torch.randn(b, t, 3 * h * hs, generator=g, device=device).to(DTYPES[dtype])
+    dout = torch.randn(b, t, h, hs, generator=g, device=device).to(DTYPES[dtype])
     return qkv, dout, (b, h, t, hs)
 
 
@@ -309,19 +342,21 @@ def _report(title, rows, layers):
     return rows
 
 
-def bench(device="cuda", layers: int = 12):
-    """Device A/B of the forward over ``layers`` calls, by CUDA events.
+def bench(device="cuda", layers: int = 12, dtype="bf16"):
+    """Device A/B of the forward over ``layers`` calls, by CUDA events, on
+    ``dtype`` operands.
 
     A = the shipping path: flash_attention(layout="bthd") on the strided
-        views of the fused QKV output (csrc/flash_fwd.cu).
-    B = the dt forward alone (csrc/flash_dt_fwd.cu).
+        views of the fused QKV output (csrc/flash_fwd.cu; on fp32 operands
+        csrc/flash_fwd_f32.cu).
+    B = the dt forward alone (csrc/flash_dt_fwd.cu; csrc/flash_dt_fwd_f32.cu).
     T = the copies into and out of the dt layout (q scaled, k, v in; o out),
         which the TPU projection emits for free and this port would pay.
     """
     device = _device(device)
     if device.type != "cuda":
         raise RuntimeError("ab_dt_flash bench measures device time: it needs a CUDA device")
-    qkv, _, (b, h, t, hs) = _bench_inputs(device)
+    qkv, _, (b, h, t, hs) = _bench_inputs(device, dtype=dtype)
     q, k, v = (a.view(b, t, h, hs) for a in qkv.split(h * hs, dim=-1))
     scale = hs ** -0.5
     qd, kd, vd = to_dt(q * scale), to_dt(k), to_dt(v)
@@ -336,25 +371,28 @@ def bench(device="cuda", layers: int = 12):
                 lambda: (to_dt(q * scale), to_dt(k), to_dt(v),
                          from_dt(o_dt, b, t).contiguous()), layers),
         }
-    return _report(f"forward, B={b} T={t} H={h} hs={hs} bf16 causal, "
+    return _report(f"forward, B={b} T={t} H={h} hs={hs} {dtype} causal, "
                    f"{torch.cuda.get_device_name(device)}", rows, layers)
 
 
-def bench_bwd(device="cuda", layers: int = 12):
-    """Device A/B of forward + backward over ``layers`` calls, by CUDA events.
+def bench_bwd(device="cuda", layers: int = 12, dtype="bf16"):
+    """Device A/B of forward + backward over ``layers`` calls, by CUDA events,
+    on ``dtype`` operands.
 
     A = the shipping path through autograd: flash_attention(layout="bthd") on
         the strided QKV views and its backward (csrc/flash_fwd.cu,
-        csrc/flash_bwd.cu).
+        csrc/flash_bwd.cu; on fp32 operands the fp32 pair,
+        csrc/flash_fwd_f32.cu, csrc/flash_bwd_f32.cu).
     B = dt forward + dcap + dt one-pass backward (csrc/flash_dt_fwd.cu,
-        csrc/flash_dt_bwd.cu).
+        csrc/flash_dt_bwd.cu; csrc/flash_dt_fwd_f32.cu,
+        csrc/flash_dt_bwd_f32.cu).
     T = the copies into and out of the dt layout (q scaled, k, v, dO in;
         o, dq, dk, dv out).
     """
     device = _device(device)
     if device.type != "cuda":
         raise RuntimeError("ab_dt_flash bench measures device time: it needs a CUDA device")
-    qkv, dout, (b, h, t, hs) = _bench_inputs(device)
+    qkv, dout, (b, h, t, hs) = _bench_inputs(device, dtype=dtype)
     qkv.requires_grad_()
     scale = hs ** -0.5
 
@@ -385,7 +423,7 @@ def bench_bwd(device="cuda", layers: int = 12):
         rows["B dt forward + backward"] = _time_ms(path_b, layers)
         rows["T transposes (q*scale, k, v, dO in; o, dq, dk, dv out)"] = _time_ms(
             transposes, layers)
-    return _report(f"forward + backward, B={b} T={t} H={h} hs={hs} bf16 causal, "
+    return _report(f"forward + backward, B={b} T={t} H={h} hs={hs} {dtype} causal, "
                    f"{torch.cuda.get_device_name(device)}", rows, layers)
 
 
@@ -397,14 +435,18 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=12, help="layers per timed loop")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cpu runs the plain versions of the checks")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
+                    help="the operands' dtype: the checks default to fp32 (the TPU tool's "
+                         "check dtype and limits), the benches to bf16")
     args = ap.parse_args(argv)
+    check_dtype, bench_dtype = args.dtype or "fp32", args.dtype or "bf16"
     if args.check:
-        return check_numerics(args.device)
+        return check_numerics(args.device, check_dtype)
     if args.check_bwd:
-        return check_bwd_numerics(args.device)
+        return check_bwd_numerics(args.device, check_dtype)
     if args.bwd:
-        return bench_bwd(args.device, args.iters)
-    return bench(args.device, args.iters)
+        return bench_bwd(args.device, args.iters, bench_dtype)
+    return bench(args.device, args.iters, bench_dtype)
 
 
 if __name__ == "__main__":

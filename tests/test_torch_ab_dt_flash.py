@@ -3,6 +3,7 @@ TPU tool's Pallas kernels in interpret mode on the same inputs (made from a
 seed with numpy), the layout helpers, the checks on the CPU, and the wrappers'
 refusals."""
 
+import contextlib
 import importlib.util
 import os
 
@@ -167,18 +168,88 @@ def test_layout_helpers_round_trip():
 
 def test_checks_run_the_plain_versions_on_the_cpu(capsys):
     """--check and --check-bwd at the TPU tool's (2, 3, 1024, 64) fp32 shape
-    and limits; the launch counts stay 0 on CPU tensors."""
+    and limits (fp32 is the checks' default dtype); the launch counts stay 0
+    on CPU tensors."""
     err = ab.main(["--check", "--device", "cpu"])
     rels = ab.main(["--check-bwd", "--device", "cpu"])
     out = capsys.readouterr().out
     assert err < 2e-5 and max(rels.values()) < 1e-5 and out.count("OK") == 2
+    assert "limit 2e-05, fp32" in out and "limit 1e-05, fp32" in out
     assert ab.flash_fwd_dt_b.launches == ab.flash_bwd_dt_b.launches == 0
+    assert ab.flash_fwd_dt_b.launches_f32 == ab.flash_bwd_dt_b.launches_f32 == 0
+
+
+@pytest.mark.parametrize("dtype,limits", [("fp32", (2e-5, 1e-5)), ("bf16", (2e-2, 3e-2))])
+def test_checks_in_both_dtypes_on_the_cpu(capsys, dtype, limits):
+    """--dtype picks the checks' operands and limits on any device: fp32 the
+    TPU tool's own (2e-5 for o, 1e-5 of max|ref| for the gradients), bf16 the
+    card's bf16 limits on inputs rounded to bf16, whose plain versions round
+    P and dS as the bf16 kernels do (so they read far above the fp32
+    limits)."""
+    err = ab.main(["--check", "--device", "cpu", "--dtype", dtype])
+    rels = ab.main(["--check-bwd", "--device", "cpu", "--dtype", dtype])
+    out = capsys.readouterr().out
+    assert out.count("OK") == 2 and out.count(f", {dtype}") == 4
+    assert err < limits[0] and max(rels.values()) < limits[1]
+    if dtype == "bf16":
+        assert err > 2e-5 and max(rels.values()) > 1e-5
+
+
+class _Lib:
+    """Recording stand-ins for the dt kernels' entry points."""
+
+    def __init__(self):
+        self.calls = []
+        for name in ("gpt2vl_flash_dt_fwd", "gpt2vl_flash_dt_fwd_f32", "gpt2vl_flash_dt_bwd",
+                     "gpt2vl_flash_dt_bwd_f32"):
+            setattr(self, name, lambda *args, _name=name: self.calls.append(_name) or 0)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports is_cuda, so that the wrappers take the card's
+    route; the launchers are replaced by recording stubs."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""), (torch.float32, "_f32")])
+def test_wrappers_route_by_dtype(monkeypatch, dtype, suffix):
+    """On operands that report the card, all bf16 goes to the bf16 kernels and
+    all fp32 to the fp32 ones, each launch counted on its own kernel's
+    counter; fp16 and mixed operands are refused, with nothing launched."""
+    lib = _Lib()
+    monkeypatch.setattr(ab._build, "load", lambda: lib)
+    monkeypatch.setattr(ab, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    for fn in (ab.flash_fwd_dt_b, ab.flash_bwd_dt_b):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "launches_f32", 0)
+    x = torch.zeros(H, HS, B * T, dtype=dtype).as_subclass(_OnCard)
+    stats = torch.zeros(H, B * T).as_subclass(_OnCard)
+    o, lse = ab.flash_fwd_dt_b(x, x, x, B, T, T)
+    dq, dk, dv = ab.flash_bwd_dt_b(x, x, x, x, stats, stats, B, T, T, dq_scale=0.125)
+    assert lib.calls == [f"gpt2vl_flash_dt_fwd{suffix}", f"gpt2vl_flash_dt_bwd{suffix}"]
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    counter = "launches_f32" if suffix else "launches"
+    other = "launches" if suffix else "launches_f32"
+    for fn in (ab.flash_fwd_dt_b, ab.flash_bwd_dt_b):
+        assert getattr(fn, counter) == 1 and getattr(fn, other) == 0
+    other_dtype = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for bad in (x.to(torch.float16), x.to(other_dtype)):
+        with pytest.raises(ValueError, match="bf16 or fp32|one dtype"):
+            ab.flash_fwd_dt_b(x, bad, x, B, T, T)
+        with pytest.raises(ValueError, match="bf16 or fp32|one dtype"):
+            ab.flash_bwd_dt_b(bad, bad, bad, x, stats, stats, B, T, T)
+    assert len(lib.calls) == 2
 
 
 def test_refusals():
     """No silent CPU for the device modes, no misaligned or mis-shaped input."""
     if not torch.cuda.is_available():
-        for argv in ([], ["--bwd"], ["--check"], ["--check-bwd"]):
+        for argv in ([], ["--bwd"], ["--check"], ["--check-bwd"], ["--check", "--dtype", "bf16"],
+                     ["--bwd", "--dtype", "fp32"]):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 ab.main(argv)
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
@@ -194,8 +265,14 @@ def test_refusals():
     ok_stats = torch.zeros(H, B * T)
     with pytest.raises(ValueError, match="multiples of 64"):
         ab._check_kernel((("q", bf),), (), 100, 128)
-    with pytest.raises(ValueError, match="bf16"):
-        ab._check_kernel((("q", q),), (), 128, 128)
+    # bf16 or fp32 operands of one dtype: fp32 now has its kernels, fp16 and
+    # mixed operands have none
+    assert ab._check_kernel((("q", q), ("k", q)), (), 128, 128) == torch.float32
+    assert ab._check_kernel((("q", bf), ("k", bf)), (), 128, 128) == torch.bfloat16
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        ab._check_kernel((("q", q.half()),), (), 128, 128)
+    with pytest.raises(ValueError, match="one dtype"):
+        ab._check_kernel((("q", q), ("k", bf)), (), 128, 128)
     with pytest.raises(ValueError, match="fp32"):
         ab._check_kernel((("q", bf),), (("lse", ok_stats.double()),), 128, 128)
     with pytest.raises(ValueError, match="head size"):
@@ -206,11 +283,13 @@ def test_kernel_sources_and_signatures_are_registered():
     from gpt2_vision_language_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    # sixteen sources since the fp32 general pair (flash_general_fwd_f32.cu,
-    # flash_general_bwd_f32.cu)
-    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu"} <= names and len(names) == 16
-    assert len(_build.SIGNATURES["gpt2vl_flash_dt_fwd"]) == 12
-    assert len(_build.SIGNATURES["gpt2vl_flash_dt_bwd"]) == 17
-    for name in ("flash_dt_fwd", "flash_dt_bwd"):
+    # eighteen sources since the fp32 dt pair (flash_dt_fwd_f32.cu,
+    # flash_dt_bwd_f32.cu)
+    assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu", "flash_dt_fwd_f32.cu",
+            "flash_dt_bwd_f32.cu"} <= names and len(names) == 18
+    for suffix in ("", "_f32"):
+        assert len(_build.SIGNATURES[f"gpt2vl_flash_dt_fwd{suffix}"]) == 12
+        assert len(_build.SIGNATURES[f"gpt2vl_flash_dt_bwd{suffix}"]) == 17
+    for name in ("flash_dt_fwd", "flash_dt_bwd", "flash_dt_fwd_f32", "flash_dt_bwd_f32"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int gpt2vl_{name}(' in src and "tools/ab_dt_flash.py" in src

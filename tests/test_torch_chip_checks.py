@@ -332,3 +332,75 @@ def test_plain_bf16_dt_backward_passes_row_check(dt_backward, which):
     _, grads, grads32 = dt_backward
     x, ref = grads[which], grads32[which]
     assert cs.dt_grad_row_excess(x, ref)[1] <= 0 and cs.rel_err(x, ref) <= 3e-2
+
+
+# phase 19b: the fp32 dt kernels under the fp32 rules of phases 2b and 2c
+# (``f32_fwd_row_err``, ``f32_row_err`` on (B, T, H, hs) views), with the
+# controls of phase 19 and the right-aligned mask
+
+
+def _dt_f32(seed, b, tq, tk, h=2):
+    """q (pre-scaled), k, v, dO in the dt layout (H, 64, B*T), fp32."""
+    rng = np.random.RandomState(seed)
+    to_dt = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x.transpose(2, 3, 0, 1).reshape(h, HS, -1)))
+    q, do = (rng.randn(b, tq, h, HS).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, tk, h, HS).astype(np.float32) for _ in range(2))
+    return to_dt(q * HS ** -0.5), to_dt(k), to_dt(v), to_dt(do)
+
+
+@pytest.mark.parametrize("b,tq,tk", [(2, 128, 256), (2, 256, 128), (3, 192, 192)])
+def test_dt_f32_masked_with_the_dt_mask_is_the_plain_dt_pair(b, tq, tk):
+    """``dt_f32_masked`` with the dt kernels' own mask (query i sees keys <=
+    i) gives the plain dt forward's o and the plain dt backward's dq, dk, dv
+    on that forward's lse and dcap, within the fp32 rules: the control's
+    arithmetic is the plain version's, only its mask differs."""
+    qd, kd, vd, dod = _dt_f32(21, b, tq, tk)
+    hide = torch.arange(tk)[None, :] > torch.arange(tq)[:, None]
+    o_c, *grads_c = cs.dt_f32_masked(torch, qd, kd, vd, dod, b, tq, tk, hide, HS ** -0.5)
+    o, lse = ab.flash_fwd_dt_b_reference(qd, kd, vd, b, tq, tk, causal=True)
+    grads = ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, ab.dcap_dt(o, dod), b, tq, tk,
+                                        causal=True, dq_scale=HS ** -0.5)
+    assert cs.f32_fwd_row_err(ab.from_dt(o_c, b, tq), ab.from_dt(o, b, tq)) <= cs.F32_ROW_TOL
+    for x, r, n in zip(grads_c, grads, (tq, tk, tk)):
+        assert cs.rel_err(x, r) <= cs.F32_TOL
+        assert cs.f32_row_err(ab.from_dt(x, b, n), ab.from_dt(r, b, n)) <= cs.F32_ROW_TOL
+
+
+def test_dt_right_aligned_mask_fails_the_f32_row_rules():
+    """Phase 19b's control at Tq < Tk: the causal mask right-aligned (the
+    general kernels' rule) fails the fp32 row rules of o and of the
+    gradients against the dt pair's plain versions."""
+    b, tq, tk = 2, 128, 256
+    qd, kd, vd, dod = _dt_f32(22, b, tq, tk)
+    o, lse = ab.flash_fwd_dt_b_reference(qd, kd, vd, b, tq, tk, causal=True)
+    grads = ab.flash_bwd_dt_b_reference(qd, kd, vd, dod, lse, ab.dcap_dt(o, dod), b, tq, tk,
+                                        causal=True, dq_scale=HS ** -0.5)
+    hide = cs.general_hide(torch, tq, tk, True, "cpu")
+    o_c, *grads_c = cs.dt_f32_masked(torch, qd, kd, vd, dod, b, tq, tk, hide, HS ** -0.5)
+    assert cs.f32_fwd_row_err(ab.from_dt(o, b, tq), ab.from_dt(o_c, b, tq)) > cs.F32_ROW_TOL
+    assert max(cs.f32_row_err(ab.from_dt(x, b, n), ab.from_dt(w, b, n))
+               for x, w, n in zip(grads, grads_c, (tq, tk, tk))) > cs.F32_ROW_TOL
+
+
+def test_dt_controls_fail_the_f32_row_rules():
+    """Phase 19's three controls, held by phase 19b to the fp32 row rules at
+    T=8192, fail them here at T=1024 with drop points scaled to it; the
+    plain dt pair passes them against itself run on fp64 operands."""
+    t = 1024
+    qd, kd, vd, dod = _dt_f32(23, 1, t, t, h=1)
+    o, lse = ab.flash_fwd_dt_b_reference(qd, kd, vd, 1, t, t, causal=True)
+    dcap = ab.dcap_dt(o, dod)
+    args = (qd, kd, vd, dod, lse, dcap, 1, t, t)
+    dq, dk, dv = ab.flash_bwd_dt_b_reference(*args, causal=True, dq_scale=HS ** -0.5)
+    late = cs.dt_rows_without_first_keys(torch, qd, kd, vd, t)
+    assert cs.f32_fwd_row_err(ab.from_dt(o[:, :, t - 128:], 1, 128),
+                              ab.from_dt(late, 1, 128)) > cs.F32_ROW_TOL
+    sk, sv = cs.dt_dkv_reference(torch, *args, drop_after=960, heads=1)
+    assert max(cs.f32_row_err(ab.from_dt(x, 1, t), ab.from_dt(r, 1, t))
+               for x, r in ((sk, dk), (sv, dv))) > cs.F32_ROW_TOL
+    sq = cs.dt_dq_reference(torch, *args, dq_scale=HS ** -0.5, drop_before=768, heads=1)
+    assert cs.f32_row_err(ab.from_dt(sq, 1, t), ab.from_dt(dq, 1, t),
+                          causal_dq=True) > cs.F32_ROW_TOL
+    o64, _ = ab.flash_fwd_dt_b_reference(qd.double(), kd.double(), vd.double(), 1, t, t)
+    assert cs.f32_fwd_row_err(ab.from_dt(o, 1, t), ab.from_dt(o64, 1, t)) <= cs.F32_ROW_TOL

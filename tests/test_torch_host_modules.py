@@ -47,7 +47,8 @@ def test_no_source_imports_the_jax_package():
 def test_no_user_facing_string_names_the_jax_package(capsys, monkeypatch):
     """No source of the port, nor chip_smoke.py, points its user at a command
     of the JAX package (docstrings cite its files by path, which stays); the
-    tokenizer's fallback warning says to place the BPE files by hand."""
+    tokenizer's fallback warning names the BPE files and the port's own
+    exporter."""
     files = _port_sources() + [os.path.join(d, n) for d, _, names in os.walk(PORT_DIR)
                                for n in names if n.endswith((".cu", ".cuh"))]
     bad = [(f, line.strip()) for f in files for line in open(f, encoding="utf-8")
@@ -78,7 +79,9 @@ def test_importing_every_port_module_loads_no_jax():
             port.__name__ + ".eval.meteor", port.__name__ + ".eval.synonyms",
             port.__name__ + ".cli.eval_quality", port.__name__ + ".models.clip_vit",
             port.__name__ + ".cli.extract_clip_features",
-            port.__name__ + ".cli.caption"} <= set(mods)
+            port.__name__ + ".cli.caption", port.__name__ + ".data.bpe_export",
+            port.__name__ + ".cli.export_bpe", port.__name__ + ".data.hellaswag_download",
+            port.__name__ + ".cli.prepare_fineweb"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -58,6 +58,11 @@ PORT_MODULES = (
     "gpt2_vision_language_tpu_torch.models.clip_vit",
     "gpt2_vision_language_tpu_torch.cli.extract_clip_features",
     "gpt2_vision_language_tpu_torch.cli.caption",
+    # the host CLIs: the BPE exporter, the HellaSwag fetcher, the shard writer
+    "gpt2_vision_language_tpu_torch.data.bpe_export",
+    "gpt2_vision_language_tpu_torch.cli.export_bpe",
+    "gpt2_vision_language_tpu_torch.data.hellaswag_download",
+    "gpt2_vision_language_tpu_torch.cli.prepare_fineweb",
 )
 
 

@@ -74,7 +74,9 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_fwd_f32.cu": {"flash_f32.cuh"},
           "flash_bwd_f32.cu": {"flash_f32.cuh"},
           "flash_general_fwd_f32.cu": {"flash_f32.cuh"},
-          "flash_general_bwd_f32.cu": {"flash_f32.cuh"}}
+          "flash_general_bwd_f32.cu": {"flash_f32.cuh"},
+          "flash_dt_fwd_f32.cu": {"flash_f32.cuh"},
+          "flash_dt_bwd_f32.cu": {"flash_f32.cuh"}}
 
 
 def test_sources_include_only_their_own_headers():
@@ -83,9 +85,9 @@ def test_sources_include_only_their_own_headers():
     key-major backward (K3c, K3b) and the query-major dq block (K3a); the
     self-attention backward (K1-bwd) and the dt-layout backward (P2) run both
     backward blocks, and the fused LM-head + CE forward (K4) includes
-    hopper.cuh alone. The fp32 kernels, the self-attention pair and the
-    general pair, share csrc/flash_f32.cuh (its FFMA register tiles,
-    cp.async copies and blocks). The library name hashes
+    hopper.cuh alone. The fp32 kernels, the self-attention pair, the
+    general pair and the dt-layout pair, share csrc/flash_f32.cuh (its FFMA
+    register tiles, cp.async copies and blocks). The library name hashes
     every header with the sources, so an edit of one rebuilds them. The
     Hopper sources run wgmma and load by TMA, and none of them, nor the
     headers, uses nvcuda::wmma."""
@@ -220,10 +222,12 @@ def test_ce_forward_is_a_wgmma_gemm_with_a_row_epilogue():
                                         ("flash_general_fwd_f32.cu",
                                          "gpt2vl_flash_general_fwd_f32"),
                                         ("flash_general_bwd_f32.cu",
-                                         "gpt2vl_flash_general_bwd_f32")])
+                                         "gpt2vl_flash_general_bwd_f32"),
+                                        ("flash_dt_fwd_f32.cu", "gpt2vl_flash_dt_fwd_f32"),
+                                        ("flash_dt_bwd_f32.cu", "gpt2vl_flash_dt_bwd_f32")])
 def test_fp32_pair_is_ffma_only(name, entry):
-    """The fp32 kernels, the self-attention pair and the general pair, keep
-    every product an fp32 FFMA: no tensor-core instruction (wgmma, mma,
+    """The fp32 kernels, the self-attention pair, the general pair and the
+    dt-layout pair, keep every product an fp32 FFMA: no tensor-core instruction (wgmma, mma,
     wmma: TF32 would keep 10 bits of the operands' 23) and no atomics (dq,
     dk, dv bit-equal run to run); their swept tiles arrive by cp.async
     through csrc/flash_f32.cuh, and each kernel states its resident blocks in
@@ -239,16 +243,20 @@ def test_fp32_pair_is_ffma_only(name, entry):
             assert not re.search(gone, body), (name, gone)
 
 
-@pytest.mark.parametrize("name,instance", [("flash_fwd_f32.cu", "forward_block<false>("),
-                                           ("flash_general_fwd_f32.cu", "forward_block<true>("),
-                                           ("flash_bwd_f32.cu", "backward_grid<false>("),
-                                           ("flash_general_bwd_f32.cu", "backward_grid<true>(")])
+@pytest.mark.parametrize("name,instance", [
+    ("flash_fwd_f32.cu", "forward_block<Case::SELF>("),
+    ("flash_general_fwd_f32.cu", "forward_block<Case::GENERAL>("),
+    ("flash_dt_fwd_f32.cu", "forward_block<Case::DT>("),
+    ("flash_bwd_f32.cu", "backward_grid<Case::SELF>("),
+    ("flash_general_bwd_f32.cu", "backward_grid<Case::GENERAL>("),
+    ("flash_dt_bwd_f32.cu", "backward_grid<Case::DT>(")])
 def test_fp32_blocks_are_written_once(name, instance):
     """The fp32 forward block and the backward grid (its dk/dv and dq blocks)
-    are written once, in csrc/flash_f32.cuh, with the general case (Tq != Tk,
-    the right-aligned causal offset) a compile-time parameter: the
-    self-attention kernels instance them with GENERAL = false, the general
-    ones with true, and no source repeats their products. The fp32 D kernel
+    are written once, in csrc/flash_f32.cuh, with the case a compile-time
+    parameter: the self-attention kernels instance them with Case::SELF, the
+    general ones (Tq != Tk, the right-aligned causal offset) with
+    Case::GENERAL, the A/B tool's dt-layout ones (the transposed layout, no
+    offset) with Case::DT, and no source repeats their products. The fp32 D kernel
     stays in flash_bwd_f32.cu, whose C entry point gpt2vl_flash_rowdot_f32
     gives the general backward its row term."""
     header = (_build.CSRC / "flash_f32.cuh").read_text()
