@@ -145,7 +145,8 @@ Phases (any failure raises and the script exits non-zero):
  18. the ring trainer: cli.pretrain --synthetic --seq-len 16384 --micro-batch
      1 --total-batch 32768 --attn-impl ring --tp 4 --steps 2 (validation
      through the ring on the lse forward and the CE kernel, checkpoints), then
-     --steps 3 resumes; --tp 4 without --attn-impl ring must raise;
+     --steps 3 resumes; --tp 4 without --attn-impl ring on one process (Megatron
+     TP, which runs over tp processes) must raise;
  10b. (run after 18) the general kernels on fp32 operands
      (csrc/flash_general_fwd_f32.cu: K2b's function; the fp32 D;
      csrc/flash_general_bwd_f32.cu: K3a's and K3b's in one launch) vs their
@@ -301,6 +302,33 @@ Phases (any failure raises and the script exits non-zero):
      (e) 2 trainer steps with --opt-state-dtype int8, then a resume with
      bfloat16 that ends with bf16 moments.
 
+Phases 32-36, the parallel styles: processes that share cuda:0 over gloo
+(gpt2_vision_language_tpu_torch/tools/dist_worker.py, one JSON job list a
+launch), each step held by rank 0 against the one-process step it runs
+first from the same seeded state on the same rows, at the schedule's peak
+LR (``PAR_LIMITS``: loss 1e-2, grad norm 2%, grads 2e-2 relative L2, the
+clip norm within 1e-4 of its own gathered grads' norm, the update within
+1e-3 of the plain AdamW replayed on its gathered grads; the ring's loss
+5e-3), and each rank's launch counts exact:
+ 32. DP over 2 ranks, GPT-2 124M, bf16: 2 micro-batches of (B=8, T=1024) a
+     rank, phase 8's 32 rows (12 + 12 K1 a micro-batch, 1 K5 a rank); a
+     control that skips the grad all-reduce must fail; then python -m
+     torch.distributed.run --nproc_per_node 2 -m ...cli.pretrain --synthetic
+     --devices 2 --device cuda:0 --val-every 0 --steps 2, and --steps 3
+     resumes;
+ 33. Megatron TP=2 (6 heads a rank), then TP=2 with sequence parallelism,
+     4 x (B=8, T=1024); K1 at H=6, 48 + 48 a rank; one validation
+     micro-batch through K4 on the gathered wte (12 K1-fwd, 1 K4, its loss
+     within 1e-2);
+ 34. TP=4 at the 1558M width (n_embd 1600, 25 heads: 7, 6, 6, 6 a rank), 2
+     layers, 2 x (B=2, T=1024); a control whose clip norm counts the
+     replicated leaves 4 times must fail;
+ 35. the ring over 4 processes, 124M, 2 x (B=1, T=16384), a chunk of 4096 a
+     rank (K/V through pinned host memory): rank r launches K2a, D and K3c
+     24 (r + 1) times, 240 each in all, as the one-process ring;
+ 36. DP fine-tunes (linear, Q-Former with its dropout) over 2 ranks of 64
+     rows, the preset's 128 in all, 2 micro-batches, 12 layers.
+
 Prints the card's name and power limit, one JSON line with each kernel's
 launches (from the trainer runs of phases 9, 14 and 18, the tool's run of
 phase 20 (both dtypes) and, for the fp32 forward kernel, phase 26's fp32
@@ -308,7 +336,9 @@ HellaSwag run,
 for the fp32 backward kernel phase 29's fp32 train step, for the fp32
 general and lse kernels the fp32 trainer runs of phase 18b;
 the fine-tune runs of phase 23 and the HellaSwag runs of phase 26 beside
-them), error, times, bound and library-call time, the whole run's seconds,
+them, and each rank's of phases 32-35), error, times, bound and library-call
+time, one {"parallel": ...} line (each run's readings, seconds and peak GiB
+per rank, tokens/s of phases 32 and 35), the whole run's seconds,
 and last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device.
 
@@ -2201,11 +2231,14 @@ def phase_ring_trainer(torch, mods, cfgs):
                 and resumed["flash_general_fwd"] == 0 and out["opt_state"]["step"] == 3,
                 "the second call did not resume at step 2 and run one step on the ring")
         try:
+            # Megatron TP runs over tp processes (phases 33-34); one refuses it
             mods["pretrain"].main(argv + ["--tp", "4", "--steps", "1"])
-        except NotImplementedError as e:
-            print(f"  --tp 4 without --attn-impl ring: NotImplementedError: {e}", flush=True)
+        except ValueError as e:
+            require("runs over tp processes" in str(e), f"--tp 4 on one process: {e}")
+            print(f"  --tp 4 without --attn-impl ring on one process: ValueError: {e}",
+                  flush=True)
         else:
-            raise RuntimeError("chip_smoke: --tp 4 without --attn-impl ring did not raise")
+            raise RuntimeError("chip_smoke: --tp 4 on one process did not raise")
         return counts, tps
     finally:
         tempfile.tempdir = old_tmp
@@ -4557,6 +4590,275 @@ def phase_big_model(torch, np, gpt2, mods, cfgs, dev):
     return out
 
 
+# the one-process step's limits that a step over processes is held to
+# (phase 8's, and phase 17's for the ring), plus its clip norm against the
+# norm of its own gathered grads and its update against the plain AdamW
+# replayed on them (tools/dist_worker.compare_steps)
+PAR_LIMITS = {"loss_abs": 1e-2, "grad_norm_rel": 2e-2, "grads_rel_l2": 2e-2,
+              "norm_self_rel": 1e-4, "update_max_rel": 1e-3, "eval_abs": 1e-2}
+RING_LIMITS = dict(PAR_LIMITS, loss_abs=5e-3)
+
+
+def par_check(name, rec, limits, control=False):
+    """Print a run's readings beside their limits; require them within (or,
+    for a control, one of them outside)."""
+    errs = rec["errors"]
+    over = {k: v for k, v in errs.items() if v > limits[k]}
+    print(f"  {name}: " + ", ".join(f"{k} {v:.3e} (tol {limits[k]})" for k, v in errs.items())
+          + (f"; outside: {sorted(over)}" if over else ""), flush=True)
+    if control:
+        require(over, f"the control {name} passed the checks: they cannot see it")
+    else:
+        require(not over, f"{name} disagrees with the one-process step")
+
+
+def par_counts(name, recs, want):
+    """Each rank's launches of the step, against ``want`` (a dict, or one
+    dict a rank); every other kernel 0."""
+    for r, rec in enumerate(recs):
+        w = with_zeros(want[r] if isinstance(want, list) else want)
+        require(rec["launch_counts"] == w,
+                f"{name} rank {r}: launches {rec['launch_counts']}, expected {w}")
+    print(f"  {name} launches per rank: "
+          + "; ".join(json.dumps({k: v for k, v in rec["launch_counts"].items() if v})
+                      for rec in recs)
+          + "; peak GiB per rank " + ", ".join(f"{rec['peak_gib']:.2f}" for rec in recs)
+          + "; step s per rank " + ", ".join(f"{rec['seconds'][-1]:.3f}" for rec in recs),
+          flush=True)
+
+
+def par_records(workdir, tag, n):
+    return [json.load(open(os.path.join(workdir, f"{tag}_r{r}.json"))) for r in range(n)]
+
+
+def phase_parallel(torch, np, cfgs, dev):
+    """Phases 32-36: the parallel styles over processes that share cuda:0
+    over gloo (tools/dist_worker.py), each step held against the one-process
+    step rank 0 runs first from the same state on the same rows."""
+    from gpt2_vision_language_tpu_torch.tools import dist_worker
+
+    work = tempfile.mkdtemp(prefix="chip_parallel_")
+    base = {"device": "cuda:0", "policy": "bf16", "seed": 1337, "out": work, "reference": True,
+            "save_whole": False, "step0": cfgs["sched"].warmup_steps, "threads": 2}
+    vocab = cfgs["gpt"].vocab_size
+    rows8 = np.random.RandomState(2).randint(0, vocab, (1, 4, 8, 1025)).astype(np.int32)
+    paths = {}
+    for name, a in (("rows8", rows8), ("rows_dp", rows8.reshape(1, 2, 16, 1025)),
+                    ("rows_wide", np.random.RandomState(3).randint(0, vocab, (1, 2, 2, 1025))),
+                    ("rows_ring", np.random.RandomState(4).randint(0, vocab, (1, 2, 1, 16385)))):
+        paths[name] = os.path.join(work, f"{name}.npy")
+        np.save(paths[name], a.astype(np.int32))
+    out, seconds = {}, {}
+
+    print("[32-33, 36] 2 processes on cuda:0 over gloo: DP, TP, TP+SP (GPT-2 124M, bf16, the "
+          "global batch of phase 8: 4 x (B=8, T=1024)), DP fine-tunes", flush=True)
+    k1 = {"flash_fwd": 24, "flash_bwd": 24, "adamw": 1}
+    jobs = [
+        {"tag": "dp", "mesh": [2, 1], "rows": paths["rows_dp"], "model": {}},
+        {"tag": "dp_no_allreduce", "mesh": [2, 1], "rows": paths["rows_dp"], "model": {},
+         "fault": "skip_allreduce"},
+        {"tag": "tp2", "mesh": [1, 2], "rows": paths["rows8"], "model": {}, "eval": True},
+        {"tag": "tp2_sp", "mesh": [1, 2], "rows": paths["rows8"], "model": {}, "eval": True,
+         "seq_parallel": True},
+        # half the preset's per-rank batch: 2 ranks of 64 rows hold its 128
+        {"kind": "ftstep", "tag": "ft_linear", "bridge": "linear", "n_layer": 12, "accum": 2,
+         "b": 128, "t": 32, "n_bank": 256, "mesh": [2]},
+        {"kind": "ftstep", "tag": "ft_qformer", "bridge": "qformer", "n_layer": 12, "accum": 2,
+         "b": 128, "t": 32, "n_bank": 256, "mesh": [2]},
+    ]
+    t0 = time.perf_counter()
+    dist_worker.launch(dict(base, kind="jobs", tag="two", jobs=jobs), 2, timeout=600,
+                       workdir=work)
+    seconds["two_process_launch"] = time.perf_counter() - t0
+    recs = {j["tag"]: par_records(work, j["tag"], 2) for j in jobs}
+    print("[32] DP, 2 ranks x 2 micro-batches of (B=8, T=1024)", flush=True)
+    par_check("dp", recs["dp"][0], PAR_LIMITS)
+    par_counts("dp", recs["dp"], k1)
+    par_check("dp_no_allreduce (control)", recs["dp_no_allreduce"][0], PAR_LIMITS, control=True)
+    print("[33] TP=2 (6 heads a rank) and TP=2 with sequence parallelism, 4 x (B=8, T=1024)",
+          flush=True)
+    for tag in ("tp2", "tp2_sp"):
+        require([r["local_heads"] for r in recs[tag]] == [6, 6], f"{tag}: not 6 heads a rank")
+        par_check(tag, recs[tag][0], PAR_LIMITS)
+        par_counts(tag, recs[tag], {"flash_fwd": 48, "flash_bwd": 48, "adamw": 1})
+        for r, rec in enumerate(recs[tag]):  # the validation micro-batch: K4 on the gathered wte
+            require(rec["eval_counts"] == with_zeros({"flash_fwd": 12, "ce_fwd": 1}),
+                    f"{tag} rank {r}: validation launches {rec['eval_counts']}")
+    print("[36] DP fine-tunes, 2 ranks of 64 rows, 2 x (B=128, T=32) a step, 12 layers",
+          flush=True)
+    for tag in ("ft_linear", "ft_qformer"):
+        par_check(tag, recs[tag][0], PAR_LIMITS)
+        par_counts(tag, recs[tag], {"adamw": 1})
+    out.update({tag: {"errors": rs[0]["errors"], "seconds": [r["seconds"] for r in rs],
+                      "peak_gib": [r["peak_gib"] for r in rs]} for tag, rs in recs.items()})
+    out["dp"]["tokens_per_s"] = recs["dp"][0]["tokens_per_step"] / recs["dp"][0]["seconds"][-1]
+    dp_counts = recs["dp"][0]["launch_counts"]
+    tp_counts = recs["tp2"][0]["launch_counts"]
+
+    print("[34-35] 4 processes on cuda:0 over gloo: TP=4 at the 1558M width (7, 6, 6, 6 "
+          "heads), the ring of 4 chunks at T=16384", flush=True)
+    wide = {"n_layer": 2, "n_head": 25, "n_embd": 1600}
+    jobs = [
+        {"tag": "tp4_wide", "mesh": [1, 4], "rows": paths["rows_wide"], "model": wide},
+        {"tag": "tp4_norm_counts_replicated", "mesh": [1, 4], "rows": paths["rows_wide"],
+         "model": wide, "fault": "count_replicated"},
+        {"tag": "ring4", "mesh": [1, 4], "rows": paths["rows_ring"], "ring": True,
+         "model": {"block_size": 16384}},
+    ]
+    t0 = time.perf_counter()
+    dist_worker.launch(dict(base, kind="jobs", tag="four", jobs=jobs), 4, timeout=600,
+                       workdir=work)
+    seconds["four_process_launch"] = time.perf_counter() - t0
+    recs4 = {j["tag"]: par_records(work, j["tag"], 4) for j in jobs}
+    print("[34] TP=4 at n_embd=1600, n_head=25, 2 layers, 2 x (B=2, T=1024)", flush=True)
+    require([r["local_heads"] for r in recs4["tp4_wide"]] == [7, 6, 6, 6],
+            "tp4_wide: heads are not 7, 6, 6, 6")
+    par_check("tp4_wide", recs4["tp4_wide"][0], PAR_LIMITS)
+    par_counts("tp4_wide", recs4["tp4_wide"], {"flash_fwd": 4, "flash_bwd": 4, "adamw": 1})
+    par_check("tp4_norm_counts_replicated (control)", recs4["tp4_norm_counts_replicated"][0],
+              PAR_LIMITS, control=True)
+    print("[35] the ring over 4 processes: GPT-2 124M, 2 x (B=1, T=16384), a chunk of 4096 a "
+          "rank", flush=True)
+    ring = recs4["ring4"]
+    par_check("ring4", ring[0], RING_LIMITS)
+    # rank r computes its own chunk and the r before it: 1 + r pairs a layer,
+    # each a K2a, a D and a K3c launch
+    par_counts("ring4", ring, [{k: 24 * (r + 1) for k in ("flash_lse_fwd", "flash_rowdot",
+                                                         "flash_fused_bwd")} | {"adamw": 1}
+                               for r in range(4)])
+    for k in ("flash_lse_fwd", "flash_rowdot", "flash_fused_bwd"):
+        require(sum(r["launch_counts"][k] for r in ring) == 240,
+                f"the ranks' {k} launches do not sum to the one-process ring's 240")
+    out.update({tag: {"errors": rs[0]["errors"], "seconds": [r["seconds"] for r in rs],
+                      "peak_gib": [r["peak_gib"] for r in rs]} for tag, rs in recs4.items()})
+    out["ring4"]["tokens_per_s"] = ring[0]["tokens_per_step"] / ring[0]["seconds"][-1]
+    ring_counts = {k: sum(r["launch_counts"][k] for r in ring) for k in ring[0]["launch_counts"]}
+    out["host_staged_calls"] = {tag: [r["host_staged"] for r in rs]
+                                for tag, rs in {**recs, **recs4}.items()}
+    # only the ring's send/recv cross host memory: 12 layers x 3 hops of
+    # K/V forward and 3 backward a micro-batch, 2 micro-batches
+    for tag, staged in out["host_staged_calls"].items():
+        want = [144] * 4 if tag == "ring4" else [0] * len(staged)
+        require(staged == want, f"{tag}: host-staged exchanges a rank {staged}, expected {want}")
+
+    # the command line as users launch it, each rank's cli.pretrain.main run
+    # through the worker's "cli" job, which reads its launch counts
+    root = os.path.dirname(os.path.dirname(os.path.abspath(dist_worker.__file__)))
+    root = os.path.dirname(root)  # the checkout: the package's parent
+    hs = os.path.join(work, "hellaswag")
+    os.makedirs(hs)
+    with open(os.path.join(hs, "hellaswag_val.jsonl"), "w") as f:
+        for i in range(5):  # 3 and 2 a rank
+            f.write(json.dumps({"ctx": f"The number {i} is", "label": i % 4,
+                                "endings": ["small", "large!", "a word", "nothing"]}) + "\n")
+    cli_s, cli_counts = {}, {}
+
+    def cli_runs(label, args, runs, hellaswag=False):
+        """Two invocations of ``args`` on the same log dir, the second
+        resuming: ``runs`` is ((--steps, {kernel: launches a rank}), ...)."""
+        log = os.path.join(work, f"{label}_log")
+        for i, (steps, want) in enumerate(runs):
+            tag = f"{label}_{i}"
+            job = {"kind": "cli", "tag": tag, "out": work,
+                   "argv": args + ["--log-dir", log, "--steps", str(steps)]}
+            if hellaswag:
+                job["hellaswag_dir"] = hs
+            path = os.path.join(work, f"{tag}.json")
+            with open(path, "w") as f:
+                json.dump(job, f)
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "2", "-m", "gpt2_vision_language_tpu_torch.tools.dist_worker",
+                 path], capture_output=True, text=True, timeout=600, cwd=root)
+            cli_s.setdefault(label, []).append(time.perf_counter() - t0)
+            text = run.stdout + run.stderr
+            tail = "\n".join(text.splitlines()[-25:])
+            require(run.returncode == 0, f"torch.distributed.run of cli.pretrain failed:\n{tail}")
+            require("backend gloo" in text, "the CLI did not take gloo for ranks sharing a card")
+            require(i == 0 or f"[ckpt] resumed at step {runs[0][0]}" in text,
+                    f"the second CLI run did not resume:\n{tail}")
+            recs = par_records(work, tag, 2)
+            require([r["step"] for r in recs] == [steps, steps],
+                    f"{tag}: optimizer steps {[r['step'] for r in recs]}")
+            for r, rec in enumerate(recs):
+                w = with_zeros(want)
+                require(rec["launch_counts"] == w,
+                        f"{tag} rank {r}: launches {rec['launch_counts']}, expected {w}")
+                require(rec["host_staged"] == 0, f"{tag} rank {r}: staged host exchanges")
+            cli_counts[tag] = recs[0]["launch_counts"]
+            steps_logged = [ln for ln in text.splitlines() if ln.startswith("step ")]
+            print(f"  --steps {steps}: {cli_s[label][-1]:.1f} s; launches a rank "
+                  f"{json.dumps({k: v for k, v in want.items() if v})}; "
+                  + "; ".join(steps_logged), flush=True)
+        rows = [ln.split(",") for f in sorted(glob.glob(os.path.join(log, "*.csv")))
+                for ln in open(f).read().splitlines()[1:]]
+        train = sorted({int(r[2]) for r in rows if r[1] == "train"})
+        require(train == list(range(runs[-1][0])), f"{label}: the CLI runs logged train steps {train}")
+        return log, text
+
+    n_layer = cfgs["gpt"].n_layer
+    print("[32b] python -m torch.distributed.run --nproc_per_node 2 -m "
+          "gpt2_vision_language_tpu_torch.tools.dist_worker JOB: cli.pretrain --synthetic "
+          "--devices 2 --device cuda:0 --total-batch 32768 --val-every 0 --steps 2 (2 x (B=8, "
+          "T=1024) a rank), then --steps 3 (a resume)", flush=True)
+    k1_micro = lambda n: {"flash_fwd": n_layer * n, "flash_bwd": n_layer * n}  # noqa: E731
+    log, _ = cli_runs("cli_dp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
+                                 "--device", "cuda:0", "--total-batch", "32768",
+                                 "--val-every", "0", "--no-hellaswag"],
+                      ((2, {**k1_micro(4), "adamw": 2}), (3, {**k1_micro(2), "adamw": 1})))
+    # without validation only model_final is written, by the master alone
+    require(os.listdir(os.path.join(log, "ckpts")) == ["model_final.pt"],
+            "the CLI's checkpoints")
+    print("[33b] the same of cli.pretrain --devices 2 --tp 2 --seq-parallel --device cuda:0 "
+          "--micro-batch 1 --total-batch 1024 --val-every 1 --save-every 1 --sample-every 1 "
+          "--steps 2, HellaSwag of 5 examples, then --steps 3 (a resume)", flush=True)
+    # a step: its micro-batch; validation: 20 micro-batches, each 12 K1 and
+    # one K4 on the gathered wte; HellaSwag: the one data rank's 5 examples
+    # on both model ranks, one forward at the 64-token width bucket, under
+    # the flash kernel's T >= 512 (ops/attention.AUTO_FLASH_MIN_T): plain
+    # attention, as on one process; sampling: no kernel
+    log, text = cli_runs(
+        "cli_tp_sp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2", "--tp", "2",
+                      "--seq-parallel", "--device", "cuda:0", "--micro-batch", "1",
+                      "--total-batch", "1024", "--val-every", "1", "--save-every", "1",
+                      "--sample-every", "1"],
+        ((2, {"flash_fwd": n_layer * (2 + 2 * 20), "flash_bwd": n_layer * 2,
+              "ce_fwd": 2 * 20, "adamw": 2}),
+         (3, {"flash_fwd": n_layer * (1 + 20), "flash_bwd": n_layer, "ce_fwd": 20,
+              "adamw": 1})), hellaswag=True)
+    require(sorted(os.listdir(os.path.join(log, "ckpts")))
+            == ["model_best.pt", "model_final.pt", "model_last.pt"], "the TP CLI's checkpoints")
+    final = torch.load(os.path.join(log, "ckpts", "model_final.pt"), map_location="cpu",
+                       weights_only=False)
+    require(tuple(final["model"]["transformer.wte.weight"].shape)
+            == (cfgs["gpt"].padded_vocab_size, cfgs["gpt"].n_embd),
+            "the TP checkpoint does not hold the whole (gathered) wte")
+    hella = [ln for ln in text.splitlines() if ln.startswith("HellaSwag accuracy:")]
+    require(len(hella) == 1 and "/5=" in hella[0], f"the resumed TP run's HellaSwag: {hella}")
+    require(any(ln.startswith("sample 0:") for ln in text.splitlines()),
+            "the TP run did not sample")
+    seconds["cli_runs"] = cli_s
+    shutil.rmtree(work, ignore_errors=True)
+    # each phase's wall seconds: its jobs' (the slowest rank's, rank 0's
+    # reference included), the CLI runs in phase 32's
+    wall = {tag: max(r["wall_s"] for r in rs) for tag, rs in {**recs, **recs4}.items()}
+    seconds["phases"] = {
+        "32": wall["dp"] + wall["dp_no_allreduce"] + sum(cli_s["cli_dp"]),
+        "33": wall["tp2"] + wall["tp2_sp"] + sum(cli_s["cli_tp_sp"]),
+        "34": wall["tp4_wide"] + wall["tp4_norm_counts_replicated"],
+        "35": wall["ring4"], "36": wall["ft_linear"] + wall["ft_qformer"]}
+    print("  wall seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds["phases"].items())
+          + f"; tokens/s: DP {out['dp']['tokens_per_s']:.1f}, the process ring "
+          f"{out['ring4']['tokens_per_s']:.1f} (host- and gloo-paced, one shared card)",
+          flush=True)
+    out["seconds"] = seconds
+    out["cli_launches"] = cli_counts
+    return out, {"dp_train_step": dp_counts, "tp_train_step": tp_counts,
+                 "process_ring_train_step": ring_counts}
+
+
 def host_us(torch, fn, iters):
     """(host microseconds a call spends enqueueing fn(), microseconds a call
     of the same loop synchronised at its end): when the first is not below
@@ -5184,6 +5486,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     big = phase_big_model(torch, np, gpt2, mods, cfgs, dev)
     slice_s["fp32_step_heads_1558M"] = time.perf_counter() - t_slice
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    parallel, par_paths = phase_parallel(torch, np, cfgs, dev)
+    slice_s["parallel_styles"] = time.perf_counter() - t_slice
     slice_s["fp32_long_context_and_ring"] = fp32_long_s
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},
@@ -5197,7 +5503,7 @@ def main() -> int:
                "fp32_train_step": fp32_train["counts"], "trainer_1558M": big["trainer"]["launches"],
                "fp32_long_train_step": long32["counts"], "fp32_ring_train_step": ring32["counts"],
                "fp32_long_trainer": trainers32["flash"]["counts"],
-               "fp32_ring_trainer": trainers32["ring"]["counts"]}
+               "fp32_ring_trainer": trainers32["ring"]["counts"], **par_paths}
     csrc = "gpt2_vision_language_tpu_torch/csrc/"
     jfa = "gpt2_vision_language_tpu/ops/flash_attention.py"
     n_params = 124_475_904
@@ -5484,6 +5790,7 @@ def main() -> int:
     print(json.dumps({"train_step_tokens_per_s": {"kernel": train["kernel_tps"],
                                                   "plain": train["plain_tps"]}}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"parallel": parallel, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -25,6 +25,12 @@ next step is s; ``model_final`` records the step after the last one run.
 ``maybe_resume`` takes whichever of ``model_last`` and ``model_final`` is
 further along, so a run extended with a larger ``--steps`` continues where
 the previous one ended.
+
+A run over several processes builds the manager on every rank and calls
+every save on every rank (``is_master``, JAX :138-165): the tree to write is
+made by ``tree_fn``, which under tensor parallelism gathers every rank's
+shards (a collective), and only the master touches the filesystem. Every
+rank reads on resume; the caller re-shards what it read.
 """
 
 from __future__ import annotations
@@ -95,13 +101,19 @@ class CheckpointManager:
     BEST = "model_best.pt"
     FINAL = "model_final.pt"
 
-    def __init__(self, ckpt_dir: str, save_every: int = 2500, enabled: bool = True):
-        """enabled=False turns every save and the resume into no-ops."""
+    def __init__(self, ckpt_dir: str, save_every: int = 2500, enabled: bool = True, *,
+                 is_master: bool = True, tree_fn=None):
+        """enabled=False turns every save and the resume into no-ops.
+        is_master=False: this rank makes each tree (``tree_fn(model,
+        opt_state)``, default ``state_tree``) but writes nothing; it still
+        reads on resume."""
         self.dir = ckpt_dir
         self.save_every = save_every
         self.best_val = float("inf")
         self.enabled = enabled
-        if enabled:
+        self.is_master = is_master
+        self.tree_fn = tree_fn or self.state_tree
+        if enabled and is_master:
             os.makedirs(ckpt_dir, exist_ok=True)
 
     @property
@@ -145,12 +157,18 @@ class CheckpointManager:
         rolling = (self.save_every > 0 and step > 0
                    and (step % self.save_every == 0 or last_step))
         best = val_loss < self.best_val
-        tree = self.state_tree(model, opt_state)
+        if not (rolling or best):
+            return
+        tree = self.tree_fn(model, opt_state)
         if rolling:
-            save_checkpoint(self.last_path, tree, meta)
+            self._write(self.last_path, tree, meta)
         if best:
             self.best_val = float(val_loss)
-            save_checkpoint(self.best_path, tree, meta)
+            self._write(self.best_path, tree, meta)
+
+    def _write(self, path: str, tree: dict, meta: dict) -> None:
+        if self.is_master:
+            save_checkpoint(path, tree, meta)
 
     def save_final(self, step: int, model, opt_state, val_loss=None, *,
                    next_step: int) -> None:
@@ -160,4 +178,4 @@ class CheckpointManager:
             return
         meta = {"step": step, "next_step": next_step,
                 "val_loss": None if val_loss is None else float(val_loss)}
-        save_checkpoint(self.final_path, self.state_tree(model, opt_state), meta)
+        self._write(self.final_path, self.tree_fn(model, opt_state), meta)

@@ -1,17 +1,25 @@
-"""CLI: GPT-2 124M FineWeb-Edu pretraining on one device.
+"""CLI: GPT-2 124M FineWeb-Edu pretraining, on one device or over processes.
 
     python -m gpt2_vision_language_tpu_torch.cli.pretrain [--steps N] [--synthetic]
         [--model {124M,350M,774M,1558M}] [--val-every N] [--sample-every N]
         [--no-ckpt] [--no-nan-guard] [--opt-state-dtype {float32,bfloat16,int8}]
         [--param-dtype {float32,bfloat16}] [--grad-accum-dtype {float32,bfloat16}]
         [--remat {none,full,save_attn,recompute_gelu,recompute_mlp}]
-        [--layerwise-grad] [--fit-1chip]
+        [--layerwise-grad] [--fit-1chip] [--devices N] [--tp N] [--seq-parallel]
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m gpt2_vision_language_tpu_torch.cli.pretrain --devices 2 [--tp 2] ...
 
 Counterpart of gpt2_vision_language_tpu/cli/pretrain.py with the flags the
-single-device trainer honors. Runs on the first CUDA device (``--device``,
-default ``cuda``), where every update goes through the hand-written AdamW
-kernel; without a CUDA device it raises unless ``--device cpu`` asks for the
-CPU. ``--seq-len`` over 1024 grows the model's ``block_size`` with it
+trainer honors. Runs on the first CUDA device (``--device``, default
+``cuda``), where every update goes through the hand-written AdamW kernel;
+without a CUDA device it raises unless ``--device cpu`` asks for the CPU.
+Launched by ``torch.distributed.run``, each process is one device of a
+("data", "model") mesh: ``--device cuda`` gives local rank i the card
+``cuda:i`` and NCCL, ``--device cuda:0`` puts every rank on that one card
+over gloo, ``--device cpu`` runs them on the CPU over gloo; ``--devices``
+must equal the number of processes. ``--pp`` and ``--pp-micro`` (the GPipe
+pipeline) are not carried yet. ``--seq-len`` over 1024 grows the model's ``block_size`` with it
 (long-context pretraining: ``--seq-len 16384 --micro-batch 1`` runs every
 self-attention on the general flash kernels; with ``--attn-impl ring --tp 4``
 as a ring of 4 sequence chunks on the lse-forward and one-pass backward
@@ -88,18 +96,26 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         help="attention path: 'flash' is the hand-written kernels on a CUDA "
         "device (the general streamed-K/V family past T = 8192), 'xla' plain "
         "einsum attention, 'auto' flash for T >= 512 on a CUDA device; 'ring' "
-        "ring attention over --tp sequence chunks (requires --tp > 1 and "
-        "seq_len %% tp == 0)",
+        "rotates K/V over the model axis, --tp sequence chunks (requires --tp > 1 "
+        "and seq_len %% tp == 0)",
     )
+    p.add_argument("--devices", type=int, default=None)
     p.add_argument(
         "--tp", type=int, default=1,
-        help="with --attn-impl ring: the ring size, the number of sequence chunks "
-        "(the JAX CLI's tensor-parallel degree, whose mesh axis its ring runs over); "
-        "Megatron tensor parallelism itself is not ported",
+        help="model-axis size: builds a 2-D (data, model) mesh and applies "
+        "Megatron column/row parameter shardings (parallel/sharding.py). "
+        "1 = pure DP (the reference's only mode)",
+    )
+    p.add_argument(
+        "--seq-parallel", action="store_true",
+        help="with --tp > 1: T-shard the residual stream over the model "
+        "axis between blocks (reduce-scatter + all-gather instead of "
+        "all-reduce; Korthikanti et al.)",
     )
     p.add_argument("--device", default="cuda",
                    help="device to train on: 'cuda' (default; raises without a CUDA "
-                   "device) or 'cpu'")
+                   "device; under torch.distributed.run one card a rank), 'cuda:N' "
+                   "(every rank on card N) or 'cpu'")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic token corpus in a temp dir (smoke runs)")
     p.add_argument("--synthetic-kind", choices=["zipf", "markov"], default="zipf")
@@ -187,6 +203,8 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         updates["param_dtype"] = args.param_dtype
     if args.tp != 1:
         updates["tp"] = args.tp
+    if args.seq_parallel:
+        updates["seq_parallel"] = True
     if args.attn_impl != "auto":
         updates["attn_impl"] = args.attn_impl
     if args.synthetic:
@@ -214,7 +232,7 @@ def main(argv=None, *, model: Optional[GPTConfig] = None) -> dict:
             "--device cpu to train on the CPU"
         )
     return run_pretrain(cfg, device=device, max_steps_override=args.steps,
-                        remat=remat_of(args))
+                        remat=remat_of(args), num_devices=args.devices)
 
 
 if __name__ == "__main__":

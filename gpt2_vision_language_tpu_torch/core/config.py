@@ -129,15 +129,16 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class PretrainConfig:
-    """FineWeb-Edu pretraining workload (train_gpt2.py:243-285), single
-    device. ``tp`` is the ring size of ``attn_impl="ring"`` (the JAX package
-    rings over the tensor-parallel mesh axis; Megatron tensor parallelism
-    itself is not ported). The big-model memory recipes are the JAX fields
-    of the same names (``opt_state_dtype``, ``grad_accum_dtype``,
-    ``layerwise_grad``, ``param_dtype``; train/optimizer.py, train/step.py,
-    models/gpt2.py). The JAX fields for the TPU's memory mechanisms and the
-    other parallel styles are not carried (tests/test_torch_import.py lists
-    them)."""
+    """FineWeb-Edu pretraining workload (train_gpt2.py:243-285). ``tp`` is
+    the size of the mesh's ``model`` axis: Megatron tensor parallelism over
+    that many processes (``seq_parallel`` T-shards the residual stream
+    between blocks), or with ``attn_impl="ring"`` the ring size, the number
+    of sequence chunks (over processes, or run in turn by one). The
+    big-model memory recipes are the JAX fields of the same names
+    (``opt_state_dtype``, ``grad_accum_dtype``, ``layerwise_grad``,
+    ``param_dtype``; train/optimizer.py, train/step.py, models/gpt2.py). The
+    JAX fields for the TPU's memory mechanisms and the pipeline are not
+    carried (tests/test_torch_import.py lists them)."""
 
     model: GPTConfig = field(
         default_factory=lambda: GPT2_124M.replace(unroll_layers=True)
@@ -171,7 +172,10 @@ class PretrainConfig:
     # reference's CUDA run casts it (train_gpt2.py:264)
     param_dtype: Optional[str] = None
     attn_impl: str = "auto"
-    tp: int = 1  # ring size of attn_impl="ring" (sequence chunks)
+    # the model axis: Megatron tensor parallelism over tp processes, or the
+    # ring size of attn_impl="ring" (sequence chunks)
+    tp: int = 1
+    seq_parallel: bool = False  # with tp > 1: the residual stream T-sharded between blocks
 
     def grad_accum_steps(self, world_size: int = 1) -> int:
         denom = self.micro_batch_size * self.seq_len * world_size

@@ -102,7 +102,8 @@ class Decoder:
                 f"block_size {self.cfg.block_size}"
             )
         cache = gpt2.init_cache(self.cfg, b, max_len, self.policy.compute_dtype,
-                                device=prompt_ids.device)
+                                device=prompt_ids.device,
+                                n_head=gpt2.local_heads(model, self.cfg))
         slot = 0
         if prefix_embeds is not None:
             cache = self.prefill_embeds_cache_only(model, prefix_embeds, cache, slot)
@@ -111,9 +112,13 @@ class Decoder:
         slot, pos = m + tp, tp
         wte = model.transformer.wte.weight
         wpe = model.transformer.wpe.weight
+        model_tp = getattr(model, "tp", None)
         toks = [self.sample_fn(generator, logits)]
         for _ in range(max_new_tokens - 1):
-            embeds = (wte[toks[-1]] + wpe[pos])[:, None, :]
+            if model_tp is None:
+                embeds = (wte[toks[-1]] + wpe[pos])[:, None, :]
+            else:  # the vocab-parallel lookup of a tensor-parallel model
+                embeds = gpt2.embed_tokens(model, toks[-1][:, None], self.cfg, pos_offset=pos)
             logits, cache = gpt2.forward_cached(
                 model, embeds.to(self.policy.compute_dtype), self.cfg, cache,
                 slot, z=z, policy=self.policy, last_only=True,

@@ -124,12 +124,32 @@ def linear_bridge_apply(bridge: LinearBridge, patch_tokens, *,
     return linear(patch_tokens, bridge.vis_proj.weight, bridge.vis_proj.bias, policy=policy)
 
 
+class RowShard:
+    """A generator for one data-parallel rank's rows of a batch whose rows go
+    round-robin over ``world`` ranks (data/coco.CocoBatcher's striding: the
+    rank's row j is row j * world + rank of the whole batch). Each dropout
+    draw takes the whole batch's mask from ``generator`` and keeps the
+    rank's rows, so the ranks together draw what one process draws."""
+
+    def __init__(self, generator: torch.Generator, rank: int, world: int):
+        self.generator, self.rank, self.world = generator, rank, world
+
+
+def _uniform(shape, generator, device):
+    if isinstance(generator, RowShard):
+        whole = torch.rand((shape[0] * generator.world, *shape[1:]),
+                           generator=generator.generator, device=device)
+        return whole[generator.rank::generator.world]
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def _dropout(x, rate: float, generator, train: bool):
-    """Inverted dropout from an explicit generator (on x's device); the
-    identity unless training with a generator and a positive rate."""
+    """Inverted dropout from an explicit generator (on x's device; or a
+    ``RowShard`` of one), rows first; the identity unless training with a
+    generator and a positive rate."""
     if not train or rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - rate)
+    keep = _uniform(x.shape, generator, x.device) < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

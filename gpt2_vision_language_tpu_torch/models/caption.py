@@ -95,27 +95,29 @@ def apply(model: CaptionModel, patch_tokens, input_ids, cfg: GPTConfig,
 
 def loss(model: CaptionModel, patch_tokens, input_ids, cfg: GPTConfig,
          bridge_cfg: BridgeConfig, *, labels, policy: Policy = DEFAULT_POLICY,
-         generator=None, train: bool = False, ce_chunks: int = 8):
+         generator=None, train: bool = False, ce_chunks: int = 8, group=None):
     """apply(...)[1]'s semantics, CE over the text positions against
     ignore_index=-100 labels, without the (B, M+T, V) logits: lm_head + CE run
-    through gpt2.fused_ce_loss."""
+    through gpt2.fused_ce_loss. ``group``: the data-parallel process group
+    whose ranks hold the other rows of the batch (the masked mean over all
+    of them, gpt2.fused_ce_loss)."""
     full, m = _embed_full(model, patch_tokens, input_ids, cfg, bridge_cfg, policy,
                           generator, train)
     x = gpt2.run_blocks(model.gpt, full, cfg, policy=policy)
     x = gpt2._ln(x, model.gpt.transformer.ln_f)
     x_txt = x[:, m:m + input_ids.shape[1], :]
     return gpt2.fused_ce_loss(x_txt, model.gpt.transformer.wte.weight, labels,
-                              policy=policy, ce_chunks=ce_chunks)
+                              policy=policy, ce_chunks=ce_chunks, group=group)
 
 
 def loss_fn_factory(cfg: GPTConfig, bridge_cfg: BridgeConfig, *,
                     policy: Policy = DEFAULT_POLICY, train: bool = True,
-                    fused_ce: bool = True):
+                    fused_ce: bool = True, group=None):
     """loss_fn(model, micro={'x','y','mask','z','generator'?}) for
     train/step.py. labels = y masked to -100 outside the caption
     (gpt2_linear/train.py:305-306). Dropout (the Q-Former's sites) is active
     when ``train`` and the micro-batch carries a ``generator``: validation
-    batches carry none."""
+    batches carry none. ``group``: ``loss``'s, with the fused CE."""
 
     def loss_fn(model, micro):
         labels = torch.where(micro["mask"].bool(), micro["y"],
@@ -124,7 +126,7 @@ def loss_fn_factory(cfg: GPTConfig, bridge_cfg: BridgeConfig, *,
         kwargs = dict(labels=labels, policy=policy, generator=generator,
                       train=train and generator is not None)
         if fused_ce:
-            return loss(model, micro["z"], micro["x"], cfg, bridge_cfg, **kwargs)
+            return loss(model, micro["z"], micro["x"], cfg, bridge_cfg, group=group, **kwargs)
         return apply(model, micro["z"], micro["x"], cfg, bridge_cfg, **kwargs)[1]
 
     return loss_fn

@@ -47,6 +47,14 @@ starts as plain GPT-2; ``z`` is the (B, N, img_embd) visual memory, projected
 once through ``vis_proj`` by ``apply`` / ``loss`` (``run_blocks`` and
 ``forward_cached`` take it already projected). Cross-attention is non-causal
 over 33 keys and always takes the plain path, as in the JAX package.
+
+Under Megatron tensor parallelism (parallel/sharding.shard_model) the model
+holds one rank's shards and carries their ``TensorParallel`` as ``model.tp``:
+the functions here then compute this rank's heads and MLP slice, insert the
+collectives of parallel/collectives.py around them (``_enter``, ``_row_out``),
+look the embedding up by vocab rows and gather ``wte`` for the tied head;
+``loss`` T-shards the residual stream between blocks when the run asked for
+sequence parallelism.
 """
 
 from __future__ import annotations
@@ -113,7 +121,10 @@ class Block(nn.Module):
 
 class GPT2(nn.Module):
     """Parameter container with the reference's state-dict names; the
-    forward is the functions below."""
+    forward is the functions below. ``tp``: the TensorParallel of a model
+    whose parameters are one rank's shards (parallel/sharding.shard_model)."""
+
+    tp = None
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -200,24 +211,42 @@ def _ln(x, ln: nn.LayerNorm):
     return layer_norm(x, ln.weight, ln.bias)
 
 
+def _enter(x, tp):
+    return x if tp is None else tp.enter(x)
+
+
+def _row_out(y, proj: nn.Linear, policy: Policy, tp):
+    """The output projection of a branch; under tensor parallelism this
+    rank's partial product, summed over ``model`` (reduce-scattered on T
+    under sequence parallelism), then the replicated bias."""
+    if tp is None:
+        return linear(y, proj.weight, proj.bias, policy=policy)
+    out = tp.leave(linear(y, proj.weight, None, policy=policy))
+    return out + proj.bias.to(out.dtype)
+
+
 def self_attention(attn: CausalSelfAttention, x, cfg: GPTConfig, *,
-                   policy: Policy, attn_impl: str):
+                   policy: Policy, attn_impl: str, tp=None):
     """Causal self-attention with fused QKV (train_gpt2.py:33-43). q, k and
-    v stay strided (B, T, H, hs) views of the (B, T, 3C) projection."""
-    b, t, c = x.shape
-    hs = c // cfg.n_head
+    v stay strided (B, T, H, hs) views of the (B, T, 3C) projection. Under
+    tensor parallelism (``tp``) the rank computes its own heads."""
+    x = _enter(x, tp)
+    b, t, _ = x.shape
+    hs = cfg.head_dim
     qkv = linear(x, attn.c_attn.weight, attn.c_attn.bias, policy=policy)
-    q, k, v = (a.view(b, t, cfg.n_head, hs) for a in qkv.split(c, dim=-1))
+    c = qkv.shape[-1] // 3
+    q, k, v = (a.view(b, t, c // hs, hs) for a in qkv.split(c, dim=-1))
     cc = policy.cast_compute
     y = sdpa(cc(q), cc(k), cc(v), causal=True, impl=attn_impl, layout="bthd")
     y = y.to(x.dtype).reshape(b, t, c)
-    return linear(y, attn.c_proj.weight, attn.c_proj.bias, policy=policy)
+    return _row_out(y, attn.c_proj, policy, tp)
 
 
-def mlp(m: MLP, x, *, policy: Policy):
-    """c_fc -> tanh-GELU -> c_proj (train_gpt2.py:46-59)."""
-    h = gelu_tanh(linear(x, m.c_fc.weight, m.c_fc.bias, policy=policy))
-    return linear(h, m.c_proj.weight, m.c_proj.bias, policy=policy)
+def mlp(m: MLP, x, *, policy: Policy, tp=None):
+    """c_fc -> tanh-GELU -> c_proj (train_gpt2.py:46-59); under tensor
+    parallelism over this rank's slice of the hidden."""
+    h = gelu_tanh(linear(_enter(x, tp), m.c_fc.weight, m.c_fc.bias, policy=policy))
+    return _row_out(h, m.c_proj, policy, tp)
 
 
 class _MlpRemat(torch.autograd.Function):
@@ -257,12 +286,18 @@ class _MlpRemat(torch.autograd.Function):
         return (*grads, dwproj, dbproj, None)
 
 
-def _mlp_remat(m: MLP, x, policy: Policy, mode: str):
+def _mlp_remat(m: MLP, x, policy: Policy, mode: str, tp=None):
+    x = _enter(x, tp)
+    bproj = m.c_proj.bias if tp is None else None
     if mode == "recompute_gelu":
         fc = linear(x, m.c_fc.weight, m.c_fc.bias, policy=policy)
-        return _MlpRemat.apply(fc, None, None, m.c_proj.weight, m.c_proj.bias, policy)
-    return _MlpRemat.apply(x, m.c_fc.weight, m.c_fc.bias, m.c_proj.weight, m.c_proj.bias,
-                           policy)
+        y = _MlpRemat.apply(fc, None, None, m.c_proj.weight, bproj, policy)
+    else:
+        y = _MlpRemat.apply(x, m.c_fc.weight, m.c_fc.bias, m.c_proj.weight, bproj, policy)
+    if tp is None:
+        return y
+    y = tp.leave(y)
+    return y + m.c_proj.bias.to(y.dtype)
 
 
 def cross_attention(xattn: CrossAttention, x, z, cfg: GPTConfig, *, policy: Policy):
@@ -290,34 +325,48 @@ def _xblock(layer: Block, x, z, cfg: GPTConfig, policy: Policy):
     return x + torch.tanh(layer.cross_gate).to(x.dtype) * xa
 
 
-def _attn_out(layer: Block, x, cfg: GPTConfig, policy: Policy, attn_impl: str):
+def _attn_out(layer: Block, x, cfg: GPTConfig, policy: Policy, attn_impl: str, tp=None):
     return self_attention(layer.attn, _ln(x, layer.ln_1), cfg, policy=policy,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, tp=tp)
 
 
-def _mlp_out(layer: Block, x, policy: Policy):
-    return mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy)
+def _mlp_out(layer: Block, x, policy: Policy, tp=None):
+    return mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy, tp=tp)
 
 
 def block(layer: Block, x, cfg: GPTConfig, *, policy: Policy,
-          attn_impl: str, z=None, remat="none"):
+          attn_impl: str, z=None, remat="none", tp=None):
     """Pre-LN residual block (train_gpt2.py:62-74), with the gated
     cross-attention prologue when the model has one and z is given.
     ``remat``: one of REMAT_MODES, the selective ones here ("full" is
-    run_blocks' checkpoint of the whole block)."""
+    run_blocks' checkpoint of the whole block). ``tp``: the model's
+    TensorParallel view (``_tp_view``) under tensor parallelism."""
     x = _xblock(layer, x, z, cfg, policy)
     if remat == "save_attn":
         # kept: the block input and x + attn_out; the attention's inside and
         # the MLP are recomputed in the backward
         ckpt = torch.utils.checkpoint.checkpoint
-        x = x + ckpt(_attn_out, layer, x, cfg, policy, attn_impl, use_reentrant=False,
+        x = x + ckpt(_attn_out, layer, x, cfg, policy, attn_impl, tp, use_reentrant=False,
                      preserve_rng_state=False)
-        return x + ckpt(_mlp_out, layer, x, policy, use_reentrant=False,
+        return x + ckpt(_mlp_out, layer, x, policy, tp, use_reentrant=False,
                         preserve_rng_state=False)
-    x = x + _attn_out(layer, x, cfg, policy, attn_impl)
+    x = x + _attn_out(layer, x, cfg, policy, attn_impl, tp)
     if remat in ("recompute_gelu", "recompute_mlp"):
-        return x + _mlp_remat(layer.mlp, _ln(x, layer.ln_2), policy, remat)
-    return x + _mlp_out(layer, x, policy)
+        return x + _mlp_remat(layer.mlp, _ln(x, layer.ln_2), policy, remat, tp)
+    return x + _mlp_out(layer, x, policy, tp)
+
+
+def _tp_view(model, seq_parallel: bool = False):
+    """The model's TensorParallel, T-sharding the residual stream when
+    ``seq_parallel`` and the run asked for it; None for a whole model."""
+    tp = getattr(model, "tp", None)
+    return None if tp is None else tp.view(seq_parallel)
+
+
+def local_heads(model, cfg: GPTConfig) -> int:
+    """The heads this rank computes: all of them unless tensor-parallel."""
+    tp = getattr(model, "tp", None)
+    return cfg.n_head if tp is None else tp.heads[tp.rank]
 
 
 def _remat_mode(remat) -> str:
@@ -330,22 +379,27 @@ def _remat_mode(remat) -> str:
 
 
 def run_blocks(model: GPT2, x, cfg: GPTConfig, *, z=None,
-               policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto", remat=False):
+               policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto", remat=False,
+               seq_parallel: bool = False):
     """The blocks in order, as a Python loop (the JAX unrolled path). ``z``
     is the projected visual memory of the cross-attention variant.
     ``remat``: False / "none", True / "full", "save_attn",
     "recompute_gelu", "recompute_mlp" (the module docstring); it matters
-    only where autograd records the forward."""
+    only where autograd records the forward. ``seq_parallel``: x is this
+    rank's T-shard of the residual stream when the tensor-parallel run asked
+    for sequence parallelism (``loss`` passes True)."""
     mode = _remat_mode(remat)
     if not torch.is_grad_enabled():
         mode = "none"
+    tp = _tp_view(model, seq_parallel)
     for layer in model.transformer.h:
         if mode == "full":
             x = torch.utils.checkpoint.checkpoint(
-                block, layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z,
+                block, layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z, tp=tp,
                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z, remat=mode)
+            x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z, remat=mode,
+                      tp=tp)
     return x
 
 
@@ -360,12 +414,28 @@ def project_visual(model: GPT2, z, cfg: GPTConfig, dtype, *,
     return linear(z, zp.weight, zp.bias, policy=policy).to(dtype)
 
 
-def embed_tokens(model: GPT2, idx, cfg: GPTConfig, *, pos_offset: int = 0):
-    """wte + wpe embedding sum (train_gpt2.py:114-117)."""
-    t = idx.shape[-1]
-    pos = torch.arange(pos_offset, pos_offset + t, device=idx.device)
-    return (embed(model.transformer.wte.weight, idx)
-            + embed(model.transformer.wpe.weight, pos))
+def embed_tokens(model: GPT2, idx, cfg: GPTConfig, *, pos_offset: int = 0,
+                 seq_parallel: bool = False):
+    """wte + wpe embedding sum (train_gpt2.py:114-117). Under tensor
+    parallelism the vocab-parallel lookup (``TensorParallel.embed``); with
+    ``seq_parallel`` this rank's T-shard of it."""
+    tp = _tp_view(model, seq_parallel)
+    if tp is None:
+        e = embed(model.transformer.wte.weight, idx)
+    else:
+        e = tp.embed(model.transformer.wte.weight, idx)
+        if tp.sp:
+            pos_offset += tp.rank * e.shape[1]
+    pos = torch.arange(pos_offset, pos_offset + e.shape[-2], device=idx.device)
+    return e + embed(model.transformer.wpe.weight, pos)
+
+
+def _head_weight(model: GPT2, seq_parallel: bool = False):
+    """The tied head's (V, C) weight: wte, gathered whole under tensor
+    parallelism (the JAX program gathers the vocab-sharded wte too)."""
+    tp = _tp_view(model, seq_parallel)
+    w = model.transformer.wte.weight
+    return w if tp is None else tp.full_wte(w)
 
 
 def lm_head(model: GPT2, x, cfg: GPTConfig, *,
@@ -373,7 +443,7 @@ def lm_head(model: GPT2, x, cfg: GPTConfig, *,
     """Tied unembedding, ln_f(x) @ wte.T, fp32 accumulation, returned in the
     compute dtype (models/gpt2.py:353-368)."""
     x = _ln(x, model.transformer.ln_f)
-    logits = linear(x, model.transformer.wte.weight, policy=policy)
+    logits = linear(x, _head_weight(model), policy=policy)
     return logits.to(policy.compute_dtype)
 
 
@@ -409,7 +479,8 @@ def apply(model: GPT2, idx, cfg: GPTConfig, *, targets=None, target_mask=None,
 
 def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
          policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
-         ce_chunks: int = 8, ce_impl: str = "auto", remat=False):
+         ce_chunks: int = 8, ce_impl: str = "auto", remat=False,
+         pos_offset: int = 0, group=None):
     """CE loss without the (B, T, V) logits: apply(...)[1]'s semantics with
     lm_head + CE through fused_linear_ce. The scoring forward: called without
     autograd (train/step.py make_eval_step) under the bf16 policy on CUDA it
@@ -417,15 +488,31 @@ def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
     training loss: under autograd on CUDA every layer runs the flash forward
     and, in the backward, the flash backward kernel; CE takes the chunked
     plain forward and backward. ``ce_impl`` is fused_linear_ce's ``impl``,
-    ``remat`` run_blocks'."""
+    ``remat`` run_blocks'.
+
+    Parallel forms: a tensor-parallel model (``model.tp``) runs its shards,
+    T-sharded between blocks when the run asked for sequence parallelism;
+    then each rank scores its T-shard of the targets and the loss is their
+    mean over ``model``. ``group``: the ranks of the process group hold the
+    other tokens (in the ring over processes idx and targets are this rank's
+    chunk of every sequence, at positions from ``pos_offset``; under data
+    parallelism its rows), and the loss is the mean over all of them. The
+    value returned is the whole loss on every rank; its backward reaches
+    this rank's part only."""
     _check_len(idx, cfg)
-    x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
+    x = embed_tokens(model, idx, cfg, pos_offset=pos_offset,
+                     seq_parallel=True).to(policy.compute_dtype)
     z = project_visual(model, z, cfg, x.dtype, policy=policy)
-    x = run_blocks(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl, remat=remat)
+    x = run_blocks(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl, remat=remat,
+                   seq_parallel=True)
     x = _ln(x, model.transformer.ln_f)
-    return fused_ce_loss(x, model.transformer.wte.weight, targets,
+    tp = _tp_view(model, True)
+    if tp is not None and tp.sp:
+        targets, group = tp.seq_slice(targets), tp.group
+        target_mask = None if target_mask is None else tp.seq_slice(target_mask)
+    return fused_ce_loss(x, _head_weight(model, True), targets,
                          mask=target_mask, policy=policy, ce_chunks=ce_chunks,
-                         impl=ce_impl)
+                         impl=ce_impl, group=group)
 
 
 def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, target_mask=None,
@@ -444,22 +531,25 @@ def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, targe
     embedding gradients summed in fp32 before its one accumulate (:552-556
     there). Peak gradient memory is one layer's; every block's forward runs
     twice. Returns the loss, detached. Plain decoder only, every parameter
-    trainable (the pretraining workload)."""
+    trainable (the pretraining workload). A tensor-parallel model runs its
+    shards with the residual stream whole (no sequence parallelism, as in
+    the JAX trainer)."""
     if cfg.cross_attention:
         raise ValueError("loss_grad_layerwise: plain decoder only")
     _check_len(idx, cfg)
     tr = model.transformer
     layers = list(tr.h)
+    tp = _tp_view(model)
     saved = []
     with torch.no_grad():
         x = embed_tokens(model, idx, cfg).to(policy.compute_dtype)
         for layer in layers:
             saved.append(x)
-            x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl)
+            x = block(layer, x, cfg, policy=policy, attn_impl=attn_impl, tp=tp)
     with torch.enable_grad():
         xl = x.requires_grad_(True)
-        loss_val = fused_ce_loss(_ln(xl, tr.ln_f), tr.wte.weight, targets, mask=target_mask,
-                                 policy=policy, ce_chunks=ce_chunks)
+        loss_val = fused_ce_loss(_ln(xl, tr.ln_f), _head_weight(model), targets,
+                                 mask=target_mask, policy=policy, ce_chunks=ce_chunks)
         dx, dwte_head, dlnf_w, dlnf_b = torch.autograd.grad(
             loss_val, [xl, tr.wte.weight, tr.ln_f.weight, tr.ln_f.bias])
     del xl, x
@@ -467,7 +557,7 @@ def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, targe
         names, params = zip(*layers[i].named_parameters())
         with torch.enable_grad():
             x_in = saved[i].requires_grad_(True)
-            y = block(layers[i], x_in, cfg, policy=policy, attn_impl=attn_impl)
+            y = block(layers[i], x_in, cfg, policy=policy, attn_impl=attn_impl, tp=tp)
             grads = torch.autograd.grad(y, [x_in, *params], dx)
         saved[i] = None
         dx = grads[0]
@@ -485,9 +575,12 @@ def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, targe
 
 
 def fused_ce_loss(x, wte, targets, *, mask=None, policy: Policy = DEFAULT_POLICY,
-                  ce_chunks: int = 8, impl: str = "auto"):
+                  ce_chunks: int = 8, impl: str = "auto", group=None):
     """Masked-mean fused CE over final hiddens x (..., T, D); targets equal
-    to -100 are ignored (clipped to 0 before the kernel, then masked)."""
+    to -100 are ignored (clipped to 0 before the kernel, then masked).
+    ``group``: each rank of the process group holds part of the tokens; the
+    mean is over all of them (the count summed over the group), returned on
+    every rank, and its backward reaches this rank's tokens only."""
     d = x.shape[-1]
     flat_x = x.reshape(-1, d)
     flat_t = targets.reshape(-1)
@@ -499,6 +592,11 @@ def fused_ce_loss(x, wte, targets, *, mask=None, policy: Policy = DEFAULT_POLICY
     if mask is not None:
         valid = valid & mask.reshape(-1).bool()
     nll = nll * valid
+    if group is not None:
+        from ..parallel import collectives as coll
+
+        count = coll.all_reduce_(valid.sum().float(), group)
+        return coll.ReduceFromGroup.apply(nll.sum(), group) / count.clamp(min=1)
     return nll.sum() / valid.sum().clamp(min=1)
 
 
@@ -523,9 +621,10 @@ def cross_entropy(logits, targets, *, mask=None):
 
 
 def init_cache(cfg: GPTConfig, batch_size: int, max_len: int,
-               dtype=torch.bfloat16, device=None):
-    """Zeroed (L, B, H, max_len, hs) K and V caches."""
-    shape = (cfg.n_layer, batch_size, cfg.n_head, max_len, cfg.head_dim)
+               dtype=torch.bfloat16, device=None, n_head=None):
+    """Zeroed (L, B, H, max_len, hs) K and V caches; ``n_head``: the heads
+    this rank computes (``local_heads``), all of cfg's by default."""
+    shape = (cfg.n_layer, batch_size, n_head or cfg.n_head, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -552,22 +651,24 @@ def _cached_sdpa(q, k_cache, v_cache, slot: int, policy: Policy):
 def run_blocks_cached(model: GPT2, embeds, cfg: GPTConfig, cache, slot: int,
                        policy: Policy, z=None):
     x = embeds
-    b, t, c = x.shape
+    b, t, _ = x.shape
     hs = cfg.head_dim
+    tp = _tp_view(model)
     for l, layer in enumerate(model.transformer.h):
         attn = layer.attn
         x = _xblock(layer, x, z, cfg, policy)
-        qkv = linear(_ln(x, layer.ln_1), attn.c_attn.weight, attn.c_attn.bias,
+        qkv = linear(_enter(_ln(x, layer.ln_1), tp), attn.c_attn.weight, attn.c_attn.bias,
                      policy=policy)
-        q, k, v = (a.view(b, t, cfg.n_head, hs).transpose(1, 2)
+        c = qkv.shape[-1] // 3
+        q, k, v = (a.view(b, t, c // hs, hs).transpose(1, 2)
                    for a in qkv.split(c, dim=-1))
         # the new rows are written into the stacked cache in place
         cache["k"][l, :, :, slot:slot + t] = k.to(cache["k"].dtype)
         cache["v"][l, :, :, slot:slot + t] = v.to(cache["v"].dtype)
         y = _cached_sdpa(q, cache["k"][l], cache["v"][l], slot, policy)
         y = y.transpose(1, 2).reshape(b, t, c)
-        x = x + linear(y, attn.c_proj.weight, attn.c_proj.bias, policy=policy)
-        x = x + mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy)
+        x = x + _row_out(y, attn.c_proj, policy, tp)
+        x = x + mlp(layer.mlp, _ln(x, layer.ln_2), policy=policy, tp=tp)
     return x
 
 

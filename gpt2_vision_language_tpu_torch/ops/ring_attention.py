@@ -102,19 +102,11 @@ class _Rotate(torch.autograd.Function):
 
 def _exchange(tensors, group, step: int):
     """Send each tensor ``step`` ranks on around the group and return what
-    arrives from ``step`` ranks back."""
-    import torch.distributed as dist
+    arrives from ``step`` ranks back (parallel/collectives.exchange: pinned
+    host memory between ranks that share a card over gloo)."""
+    from ..parallel.collectives import exchange
 
-    rank, n = dist.get_rank(group), dist.get_world_size(group)
-    to = dist.get_global_rank(group, (rank + step) % n)
-    frm = dist.get_global_rank(group, (rank - step) % n)
-    sent = [t.contiguous() for t in tensors]
-    got = [torch.empty_like(t) for t in sent]
-    ops = [dist.P2POp(dist.isend, t, to, group) for t in sent]
-    ops += [dist.P2POp(dist.irecv, t, frm, group) for t in got]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return tuple(got)
+    return exchange(tensors, group, step)
 
 
 class _Tie(torch.autograd.Function):

@@ -1,4 +1,4 @@
 """What the port carries of gpt2_vision_language_tpu/parallel: the process
-group and the ring handle of ring attention (``mesh``). Data parallelism,
-Megatron tensor parallelism, sequence parallelism and the pipeline are not
-ported yet."""
+mesh and the ring handle (``mesh``), the collectives of data and tensor
+parallelism (``collectives``), and the Megatron split with sequence
+parallelism (``sharding``). The GPipe pipeline is not ported yet."""

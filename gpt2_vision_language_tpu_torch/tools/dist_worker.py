@@ -1,0 +1,596 @@
+"""One rank of a multi-process run of the port, driven by a JSON job.
+
+    python -m gpt2_vision_language_tpu_torch.tools.dist_worker JOB.json
+
+under ``python -m torch.distributed.run --nproc_per_node N`` (or ``launch``
+below, which sets the same variables: MASTER_ADDR, MASTER_PORT, RANK,
+WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE). The job's ``kind``:
+
+  * ``"step"``: train steps of a GPT-2 on a ("data", "model") mesh of shape
+    ``mesh``: data parallelism, Megatron tensor parallelism (``mesh[1] > 1``,
+    ``seq_parallel``), or the ring over the model group (``ring``). The whole
+    weights come from ``init`` (a state dict file) or from ``seed``; the
+    rows from ``rows`` (an ``.npy`` of (steps, accum, B, T + 1) token ids,
+    the global batch: data rank d takes rows [d * B / data, (d + 1) * B /
+    data)). ``fault`` runs a deliberately wrong step (``FaultySync``). With
+    ``mesh`` [1, 1] it is the one-process step (``run_job`` in the caller's
+    own process), the ring then a LocalRing of ``ring_size`` chunks.
+  * ``"ftstep"``: one optimizer step of a caption fine-tune, data-parallel
+    (``fault`` as for ``"step"``).
+  * ``"pretrain"``: ``train.pretrain.run_pretrain`` of the job's config.
+  * ``"finetune"``: ``train.finetune.run_finetune`` of the job's config.
+  * ``"cli"``: ``cli.pretrain.main(argv)``, the command line of the job's
+    ``argv`` (its ``--device`` names the card), the architecture replaced by
+    ``model`` where the job gives one.
+
+``device`` is every job's card (default ``"cuda"``: local rank i on
+``cuda:i``; ``"cuda:0"`` puts every rank on that card; the CPU only by
+``"cpu"``) and ``policy`` its precision policy (default ``"bf16"``, the
+trainers' own). Each rank writes ``{out}/{tag}_r{rank}.json``: the step
+metrics, this rank's kernel launch counts over the job (``launch_counts``)
+and its exchanges staged through host memory (``host_staged``), its peak
+device memory and seconds. Rank 0 of a ``"step"`` job also writes
+``{tag}_whole.pt``: the whole (gathered) params before and after and the
+whole reduced grads of the last step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..core.config import (BridgeConfig, FinetuneConfig, GPTConfig, OptimizerConfig,
+                           PretrainConfig, ScheduleConfig)
+from ..core.precision import DEFAULT_POLICY, FP32_POLICY
+from ..parallel.collectives import GradSync
+
+POLICIES = {"fp32": FP32_POLICY, "bf16": DEFAULT_POLICY}
+
+
+def _policy(job):
+    return POLICIES[job.get("policy", "bf16")]
+
+
+def _device(job) -> str:
+    return job.get("device", "cuda")
+
+
+def kernel_counters():
+    """name -> the wrapper whose ``launches`` counts that kernel's launches."""
+    from ..ops import flash_attention as fa
+    from ..ops import fused_adamw as fw
+    from ..ops import fused_ce as fc
+
+    return {"flash_fwd": fa.flash_attention, "flash_fwd_f32": fa.flash_forward_f32,
+            "flash_bwd": fa.flash_attention_backward, "flash_bwd_f32": fa.flash_bwd_f32_cuda,
+            "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
+            "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
+            "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
+            "flash_lse_fwd": fa.flash_lse_forward, "flash_fused_bwd": fa.flash_fused_backward,
+            "flash_general_fwd_f32": fa.flash_general_forward_f32,
+            "flash_general_bwd_f32": fa.flash_general_backward_f32,
+            "flash_rowdot_f32": fa.flash_rowdot_f32,
+            "flash_lse_fwd_f32": fa.flash_lse_forward_f32,
+            "flash_fused_bwd_f32": fa.flash_fused_backward_f32}
+
+
+def read_counts() -> dict:
+    return {n: int(f.launches) for n, f in kernel_counters().items()}
+
+
+class FaultySync(GradSync):
+    """A GradSync with one deliberate fault, for the controls that must fail
+    their checks: ``"skip_allreduce"`` leaves the grads unreduced,
+    ``"count_replicated"`` counts every leaf as sharded in the clip norm (a
+    replicated leaf's squares summed over ``model``, so tp times)."""
+
+    def __init__(self, mesh, *, fault: str, **kw):
+        if fault not in ("skip_allreduce", "count_replicated"):
+            raise ValueError(f"unknown fault {fault!r}")
+        super().__init__(mesh, **kw)
+        self.fault = fault
+
+    def reduce_(self, grads):
+        if self.fault != "skip_allreduce":
+            super().reduce_(grads)
+
+    def norm(self, grads):
+        if self.fault == "count_replicated":
+            self.sharded = set(grads)
+        return super().norm(grads)
+
+
+# ---------------------------------------------------------------------------
+# "step"
+# ---------------------------------------------------------------------------
+
+
+def _whole_model(job, cfg, device):
+    from ..models import gpt2
+
+    model = gpt2.init(cfg, generator=torch.Generator(device).manual_seed(job.get("seed", 0)),
+                      device=device)
+    if job.get("init"):
+        model.load_state_dict(torch.load(job["init"], map_location=device, weights_only=True))
+    return model
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _make_sync(job):
+    """The GradSync factory of a job: ``FaultySync`` with the job's ``fault``,
+    or None (``GradSync`` itself)."""
+    return functools.partial(FaultySync, fault=job["fault"]) if job.get("fault") else None
+
+
+def _grad_sync(job, mesh, **kw):
+    return None if mesh.world == 1 else (_make_sync(job) or GradSync)(mesh, **kw)
+
+
+def _steps(job: dict, device, mesh):
+    """The train steps of a ``"step"`` job on ``mesh``; returns (record, whole
+    tensors {"before", "after", "grads"} on this rank: the gathered ones
+    under tensor parallelism)."""
+    from ..models import gpt2
+    from ..ops import ring_attention
+    from ..parallel import collectives as coll
+    from ..parallel.sharding import gather_params, ring_chunk_loss, setup_parallel
+    from ..train.optimizer import adamw_init
+    from ..train.step import make_train_step
+
+    data, n_model = mesh.size("data"), mesh.size("model")
+    cfg = GPTConfig(**job["model"])
+    policy = _policy(job)
+    ring = bool(job.get("ring"))
+    model = _whole_model(job, cfg, device)
+    tp, shapes, sync = setup_parallel(model, mesh, seq_parallel=bool(job.get("seq_parallel")),
+                                      ring=ring, make_sync=_make_sync(job))
+    params = gpt2.named_params(model)
+    rows = np.load(job["rows"])  # (steps, accum, B, T + 1), the global batch
+    if mesh.world == 1 and job.get("data_split", 1) > 1:
+        # the one-process step of a data-parallel job's batch: each of its
+        # micro-batches as data_split micro-batches of the ranks' rows
+        k = job["data_split"]
+        s_, a_, b_, t_ = rows.shape
+        rows = rows.reshape(s_, a_ * k, b_ // k, t_)
+    steps, accum, b_all, t1 = rows.shape
+    b = b_all // data
+    d = mesh.coord("data")
+    rows = rows[:, :, d * b:(d + 1) * b]
+    t = t1 - 1
+    attn_impl = job.get("attn_impl", "auto")
+    if ring and mesh.world == 1:  # one process: a LocalRing of ring_size chunks
+        ring_attention.set_ring(job.get("ring_size", n_model))
+
+        def loss_fn(m, micro):
+            return gpt2.loss(m, micro[:, :-1], cfg, targets=micro[:, 1:], policy=policy,
+                             attn_impl="ring")
+    elif ring:  # a chunk of every sequence a rank
+        ring_attention.set_ring(ring_attention.GroupRing(mesh.group("model")))
+        chunk_loss = ring_chunk_loss(mesh, cfg, policy)
+
+        def loss_fn(m, micro):
+            return chunk_loss(m, micro[:, :-1], micro[:, 1:])
+    else:
+        def loss_fn(m, micro):
+            return gpt2.loss(m, micro[:, :-1], cfg, targets=micro[:, 1:], policy=policy,
+                             attn_impl=attn_impl, remat=job.get("remat", False))
+
+    layerwise = None
+    if job.get("layerwise"):
+        def layerwise(m, micro, acc):
+            return gpt2.loss_grad_layerwise(m, micro[:, :-1], cfg, targets=micro[:, 1:],
+                                            acc=acc, policy=policy, attn_impl=attn_impl,
+                                            ce_chunks=2)
+
+    opt_cfg = OptimizerConfig(**job.get("opt", {}))
+    step = make_train_step(loss_fn, opt_cfg, ScheduleConfig(**job.get("sched", {})),
+                           decay_mask=gpt2.decay_mask(model), layerwise_loss_grad=layerwise,
+                           grad_sync=sync)
+    state = adamw_init(params, state_dtype=job.get("opt_state_dtype"))
+    whole = lambda tree: tree if tp is None else gather_params(tree, tp, shapes)  # noqa: E731
+    before = {n: v.detach().clone() for n, v in whole(dict(params)).items()}
+    step0 = int(job.get("step0", 0))
+    rec = {"rank": mesh.rank, "world": mesh.world, "mesh": [data, n_model], "accum": accum,
+           "local_heads": gpt2.local_heads(model, cfg), "tokens_per_step": accum * b_all * t}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    staged0 = coll.host_staged.calls
+    if job.get("eval"):  # one no-grad micro-batch: the validation path (the CE kernel)
+        batch = torch.from_numpy(rows[0][0].astype(np.int64)).to(device)
+        c0 = read_counts()
+        with torch.no_grad():
+            rec["eval_loss"] = float(loss_fn(model, batch))
+        rec["eval_counts"] = {k: v - c0[k] for k, v in read_counts().items()}
+    metrics, seconds = [], []
+    counts0 = read_counts()
+    for i in range(steps):
+        batch = torch.from_numpy(rows[i].astype(np.int64)).to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        metrics.append(step(model, state, batch, step0 + i))
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
+    counts = {k: v - counts0[k] for k, v in read_counts().items()}
+    if ring:
+        ring_attention.set_ring(None)
+    grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+    rec.update(metrics=metrics, seconds=seconds, launch_counts=counts,
+               host_staged=coll.host_staged.calls - staged0,
+               grad_allreduces=0 if sync is None else sync.calls,
+               peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                         if device.type == "cuda" else None))
+    out = {"before": before, "after": {n: v.detach() for n, v in whole(dict(params)).items()},
+           "grads": {n: v.detach() for n, v in whole(grads).items()} if grads else {}}
+    return rec, out
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    num = sum(float((a[n].double() - b[n].double()).square().sum()) for n in b)
+    den = sum(float(b[n].double().square().sum()) for n in b)
+    return (num / den) ** 0.5
+
+
+def compare_steps(rec, got, ref_rec, ref, opt_cfg, decay_mask, trainable=None) -> dict:
+    """The readings a run over processes is held to against the one-process
+    step from the same state on the same rows (the last step of each):
+
+      * loss_abs, grad_norm_rel: the two steps' metrics;
+      * grads_rel_l2: the whole gradients, each times its 1/accum;
+      * norm_self_rel: the step's clip norm against the norm of its own whole
+        gradients (a norm counting a replicated leaf more than once is off);
+      * update_max_rel: the step's parameter change against the plain AdamW
+        replayed on its own whole gradients from the same state, as
+        max|err| / max|ref|."""
+    from ..train.optimizer import adamw_init, adamw_update, global_norm
+
+    m, r = rec["metrics"][-1], ref_rec["metrics"][-1]
+    inv, inv_ref = 1.0 / rec["accum"], 1.0 / ref_rec["accum"]
+    names = [n for n in ref["grads"] if trainable is None or trainable[n]]
+    g = {n: got["grads"][n].float() * inv for n in names}
+    g_ref = {n: ref["grads"][n].float() * inv_ref for n in names}
+    own_norm = float(global_norm(g))
+    p = {n: got["before"][n].clone() for n in names}
+    st = adamw_init(p)
+    norm_t = torch.tensor(own_norm, dtype=torch.float32, device=next(iter(p.values())).device)
+    adamw_update(p, {n: got["grads"][n].float() for n in names}, st, m["lr"], opt_cfg,
+                 norm=norm_t, decay_mask=decay_mask, use_fused=False, grad_scale=inv)
+    delta = {n: got["after"][n].float() - got["before"][n].float() for n in names}
+    want = {n: p[n] - got["before"][n].float() for n in names}
+    top = max(float(w.abs().max()) for w in want.values())
+    out = {"loss_abs": abs(m["loss"] - r["loss"]),
+           "grad_norm_rel": abs(m["grad_norm"] - r["grad_norm"]) / r["grad_norm"],
+           "grads_rel_l2": _rel_l2(g, g_ref),
+           "norm_self_rel": abs(m["grad_norm"] - own_norm) / own_norm,
+           "update_max_rel": max(float((delta[n] - want[n]).abs().max()) for n in names) / top}
+    if "eval_loss" in rec:
+        out["eval_abs"] = abs(rec["eval_loss"] - ref_rec["eval_loss"])
+    return out
+
+
+_REFERENCES = {}
+
+
+def _reference(job, device, run):
+    """rank 0's one-process run of ``job`` (cached by job: several jobs of a
+    list share one), its whole tensors on the host."""
+    key = json.dumps({k: v for k, v in job.items() if k not in ("tag", "mesh")}, sort_keys=True)
+    if key not in _REFERENCES:
+        from ..parallel.mesh import Mesh
+
+        rec, out = run(job, device, Mesh(("data", "model"), (1, 1)))
+        _REFERENCES[key] = rec, {k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()}
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return _REFERENCES[key]
+
+
+def run_step_job(job: dict) -> dict:
+    """The train steps of a ``"step"`` job on this rank; returns its record.
+    ``reference``: rank 0 first runs the one-process step on the same rows
+    from the same state and adds ``compare_steps``'s ``errors``. Rank 0 also
+    writes its whole tensors with ``out`` and ``save_whole``."""
+    import torch.distributed as dist
+
+    from ..models import gpt2
+    from ..parallel.mesh import init_distributed, make_mesh
+
+    device = init_distributed(_device(job))
+    data, n_model = job.get("mesh", [1, 1])
+    ref = None
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if job.get("reference") and rank == 0:
+        # the same rows from the same state on one process: every data rank's
+        # rows in turn, the ring (if any) run in turn, the validation
+        # micro-batch scored
+        rjob = {k: v for k, v in job.items() if k not in ("fault", "seq_parallel")}
+        rjob.update(data_split=data, eval=True)
+        if job.get("ring"):
+            rjob["ring_size"] = n_model
+        ref = _reference(rjob, device, _steps)
+    if dist.is_initialized():
+        dist.barrier()
+    mesh = make_mesh(None, ("data", "model"), (data, n_model))
+    rec, out = _steps(job, device, mesh)
+    if ref is not None:
+        cfg = GPTConfig(**job["model"])
+        decay = gpt2.decay_mask(gpt2.GPT2(cfg))
+        rec["errors"] = compare_steps(rec, {k: {n: v.cpu() for n, v in d.items()}
+                                            for k, d in out.items()},
+                                      ref[0], ref[1], OptimizerConfig(**job.get("opt", {})),
+                                      decay)
+    if mesh.rank == 0 and job.get("out") and job.get("save_whole", True):
+        torch.save({k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()},
+                   os.path.join(job["out"], f"{job.get('tag', 'step')}_whole.pt"))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# "ftstep": one optimizer step of a caption fine-tune
+# ---------------------------------------------------------------------------
+
+
+def _ft_steps(job: dict, device, mesh):
+    """One step of the preset fine-tune ``job["bridge"]`` at ``n_layer``
+    layers, data-parallel over ``mesh``: a seeded synthetic window of
+    ``accum`` micro-batches of ``b`` rows (the global batch; data rank d
+    takes rows d, d + W, ..., the striding of data/coco.CocoBatcher), the
+    training loss with the Q-Former's dropout drawn for the global batch."""
+    from ..core import config as port_config
+    from ..models import gpt2
+    from ..parallel import collectives as coll
+    from ..train import finetune
+    from ..train.optimizer import adamw_init
+    from ..train.step import make_train_step
+
+    kind = job["bridge"]
+    preset = getattr(port_config, f"finetune_{kind}_preset")()
+    preset = dataclasses.replace(preset, model=preset.model.replace(n_layer=job["n_layer"]))
+    policy = _policy(job)
+    world = mesh.size("data")
+    parts = finetune.build_finetune(preset, device=device, policy=policy,
+                                    mesh=mesh if world > 1 else None)
+    model, trainable, decay = parts["model"], parts["trainable"], parts["decay"]
+    rng = np.random.RandomState(job.get("seed", 0))
+    accum, b, t, n_bank = job["accum"], job["b"], job["t"], job["n_bank"]
+    bank = torch.from_numpy(rng.randn(n_bank, 33, preset.model.img_embd
+                                      if kind == "xattn" else preset.bridge.enc_dim)
+                            .astype(np.float32)).to(device, policy.compute_dtype)
+    toks = rng.randint(0, 50257, (accum, b, t + 1))
+    lens = rng.randint(4, t, (accum, b, 1))
+    mask = np.arange(t)[None, None, :] < lens
+    idx = rng.randint(0, n_bank, (accum, b))
+    d = mesh.coord("data")
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[:, d::world])).to(device)
+             for k, v in (("x", toks[..., :-1]), ("y", toks[..., 1:]), ("mask", mask),
+                          ("idx", idx))}
+    if parts["dropout"]:
+        batch["seed"] = finetune.dropout_seeds(preset.seed, 0, accum)
+    sync = _grad_sync(job, mesh, loss_is_global=True)
+    sched = dataclasses.replace(preset.schedule, warmup_steps=0)  # step 0 at the peak LR
+    step = make_train_step(parts["train_loss_fn"], preset.optimizer, sched, decay_mask=decay,
+                           trainable_mask=trainable, grad_sync=sync)
+    params = gpt2.named_params(model)
+    state = adamw_init(params, trainable_mask=trainable)
+    before = {n: p.detach().clone() for n, p in params.items() if trainable[n]}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    counts0, staged0 = read_counts(), coll.host_staged.calls
+    _sync(device)
+    t0 = time.perf_counter()
+    metrics = step(model, state, batch, 0, bank)
+    _sync(device)
+    rec = {"rank": mesh.rank, "world": mesh.world, "accum": accum, "metrics": [metrics],
+           "seconds": [time.perf_counter() - t0],
+           "launch_counts": {k: v - counts0[k] for k, v in read_counts().items()},
+           "host_staged": coll.host_staged.calls - staged0, "tokens_per_step": accum * b * t,
+           "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                        if device.type == "cuda" else None)}
+    out = {"before": before,
+           "after": {n: p.detach().clone() for n, p in params.items() if trainable[n]},
+           "grads": {n: p.grad.detach().clone() for n, p in params.items()
+                     if trainable[n] and p.grad is not None}}
+    return rec, out, (preset.optimizer, decay, trainable)
+
+
+def run_ft_step_job(job: dict) -> dict:
+    """``"ftstep"``: rank 0 runs the one-process step first (``reference``)
+    and adds the readings of ``compare_steps`` over the trainable leaves."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed, make_mesh
+
+    device = init_distributed(_device(job))
+    world = job.get("mesh", [1])[0]
+    ref = None
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if job.get("reference") and rank == 0:
+        def one(j, dev, mesh):
+            rec, out, _ = _ft_steps(j, dev, mesh)
+            return rec, out
+
+        ref = _reference(dict(job, mesh=[1]), device, one)
+    if dist.is_initialized():
+        dist.barrier()
+    rec, out, (opt_cfg, decay, trainable) = _ft_steps(job, device,
+                                                       make_mesh(None, ("data",), (world,)))
+    if ref is not None:
+        rec["errors"] = compare_steps(rec, {k: {n: v.cpu() for n, v in d.items()}
+                                            for k, d in out.items()},
+                                      ref[0], ref[1], opt_cfg, decay, trainable)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# "pretrain" / "finetune"
+# ---------------------------------------------------------------------------
+
+
+def _pretrain_cfg(job) -> PretrainConfig:
+    c = dict(job["pretrain"])
+    c["model"] = GPTConfig(**job["model"])
+    c["schedule"] = ScheduleConfig(**c.pop("schedule", {}))
+    if "optimizer" in c:
+        c["optimizer"] = OptimizerConfig(**c["optimizer"])
+    return PretrainConfig(**c)
+
+
+def _finetune_cfg(job) -> FinetuneConfig:
+    c = dict(job["finetune"])
+    c["model"] = GPTConfig(**job["model"])
+    c["bridge"] = BridgeConfig(**c.pop("bridge"))
+    c["schedule"] = ScheduleConfig(**c.pop("schedule", {}))
+    if "optimizer" in c:
+        c["optimizer"] = OptimizerConfig(**c["optimizer"])
+    return FinetuneConfig(**c)
+
+
+def _param_sums(model) -> dict:
+    from ..models import gpt2
+
+    out = {}
+    for n, p in gpt2.named_params(model).items():
+        a = p.detach().double()
+        out[n] = [float(a.sum()), float(a.abs().sum())]
+    return out
+
+
+def run_trainer_job(job: dict) -> dict:
+    """A ``"pretrain"``, ``"finetune"`` or ``"cli"`` job: the trainer's run, and
+    this rank's launch counts over it."""
+    from ..parallel import collectives as coll
+    from ..parallel.mesh import world_size
+    from ..train.finetune import run_finetune
+    from ..train.pretrain import run_pretrain
+
+    if job.get("hellaswag_dir"):
+        os.environ["HELLASWAG_DIR"] = job["hellaswag_dir"]
+    counts0, staged0 = read_counts(), coll.host_staged.calls
+    t0 = time.perf_counter()
+    if job["kind"] == "cli":
+        from ..cli.pretrain import main as pretrain_main
+
+        out = pretrain_main(job["argv"],
+                            model=GPTConfig(**job["model"]) if job.get("model") else None)
+    elif job["kind"] == "pretrain":
+        out = run_pretrain(_pretrain_cfg(job), device=_device(job), policy=_policy(job),
+                           max_steps_override=job.get("max_steps"),
+                           num_devices=job.get("devices"))
+    else:
+        out = run_finetune(_finetune_cfg(job), device=_device(job), policy=_policy(job),
+                           max_steps_override=job.get("max_steps"),
+                           num_devices=job.get("devices"))
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return {"rank": rank, "world": world_size(), "val_loss": out["val_loss"],
+            "cider": out.get("cider"), "step": out["opt_state"]["step"],
+            "param_sums": _param_sums(out["model"]),
+            "launch_counts": {k: v - counts0[k] for k, v in read_counts().items()},
+            "host_staged": coll.host_staged.calls - staged0,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_job(job: dict) -> dict:
+    """Run one job, or each of a ``"jobs"`` list in turn in the same
+    processes (the list's own keys are every job's defaults; kind "step")."""
+    torch.set_num_threads(int(job.get("threads", 1)))
+    if job["kind"] == "jobs":
+        base = {k: v for k, v in job.items() if k not in ("kind", "jobs")}
+        return [run_job({"kind": "step", **base, **j}) for j in job["jobs"]]
+    runners = {"step": run_step_job, "ftstep": run_ft_step_job}
+    t0 = time.perf_counter()
+    rec = runners.get(job["kind"], run_trainer_job)(job)
+    rec["wall_s"] = time.perf_counter() - t0  # the job's, its reference included
+    if job.get("out"):
+        path = os.path.join(job["out"], f"{job.get('tag', job['kind'])}_r{rec['rank']}.json")
+        with open(path, "w") as f:
+            json.dump(rec, f)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Launching
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch(job: dict, nprocs: int, *, timeout: float, workdir: str, argv=None) -> list:
+    """Run ``job`` (written to ``workdir``) in ``nprocs`` worker processes, the
+    variables of torch.distributed.run set for each, one torch thread each
+    unless the job says otherwise. ``argv`` replaces the worker's module
+    command (e.g. a CLI's ``-m`` and arguments). Kills every process at
+    ``timeout`` seconds and raises with the logs if any rank failed. Returns
+    each rank's log text."""
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, f"{job.get('tag', job.get('kind', 'job'))}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    port = free_port()
+    cmd = argv or ["-m", "gpt2_vision_language_tpu_torch.tools.dist_worker", path]
+    procs, logs = [], []
+    for r in range(nprocs):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(r),
+                   WORLD_SIZE=str(nprocs), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(nprocs),
+                   OMP_NUM_THREADS=str(job.get("threads", 1)),
+                   PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+        log = open(os.path.join(workdir, f"{job.get('tag', 'job')}_log{r}.txt"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, *cmd], env=env, cwd=root,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"ranks failed (rank, exit code) {bad}:\n" + "\n".join(
+            f"--- rank {r} ---\n{texts[r][-6000:]}" for r, _ in bad))
+    return texts
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    with open(argv[0]) as f:
+        job = json.load(f)
+    run_job(job)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

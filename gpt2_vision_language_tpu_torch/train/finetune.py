@@ -1,7 +1,7 @@
 """COCO captioning fine-tune workloads: linear / Q-Former / cross-attention.
 
-Counterpart of gpt2_vision_language_tpu/train/finetune.py, on one device (the
-three bridge trainers gpt2_linear/train.py, gpt2_q_former/train.py and
+Counterpart of gpt2_vision_language_tpu/train/finetune.py, on one device or
+data-parallel over processes (the three bridge trainers gpt2_linear/train.py, gpt2_q_former/train.py and
 gpt2_cross-att/train.py): frozen CLIP features from precomputed shards, frozen
 GPT-2 from the pretrain checkpoint, only the bridge (or the cross-attention
 leaves) trains.
@@ -21,6 +21,16 @@ get no gradient work, no moments, and stay out of the AdamW kernel's leaf
 table. The Q-Former's dropout draws from one ``torch.Generator`` seeded from
 the config (the JAX per-micro seed counter). Unlike the JAX trainer this one
 resumes from its own checkpoints, like the port's pretrain trainer.
+
+Data parallelism (``num_devices`` = the processes of ``torch.distributed.
+run``): each rank's batcher strides the epoch order (``CocoBatcher(rank,
+world)``, ``micro_batch_size`` rows a rank), the masked-mean loss counts the
+caption tokens of the whole global micro-batch (``gpt2.fused_ce_loss``'s
+``group``), the grads are summed once a step (parallel/collectives.GradSync),
+and the Q-Former's dropout masks are the global micro-batch's, each rank
+keeping its rows (``bridges.RowShard``), so W ranks compute the one-process
+step at the same global batch. CIDEr and sampling run on every rank, as in
+JAX; the master logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -45,9 +55,11 @@ from ..eval.caption_eval import evaluate_captions
 from ..infer.decode import Decoder
 from ..infer.sampling import sample_top_p
 from ..models import caption, gpt2
-from ..models.bridges import bridge_decay_mask
+from ..models.bridges import RowShard, bridge_decay_mask
 from ..obs.csvlog import MetricsLogger
 from ..ops.pooling import pool_clip_tokens_to_33
+from ..parallel import collectives as coll
+from ..parallel.mesh import init_distributed, is_master, make_mesh
 from .optimizer import adamw_init
 from .step import make_eval_step, make_train_step
 
@@ -85,7 +97,8 @@ def batch_to_device(raw, device: torch.device) -> dict:
     return {"x": put(x), "y": put(y), "mask": put(m), "idx": put(idx.astype(np.int64))}
 
 
-def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLICY) -> dict:
+def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLICY,
+                   mesh=None) -> dict:
     """The model, masks and loss functions of one fine-tune on ``device``:
     {"model", "trainable", "decay", "loss_fn", "train_loss_fn", "dropout"}.
 
@@ -95,15 +108,19 @@ def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLI
     dropout active, drawn from the seed that the micro-batch carries under
     "seed" (``dropout_seeds``). ``dropout`` says whether the training batches
     must carry those seeds: the other two kinds have no dropout sites. ``micro``
-    holds x, y, mask and idx, the rows of ``bank``."""
+    holds x, y, mask and idx, the rows of ``bank``. ``mesh``: a ("data",)
+    parallel/mesh.Mesh of several ranks, this rank holding its rows of each
+    micro-batch."""
     device = torch.device(device)
     kind, model_cfg = cfg.bridge.kind, cfg.model
+    group = None if mesh is None else mesh.group("data")
     gpt = load_pretrained_gpt(model_cfg, cfg.init_ckpt, seed=cfg.seed, device=device)
     if kind == "xattn":
 
         def loss_fn(model, micro, bank):
             return gpt2.loss(model, micro["x"], model_cfg, z=bank[micro["idx"]],
-                             targets=micro["y"], target_mask=micro["mask"], policy=policy)
+                             targets=micro["y"], target_mask=micro["mask"], policy=policy,
+                             group=group)
 
         return {"model": gpt, "trainable": gpt2.trainable_mask_xattn(gpt),
                 "decay": gpt2.decay_mask(gpt), "loss_fn": loss_fn, "train_loss_fn": loss_fn,
@@ -119,7 +136,8 @@ def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLI
     decay.update({f"bridge.{n}": d for n, d in bridge_decay_mask(bridge).items()})
     # train=True: the Q-Former's dropout is active when a micro-batch carries a
     # generator, which only training batches do
-    base_loss = caption.loss_fn_factory(model_cfg, cfg.bridge, policy=policy, train=True)
+    base_loss = caption.loss_fn_factory(model_cfg, cfg.bridge, policy=policy, train=True,
+                                        group=group)
     # the Q-Former's dropout stream, re-seeded for each micro-batch from the
     # seed it carries; the linear bridge has no dropout sites
     dropout_gen = torch.Generator(device) if kind == "qformer" else None
@@ -130,7 +148,9 @@ def build_finetune(cfg: FinetuneConfig, *, device, policy: Policy = DEFAULT_POLI
     def train_loss_fn(model, micro, bank):
         micro = {**micro, "z": bank[micro["idx"]]}
         if dropout_gen is not None:
-            micro["generator"] = dropout_gen.manual_seed(int(micro.pop("seed")))
+            gen = dropout_gen.manual_seed(int(micro.pop("seed")))
+            micro["generator"] = gen if group is None else RowShard(
+                gen, mesh.coord("data"), mesh.size("data"))
         return base_loss(model, micro)
 
     return {"model": model, "trainable": trainable, "decay": decay, "loss_fn": loss_fn,
@@ -149,23 +169,24 @@ def dropout_seeds(seed: int, step: int, accum: int) -> torch.Tensor:
 def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT_POLICY,
                  max_steps_override: Optional[int] = None,
                  num_devices: Optional[int] = None) -> dict:
-    """Run the fine-tune loop on ``device``. Returns {"model", "opt_state",
-    "val_loss", "cider", "cfg"}."""
-    if num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"num_devices={num_devices}: data-parallel fine-tuning is not ported yet "
-            "(ROADMAP Queue 1 item 10)"
-        )
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    """Run the fine-tune loop on ``device`` (each rank's, parallel/mesh.
+    device_for_rank). Returns {"model", "opt_state", "val_loss", "cider",
+    "cfg"}. ``num_devices``: the data-parallel world, the processes of
+    ``torch.distributed.run``; checked when given."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "run_finetune: no CUDA device (torch.cuda.is_available() is False); pass "
             "device='cpu' to train on the CPU"
         )
-    accum = cfg.grad_accum_steps(1)
+    device = init_distributed(device)
+    mesh = make_mesh(num_devices, ("data",))
+    rank, world = mesh.coord("data"), mesh.size("data")
+    master = is_master()
+    accum = cfg.grad_accum_steps(world)
     kind = cfg.bridge.kind
     model_cfg = cfg.model
-    print(f"[finetune:{kind}] accum={accum} device={device}")
+    if master:
+        print(f"[finetune:{kind}] accum={accum} world={world} device={device}")
 
     tokenizer = get_tokenizer()
     coco_root = cfg.coco_root or os.environ.get("COCO_ROOT", "coco2017")
@@ -179,9 +200,11 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
         )
 
     train_ds, val_ds = dataset("train"), dataset("val")
-    gb = cfg.micro_batch_size
-    train_batcher = CocoBatcher(train_ds, gb, shuffle=True, drop_last=True, seed=cfg.seed)
-    val_batcher = CocoBatcher(val_ds, gb, shuffle=False, drop_last=False, seed=cfg.seed)
+    b = cfg.micro_batch_size  # rows a rank; the global micro-batch is b * world
+    train_batcher = CocoBatcher(train_ds, b, shuffle=True, drop_last=True, seed=cfg.seed,
+                                rank=rank, world=world)
+    val_batcher = CocoBatcher(val_ds, b, shuffle=False, drop_last=False, seed=cfg.seed,
+                              rank=rank, world=world)
 
     # device-resident pooled feature banks: the CLIP-feature transfer is paid
     # once, rows are gathered on the device per micro-batch
@@ -194,7 +217,8 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
     print(f"[feats] pooled banks on device: train {tuple(train_bank.shape)} "
           f"({gb_bytes:.2f} GB), val {tuple(val_bank.shape)} in {time.time() - t_bank:.1f}s")
 
-    parts = build_finetune(cfg, device=device, policy=policy)
+    parts = build_finetune(cfg, device=device, policy=policy,
+                           mesh=mesh if world > 1 else None)
     model, trainable, decay = parts["model"], parts["trainable"], parts["decay"]
     loss_fn, train_loss_fn = parts["loss_fn"], parts["train_loss_fn"]
     dropout = parts["dropout"]
@@ -202,19 +226,24 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
     params = gpt2.named_params(model)
     n_train = sum(p.numel() for n, p in params.items() if trainable[n])
     n_total = gpt2.param_count(model)
-    print(f"[init] trainable params: {n_train}/{n_total}")
+    if master:
+        print(f"[init] trainable params: {n_train}/{n_total}")
 
     # the frozen decoder gets no moments (~1 GB of device memory and the same
     # in every checkpoint at 124M)
     opt_state = adamw_init(params, trainable_mask=trainable)
+    # the losses are masked means over the whole global micro-batch: the
+    # grads are summed over the ranks, not averaged
+    sync = coll.GradSync(mesh, loss_is_global=True) if world > 1 else None
     train_step = make_train_step(train_loss_fn, cfg.optimizer, cfg.schedule,
-                                 decay_mask=decay, trainable_mask=trainable)
+                                 decay_mask=decay, trainable_mask=trainable, grad_sync=sync)
     eval_step = make_eval_step(loss_fn)
 
-    log = MetricsLogger(cfg.log_dir)
+    log = MetricsLogger(cfg.log_dir, is_master=master)
     log.meta("tokenizer", tokenizer.name)
     log.meta("argv", " ".join(sys.argv))
-    manager = CheckpointManager(os.path.join(log.log_dir, "ckpts"), save_every=cfg.save_every)
+    manager = CheckpointManager(os.path.join(log.log_dir, "ckpts"), save_every=cfg.save_every,
+                                is_master=master)
     # the sorted sampler: it keeps the sort-free one's set and took 0.57-0.90
     # ms a call on the H100 against 13.1-19.9 ms (infer/sampling.py)
     cider_decoder = Decoder(model_cfg, policy=policy, sample_fn=sample_top_p)
@@ -233,11 +262,12 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
         start_step = int(meta["next_step"])
         # the data stream goes on where the uninterrupted run would be
         train_batcher.skip_batches(start_step * accum)
-        print(f"[ckpt] resumed at step {start_step}")
+        if master:
+            print(f"[ckpt] resumed at step {start_step}")
 
     max_steps = max_steps_override or cfg.schedule.max_steps
     val_loss, cider = float("nan"), None
-    tokens_per_step = gb * cfg.seq_len * accum
+    tokens_per_step = b * world * cfg.seq_len * accum
     avg_dt = None
 
     def run_validation(step, last_step):
@@ -301,6 +331,7 @@ def run_finetune(cfg: FinetuneConfig, *, device="cuda", policy: Policy = DEFAULT
     # record the last step actually run, not the scheduled end
     next_step = final_step if halted else final_step + 1
     manager.save_final(final_step, model, opt_state, val_loss, next_step=next_step)
-    log.export_xlsx()
+    if master:
+        log.export_xlsx()
     return {"model": model, "opt_state": opt_state, "val_loss": val_loss, "cider": cider,
             "cfg": cfg}

@@ -283,7 +283,10 @@ def convert_moments(params: Dict[str, torch.Tensor], opt_state: dict, state_dtyp
 def global_norm(grads: Dict[str, torch.Tensor], mask=None) -> torch.Tensor:
     """sqrt of the sum of squares of the (masked-in) grads, fp32, on their
     device (each grad upcast inside its own reduction: bf16 grads sum in
-    fp32)."""
+    fp32). One process's grads; over processes the train step takes the
+    global gradient's norm from parallel/collectives.GradSync.norm (the
+    sharded leaves' squares summed over ``model``, each replicated leaf
+    once)."""
     sq = [g.float().square().sum() for n, g in grads.items()
           if mask is None or mask[n]]
     return torch.stack(sq).sum().sqrt()

@@ -1,7 +1,7 @@
-"""FineWeb-Edu GPT-2 pretraining workload on one device.
+"""FineWeb-Edu GPT-2 pretraining workload, on one device or over processes.
 
-Counterpart of gpt2_vision_language_tpu/train/pretrain.py:44-466 for a
-single device: the reference's cadences (val every 250, samples every 250,
+Counterpart of gpt2_vision_language_tpu/train/pretrain.py:44-466: the
+reference's cadences (val every 250, samples every 250,
 rolling checkpoint every 2500, auto-resume), its CSV schema and its
 hyperparameters through ``PretrainConfig``. The token shards are read by
 ``data/fineweb.TokenShardLoader`` and the CSV is written by
@@ -12,11 +12,33 @@ window is on its way while the current step runs), in its 16 bits through
 pinned memory, and split into x, y and widened to int32 there, as the JAX
 trainer does (``split_rows_on_device``). HellaSwag runs every
 ``hellaswag_every`` steps and at the last step when ``run_hellaswag`` is set
-and ``$HELLASWAG_DIR`` (default ``./hellaswag``) is a directory. ``attn_impl="ring"`` (:88-96, :134-138,
-:462-465 there) needs ``tp > 1`` chunks that divide ``seq_len``; the ring is
-run in turn by this one process (``ops.ring_attention.LocalRing``), installed
-before the first step and removed when the run ends. ``tp > 1`` with any
-other ``attn_impl`` would be Megatron tensor parallelism, which is not ported.
+and ``$HELLASWAG_DIR`` (default ``./hellaswag``) is a directory.
+
+Parallel styles (JAX :44-140, 200-230). Launched by ``python -m
+torch.distributed.run``, the ranks form a ("data", "model") mesh of shape
+(world / tp, tp) (parallel/mesh.py):
+
+  * data parallelism over ``data``: each data rank reads its stride of the
+    rows (``TokenShardLoader(rank, world_size)``), the accumulated grads are
+    all-reduced once a step and the losses averaged
+    (parallel/collectives.GradSync); ``grad_accum_steps`` divides the global
+    batch over the data ranks;
+  * ``tp > 1``: Megatron tensor parallelism over ``model``
+    (parallel/sharding.py), the ranks of one model group reading the same
+    rows; with ``seq_parallel`` the residual stream T-sharded between
+    blocks;
+  * ``attn_impl="ring"`` (:88-96, :134-138 there) with ``tp > 1`` chunks
+    that divide ``seq_len``: over processes, each rank of the model group
+    holds T/tp of every sequence and the ring is a ``GroupRing`` over that
+    group, the params replicated and their grads summed over it; on one
+    process the ring is run in turn (``ops.ring_attention.LocalRing``). The
+    ring is installed before the first step and removed when the run ends.
+
+Only the master writes the CSV and the checkpoints (gathered whole trees;
+every rank reads them on resume and re-shards), HellaSwag examples go
+round-robin over the data ranks with their counts summed, and sampling is
+seeded ``42 + data rank`` (the ranks of one model group draw the same
+tokens).
 
 The big-model memory recipes are the JAX ones (:164-171, :208-212,
 :253-272, :309-325 there): ``param_dtype`` casts the params at init and
@@ -51,6 +73,9 @@ from ..infer.sampling import sample_top_k
 from ..models import gpt2
 from ..obs.csvlog import MetricsLogger
 from ..ops import ring_attention
+from ..parallel import collectives as coll
+from ..parallel.mesh import init_distributed, is_master, make_mesh, world_size
+from ..parallel.sharding import gather_params, ring_chunk_loss, setup_parallel, shard_params
 from ..utils.trees import fmt_count, tree_bytes
 from .optimizer import adamw_init, convert_moments
 from .step import make_eval_step, make_train_step
@@ -77,66 +102,118 @@ def split_rows_on_device(rows: torch.Tensor) -> dict:
 
 
 def check_parallel(cfg: PretrainConfig) -> None:
-    """Raise on a tp / attn_impl combination the single-device trainer does
-    not run."""
+    """Raise on a tp / seq_parallel / attn_impl combination the trainer does
+    not run (the JAX asserts, train/pretrain.py:72-97 there)."""
+    if cfg.seq_parallel and cfg.tp <= 1:
+        raise ValueError("seq_parallel requires tp > 1")
     if cfg.attn_impl == "ring":
         if cfg.tp <= 1:
             raise ValueError("attn_impl='ring' requires tp > 1 (the ring size)")
         if cfg.seq_len % cfg.tp:
             raise ValueError(f"attn_impl='ring': seq_len {cfg.seq_len} is not divisible "
                              f"by tp={cfg.tp}")
-    elif cfg.tp != 1:
+        if cfg.seq_parallel:
+            raise NotImplementedError(
+                "seq_parallel with attn_impl='ring': both cut the sequence over the model "
+                "axis; not ported (ROADMAP Queue 1 item 10)")
+    if cfg.seq_parallel and cfg.seq_len % cfg.tp:
+        raise ValueError(f"seq_parallel: seq_len {cfg.seq_len} is not divisible by "
+                         f"tp={cfg.tp}")
+    if cfg.seq_parallel and cfg.layerwise_grad:
+        raise ValueError("layerwise_grad: no seq_parallel")
+    if cfg.tp > 1 and cfg.attn_impl != "ring" and cfg.opt_state_dtype == "int8":
         raise NotImplementedError(
-            f"tp={cfg.tp} without attn_impl='ring' is Megatron tensor parallelism, which "
-            "is not ported yet (ROADMAP Queue 1 item 10)"
-        )
+            "int8 moments under tensor parallelism (JAX moment_specs' global 256-element "
+            "block grid) are not ported yet (ROADMAP Queue 1 item 10)")
 
 
 def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY,
-                 max_steps_override: Optional[int] = None, remat=False) -> dict:
-    """Run the pretrain loop on ``device``. Returns {"model", "opt_state",
-    "val_loss"}. ``remat`` is models.gpt2.run_blocks' (False, True or a mode
-    name)."""
+                 max_steps_override: Optional[int] = None, remat=False,
+                 num_devices: Optional[int] = None) -> dict:
+    """Run the pretrain loop on ``device`` (each rank's, parallel/mesh.
+    device_for_rank). Returns {"model", "opt_state", "val_loss"}: this rank's
+    model (its shards under tensor parallelism). ``remat`` is
+    models.gpt2.run_blocks' (False, True or a mode name). ``num_devices``:
+    the world's size, checked when given."""
     check_parallel(cfg)
+    device = init_distributed(device)
+    world = world_size()
     ring = cfg.attn_impl == "ring"
+    if world == 1 and cfg.tp > 1 and not ring:
+        raise ValueError(
+            f"tp={cfg.tp}: Megatron tensor parallelism runs over tp processes, one shard "
+            "each (python -m torch.distributed.run --nproc_per_node N ...); this run is "
+            "one process")
+    if world > 1 and world % cfg.tp:
+        raise ValueError(f"world {world} not divisible by tp={cfg.tp}")
+    tp = cfg.tp if world > 1 else 1
+    mesh = make_mesh(num_devices, ("data", "model"), (world // tp, tp))
     if ring:
-        ring_attention.set_ring(cfg.tp)
+        ring_attention.set_ring(cfg.tp if world == 1
+                                else ring_attention.GroupRing(mesh.group("model")))
     try:
-        return _run_pretrain(cfg, torch.device(device), policy, max_steps_override, remat)
+        return _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh)
     finally:
         if ring:
             ring_attention.set_ring(None)
 
 
-def _run_pretrain(cfg, device, policy, max_steps_override, remat) -> dict:
-    accum = cfg.grad_accum_steps(1)
-    print(f"total desired batch size: {cfg.total_batch_size}")
-    print(f"=> calculated gradient accumulation steps: {accum}")
+def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
+    master = is_master()
+    data_rank, data_world = mesh.coord("data"), mesh.size("data")
+    n_model = mesh.size("model")
+    seq_ring = n_model > 1 and cfg.attn_impl == "ring"
+    if seq_ring and cfg.layerwise_grad:
+        raise NotImplementedError("layerwise_grad with the ring over processes is not "
+                                  "ported (ROADMAP Queue 1 item 10)")
+    accum = cfg.grad_accum_steps(data_world)
+    if master:
+        print(f"total desired batch size: {cfg.total_batch_size}")
+        print(f"=> calculated gradient accumulation steps: {accum}")
+        if mesh.world > 1:
+            print(f"mesh: {mesh}")
 
     tokenizer = get_tokenizer()
     b, t = cfg.micro_batch_size, cfg.seq_len
-    train_loader = TokenShardLoader(b, t, split="train", data_dir=cfg.data_dir)
-    val_loader = TokenShardLoader(b, t, split="val", data_dir=cfg.data_dir)
+    # the data ranks stride disjoint windows; the ranks of one model group
+    # read the same rows
+    train_loader = TokenShardLoader(b, t, rank=data_rank, world_size=data_world,
+                                    split="train", data_dir=cfg.data_dir)
+    val_loader = TokenShardLoader(b, t, rank=data_rank, world_size=data_world,
+                                  split="val", data_dir=cfg.data_dir)
 
+    # every rank builds the whole model from the seed, then keeps its shards
     model = gpt2.init(cfg.model, generator=torch.Generator(device).manual_seed(cfg.seed),
                       device=device)
+    n_params = gpt2.param_count(model)
+    tp, shapes, sync = setup_parallel(model, mesh, seq_parallel=cfg.seq_parallel,
+                                      ring=cfg.attn_impl == "ring")
     if cfg.param_dtype:
         # the whole-model cast, the reference's CUDA run (train_gpt2.py:264);
         # AdamW's arithmetic stays fp32 (train/optimizer.py)
         model.to(_DTYPES[cfg.param_dtype])
     opt_state = adamw_init(gpt2.named_params(model), state_dtype=cfg.opt_state_dtype)
     params = gpt2.named_params(model)
-    print(f"[init] parameters: {gpt2.param_count(model):,}")
-    print(f"[mem] params {fmt_count(gpt2.param_count(model))} in "
-          f"{tree_bytes(params) / 2**30:.3f} GiB, moments "
-          f"{tree_bytes([opt_state['m'], opt_state['v']]) / 2**30:.3f} GiB "
-          f"({cfg.opt_state_dtype or 'param dtype'}), grad accumulators "
-          f"{cfg.grad_accum_dtype or 'float32'}")
+    if master:
+        print(f"[init] parameters: {n_params:,}")
+        print(f"[mem] params {fmt_count(gpt2.param_count(model))} in "
+              f"{tree_bytes(params) / 2**30:.3f} GiB, moments "
+              f"{tree_bytes([opt_state['m'], opt_state['v']]) / 2**30:.3f} GiB "
+              f"({cfg.opt_state_dtype or 'param dtype'}), grad accumulators "
+              f"{cfg.grad_accum_dtype or 'float32'}"
+              + (f" (a rank's shards of {n_model})" if tp is not None else ""))
 
-    def loss_fn(model, micro):
-        # micro: {"x", "y"}, (B, T) int32 each
-        return gpt2.loss(model, micro["x"], cfg.model, targets=micro["y"],
-                         policy=policy, attn_impl=cfg.attn_impl, remat=remat)
+    if seq_ring:
+        # this rank's chunk of every sequence
+        chunk_loss = ring_chunk_loss(mesh, cfg.model, policy, remat=remat)
+
+        def loss_fn(model, micro):
+            return chunk_loss(model, micro["x"], micro["y"])
+    else:
+        def loss_fn(model, micro):
+            # micro: {"x", "y"}, (B, T) int32 each
+            return gpt2.loss(model, micro["x"], cfg.model, targets=micro["y"],
+                             policy=policy, attn_impl=cfg.attn_impl, remat=remat)
 
     layerwise_fn = None
     if cfg.layerwise_grad:
@@ -147,15 +224,24 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat) -> dict:
     train_step = make_train_step(
         loss_fn, cfg.optimizer, cfg.schedule, decay_mask=gpt2.decay_mask(model),
         nan_guard=cfg.nan_guard, grad_accum_dtype=cfg.grad_accum_dtype,
-        layerwise_loss_grad=layerwise_fn,
+        layerwise_loss_grad=layerwise_fn, grad_sync=sync,
     )
     eval_step = make_eval_step(loss_fn)
 
-    log = MetricsLogger(cfg.log_dir)
+    def whole_tree(model, opt_state):
+        """The checkpoint's tree: whole tensors (every rank's shards gathered)."""
+        sd = model.state_dict()
+        m, v = opt_state["m"], opt_state["v"]
+        if tp is not None:
+            sd, m, v = (gather_params(x, tp, shapes) for x in (sd, m, v))
+        return {"model": sd, "opt_state": {"m": m, "v": v, "step": opt_state["step"]}}
+
+    log = MetricsLogger(cfg.log_dir, is_master=master)
     log.meta("tokenizer", tokenizer.name)
     log.meta("argv", " ".join(sys.argv))
     manager = CheckpointManager(os.path.join(log.log_dir, "ckpts"),
-                                save_every=cfg.save_every, enabled=cfg.save_ckpt)
+                                save_every=cfg.save_every, enabled=cfg.save_ckpt,
+                                is_master=master, tree_fn=whole_tree)
     hella = HellaSwagEvaluator(cfg.model, policy=policy)
     hellaswag_dir_ok = os.path.isdir(os.environ.get("HELLASWAG_DIR", "hellaswag"))
     decoder = Decoder(cfg.model, policy=policy, sample_fn=sample_top_k)
@@ -164,20 +250,26 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat) -> dict:
     resumed = manager.maybe_resume(map_location=device)
     if resumed is not None:
         tree, meta = resumed
+        sd, saved = tree["model"], tree["opt_state"]
+        if tp is not None:  # the whole trees back to this rank's shards
+            sd = shard_params(sd, tp)
+            saved = {**saved, "m": shard_params(saved["m"], tp),
+                     "v": shard_params(saved["v"], tp)}
         # load_state_dict copies into the params as they are, so a checkpoint
         # of another dtype comes in at the configured param_dtype
-        model.load_state_dict(tree["model"])
+        model.load_state_dict(sd)
         # the configured moment storage, whatever the checkpoint's
-        opt_state = convert_moments(params, tree["opt_state"], cfg.opt_state_dtype)
+        opt_state = convert_moments(params, saved, cfg.opt_state_dtype)
         opt_state["step"] = int(opt_state["step"])
         start_step = int(meta["next_step"])
         # the data stream goes on where the uninterrupted run would be
         train_loader.seek(start_step * accum)
-        print(f"[ckpt] resumed at step {start_step}")
+        if master:
+            print(f"[ckpt] resumed at step {start_step}")
 
     max_steps = max_steps_override or cfg.schedule.max_steps
     val_loss = float("nan")
-    tokens_per_step = b * t * accum
+    tokens_per_step = b * t * accum * data_world
     final_step, halted = start_step - 1, False
     # after the resume's seek: the thread reads on from where this run starts
     prefetch = HostPrefetcher(lambda: train_loader.next_accum_rowbuf(accum),
@@ -190,25 +282,36 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat) -> dict:
                 val_loader.reset()
                 vrows = upload_rows(val_loader.next_accum_rowbuf(cfg.val_steps), device)
                 vbatch = split_rows_on_device(vrows)
-                val_loss = float(eval_step(model, vbatch))
+                vl = eval_step(model, vbatch)
+                val_loss = float(vl if sync is None else sync.mean_loss(vl))
                 log.val(step, val_loss)
                 manager.save_step(step, model, opt_state, val_loss, last_step=last_step)
 
             if (cfg.run_hellaswag and hellaswag_dir_ok
                     and cfg.hellaswag_every  # 0 disables, like val/sample_every
                     and (step % cfg.hellaswag_every == 0 or last_step)):
-                correct, total = hella.evaluate(model, tokenizer)
+                # examples round-robin over the data ranks, counts summed
+                # (train_gpt2.py:399,410-416)
+                correct, total = hella.evaluate(model, tokenizer, rank=data_rank,
+                                                world_size=data_world)
+                if data_world > 1:
+                    counts = torch.tensor([correct, total], dtype=torch.float32, device=device)
+                    coll.all_reduce_(counts, mesh.group("data"))
+                    correct, total = (int(c) for c in counts.tolist())
                 if total:
                     log.hellaswag(step, correct / total, correct, total)
 
             if cfg.sample_every and ((step > 0 and step % cfg.sample_every == 0) or last_step):
                 prompt = tokenizer.encode("Hello, I'm a language model,")
                 ids = torch.tensor([prompt] * 4, device=device)
-                # seed 42, re-seeded at each sampling event (train_gpt2.py:438-439)
-                toks, _ = decoder.generate(model, ids, max(1, 32 - len(prompt)),
-                                           torch.Generator(device).manual_seed(42))
-                for i in range(4):
-                    print(f"sample {i}: {tokenizer.decode(prompt + toks[i].tolist())}")
+                # seed 42 + data rank, re-seeded at each sampling event
+                # (train_gpt2.py:438-439): the ranks of one model group draw
+                # the same tokens, as their collectives need
+                gen = torch.Generator(device).manual_seed(42 + data_rank)
+                toks, _ = decoder.generate(model, ids, max(1, 32 - len(prompt)), gen)
+                if master:
+                    for i in range(4):
+                        print(f"sample {i}: {tokenizer.decode(prompt + toks[i].tolist())}")
 
             batch = split_rows_on_device(prefetch.next())
             metrics = train_step(model, opt_state, batch, step)
@@ -226,5 +329,6 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat) -> dict:
 
     next_step = final_step if halted else final_step + 1
     manager.save_final(final_step, model, opt_state, val_loss, next_step=next_step)
-    log.export_xlsx()
+    if master:
+        log.export_xlsx()
     return {"model": model, "opt_state": opt_state, "val_loss": val_loss}

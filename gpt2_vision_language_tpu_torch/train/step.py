@@ -109,7 +109,8 @@ def _steps(batch) -> int:
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
                     sched_cfg: ScheduleConfig, *, decay_mask, trainable_mask=None,
                     use_fused_adamw: bool = True, nan_guard: bool = True,
-                    grad_accum_dtype=None, layerwise_loss_grad: Callable = None):
+                    grad_accum_dtype=None, layerwise_loss_grad: Callable = None,
+                    grad_sync=None):
     """Build ``step(model, opt_state, batch, step_idx, extra=None) -> metrics``.
 
     loss_fn(model, micro) -> scalar loss tensor, or loss_fn(model, micro,
@@ -130,7 +131,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
     rounded bf16 accumulators. layerwise_loss_grad(model, micro, acc) ->
     loss: forms one micro-batch's loss and folds its grads into ``acc``
     (``acc.add(name, grad)``) itself, in place of loss_fn's backward;
-    every param trainable."""
+    every param trainable.
+
+    grad_sync: a parallel/collectives.GradSync for a run over several
+    processes. After the last micro-batch the accumulated grads are
+    all-reduced once (one flat buffer a process group: DDP's ``no_sync``
+    until the last micro-batch), the norm is that of the global gradient and
+    the loss the mean over ``data``; every rank then updates its own
+    (sharded or replicated) leaves."""
     accum_dt = torch.bfloat16 if grad_accum_dtype in ("bfloat16", torch.bfloat16) else torch.float32
     if layerwise_loss_grad is not None and trainable_mask is not None:
         raise ValueError("layerwise_loss_grad accumulates every parameter: no trainable_mask")
@@ -173,7 +181,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         else:
             grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                      for n, p in params.items() if tmask[n]}
-        norm = global_norm(grads) * inv_accum
+        if grad_sync is None:
+            norm = global_norm(grads) * inv_accum
+        else:
+            grad_sync.reduce_(grads)
+            norm = grad_sync.norm(grads) * inv_accum
+            loss = grad_sync.mean_loss(loss)
         loss_h, norm_h = torch.stack([loss, norm]).tolist()  # the one host read
         metrics = {"loss": loss_h, "lr": lr, "grad_norm": norm_h}
         if nan_guard and not (math.isfinite(loss_h) and math.isfinite(norm_h)):

@@ -310,8 +310,9 @@ def test_xattn_cli_takes_one_epoch_of_steps(tmp_path, monkeypatch):
 
 
 def test_refusals(coco_root, tmp_path):
-    """No silent CPU: the default device raises without a card; data
-    parallelism and METEOR are not ported."""
+    """No silent CPU: the default device raises without a card; a run of
+    one process refuses a data-parallel world of two (num_devices must be
+    the number of processes torch.distributed.run started)."""
     cfg = _cfg(coco_root, tmp_path, "linear")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -319,7 +320,7 @@ def test_refusals(coco_root, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             finetune_linear.main(["--synthetic", "--steps", "1", "--log-dir", str(tmp_path)],
                                  overrides=SHORT, **CLI_KW["linear"][1])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="2 devices asked for, but the world has 1"):
         finetune.run_finetune(cfg, device="cpu", num_devices=2)
 
 

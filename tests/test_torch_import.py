@@ -94,13 +94,11 @@ def test_presets_match_jax(preset):
     assert p.padded_vocab_size == 50304
 
 
-# JAX PretrainConfig fields the single-device port does not carry, and why
+# JAX PretrainConfig fields the port does not carry, and why
 LEFT_OUT = {
     # TPU-only memory and dispatch mechanisms
     "pin_layouts": "TPU-only", "split_accum": "TPU-only", "sync_accum": "TPU-only",
-    # model parallelism (ROADMAP Queue 1 item 10); tp is carried as the ring
-    # size of attn_impl="ring"
-    "seq_parallel": "Queue 1 item 10",
+    # the GPipe pipeline (ROADMAP Queue 1 item 10)
     "pp": "Queue 1 item 10", "pp_micro": "Queue 1 item 10",
 }
 

@@ -120,9 +120,11 @@ def test_long_context_flags(argv, block, attn):
 def test_attn_impl_ring_is_refused():
     """Named for what it pinned while ring attention was missing (the flag
     raised NotImplementedError). Now: --attn-impl ring --tp 2 parses to what
-    the JAX CLI gives for tp and attn_impl; ring without --tp, a --tp that
-    does not divide --seq-len, and --tp without ring (Megatron tensor
-    parallelism, not ported) are refused."""
+    the JAX CLI gives for tp and attn_impl; ring without --tp and a --tp that
+    does not divide --seq-len are refused. --tp without ring (Megatron tensor
+    parallelism) and --seq-parallel parse to the JAX CLI's fields too, and a
+    one-process run refuses Megatron tensor parallelism: it runs over tp
+    processes."""
     from gpt2_vision_language_tpu.cli import pretrain as jax_pretrain
 
     argv = ["--attn-impl", "ring", "--tp", "2", "--seq-len", "64"]
@@ -135,10 +137,18 @@ def test_attn_impl_ring_is_refused():
         pretrain.parse_and_build(["--attn-impl", "ring"])
     with pytest.raises(ValueError, match="not divisible"):
         pretrain.parse_and_build(["--attn-impl", "ring", "--tp", "3", "--seq-len", "64"])
+    for argv in (["--tp", "2"], ["--tp", "2", "--attn-impl", "flash"],
+                 ["--tp", "2", "--seq-parallel"]):
+        cfg, _ = pretrain.parse_and_build(argv)
+        want = jax_pretrain.parse_and_build(argv)[0]
+        assert (cfg.tp, cfg.attn_impl, cfg.seq_parallel) == (
+            want.tp, want.attn_impl, want.seq_parallel), argv
+    with pytest.raises(ValueError, match="seq_parallel requires tp > 1"):
+        pretrain.parse_and_build(["--seq-parallel"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pretrain.parse_and_build(["--tp", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pretrain.parse_and_build(["--tp", "2", "--attn-impl", "flash"])
+        pretrain.parse_and_build(["--seq-parallel", "--tp", "2", "--attn-impl", "ring"])
+    with pytest.raises(ValueError, match="runs over tp processes"):
+        pretrain.main(["--tp", "2", "--device", "cpu", "--steps", "1"])
 
 
 def test_ring_run_matches_xla_run(tmp_path):
