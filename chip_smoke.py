@@ -4631,6 +4631,74 @@ def par_records(workdir, tag, n):
     return [json.load(open(os.path.join(workdir, f"{tag}_r{r}.json"))) for r in range(n)]
 
 
+def checkout_root(dist_worker):
+    """The checkout: the package's parent."""
+    return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(dist_worker.__file__))))
+
+
+def write_hellaswag5(work):
+    """A HellaSwag file of 5 examples (3 and 2 a rank of two data ranks)."""
+    hs = os.path.join(work, "hellaswag")
+    os.makedirs(hs)
+    with open(os.path.join(hs, "hellaswag_val.jsonl"), "w") as f:
+        for i in range(5):
+            f.write(json.dumps({"ctx": f"The number {i} is", "label": i % 4,
+                                "endings": ["small", "large!", "a word", "nothing"]}) + "\n")
+    return hs
+
+
+def cli_pair(work, root, label, args, runs, cli_s, cli_counts, hs=None):
+    """Invocations of ``args`` on 2 processes (python -m torch.distributed.run
+    --nproc_per_node 2 of the worker's "cli" job) on one log dir, each after
+    the first resuming: ``runs`` is ((--steps, {kernel: launches a rank},
+    host-staged exchanges a rank), ...). Returns (the log dir, the last
+    invocation's output)."""
+    from gpt2_vision_language_tpu_torch.tools import dist_worker  # noqa: F401
+
+    log = os.path.join(work, f"{label}_log")
+    for i, (steps, want, staged) in enumerate(runs):
+        tag = f"{label}_{i}"
+        job = {"kind": "cli", "tag": tag, "out": work,
+               "argv": args + ["--log-dir", log, "--steps", str(steps)]}
+        if hs:
+            job["hellaswag_dir"] = hs
+        path = os.path.join(work, f"{tag}.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", "-m", "gpt2_vision_language_tpu_torch.tools.dist_worker",
+             path], capture_output=True, text=True, timeout=600, cwd=root)
+        cli_s.setdefault(label, []).append(time.perf_counter() - t0)
+        text = run.stdout + run.stderr
+        tail = "\n".join(text.splitlines()[-25:])
+        require(run.returncode == 0, f"torch.distributed.run of cli.pretrain failed:\n{tail}")
+        require("backend gloo" in text, "the CLI did not take gloo for ranks sharing a card")
+        require(i == 0 or f"[ckpt] resumed at step {runs[i - 1][0]}" in text,
+                f"the CLI run did not resume:\n{tail}")
+        recs = par_records(work, tag, 2)
+        require([r["step"] for r in recs] == [steps, steps],
+                f"{tag}: optimizer steps {[r['step'] for r in recs]}")
+        for r, rec in enumerate(recs):
+            w = with_zeros(want[r] if isinstance(want, list) else want)
+            require(rec["launch_counts"] == w,
+                    f"{tag} rank {r}: launches {rec['launch_counts']}, expected {w}")
+            require(rec["host_staged"] == staged,
+                    f"{tag} rank {r}: {rec['host_staged']} host-staged exchanges, expected {staged}")
+        cli_counts[tag] = [rec["launch_counts"] for rec in recs]
+        steps_logged = [ln for ln in text.splitlines() if ln.startswith("step ")]
+        print(f"  --steps {steps}: {cli_s[label][-1]:.1f} s; launches a rank "
+              + "; ".join(json.dumps({k: v for k, v in rec["launch_counts"].items() if v})
+                          for rec in recs)
+              + f"; host-staged a rank {staged}; " + "; ".join(steps_logged), flush=True)
+    rows = [ln.split(",") for f in sorted(glob.glob(os.path.join(log, "*.csv")))
+            for ln in open(f).read().splitlines()[1:]]
+    train = sorted({int(r[2]) for r in rows if r[1] == "train"})
+    require(train == list(range(runs[-1][0])), f"{label}: the CLI runs logged train steps {train}")
+    return log, text
+
+
 def phase_parallel(torch, np, cfgs, dev):
     """Phases 32-36: the parallel styles over processes that share cuda:0
     over gloo (tools/dist_worker.py), each step held against the one-process
@@ -4743,76 +4811,30 @@ def phase_parallel(torch, np, cfgs, dev):
 
     # the command line as users launch it, each rank's cli.pretrain.main run
     # through the worker's "cli" job, which reads its launch counts
-    root = os.path.dirname(os.path.dirname(os.path.abspath(dist_worker.__file__)))
-    root = os.path.dirname(root)  # the checkout: the package's parent
-    hs = os.path.join(work, "hellaswag")
-    os.makedirs(hs)
-    with open(os.path.join(hs, "hellaswag_val.jsonl"), "w") as f:
-        for i in range(5):  # 3 and 2 a rank
-            f.write(json.dumps({"ctx": f"The number {i} is", "label": i % 4,
-                                "endings": ["small", "large!", "a word", "nothing"]}) + "\n")
+    root = checkout_root(dist_worker)
+    hs = write_hellaswag5(work)
     cli_s, cli_counts = {}, {}
 
     def cli_runs(label, args, runs, hellaswag=False):
-        """Two invocations of ``args`` on the same log dir, the second
-        resuming: ``runs`` is ((--steps, {kernel: launches a rank}), ...)."""
-        log = os.path.join(work, f"{label}_log")
-        for i, (steps, want) in enumerate(runs):
-            tag = f"{label}_{i}"
-            job = {"kind": "cli", "tag": tag, "out": work,
-                   "argv": args + ["--log-dir", log, "--steps", str(steps)]}
-            if hellaswag:
-                job["hellaswag_dir"] = hs
-            path = os.path.join(work, f"{tag}.json")
-            with open(path, "w") as f:
-                json.dump(job, f)
-            t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                 "--nproc_per_node", "2", "-m", "gpt2_vision_language_tpu_torch.tools.dist_worker",
-                 path], capture_output=True, text=True, timeout=600, cwd=root)
-            cli_s.setdefault(label, []).append(time.perf_counter() - t0)
-            text = run.stdout + run.stderr
-            tail = "\n".join(text.splitlines()[-25:])
-            require(run.returncode == 0, f"torch.distributed.run of cli.pretrain failed:\n{tail}")
-            require("backend gloo" in text, "the CLI did not take gloo for ranks sharing a card")
-            require(i == 0 or f"[ckpt] resumed at step {runs[0][0]}" in text,
-                    f"the second CLI run did not resume:\n{tail}")
-            recs = par_records(work, tag, 2)
-            require([r["step"] for r in recs] == [steps, steps],
-                    f"{tag}: optimizer steps {[r['step'] for r in recs]}")
-            for r, rec in enumerate(recs):
-                w = with_zeros(want)
-                require(rec["launch_counts"] == w,
-                        f"{tag} rank {r}: launches {rec['launch_counts']}, expected {w}")
-                require(rec["host_staged"] == 0, f"{tag} rank {r}: staged host exchanges")
-            cli_counts[tag] = recs[0]["launch_counts"]
-            steps_logged = [ln for ln in text.splitlines() if ln.startswith("step ")]
-            print(f"  --steps {steps}: {cli_s[label][-1]:.1f} s; launches a rank "
-                  f"{json.dumps({k: v for k, v in want.items() if v})}; "
-                  + "; ".join(steps_logged), flush=True)
-        rows = [ln.split(",") for f in sorted(glob.glob(os.path.join(log, "*.csv")))
-                for ln in open(f).read().splitlines()[1:]]
-        train = sorted({int(r[2]) for r in rows if r[1] == "train"})
-        require(train == list(range(runs[-1][0])), f"{label}: the CLI runs logged train steps {train}")
-        return log, text
+        return cli_pair(work, root, label, args, [(n, w, 0) for n, w in runs], cli_s, cli_counts,
+                        hs if hellaswag else None)
 
     n_layer = cfgs["gpt"].n_layer
     print("[32b] python -m torch.distributed.run --nproc_per_node 2 -m "
           "gpt2_vision_language_tpu_torch.tools.dist_worker JOB: cli.pretrain --synthetic "
-          "--devices 2 --device cuda:0 --total-batch 32768 --val-every 0 --steps 2 (2 x (B=8, "
-          "T=1024) a rank), then --steps 3 (a resume)", flush=True)
+          "--devices 2 --device cuda:0 --total-batch 32768 --val-every 0 --steps 1 (2 x (B=8, "
+          "T=1024) a rank), then --steps 2 (a resume)", flush=True)
     k1_micro = lambda n: {"flash_fwd": n_layer * n, "flash_bwd": n_layer * n}  # noqa: E731
     log, _ = cli_runs("cli_dp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
                                  "--device", "cuda:0", "--total-batch", "32768",
                                  "--val-every", "0", "--no-hellaswag"],
-                      ((2, {**k1_micro(4), "adamw": 2}), (3, {**k1_micro(2), "adamw": 1})))
+                      ((1, {**k1_micro(2), "adamw": 1}), (2, {**k1_micro(2), "adamw": 1})))
     # without validation only model_final is written, by the master alone
     require(os.listdir(os.path.join(log, "ckpts")) == ["model_final.pt"],
             "the CLI's checkpoints")
     print("[33b] the same of cli.pretrain --devices 2 --tp 2 --seq-parallel --device cuda:0 "
           "--micro-batch 1 --total-batch 1024 --val-every 1 --save-every 1 --sample-every 1 "
-          "--steps 2, HellaSwag of 5 examples, then --steps 3 (a resume)", flush=True)
+          "--steps 1, HellaSwag of 5 examples, then --steps 2 (a resume)", flush=True)
     # a step: its micro-batch; validation: 20 micro-batches, each 12 K1 and
     # one K4 on the gathered wte; HellaSwag: the one data rank's 5 examples
     # on both model ranks, one forward at the 64-token width bucket, under
@@ -4823,10 +4845,8 @@ def phase_parallel(torch, np, cfgs, dev):
                       "--seq-parallel", "--device", "cuda:0", "--micro-batch", "1",
                       "--total-batch", "1024", "--val-every", "1", "--save-every", "1",
                       "--sample-every", "1"],
-        ((2, {"flash_fwd": n_layer * (2 + 2 * 20), "flash_bwd": n_layer * 2,
-              "ce_fwd": 2 * 20, "adamw": 2}),
-         (3, {"flash_fwd": n_layer * (1 + 20), "flash_bwd": n_layer, "ce_fwd": 20,
-              "adamw": 1})), hellaswag=True)
+        [(n, {"flash_fwd": n_layer * (1 + 20), "flash_bwd": n_layer, "ce_fwd": 20, "adamw": 1})
+         for n in (1, 2)], hellaswag=True)
     require(sorted(os.listdir(os.path.join(log, "ckpts")))
             == ["model_best.pt", "model_final.pt", "model_last.pt"], "the TP CLI's checkpoints")
     final = torch.load(os.path.join(log, "ckpts", "model_final.pt"), map_location="cpu",
@@ -4857,6 +4877,222 @@ def phase_parallel(torch, np, cfgs, dev):
     out["cli_launches"] = cli_counts
     return out, {"dp_train_step": dp_counts, "tp_train_step": tp_counts,
                  "process_ring_train_step": ring_counts}
+
+
+# the int8 runs against the one-process int8 run (tools/dist_worker.compare_q8):
+# JAX test_pipeline_int8_moments_parity's loss and grad-norm tolerances, its
+# params' rtol 2e-4 with one quantization step for atol; the codes equal but
+# in a thousandth of them, where fp32 rounding moved a value across a rounding
+# boundary or the scale of a block of near-zero gradients (a grid of the
+# rank's own moves over a tenth)
+Q8_LIMITS = {"loss_rel": 2e-5, "grad_norm_rel": 1e-3, "params_outside": 0, "codes_differ": 1e-3}
+
+
+def phase_pipeline(torch, np, cfgs, dev):
+    """Phases 37-40: the GPipe pipeline and 8-bit moments under TP and PP
+    over processes that share cuda:0 over gloo, each step held against the
+    one-process step rank 0 runs first from the same state on the same
+    rows; the pipelined command line with a resume; the port's
+    dryrun_multichip."""
+    from gpt2_vision_language_tpu_torch.tools import dist_worker
+
+    work = tempfile.mkdtemp(prefix="chip_pipeline_")
+    base = {"device": "cuda:0", "policy": "bf16", "seed": 1337, "out": work, "reference": True,
+            "save_whole": False, "step0": cfgs["sched"].warmup_steps, "threads": 2}
+    vocab, n_layer = cfgs["gpt"].vocab_size, cfgs["gpt"].n_layer
+    paths = {}
+    for name, a in (("rows_pp", np.random.RandomState(5).randint(0, vocab, (1, 2, 8, 1025))),
+                    ("rows_q8", np.random.RandomState(6).randint(0, vocab, (2, 2, 4, 1025)))):
+        paths[name] = os.path.join(work, f"{name}.npy")
+        np.save(paths[name], a.astype(np.int32))
+    out, seconds = {}, {}
+    per = n_layer // 2  # layers a stage
+    # a rank's step at pp = 2, pp_micro 4, 2 x (B=8, T=1024): its layers on
+    # each of 4 sub-batches of each micro-batch; the validation micro-batch
+    # once through the forward, K4 on the last stage
+    k1 = {"flash_fwd": per * 4 * 2, "flash_bwd": per * 4 * 2, "adamw": 1}
+    ev = [{"flash_fwd": per * 4}, {"flash_fwd": per * 4, "ce_fwd": 1}]
+    # 4 sub-batches' hops forward and back, 2 micro-batches, and the
+    # validation micro-batch's 4 forward
+    staged = 4 * 2 * 2 + 4
+
+    print("[37, 39] 2 processes on cuda:0 over gloo: pp = 2 (GPT-2 124M, 6 layers a stage, "
+          "pp_micro 4, 2 x (B=8, T=1024), bf16) and its controls; 8-bit moments under TP = 2 "
+          "and pp = 2 (124M width, 2 layers, fp32, 2 steps of 2 x (B=4, T=1024)) and the "
+          "per-shard control", flush=True)
+    q8 = {"rows": paths["rows_q8"], "model": {"n_layer": 2}, "policy": "fp32",
+          "opt_state_dtype": "int8", "step0": 0}
+    jobs = [
+        {"tag": "pp2", "mesh": [1, 1], "pp": 2, "pp_micro": 4, "rows": paths["rows_pp"],
+         "model": {}, "eval": True, "repeat": 1},
+        {"tag": "pp2_drop_backward_hop", "mesh": [1, 1], "pp": 2, "pp_micro": 4,
+         "rows": paths["rows_pp"], "model": {}, "fault": "drop_backward_hop"},
+        {"tag": "pp2_norm_counts_replicated", "mesh": [1, 1], "pp": 2, "pp_micro": 4,
+         "rows": paths["rows_pp"], "model": {}, "fault": "count_replicated"},
+        dict(q8, tag="int8_tp2", mesh=[1, 2]),
+        dict(q8, tag="int8_pp2", mesh=[1, 1], pp=2),
+        dict(q8, tag="int8_tp2_per_shard", mesh=[1, 2], fault="per_shard_q8"),
+    ]
+    t0 = time.perf_counter()
+    dist_worker.launch(dict(base, kind="jobs", tag="pipe_two", jobs=jobs), 2, timeout=600,
+                       workdir=work)
+    seconds["two_process_launch"] = time.perf_counter() - t0
+    recs = {j["tag"]: par_records(work, j["tag"], 2) for j in jobs}
+    print("[37] pp = 2 over 2 processes, layers 0-5 and 6-11", flush=True)
+    require([r["stage_layers"] for r in recs["pp2"]] == [list(range(per)),
+                                                          list(range(per, n_layer))],
+            "pp2: the stages do not hold their layers")
+    par_check("pp2", recs["pp2"][0], PAR_LIMITS)
+    par_counts("pp2", recs["pp2"], [k1, k1])
+    for r, rec in enumerate(recs["pp2"]):
+        require(rec["eval_counts"] == with_zeros(ev[r]),
+                f"pp2 rank {r}: validation launches {rec['eval_counts']}")
+    par_check("pp2_drop_backward_hop (control)", recs["pp2_drop_backward_hop"][0], PAR_LIMITS,
+              control=True)
+    par_check("pp2_norm_counts_replicated (control)", recs["pp2_norm_counts_replicated"][0],
+              PAR_LIMITS, control=True)
+    print("[39] 8-bit moments, 2 steps, against the one-process int8 run", flush=True)
+    f32 = {"flash_fwd_f32": 8, "flash_bwd_f32": 8, "adamw": 2}
+    for tag in ("int8_tp2", "int8_pp2"):
+        par_check(tag, recs[tag][0], Q8_LIMITS)
+        par_counts(tag, recs[tag], f32)
+        detail = recs[tag][0]["q8_detail"]
+        codes = max((d["max_diff"], k) for k, d in detail.items() if k.endswith(":q"))
+        scale = max((d["max_rel"], k) for k, d in detail.items() if k.endswith(":s"))
+        print(f"  {tag}: moment bytes a rank {[r['moment_bytes'] for r in recs[tag]]} (one "
+              f"process {recs[tag][0]['reference']['moment_bytes']}); collectives a step "
+              f"{recs[tag][0]['collectives']}; the largest code difference {codes[0]} "
+              f"({codes[1]}), the largest scale difference {scale[0]:.3e} ({scale[1]}, block "
+              f"{detail[scale[1]]['at_block']}, scale {detail[scale[1]]['ref_scale']:.3e})",
+              flush=True)
+    par_check("int8_tp2_per_shard (control)", recs["int8_tp2_per_shard"][0], Q8_LIMITS,
+              control=True)
+
+    print("[38] pp = 2 x tp = 2 over 4 processes (124M, 6 layers and 6 heads a rank, "
+          "pp_micro 4, 2 x (B=8, T=1024), bf16)", flush=True)
+    jobs4 = [{"tag": "pp2xtp2", "mesh": [1, 2], "pp": 2, "pp_micro": 4, "rows": paths["rows_pp"],
+              "model": {}, "eval": True, "repeat": 1}]
+    t0 = time.perf_counter()
+    dist_worker.launch(dict(base, kind="jobs", tag="pipe_four", jobs=jobs4), 4, timeout=600,
+                       workdir=work)
+    seconds["four_process_launch"] = time.perf_counter() - t0
+    recs["pp2xtp2"] = par_records(work, "pp2xtp2", 4)
+    ptp = recs["pp2xtp2"]
+    require([r["local_heads"] for r in ptp] == [6, 6, 6, 6], "pp2xtp2: not 6 heads a rank")
+    require([r["stage_layers"] for r in ptp] == [list(range(per))] * 2
+            + [list(range(per, n_layer))] * 2, "pp2xtp2: the stages do not hold their layers")
+    par_check("pp2xtp2", ptp[0], PAR_LIMITS)
+    par_counts("pp2xtp2", ptp, [k1] * 4)
+    for r, rec in enumerate(ptp):
+        require(rec["eval_counts"] == with_zeros(ev[r // 2]),
+                f"pp2xtp2 rank {r}: validation launches {rec['eval_counts']}")
+    for tag in ("pp2", "pp2xtp2"):
+        require([r["host_staged"] for r in recs[tag]] == [staged] * len(recs[tag]),
+                f"{tag}: host-staged exchanges a rank {[r['host_staged'] for r in recs[tag]]}, "
+                f"expected {staged}")
+    for tag, rs in recs.items():
+        ref = rs[0].get("reference") or {}
+        out[tag] = {"errors": rs[0]["errors"], "seconds": [r["seconds"] for r in rs],
+                    "peak_gib": [r["peak_gib"] for r in rs],
+                    "host_staged": [r["host_staged"] for r in rs],
+                    "collectives_a_step": [r["collectives"] for r in rs],
+                    "moment_bytes": [r["moment_bytes"] for r in rs],
+                    "one_process": ref}
+    for tag in ("pp2", "pp2xtp2"):
+        # a warm step (the last of `repeat`; the compared first step is cold)
+        rec, ref = recs[tag][0], recs[tag][0]["reference"]
+        out[tag]["warm_seconds"] = [r["warm_seconds"] for r in recs[tag]]
+        out[tag]["tokens_per_s"] = rec["tokens_per_step"] / max(r["warm_seconds"][-1]
+                                                                for r in recs[tag])
+        out[tag]["one_process_tokens_per_s"] = ref["tokens_per_step"] / ref["warm_seconds"][-1]
+        # GPipe's bubble at S = 2, M = 4: (S - 1) / (M + S - 1) of the ticks,
+        # against the share of the step the one-process step's time leaves
+        out[tag]["bubble_share"] = 1 / (4 + 2 - 1)
+        out[tag]["one_process_share_of_step"] = (out[tag]["tokens_per_s"]
+                                                 / out[tag]["one_process_tokens_per_s"])
+
+    print("[37b] python -m torch.distributed.run --nproc_per_node 2 -m "
+          "gpt2_vision_language_tpu_torch.tools.dist_worker JOB: cli.pretrain --synthetic "
+          "--devices 2 --pp 2 --pp-micro 4 --device cuda:0 --total-batch 16384 --val-every 2 "
+          "--save-every 2 --sample-every 2 --steps 1 (2 x (B=8, T=1024)), HellaSwag of 5 "
+          "examples, then --steps 2 (a resume)", flush=True)
+    root = checkout_root(dist_worker)
+    hs = write_hellaswag5(work)
+    cli_s, cli_counts = {}, {}
+    # a step: k1; a validation: 20 micro-batches, each 4 sub-batches through a
+    # stage's 6 layers and K4 once on the last stage; HellaSwag (the 64-token
+    # bucket) and sampling on the gathered stages: no kernel
+    val = [{"flash_fwd": per * 4 * 20}, {"flash_fwd": per * 4 * 20, "ce_fwd": 20}]
+
+    def counts(steps, vals):
+        return [{k: steps * k1.get(k, 0) + vals * v.get(k, 0) for k in ("flash_fwd", "flash_bwd",
+                                                                         "ce_fwd", "adamw")}
+                for v in val]
+
+    log, text = cli_pair(
+        work, root, "cli_pp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
+                               "--pp", "2", "--pp-micro", "4", "--device", "cuda:0",
+                               "--total-batch", "16384", "--val-every", "2", "--save-every", "2",
+                               "--sample-every", "2"],
+        [(n, counts(1, 1), 16 + 20 * 4) for n in (1, 2)], cli_s,
+        cli_counts, hs)
+    require(sorted(os.listdir(os.path.join(log, "ckpts")))
+            == ["model_best.pt", "model_final.pt", "model_last.pt"], "the pp CLI's checkpoints")
+    final = torch.load(os.path.join(log, "ckpts", "model_final.pt"), map_location="cpu",
+                       weights_only=False)
+    require(set(final["model"]) == set(gpt_state_names(cfgs["gpt"])),
+            "the pp checkpoint does not hold the whole model")
+    hella = [ln for ln in text.splitlines() if ln.startswith("HellaSwag accuracy:")]
+    require(len(hella) == 1 and "/5=" in hella[0], f"the resumed pp run's HellaSwag: {hella}")
+    require(any(ln.startswith("sample 0:") for ln in text.splitlines()), "the pp run did not sample")
+    gathers = [ln for ln in text.splitlines() if ln.startswith("[pp] stages gathered")]
+    print("  " + "; ".join(gathers), flush=True)
+    seconds["cli_runs"] = cli_s
+
+    print("[40] python -m gpt2_vision_language_tpu_torch.tools.dryrun_multichip 4 --device cuda:0",
+          flush=True)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "gpt2_vision_language_tpu_torch.tools."
+                          "dryrun_multichip", "4", "--device", "cuda:0"], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    seconds["dryrun"] = time.perf_counter() - t0
+    tail = "\n".join((run.stdout + run.stderr).splitlines()[-25:])
+    require(run.returncode == 0, f"dryrun_multichip failed:\n{tail}")
+    line = run.stdout.strip().splitlines()[-1]
+    require(line.startswith("dryrun_multichip(4): ok — ") and "pp(2 stages)" in line
+            and "ring step loss" in line, f"dryrun_multichip printed {line!r}")
+    print(f"  {line} ({seconds['dryrun']:.1f} s)", flush=True)
+    out["dryrun"] = line
+    shutil.rmtree(work, ignore_errors=True)
+    wall = {tag: max(r["wall_s"] for r in rs) for tag, rs in recs.items()}
+    seconds["phases"] = {
+        "37": wall["pp2"] + wall["pp2_drop_backward_hop"] + wall["pp2_norm_counts_replicated"]
+        + sum(cli_s["cli_pp"]),
+        "38": wall["pp2xtp2"],
+        "39": wall["int8_tp2"] + wall["int8_pp2"] + wall["int8_tp2_per_shard"],
+        "40": seconds["dryrun"]}
+    print("  wall seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds["phases"].items())
+          + f"; tokens/s: pp2 {out['pp2']['tokens_per_s']:.1f} (one process "
+          f"{out['pp2']['one_process_tokens_per_s']:.1f}), pp2xtp2 "
+          f"{out['pp2xtp2']['tokens_per_s']:.1f} (host- and gloo-paced, one shared card)",
+          flush=True)
+    out["seconds"] = seconds
+    out["cli_launches"] = cli_counts
+    out["readings_are"] = ("host- and gloo-paced on one shared card (ranks on cuda:0 over "
+                           "gloo), not a scaling result")
+    return out, {"pp_train_step": recs["pp2"][0]["launch_counts"],
+                 "pp_tp_train_step": ptp[0]["launch_counts"]}
+
+
+def gpt_state_names(cfg):
+    """The state-dict names of a whole GPT-2 of ``cfg``."""
+    import torch
+
+    from gpt2_vision_language_tpu_torch.models import gpt2
+
+    with torch.device("meta"):
+        return list(gpt2.GPT2(cfg).state_dict())
 
 
 def host_us(torch, fn, iters):
@@ -5490,6 +5726,12 @@ def main() -> int:
     t_slice = time.perf_counter()
     parallel, par_paths = phase_parallel(torch, np, cfgs, dev)
     slice_s["parallel_styles"] = time.perf_counter() - t_slice
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    pipeline, pipe_paths = phase_pipeline(torch, np, cfgs, dev)
+    par_paths.update(pipe_paths)
+    parallel["pipeline"] = pipeline
+    slice_s["pipeline_and_int8_moments"] = time.perf_counter() - t_slice
     slice_s["fp32_long_context_and_ring"] = fp32_long_s
 
     by_path = {"scoring": {"flash_fwd": launches["flash"], "ce_fwd": launches["ce"]},

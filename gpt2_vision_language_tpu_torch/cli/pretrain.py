@@ -6,20 +6,22 @@
         [--param-dtype {float32,bfloat16}] [--grad-accum-dtype {float32,bfloat16}]
         [--remat {none,full,save_attn,recompute_gelu,recompute_mlp}]
         [--layerwise-grad] [--fit-1chip] [--devices N] [--tp N] [--seq-parallel]
+        [--pp N] [--pp-micro N]
 
     python -m torch.distributed.run --nproc_per_node 2 \
-        -m gpt2_vision_language_tpu_torch.cli.pretrain --devices 2 [--tp 2] ...
+        -m gpt2_vision_language_tpu_torch.cli.pretrain --devices 2 [--tp 2 | --pp 2] ...
 
 Counterpart of gpt2_vision_language_tpu/cli/pretrain.py with the flags the
 trainer honors. Runs on the first CUDA device (``--device``, default
 ``cuda``), where every update goes through the hand-written AdamW kernel;
 without a CUDA device it raises unless ``--device cpu`` asks for the CPU.
 Launched by ``torch.distributed.run``, each process is one device of a
-("data", "model") mesh: ``--device cuda`` gives local rank i the card
-``cuda:i`` and NCCL, ``--device cuda:0`` puts every rank on that one card
-over gloo, ``--device cpu`` runs them on the CPU over gloo; ``--devices``
-must equal the number of processes. ``--pp`` and ``--pp-micro`` (the GPipe
-pipeline) are not carried yet. ``--seq-len`` over 1024 grows the model's ``block_size`` with it
+("data", "model") mesh, or with ``--pp`` of a ("data", "pipe"[, "model"])
+mesh (the GPipe pipeline, a stage of n_layer / pp layers a process):
+``--device cuda`` gives local rank i the card ``cuda:i`` and NCCL,
+``--device cuda:0`` puts every rank on that one card over gloo, ``--device
+cpu`` runs them on the CPU over gloo; ``--devices`` must equal the number of
+processes. ``--seq-len`` over 1024 grows the model's ``block_size`` with it
 (long-context pretraining: ``--seq-len 16384 --micro-batch 1`` runs every
 self-attention on the general flash kernels; with ``--attn-impl ring --tp 4``
 as a ring of 4 sequence chunks on the lse-forward and one-pass backward
@@ -105,6 +107,18 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         help="model-axis size: builds a 2-D (data, model) mesh and applies "
         "Megatron column/row parameter shardings (parallel/sharding.py). "
         "1 = pure DP (the reference's only mode)",
+    )
+    p.add_argument(
+        "--pp", type=int, default=1,
+        help="pipeline stages: builds a 2-D (data, pipe) mesh and runs "
+        "the blocks through the GPipe schedule with layers stage-sharded "
+        "on the pipe axis (parallel/pipeline.py). Requires n_layer %% pp "
+        "== 0; composes with --tp (Megatron sharding inside each stage)",
+    )
+    p.add_argument(
+        "--pp-micro", type=int, default=0,
+        help="GPipe microbatches per grad-accum micro (0 = pp); larger "
+        "values shrink the (pp-1)/(pp_micro+pp-1) bubble",
     )
     p.add_argument(
         "--seq-parallel", action="store_true",
@@ -203,6 +217,10 @@ def parse_and_build(argv=None, *, model: Optional[GPTConfig] = None):
         updates["param_dtype"] = args.param_dtype
     if args.tp != 1:
         updates["tp"] = args.tp
+    if args.pp != 1:
+        updates["pp"] = args.pp
+    if args.pp_micro:
+        updates["pp_micro"] = args.pp_micro
     if args.seq_parallel:
         updates["seq_parallel"] = True
     if args.attn_impl != "auto":

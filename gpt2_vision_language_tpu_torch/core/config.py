@@ -176,6 +176,11 @@ class PretrainConfig:
     # ring size of attn_impl="ring" (sequence chunks)
     tp: int = 1
     seq_parallel: bool = False  # with tp > 1: the residual stream T-sharded between blocks
+    # pp > 1: the GPipe pipeline over a ("data", "pipe"[, "model"]) mesh of
+    # processes (parallel/pipeline.py), a stage of n_layer / pp layers a rank;
+    # pp_micro: GPipe sub-batches a grad-accum micro-batch (0 -> pp)
+    pp: int = 1
+    pp_micro: int = 0
 
     def grad_accum_steps(self, world_size: int = 1) -> int:
         denom = self.micro_batch_size * self.seq_len * world_size

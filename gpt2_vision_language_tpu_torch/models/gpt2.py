@@ -122,9 +122,13 @@ class Block(nn.Module):
 class GPT2(nn.Module):
     """Parameter container with the reference's state-dict names; the
     forward is the functions below. ``tp``: the TensorParallel of a model
-    whose parameters are one rank's shards (parallel/sharding.shard_model)."""
+    whose parameters are one rank's shards (parallel/sharding.shard_model);
+    ``stage``: the pipeline Stage of a model that holds one stage's layers
+    (parallel/pipeline.cut_stage; the other layers' places hold no
+    parameters)."""
 
     tp = None
+    stage = None
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -380,19 +384,25 @@ def _remat_mode(remat) -> str:
 
 def run_blocks(model: GPT2, x, cfg: GPTConfig, *, z=None,
                policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto", remat=False,
-               seq_parallel: bool = False):
+               seq_parallel: bool = False, layers=None):
     """The blocks in order, as a Python loop (the JAX unrolled path). ``z``
     is the projected visual memory of the cross-attention variant.
     ``remat``: False / "none", True / "full", "save_attn",
     "recompute_gelu", "recompute_mlp" (the module docstring); it matters
     only where autograd records the forward. ``seq_parallel``: x is this
     rank's T-shard of the residual stream when the tensor-parallel run asked
-    for sequence parallelism (``loss`` passes True)."""
+    for sequence parallelism (``loss`` passes True). ``layers``: the indices
+    of the blocks to run (a pipeline stage's), every block when None."""
     mode = _remat_mode(remat)
     if not torch.is_grad_enabled():
         mode = "none"
     tp = _tp_view(model, seq_parallel)
-    for layer in model.transformer.h:
+    h = model.transformer.h
+    for i in (range(len(h)) if layers is None else layers):
+        layer = h[i]
+        if not isinstance(layer, Block):
+            raise RuntimeError(f"layer {i} is held by another pipeline stage "
+                               "(parallel/pipeline.whole_stages gathers them)")
         if mode == "full":
             x = torch.utils.checkpoint.checkpoint(
                 block, layer, x, cfg, policy=policy, attn_impl=attn_impl, z=z, tp=tp,
@@ -513,6 +523,15 @@ def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
     return fused_ce_loss(x, _head_weight(model, True), targets,
                          mask=target_mask, policy=policy, ce_chunks=ce_chunks,
                          impl=ce_impl, group=group)
+
+
+def head_loss(model: GPT2, x, targets, *, policy: Policy = DEFAULT_POLICY,
+              ce_chunks: int = 8):
+    """ln_f and the fused CE of the tied head over the blocks' output x
+    (B, T, C): the tail of ``loss`` with the residual stream whole (the
+    pipeline's last stage takes it once over a micro-batch)."""
+    return fused_ce_loss(_ln(x, model.transformer.ln_f), _head_weight(model), targets,
+                         policy=policy, ce_chunks=ce_chunks)
 
 
 def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, target_mask=None,

@@ -5,8 +5,9 @@ The JAX package writes no collective: GSPMD inserts them from the parameter
 and activation shardings (gpt2_vision_language_tpu/parallel/mesh.py:9-12,
 sharding.py:1-20). Here every one is explicit and goes through this module:
 
-  * ``all_reduce_``, ``all_gather``, ``reduce_scatter`` and ``exchange`` (the
-    ring's send to the next rank and receive from the previous one);
+  * ``all_reduce_``, ``all_gather``, ``reduce_scatter``, ``broadcast_``,
+    ``exchange`` (the ring's send to the next rank and receive from the
+    previous one) and the pipeline's point-to-point ``send`` and ``recv``;
   * the Megatron pair ``CopyToGroup`` (identity forward, all-reduce backward)
     and ``ReduceFromGroup`` (all-reduce forward, identity backward), the
     sequence-parallel pair ``GatherSeq`` (all-gather on T forward,
@@ -24,18 +25,24 @@ Gathers and sends move bf16 as its 16 bits.
 Transport. NCCL takes CUDA tensors for everything. gloo, the backend of
 ranks that share one card or run on the CPU, takes CUDA tensors in all-reduce,
 all-gather, reduce-scatter and broadcast, but a send or receive of a CUDA
-tensor aborts the process (probed with torch 2.11 on an H100): ``exchange``
-stages those through pinned host memory in ``host_staged``, which counts its
-calls. That is the gloo transport, not a fallback: the arithmetic stays on
+tensor aborts the process (probed with torch 2.11 on an H100): ``exchange``,
+``send`` and ``recv`` stage those through pinned host memory in
+``host_staged``, which counts its calls. That is the gloo transport, not a fallback: the arithmetic stays on
 the card.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Iterable, Optional
 
 import torch
 import torch.distributed as dist
+
+# calls a rank made of each collective (its recorded readings: a step's
+# collectives, tools/dist_worker.py)
+counts: Dict[str, int] = collections.Counter()
+
 
 def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
@@ -80,6 +87,7 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place, in fp32; returns ``t``."""
     if _size(group) == 1:
         return t
+    counts["all_reduce"] += 1
     if t.dtype == torch.float32:
         dist.all_reduce(t, group=group)
         return t
@@ -96,6 +104,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0, sizes=None) -> torch.Tensor
     n = _size(group)
     if n == 1:
         return t
+    counts["all_gather"] += 1
     dtype = t.dtype
     big = t.shape[dim] if sizes is None else max(sizes)
     x = t.movedim(dim, 0)
@@ -119,6 +128,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0, sizes=None) -> torch.Te
     n = _size(group)
     if n == 1:
         return t
+    counts["reduce_scatter"] += 1
     r = _rank(group)
     if sizes is not None and len(set(sizes)) > 1:
         full = all_reduce_(t.clone(), group)
@@ -130,9 +140,20 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0, sizes=None) -> torch.Te
     return out.to(t.dtype).movedim(0, dim)
 
 
+@torch.no_grad()
+def broadcast_(t: torch.Tensor, group, src: int) -> torch.Tensor:
+    """``t`` of rank ``src`` of ``group`` on every rank, in place (``t``
+    contiguous); returns ``t``."""
+    if _size(group) > 1:
+        counts["broadcast"] += 1
+        dist.broadcast(_bits(t), dist.get_global_rank(group, src), group=group)
+    return t
+
+
 def exchange(tensors, group, step: int):
     """Send each tensor ``step`` ranks on around ``group`` and return what
     arrives from ``step`` ranks back (the ring's rotation)."""
+    counts["exchange"] += 1
     rank, n = dist.get_rank(group), dist.get_world_size(group)
     to = dist.get_global_rank(group, (rank + step) % n)
     frm = dist.get_global_rank(group, (rank - step) % n)
@@ -150,6 +171,37 @@ def exchange(tensors, group, step: int):
 
     got = host_staged(move, sent) if _staged(group, sent[0]) else move(sent)
     return tuple(_unbits(g, d) for g, d in zip(got, dtypes))
+
+
+def send(t: torch.Tensor, group, peer: int) -> None:
+    """Send ``t`` to rank ``peer`` of ``group`` (returns when it is sent)."""
+    counts["send"] += 1
+    dst = dist.get_global_rank(group, peer)
+    x = _bits(t.detach().contiguous())
+
+    def move(ts):
+        dist.send(ts[0], dst, group=group)
+        return []
+
+    if _staged(group, x):
+        host_staged(move, [x])
+    else:
+        move([x])
+
+
+def recv(like: torch.Tensor, group, peer: int) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device received from rank
+    ``peer`` of ``group``."""
+    counts["recv"] += 1
+    src = dist.get_global_rank(group, peer)
+    buf = _bits(torch.empty_like(like, memory_format=torch.contiguous_format))
+
+    def move(ts):
+        dist.recv(ts[0], src, group=group)
+        return [ts[0]]
+
+    got = host_staged(move, [buf])[0] if _staged(group, buf) else move([buf])[0]
+    return _unbits(got, like.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +296,7 @@ def _flat_all_reduce_(tensors, group, scale: Optional[float]) -> None:
     tensors = list(tensors)
     if not tensors:
         return
+    counts["all_reduce"] += 1
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=group)
     if scale is not None:
@@ -261,36 +314,53 @@ class GradSync:
     ``model`` (each rank holds a part); ``partial``: names of the replicated
     leaves whose gradients are partial over ``model`` (each rank saw only
     its tokens: the replicated leaves under sequence parallelism, every leaf
-    in the process ring). ``loss_is_global``: the loss of a micro-batch is
-    already the mean over the whole ``data`` group (a masked mean whose
-    count was summed over it), so gradients are summed over ``data``, and
-    not averaged, and the loss is left as it is."""
+    in the process ring). ``staged``: under the pipeline, the names of the
+    leaves a stage holds alone (its layers); every other leaf is held by
+    every stage and its gradient, formed where the stage uses it (the
+    embeddings on the first, the head and ``ln_f`` on the last), is summed
+    over ``pipe``. ``loss_is_global``: the loss of a micro-batch is already
+    the mean over the whole ``data`` group (a masked mean whose count was
+    summed over it), so gradients are summed over ``data``, and not
+    averaged, and the loss is left as it is."""
 
     def __init__(self, mesh, *, sharded: Iterable[str] = (), partial: Iterable[str] = (),
-                 loss_is_global: bool = False):
+                 staged: Optional[Iterable[str]] = None, loss_is_global: bool = False):
         self.mesh = mesh
         self.sharded, self.partial = set(sharded), set(partial)
+        self.staged = None if staged is None else set(staged)
         self.loss_is_global = loss_is_global
         self.calls = 0  # grad all-reduces issued
 
+    def _summed_over(self, name: str) -> tuple:
+        axes = ("data",)
+        if name in self.partial:
+            axes += ("model",)
+        if self.staged is not None and name not in self.staged:
+            axes += ("pipe",)
+        return tuple(a for a in axes if self.mesh.size(a) > 1)
+
+    def _split_over(self, name: str) -> tuple:
+        axes = ("model",) if name in self.sharded else ()
+        if self.staged is not None and name in self.staged:
+            axes += ("pipe",)
+        return tuple(a for a in axes if self.mesh.size(a) > 1)
+
     def reduce_(self, grads: Dict[str, torch.Tensor]) -> None:
-        """All-reduce the accumulated gradients in place: the partial leaves
-        over the whole world (model and data), the rest over ``data``; one
-        flat buffer each. Averaged over ``data`` unless the loss is global."""
+        """All-reduce the accumulated gradients in place, one flat buffer for
+        each set of axes a gradient is summed over (``data`` always; also
+        ``model`` for the partial leaves and ``pipe`` for the leaves every
+        stage holds). Averaged over ``data`` unless the loss is global."""
         data = self.mesh.size("data")
         if self.mesh.world == 1:
             return
         scale = None if self.loss_is_global or data == 1 else 1.0 / data
-        over_world = [g for n, g in grads.items() if n in self.partial]
-        over_data = [g for n, g in grads.items() if n not in self.partial]
-        if over_world and self.mesh.size("model") > 1:
-            _flat_all_reduce_(over_world, self.mesh.world_group, scale)
-            self.calls += 1
-        else:
-            over_data += over_world
-        if over_data and data > 1:
-            _flat_all_reduce_(over_data, self.mesh.group("data"), scale)
-            self.calls += 1
+        by_axes: Dict[tuple, list] = {}
+        for n, g in grads.items():
+            by_axes.setdefault(self._summed_over(n), []).append(g)
+        for axes, gs in by_axes.items():
+            if axes:
+                _flat_all_reduce_(gs, self.mesh.group(axes), scale)
+                self.calls += 1
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The loss averaged over ``data`` (as it is when already global)."""
@@ -300,15 +370,16 @@ class GradSync:
         return all_reduce_(loss.detach().float().clone(), self.mesh.group("data")) / data
 
     def norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The global norm of the reduced gradients: the squares of the
-        sharded leaves summed over ``model``, each replicated leaf counted
-        once."""
-        sq = lambda names: torch.stack([grads[n].float().square().sum() for n in names]).sum()  # noqa: E731
-        shard = [n for n in grads if n in self.sharded]
-        rep = [n for n in grads if n not in shard]
+        """The global norm of the reduced gradients: the squares of each leaf
+        summed over the axes it is split on (``model`` for the sharded
+        leaves, ``pipe`` for a stage's layers), every leaf counted once."""
         total = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
-        if shard:
-            total = all_reduce_(sq(shard).reshape(1), self.mesh.group("model"))[0]
-        if rep:
-            total = total + sq(rep)
+        by_axes: Dict[tuple, list] = {}
+        for n, g in grads.items():
+            by_axes.setdefault(self._split_over(n), []).append(g)
+        for axes, gs in by_axes.items():
+            sq = torch.stack([g.float().square().sum() for g in gs]).sum()
+            if axes:
+                sq = all_reduce_(sq.reshape(1), self.mesh.group(axes))[0]
+            total = total + sq
         return total.sqrt()

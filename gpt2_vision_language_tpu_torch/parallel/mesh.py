@@ -7,8 +7,11 @@ rank), launched by ``python -m torch.distributed.run``, which sets the
 variables ``maybe_init_distributed`` reads. ``make_mesh`` keeps the JAX
 signature with ranks for devices: the ranks fill the mesh's shape in row
 order, so with axes ("data", "model") the ranks of one model group are
-consecutive and those of one data group are ``tp`` apart. Every rank builds
-every axis group (``dist.new_group`` is collective) and keeps its own.
+consecutive and those of one data group are ``tp`` apart; the pipeline's
+meshes are ("data", "pipe") and ("data", "pipe", "model"), as the JAX
+trainer lays them out (train/pretrain.py:74-87 there). Every rank builds the
+group of every set of axes (``dist.new_group`` is collective) and keeps its
+own.
 
 Rank -> card: ``device_for_rank("cuda")`` maps local rank i to ``cuda:i`` and
 raises when the node has fewer cards than local ranks; an explicit
@@ -20,6 +23,7 @@ run on the CPU. Nothing retries on another backend after a failure.
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Optional, Sequence
 
@@ -104,9 +108,11 @@ def is_master() -> bool:
 
 class Mesh:
     """Ranks on named axes: ``size(axis)``, this rank's ``coord(axis)`` and
-    the process ``group(axis)`` of the ranks that differ from it on that axis
-    alone (None for an axis of size 1 or a single process); ``world_group``
-    holds every rank. An axis the mesh does not name has size 1."""
+    the process ``group(axes)`` of the ranks that differ from it on those
+    axes alone (one axis name or a tuple of them; None when they hold one
+    rank); ``world_group`` holds every rank. An axis the mesh does not name
+    has size 1. Every rank builds the group of every set of axes whose size
+    is above 1 and below the world's (``dist.new_group`` is collective)."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int]):
         self.axis_names, self.shape = tuple(axis_names), tuple(int(s) for s in shape)
@@ -122,27 +128,29 @@ class Mesh:
         for name, s in reversed(list(zip(self.axis_names, self.shape))):
             self._coords[name] = rest % s
             rest //= s
-        for i, name in enumerate(self.axis_names):
-            if self.shape[i] == 1 or not joined:
-                self._groups[name] = None
-                continue
-            for ranks in self._axis_ranks(i):
-                g = dist.new_group(ranks)
-                if self.rank in ranks:
-                    self._groups[name] = g
+        if not joined:
+            return
+        wide = [i for i, s in enumerate(self.shape) if s > 1]
+        for n in range(1, len(wide)):
+            for axes in itertools.combinations(wide, n):
+                for ranks in self._axis_ranks(axes):
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[axes] = g
+        if wide:
+            self._groups[tuple(wide)] = self.world_group
 
-    def _axis_ranks(self, axis: int):
-        """Every group of the ranks that differ only along ``axis``."""
+    def _axis_ranks(self, axes):
+        """Every group of the ranks that differ only along ``axes`` (indices),
+        each in row order."""
         strides = [1] * len(self.shape)
         for i in range(len(self.shape) - 2, -1, -1):
             strides[i] = strides[i + 1] * self.shape[i + 1]
-        seen, out = set(), []
+        groups = {}
         for r in range(self.world):
-            base = r - ((r // strides[axis]) % self.shape[axis]) * strides[axis]
-            if base not in seen:
-                seen.add(base)
-                out.append([base + j * strides[axis] for j in range(self.shape[axis])])
-        return out
+            base = r - sum(((r // strides[a]) % self.shape[a]) * strides[a] for a in axes)
+            groups.setdefault(base, []).append(r)
+        return list(groups.values())
 
     def size(self, axis: str) -> int:
         return self.shape[self.axis_names.index(axis)] if axis in self.axis_names else 1
@@ -150,8 +158,12 @@ class Mesh:
     def coord(self, axis: str) -> int:
         return self._coords.get(axis, 0)
 
-    def group(self, axis: str):
-        return self._groups.get(axis)
+    def group(self, axes):
+        """The group over ``axes`` (a name or a tuple of names); axes of size 1
+        and axes the mesh does not name are dropped."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        key = tuple(i for i, a in enumerate(self.axis_names) if a in names and self.shape[i] > 1)
+        return self._groups.get(key)
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{n}={s}" for n, s in zip(self.axis_names, self.shape))

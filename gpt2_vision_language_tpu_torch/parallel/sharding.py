@@ -32,6 +32,10 @@ step (``parallel/collectives.GradSync``).
 
 ``shard_params`` / ``gather_params`` move whole tensors to each rank's shards
 and back (state dicts and AdamW moments); checkpoints hold gathered trees.
+``Placement`` is what a rank holds under TP and the pipeline together, and
+where its 8-bit moments lie on the whole leaves' block grid (JAX
+``moment_specs`` :76-129); ``setup_parallel`` wires a train step's parallel
+styles.
 """
 
 from __future__ import annotations
@@ -221,6 +225,22 @@ def shard_params(tree: Dict[str, torch.Tensor], tp: TensorParallel) -> Dict[str,
     return out
 
 
+def _whole_of(t: torch.Tensor, tp: TensorParallel, name: str, shape, lead: int = 0):
+    """Every rank's shard ``t`` of the parameter ``name`` (whole ``shape``)
+    -> the whole tensor (collective). ``lead``: leading axes of ``t`` before
+    the parameter's (stacked tensors)."""
+    dim = tp.index(name, shape)[0] + lead
+    sizes = [len(tp.index_of(r, name, shape)[1]) for r in range(tp.size)]
+    pieces = coll.all_gather(t.contiguous(), tp.group, dim, sizes)
+    whole = t.new_empty(tuple(t.shape[:lead]) + tuple(shape))
+    at = 0
+    for r in range(tp.size):
+        idx = tp.index_of(r, name, shape)[1].to(t.device)
+        whole.index_copy_(dim, idx, pieces.narrow(dim, at, sizes[r]))
+        at += sizes[r]
+    return whole
+
+
 def gather_params(tree: Dict[str, torch.Tensor], tp: TensorParallel,
                  shapes: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     """Every rank's shards -> whole tensors, on every rank (collective).
@@ -229,17 +249,8 @@ def gather_params(tree: Dict[str, torch.Tensor], tp: TensorParallel,
     for n, t in tree.items():
         if n not in shapes or tp.index(n, shapes[n]) is None:
             out[n] = t
-            continue
-        dim = tp.index(n, shapes[n])[0]
-        sizes = [len(tp.index_of(r, n, shapes[n])[1]) for r in range(tp.size)]
-        pieces = coll.all_gather(t.contiguous(), tp.group, dim, sizes)
-        whole = t.new_empty(shapes[n])
-        at = 0
-        for r in range(tp.size):
-            idx = tp.index_of(r, n, shapes[n])[1].to(t.device)
-            whole.index_copy_(dim, idx, pieces.narrow(dim, at, sizes[r]))
-            at += sizes[r]
-        out[n] = whole
+        else:
+            out[n] = _whole_of(t, tp, n, shapes[n])
     return out
 
 
@@ -251,7 +262,7 @@ def shard_model(model, tp: TensorParallel):
     if model.cfg.cross_attention:
         raise NotImplementedError(
             "tensor parallelism of the cross-attention decoder is not ported "
-            "(ROADMAP Queue 1 item 10); the fine-tunes run data-parallel")
+            "(ROADMAP, Not carried); the fine-tunes run data-parallel")
     shapes = {}
     with torch.no_grad():
         for n, p in model.named_parameters():
@@ -265,35 +276,201 @@ def shard_model(model, tp: TensorParallel):
     return shapes
 
 
+class Placement:
+    """What this rank holds of the whole model and of its AdamW moments (JAX
+    ``pipeline_param_pspecs`` and ``moment_specs`` over processes).
+
+    ``tp``: its Megatron shards (None without TP), ``shapes`` their whole
+    shapes; ``stage``: its pipeline stage (None without the pipeline);
+    ``leaves``: the JAX leaves of the whole model (train/optimizer.
+    jax_leaves). ``whole`` and ``local`` move a tree keyed by parameter name
+    (a state dict, a moment tree) between this rank's part and the whole
+    (``whole`` is collective): checkpoints hold whole trees.
+
+    8-bit moments (JAX ``moment_specs``, parallel/sharding.py:76-129 there):
+    the {q, s} buffers of a JAX leaf are the whole leaf's, on the one-process
+    grid of 256-element blocks over the JAX leaf's element order, wherever
+    its parameter is held. They are split in contiguous slices over the
+    model axes present ("pipe", then "model": slice k = pipe coord * tp +
+    model coord) when npad % (256 * ways) == 0, and held whole by every rank
+    otherwise (``q8_slice``). ``update_q8`` updates the rank's slice: it
+    gathers over "model" the parameter and gradient of a leaf split there
+    (a column or vocab shard is no flat range), updates the slice's elements
+    and codes, and gathers the updated slices back over "model" (and over
+    "pipe" for a leaf every stage holds), each rank keeping its own part. A
+    stage's slice of a block leaf is its own layers: under the pipeline
+    alone those update with no collective."""
+
+    def __init__(self, mesh, leaves: dict, *, tp: Optional[TensorParallel] = None,
+                 shapes: Optional[Dict[str, tuple]] = None, stage=None):
+        self.mesh, self.leaves, self.tp, self.stage = mesh, leaves, tp, stage
+        self.shapes = dict(shapes or {})
+        self.axes = (("pipe",) if stage is not None else ()) + (("model",) if tp is not None else ())
+        self.ways = 1
+        for a in self.axes:
+            self.ways *= mesh.size(a)
+        self.k = ((mesh.coord("pipe") * mesh.size("model") if stage is not None else 0)
+                  + (mesh.coord("model") if tp is not None else 0))
+
+    @property
+    def split(self) -> bool:
+        """Whether this rank holds less than the whole model."""
+        return self.tp is not None or self.stage is not None
+
+    def whole_names(self) -> List[str]:
+        return [n for leaf in self.leaves.values() for n in leaf.names]
+
+    # -- trees ----------------------------------------------------------------
+
+    def whole(self, tree: dict) -> dict:
+        """This rank's tree -> the whole tree, on every rank (collective)."""
+        from .pipeline import gather_stages
+
+        out = dict(tree)
+        for path in sorted(k for k, v in tree.items() if isinstance(v, dict)):
+            out[path] = self._whole_q8(path, tree[path])
+        if self.tp is not None:
+            out = gather_params(out, self.tp, self.shapes)
+        if self.stage is not None:
+            out = gather_stages(out, self.stage)
+        return out
+
+    def local(self, tree: dict) -> dict:
+        """A whole tree -> this rank's part of it."""
+        from ..train.optimizer import Q8_BLOCK
+        from .pipeline import local_stage
+
+        out = {}
+        for n, t in tree.items():
+            lo, hi, aligned = self.q8_slice(self.leaves[n]) if isinstance(t, dict) else (0, 0, False)
+            out[n] = ({"q": t["q"][lo:hi].clone(), "s": t["s"][lo // Q8_BLOCK:hi // Q8_BLOCK].clone()}
+                      if aligned else t)
+        if self.tp is not None:
+            out = shard_params(out, self.tp)
+        if self.stage is not None:
+            out = local_stage(out, self.stage)
+        return out
+
+    # -- 8-bit moments --------------------------------------------------------
+
+    def q8_slice(self, leaf):
+        """(lo, hi, aligned): the padded flat range of ``leaf``'s 8-bit
+        buffers this rank holds; the whole [0, npad) unless aligned."""
+        from ..train.optimizer import Q8_BLOCK, _q8_padded
+
+        npad = _q8_padded(leaf.size)
+        if self.ways == 1 or npad % (Q8_BLOCK * self.ways):
+            return 0, npad, False
+        w = npad // self.ways
+        return self.k * w, (self.k + 1) * w, True
+
+    def q8_sizes(self) -> Dict[str, int]:
+        """JAX path -> the padded length of this rank's 8-bit buffers, for the
+        leaves whose moments are 8-bit (decided on the whole leaf)."""
+        from ..train.optimizer import _q8_eligible
+
+        out = {}
+        for path, leaf in self.leaves.items():
+            if _q8_eligible(leaf.shape):
+                lo, hi, _ = self.q8_slice(leaf)
+                out[path] = hi - lo
+        return out
+
+    def _whole_q8(self, path: str, mq: dict) -> dict:
+        if not self.q8_slice(self.leaves[path])[2]:
+            return mq
+        q, s = mq["q"], mq["s"]
+        for axis in ("model", "pipe"):
+            if axis in self.axes:
+                q = coll.all_gather(q.contiguous(), self.mesh.group(axis))
+                s = coll.all_gather(s.contiguous(), self.mesh.group(axis))
+        return {"q": q, "s": s}
+
+    def update_q8(self, path, params, grads, mq, vq, lr, clip_scale, bc1, bc2, cfg, wd) -> None:
+        """The 8-bit AdamW update of the JAX leaf ``path``: this rank's slice of
+        its codes and scales, and this rank's part of its parameter, in place
+        (collective over the leaf's axes; train/optimizer.adamw_update)."""
+        from ..train.optimizer import q8_update_flat
+
+        leaf = self.leaves[path]
+        rows = leaf.shape[0]
+        r0, r1 = ((self.stage.layers.start, self.stage.layers.stop)
+                  if leaf.layered and self.stage is not None else (0, rows))
+        per = leaf.size // rows
+        names = leaf.names[r0:r1] if leaf.layered else leaf.names
+        p_w, g_w, split = {}, {}, {}
+        for n in names:
+            where = None if self.tp is None else self.tp.index(n, self.shapes.get(n, params[n].shape))
+            if where is None:
+                p_w[n], g_w[n] = params[n], grads[n]
+            else:
+                both = _whole_of(torch.stack([params[n].float(), grads[n].float()]), self.tp, n,
+                                 self.shapes[n], lead=1)
+                p_w[n], g_w[n] = both[0], both[1]
+                split[n] = where
+        p, g = leaf.gather(p_w, r0, r1), leaf.gather(g_w, r0, r1)
+        a0, a1 = r0 * per, r1 * per
+        lo, hi, aligned = self.q8_slice(leaf)
+        hi = min(hi, leaf.size)
+        at = a0
+        if lo < a0 or hi > a1:  # a block leaf held whole in 8 bits: every stage's layers
+            p, g = (coll.all_gather(t, self.stage.group) for t in (p, g))
+            at = 0
+        new = q8_update_flat(p[lo - at:hi - at], g[lo - at:hi - at], mq, vq, lr, clip_scale,
+                             bc1, bc2, cfg, wd)
+        if aligned:
+            for axis in ("model", "pipe"):
+                if axis in self.axes and not (axis == "pipe" and leaf.layered):
+                    new = coll.all_gather(new, self.mesh.group(axis))
+        else:
+            new = new[a0:a1]
+        leaf.scatter(p_w, r0, r1, new)
+        for n, (dim, idx) in split.items():
+            params[n].copy_(p_w[n].index_select(dim, idx.to(p_w[n].device)))
+
+
 def setup_parallel(model, mesh, *, seq_parallel: bool = False, ring: bool = False,
                    make_sync=None):
-    """The parallel wiring of a train step over ``mesh`` (a ("data", "model")
-    parallel.mesh.Mesh), the one the trainer and the worker share.
+    """The parallel wiring of a train step over ``mesh`` (a parallel.mesh.Mesh
+    on ("data", "model"), ("data", "pipe") or ("data", "pipe", "model")),
+    the one the trainer and the worker share.
 
     With ``model`` > 1 and no ring, Megatron TP: ``model`` (whole, the same on
-    every rank) is cut to this rank's shards in place (``shard_model``). On
-    more than one process, the step's ``GradSync`` (or ``make_sync``'s, built
-    with the same arguments): the sharded leaves' squares are summed over
-    ``model`` in the clip norm, and the grads partial over ``model`` (each
-    rank saw only its tokens: the replicated leaves under sequence
-    parallelism, every leaf in the process ring) are summed over it. Returns
-    (the TensorParallel or None, {name: whole shape}, the GradSync or None
-    on one process)."""
+    every rank) is cut to this rank's shards in place (``shard_model``); with
+    ``pipe`` > 1 to its stage's layers (parallel/pipeline.cut_stage). On more
+    than one process, the step's ``GradSync`` (or ``make_sync``'s, built with
+    the same arguments): the sharded leaves' squares are summed over
+    ``model`` and a stage's layers' over ``pipe`` in the clip norm, the grads
+    partial over ``model`` (each rank saw only its tokens: the replicated
+    leaves under sequence parallelism, every leaf in the process ring) are
+    summed over it, and those of the leaves every stage holds over ``pipe``.
+    Returns (the rank's ``Placement``, the GradSync or None on one
+    process)."""
+    from ..train.optimizer import jax_leaves
+    from .pipeline import cut_stage, layer_of, stage_of
+
+    leaves = jax_leaves(dict(model.named_parameters()))
     n_model = mesh.size("model")
     tp, shapes = None, {}
     if n_model > 1 and not ring:
         tp = TensorParallel(mesh.group("model"), mesh.coord("model"), n_model, model.cfg,
                             seq_parallel=seq_parallel)
         shapes = shard_model(model, tp)
+    stage = stage_of(mesh, model.cfg.n_layer)
+    if stage is not None:
+        cut_stage(model, stage)
+    placement = Placement(mesh, leaves, tp=tp, shapes=shapes, stage=stage)
     if mesh.world == 1:
-        return tp, shapes, None
+        return placement, None
     names = {n for n, _ in model.named_parameters()}
     sharded = sharded_names(names) if tp is not None else set()
     if ring and n_model > 1:
         partial = names
     else:
         partial = names - sharded if seq_parallel else set()
-    return tp, shapes, (make_sync or coll.GradSync)(mesh, sharded=sharded, partial=partial)
+    staged = None if stage is None else {n for n in names if layer_of(n) is not None}
+    return placement, (make_sync or coll.GradSync)(mesh, sharded=sharded, partial=partial,
+                                                   staged=staged)
 
 
 def ring_chunk_loss(mesh, cfg: GPTConfig, policy, *, remat=False):

@@ -7,14 +7,18 @@ below, which sets the same variables: MASTER_ADDR, MASTER_PORT, RANK,
 WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE). The job's ``kind``:
 
   * ``"step"``: train steps of a GPT-2 on a ("data", "model") mesh of shape
-    ``mesh``: data parallelism, Megatron tensor parallelism (``mesh[1] > 1``,
-    ``seq_parallel``), or the ring over the model group (``ring``). The whole
+    ``mesh``, or with ``pp`` > 1 a ("data", "pipe", "model") mesh of shape
+    (mesh[0], pp, mesh[1]): data parallelism, Megatron tensor parallelism
+    (``mesh[1] > 1``, ``seq_parallel``), the ring over the model group
+    (``ring``), the GPipe pipeline (``pp``, ``pp_micro`` sub-batches a
+    micro-batch); ``opt_state_dtype`` the moments' storage. The whole
     weights come from ``init`` (a state dict file) or from ``seed``; the
     rows from ``rows`` (an ``.npy`` of (steps, accum, B, T + 1) token ids,
     the global batch: data rank d takes rows [d * B / data, (d + 1) * B /
-    data)). ``fault`` runs a deliberately wrong step (``FaultySync``). With
-    ``mesh`` [1, 1] it is the one-process step (``run_job`` in the caller's
-    own process), the ring then a LocalRing of ``ring_size`` chunks.
+    data)). ``fault`` runs a deliberately wrong step (``FaultySync``,
+    ``faulty_pipeline``, ``faulty_placement``). With ``mesh`` [1, 1] and no
+    ``pp`` it is the one-process step (``run_job`` in the caller's own
+    process), the ring then a LocalRing of ``ring_size`` chunks.
   * ``"ftstep"``: one optimizer step of a caption fine-tune, data-parallel
     (``fault`` as for ``"step"``).
   * ``"pretrain"``: ``train.pretrain.run_pretrain`` of the job's config.
@@ -29,9 +33,10 @@ WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE). The job's ``kind``:
 trainers' own). Each rank writes ``{out}/{tag}_r{rank}.json``: the step
 metrics, this rank's kernel launch counts over the job (``launch_counts``)
 and its exchanges staged through host memory (``host_staged``), its peak
-device memory and seconds. Rank 0 of a ``"step"`` job also writes
-``{tag}_whole.pt``: the whole (gathered) params before and after and the
-whole reduced grads of the last step.
+device memory and seconds; a ``"step"`` job also its collectives a step
+(``collectives``) and its moments' bytes (``moment_bytes``). Rank 0 of a
+``"step"`` job also writes ``{tag}_whole.pt``: the whole (gathered) params
+before and after and the whole reduced grads of the last step.
 """
 
 from __future__ import annotations
@@ -90,8 +95,9 @@ def read_counts() -> dict:
 class FaultySync(GradSync):
     """A GradSync with one deliberate fault, for the controls that must fail
     their checks: ``"skip_allreduce"`` leaves the grads unreduced,
-    ``"count_replicated"`` counts every leaf as sharded in the clip norm (a
-    replicated leaf's squares summed over ``model``, so tp times)."""
+    ``"count_replicated"`` counts every leaf as split in the clip norm (a
+    replicated leaf's squares summed over ``model``, so tp times, and under
+    the pipeline over ``pipe``, once per stage)."""
 
     def __init__(self, mesh, *, fault: str, **kw):
         if fault not in ("skip_allreduce", "count_replicated"):
@@ -106,7 +112,48 @@ class FaultySync(GradSync):
     def norm(self, grads):
         if self.fault == "count_replicated":
             self.sharded = set(grads)
+            if self.staged is not None:
+                self.staged = set(grads)
         return super().norm(grads)
+
+
+def faulty_pipeline(pipe):
+    """The pipeline control: the backward hop dropped (each stage's input
+    cotangent is never sent and the stage before takes zeros), so every
+    stage but the last forms its grads from nothing."""
+    from ..parallel.pipeline import Pipeline
+
+    class Dropped(Pipeline):
+        def send_cotangent(self, g):
+            pass
+
+        def recv_cotangent(self, like):
+            return torch.zeros_like(like)
+
+    out = object.__new__(Dropped)
+    out.__dict__.update(pipe.__dict__)
+    return out
+
+
+def faulty_placement(placement):
+    """The 8-bit moments' control: each rank requantizes its own part of a
+    leaf on a grid of its own (the per-shard grid JAX ``moment_specs``
+    rejects), wherever that part fills its slice's buffers."""
+    from ..parallel.sharding import Placement
+    from ..train.optimizer import _q8_update, jax_leaves
+
+    class PerShard(Placement):
+        def update_q8(self, path, params, grads, mq, vq, *args):
+            local = jax_leaves({n: params[n] for n in self.leaves[path].names
+                                if n in params})[path]
+            if -(-local.size // 256) * 256 == mq["q"].numel() and local.size != self.leaves[path].size:
+                _q8_update(local, params, grads, mq, vq, *args)
+            else:
+                super().update_q8(path, params, grads, mq, vq, *args)
+
+    out = object.__new__(PerShard)
+    out.__dict__.update(placement.__dict__)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +176,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+SYNC_FAULTS = ("skip_allreduce", "count_replicated")
+
+
 def _make_sync(job):
     """The GradSync factory of a job: ``FaultySync`` with the job's ``fault``,
     or None (``GradSync`` itself)."""
-    return functools.partial(FaultySync, fault=job["fault"]) if job.get("fault") else None
+    if job.get("fault") in SYNC_FAULTS:
+        return functools.partial(FaultySync, fault=job["fault"])
+    return None
 
 
 def _grad_sync(job, mesh, **kw):
@@ -141,22 +193,40 @@ def _grad_sync(job, mesh, **kw):
 
 def _steps(job: dict, device, mesh):
     """The train steps of a ``"step"`` job on ``mesh``; returns (record, whole
-    tensors {"before", "after", "grads"} on this rank: the gathered ones
-    under tensor parallelism)."""
+    tensors {"before", "after", "grads"} on this rank, gathered where the
+    rank holds part of the model, and {"q8"} the whole 8-bit moments)."""
     from ..models import gpt2
     from ..ops import ring_attention
     from ..parallel import collectives as coll
-    from ..parallel.sharding import gather_params, ring_chunk_loss, setup_parallel
+    from ..parallel.pipeline import make_pipeline_loss_fn
+    from ..parallel.sharding import ring_chunk_loss, setup_parallel
     from ..train.optimizer import adamw_init
     from ..train.step import make_train_step
+    from ..utils.trees import tree_bytes
 
-    data, n_model = mesh.size("data"), mesh.size("model")
+    data, n_model, n_pipe = mesh.size("data"), mesh.size("model"), mesh.size("pipe")
     cfg = GPTConfig(**job["model"])
     policy = _policy(job)
     ring = bool(job.get("ring"))
+    fault = job.get("fault")
+    if fault and fault not in SYNC_FAULTS + ("drop_backward_hop", "per_shard_q8"):
+        raise ValueError(f"unknown fault {fault!r}")
     model = _whole_model(job, cfg, device)
-    tp, shapes, sync = setup_parallel(model, mesh, seq_parallel=bool(job.get("seq_parallel")),
-                                      ring=ring, make_sync=_make_sync(job))
+    placement, sync = setup_parallel(model, mesh, seq_parallel=bool(job.get("seq_parallel")),
+                                     ring=ring, make_sync=_make_sync(job))
+    if fault == "per_shard_q8":
+        placement = faulty_placement(placement)
+    reduced = {}  # the step's reduced grads (the pipeline folds them into accumulators)
+    if sync is not None:
+        reduce_ = sync.reduce_
+
+        def keep(grads):
+            reduce_(grads)
+            reduced.clear()
+            reduced.update(grads)
+
+        sync.reduce_ = keep
+    tp = placement.tp
     params = gpt2.named_params(model)
     rows = np.load(job["rows"])  # (steps, accum, B, T + 1), the global batch
     if mesh.world == 1 and job.get("data_split", 1) > 1:
@@ -171,6 +241,7 @@ def _steps(job: dict, device, mesh):
     rows = rows[:, :, d * b:(d + 1) * b]
     t = t1 - 1
     attn_impl = job.get("attn_impl", "auto")
+    layerwise = None
     if ring and mesh.world == 1:  # one process: a LocalRing of ring_size chunks
         ring_attention.set_ring(job.get("ring_size", n_model))
 
@@ -183,12 +254,22 @@ def _steps(job: dict, device, mesh):
 
         def loss_fn(m, micro):
             return chunk_loss(m, micro[:, :-1], micro[:, 1:])
+    elif n_pipe > 1:  # the GPipe schedule, through the train step's layerwise seam
+        pipe = make_pipeline_loss_fn(cfg, mesh, n_micro=job.get("pp_micro") or n_pipe,
+                                     policy=policy, attn_impl=attn_impl)
+        if fault == "drop_backward_hop":
+            pipe = faulty_pipeline(pipe)
+
+        def loss_fn(m, micro):
+            return pipe.loss(m, {"x": micro[:, :-1], "y": micro[:, 1:]})
+
+        def layerwise(m, micro, acc):
+            return pipe.loss_grad(m, {"x": micro[:, :-1], "y": micro[:, 1:]}, acc)
     else:
         def loss_fn(m, micro):
             return gpt2.loss(m, micro[:, :-1], cfg, targets=micro[:, 1:], policy=policy,
                              attn_impl=attn_impl, remat=job.get("remat", False))
 
-    layerwise = None
     if job.get("layerwise"):
         def layerwise(m, micro, acc):
             return gpt2.loss_grad_layerwise(m, micro[:, :-1], cfg, targets=micro[:, 1:],
@@ -198,13 +279,16 @@ def _steps(job: dict, device, mesh):
     opt_cfg = OptimizerConfig(**job.get("opt", {}))
     step = make_train_step(loss_fn, opt_cfg, ScheduleConfig(**job.get("sched", {})),
                            decay_mask=gpt2.decay_mask(model), layerwise_loss_grad=layerwise,
-                           grad_sync=sync)
-    state = adamw_init(params, state_dtype=job.get("opt_state_dtype"))
-    whole = lambda tree: tree if tp is None else gather_params(tree, tp, shapes)  # noqa: E731
-    before = {n: v.detach().clone() for n, v in whole(dict(params)).items()}
+                           grad_sync=sync, placement=placement)
+    state = adamw_init(params, state_dtype=job.get("opt_state_dtype"), placement=placement)
+    before = {n: v.detach().clone() for n, v in placement.whole(dict(params)).items()}
     step0 = int(job.get("step0", 0))
-    rec = {"rank": mesh.rank, "world": mesh.world, "mesh": [data, n_model], "accum": accum,
-           "local_heads": gpt2.local_heads(model, cfg), "tokens_per_step": accum * b_all * t}
+    rec = {"rank": mesh.rank, "world": mesh.world, "mesh": list(mesh.shape),
+           "axes": list(mesh.axis_names), "accum": accum,
+           "local_heads": gpt2.local_heads(model, cfg), "tokens_per_step": accum * b_all * t,
+           "moment_bytes": tree_bytes([state["m"], state["v"]])}
+    if placement.stage is not None:
+        rec["stage_layers"] = list(placement.stage.layers)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     staged0 = coll.host_staged.calls
@@ -215,7 +299,8 @@ def _steps(job: dict, device, mesh):
             rec["eval_loss"] = float(loss_fn(model, batch))
         rec["eval_counts"] = {k: v - c0[k] for k, v in read_counts().items()}
     metrics, seconds = [], []
-    counts0 = read_counts()
+    counts0, calls0 = read_counts(), dict(coll.counts)
+    staged_steps0 = coll.host_staged.calls
     for i in range(steps):
         batch = torch.from_numpy(rows[i].astype(np.int64)).to(device)
         _sync(device)
@@ -224,19 +309,37 @@ def _steps(job: dict, device, mesh):
         _sync(device)
         seconds.append(time.perf_counter() - t0)
     counts = {k: v - counts0[k] for k, v in read_counts().items()}
-    if ring:
-        ring_attention.set_ring(None)
-    grads = {n: p.grad for n, p in params.items() if p.grad is not None}
+    grads = reduced or {n: p.grad for n, p in params.items() if p.grad is not None}
     rec.update(metrics=metrics, seconds=seconds, launch_counts=counts,
                host_staged=coll.host_staged.calls - staged0,
+               host_staged_per_step=(coll.host_staged.calls - staged_steps0) / steps,
+               collectives={k: (v - calls0.get(k, 0)) / steps for k, v in coll.counts.items()
+                            if v - calls0.get(k, 0)},
                grad_allreduces=0 if sync is None else sync.calls,
                peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
                          if device.type == "cuda" else None))
-    out = {"before": before, "after": {n: v.detach() for n, v in whole(dict(params)).items()},
-           "grads": {n: v.detach() for n, v in whole(grads).items()} if grads else {}}
+    out = {"before": before,
+           "after": {n: v.detach() for n, v in placement.whole(dict(params)).items()},
+           "grads": {n: v.detach() for n, v in placement.whole(grads).items()} if grads else {}}
+    out["q8"] = {f"{mv}:{path}:{k}": a for mv in ("m", "v")
+                 for path, d_ in placement.whole(state[mv]).items() if isinstance(d_, dict)
+                 for k, a in d_.items()}
+    rec["opt_steps"] = state["step"]
+    # ``repeat``: the last step run again that many times after the readings
+    # were taken, timed alone (the first step of a process is cold)
+    warm = []
+    if job.get("repeat"):
+        out = {k: {n: v.detach().clone() for n, v in d.items()} for k, d in out.items()}
+    for _ in range(int(job.get("repeat", 0))):
+        _sync(device)
+        t0 = time.perf_counter()
+        step(model, state, batch, step0 + steps - 1)
+        _sync(device)
+        warm.append(time.perf_counter() - t0)
+    rec["warm_seconds"] = warm
+    if ring:
+        ring_attention.set_ring(None)
     return rec, out
-
-
 def _rel_l2(a: dict, b: dict) -> float:
     num = sum(float((a[n].double() - b[n].double()).square().sum()) for n in b)
     den = sum(float(b[n].double().square().sum()) for n in b)
@@ -280,6 +383,86 @@ def compare_steps(rec, got, ref_rec, ref, opt_cfg, decay_mask, trainable=None) -
     return out
 
 
+# JAX test_pipeline_int8_moments_parity's tolerances (tests/test_pipeline.py:
+# 283-292 there): loss rtol 2e-5, grad norm rtol 1e-3, params rtol 2e-4 with
+# an atol of one quantization step (``compare_q8``)
+Q8_RTOL = {"loss": 2e-5, "grad_norm": 1e-3, "params": 2e-4}
+
+
+def compare_q8(rec, got, ref_rec, ref, opt_cfg, cfg) -> dict:
+    """The readings an int8-moment run over processes is held to against the
+    one-process int8 run from the same state on the same rows (after the
+    last step of each; JAX ``test_pipeline_int8_moments_parity``):
+
+      * loss_rel, grad_norm_rel: the two steps' metrics;
+      * params_outside: the elements of the 8-bit leaves' parameters off by
+        more than 2e-4 relative plus one quantization step, the change one
+        code of m makes to the element's update at the last step (lr times
+        the block's m scale over bc1, over the element's sqrt(v) over
+        sqrt(bc2) + eps, from the one-process run's final codes);
+      * codes_differ: the share of the 8-bit codes of m and v that differ
+        from the one-process run's (the block grid taken over the whole JAX
+        leaf makes them equal but where fp32 rounding moved a value across a
+        rounding boundary, or moved the scale of a block of near-zero
+        gradients; ``q8_detail`` has them leaf by leaf)."""
+    m, r = rec["metrics"][-1], ref_rec["metrics"][-1]
+    out = {"loss_rel": abs(m["loss"] - r["loss"]) / abs(r["loss"]),
+           "grad_norm_rel": abs(m["grad_norm"] - r["grad_norm"]) / r["grad_norm"]}
+    detail = q8_detail(got["q8"], ref["q8"])
+    n_codes = sum(d["codes"] for k, d in detail.items() if k.endswith(":q"))
+    out["codes_differ"] = (sum(d["differ"] for k, d in detail.items() if k.endswith(":q"))
+                           / max(n_codes, 1))
+    moments = {mv: {path: {k: ref["q8"][f"{mv}:{path}:{k}"] for k in ("q", "s")}
+                    for path in {key.split(":")[1] for key in ref["q8"]}} for mv in ("m", "v")}
+    out["params_outside"] = sum(q8_outside(got["after"], ref["after"], moments, m["lr"],
+                                           ref_rec["opt_steps"], opt_cfg).values())
+    return out
+
+
+def q8_detail(got: dict, ref: dict) -> dict:
+    """"m:path:q" / "v:path:s" -> how the 8-bit buffers differ from the
+    reference's: codes (count, differing, the largest difference) and
+    scales (the largest relative difference, the reference's scale there)."""
+    out = {}
+    for key, b in ref.items():
+        a = got[key]
+        if key.endswith(":q"):
+            d = (a.int() - b.int()).abs()
+            out[key] = {"codes": d.numel(), "differ": int((d > 0).sum()), "max_diff": int(d.max())}
+        else:
+            rel = (a - b).abs() / b.abs()
+            i = int(rel.argmax())
+            out[key] = {"max_rel": float(rel[i]), "at_block": i, "ref_scale": float(b[i]),
+                        "scale": float(a[i])}
+    return out
+
+
+def q8_outside(got: dict, want: dict, moments: dict, lr: float, steps: int, opt_cfg,
+               rtol: float = Q8_RTOL["params"]) -> dict:
+    """JAX path -> the elements of the 8-bit leaf's parameters (whole trees
+    keyed by name) off by more than ``rtol`` relative plus one quantization
+    step: the change one code of m makes to the element's update at the
+    last step, lr times the block's m scale over bc1, over the element's
+    sqrt(v) over sqrt(bc2) + eps, read off ``moments`` ({"m", "v"}: JAX path
+    -> {q, s}, the reference's codes after its ``steps`` updates)."""
+    from ..train.optimizer import Q8_BLOCK, jax_leaves, q8_dequantize
+
+    bc1 = 1.0 - opt_cfg.beta1 ** steps
+    bc2 = 1.0 - opt_cfg.beta2 ** steps
+    out = {}
+    for path, leaf in jax_leaves(want).items():
+        if path not in moments["m"]:
+            continue
+        mq, vq = moments["m"][path], moments["v"][path]
+        s_m = mq["s"].repeat_interleave(Q8_BLOCK)[:leaf.size]
+        r_hat = q8_dequantize(vq, (leaf.size,))
+        step_q = lr * (s_m / bc1) / (r_hat / bc2 ** 0.5 + opt_cfg.eps)
+        a = leaf.gather(want, 0, leaf.shape[0])
+        b = leaf.gather(got, 0, leaf.shape[0])
+        out[path] = int(((b - a).abs() > rtol * a.abs() + step_q).sum())
+    return out
+
+
 _REFERENCES = {}
 
 
@@ -309,28 +492,38 @@ def run_step_job(job: dict) -> dict:
 
     device = init_distributed(_device(job))
     data, n_model = job.get("mesh", [1, 1])
+    pp = int(job.get("pp", 1))
     ref = None
     rank = dist.get_rank() if dist.is_initialized() else 0
     if job.get("reference") and rank == 0:
         # the same rows from the same state on one process: every data rank's
         # rows in turn, the ring (if any) run in turn, the validation
         # micro-batch scored
-        rjob = {k: v for k, v in job.items() if k not in ("fault", "seq_parallel")}
+        rjob = {k: v for k, v in job.items()
+                if k not in ("fault", "seq_parallel", "pp", "pp_micro")}
         rjob.update(data_split=data, eval=True)
         if job.get("ring"):
             rjob["ring_size"] = n_model
         ref = _reference(rjob, device, _steps)
     if dist.is_initialized():
         dist.barrier()
-    mesh = make_mesh(None, ("data", "model"), (data, n_model))
+    if pp > 1:
+        mesh = make_mesh(None, ("data", "pipe", "model"), (data, pp, n_model))
+    else:
+        mesh = make_mesh(None, ("data", "model"), (data, n_model))
     rec, out = _steps(job, device, mesh)
     if ref is not None:
+        rec["reference"] = {k: ref[0][k] for k in ("seconds", "warm_seconds", "peak_gib",
+                                                   "tokens_per_step", "moment_bytes")}
         cfg = GPTConfig(**job["model"])
-        decay = gpt2.decay_mask(gpt2.GPT2(cfg))
-        rec["errors"] = compare_steps(rec, {k: {n: v.cpu() for n, v in d.items()}
-                                            for k, d in out.items()},
-                                      ref[0], ref[1], OptimizerConfig(**job.get("opt", {})),
-                                      decay)
+        got = {k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()}
+        opt_cfg = OptimizerConfig(**job.get("opt", {}))
+        if job.get("opt_state_dtype") == "int8":
+            rec["errors"] = compare_q8(rec, got, ref[0], ref[1], opt_cfg, cfg)
+            rec["q8_detail"] = q8_detail(got["q8"], ref[1]["q8"])
+        else:
+            rec["errors"] = compare_steps(rec, got, ref[0], ref[1], opt_cfg,
+                                          gpt2.decay_mask(gpt2.GPT2(cfg)))
     if mesh.rank == 0 and job.get("out") and job.get("save_whole", True):
         torch.save({k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()},
                    os.path.join(job["out"], f"{job.get('tag', 'step')}_whole.pt"))

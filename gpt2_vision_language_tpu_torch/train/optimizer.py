@@ -202,22 +202,31 @@ def _q8_leaves(params, state_dtype, trainable_mask) -> Dict[str, JaxLeaf]:
             and (trainable_mask is None or all(trainable_mask[n] for n in leaf.names))}
 
 
-def _q8_zeros(leaf: JaxLeaf, unsigned: bool, device) -> dict:
-    npad = _q8_padded(leaf.size)
+def _q8_zeros(npad: int, unsigned: bool, device) -> dict:
     return {"q": torch.zeros(npad, dtype=torch.uint8 if unsigned else torch.int8, device=device),
             "s": torch.full((npad // Q8_BLOCK,), 1.0 / 127.0, dtype=torch.float32,
                             device=device)}
 
 
-def adamw_init(params: Dict[str, torch.Tensor], state_dtype=None, trainable_mask=None) -> dict:
+def adamw_init(params: Dict[str, torch.Tensor], state_dtype=None, trainable_mask=None,
+               placement=None) -> dict:
     """Zero moments; frozen leaves get none. ``state_dtype``: None stores
     each moment in its param's dtype (fp32 for fp32 params), ``bfloat16``
     halves them, ``int8`` block-quantizes the moments of every eligible JAX
     leaf (see the module docstring) and keeps the others fp32. The update's
-    arithmetic is fp32 whatever the storage."""
+    arithmetic is fp32 whatever the storage. ``placement``: the
+    parallel/sharding.Placement of a rank that holds part of the model
+    (``params`` are its part); its 8-bit moments are those of the whole JAX
+    leaves, the rank's slices of them (``Placement.q8_sizes``)."""
     dt = _resolve_dtype(state_dtype)
-    q8 = _q8_leaves(params, dt, trainable_mask)
-    in_q8 = {n for leaf in q8.values() for n in leaf.names}
+    dev = next(iter(params.values())).device
+    if placement is not None and placement.split:
+        sizes = placement.q8_sizes() if dt == torch.int8 else {}
+        in_q8 = {n for path in sizes for n in placement.leaves[path].names}
+    else:
+        q8 = _q8_leaves(params, dt, trainable_mask)
+        sizes = {path: _q8_padded(leaf.size) for path, leaf in q8.items()}
+        in_q8 = {n for leaf in q8.values() for n in leaf.names}
 
     def moments(unsigned):
         out = {}
@@ -225,8 +234,8 @@ def adamw_init(params: Dict[str, torch.Tensor], state_dtype=None, trainable_mask
             if (trainable_mask is None or trainable_mask[n]) and n not in in_q8:
                 want = torch.float32 if dt == torch.int8 else (dt or p.dtype)
                 out[n] = torch.zeros_like(p, dtype=want)
-        for path, leaf in q8.items():
-            out[path] = _q8_zeros(leaf, unsigned, params[leaf.names[0]].device)
+        for path, npad in sizes.items():
+            out[path] = _q8_zeros(npad, unsigned, dev)
         return out
 
     return {"m": moments(False), "v": moments(True), "step": 0}
@@ -304,6 +313,23 @@ def _adam_f32(p32, g32, m32, v32, lr, clip_scale, bc1, bc2, cfg, wd):
     return p32, m_new, v_new
 
 
+def _q8_chunk(p32, g32, mq, vq, b0, lr, clip_scale, bc1, bc2, cfg, wd):
+    """The 8-bit update of n consecutive elements of a JAX leaf (p32, g32:
+    fp32, flat) whose codes start at block ``b0`` of mq and vq: their codes
+    and scales in place; returns the new fp32 values."""
+    n = p32.numel()
+    b1 = b0 + -(-n // Q8_BLOCK)
+    m32 = q8_dequantize({"q": mq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK], "s": mq["s"][b0:b1]}, (n,))
+    r = q8_dequantize({"q": vq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK], "s": vq["s"][b0:b1]}, (n,))
+    p32, m_new, v_new = _adam_f32(p32, g32, m32, r * r, lr, clip_scale, bc1, bc2, cfg, wd)
+    nm, nv = q8_quantize(m_new), q8_quantize(torch.sqrt(v_new), unsigned=True)
+    mq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK] = nm["q"]
+    mq["s"][b0:b1] = nm["s"]
+    vq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK] = nv["q"]
+    vq["s"][b0:b1] = nv["s"]
+    return p32
+
+
 def _q8_update(leaf: JaxLeaf, params, grads, mq, vq, lr, clip_scale, bc1, bc2, cfg, wd):
     """The 8-bit update of one JAX leaf, in place on its params and on the
     codes and scales of mq and vq, chunk by chunk of leading rows when the
@@ -316,19 +342,20 @@ def _q8_update(leaf: JaxLeaf, params, grads, mq, vq, lr, clip_scale, bc1, bc2, c
     per_row = leaf.size // rows
     for i0 in range(0, rows, g_rows):
         i1 = i0 + g_rows
-        e0, e1 = i0 * per_row, i1 * per_row
-        b0, b1 = e0 // Q8_BLOCK, -(-e1 // Q8_BLOCK)
-        n = e1 - e0
-        m32 = q8_dequantize({"q": mq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK], "s": mq["s"][b0:b1]}, (n,))
-        r = q8_dequantize({"q": vq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK], "s": vq["s"][b0:b1]}, (n,))
-        p32, m_new, v_new = _adam_f32(leaf.gather(params, i0, i1), leaf.gather(grads, i0, i1),
-                                      m32, r * r, lr, clip_scale, bc1, bc2, cfg, wd)
+        p32 = _q8_chunk(leaf.gather(params, i0, i1), leaf.gather(grads, i0, i1), mq, vq,
+                        i0 * per_row // Q8_BLOCK, lr, clip_scale, bc1, bc2, cfg, wd)
         leaf.scatter(params, i0, i1, p32)
-        nm, nv = q8_quantize(m_new), q8_quantize(torch.sqrt(v_new), unsigned=True)
-        mq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK] = nm["q"]
-        mq["s"][b0:b1] = nm["s"]
-        vq["q"][b0 * Q8_BLOCK:b1 * Q8_BLOCK] = nv["q"]
-        vq["s"][b0:b1] = nv["s"]
+
+
+def q8_update_flat(p32, g32, mq, vq, lr, clip_scale, bc1, bc2, cfg, wd) -> torch.Tensor:
+    """The 8-bit update of a flat run of a JAX leaf's elements (p32, g32:
+    fp32) whose codes are all of mq and vq, from a block boundary, in chunks
+    of Q8_CHUNK_TARGET elements: codes and scales in place; returns the new
+    fp32 values (parallel/sharding.Placement.update_q8)."""
+    n = p32.numel()
+    return torch.cat([_q8_chunk(p32[e0:e0 + Q8_CHUNK_TARGET], g32[e0:e0 + Q8_CHUNK_TARGET], mq, vq,
+                                e0 // Q8_BLOCK, lr, clip_scale, bc1, bc2, cfg, wd)
+                      for e0 in range(0, n, Q8_CHUNK_TARGET)])
 
 
 def kernel_leaves(params: Dict[str, torch.Tensor], state: dict, trainable_mask=None) -> list:
@@ -359,13 +386,17 @@ def adamw_update(
     trainable_mask=None,
     use_fused: bool = True,
     grad_scale: Optional[float] = None,
+    placement=None,
 ) -> None:
     """One optimizer step, in place on params and state.
 
     norm: the pre-clip global norm of the trainable grads, already scaled
     by grad_scale, an fp32 scalar on the params' device.
     grad_scale: a factor applied to every grad (the grad-accumulation
-    1/accum mean), folded into the clip scale as the JAX version does."""
+    1/accum mean), folded into the clip scale as the JAX version does.
+    placement: the parallel/sharding.Placement of a rank that holds part of
+    the model; its 8-bit leaves update through ``Placement.update_q8``
+    (collective)."""
     if trainable_mask is None:
         trainable_mask = {n: True for n in params}
     step = state["step"] + 1
@@ -390,8 +421,13 @@ def adamw_update(
             wd = cfg.weight_decay if decay_mask[leaf.names[0]] else 0.0
             if isinstance(state["m"].get(path), dict):  # 8-bit moments of the whole JAX leaf
                 if trainable_mask[leaf.names[0]]:
-                    _q8_update(leaf, params, grads, state["m"][path], state["v"][path], lr_t,
-                               clip_scale, bc1_t, bc2_t, cfg, wd)
+                    mq, vq = state["m"][path], state["v"][path]
+                    if placement is not None and placement.split:
+                        placement.update_q8(path, params, grads, mq, vq, lr_t, clip_scale,
+                                            bc1_t, bc2_t, cfg, wd)
+                    else:
+                        _q8_update(leaf, params, grads, mq, vq, lr_t, clip_scale, bc1_t, bc2_t,
+                                   cfg, wd)
                 continue
             for n in leaf.names:
                 if not trainable_mask[n]:

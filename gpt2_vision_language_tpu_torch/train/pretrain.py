@@ -16,7 +16,8 @@ and ``$HELLASWAG_DIR`` (default ``./hellaswag``) is a directory.
 
 Parallel styles (JAX :44-140, 200-230). Launched by ``python -m
 torch.distributed.run``, the ranks form a ("data", "model") mesh of shape
-(world / tp, tp) (parallel/mesh.py):
+(world / tp, tp), or with ``pp > 1`` a ("data", "pipe"[, "model"]) mesh of
+shape (world / (pp * tp), pp[, tp]) (parallel/mesh.py):
 
   * data parallelism over ``data``: each data rank reads its stride of the
     rows (``TokenShardLoader(rank, world_size)``), the accumulated grads are
@@ -32,10 +33,21 @@ torch.distributed.run``, the ranks form a ("data", "model") mesh of shape
     holds T/tp of every sequence and the ring is a ``GroupRing`` over that
     group, the params replicated and their grads summed over it; on one
     process the ring is run in turn (``ops.ring_attention.LocalRing``). The
-    ring is installed before the first step and removed when the run ends.
+    ring is installed before the first step and removed when the run ends;
+  * ``pp > 1``: the GPipe pipeline over ``pipe`` (parallel/pipeline.py), a
+    stage of n_layer / pp layers a rank, ``pp_micro`` (or pp) sub-batches a
+    micro-batch; each step through the train step's layerwise seam,
+    validation through the schedule's forward (K4 on the last stage);
+    HellaSwag and sampling on the model with every stage's layers gathered
+    (``whole_stages``, its cost printed). With ``tp > 1`` as well, each
+    stage's layers are cut Megatron-style over ``model``.
 
-Only the master writes the CSV and the checkpoints (gathered whole trees;
-every rank reads them on resume and re-shards), HellaSwag examples go
+8-bit moments under TP and PP keep the one-process block grid over the whole
+JAX leaf, each rank a slice of the codes (parallel/sharding.Placement).
+
+Only the master writes the CSV and the checkpoints (gathered whole trees,
+whole 8-bit buffers too, as one process writes them; every rank reads them
+on resume and keeps its part), HellaSwag examples go
 round-robin over the data ranks with their counts summed, and sampling is
 seeded ``42 + data rank`` (the ranks of one model group draw the same
 tokens).
@@ -52,6 +64,7 @@ by layer (``models.gpt2.loss_grad_layerwise``), and ``remat`` is
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import sys
@@ -75,7 +88,8 @@ from ..obs.csvlog import MetricsLogger
 from ..ops import ring_attention
 from ..parallel import collectives as coll
 from ..parallel.mesh import init_distributed, is_master, make_mesh, world_size
-from ..parallel.sharding import gather_params, ring_chunk_loss, setup_parallel, shard_params
+from ..parallel.pipeline import make_pipeline_loss_fn, whole_stages
+from ..parallel.sharding import ring_chunk_loss, setup_parallel
 from ..utils.trees import fmt_count, tree_bytes
 from .optimizer import adamw_init, convert_moments
 from .step import make_eval_step, make_train_step
@@ -101,9 +115,28 @@ def split_rows_on_device(rows: torch.Tensor) -> dict:
     return {"x": wide[..., :-1], "y": wide[..., 1:]}
 
 
-def check_parallel(cfg: PretrainConfig) -> None:
-    """Raise on a tp / seq_parallel / attn_impl combination the trainer does
-    not run (the JAX asserts, train/pretrain.py:72-97 there)."""
+def check_parallel(cfg: PretrainConfig, world: Optional[int] = None) -> None:
+    """Raise on a tp / pp / seq_parallel / attn_impl combination the trainer
+    does not run (the JAX asserts, train/pretrain.py:54-97 there), and, with
+    ``world`` (the processes), on a world the mesh cannot be laid on."""
+    if cfg.pp > 1:
+        # the JAX trainer's reasons (:59-72 there): SP and the ring shard the
+        # residual stream's T inside the stage bodies; the layerwise backward
+        # is another engine than the reverse pipeline
+        if cfg.seq_parallel:
+            raise ValueError("pp excludes seq_parallel")
+        if cfg.attn_impl == "ring":
+            raise ValueError("pp excludes ring attention")
+        if cfg.layerwise_grad:
+            raise ValueError("pp excludes layerwise_grad")
+        if cfg.model.n_layer % cfg.pp:
+            raise ValueError(f"n_layer {cfg.model.n_layer} is not divisible by pp={cfg.pp}")
+        n_micro = cfg.pp_micro or cfg.pp
+        if cfg.micro_batch_size % n_micro:
+            raise ValueError(f"micro-batch {cfg.micro_batch_size} is not divisible by "
+                             f"pp_micro={n_micro}")
+        if world is not None and world % (cfg.pp * cfg.tp):
+            raise ValueError(f"devices {world} not divisible by pp*tp={cfg.pp * cfg.tp}")
     if cfg.seq_parallel and cfg.tp <= 1:
         raise ValueError("seq_parallel requires tp > 1")
     if cfg.attn_impl == "ring":
@@ -115,16 +148,12 @@ def check_parallel(cfg: PretrainConfig) -> None:
         if cfg.seq_parallel:
             raise NotImplementedError(
                 "seq_parallel with attn_impl='ring': both cut the sequence over the model "
-                "axis; not ported (ROADMAP Queue 1 item 10)")
+                "axis; not carried (ROADMAP, Not carried)")
     if cfg.seq_parallel and cfg.seq_len % cfg.tp:
         raise ValueError(f"seq_parallel: seq_len {cfg.seq_len} is not divisible by "
                          f"tp={cfg.tp}")
     if cfg.seq_parallel and cfg.layerwise_grad:
         raise ValueError("layerwise_grad: no seq_parallel")
-    if cfg.tp > 1 and cfg.attn_impl != "ring" and cfg.opt_state_dtype == "int8":
-        raise NotImplementedError(
-            "int8 moments under tensor parallelism (JAX moment_specs' global 256-element "
-            "block grid) are not ported yet (ROADMAP Queue 1 item 10)")
 
 
 def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY,
@@ -132,12 +161,12 @@ def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY
                  num_devices: Optional[int] = None) -> dict:
     """Run the pretrain loop on ``device`` (each rank's, parallel/mesh.
     device_for_rank). Returns {"model", "opt_state", "val_loss"}: this rank's
-    model (its shards under tensor parallelism). ``remat`` is
-    models.gpt2.run_blocks' (False, True or a mode name). ``num_devices``:
-    the world's size, checked when given."""
-    check_parallel(cfg)
+    model (its shards under tensor parallelism, its stage's layers under the
+    pipeline). ``remat`` is models.gpt2.run_blocks' (False, True or a mode
+    name). ``num_devices``: the world's size, checked when given."""
     device = init_distributed(device)
     world = world_size()
+    check_parallel(cfg, world)
     ring = cfg.attn_impl == "ring"
     if world == 1 and cfg.tp > 1 and not ring:
         raise ValueError(
@@ -147,7 +176,13 @@ def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY
     if world > 1 and world % cfg.tp:
         raise ValueError(f"world {world} not divisible by tp={cfg.tp}")
     tp = cfg.tp if world > 1 else 1
-    mesh = make_mesh(num_devices, ("data", "model"), (world // tp, tp))
+    if cfg.pp > 1:  # JAX :74-87 there
+        axes, shape = ("data", "pipe"), (world // (cfg.pp * tp), cfg.pp)
+        if tp > 1:
+            axes, shape = axes + ("model",), shape + (tp,)
+        mesh = make_mesh(num_devices, axes, shape)
+    else:
+        mesh = make_mesh(num_devices, ("data", "model"), (world // tp, tp))
     if ring:
         ring_attention.set_ring(cfg.tp if world == 1
                                 else ring_attention.GroupRing(mesh.group("model")))
@@ -165,7 +200,7 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
     seq_ring = n_model > 1 and cfg.attn_impl == "ring"
     if seq_ring and cfg.layerwise_grad:
         raise NotImplementedError("layerwise_grad with the ring over processes is not "
-                                  "ported (ROADMAP Queue 1 item 10)")
+                                  "carried (ROADMAP, Not carried)")
     accum = cfg.grad_accum_steps(data_world)
     if master:
         print(f"total desired batch size: {cfg.total_batch_size}")
@@ -186,22 +221,27 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
     model = gpt2.init(cfg.model, generator=torch.Generator(device).manual_seed(cfg.seed),
                       device=device)
     n_params = gpt2.param_count(model)
-    tp, shapes, sync = setup_parallel(model, mesh, seq_parallel=cfg.seq_parallel,
-                                      ring=cfg.attn_impl == "ring")
+    placement, sync = setup_parallel(model, mesh, seq_parallel=cfg.seq_parallel,
+                                     ring=cfg.attn_impl == "ring")
+    tp = placement.tp
     if cfg.param_dtype:
         # the whole-model cast, the reference's CUDA run (train_gpt2.py:264);
         # AdamW's arithmetic stays fp32 (train/optimizer.py)
         model.to(_DTYPES[cfg.param_dtype])
-    opt_state = adamw_init(gpt2.named_params(model), state_dtype=cfg.opt_state_dtype)
+    opt_state = adamw_init(gpt2.named_params(model), state_dtype=cfg.opt_state_dtype,
+                           placement=placement)
     params = gpt2.named_params(model)
     if master:
+        part = [f"shards of {n_model}"] if tp is not None else []
+        if placement.stage is not None:
+            part.append(f"stage {placement.stage.index} of {placement.stage.count}")
         print(f"[init] parameters: {n_params:,}")
         print(f"[mem] params {fmt_count(gpt2.param_count(model))} in "
               f"{tree_bytes(params) / 2**30:.3f} GiB, moments "
               f"{tree_bytes([opt_state['m'], opt_state['v']]) / 2**30:.3f} GiB "
               f"({cfg.opt_state_dtype or 'param dtype'}), grad accumulators "
               f"{cfg.grad_accum_dtype or 'float32'}"
-              + (f" (a rank's shards of {n_model})" if tp is not None else ""))
+              + (f" (a rank's {', '.join(part)})" if part else ""))
 
     if seq_ring:
         # this rank's chunk of every sequence
@@ -220,21 +260,38 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
         def layerwise_fn(model, micro, acc):
             return gpt2.loss_grad_layerwise(model, micro["x"], cfg.model, targets=micro["y"],
                                             acc=acc, policy=policy, attn_impl=cfg.attn_impl)
+    if placement.stage is not None:
+        # the GPipe schedule over "pipe" (JAX :127-133 there): validation
+        # through its forward, each step through the train step's
+        # layerwise seam
+        pipe = make_pipeline_loss_fn(cfg.model, mesh, n_micro=cfg.pp_micro or cfg.pp,
+                                     policy=policy, attn_impl=cfg.attn_impl, remat=remat)
+        loss_fn, layerwise_fn = pipe.loss, pipe.loss_grad
 
     train_step = make_train_step(
         loss_fn, cfg.optimizer, cfg.schedule, decay_mask=gpt2.decay_mask(model),
         nan_guard=cfg.nan_guard, grad_accum_dtype=cfg.grad_accum_dtype,
-        layerwise_loss_grad=layerwise_fn, grad_sync=sync,
+        layerwise_loss_grad=layerwise_fn, grad_sync=sync, placement=placement,
     )
     eval_step = make_eval_step(loss_fn)
 
     def whole_tree(model, opt_state):
-        """The checkpoint's tree: whole tensors (every rank's shards gathered)."""
-        sd = model.state_dict()
-        m, v = opt_state["m"], opt_state["v"]
-        if tp is not None:
-            sd, m, v = (gather_params(x, tp, shapes) for x in (sd, m, v))
+        """The checkpoint's tree: whole tensors and whole 8-bit buffers (every
+        rank's part gathered), as one process writes them."""
+        sd, m, v = (placement.whole(x) for x in (model.state_dict(), opt_state["m"],
+                                                  opt_state["v"]))
         return {"model": sd, "opt_state": {"m": m, "v": v, "step": opt_state["step"]}}
+
+    @contextlib.contextmanager
+    def whole_model():
+        """The model with every layer, for HellaSwag and sampling: under the
+        pipeline the stages gathered (the cost printed by the master)."""
+        stats = {}
+        with whole_stages(model, stats) as whole:
+            if master and stats:
+                print(f"[pp] stages gathered for the event: {stats['bytes'] / 2**20:.1f} MiB "
+                      f"in {stats['seconds']:.3f} s")
+            yield whole
 
     log = MetricsLogger(cfg.log_dir, is_master=master)
     log.meta("tokenizer", tokenizer.name)
@@ -251,16 +308,17 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
     if resumed is not None:
         tree, meta = resumed
         sd, saved = tree["model"], tree["opt_state"]
-        if tp is not None:  # the whole trees back to this rank's shards
-            sd = shard_params(sd, tp)
-            saved = {**saved, "m": shard_params(saved["m"], tp),
-                     "v": shard_params(saved["v"], tp)}
+        # the configured moment storage, whatever the checkpoint's, converted
+        # on the whole trees at the configured param dtype; then this rank's
+        # part of each
+        pdt = next(iter(params.values())).dtype
+        saved = convert_moments({n: sd[n].to(pdt) for n in placement.whole_names()}, saved,
+                                cfg.opt_state_dtype)
+        opt_state = {**saved, "m": placement.local(saved["m"]), "v": placement.local(saved["v"]),
+                     "step": int(saved["step"])}
         # load_state_dict copies into the params as they are, so a checkpoint
         # of another dtype comes in at the configured param_dtype
-        model.load_state_dict(sd)
-        # the configured moment storage, whatever the checkpoint's
-        opt_state = convert_moments(params, saved, cfg.opt_state_dtype)
-        opt_state["step"] = int(opt_state["step"])
+        model.load_state_dict(placement.local(sd))
         start_step = int(meta["next_step"])
         # the data stream goes on where the uninterrupted run would be
         train_loader.seek(start_step * accum)
@@ -292,8 +350,9 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
                     and (step % cfg.hellaswag_every == 0 or last_step)):
                 # examples round-robin over the data ranks, counts summed
                 # (train_gpt2.py:399,410-416)
-                correct, total = hella.evaluate(model, tokenizer, rank=data_rank,
-                                                world_size=data_world)
+                with whole_model() as whole:
+                    correct, total = hella.evaluate(whole, tokenizer, rank=data_rank,
+                                                    world_size=data_world)
                 if data_world > 1:
                     counts = torch.tensor([correct, total], dtype=torch.float32, device=device)
                     coll.all_reduce_(counts, mesh.group("data"))
@@ -308,7 +367,8 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
                 # (train_gpt2.py:438-439): the ranks of one model group draw
                 # the same tokens, as their collectives need
                 gen = torch.Generator(device).manual_seed(42 + data_rank)
-                toks, _ = decoder.generate(model, ids, max(1, 32 - len(prompt)), gen)
+                with whole_model() as whole:
+                    toks, _ = decoder.generate(whole, ids, max(1, 32 - len(prompt)), gen)
                 if master:
                     for i in range(4):
                         print(f"sample {i}: {tokenizer.decode(prompt + toks[i].tolist())}")

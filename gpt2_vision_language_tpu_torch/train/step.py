@@ -110,7 +110,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
                     sched_cfg: ScheduleConfig, *, decay_mask, trainable_mask=None,
                     use_fused_adamw: bool = True, nan_guard: bool = True,
                     grad_accum_dtype=None, layerwise_loss_grad: Callable = None,
-                    grad_sync=None):
+                    grad_sync=None, placement=None):
     """Build ``step(model, opt_state, batch, step_idx, extra=None) -> metrics``.
 
     loss_fn(model, micro) -> scalar loss tensor, or loss_fn(model, micro,
@@ -138,7 +138,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
     all-reduced once (one flat buffer a process group: DDP's ``no_sync``
     until the last micro-batch), the norm is that of the global gradient and
     the loss the mean over ``data``; every rank then updates its own
-    (sharded or replicated) leaves."""
+    (sharded or replicated) leaves. ``placement``: the rank's
+    parallel/sharding.Placement, which updates 8-bit moments on the whole
+    leaves' block grid (train/optimizer.adamw_update). The GPipe pipeline
+    (parallel/pipeline.py) comes in as ``layerwise_loss_grad``: its
+    ``loss_grad`` runs the schedule's forward and backward and folds the
+    stage's grads in."""
     accum_dt = torch.bfloat16 if grad_accum_dtype in ("bfloat16", torch.bfloat16) else torch.float32
     if layerwise_loss_grad is not None and trainable_mask is not None:
         raise ValueError("layerwise_loss_grad accumulates every parameter: no trainable_mask")
@@ -192,7 +197,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         if nan_guard and not (math.isfinite(loss_h) and math.isfinite(norm_h)):
             return metrics
         adamw_update(params, grads, opt_state, lr, opt_cfg, norm=norm, decay_mask=decay_mask,
-                     trainable_mask=tmask, use_fused=use_fused_adamw, grad_scale=inv_accum)
+                     trainable_mask=tmask, use_fused=use_fused_adamw, grad_scale=inv_accum,
+                     placement=placement)
         return metrics
 
     return step

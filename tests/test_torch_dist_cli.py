@@ -4,9 +4,13 @@ parallelism over two gloo processes, as ``python -m torch.distributed.run
 ``"cli"`` job): validation, a HellaSwag file of 5 examples, sampling,
 checkpoints of gathered trees written by the master alone, and a second
 invocation that resumes; held against the one-process command line on the
-same arguments. Also: a worker job that names no device asks for the card."""
+same arguments. The same of ``cli.pretrain --devices 2 --pp 2`` (the GPipe
+pipeline): its resume against the uninterrupted run, its losses against one
+process's, its checkpoint resumed by one process. Also: a worker job that
+names no device asks for the card."""
 
 import os
+import shutil
 import tempfile
 
 import numpy as np
@@ -94,3 +98,66 @@ def test_worker_job_without_device_asks_for_the_card(tmp_path, monkeypatch):
     job = {"kind": "step", "model": dict(ARCH, n_layer=1), "rows": str(tmp_path / "rows.npy")}
     with pytest.raises(RuntimeError, match="--device cuda"):
         dist_worker.run_job(job)
+
+
+PP_ARGS = ["--devices", "2", "--pp", "2"]
+
+
+def test_cli_pipeline_two_processes_resume_and_one_process_load(tmp_path, monkeypatch):
+    """``cli.pretrain --devices 2 --pp 2`` (a stage of one layer a process,
+    validation through the pipeline, HellaSwag and sampling on the gathered
+    stages, checkpoints of whole trees by the master): two steps and a
+    resume to three give the uninterrupted three-step run's state bit for
+    bit; its losses follow the one-process command line's; its final
+    checkpoint loads in a one-process run, which resumes from it."""
+    hs = str(tmp_path / "hs")
+    _write_hellaswag(hs)
+    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    logs = {k: tmp_path / k for k in ("split", "whole", "one")}
+    job = {"kind": "cli", "model": ARCH, "hellaswag_dir": hs}
+
+    def run(tag, log, steps):
+        return run_ranks(dict(job, tag=tag, argv=ARGS + PP_ARGS + ["--log-dir", str(log),
+                                                                    "--steps", str(steps)]),
+                         2, tmp_path)
+
+    first = run("pp", logs["split"], 2)
+    assert [r["step"] for r in first] == [2, 2]
+    text = open(tmp_path / "pp_log0.txt").read()
+    assert "mesh: Mesh(data=1, pipe=2" in text and "stage 0 of 2" in text
+    assert "[pp] stages gathered for the event" in text and "sample 0:" in text
+    resumed = run("pp_resume", logs["split"], 3)
+    assert "[ckpt] resumed at step 2" in open(tmp_path / "pp_resume_log0.txt").read()
+    straight = run("pp_whole", logs["whole"], 3)
+    # each rank's own parameters (its stage's layer and the replicated leaves)
+    assert [r["param_sums"] for r in resumed] == [r["param_sums"] for r in straight]
+    assert set(resumed[0]["param_sums"]) != set(resumed[1]["param_sums"])
+    a, b = (torch.load(logs[k] / "ckpts" / "model_final.pt", weights_only=False)
+            for k in ("split", "whole"))
+    whole = gpt2.GPT2(GPTConfig(**ARCH)).state_dict()
+    assert {n: tuple(t.shape) for n, t in a["model"].items()} == {
+        n: tuple(t.shape) for n, t in whole.items()}
+    for n in whole:
+        assert torch.equal(a["model"][n], b["model"][n]), n
+    for mv in ("m", "v"):
+        for n, t in b["opt_state"][mv].items():
+            assert torch.equal(a["opt_state"][mv][n], t), (mv, n)
+    # the losses of the uninterrupted run against one process's (bf16: the
+    # sub-batches' GEMMs round otherwise than the whole micro-batch's)
+    monkeypatch.setenv("HELLASWAG_DIR", hs)
+    cli.main(ARGS + ["--log-dir", str(logs["one"]), "--steps", "3"], model=GPTConfig(**ARCH))
+    two, single = _rows(logs["whole"], "train", 3), _rows(logs["one"], "train", 3)
+    assert set(two) == set(single) == {0, 1, 2}
+    for step in range(3):
+        np.testing.assert_allclose(two[step], single[step], rtol=2e-3, err_msg=f"step {step}")
+    v2, v1 = _rows(logs["whole"], "val", 3), _rows(logs["one"], "val", 3)
+    for step, v in v1.items():
+        np.testing.assert_allclose(v2[step], v, rtol=2e-3, err_msg=f"val {step}")
+    # the pipeline's checkpoint resumed by one process
+    load = tmp_path / "load"
+    os.makedirs(load / "ckpts")
+    shutil.copy(logs["whole"] / "ckpts" / "model_final.pt", load / "ckpts" / "model_final.pt")
+    out = cli.main(ARGS + ["--log-dir", str(load), "--steps", "4"], model=GPTConfig(**ARCH))
+    assert out["opt_state"]["step"] == 4
+    assert set(_rows(load, "train", 3)) == {3}

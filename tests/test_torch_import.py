@@ -98,8 +98,6 @@ def test_presets_match_jax(preset):
 LEFT_OUT = {
     # TPU-only memory and dispatch mechanisms
     "pin_layouts": "TPU-only", "split_accum": "TPU-only", "sync_accum": "TPU-only",
-    # the GPipe pipeline (ROADMAP Queue 1 item 10)
-    "pp": "Queue 1 item 10", "pp_micro": "Queue 1 item 10",
 }
 
 

@@ -145,7 +145,7 @@ def test_attn_impl_ring_is_refused():
             want.tp, want.attn_impl, want.seq_parallel), argv
     with pytest.raises(ValueError, match="seq_parallel requires tp > 1"):
         pretrain.parse_and_build(["--seq-parallel"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="not carried"):
         pretrain.parse_and_build(["--seq-parallel", "--tp", "2", "--attn-impl", "ring"])
     with pytest.raises(ValueError, match="runs over tp processes"):
         pretrain.main(["--tp", "2", "--device", "cpu", "--steps", "1"])

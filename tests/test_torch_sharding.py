@@ -1,9 +1,10 @@
 """Megatron tensor parallelism of the port over gloo processes against the
 JAX single-device step (tests/test_sharding.py's cases): the specs of every
 leaf, a TP step on 2 and 4 processes with 6 heads (4 ranks hold 2, 2, 1, 1),
-data x model = 2 x 2, sequence parallelism, the layerwise backward under TP,
-and int8 moments under TP refused. JAX's tolerances under the fp32 policy:
-loss and grad norm rtol 1e-5, params after one step rtol 1e-4, atol 1e-5."""
+data x model = 2 x 2, sequence parallelism and the layerwise backward under
+TP (int8 moments under TP: tests/test_torch_pipeline.py). JAX's tolerances
+under the fp32 policy: loss and grad norm rtol 1e-5, params after one step
+rtol 1e-4, atol 1e-5."""
 
 import jax
 import numpy as np
@@ -14,7 +15,6 @@ from gpt2_vision_language_tpu.core import config as jcfg
 from gpt2_vision_language_tpu.models import gpt2 as jgpt2
 from gpt2_vision_language_tpu.parallel.sharding import gpt2_param_specs as jax_specs
 from gpt2_vision_language_tpu_torch.ckpt.convert import jax_leaf_path
-from gpt2_vision_language_tpu_torch.cli import pretrain
 from gpt2_vision_language_tpu_torch.core.config import GPTConfig
 from gpt2_vision_language_tpu_torch.models import gpt2
 from gpt2_vision_language_tpu_torch.parallel import sharding
@@ -139,14 +139,3 @@ def test_controls_fail(reference, tmp_path, mesh, fault):
                            fault)
     rel = abs(recs[0]["metrics"][0]["grad_norm"] / metrics[0]["grad_norm"] - 1)
     assert rel > 1e-2, rel
-
-
-def test_int8_moments_under_tp_are_refused():
-    """int8 moments under Megatron TP (JAX moment_specs' global block grid)
-    are not ported: the configuration raises, naming the ROADMAP item; the
-    ring keeps them (its params are not split)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pretrain.parse_and_build(["--tp", "2", "--opt-state-dtype", "int8"])
-    cfg, _ = pretrain.parse_and_build(["--tp", "2", "--attn-impl", "ring",
-                                       "--opt-state-dtype", "int8", "--seq-len", "64"])
-    assert cfg.opt_state_dtype == "int8"

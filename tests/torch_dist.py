@@ -30,15 +30,28 @@ def run_ranks(job: dict, nprocs: int, tmp_path) -> list:
     return [json.load(open(os.path.join(tmp_path, f"{tag}_r{r}.json"))) for r in range(nprocs)]
 
 
+def run_jobs(jobs: list, nprocs: int, tmp_path, tag: str) -> dict:
+    """Run the "step" jobs ``jobs`` in turn in one launch of ``nprocs``
+    processes; returns each job's tag -> every rank's record."""
+    dist_worker.launch({"kind": "jobs", "jobs": jobs, "tag": tag, "out": str(tmp_path),
+                        "device": "cpu", "threads": 1}, nprocs, timeout=TIMEOUT_S,
+                       workdir=str(tmp_path))
+    return {j["tag"]: [json.load(open(os.path.join(tmp_path, f"{j['tag']}_r{r}.json")))
+                       for r in range(nprocs)] for j in jobs}
+
+
 def whole(tmp_path, tag: str) -> dict:
     """Rank 0's whole tensors of a "step" job: before, after, grads."""
     return torch.load(os.path.join(tmp_path, f"{tag}_whole.pt"), weights_only=True)
 
 
-def jax_steps(arch: dict, rows: np.ndarray, *, layerwise: bool = False, ring_mesh=None):
+def jax_steps(arch: dict, rows: np.ndarray, *, layerwise: bool = False, ring_mesh=None,
+              state_dtype=None, state_out=None):
     """The JAX single-device train steps over ``rows`` (steps, accum, B,
-    T + 1) from the JAX init of ``arch`` at PRNGKey(0), fp32. Returns (the
-    initial params, each step's metrics, the params after) as numpy trees."""
+    T + 1) from the JAX init of ``arch`` at PRNGKey(0), fp32, the moments
+    stored as ``state_dtype`` asks (None: fp32). Returns (the initial params,
+    each step's metrics, the params after) as numpy trees; ``state_out``
+    (a dict) receives the final AdamW state as "state"."""
     import jax
     import jax.numpy as jnp
 
@@ -69,7 +82,7 @@ def jax_steps(arch: dict, rows: np.ndarray, *, layerwise: bool = False, ring_mes
     step = make_train_step(loss, jcfg.OptimizerConfig(**OPT), jcfg.ScheduleConfig(**SCHED),
                            decay_mask=jgpt2.decay_mask(params), donate=False,
                            layerwise_loss_grad=lw)
-    state = adamw_init(params)
+    state = adamw_init(params, state_dtype=None if state_dtype is None else jnp.dtype(state_dtype))
     metrics = []
     if ring_mesh is not None:
         jra.set_ring_mesh(ring_mesh)
@@ -81,6 +94,8 @@ def jax_steps(arch: dict, rows: np.ndarray, *, layerwise: bool = False, ring_mes
     finally:
         if ring_mesh is not None:
             jra.set_ring_mesh(None)
+    if state_out is not None:
+        state_out["state"] = jax.tree.map(np.asarray, state)
     return p0, metrics, jax.tree.map(np.asarray, params)
 
 
