@@ -27,8 +27,8 @@
 //
 // What the design does about it (flash_f32.cuh holds the pieces and the
 // blocks, dkv_block and dq_block, which this kernel instances at Tq == Tk;
-// the general fp32 backward, flash_general_bwd_f32.cu, instances them with
-// Tq != Tk): one grid of two kinds of block of 128 threads (4 warps), every
+// the A/B tool's dt-layout fp32 backward, flash_dt_bwd_f32.cu, instances
+// them in its layout): one grid of two kinds of block of 128 threads (4 warps), every
 // product from outer-product register tiles of 32 values a thread, as in an
 // SGEMM.
 //   - A dk/dv block owns 64 keys of one (b, h), a warp 16 of them; K^T / sqrt(hs)

@@ -1,15 +1,16 @@
 // Building blocks of the attention kernels on fp32 operands: every product
 // an fp32 FFMA on the CUDA cores, from register tiles that a thread sums as
 // outer products, fed from shared memory by 16-byte reads. The blocks at the
-// end of this file (the forward block, the dk/dv block and the dq block) are
-// written once and instanced three times, by the compile-time Case:
+// end of this file (the forward block, the dk/dv block and the dq block, and
+// the one-pass block) are written once and instanced by the compile-time
+// Case:
 //   - SELF by the self-attention kernels (flash_fwd_f32.cu,
 //     flash_bwd_f32.cu: Tq == Tk = T): the general case at Tq == Tk with the
 //     offset a compile-time 0, keeping the self kernels' arithmetic and none
 //     of the general case's index work;
-//   - GENERAL by the general ones (flash_general_fwd_f32.cu,
-//     flash_general_bwd_f32.cu: a query length Tq and a key length Tk,
-//     causal masks right-aligned);
+//   - GENERAL by the general ones (flash_general_fwd_f32.cu: the forward
+//     block; flash_general_bwd_f32.cu: the one-pass block; a query length Tq
+//     and a key length Tk, causal masks right-aligned);
 //   - DT by the A/B tool's dt-layout kernels (flash_dt_fwd_f32.cu,
 //     flash_dt_bwd_f32.cu): q, k, v, o and the gradients (H, hs, B*T), the
 //     sequence contiguous, Tq and Tk multiples of 64 and either the larger,
@@ -114,6 +115,12 @@ __device__ __forceinline__ void cp_async_commit() {
 // every copy this thread has started has landed in shared memory
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every copy this thread has started has landed but those of its last
+// committed group
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ---- loads -------------------------------------------------------------------
@@ -616,16 +623,15 @@ __device__ __forceinline__ void store_keys_dt(float* __restrict__ ob, const floa
   }
 }
 
-// dk, dv of key tile kt of (h, b): keys k0 .. k0 + 63, the query tiles from
-// the first that sees one of them (causal: the row k0 - (Tk - Tq), k0 in the
-// dt case, where there may be none) on
+// dk, dv of key tile kt of (h, b) (SELF, DT): keys k0 .. k0 + 63, the query
+// tiles from the first that sees one of them (causal: the row k0, in the dt
+// case past Tq for a key that no query sees) on
 template <Case C>
 __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int Tk_, int H,
                                           int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
   const int Tk = C == Case::SELF ? Tq : Tk_;
-  const int off = C == Case::GENERAL ? Tk - Tq : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ntq = (Tq + TILE - 1) / TILE;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -648,10 +654,9 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
   // dK, dV: keys 16 warp + 4 kq + kk, channels by g; a quarter-warp spans
   // 4 kq x 2 g, so its reads of dO and q rows ask for two addresses
   const int kq = (lane & 7) >> 1, g = 2 * (lane >> 3) + (lane & 1);
-  // causal: the first row that sees key k0 is k0 - off (< Tq, since k0 < Tk;
-  // in the dt case k0, which is past Tq for a key no query sees: then the
-  // sweep is empty and dk = dv = 0)
-  const int it0 = !causal ? 0 : C == Case::GENERAL ? max(k0 - off, 0) / TILE : kt;
+  // causal: the first row that sees key k0 is k0 (in the dt case past Tq
+  // for a key no query sees: then the sweep is empty and dk = dv = 0)
+  const int it0 = !causal ? 0 : kt;
   load_query_tile<C>(s, 0, qb, a.qs.st, dob, dost,
                      C == Case::DT ? a.lse + st0 : a.lse + bh * Tq,
                      C == Case::DT ? a.dd + st0 : a.dd + bh * Tq, it0 * TILE, Tq, tid);
@@ -677,8 +682,8 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
     keys_by_rows(sc, s.q[slot], &s.kt[0][16 * warp + 8 * kg], rg);
     keys_by_rows(dp, s.dO[slot], &s.vt[0][16 * warp + 8 * kg], rg);
     // P = exp(S - lse) where visible, else 0; dS = P (dP - D); without an
-    // offset (SELF, DT) the diagonal crosses the tile it == kt only
-    const bool diag = C == Case::GENERAL ? k0 + TILE - 1 > q0 + off : it == kt;
+    // offset the diagonal crosses the tile it == kt only
+    const bool diag = it == kt;
     const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -687,7 +692,7 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kk = k0 + 16 * warp + 8 * kg + j;
-        const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq + off));
+        const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq));
         const float p = masked ? 0.f : expf(sc[i][j] - l);
         sc[i][j] = p;
         dp[i][j] = p * (dp[i][j] - dr);
@@ -722,16 +727,15 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
   }
 }
 
-// dq of query tile qt of (h, b): queries q0 .. q0 + 63, the key tiles up to
-// the last one its last row sees; dq is scaled by 1 / sqrt(hs), or by
-// dq_scale in the dt case
+// dq of query tile qt of (h, b) (SELF, DT): queries q0 .. q0 + 63, the key
+// tiles up to the last one its last row sees; dq is scaled by 1 / sqrt(hs),
+// or by dq_scale in the dt case
 template <Case C>
 __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int Tk_, int H,
                                          int causal, float dq_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
   const int Tk = C == Case::SELF ? Tq : Tk_;
-  const int off = C == Case::GENERAL ? Tk - Tq : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
@@ -764,12 +768,11 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
   }
   float acc_q[8][4];
   zero(acc_q);
-  // causal: Tq <= Tk, so the last row's last key min(q0 + 64, Tq) - 1 + off < Tk;
-  // in the dt case rows past Tk see every key, and the sweep stops at Tk
-  const int n_kv = !causal                ? (Tk + TILE - 1) / TILE
-                   : C == Case::GENERAL ? (min(q0 + TILE, Tq) - 1 + off) / TILE + 1
-                   : C == Case::DT      ? min(qt + 1, (Tk + TILE - 1) / TILE)
-                                        : qt + 1;
+  // causal: in the dt case rows past Tk see every key, and the sweep stops
+  // at Tk
+  const int n_kv = !causal           ? (Tk + TILE - 1) / TILE
+                   : C == Case::DT ? min(qt + 1, (Tk + TILE - 1) / TILE)
+                                   : qt + 1;
   for (int j = 0; j < n_kv; ++j) {
     const int slot = j & 1, k0 = j * TILE;
     cp_async_wait_all();
@@ -785,7 +788,7 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
     zero(dp);
     rows_by_keys<TILE, 4, 16>(sc, &s.qt[0][r0], s.k[slot], tc);
     rows_by_keys<TILE, 4, 16>(dp, &s.dOt[0][r0], s.v[slot], tc);
-    const bool diag = C == Case::GENERAL ? k0 + TILE - 1 > q0 + off : j == qt;
+    const bool diag = j == qt;
     const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -794,7 +797,7 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kk = k0 + tc + 16 * c;
-        const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq + off));
+        const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq));
         const float p = masked ? 0.f : expf(sc[i][c] - l);
         dp[i][c] = p * (dp[i][c] - dr);
       }
@@ -850,6 +853,390 @@ __device__ __forceinline__ void backward_grid(const BwdArgs& a, int Tq, int Tk, 
     dkv_block<C>(a, blockIdx.x, Tq, Tk, H, causal);
   else
     dq_block<C>(a, ntq - 1 - ((int)blockIdx.x - ntk), Tq, Tk, H, causal, dq_scale);
+}
+
+// ---- the one-pass block (Case::GENERAL) ----------------------------------------
+//
+// One pass over each visible (query tile, key tile) pair, five products, as
+// the TPU's _bwd_kernel_fused: a block owns 64 keys of one (b, h), K / sqrt(hs)
+// and V resident as [key][channel] tiles, and sweeps the 64-row query tiles,
+// q, dO, lse and the row term in one slot by cp.async (the next tile's copy
+// runs under dQ and the add into dq). Its 4 warps work in two halves of 64
+// threads, a half's thread on 8 x 8 values:
+//   - half 0: S = q K^T / sqrt(hs) (rows rg + 8 ii, keys 8 kg + jj), then
+//     P = exp(S - lse), masked, into the shared P tile; half 1: dP = dO V^T
+//     on the same places, then (P in) dS = P (dP - c) into the shared dS tile;
+//   - half 0: dV += P^T dO, half 1: dK += dS^T q, keys 8 a + kk, channels
+//     4 b + e and 32 + 4 b + e, summed over the item's query rows in sweep
+//     order (the halves' accumulators are one register array);
+//   - all 4 warps: the pair's part of dQ, dS K / sqrt(hs), rows rq + 8 ii,
+//     channels 4 cq + e, added into dq in global memory.
+// Shared reads: a quarter-warp reads one row of one operand (one address)
+// and 8 consecutive rows, or 8 consecutive float4 of one row, of the other:
+// no bank conflicts (rows padded to LDT), and per 4 channels or rows 8 + 8
+// float4 for 256 FFMAs (dQ 8 + 4 for 128).
+//
+// dq without atomics, in a fixed order. Each query tile's parts are added in
+// a fixed order of key tiles: the first stores, the others load, add and
+// store. A flag per (b, h, query tile), zeroed before each launch, counts
+// the parts added so far. The block
+// whose turn it is spins on ld.acquire.gpu (thread 0, before a block
+// barrier) and copies the tile's sum so far through L2 (cp.async.cg:
+// another SM wrote it) into the free P tile while it computes its part;
+// after the next block barrier, which orders the block's stores before it,
+// thread 0 publishes count + 1 with __threadfence and st.release.gpu. Only
+// that block writes the flag, so no read-modify-write is needed. Deadlock:
+// the grid is persistent, one block per resident slot (the occupancy
+// calculator sizes it), launched cooperatively, so that either every block
+// is resident at once or the launch fails; a block walks its work items
+// (b, h, key tile) in a fixed order, and an item waits only on
+//   - causal, or unmasked with ntq != ntk tiles (the list): items earlier
+//     in one list, key tiles in descending order, (b, h) fastest, dealt in
+//     rounds of one item a block (every other round from the last block
+//     down, so that a block's short item of one round meets a long one in
+//     the next). Each block walks its items in list order, so the first
+//     unfinished item of the list always runs. A query tile sums its parts
+//     from the last key tile that sees it down to key tile 0: under the mask
+//     a sweep from each key tile's first visible query tile reaches query
+//     tile i from key tile j after i - j steps, so the next key tile's part
+//     arrives one step ahead and nothing waits;
+//   - unmasked with ntq == ntk and a (b, h)'s key tiles no more than the
+//     blocks (the rounds): whole (b, h) at a time, each of its key tiles on
+//     its own block; key tile j sweeps the query tiles from j on, wrapping
+//     round, and query tile i sums from key tile i down, wrapping round: the
+//     part of the key tile before in the order arrives one step ahead. All
+//     of a round's items run at once, and each wait is on the step before.
+// A wait past WAIT_LIMIT_NS traps (the launch fails) rather than hanging the
+// card.
+
+constexpr long long WAIT_LIMIT_NS = 20000000000ll;  // 20 s
+
+struct PairSmem {
+  Tile k;      // K / sqrt(hs): [key][channel]
+  Tile v;      // V: [key][channel]
+  Tile q;      // the swept query tile: [row][channel]
+  Tile dO;     // its dO rows
+  Tile p;      // P: [row][key]
+  Tile ds;     // dS: [row][key]
+  float lse[TILE];
+  float dd[TILE];  // the row term
+};
+
+constexpr int PAIR_SMEM = (int)sizeof(PairSmem);
+
+__device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned int* p, unsigned int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// spin until the flag reads `want`
+__device__ __forceinline__ void wait_flag(const unsigned int* f, unsigned int want) {
+  if (ld_acquire(f) == want) return;
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire(f) != want) {
+    __nanosleep(64);
+    if (global_ns() - t0 > (unsigned long long)WAIT_LIMIT_NS) __trap();
+  }
+}
+
+// t[ii][jj] += sum_d a[rg + 8 ii][d] * b[8 kg + jj][d], both [position][channel]
+// tiles; the sum over d runs 0 .. 63 in order
+__device__ __forceinline__ void rows_by_rows(float (&t)[8][8], const Tile& a, const Tile& b,
+                                             int rg, int kg) {
+#pragma unroll 2
+  for (int d4 = 0; d4 < HS / 4; ++d4) {
+    float4 bf[8];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) bf[jj] = *reinterpret_cast<const float4*>(&b[8 * kg + jj][4 * d4]);
+#pragma unroll
+    for (int ii = 0; ii < 8; ++ii) {
+      const float4 af = *reinterpret_cast<const float4*>(&a[rg + 8 * ii][4 * d4]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) t[ii][jj] = fmaf(comp(af, dd), comp(bf[jj], dd), t[ii][jj]);
+    }
+  }
+}
+
+// the thread's 8 x 8 values (rows rg + 8 ii, keys 8 kg + jj) into a [row][key] tile
+__device__ __forceinline__ void store_rows(Tile& dst, const float (&t)[8][8], int rg, int kg) {
+#pragma unroll
+  for (int ii = 0; ii < 8; ++ii) {
+    float* row = &dst[rg + 8 * ii][8 * kg];
+    *reinterpret_cast<float4*>(row) = make_float4(t[ii][0], t[ii][1], t[ii][2], t[ii][3]);
+    *reinterpret_cast<float4*>(row + 4) = make_float4(t[ii][4], t[ii][5], t[ii][6], t[ii][7]);
+  }
+}
+
+// acc[kk][e] += sum_r x[r][8 a + kk] * y[r][channel e], r = 0 .. 63 in order;
+// the thread's channels are 4 b .. 4 b + 3 (e < 4) and 32 + 4 b .. (e >= 4)
+__device__ __forceinline__ void keys_by_channels(float (&acc)[8][8], const Tile& x, const Tile& y,
+                                                 int a, int b) {
+#pragma unroll 4
+  for (int r = 0; r < TILE; ++r) {
+    const float4 x0 = *reinterpret_cast<const float4*>(&x[r][8 * a]);
+    const float4 x1 = *reinterpret_cast<const float4*>(&x[r][8 * a + 4]);
+    const float4 y0 = *reinterpret_cast<const float4*>(&y[r][4 * b]);
+    const float4 y1 = *reinterpret_cast<const float4*>(&y[r][32 + 4 * b]);
+    const float xr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float yr[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[kk][e] = fmaf(xr[kk], yr[e], acc[kk][e]);
+  }
+}
+
+// acc[ii][e] += sum_j x[rq + 8 ii][j] * y[j][4 cq + e], j = 0 .. 63 in order:
+// x a [row][key] tile, y a [key][channel] tile
+__device__ __forceinline__ void rows_by_channels(float (&acc)[8][4], const Tile& x, const Tile& y,
+                                                 int rq, int cq) {
+#pragma unroll 2
+  for (int j4 = 0; j4 < TILE / 4; ++j4) {
+    float4 yf[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) yf[jj] = *reinterpret_cast<const float4*>(&y[4 * j4 + jj][4 * cq]);
+#pragma unroll
+    for (int ii = 0; ii < 8; ++ii) {
+      const float4 xf = *reinterpret_cast<const float4*>(&x[rq + 8 * ii][4 * j4]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ii][e] = fmaf(comp(xf, jj), comp(yf[jj], e), acc[ii][e]);
+    }
+  }
+}
+
+// rows row0 .. row0 + 63 of a (B, T, H, hs) tensor (base: row 0 of one
+// (b, h), st: the position stride) into a [position][channel] tile times
+// scale, zeros at or past T; synchronous
+__device__ __forceinline__ void load_rows(Tile& dst, const float* __restrict__ base, long long st,
+                                          int row0, int T, float scale, int tid) {
+#pragma unroll
+  for (int i = 0; i < TILE * (HS / 4) / THREADS; ++i) {
+    const int f = tid + i * THREADS, r = f >> 4, c = f & 15, t = row0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < T) x = __ldg(reinterpret_cast<const float4*>(base + (long long)t * st) + c);
+    *reinterpret_cast<float4*>(&dst[r][4 * c]) =
+        make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  }
+}
+
+// q and dO rows q0 .. q0 + 63 and their lse and row term into the block's
+// slot, asynchronously; zeros at or past Tq
+__device__ __forceinline__ void load_pair_query_tile(PairSmem& s, const float* qb, long long qst,
+                                                     const float* dob, long long dost,
+                                                     const float* lse_bh, const float* dd_bh,
+                                                     int q0, int Tq, int tid) {
+  load_tile_async<THREADS>(s.q, qb, qst, q0, Tq, tid);
+  load_tile_async<THREADS>(s.dO, dob, dost, q0, Tq, tid);
+  const int r = tid & (TILE - 1), t = q0 + r;
+  if (tid < TILE)
+    cp_async4(&s.lse[r], lse_bh + (t < Tq ? t : 0), t < Tq ? 4 : 0);
+  else
+    cp_async4(&s.dd[r], dd_bh + (t < Tq ? t : 0), t < Tq ? 4 : 0);
+}
+
+// rows row0 + kk (kk < 8) of a (B, T, H, hs) contiguous output, channels
+// 4 b .. 4 b + 3 and 32 + 4 b .., times scale
+__device__ __forceinline__ void store_keys8(float* __restrict__ out, const float (&acc)[8][8],
+                                            float scale, int b, int h, int H, int row0, int T,
+                                            int g) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int t = row0 + kk;
+    if (t < T) {
+      float* dst = out + (((long long)b * T + t) * H + h) * HS;
+      *reinterpret_cast<float4*>(dst + 4 * g) =
+          make_float4(acc[kk][0] * scale, acc[kk][1] * scale, acc[kk][2] * scale,
+                      acc[kk][3] * scale);
+      *reinterpret_cast<float4*>(dst + 32 + 4 * g) =
+          make_float4(acc[kk][4] * scale, acc[kk][5] * scale, acc[kk][6] * scale,
+                      acc[kk][7] * scale);
+    }
+  }
+}
+
+// One work item: dk and dv of key tile kt of (b, h), and its parts of dq.
+// flags: the (b, h)'s ntq flags; rounds: the wrapping sweep of the rounds
+// (see above), else the list's.
+template <Case C>
+__device__ __forceinline__ void pair_block(const BwdArgs& a, int b, int h, int kt, int Tq, int Tk,
+                                           int H, int causal, unsigned int* flags,
+                                           bool rounds) {
+  static_assert(C == Case::GENERAL, "the one-pass block is instanced for the general case");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PairSmem& s = *reinterpret_cast<PairSmem*>(smem_raw);
+  const int off = Tk - Tq;  // a causal row i sees the keys <= i + off
+  const int tid = threadIdx.x, half = tid >> 6, t64 = tid & 63;
+  const int ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
+  const long long bh = (long long)b * H + h;
+  const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
+  const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
+  const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
+  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;
+  const long long dost = (long long)H * HS;
+  const int k0 = kt * TILE;
+  const int rg = t64 & 7, kg = t64 >> 3;   // S, dP, P, dS: rows rg + 8 ii, keys 8 kg + jj
+  const int ka = t64 >> 3, cb = t64 & 7;   // dK, dV: keys 8 ka + kk, channels by cb
+  const int rq = tid >> 4, cq = tid & 15;  // dQ: rows rq + 8 ii, channels 4 cq + e
+  // the sweep: the rounds' from query tile kt on, wrapping round; else from
+  // the first query tile that sees one of the keys (causal: row k0 - off)
+  const int it0 = rounds ? kt : causal ? max(k0 - off, 0) / TILE : 0;
+  const int n = rounds ? ntq : ntq - it0;
+
+  load_pair_query_tile(s, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, it0 * TILE,
+                       Tq, tid);
+  cp_async_commit();
+  load_rows(s.k, kb, a.ks.st, k0, Tk, 0.125f, tid);  // 1 / sqrt(64), exact
+  load_rows(s.v, vb, a.vs.st, k0, Tk, 1.f, tid);
+  float acc[8][8];  // half 0: dV, half 1: dK
+  zero(acc);
+  unsigned int* pending = nullptr;  // the flag to publish, and its value
+  unsigned int pending_val = 0;
+  for (int st = 0; st < n; ++st) {
+    const int it = rounds ? (it0 + st) % ntq : it0 + st, q0 = it * TILE;
+    // this part's place in its query tile's order
+    const int rank = rounds ? st
+                     : (causal ? (min(q0 + TILE, Tq) - 1 + off) / TILE : ntk - 1) - kt;
+    cp_async_wait_all();
+    __syncthreads();  // the tile is in; every thread's part of the last dq tile is out
+    if (tid == 0 && pending) {  // publish it (the barrier orders the block's stores first)
+      __threadfence();
+      st_release(pending, pending_val);
+    }
+
+    float t[8][8];
+    zero(t);
+    rows_by_rows(t, *(half ? &s.dO : &s.q), *(half ? &s.v : &s.k), rg, kg);
+    const bool diag = k0 + TILE - 1 > q0 + off;
+    const bool edge = (causal && diag) || q0 + TILE > Tq || k0 + TILE > Tk;
+    if (half == 0) {
+      // P = exp(S - lse) where visible, else 0
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int r = rg + 8 * ii, qq = q0 + r;
+        const float l = s.lse[r];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int kk = k0 + 8 * kg + jj;
+          const bool masked = edge && (qq >= Tq || kk >= Tk || (causal && kk > qq + off));
+          t[ii][jj] = masked ? 0.f : expf(t[ii][jj] - l);
+        }
+      }
+      store_rows(s.p, t, rg, kg);
+    }
+    __syncthreads();  // P is in
+    if (half == 1) {
+      // dS = P (dP - c)
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int r = rg + 8 * ii;
+        const float dr = s.dd[r];
+        const float4 p0 = *reinterpret_cast<const float4*>(&s.p[r][8 * kg]);
+        const float4 p1 = *reinterpret_cast<const float4*>(&s.p[r][8 * kg + 4]);
+        const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) t[ii][jj] = pr[jj] * (t[ii][jj] - dr);
+      }
+      store_rows(s.ds, t, rg, kg);
+      asm volatile("bar.sync 1, 64;\n" ::: "memory");  // half 1's dS is in
+    }
+    // dV += P^T dO (half 0), dK += dS^T q (half 1)
+    keys_by_channels(acc, *(half ? &s.ds : &s.p), *(half ? &s.q : &s.dO), ka, cb);
+    unsigned int* flag = flags + it;
+    if (tid == 0 && rank > 0) wait_flag(flag, (unsigned int)rank);
+    __syncthreads();  // dS is in; q, dO and P are read; dq's earlier parts are out
+    // the thread's 8 x 4 values of the dq tile so far into the free P tile,
+    // through L2 (another SM wrote them), under dQ's product
+    float* dqb = a.dq + (((long long)b * Tq + q0) * H + h) * HS + 4 * cq;
+    if (rank > 0) {
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int r = rq + 8 * ii;
+        cp_async16(&s.p[r][4 * cq], dqb + (long long)(q0 + r < Tq ? r : 0) * H * HS,
+                   q0 + r < Tq ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+    if (st + 1 < n) {
+      const int nq0 = (rounds ? (it0 + st + 1) % ntq : it0 + st + 1) * TILE;
+      load_pair_query_tile(s, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, nq0,
+                           Tq, tid);
+    }
+    cp_async_commit();
+
+    // this pair's part of dQ = dS K / sqrt(hs), into dq in the tile's order
+    float pq[8][4];
+    zero(pq);
+    rows_by_channels(pq, s.ds, s.k, rq, cq);
+    cp_async_wait_all_but_last();  // the dq tile is in (the next query tile may not be)
+#pragma unroll
+    for (int ii = 0; ii < 8; ++ii) {
+      const int r = rq + 8 * ii;
+      if (q0 + r < Tq) {
+        float4 v = make_float4(pq[ii][0], pq[ii][1], pq[ii][2], pq[ii][3]);
+        if (rank > 0) {
+          const float4 o = *reinterpret_cast<const float4*>(&s.p[r][4 * cq]);
+          v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+        }
+        __stcg(reinterpret_cast<float4*>(dqb + (long long)r * H * HS), v);
+      }
+    }
+    pending = flag;
+    pending_val = (unsigned int)(rank + 1);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every thread's part of the last dq tile is out; the tiles are free
+  if (tid == 0 && pending) {
+    __threadfence();
+    st_release(pending, pending_val);
+  }
+  if (half)
+    store_keys8(a.dk, acc, 0.125f, b, h, H, k0 + 8 * ka, Tk, cb);
+  else
+    store_keys8(a.dv, acc, 1.f, b, h, H, k0 + 8 * ka, Tk, cb);
+}
+
+// The persistent grid of the one-pass block: block x walks its work items
+// (see above). BH = B * H; flags: B * H * ntq of them; rounds: the (b, h)
+// of a round (0: the list).
+template <Case C>
+__device__ __forceinline__ void pair_grid(const BwdArgs& a, int Tq, int Tk, int H, int BH,
+                                          int causal, unsigned int* flags, int rounds) {
+  const int ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
+  const int x = blockIdx.x;
+  for (long long r = 0;; ++r) {
+    long long bh, kt;
+    if (rounds) {
+      bh = x / ntk + r * rounds;
+      kt = x % ntk;
+    } else {
+      // round r of the list, blocks in turn, every other round from the
+      // last block down: a block's short item of one round is paired with a
+      // long one in the next
+      const long long base = r * gridDim.x, w = base + (r & 1 ? gridDim.x - 1 - x : x);
+      if (base >= (long long)ntk * BH) return;
+      if (w >= (long long)ntk * BH) continue;
+      bh = w % BH;
+      kt = ntk - 1 - w / BH;
+    }
+    if (bh >= BH) return;
+    pair_block<C>(a, (int)(bh / H), (int)(bh % H), (int)kt, Tq, Tk, H, causal,
+                  flags + bh * ntq, rounds != 0);
+  }
 }
 
 // more than 48 KB of dynamic shared memory and the largest carveout for

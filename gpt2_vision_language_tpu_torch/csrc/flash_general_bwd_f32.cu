@@ -19,19 +19,33 @@
 // in one launch; flash_fused_backward_f32, K3c). D comes from the fp32 D
 // kernel of flash_bwd_f32.cu (gpt2vl_flash_rowdot_f32).
 //
-// It is the grid of the fp32 self-attention backward (flash_bwd_f32.cu),
-// instanced with Case::GENERAL (flash_f32.cuh): the 64-key dk/dv blocks
-// (key tile 0 first) and then the 64-query dq blocks (the last query tile
-// first), 8 x 4 outer-product register tiles, swept tiles copied by
-// cp.async into two slots. A dk/dv block sweeps the query tiles from the
-// first whose rows see one of its keys (row k0 - (Tk - Tq) under the mask);
-// a dq block sweeps the key tiles up to the last its last row sees. Query
-// rows at or past Tq come in as zeros with lse and the row term 0 and are
-// masked (P = 0), so they add nothing to dk or dv; nothing is read past the
-// end of lse or the row term. No atomics: dq, dk and dv are each summed in
-// one block in a fixed order and are bit-equal from run to run (the bf16 K3c
-// sums dq by reductions in global memory, flash_fused_bwd.cu). Bound and
-// what holds it as in flash_bwd_f32.cu.
+// What bounds it on the H100: fp32 products are FFMAs on the CUDA cores (the
+// tensor cores take fp32 only as TF32), 67 TFLOP/s at most; at B=1, T=16384,
+// H=12, hs=64 causal the five products of the visible pairs are 15.4 ms of
+// FFMAs against 0.3 ms for the bytes of the operands and gradients:
+// operations bound it. The parent design, the fp32 self-attention backward's
+// grid of dk/dv and dq blocks (flash_bwd_f32.cu), ran seven products a pair,
+// S and dP twice; this one runs the five of the TPU's one-pass kernel.
+//
+// The design (flash_f32.cuh, pair_grid and pair_block, instanced here with
+// Case::GENERAL): a persistent grid of 128-thread blocks, one per resident
+// slot (two an SM), each walking work items of 64 keys of one (b, h). An item
+// keeps K / sqrt(hs) and V resident and sweeps the query tiles that see its
+// keys (causal: from row k0 - (Tk - Tq) on); per pair S and P in one half of
+// the block, dP and dS in the other, then dV in the first half and dK in the
+// second, 8 x 8 outer-product register tiles, and dS K, this pair's part of
+// dq, by the whole block, added into dq in global memory in a fixed order of
+// key tiles kept by a flag per query tile (no atomics: dq, dk and dv are
+// bit-equal from run to run). Query rows at or past Tq come in as zeros with
+// lse and the row term 0 and are masked (P = 0), so they add nothing; nothing
+// is read past the end of lse or the row term.
+//
+// The flags: one per (b, h, query tile), in a buffer that each launch
+// takes from the device's stream-ordered pool (cudaMallocAsync), zeroes and
+// gives back on its own stream, so launches on any streams never share
+// flags. The grid is launched cooperatively: the runtime refuses a grid
+// whose blocks cannot all be resident at once (a smaller share of the SMs
+// under MPS, say), and the launch then fails instead of waiting forever.
 
 #include <cuda_runtime.h>
 
@@ -46,13 +60,36 @@ flash_general_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
                              const float* __restrict__ v, const float* __restrict__ dO,
                              const float* __restrict__ lse, const float* __restrict__ dd,
                              float* __restrict__ dq, float* __restrict__ dk,
-                             float* __restrict__ dv, int Tq, int Tk, int H, Strides qs,
-                             Strides ks, Strides vs, int causal) {
-  backward_grid<Case::GENERAL>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, Tq, Tk, H,
-                               causal);
+                             float* __restrict__ dv, int Tq, int Tk, int H, int BH, Strides qs,
+                             Strides ks, Strides vs, int causal, unsigned int* flags,
+                             int rounds) {
+  pair_grid<Case::GENERAL>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, Tq, Tk, H, BH,
+                           causal, flags, rounds);
 }
 
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set
+int slots_of_device[64];            // per device: the blocks resident at once, 0 until counted
+
+// the blocks of the kernel that the current device keeps resident at once
+cudaError_t slots(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = configure_once(flash_general_bwd_f32_kernel, PAIR_SMEM, configured);
+  if (err != cudaSuccess) return err;
+  if (slots_of_device[dev] == 0) {
+    int sms = 0, blocks = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_general_bwd_f32_kernel,
+                                                        THREADS, PAIR_SMEM);
+    if (err != cudaSuccess) return err;
+    if (sms * blocks == 0) return cudaErrorLaunchOutOfResources;
+    slots_of_device[dev] = sms * blocks;
+  }
+  *out = slots_of_device[dev];
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -73,19 +110,42 @@ extern "C" int gpt2vl_flash_general_bwd_f32(const void* q, const void* k, const 
   if (hs != HS || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535 ||
       (causal && Tq > Tk))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = configure_once(flash_general_bwd_f32_kernel, BWD_SMEM, configured);
+  const long long ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
+  const long long bh = (long long)B * H;
+  int n_slots = 0;
+  cudaError_t err = slots(&n_slots);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)(Tk + TILE - 1) / TILE + (Tq + TILE - 1) / TILE;
-  flash_general_bwd_f32_kernel<<<dim3((unsigned)blocks, H, B), THREADS, BWD_SMEM,
-                                 (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dO, (const float*)lse,
-      (const float*)dd, (float*)dq, (float*)dk, (float*)dv, Tq, Tk, H, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, causal);
-  return (int)cudaGetLastError();
+  // unmasked with as many query tiles as key tiles, a (b, h)'s key tiles
+  // fitting the slots: whole (b, h) in rounds; else the list, dealt in
+  // rounds of equal size (the fewest that the slots allow)
+  int rounds = !causal && ntq == ntk && ntk <= n_slots
+                   ? (int)(n_slots / ntk < bh ? n_slots / ntk : bh)
+                   : 0;
+  const long long items = ntk * bh, list_rounds = (items + n_slots - 1) / n_slots;
+  const unsigned grid = (unsigned)(rounds ? rounds * ntk : (items + list_rounds - 1) / list_rounds);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t flag_bytes = (size_t)(bh * ntq) * sizeof(unsigned int);
+  unsigned int* flags = nullptr;
+  err = cudaMallocAsync((void**)&flags, flag_bytes, s);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(flags, 0, flag_bytes, s);
+  if (err == cudaSuccess) {
+    const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v,
+                *fdO = (const float*)dO, *flse = (const float*)lse, *fdd = (const float*)dd;
+    float *fdq = (float*)dq, *fdk = (float*)dk, *fdv = (float*)dv;
+    int BH = (int)bh;
+    Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
+    void* args[] = {&fq, &fk, &fv, &fdO, &flse, &fdd, &fdq, &fdk, &fdv, &Tq, &Tk, &H,
+                    &BH, &qs, &ks, &vs, &causal, &flags, &rounds};
+    err = cudaLaunchCooperativeKernel((const void*)flash_general_bwd_f32_kernel, dim3(grid),
+                                      dim3(THREADS), args, PAIR_SMEM, s);
+  }
+  const cudaError_t freed = cudaFreeAsync(flags, s);
+  return (int)(err != cudaSuccess ? err : freed);
 }
 
 // Warps of this kernel resident on one SM, from the occupancy calculator;
 // 0 on an error.
 extern "C" int gpt2vl_flash_general_bwd_f32_warps_per_sm() {
-  return warps_per_sm(flash_general_bwd_f32_kernel, BWD_SMEM, configured);
+  return warps_per_sm(flash_general_bwd_f32_kernel, PAIR_SMEM, configured);
 }

@@ -519,6 +519,12 @@ flash_general_dkv.launches = 0
 
 
 def _f32_backward(entry, q, k, v, do, lse, dd, causal):
+    # The kernel is a persistent grid whose blocks wait on one another's parts
+    # of dq, so all of them must be resident at once: it is launched
+    # cooperatively, the runtime places every block at once or fails the
+    # launch (a grid sized for the whole card where only a share of its SMs
+    # is this process's, under MPS), and the failure raises here. Its flags
+    # are its own, taken and zeroed on the current stream.
     tail = _general_bwd_args(q, k, v, do, lse, dd, causal, check=_check_f32_operand)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = (torch.empty(k.shape, dtype=torch.float32, device=k.device) for _ in range(2))

@@ -56,25 +56,30 @@ def test_f32_forward_wrappers_match_jax(tq, tk, causal, stream_kv, fwd):
                                rtol=2e-5, atol=2e-5)
 
 
-def test_f32_general_backward_wrapper_matches_jax():
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("stream_kv", [True, False])
+def test_f32_general_backward_wrapper_matches_jax(stream_kv, causal):
     """The fp32 general backward's wrapper (K3a's and K3b's functions) with D
-    from the fp32 D wrapper, on CPU tensors, against jax.grad through the
-    streamed kernels (_dq_kernel_grid, _dkv_kernel_grid) at Tq != Tk: dq, dk,
-    dv within 2e-5."""
+    from the fp32 D wrapper, on CPU tensors (the plain version of the
+    one-pass kernel that csrc/flash_general_bwd_f32.cu runs), against
+    jax.grad through JAX's streamed kernels (stream_kv=True: _dq_kernel_grid,
+    _dkv_kernel_grid) and through its one-pass backward with no lse
+    cotangent (stream_kv=False: _bwd_kernel_fused), interpret mode, at
+    Tq != Tk, causal and unmasked: dq, dk, dv within 2e-5."""
     tq, tk = 130, 385
     q, k, v, g = _qkv(tq, tk, seed=11)
 
     def loss(q, k, v):
-        o = jfa.flash_attention(q, k, v, causal=True, block_q=BLOCK, block_k=BLOCK,
-                                block_q_bwd=BLOCK, block_k_bwd=BLOCK, stream_kv=True,
+        o = jfa.flash_attention(q, k, v, causal=causal, block_q=BLOCK, block_k=BLOCK,
+                                block_q_bwd=BLOCK, block_k_bwd=BLOCK, stream_kv=stream_kv,
                                 interpret=True, layout="bthd")
         return jnp.sum(o * jnp.asarray(g))
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     tq_, tk_, tv_, tg = map(torch.from_numpy, (q, k, v, g))
-    o, lse = fa.flash_general_forward_f32(tq_, tk_, tv_, causal=True)
+    o, lse = fa.flash_general_forward_f32(tq_, tk_, tv_, causal=causal)
     dd = fa.flash_rowdot_f32(tg, o)
-    got = fa.flash_general_backward_f32(tq_, tk_, tv_, tg, lse, dd, causal=True)
+    got = fa.flash_general_backward_f32(tq_, tk_, tv_, tg, lse, dd, causal=causal)
     assert fa.flash_rowdot_f32.launches == fa.flash_general_backward_f32.launches == 0
     for name, a, w in zip("qkv", got, want):
         assert a.dtype == torch.float32

@@ -248,24 +248,31 @@ def test_fp32_pair_is_ffma_only(name, entry):
     ("flash_general_fwd_f32.cu", "forward_block<Case::GENERAL>("),
     ("flash_dt_fwd_f32.cu", "forward_block<Case::DT>("),
     ("flash_bwd_f32.cu", "backward_grid<Case::SELF>("),
-    ("flash_general_bwd_f32.cu", "backward_grid<Case::GENERAL>("),
+    ("flash_general_bwd_f32.cu", "pair_grid<Case::GENERAL>("),
     ("flash_dt_bwd_f32.cu", "backward_grid<Case::DT>(")])
 def test_fp32_blocks_are_written_once(name, instance):
-    """The fp32 forward block and the backward grid (its dk/dv and dq blocks)
-    are written once, in csrc/flash_f32.cuh, with the case a compile-time
-    parameter: the self-attention kernels instance them with Case::SELF, the
-    general ones (Tq != Tk, the right-aligned causal offset) with
-    Case::GENERAL, the A/B tool's dt-layout ones (the transposed layout, no
-    offset) with Case::DT, and no source repeats their products. The fp32 D kernel
-    stays in flash_bwd_f32.cu, whose C entry point gpt2vl_flash_rowdot_f32
-    gives the general backward its row term."""
+    """The fp32 forward block, the backward grid (its dk/dv and dq blocks)
+    and the one-pass grid (five products a visible pair, dq added in a fixed
+    order) are written once, in csrc/flash_f32.cuh, with the case a
+    compile-time parameter: the self-attention kernels instance the forward
+    block and the backward grid with Case::SELF, the A/B tool's dt-layout
+    ones (the transposed layout, no offset) with Case::DT, the general
+    forward (Tq != Tk, the right-aligned causal offset) the forward block
+    with Case::GENERAL, and the general backward the one-pass grid with
+    Case::GENERAL and no dq block; no source repeats their products. The
+    fp32 D kernel stays in flash_bwd_f32.cu, whose C entry point
+    gpt2vl_flash_rowdot_f32 gives the general backward its row term."""
     header = (_build.CSRC / "flash_f32.cuh").read_text()
     for body in ("void forward_block(", "void dkv_block(", "void dq_block(",
-                 "void backward_grid("):
+                 "void backward_grid(", "void pair_block(", "void pair_grid("):
         assert body in header
     text = (_build.CSRC / name).read_text()
     assert instance in text and text.count("__global__") == (2 if name == "flash_bwd_f32.cu"
                                                              else 1)
-    for product in ("rows_by_keys<", "keys_by_rows(", "acc_keys(", "acc_rows("):
+    for product in ("rows_by_keys<", "keys_by_rows(", "acc_keys(", "acc_rows(", "rows_by_rows(",
+                    "keys_by_channels(", "rows_by_channels("):
         assert product not in text, (name, product)
+    if name == "flash_general_bwd_f32.cu":
+        for block in ("dq_block", "dkv_block", "backward_grid"):
+            assert block not in text, block
     assert ('extern "C" int gpt2vl_flash_rowdot_f32(' in text) == (name == "flash_bwd_f32.cu")
