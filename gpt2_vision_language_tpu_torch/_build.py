@@ -53,6 +53,9 @@ SIGNATURES = {
     "gpt2vl_flash_general_fwd_f32_warps_per_sm": [],
     "gpt2vl_flash_general_bwd_f32": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_general_bwd_f32_warps_per_sm": [],
+    "gpt2vl_flash_lse_fwd_f32": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_I, _I, _P],
+    "gpt2vl_flash_lse_fwd_f32_slots": [],
+    "gpt2vl_flash_lse_fwd_f32_warps_per_sm": [],
     "gpt2vl_flash_general_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_rowdot": [_P] * 3 + [_I] * 4 + [_P],
     "gpt2vl_flash_general_dq": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _P],

@@ -26,9 +26,9 @@
 // independent FFMA hides.
 //
 // What the design does about it (flash_f32.cuh holds the pieces and the
-// blocks, dkv_block and dq_block, which this kernel instances at Tq == Tk;
-// the A/B tool's dt-layout fp32 backward, flash_dt_bwd_f32.cu, instances
-// them in its layout): one grid of two kinds of block of 128 threads (4 warps), every
+// blocks, dkv_block and dq_block, which this kernel instances at Tq == Tk
+// and is their only user; the general and dt-layout fp32 backwards run the
+// one-pass block): one grid of two kinds of block of 128 threads (4 warps), every
 // product from outer-product register tiles of 32 values a thread, as in an
 // SGEMM.
 //   - A dk/dv block owns 64 keys of one (b, h), a warp 16 of them; K^T / sqrt(hs)
@@ -114,8 +114,7 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ dd,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
                      int T, int H, Strides qs, Strides ks, Strides vs, int causal) {
-  backward_grid<Case::SELF>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, T, T, H,
-                            causal);
+  backward_grid<Case::SELF>(BwdArgs{q, k, v, dO, lse, dd, dq, dk, dv, qs, ks, vs}, T, H, causal);
 }
 
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set

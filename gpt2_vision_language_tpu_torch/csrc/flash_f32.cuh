@@ -4,20 +4,23 @@
 // end of this file (the forward block, the dk/dv block and the dq block, and
 // the one-pass block) are written once and instanced by the compile-time
 // Case:
-//   - SELF by the self-attention kernels (flash_fwd_f32.cu,
-//     flash_bwd_f32.cu: Tq == Tk = T): the general case at Tq == Tk with the
-//     offset a compile-time 0, keeping the self kernels' arithmetic and none
-//     of the general case's index work;
-//   - GENERAL by the general ones (flash_general_fwd_f32.cu: the forward
-//     block; flash_general_bwd_f32.cu: the one-pass block; a query length Tq
-//     and a key length Tk, causal masks right-aligned);
-//   - DT by the A/B tool's dt-layout kernels (flash_dt_fwd_f32.cu,
-//     flash_dt_bwd_f32.cu): q, k, v, o and the gradients (H, hs, B*T), the
-//     sequence contiguous, Tq and Tk multiples of 64 and either the larger,
-//     a causal mask without offset (query i sees the keys j <= i), q
-//     pre-scaled by 1 / sqrt(hs), lse and the row term (H, B*Tq), dq scaled
-//     by a runtime dq_scale. Only the loads, the stores and the index work
-//     differ: the products, the tiles and the sweeps are the other cases'.
+//   - SELF by the self-attention kernels (flash_fwd_f32.cu: the forward
+//     block; flash_bwd_f32.cu: the dk/dv and dq blocks, their only user; Tq
+//     == Tk = T): the general case at Tq == Tk with the offset a compile-time
+//     0, keeping the self kernels' arithmetic and none of the general case's
+//     index work;
+//   - GENERAL by the general ones (flash_general_fwd_f32.cu and
+//     flash_lse_fwd_f32.cu: the forward block, the second over parts of the
+//     key range; flash_general_bwd_f32.cu: the one-pass block; a query length
+//     Tq and a key length Tk, causal masks right-aligned);
+//   - DT by the A/B tool's dt-layout kernels (flash_dt_fwd_f32.cu: the
+//     forward block; flash_dt_bwd_f32.cu: the one-pass block): q, k, v, o and
+//     the gradients (H, hs, B*T), the sequence contiguous, Tq and Tk
+//     multiples of 64 and either the larger, a causal mask without offset
+//     (query i sees the keys j <= i), q pre-scaled by 1 / sqrt(hs), lse and
+//     the row term (H, B*Tq), dq scaled by a runtime dq_scale. Only the
+//     loads, the stores and the index work differ: the products, the tiles
+//     and the sweeps are the other cases'.
 //
 // Tiles in shared memory, hs = 64:
 //   - a swept tile (the K and V tiles that a forward or dq block sweeps, the
@@ -368,13 +371,43 @@ struct FwdSmem {
   Quarter<FWD_WR> pt[WARPS];  // per warp: P^T of 16 keys
 };
 
+// A split forward (SPLIT, Case::GENERAL: K2a's kernel, flash_lse_fwd_f32.cu)
+// cuts each query tile's visible key tiles into parts of at most `chunk`
+// tiles, `parts` work items a query tile (those past its visible tiles
+// empty), so that a grid too small for the card fills whole waves of its
+// resident slots. Item i of a one-dimensional grid is part i / BH % parts of
+// query tile ntq - 1 - i / BH / parts of (b, h) = i % BH: the longest
+// query tiles first, (b, h) fastest. A query tile of one part writes its o
+// and lse; the others leave their unnormalised o, running max and running
+// sum in the workspace at item i, and a second kernel merges them in part
+// order.
+struct FwdSplit {
+  int BH, parts, chunk;
+  float* ws_o;   // (items, FWD_BQ, HS): a part's o before the division by its row sum
+  float* ws_ml;  // (items, 2, FWD_BQ): a part's running max, then its row sum
+};
+
+// The key tiles that query tile qt (of FWD_BQ rows) sees: from 0 to the last
+// one its last row sees. The split forward's merge counts its parts from it.
+template <Case C>
+__device__ __forceinline__ int visible_key_tiles(int qt, int Tq, int Tk, int causal) {
+  const int off = C == Case::GENERAL ? Tk - Tq : 0;
+  const int q_end = min(qt * FWD_BQ + FWD_BQ, Tq);
+  // causal: Tq <= Tk, so the last row's last key q_end - 1 + off < Tk; in the
+  // dt case a row past Tk sees every key, and the sweep stops at Tk
+  return C == Case::DT ? (causal ? min((q_end - 1) / TILE + 1, (Tk + TILE - 1) / TILE)
+                                 : (Tk + TILE - 1) / TILE)
+         : causal      ? (q_end - 1 + off) / TILE + 1
+                       : (Tk + TILE - 1) / TILE;
+}
+
 // Query tile qt of (hh, b) in blockIdx order: the tile with the longest
 // causal sweep (the last) first. Keys in tiles of 64 from 0 to the last one
-// the block's last row sees; o = softmax(q k^T / sqrt(hs)) v and the
-// natural-log logsumexp of each row. A warp skips a tile that none of its
-// rows sees; a tile that the diagonal or the end of the keys crosses is
-// masked element by element.
-template <Case C>
+// the block's last row sees (SPLIT: those of one part); o = softmax(q k^T /
+// sqrt(hs)) v and the natural-log logsumexp of each row. A warp skips a tile
+// that none of its rows sees; a tile that the diagonal or the end of the
+// keys crosses is masked element by element.
+template <Case C, bool SPLIT = false>
 __device__ __forceinline__ void forward_block(const float* __restrict__ q,
                                               const float* __restrict__ k,
                                               const float* __restrict__ v, float* __restrict__ o,
@@ -382,29 +415,39 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
                                               long long qsb, long long qst, long long qsh,
                                               long long ksb, long long kst, long long ksh,
                                               long long vsb, long long vst, long long vsh,
-                                              int causal) {
+                                              int causal, const FwdSplit& sp = FwdSplit{}) {
+  static_assert(!SPLIT || C == Case::GENERAL, "the split forward is the general case's");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int Tk = C == Case::SELF ? Tq : Tk_;
   const int off = C == Case::GENERAL ? Tk - Tq : 0;  // a causal row i sees keys <= i + off
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = lane >> 3, kg = lane & 7;  // rows FWD_WR warp + 8 rg + i; keys kg + 8 j; channels 4 kg
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
-  const int hh = blockIdx.y, b = blockIdx.z;
+  int qt, hh, b, part = 0;
+  if constexpr (SPLIT) {
+    const int bh = blockIdx.x % sp.BH, j = blockIdx.x / sp.BH;
+    qt = (Tq + FWD_BQ - 1) / FWD_BQ - 1 - j / sp.parts;
+    part = j % sp.parts;
+    hh = bh % H;
+    b = bh / H;
+  } else {
+    qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
+    hh = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int q0 = qt * FWD_BQ;
   const float* kb = k + (long long)b * ksb + (long long)hh * ksh;
   const float* vb = v + (long long)b * vsb + (long long)hh * vsh;
-  const int q_end = min(q0 + FWD_BQ, Tq);
-  // causal: Tq <= Tk, so the last row's last key q_end - 1 + off < Tk; in the
-  // dt case a row past Tk sees every key, and the sweep stops at Tk
-  const int n_kv =
-      C == Case::DT ? (causal ? min((q_end - 1) / TILE + 1, (Tk + TILE - 1) / TILE)
-                              : (Tk + TILE - 1) / TILE)
-      : causal      ? (q_end - 1 + off) / TILE + 1
-                    : (Tk + TILE - 1) / TILE;
+  const int n_kv = visible_key_tiles<C>(qt, Tq, Tk, causal);
+  int j0 = 0, j1 = n_kv;  // the key tiles of this block's sweep
+  if constexpr (SPLIT) {
+    j0 = part * sp.chunk;
+    j1 = min(n_kv, j0 + sp.chunk);
+    if (j0 >= j1) return;  // an empty part: the query tile has fewer
+  }
 
-  load_swept<C>(s.k[0], kb, kst, 0, Tk, tid);
-  load_swept<C>(s.v[0], vb, vst, 0, Tk, tid);
+  load_swept<C>(s.k[j0 & 1], kb, kst, j0 * TILE, Tk, tid);
+  load_swept<C>(s.v[j0 & 1], vb, vst, j0 * TILE, Tk, tid);
   cp_async_commit();
   // q^T / sqrt(hs); in the dt case q arrives pre-scaled
   load_resident<C, FWD_BQ>(&s.qt[0][0], q + (long long)b * qsb + (long long)hh * qsh, qst, q0, Tq,
@@ -420,11 +463,11 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
   }
   zero(acc);
 
-  for (int j = 0; j < n_kv; ++j) {
+  for (int j = j0; j < j1; ++j) {
     const int slot = j & 1, k0 = j * TILE;
     cp_async_wait_all();
     __syncthreads();  // tile j is in; every warp is done with tile j - 1's slot
-    if (j + 1 < n_kv) {
+    if (j + 1 < j1) {
       load_swept<C>(s.k[slot ^ 1], kb, kst, k0 + TILE, Tk, tid);
       load_swept<C>(s.v[slot ^ 1], vb, vst, k0 + TILE, Tk, tid);
     }
@@ -507,6 +550,29 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
       }
     }
   } else {
+    if constexpr (SPLIT) {
+      if ((n_kv + sp.chunk - 1) / sp.chunk > 1) {
+        // one of several parts: its row sums over the 8 lanes of a row; acc,
+        // m and l into the workspace at this item
+        float* wo = sp.ws_o + (long long)blockIdx.x * FWD_BQ * HS;
+        float* wml = sp.ws_ml + (long long)blockIdx.x * 2 * FWD_BQ;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int sh = 4; sh > 0; sh >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
+          float* dst = wo + (r0 + i) * HS;
+          *reinterpret_cast<float4*>(dst + 4 * kg) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          *reinterpret_cast<float4*>(dst + 32 + 4 * kg) =
+              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+          if (kg == 0) {
+            wml[r0 + i] = m[i];
+            wml[FWD_BQ + r0 + i] = l[i];
+          }
+        }
+        return;
+      }
+    }
     // the row sums over the 8 lanes of a row; o = acc / l, lse = m + log l
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -609,29 +675,14 @@ __device__ __forceinline__ void store_keys(float* __restrict__ out, const float 
   }
 }
 
-// keys row0 .. row0 + 3 of a dt-layout output (ob: its (b, h) slab, cs: the
-// channel stride), times scale: one 16-byte store of four positions for each
-// of the thread's 8 channels (4g .. 4g + 3, 32 + 4g .. 32 + 4g + 3); the four
-// keys lie all before T or all past it (T % 64 == 0)
-__device__ __forceinline__ void store_keys_dt(float* __restrict__ ob, const float (&acc)[4][8],
-                                              float scale, long long cs, int row0, int T, int g) {
-  if (row0 < T) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      *reinterpret_cast<float4*>(ob + (long long)(4 * g + (e < 4 ? e : 28 + e)) * cs + row0) =
-          make_float4(acc[0][e] * scale, acc[1][e] * scale, acc[2][e] * scale, acc[3][e] * scale);
-  }
-}
-
-// dk, dv of key tile kt of (h, b) (SELF, DT): keys k0 .. k0 + 63, the query
-// tiles from the first that sees one of them (causal: the row k0, in the dt
-// case past Tq for a key that no query sees) on
+// dk, dv of key tile kt of (h, b) (SELF): keys k0 .. k0 + 63, the query
+// tiles from the first that sees one of them (causal: the row k0) on
 template <Case C>
-__device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int Tk_, int H,
-                                          int causal) {
+__device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int H, int causal) {
+  static_assert(C == Case::SELF, "the dk/dv block serves the self-attention backward");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DkvSmem& s = *reinterpret_cast<DkvSmem*>(smem_raw);
-  const int Tk = C == Case::SELF ? Tq : Tk_;
+  const int Tk = Tq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ntq = (Tq + TILE - 1) / TILE;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -639,27 +690,20 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
   const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
   const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
   const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
-  // dO: contiguous (B, Tq, H, hs), or q's dt layout
-  const float* dob = C == Case::DT ? a.dO + (long long)b * a.qs.sb + (long long)h * a.qs.sh
-                                   : a.dO + ((long long)b * Tq * H + h) * HS;
-  const long long dost = C == Case::DT ? a.qs.st : (long long)H * HS;
-  // the dt case's row of (b, h) in lse and the row term; the others' row, bh *
-  // Tq, is written out where it is read (hoisted beside this one, it moved
-  // their kernels' code by 8 instructions)
-  const long long st0 = (long long)h * a.qs.st + (long long)b * a.qs.sb;
-  // 1 / sqrt(64), exact: K^T's and dK's; 1 in the dt case (q is pre-scaled)
-  const float scale = C == Case::DT ? 1.f : 0.125f;
+  // dO: contiguous (B, Tq, H, hs)
+  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;
+  const long long dost = (long long)H * HS;
+  // 1 / sqrt(64), exact: K^T's and dK's
+  const float scale = 0.125f;
   const int k0 = kt * TILE;
   const int rg = lane & 15, kg = lane >> 4;  // S, dP: rows rg + 16 i, keys 16 warp + 8 kg + j
   // dK, dV: keys 16 warp + 4 kq + kk, channels by g; a quarter-warp spans
   // 4 kq x 2 g, so its reads of dO and q rows ask for two addresses
   const int kq = (lane & 7) >> 1, g = 2 * (lane >> 3) + (lane & 1);
-  // causal: the first row that sees key k0 is k0 (in the dt case past Tq
-  // for a key no query sees: then the sweep is empty and dk = dv = 0)
+  // causal: the first row that sees key k0 is k0
   const int it0 = !causal ? 0 : kt;
-  load_query_tile<C>(s, 0, qb, a.qs.st, dob, dost,
-                     C == Case::DT ? a.lse + st0 : a.lse + bh * Tq,
-                     C == Case::DT ? a.dd + st0 : a.dd + bh * Tq, it0 * TILE, Tq, tid);
+  load_query_tile<C>(s, 0, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, it0 * TILE,
+                     Tq, tid);
   cp_async_commit();
   load_resident<C, TILE>(&s.kt[0][0], kb, a.ks.st, k0, Tk, scale, tid);
   load_resident<C, TILE>(&s.vt[0][0], vb, a.vs.st, k0, Tk, 1.f, tid);
@@ -671,9 +715,8 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
     cp_async_wait_all();
     __syncthreads();  // tile it is in; every warp is done with tile it - 1's slot
     if (it + 1 < ntq)
-      load_query_tile<C>(s, slot ^ 1, qb, a.qs.st, dob, dost,
-                         C == Case::DT ? a.lse + st0 : a.lse + bh * Tq,
-                         C == Case::DT ? a.dd + st0 : a.dd + bh * Tq, q0 + TILE, Tq, tid);
+      load_query_tile<C>(s, slot ^ 1, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq,
+                         q0 + TILE, Tq, tid);
     cp_async_commit();
 
     float sc[4][8], dp[4][8];
@@ -717,25 +760,18 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, int kt, int Tq, int 
     }
   }
   cp_async_wait_all();
-  if constexpr (C == Case::DT) {
-    const long long kvo = (long long)b * a.ks.sb + (long long)h * a.ks.sh;
-    store_keys_dt(a.dk + kvo, acc_k, scale, a.ks.st, k0 + 16 * warp + 4 * kq, Tk, g);
-    store_keys_dt(a.dv + kvo, acc_v, 1.f, a.ks.st, k0 + 16 * warp + 4 * kq, Tk, g);
-  } else {
-    store_keys(a.dk, acc_k, scale, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
-    store_keys(a.dv, acc_v, 1.f, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
-  }
+  store_keys(a.dk, acc_k, scale, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
+  store_keys(a.dv, acc_v, 1.f, b, h, H, k0 + 16 * warp + 4 * kq, Tk, g);
 }
 
-// dq of query tile qt of (h, b) (SELF, DT): queries q0 .. q0 + 63, the key
-// tiles up to the last one its last row sees; dq is scaled by 1 / sqrt(hs),
-// or by dq_scale in the dt case
+// dq of query tile qt of (h, b) (SELF): queries q0 .. q0 + 63, the key tiles
+// up to the last one its last row sees; dq is scaled by 1 / sqrt(hs)
 template <Case C>
-__device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int Tk_, int H,
-                                         int causal, float dq_scale) {
+__device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int H, int causal) {
+  static_assert(C == Case::SELF, "the dq block serves the self-attention backward");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqSmem& s = *reinterpret_cast<DqSmem*>(smem_raw);
-  const int Tk = C == Case::SELF ? Tq : Tk_;
+  const int Tk = Tq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * H + h;
@@ -743,16 +779,10 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
   const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
   const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
   // dO as in dkv_block
-  const float* dob = C == Case::DT ? a.dO + (long long)b * a.qs.sb + (long long)h * a.qs.sh
-                                   : a.dO + ((long long)b * Tq * H + h) * HS;
-  const long long dost = C == Case::DT ? a.qs.st : (long long)H * HS;
-  // the dt case's row of (b, h) in lse and the row term; the others' row, bh *
-  // Tq, is written out where it is read (hoisted beside this one, it moved
-  // their kernels' code by 8 instructions)
-  const long long st0 = (long long)h * a.qs.st + (long long)b * a.qs.sb;
-  // 1 / sqrt(64), exact: q^T's; 1 in the dt case (q is pre-scaled)
-  const float scale = C == Case::DT ? 1.f : 0.125f;
-  const float out_scale = C == Case::DT ? dq_scale : scale;
+  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;
+  const long long dost = (long long)H * HS;
+  // 1 / sqrt(64), exact: q^T's and dQ's
+  const float scale = 0.125f;
   const int q0 = qt * TILE;
   const int hf = lane >> 4, tc = lane & 15;  // rows 16 warp + 8 hf + i, keys tc + 16 j
   const int r0 = 16 * warp + 8 * hf;
@@ -763,16 +793,12 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
   load_resident<C, TILE>(&s.dOt[0][0], dob, dost, q0, Tq, 1.f, tid);
   if (tid < TILE) {
     const int t = q0 + tid;
-    s.lse[tid] = t < Tq ? a.lse[C == Case::DT ? st0 + t : bh * Tq + t] : 0.f;
-    s.dd[tid] = t < Tq ? a.dd[C == Case::DT ? st0 + t : bh * Tq + t] : 0.f;
+    s.lse[tid] = t < Tq ? a.lse[bh * Tq + t] : 0.f;
+    s.dd[tid] = t < Tq ? a.dd[bh * Tq + t] : 0.f;
   }
   float acc_q[8][4];
   zero(acc_q);
-  // causal: in the dt case rows past Tk see every key, and the sweep stops
-  // at Tk
-  const int n_kv = !causal           ? (Tk + TILE - 1) / TILE
-                   : C == Case::DT ? min(qt + 1, (Tk + TILE - 1) / TILE)
-                                   : qt + 1;
+  const int n_kv = !causal ? (Tk + TILE - 1) / TILE : qt + 1;
   for (int j = 0; j < n_kv; ++j) {
     const int slot = j & 1, k0 = j * TILE;
     cp_async_wait_all();
@@ -812,65 +838,50 @@ __device__ __forceinline__ void dq_block(const BwdArgs& a, int qt, int Tq, int T
     }
   }
   cp_async_wait_all();
-  if constexpr (C == Case::DT) {
-    // by channel 4 tc + e: the thread's 8 rows are 8 consecutive positions,
-    // all before Tq or all past it
-    if (q0 + r0 < Tq) {
-      float* qo = a.dq + (long long)b * a.qs.sb + (long long)h * a.qs.sh + q0 + r0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float* dst = qo + (long long)(4 * tc + e) * a.qs.st;
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc_q[0][e] * out_scale, acc_q[1][e] * out_scale,
-                        acc_q[2][e] * out_scale, acc_q[3][e] * out_scale);
-        *reinterpret_cast<float4*>(dst + 4) =
-            make_float4(acc_q[4][e] * out_scale, acc_q[5][e] * out_scale,
-                        acc_q[6][e] * out_scale, acc_q[7][e] * out_scale);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = q0 + r0 + i;
-      if (t < Tq)
-        *reinterpret_cast<float4*>(a.dq + (((long long)b * Tq + t) * H + h) * HS + 4 * tc) =
-            make_float4(acc_q[i][0] * out_scale, acc_q[i][1] * out_scale,
-                        acc_q[i][2] * out_scale, acc_q[i][3] * out_scale);
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int t = q0 + r0 + i;
+    if (t < Tq)
+      *reinterpret_cast<float4*>(a.dq + (((long long)b * Tq + t) * H + h) * HS + 4 * tc) =
+          make_float4(acc_q[i][0] * scale, acc_q[i][1] * scale, acc_q[i][2] * scale,
+                      acc_q[i][3] * scale);
   }
 }
 
-// The backward grid of (h, b): block x < ntk is the dk/dv block of key tile
-// x (tile 0, the longest causal sweep, first), x >= ntk the dq block of query
-// tile ntq - 1 - (x - ntk) (the last, the longest, first). dq_scale is the dt
-// case's (the others scale dq by 1 / sqrt(hs)).
+// The backward grid of (h, b), Tq == Tk = T (SELF): block x < nt is the dk/dv
+// block of key tile x (tile 0, the longest causal sweep, first), x >= nt the
+// dq block of query tile nt - 1 - (x - nt) (the last, the longest, first).
 template <Case C>
-__device__ __forceinline__ void backward_grid(const BwdArgs& a, int Tq, int Tk, int H, int causal,
-                                              float dq_scale = 0.125f) {
-  const int ntk = ((C == Case::SELF ? Tq : Tk) + TILE - 1) / TILE;
-  const int ntq = (Tq + TILE - 1) / TILE;
-  if ((int)blockIdx.x < ntk)
-    dkv_block<C>(a, blockIdx.x, Tq, Tk, H, causal);
+__device__ __forceinline__ void backward_grid(const BwdArgs& a, int T, int H, int causal) {
+  const int nt = (T + TILE - 1) / TILE;
+  if ((int)blockIdx.x < nt)
+    dkv_block<C>(a, blockIdx.x, T, H, causal);
   else
-    dq_block<C>(a, ntq - 1 - ((int)blockIdx.x - ntk), Tq, Tk, H, causal, dq_scale);
+    dq_block<C>(a, nt - 1 - ((int)blockIdx.x - nt), T, H, causal);
 }
 
-// ---- the one-pass block (Case::GENERAL) ----------------------------------------
+// ---- the one-pass block (Case::GENERAL, Case::DT) ------------------------------
 //
 // One pass over each visible (query tile, key tile) pair, five products, as
-// the TPU's _bwd_kernel_fused: a block owns 64 keys of one (b, h), K / sqrt(hs)
-// and V resident as [key][channel] tiles, and sweeps the 64-row query tiles,
-// q, dO, lse and the row term in one slot by cp.async (the next tile's copy
-// runs under dQ and the add into dq). Its 4 warps work in two halves of 64
-// threads, a half's thread on 8 x 8 values:
+// the TPU's _bwd_kernel_fused (and its transposed mirror, the A/B tool's
+// _bwd_dt_kernel): a block owns 64 keys of one (b, h), K / sqrt(hs) (DT: K,
+// q being pre-scaled) and V resident as [key][channel] tiles, and sweeps the
+// 64-row query tiles, q, dO, lse and the row term in one slot by cp.async
+// (the next tile's copy runs under dQ and the add into dq). In the dt layout
+// every one of these tiles arrives d-major, so each is copied by the 4-byte
+// transposing cp.async (load_tile_dt_async), K and V once an item, q and dO
+// each pair. Its 4 warps work in two halves of 64 threads, a half's thread
+// on 8 x 8 values:
 //   - half 0: S = q K^T / sqrt(hs) (rows rg + 8 ii, keys 8 kg + jj), then
 //     P = exp(S - lse), masked, into the shared P tile; half 1: dP = dO V^T
 //     on the same places, then (P in) dS = P (dP - c) into the shared dS tile;
 //   - half 0: dV += P^T dO, half 1: dK += dS^T q, keys 8 a + kk, channels
 //     4 b + e and 32 + 4 b + e, summed over the item's query rows in sweep
 //     order (the halves' accumulators are one register array);
-//   - all 4 warps: the pair's part of dQ, dS K / sqrt(hs), rows rq + 8 ii,
-//     channels 4 cq + e, added into dq in global memory.
+//   - all 4 warps: the pair's part of dQ, dS K / sqrt(hs) (DT: dS K times
+//     dq_scale), rows rq + 8 ii (DT: 8 rq + ii, 8 consecutive positions, so
+//     that dq's reads and writes are 16 bytes of one channel), channels
+//     4 cq + e, added into dq in global memory.
 // Shared reads: a quarter-warp reads one row of one operand (one address)
 // and 8 consecutive rows, or 8 consecutive float4 of one row, of the other:
 // no bank conflicts (rows padded to LDT), and per 4 channels or rows 8 + 8
@@ -906,13 +917,21 @@ __device__ __forceinline__ void backward_grid(const BwdArgs& a, int Tq, int Tk, 
 //     round, and query tile i sums from key tile i down, wrapping round: the
 //     part of the key tile before in the order arrives one step ahead. All
 //     of a round's items run at once, and each wait is on the step before.
+// The DT mask has no offset: key tile j is seen by query tiles j on (none
+// when j >= ntq, Tq < Tk: that item sweeps nothing and writes dk = dv = 0),
+// and query tile i by key tiles 0 .. min(i, ntk - 1) (every key tile when i
+// >= ntk, Tq > Tk). So the list sweeps key tile j from query tile j on and
+// query tile i sums from key tile min(i, ntk - 1) down: key tile j reaches
+// query tile i after i - j steps, the key tile before it in the order (j + 1,
+// earlier in the list) one step ahead, as under the right-aligned mask; the
+// list's and the rounds' arguments hold unchanged.
 // A wait past WAIT_LIMIT_NS traps (the launch fails) rather than hanging the
 // card.
 
 constexpr long long WAIT_LIMIT_NS = 20000000000ll;  // 20 s
 
 struct PairSmem {
-  Tile k;      // K / sqrt(hs): [key][channel]
+  Tile k;      // K / sqrt(hs) (DT: K): [key][channel]
   Tile v;      // V: [key][channel]
   Tile q;      // the swept query tile: [row][channel]
   Tile dO;     // its dO rows
@@ -999,8 +1018,10 @@ __device__ __forceinline__ void keys_by_channels(float (&acc)[8][8], const Tile&
   }
 }
 
-// acc[ii][e] += sum_j x[rq + 8 ii][j] * y[j][4 cq + e], j = 0 .. 63 in order:
-// x a [row][key] tile, y a [key][channel] tile
+// acc[ii][e] += sum_j x[RA rq + RB ii][j] * y[j][4 cq + e], j = 0 .. 63 in
+// order: x a [row][key] tile, y a [key][channel] tile; rows rq + 8 ii (RA = 1,
+// RB = 8) or 8 rq + ii (RA = 8, RB = 1)
+template <int RA, int RB>
 __device__ __forceinline__ void rows_by_channels(float (&acc)[8][4], const Tile& x, const Tile& y,
                                                  int rq, int cq) {
 #pragma unroll 2
@@ -1010,7 +1031,7 @@ __device__ __forceinline__ void rows_by_channels(float (&acc)[8][4], const Tile&
     for (int jj = 0; jj < 4; ++jj) yf[jj] = *reinterpret_cast<const float4*>(&y[4 * j4 + jj][4 * cq]);
 #pragma unroll
     for (int ii = 0; ii < 8; ++ii) {
-      const float4 xf = *reinterpret_cast<const float4*>(&x[rq + 8 * ii][4 * j4]);
+      const float4 xf = *reinterpret_cast<const float4*>(&x[RA * rq + RB * ii][4 * j4]);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -1036,12 +1057,13 @@ __device__ __forceinline__ void load_rows(Tile& dst, const float* __restrict__ b
 
 // q and dO rows q0 .. q0 + 63 and their lse and row term into the block's
 // slot, asynchronously; zeros at or past Tq
+template <Case C>
 __device__ __forceinline__ void load_pair_query_tile(PairSmem& s, const float* qb, long long qst,
                                                      const float* dob, long long dost,
                                                      const float* lse_bh, const float* dd_bh,
                                                      int q0, int Tq, int tid) {
-  load_tile_async<THREADS>(s.q, qb, qst, q0, Tq, tid);
-  load_tile_async<THREADS>(s.dO, dob, dost, q0, Tq, tid);
+  load_swept<C>(s.q, qb, qst, q0, Tq, tid);
+  load_swept<C>(s.dO, dob, dost, q0, Tq, tid);
   const int r = tid & (TILE - 1), t = q0 + r;
   if (tid < TILE)
     cp_async4(&s.lse[r], lse_bh + (t < Tq ? t : 0), t < Tq ? 4 : 0);
@@ -1069,39 +1091,67 @@ __device__ __forceinline__ void store_keys8(float* __restrict__ out, const float
   }
 }
 
+// keys row0 .. row0 + 7 of a dt-layout output (ob: its (b, h) slab, cs: the
+// channel stride): two 16-byte stores of four positions for each of the
+// thread's 8 channels (4 g .. 4 g + 3, 32 + 4 g .. 32 + 4 g + 3)
+__device__ __forceinline__ void store_keys8_dt(float* __restrict__ ob, const float (&acc)[8][8],
+                                               long long cs, int row0, int g) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float* dst = ob + (long long)(4 * g + (e < 4 ? e : 28 + e)) * cs + row0;
+    *reinterpret_cast<float4*>(dst) = make_float4(acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4][e], acc[5][e], acc[6][e], acc[7][e]);
+  }
+}
+
 // One work item: dk and dv of key tile kt of (b, h), and its parts of dq.
 // flags: the (b, h)'s ntq flags; rounds: the wrapping sweep of the rounds
-// (see above), else the list's.
+// (see above), else the list's; dq_scale: the dt case's scale of dq (the
+// general case's 1 / sqrt(hs) rides on its resident K).
 template <Case C>
 __device__ __forceinline__ void pair_block(const BwdArgs& a, int b, int h, int kt, int Tq, int Tk,
-                                           int H, int causal, unsigned int* flags,
-                                           bool rounds) {
-  static_assert(C == Case::GENERAL, "the one-pass block is instanced for the general case");
+                                           int H, int causal, unsigned int* flags, bool rounds,
+                                           float dq_scale) {
+  static_assert(C != Case::SELF, "the one-pass block is instanced for the general and dt cases");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   PairSmem& s = *reinterpret_cast<PairSmem*>(smem_raw);
-  const int off = Tk - Tq;  // a causal row i sees the keys <= i + off
+  const int off = C == Case::GENERAL ? Tk - Tq : 0;  // a causal row i sees the keys <= i + off
   const int tid = threadIdx.x, half = tid >> 6, t64 = tid & 63;
   const int ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
   const long long bh = (long long)b * H + h;
   const float* qb = a.q + (long long)b * a.qs.sb + (long long)h * a.qs.sh;
   const float* kb = a.k + (long long)b * a.ks.sb + (long long)h * a.ks.sh;
   const float* vb = a.v + (long long)b * a.vs.sb + (long long)h * a.vs.sh;
-  const float* dob = a.dO + ((long long)b * Tq * H + h) * HS;
-  const long long dost = (long long)H * HS;
+  // dO: contiguous (B, Tq, H, hs), or q's dt layout; lse and the row term:
+  // row bh * Tq of (B, H, Tq), or h * st + b * sb of (H, B*Tq)
+  const float* dob = C == Case::DT ? a.dO + (long long)b * a.qs.sb + (long long)h * a.qs.sh
+                                   : a.dO + ((long long)b * Tq * H + h) * HS;
+  const long long dost = C == Case::DT ? a.qs.st : (long long)H * HS;
+  const long long row0 =
+      C == Case::DT ? (long long)h * a.qs.st + (long long)b * a.qs.sb : bh * Tq;
   const int k0 = kt * TILE;
   const int rg = t64 & 7, kg = t64 >> 3;   // S, dP, P, dS: rows rg + 8 ii, keys 8 kg + jj
   const int ka = t64 >> 3, cb = t64 & 7;   // dK, dV: keys 8 ka + kk, channels by cb
-  const int rq = tid >> 4, cq = tid & 15;  // dQ: rows rq + 8 ii, channels 4 cq + e
+  const int rq = tid >> 4, cq = tid & 15;  // dQ: rows rq + 8 ii (DT: 8 rq + ii), channels 4 cq + e
   // the sweep: the rounds' from query tile kt on, wrapping round; else from
-  // the first query tile that sees one of the keys (causal: row k0 - off)
-  const int it0 = rounds ? kt : causal ? max(k0 - off, 0) / TILE : 0;
+  // the first query tile that sees one of the keys (causal: row k0 - off; DT:
+  // query tile kt, past the last when no query sees the keys)
+  const int it0 = rounds   ? kt
+                  : causal ? (C == Case::DT ? kt : max(k0 - off, 0) / TILE)
+                           : 0;
   const int n = rounds ? ntq : ntq - it0;
 
-  load_pair_query_tile(s, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, it0 * TILE,
-                       Tq, tid);
+  load_pair_query_tile<C>(s, qb, a.qs.st, dob, dost, a.lse + row0, a.dd + row0, it0 * TILE, Tq,
+                          tid);
+  if constexpr (C == Case::DT) {  // K and V arrive d-major: transposing copies
+    load_swept<C>(s.k, kb, a.ks.st, k0, Tk, tid);
+    load_swept<C>(s.v, vb, a.vs.st, k0, Tk, tid);
+  }
   cp_async_commit();
-  load_rows(s.k, kb, a.ks.st, k0, Tk, 0.125f, tid);  // 1 / sqrt(64), exact
-  load_rows(s.v, vb, a.vs.st, k0, Tk, 1.f, tid);
+  if constexpr (C == Case::GENERAL) {
+    load_rows(s.k, kb, a.ks.st, k0, Tk, 0.125f, tid);  // 1 / sqrt(64), exact
+    load_rows(s.v, vb, a.vs.st, k0, Tk, 1.f, tid);
+  }
   float acc[8][8];  // half 0: dV, half 1: dK
   zero(acc);
   unsigned int* pending = nullptr;  // the flag to publish, and its value
@@ -1110,7 +1160,10 @@ __device__ __forceinline__ void pair_block(const BwdArgs& a, int b, int h, int k
     const int it = rounds ? (it0 + st) % ntq : it0 + st, q0 = it * TILE;
     // this part's place in its query tile's order
     const int rank = rounds ? st
-                     : (causal ? (min(q0 + TILE, Tq) - 1 + off) / TILE : ntk - 1) - kt;
+                     : (causal ? (C == Case::DT ? min(it, ntk - 1)
+                                                : (min(q0 + TILE, Tq) - 1 + off) / TILE)
+                               : ntk - 1) -
+                           kt;
     cp_async_wait_all();
     __syncthreads();  // the tile is in; every thread's part of the last dq tile is out
     if (tid == 0 && pending) {  // publish it (the barrier orders the block's stores first)
@@ -1159,40 +1212,66 @@ __device__ __forceinline__ void pair_block(const BwdArgs& a, int b, int h, int k
     unsigned int* flag = flags + it;
     if (tid == 0 && rank > 0) wait_flag(flag, (unsigned int)rank);
     __syncthreads();  // dS is in; q, dO and P are read; dq's earlier parts are out
-    // the thread's 8 x 4 values of the dq tile so far into the free P tile,
-    // through L2 (another SM wrote them), under dQ's product
-    float* dqb = a.dq + (((long long)b * Tq + q0) * H + h) * HS + 4 * cq;
+    // the thread's values of the dq tile so far into the free P tile, through
+    // L2 (another SM wrote them), under dQ's product: 8 rows x 4 channels
+    // (DT: 8 positions, two 16-byte runs a channel, 16 bytes of the thread
+    // every 16 THREADS bytes of the tile)
+    float* dqb = C == Case::DT
+                     ? a.dq + (long long)b * a.qs.sb + (long long)h * a.qs.sh + q0 + 8 * rq
+                     : a.dq + (((long long)b * Tq + q0) * H + h) * HS + 4 * cq;
     if (rank > 0) {
+      if constexpr (C == Case::DT) {
 #pragma unroll
-      for (int ii = 0; ii < 8; ++ii) {
-        const int r = rq + 8 * ii;
-        cp_async16(&s.p[r][4 * cq], dqb + (long long)(q0 + r < Tq ? r : 0) * H * HS,
-                   q0 + r < Tq ? 16 : 0);
+        for (int j = 0; j < 8; ++j)
+          cp_async16(&s.p[0][0] + 4 * (tid + THREADS * j),
+                     dqb + (long long)(4 * cq + (j >> 1)) * a.qs.st + 4 * (j & 1), 16);
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int r = rq + 8 * ii;
+          cp_async16(&s.p[r][4 * cq], dqb + (long long)(q0 + r < Tq ? r : 0) * H * HS,
+                     q0 + r < Tq ? 16 : 0);
+        }
       }
     }
     cp_async_commit();
     if (st + 1 < n) {
       const int nq0 = (rounds ? (it0 + st + 1) % ntq : it0 + st + 1) * TILE;
-      load_pair_query_tile(s, qb, a.qs.st, dob, dost, a.lse + bh * Tq, a.dd + bh * Tq, nq0,
-                           Tq, tid);
+      load_pair_query_tile<C>(s, qb, a.qs.st, dob, dost, a.lse + row0, a.dd + row0, nq0, Tq,
+                              tid);
     }
     cp_async_commit();
 
-    // this pair's part of dQ = dS K / sqrt(hs), into dq in the tile's order
+    // this pair's part of dQ = dS K / sqrt(hs) (DT: dS K times dq_scale, the
+    // part scaled before it is added), into dq in the tile's order
     float pq[8][4];
     zero(pq);
-    rows_by_channels(pq, s.ds, s.k, rq, cq);
+    rows_by_channels<C == Case::DT ? 8 : 1, C == Case::DT ? 1 : 8>(pq, s.ds, s.k, rq, cq);
     cp_async_wait_all_but_last();  // the dq tile is in (the next query tile may not be)
+    if constexpr (C == Case::DT) {
 #pragma unroll
-    for (int ii = 0; ii < 8; ++ii) {
-      const int r = rq + 8 * ii;
-      if (q0 + r < Tq) {
-        float4 v = make_float4(pq[ii][0], pq[ii][1], pq[ii][2], pq[ii][3]);
+      for (int j = 0; j < 8; ++j) {
+        const int e = j >> 1, i0 = 4 * (j & 1);
+        float4 v = make_float4(pq[i0][e] * dq_scale, pq[i0 + 1][e] * dq_scale,
+                               pq[i0 + 2][e] * dq_scale, pq[i0 + 3][e] * dq_scale);
         if (rank > 0) {
-          const float4 o = *reinterpret_cast<const float4*>(&s.p[r][4 * cq]);
+          const float4 o = *reinterpret_cast<const float4*>(&s.p[0][0] + 4 * (tid + THREADS * j));
           v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
         }
-        __stcg(reinterpret_cast<float4*>(dqb + (long long)r * H * HS), v);
+        __stcg(reinterpret_cast<float4*>(dqb + (long long)(4 * cq + e) * a.qs.st + i0), v);
+      }
+    } else {
+#pragma unroll
+      for (int ii = 0; ii < 8; ++ii) {
+        const int r = rq + 8 * ii;
+        if (q0 + r < Tq) {
+          float4 v = make_float4(pq[ii][0], pq[ii][1], pq[ii][2], pq[ii][3]);
+          if (rank > 0) {
+            const float4 o = *reinterpret_cast<const float4*>(&s.p[r][4 * cq]);
+            v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+          }
+          __stcg(reinterpret_cast<float4*>(dqb + (long long)r * H * HS), v);
+        }
       }
     }
     pending = flag;
@@ -1204,18 +1283,24 @@ __device__ __forceinline__ void pair_block(const BwdArgs& a, int b, int h, int k
     __threadfence();
     st_release(pending, pending_val);
   }
-  if (half)
-    store_keys8(a.dk, acc, 0.125f, b, h, H, k0 + 8 * ka, Tk, cb);
-  else
-    store_keys8(a.dv, acc, 1.f, b, h, H, k0 + 8 * ka, Tk, cb);
+  if constexpr (C == Case::DT) {  // dk takes no scale: q is pre-scaled
+    const long long kvo = (long long)b * a.ks.sb + (long long)h * a.ks.sh;
+    store_keys8_dt((half ? a.dk : a.dv) + kvo, acc, a.ks.st, k0 + 8 * ka, cb);
+  } else {
+    if (half)
+      store_keys8(a.dk, acc, 0.125f, b, h, H, k0 + 8 * ka, Tk, cb);
+    else
+      store_keys8(a.dv, acc, 1.f, b, h, H, k0 + 8 * ka, Tk, cb);
+  }
 }
 
 // The persistent grid of the one-pass block: block x walks its work items
 // (see above). BH = B * H; flags: B * H * ntq of them; rounds: the (b, h)
-// of a round (0: the list).
+// of a round (0: the list); dq_scale as in pair_block.
 template <Case C>
 __device__ __forceinline__ void pair_grid(const BwdArgs& a, int Tq, int Tk, int H, int BH,
-                                          int causal, unsigned int* flags, int rounds) {
+                                          int causal, unsigned int* flags, int rounds,
+                                          float dq_scale = 1.f) {
   const int ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
   const int x = blockIdx.x;
   for (long long r = 0;; ++r) {
@@ -1235,7 +1320,7 @@ __device__ __forceinline__ void pair_grid(const BwdArgs& a, int Tq, int Tk, int 
     }
     if (bh >= BH) return;
     pair_block<C>(a, (int)(bh / H), (int)(bh % H), (int)kt, Tq, Tk, H, causal,
-                  flags + bh * ntq, rounds != 0);
+                  flags + bh * ntq, rounds != 0, dq_scale);
   }
 }
 
@@ -1256,6 +1341,62 @@ cudaError_t configure_once(Kernel kernel, int smem, unsigned long long& configur
     configured |= 1ull << dev;
   }
   return cudaSuccess;
+}
+
+// the blocks of `kernel` that the current device keeps resident at once (SMs
+// times blocks an SM, from the occupancy calculator), counted once per device
+// into slots_of_device
+template <typename Kernel>
+cudaError_t resident_slots(Kernel kernel, int smem, unsigned long long& configured,
+                           int (&slots_of_device)[64], int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = configure_once(kernel, smem, configured);
+  if (err != cudaSuccess) return err;
+  if (slots_of_device[dev] == 0) {
+    int sms = 0, blocks = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (sms * blocks == 0) return cudaErrorLaunchOutOfResources;
+    slots_of_device[dev] = sms * blocks;
+  }
+  *out = slots_of_device[dev];
+  return cudaSuccess;
+}
+
+// One launch of a one-pass grid (pair_grid) on `stream`: unmasked with as
+// many query tiles as key tiles, a (b, h)'s key tiles fitting the slots,
+// whole (b, h) in rounds; else the list, dealt in rounds of equal size (the
+// fewest that the slots allow). The flags, one per (b, h, query tile), are
+// this launch's own: taken from the device's stream-ordered pool, zeroed and
+// given back on the stream, so launches on any streams never share them.
+// `args` are the kernel's arguments, among them &flags and &rounds, which
+// this fills in. The grid goes out cooperatively: the runtime refuses a grid
+// whose blocks cannot all be resident at once (a smaller share of the SMs
+// under MPS, say), and the launch then fails instead of waiting forever.
+template <typename Kernel>
+cudaError_t launch_pair_grid(Kernel kernel, int n_slots, int Tq, int Tk, long long bh, int causal,
+                             unsigned int*& flags, int& rounds, void** args,
+                             cudaStream_t stream) {
+  const long long ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
+  rounds = !causal && ntq == ntk && ntk <= n_slots
+               ? (int)(n_slots / ntk < bh ? n_slots / ntk : bh)
+               : 0;
+  const long long items = ntk * bh, list_rounds = (items + n_slots - 1) / n_slots;
+  const unsigned grid = (unsigned)(rounds ? rounds * ntk : (items + list_rounds - 1) / list_rounds);
+  const size_t flag_bytes = (size_t)(bh * ntq) * sizeof(unsigned int);
+  flags = nullptr;
+  cudaError_t err = cudaMallocAsync((void**)&flags, flag_bytes, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(flags, 0, flag_bytes, stream);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(THREADS), args,
+                                      PAIR_SMEM, stream);
+  const cudaError_t freed = cudaFreeAsync(flags, stream);
+  return err != cudaSuccess ? err : freed;
 }
 
 // warps of `kernel` resident on one SM, from the occupancy calculator (its

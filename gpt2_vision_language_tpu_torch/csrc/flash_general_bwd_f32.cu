@@ -40,12 +40,8 @@
 // lse and the row term 0 and are masked (P = 0), so they add nothing; nothing
 // is read past the end of lse or the row term.
 //
-// The flags: one per (b, h, query tile), in a buffer that each launch
-// takes from the device's stream-ordered pool (cudaMallocAsync), zeroes and
-// gives back on its own stream, so launches on any streams never share
-// flags. The grid is launched cooperatively: the runtime refuses a grid
-// whose blocks cannot all be resident at once (a smaller share of the SMs
-// under MPS, say), and the launch then fails instead of waiting forever.
+// The flags, one per (b, h, query tile), are each launch's own, and the grid
+// goes out cooperatively (flash_f32.cuh launch_pair_grid).
 
 #include <cuda_runtime.h>
 
@@ -70,27 +66,6 @@ flash_general_bwd_f32_kernel(const float* __restrict__ q, const float* __restric
 unsigned long long configured = 0;  // a bit per device: the kernel's attributes are set
 int slots_of_device[64];            // per device: the blocks resident at once, 0 until counted
 
-// the blocks of the kernel that the current device keeps resident at once
-cudaError_t slots(int* out) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = configure_once(flash_general_bwd_f32_kernel, PAIR_SMEM, configured);
-  if (err != cudaSuccess) return err;
-  if (slots_of_device[dev] == 0) {
-    int sms = 0, blocks = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_general_bwd_f32_kernel,
-                                                        THREADS, PAIR_SMEM);
-    if (err != cudaSuccess) return err;
-    if (sms * blocks == 0) return cudaErrorLaunchOutOfResources;
-    slots_of_device[dev] = sms * blocks;
-  }
-  *out = slots_of_device[dev];
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // dq: contiguous (B, Tq, H, hs) fp32, dk, dv: contiguous (B, Tk, H, hs)
@@ -110,38 +85,20 @@ extern "C" int gpt2vl_flash_general_bwd_f32(const void* q, const void* k, const 
   if (hs != HS || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535 ||
       (causal && Tq > Tk))
     return (int)cudaErrorInvalidValue;
-  const long long ntq = (Tq + TILE - 1) / TILE, ntk = (Tk + TILE - 1) / TILE;
-  const long long bh = (long long)B * H;
   int n_slots = 0;
-  cudaError_t err = slots(&n_slots);
+  const cudaError_t err = resident_slots(flash_general_bwd_f32_kernel, PAIR_SMEM, configured,
+                                         slots_of_device, &n_slots);
   if (err != cudaSuccess) return (int)err;
-  // unmasked with as many query tiles as key tiles, a (b, h)'s key tiles
-  // fitting the slots: whole (b, h) in rounds; else the list, dealt in
-  // rounds of equal size (the fewest that the slots allow)
-  int rounds = !causal && ntq == ntk && ntk <= n_slots
-                   ? (int)(n_slots / ntk < bh ? n_slots / ntk : bh)
-                   : 0;
-  const long long items = ntk * bh, list_rounds = (items + n_slots - 1) / n_slots;
-  const unsigned grid = (unsigned)(rounds ? rounds * ntk : (items + list_rounds - 1) / list_rounds);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const size_t flag_bytes = (size_t)(bh * ntq) * sizeof(unsigned int);
+  const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v,
+              *fdO = (const float*)dO, *flse = (const float*)lse, *fdd = (const float*)dd;
+  float *fdq = (float*)dq, *fdk = (float*)dk, *fdv = (float*)dv;
+  int BH = B * H, rounds = 0;
   unsigned int* flags = nullptr;
-  err = cudaMallocAsync((void**)&flags, flag_bytes, s);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(flags, 0, flag_bytes, s);
-  if (err == cudaSuccess) {
-    const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v,
-                *fdO = (const float*)dO, *flse = (const float*)lse, *fdd = (const float*)dd;
-    float *fdq = (float*)dq, *fdk = (float*)dk, *fdv = (float*)dv;
-    int BH = (int)bh;
-    Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
-    void* args[] = {&fq, &fk, &fv, &fdO, &flse, &fdd, &fdq, &fdk, &fdv, &Tq, &Tk, &H,
-                    &BH, &qs, &ks, &vs, &causal, &flags, &rounds};
-    err = cudaLaunchCooperativeKernel((const void*)flash_general_bwd_f32_kernel, dim3(grid),
-                                      dim3(THREADS), args, PAIR_SMEM, s);
-  }
-  const cudaError_t freed = cudaFreeAsync(flags, s);
-  return (int)(err != cudaSuccess ? err : freed);
+  Strides qs{qsb, qst, qsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh};
+  void* args[] = {&fq, &fk, &fv, &fdO, &flse, &fdd, &fdq, &fdk, &fdv, &Tq, &Tk, &H,
+                  &BH, &qs, &ks, &vs, &causal, &flags, &rounds};
+  return (int)launch_pair_grid(flash_general_bwd_f32_kernel, n_slots, Tq, Tk, BH, causal, flags,
+                               rounds, args, (cudaStream_t)stream);
 }
 
 // Warps of this kernel resident on one SM, from the occupancy calculator;

@@ -33,9 +33,12 @@ The JAX kernels are dtype-generic (their outputs take q.dtype, :294, :607,
 operands go to kernels of true fp32 products (FFMAs, no TF32), anything else
 to the bf16 ones. The fp32 kernels: ``csrc/flash_fwd_f32.cu`` and
 ``csrc/flash_bwd_f32.cu`` (the self-attention family, the backward with its
-own D kernel); ``csrc/flash_general_fwd_f32.cu``, one kernel behind two
-wrappers, ``flash_general_forward_f32`` (K2b's function) and
-``flash_lse_forward_f32`` (K2a's); ``csrc/flash_general_bwd_f32.cu``, one
+own D kernel); ``csrc/flash_general_fwd_f32.cu`` behind
+``flash_general_forward_f32`` (K2b's function); ``csrc/flash_lse_fwd_f32.cu``
+behind ``flash_lse_forward_f32`` (K2a's: the same forward block, each query
+tile's key range split into parts that fill the card's waves, merged in a
+fixed order; ``lse_f32_parts`` picks how many, ``flash_lse_split_reference``
+is its plain version); ``csrc/flash_general_bwd_f32.cu``, one
 kernel that takes the row term as an input, behind
 ``flash_general_backward_f32`` (K3a's and K3b's, on D) and
 ``flash_fused_backward_f32`` (K3c's, on D - dlse); and the fp32 D kernel of
@@ -69,6 +72,9 @@ general one (fp32: ``flash_general_forward_f32.launches``,
 """
 
 from __future__ import annotations
+
+import functools
+import heapq
 
 import torch
 
@@ -380,7 +386,13 @@ def flash_general_forward(q, k, v, *, causal: bool = True):
 flash_general_forward.launches = 0
 
 
-def _f32_forward(entry, q, k, v, causal):
+def flash_general_forward_f32(q, k, v, *, causal: bool = True):
+    """General forward on fp32 operands (K2b's function), (o (B, Tq, H, hs)
+    fp32, lse (B, H, Tq) fp32): the kernel of csrc/flash_general_fwd_f32.cu
+    for CUDA tensors (every product an fp32 FMA, no TF32), the plain version
+    for CPU tensors."""
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal)
     for name, a in (("q", q), ("k", k), ("v", v)):
         _check_f32_operand(name, a)
     b, tq, h, hs = q.shape
@@ -392,20 +404,9 @@ def _f32_forward(entry, q, k, v, causal):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, tq, k.shape[1], h, hs, *_strides(q, k, v), int(causal), _stream(q),
         )
-    _build.check(err, entry)
-    return o, lse
-
-
-def flash_general_forward_f32(q, k, v, *, causal: bool = True):
-    """General forward on fp32 operands (K2b's function), (o (B, Tq, H, hs)
-    fp32, lse (B, H, Tq) fp32): the kernel of csrc/flash_general_fwd_f32.cu
-    for CUDA tensors (every product an fp32 FMA, no TF32), the plain version
-    for CPU tensors."""
-    if not q.is_cuda:
-        return flash_attention_reference(q, k, v, causal=causal)
-    out = _f32_forward("flash_general_fwd_f32", q, k, v, causal)
+    _build.check(err, "flash_general_fwd_f32")
     flash_general_forward_f32.launches += 1
-    return out
+    return o, lse
 
 
 flash_general_forward_f32.launches = 0
@@ -635,16 +636,157 @@ def flash_lse_forward(q, k, v, *, causal: bool = True):
 flash_lse_forward.launches = 0
 
 
+# The split fp32 lse forward (csrc/flash_lse_fwd_f32.cu): query tiles of 128
+# rows, key tiles of 64, at most this many parts a query tile, and the share
+# of the resident slots a list schedule of the parts must keep busy
+LSE_F32_ROWS = 128
+KEY_TILE = 64
+LSE_F32_MAX_PARTS = 8
+LSE_F32_BALANCE = 0.9
+
+
+def lse_f32_visible_tiles(tq: int, tk: int, causal: bool) -> list[int]:
+    """The key tiles each 128-row query tile of the split fp32 lse forward
+    sweeps (csrc/flash_f32.cuh visible_key_tiles): every one, or under the
+    right-aligned causal mask those up to the last one its last row sees."""
+    ntk = -(-tk // KEY_TILE)
+    return [(min(qt * LSE_F32_ROWS + LSE_F32_ROWS, tq) - 1 + tk - tq) // KEY_TILE + 1
+            if causal else ntk for qt in range(-(-tq // LSE_F32_ROWS))]
+
+
+def lse_f32_chunk(tk: int, parts: int) -> int:
+    """The most key tiles a part holds: the last query row sees every key, so
+    the longest visible range, ceil(Tk / 64) tiles, is cut into ``parts``."""
+    return -(-(-(-tk // KEY_TILE)) // parts)
+
+
+def lse_f32_balance(bh: int, tq: int, tk: int, causal: bool, slots: int, parts: int) -> float:
+    """The share of ``slots`` resident blocks that the split kernel's items
+    keep busy: its work (key tiles swept) over slots x the makespan of the
+    list schedule that hands each item, in the grid's order (the longest query
+    tiles first, each one's parts in turn, (b, h) fastest), to the first slot
+    that comes free; empty parts take no time."""
+    chunk = lse_f32_chunk(tk, parts)
+    lengths = [min(chunk, n - p * chunk)
+               for n in reversed(lse_f32_visible_tiles(tq, tk, causal))
+               for p in range(parts) if p * chunk < n for _ in range(bh)]
+    free = [0] * slots
+    for length in lengths:
+        heapq.heapreplace(free, free[0] + length)
+    return sum(lengths) / (slots * max(free))
+
+
+@functools.lru_cache(maxsize=256)
+def lse_f32_parts(bh: int, tq: int, tk: int, causal: bool, slots: int) -> int:
+    """Parts a query tile of the split fp32 lse forward: the fewest (up to
+    LSE_F32_MAX_PARTS) whose schedule keeps LSE_F32_BALANCE of the slots
+    busy, else the best balanced; 1 where a block a query tile already fills
+    the card's waves."""
+    balance = {}
+    for parts in range(1, LSE_F32_MAX_PARTS + 1):
+        balance[parts] = lse_f32_balance(bh, tq, tk, causal, slots, parts)
+        if balance[parts] >= LSE_F32_BALANCE:
+            return parts
+    return max(balance, key=balance.get)
+
+
+def lse_f32_parts_reference(q, k, v, *, causal: bool, parts: int):
+    """Plain version of the split kernel's items: for each 128-row query tile
+    of (B, Tq, H, hs) q against (B, Tk, H, hs) k and v, its rows and, in part
+    order, each part's (o before the division by its row sum (B, rows, H,
+    hs), running max m (B, H, rows), row sum l (B, H, rows)) over its key
+    tiles, fp32; a row that sees none of a part's keys has m = -1e30 and
+    l = 0, as in the kernel."""
+    tq, tk, hs = q.shape[1], k.shape[1], q.shape[-1]
+    chunk = lse_f32_chunk(tk, parts)
+    q32, k32, v32 = (a.float() for a in (q, k, v))
+    for qt, n in enumerate(lse_f32_visible_tiles(tq, tk, causal)):
+        rows = slice(qt * LSE_F32_ROWS, min(qt * LSE_F32_ROWS + LSE_F32_ROWS, tq))
+        s = torch.einsum("bqhd,bkhd->bhqk", q32[:, rows], k32) * hs**-0.5
+        if causal:
+            s = s.masked_fill(_causal_mask(tq, tk, q.device)[rows], float("-inf"))
+        out = []
+        for p in range(parts):
+            if p * chunk >= n:
+                break
+            keys = slice(p * chunk * KEY_TILE, min((p * chunk + chunk) * KEY_TILE, tk))
+            sp = s[..., keys]
+            m = sp.amax(-1).clamp_min(-1e30)
+            e = torch.exp(sp - m[..., None])
+            out.append((torch.einsum("bhqk,bkhd->bqhd", e, v32[:, keys]), m, e.sum(-1)))
+        yield rows, out
+
+
+def merge_lse_parts(parts):
+    """(o (B, rows, H, hs), lse (B, H, rows)) of a query tile from its parts
+    (``lse_f32_parts_reference``), merged in their order as the kernel's merge
+    does: M = max m, L = sum l exp(m - M), o = sum o exp(m - M) / L,
+    lse = M + log L."""
+    mx = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    o, l = 0.0, 0.0
+    for op, m, lp in parts:
+        w = torch.exp(m - mx)
+        l = l + lp * w
+        o = o + op * w.transpose(1, 2)[..., None]
+    return o / l.transpose(1, 2)[..., None], mx + torch.log(l)
+
+
+def flash_lse_split_reference(q, k, v, *, causal: bool = True, parts: int = 1):
+    """Plain version of K2a's fp32 kernel as it computes: each query tile's
+    visible key range cut into ``parts`` parts (``lse_f32_parts_reference``),
+    merged in part order (``merge_lse_parts``). Returns (o (B, Tq, H, hs)
+    fp32, lse (B, H, Tq) fp32), the function of flash_attention_reference."""
+    b, tq, h, hs = q.shape
+    o = torch.empty((b, tq, h, hs), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    for rows, pts in lse_f32_parts_reference(q, k, v, causal=causal, parts=parts):
+        o[:, rows], lse[..., rows] = merge_lse_parts(pts)
+    return o, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _lse_f32_slots(device_index: int) -> int:
+    """The split kernel's blocks resident at once on a card (SMs x blocks an
+    SM, from the occupancy calculator)."""
+    lib = _build.load()
+    with torch.cuda.device(device_index):
+        n = lib.gpt2vl_flash_lse_fwd_f32_slots()
+    if n <= 0:
+        raise RuntimeError("flash_lse_fwd_f32: the occupancy calculator failed")
+    return n
+
+
 def flash_lse_forward_f32(q, k, v, *, causal: bool = True):
     """Forward with logsumexp on fp32 operands (K2a's function), (o
     (B, Tq, H, hs) fp32, lse (B, H, Tq) fp32): the kernel of
-    csrc/flash_general_fwd_f32.cu, which computes K2b's function too, for
-    CUDA tensors; the plain version for CPU tensors."""
+    csrc/flash_lse_fwd_f32.cu for CUDA tensors, its query tiles' key ranges
+    split into ``lse_f32_parts`` parts (a workspace of (items, 128, hs + 2)
+    fp32 where there are several, merged in a fixed order: bit-equal run to
+    run); the plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_attention_with_lse_reference(q, k, v, causal=causal)
-    out = _f32_forward("flash_lse_fwd_f32", q, k, v, causal)
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        _check_f32_operand(name, a)
+    b, tq, h, hs = q.shape
+    tk = k.shape[1]
+    parts = lse_f32_parts(b * h, tq, tk, causal, _lse_f32_slots(q.device.index))
+    o = torch.empty((b, tq, h, hs), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    items = -(-tq // LSE_F32_ROWS) * parts * b * h
+    ws = (torch.empty(items * LSE_F32_ROWS * (hs + 2), dtype=torch.float32, device=q.device)
+          if parts > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.gpt2vl_flash_lse_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, tq, tk, h, hs, *_strides(q, k, v),
+            int(causal), parts, _stream(q),
+        )
+    _build.check(err, "flash_lse_fwd_f32")
     flash_lse_forward_f32.launches += 1
-    return out
+    return o, lse
 
 
 flash_lse_forward_f32.launches = 0

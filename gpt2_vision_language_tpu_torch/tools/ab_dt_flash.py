@@ -186,9 +186,11 @@ def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1
     """dt backward: (dq * dq_scale, dk, dv) in dt layout from do (H, hs,
     B*Tq), lse and dcap (H, B*Tq) fp32. The kernel for CUDA tensors (bf16 or
     fp32, by the operands' dtype), the plain version for CPU tensors. Both
-    kernels sum each of dq, dk and dv in a fixed order in one block, as the
-    TPU kernel sums dq in one scratch in key order: all three are bit-equal
-    from run to run."""
+    kernels sum each of dq, dk and dv in a fixed order, as the TPU kernel
+    sums dq in one scratch in key order: the bf16 one each in one block, the
+    fp32 one (one pass a visible pair) dk and dv in one block and dq across
+    blocks, a part per key tile added in global memory in a fixed order under
+    a flag per query tile. All three are bit-equal from run to run."""
     h, hs, _ = q.shape
     _check_dt("q", q, h, hs, b * tq)
     _check_dt("do", do, h, hs, b * tq)

@@ -283,10 +283,10 @@ def test_kernel_sources_and_signatures_are_registered():
     from gpt2_vision_language_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    # eighteen sources since the fp32 dt pair (flash_dt_fwd_f32.cu,
-    # flash_dt_bwd_f32.cu)
+    # nineteen sources since the fp32 dt pair (flash_dt_fwd_f32.cu,
+    # flash_dt_bwd_f32.cu) and the split fp32 lse forward (flash_lse_fwd_f32.cu)
     assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu", "flash_dt_fwd_f32.cu",
-            "flash_dt_bwd_f32.cu"} <= names and len(names) == 18
+            "flash_dt_bwd_f32.cu", "flash_lse_fwd_f32.cu"} <= names and len(names) == 19
     for suffix in ("", "_f32"):
         assert len(_build.SIGNATURES[f"gpt2vl_flash_dt_fwd{suffix}"]) == 12
         assert len(_build.SIGNATURES[f"gpt2vl_flash_dt_bwd{suffix}"]) == 17

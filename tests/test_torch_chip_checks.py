@@ -404,3 +404,19 @@ def test_dt_controls_fail_the_f32_row_rules():
                           causal_dq=True) > cs.F32_ROW_TOL
     o64, _ = ab.flash_fwd_dt_b_reference(qd.double(), kd.double(), vd.double(), 1, t, t)
     assert cs.f32_fwd_row_err(ab.from_dt(o, 1, t), ab.from_dt(o64, 1, t)) <= cs.F32_ROW_TOL
+
+
+@pytest.mark.parametrize("tq,tk,causal,parts", [(256, 256, False, 2), (256, 256, True, 4),
+                                                (200, 453, True, 3)])
+def test_lse_dropped_part_fails_the_f32_row_rule(tq, tk, causal, parts):
+    """Phase 15b's merge control: K2a's fp32 split-and-merge without each
+    split query tile's last part fails the fp32 row rule against the plain
+    forward, which the whole split-and-merge passes."""
+    rng = np.random.RandomState(24)
+    q, k, v = (torch.from_numpy(rng.randn(1, n, 2, HS).astype(np.float32))
+               for n in (tq, tk, tk))
+    ro, _ = fa.flash_attention_reference(q, k, v, causal=causal)
+    whole, _ = fa.flash_lse_split_reference(q, k, v, causal=causal, parts=parts)
+    assert cs.f32_fwd_row_err(whole, ro) <= cs.F32_ROW_TOL
+    assert cs.f32_fwd_row_err(cs.lse_dropped_part(torch, fa, q, k, v, causal, parts),
+                              ro) > cs.F32_ROW_TOL

@@ -75,6 +75,7 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_bwd_f32.cu": {"flash_f32.cuh"},
           "flash_general_fwd_f32.cu": {"flash_f32.cuh"},
           "flash_general_bwd_f32.cu": {"flash_f32.cuh"},
+          "flash_lse_fwd_f32.cu": {"flash_f32.cuh"},
           "flash_dt_fwd_f32.cu": {"flash_f32.cuh"},
           "flash_dt_bwd_f32.cu": {"flash_f32.cuh"}}
 
@@ -86,7 +87,8 @@ def test_sources_include_only_their_own_headers():
     self-attention backward (K1-bwd) and the dt-layout backward (P2) run both
     backward blocks, and the fused LM-head + CE forward (K4) includes
     hopper.cuh alone. The fp32 kernels, the self-attention pair, the
-    general pair and the dt-layout pair, share csrc/flash_f32.cuh (its FFMA
+    general pair, the split lse forward and the dt-layout pair, share
+    csrc/flash_f32.cuh (its FFMA
     register tiles, cp.async copies and blocks). The library name hashes
     every header with the sources, so an edit of one rebuilds them. The
     Hopper sources run wgmma and load by TMA, and none of them, nor the
@@ -223,11 +225,12 @@ def test_ce_forward_is_a_wgmma_gemm_with_a_row_epilogue():
                                          "gpt2vl_flash_general_fwd_f32"),
                                         ("flash_general_bwd_f32.cu",
                                          "gpt2vl_flash_general_bwd_f32"),
+                                        ("flash_lse_fwd_f32.cu", "gpt2vl_flash_lse_fwd_f32"),
                                         ("flash_dt_fwd_f32.cu", "gpt2vl_flash_dt_fwd_f32"),
                                         ("flash_dt_bwd_f32.cu", "gpt2vl_flash_dt_bwd_f32")])
 def test_fp32_pair_is_ffma_only(name, entry):
-    """The fp32 kernels, the self-attention pair, the general pair and the
-    dt-layout pair, keep every product an fp32 FFMA: no tensor-core instruction (wgmma, mma,
+    """The fp32 kernels, the self-attention pair, the general pair, the
+    split lse forward and the dt-layout pair, keep every product an fp32 FFMA: no tensor-core instruction (wgmma, mma,
     wmma: TF32 would keep 10 bits of the operands' 23) and no atomics (dq,
     dk, dv bit-equal run to run); their swept tiles arrive by cp.async
     through csrc/flash_f32.cuh, and each kernel states its resident blocks in
@@ -249,17 +252,21 @@ def test_fp32_pair_is_ffma_only(name, entry):
     ("flash_dt_fwd_f32.cu", "forward_block<Case::DT>("),
     ("flash_bwd_f32.cu", "backward_grid<Case::SELF>("),
     ("flash_general_bwd_f32.cu", "pair_grid<Case::GENERAL>("),
-    ("flash_dt_bwd_f32.cu", "backward_grid<Case::DT>(")])
+    ("flash_lse_fwd_f32.cu", "forward_block<Case::GENERAL, true>("),
+    ("flash_dt_bwd_f32.cu", "pair_grid<Case::DT>(")])
 def test_fp32_blocks_are_written_once(name, instance):
     """The fp32 forward block, the backward grid (its dk/dv and dq blocks)
     and the one-pass grid (five products a visible pair, dq added in a fixed
     order) are written once, in csrc/flash_f32.cuh, with the case a
     compile-time parameter: the self-attention kernels instance the forward
-    block and the backward grid with Case::SELF, the A/B tool's dt-layout
-    ones (the transposed layout, no offset) with Case::DT, the general
-    forward (Tq != Tk, the right-aligned causal offset) the forward block
-    with Case::GENERAL, and the general backward the one-pass grid with
-    Case::GENERAL and no dq block; no source repeats their products. The
+    block and the backward grid (its only user) with Case::SELF, the A/B
+    tool's dt-layout ones (the transposed layout, no offset) the forward
+    block and the one-pass grid with Case::DT, the general forward (Tq !=
+    Tk, the right-aligned causal offset) the forward block with
+    Case::GENERAL, the lse forward the same block split over the key range
+    (its second kernel the merge of the parts), and the general backward the
+    one-pass grid with Case::GENERAL; no backward but the self one runs the
+    dq or the dk/dv block, and no source repeats their products. The
     fp32 D kernel stays in flash_bwd_f32.cu, whose C entry point
     gpt2vl_flash_rowdot_f32 gives the general backward its row term."""
     header = (_build.CSRC / "flash_f32.cuh").read_text()
@@ -267,12 +274,12 @@ def test_fp32_blocks_are_written_once(name, instance):
                  "void backward_grid(", "void pair_block(", "void pair_grid("):
         assert body in header
     text = (_build.CSRC / name).read_text()
-    assert instance in text and text.count("__global__") == (2 if name == "flash_bwd_f32.cu"
-                                                             else 1)
+    two = ("flash_bwd_f32.cu", "flash_lse_fwd_f32.cu")
+    assert instance in text and text.count("__global__") == (2 if name in two else 1)
     for product in ("rows_by_keys<", "keys_by_rows(", "acc_keys(", "acc_rows(", "rows_by_rows(",
                     "keys_by_channels(", "rows_by_channels("):
         assert product not in text, (name, product)
-    if name == "flash_general_bwd_f32.cu":
+    if name in ("flash_general_bwd_f32.cu", "flash_dt_bwd_f32.cu"):
         for block in ("dq_block", "dkv_block", "backward_grid"):
-            assert block not in text, block
+            assert block not in text, (name, block)
     assert ('extern "C" int gpt2vl_flash_rowdot_f32(' in text) == (name == "flash_bwd_f32.cu")
