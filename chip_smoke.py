@@ -8,8 +8,8 @@ Phases (any failure raises and the script exits non-zero):
   1. build the CUDA kernels from gpt2_vision_language_tpu_torch/csrc (their
      registers, spills and SASS instruction counts printed; for the fp32
      kernels, the self-attention pair, the general pair, the split lse
-     forward and its merge, and the dt-layout pair, also the warps resident
-     per SM and their SASS opcodes: no HMMA or
+     forward and its merge, and the dt-layout pair and P1's merge, also
+     the warps resident per SM and their SASS opcodes: no HMMA or
      HGMMA in any, no atomics in any backward, no spills; the self pair's
      SASS counts beside those it had before its blocks were shared,
      F32_PAIR_SASS_OWN, and every kernel's beside SASS_BEFORE_DT_F32);
@@ -86,6 +86,11 @@ Phases (any failure raises and the script exits non-zero):
   9. the trainer entry point: cli.pretrain --synthetic for 3 steps of
      64 x 1024 tokens (CSV rows, checkpoints), then --steps 4 resumes at
      step 3 and runs one step;
+  9b. the trainer's ProfilerHook (obs/csvlog.py): cli.pretrain --synthetic
+     for 3 steps of 8 x 1024 tokens with PROFILE_DIR set and the hook's
+     window (1, 1), so the trace opens after step 1 and closes after step 2:
+     one Chrome trace, whose kernels include the port's flash_fwd, flash_bwd
+     and adamw;
  10. the general (Tq != Tk, streamed K/V) flash kernels vs their plain
      versions, forward (o, lse) and backward (D, dq, dk/dv), at (B, Tq, Tk)
      = (2, 4096, 4096), (2, 1000, 1000), (2, 64, 2048) causal and not,
@@ -208,18 +213,25 @@ Phases (any failure raises and the script exits non-zero):
      without the keys more than K1_DQ_DROP_BEFORE before each query tile),
      the check against max|ref| printed beside;
  19b. the dt-layout kernels on fp32 operands (csrc/flash_dt_fwd_f32.cu,
-     flash_dt_bwd_f32.cu, P2 on the one-pass block's DT case) vs their plain
-     versions in fp32 (no TF32), H=12, hs=64, at P1's four shapes of phase
-     19, causal, and B=2, T=1024 unmasked, whose backward runs whole (b, h)
-     in rounds (DT_F32_SHAPES): o and lse
+     P1 on a one-dimensional grid split over its key range where the grid is
+     short, and flash_dt_bwd_f32.cu, P2 on the one-pass block's DT case) vs
+     their plain versions in fp32 (no TF32), H=12, hs=64, at P1's four
+     shapes of phase 19, causal, B=2, T=1024 unmasked, whose backward
+     runs whole (b, h) in rounds, and B=2 causal at Tq=1024, Tk=512 and
+     Tq=2048, Tk=1024, whose query tiles past Tk see every key
+     (DT_F32_SHAPES), each with the parts P1
+     takes (tools/ab_dt_flash.py dt_f32_parts) printed and P1's merge
+     launched with every forward where it takes several, with none where
+     it takes one (``launches_f32_merge``): o and lse
      within 1e-5 and each row of o within 2e-5 of its norm (phase 2b's
      rules); on the kernel's o, lse and dcap, dq, dk and dv within 1e-5 of
      max|ref| and each row within 2e-5 of its norm plus the mean row norm
-     (phase 2c's); the forward twice and the backward five times
-     (F32_BWD_RUNS) on one input bit for bit; four controls
-     that must fail those row rules: at T=8192 phase 19's three (the last
-     128 rows without their first key tile, ``dt_dkv_reference``,
-     ``dt_dq_reference``), and at Tq=512, Tk=1024 the causal mask
+     (phase 2c's); the forward and the backward five times
+     (F32_BWD_RUNS) on one input bit for bit; controls that must fail those
+     row rules: at every shape that P1 splits, its merge without each split
+     query tile's last part (``dt_dropped_part``); at T=8192 phase 19's
+     three (the last 128 rows without their first key tile,
+     ``dt_dkv_reference``, ``dt_dq_reference``), and at Tq=512, Tk=1024 the causal mask
      right-aligned (``dt_f32_masked``: the general kernels' rule, o and the
      gradients); timed plain, kernel, kernel, plain at the tool's B=8,
      T=1024 beside SDPA's forward and whole backward on the fp32 operands;
@@ -364,10 +376,12 @@ the fp32 D and the fp32 general backward at B=1, T=16384; K2a's (the split
 kernel) and K3c's on the ring's chunk pair; SDPA and each one's bound beside
 them;
 ``f32_general_times``), P1 and P2 on fp32 operands at B=8, T=1024 and B=1,
-T=8192 beside the fp32 K1 pair and SDPA on the same values
-(``dt_f32_times``), K4 at N=8192 and 4096 and the logits GEMM alone
-(``flash_times``), and fails if a kernel's SASS instruction count moved
-from SASS_BEFORE_DT_F32. Copied into the root of another checkout and
+T=8192 beside the fp32 K1 pair and SDPA on the same values, P1 fp32 also
+at phase 19b's shapes and the A/B tool's --check shape, and where the
+checkout splits it, the parts it takes, its times with 1-8 parts forced and
+its launch and merge counts (``dt_f32_times``), K4 at N=8192 and
+4096 and the logits GEMM alone (``flash_times``), and fails if a kernel's
+SASS instruction count moved from SASS_BEFORE_DT_F32. Copied into the root of another checkout and
 run there, it times that checkout's kernels, so two trees compare on one
 card in the order parent, change, change, parent.
 """
@@ -1339,6 +1353,48 @@ def phase_trainer(torch, mods, cfgs):
     finally:
         tempfile.tempdir = old_tmp
         shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def phase_profiler(torch, mods):
+    print("[9b] ProfilerHook(start_step=1, num_steps=1) in cli.pretrain --synthetic, 3 steps "
+          "of 8,192 tokens, PROFILE_DIR set: the trace of step 2 names the port's kernels",
+          flush=True)
+    from gpt2_vision_language_tpu_torch.obs import csvlog
+    from gpt2_vision_language_tpu_torch.train import pretrain as trainer
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    prof_dir = os.path.join(work, "prof")
+    old_tmp, old_hook, old_env = tempfile.tempdir, trainer.ProfilerHook, os.environ.get(
+        "PROFILE_DIR")
+    tempfile.tempdir = work  # the synthetic shards go under it too
+    os.environ["PROFILE_DIR"] = prof_dir
+    # the trainer makes its hook with the JAX window (10, 5): this run's is
+    # (1, 1), so the trace opens after step 1 and closes after step 2
+    trainer.ProfilerHook = lambda: csvlog.ProfilerHook(start_step=1, num_steps=1)
+    try:
+        t0 = time.perf_counter()
+        mods["pretrain"].main(["--synthetic", "--total-batch", "8192", "--no-hellaswag",
+                               "--no-ckpt", "--val-every", "0", "--sample-every", "0",
+                               "--log-dir", os.path.join(work, "log"), "--steps", "3"])
+        dt = time.perf_counter() - t0
+        traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+        require(len(traces) == 1, f"expected one trace under PROFILE_DIR, got {traces}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        found = {k: [n for n in kernels if k in n] for k in ("flash_fwd", "flash_bwd", "adamw")}
+        print(f"  3 steps in {dt:.1f} s; trace {os.path.getsize(traces[0])} bytes, "
+              f"{len(kernels)} kernel names; the port's: {found}", flush=True)
+        require(all(found.values()), f"the trace does not name the port's kernels: {found}")
+        return {"seconds": dt, "kernel_names": len(kernels), "port_kernels": found}
+    finally:
+        trainer.ProfilerHook = old_hook
+        tempfile.tempdir = old_tmp
+        if old_env is None:
+            os.environ.pop("PROFILE_DIR", None)
+        else:
+            os.environ["PROFILE_DIR"] = old_env
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): bf16 dense tensor-core
@@ -3015,10 +3071,25 @@ def phase_dt_kernels(torch, ab, fa, dev):
 
 
 # phase 19b's shapes (B, Tq, Tk, causal), all H=12: P1's four of phase 19,
-# causal, and an unmasked Tq == Tk whose backward runs whole (b, h) in rounds
-# (24 (b, h) of 16 key tiles on 264 resident blocks: rounds of 16)
+# causal, an unmasked Tq == Tk whose backward runs whole (b, h) in rounds
+# (24 (b, h) of 16 key tiles on 264 resident blocks: rounds of 16), and a
+# causal Tq > Tk, whose query tiles past Tk see every key, split over its
+# key range (T=1024) and whole (T=2048)
 DT_F32_SHAPES = ((2, 1024, 1024, True), (3, 1088, 1088, True), (2, 512, 1024, True),
-                 (1, 8192, 8192, True), (2, 1024, 1024, False))
+                 (1, 8192, 8192, True), (2, 1024, 1024, False), (2, 1024, 512, True),
+                 (2, 2048, 1024, True))
+
+
+def dt_dropped_part(torch, ab, qd, kd, vd, b, tq, tk, causal, parts):
+    """o (dt layout) of P1 fp32's split-and-merge in plain PyTorch with the
+    last part of every query tile of several left out of its merge: the
+    fault that phase 19b's merge control stands for."""
+    h, hs, _ = qd.shape
+    o = torch.empty((h, hs, b, tq), dtype=torch.float32, device=qd.device)
+    for rows, pts in ab.dt_f32_parts_reference(qd, kd, vd, b, tq, tk, causal=causal,
+                                               parts=parts):
+        o[..., rows] = ab.merge_dt_parts(pts[:-1] if len(pts) > 1 else pts)[0]
+    return o.reshape(h, hs, b * tq)
 
 
 def dt_f32_inputs(torch, ab, b, tq, tk, h, dev, g):
@@ -3060,25 +3131,37 @@ def phase_dt_kernels_f32(torch, ab, dev):
     g = torch.Generator(dev).manual_seed(191)
     h, hs = 12, 64
     scale = hs ** -0.5
-    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "max_rel": 0.0, "row": 0.0, "controls": {}}
+    errs = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "max_rel": 0.0, "row": 0.0, "controls": {},
+            "parts": {}}
     timing = {}
+    slots = ab._dt_f32_slots(dev.index)
     for b, tq, tk, causal in DT_F32_SHAPES:
+        parts = ab.dt_f32_parts(b * h, tq, tk, causal, slots)
+        errs["parts"][f"B{b}_Tq{tq}_Tk{tk}_{'causal' if causal else 'nomask'}"] = parts
         qd, kd, vd, dod = dt_f32_inputs(torch, ab, b, tq, tk, h, dev, g)
-        n0 = (ab.flash_fwd_dt_b.launches_f32, ab.flash_bwd_dt_b.launches_f32)
+        n0 = (ab.flash_fwd_dt_b.launches_f32, ab.flash_bwd_dt_b.launches_f32,
+              ab.flash_fwd_dt_b.launches_f32_merge)
         o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, tq, tk, causal=causal)
-        o2, lse2 = ab.flash_fwd_dt_b(qd, kd, vd, b, tq, tk, causal=causal)
+        same = True
+        for _ in range(F32_BWD_RUNS - 1):
+            o2, lse2 = ab.flash_fwd_dt_b(qd, kd, vd, b, tq, tk, causal=causal)
+            same = same and torch.equal(o, o2) and torch.equal(lse, lse2)
+            del o2, lse2
         dcap = ab.dcap_dt(o, dod)
         args = (qd, kd, vd, dod, lse, dcap, b, tq, tk)
         got = ab.flash_bwd_dt_b(*args, causal=causal, dq_scale=scale)
-        same = torch.equal(o, o2) and torch.equal(lse, lse2)
         for _ in range(F32_BWD_RUNS - 1):
             again = ab.flash_bwd_dt_b(*args, causal=causal, dq_scale=scale)
             same = same and all(torch.equal(x, y) for x, y in zip(got, again))
             del again
         torch.cuda.synchronize()
-        require((ab.flash_fwd_dt_b.launches_f32, ab.flash_bwd_dt_b.launches_f32)
-                == (n0[0] + 2, n0[1] + F32_BWD_RUNS), "the fp32 dt kernels did not run")
-        del o2, lse2
+        # the merge runs with every forward of a split shape and with none
+        # of the others
+        require((ab.flash_fwd_dt_b.launches_f32, ab.flash_bwd_dt_b.launches_f32,
+                 ab.flash_fwd_dt_b.launches_f32_merge)
+                == (n0[0] + F32_BWD_RUNS, n0[1] + F32_BWD_RUNS,
+                    n0[2] + (F32_BWD_RUNS if parts > 1 else 0)),
+                "the fp32 dt kernels (or P1's merge) did not run as the parts say")
         if causal:
             ro, rlse = dt_fwd_by_heads(torch, ab, qd, kd, vd, b, tq, tk)
         else:
@@ -3094,13 +3177,14 @@ def phase_dt_kernels_f32(torch, ab, dev):
         bthd = [ab.from_dt(x, b, n) for x, n in zip(got, (tq, tk, tk))]
         rthd = [ab.from_dt(x, b, n) for x, n in zip(want, (tq, tk, tk))]
         rels, rows = f32_bwd_errs(bthd, rthd, causal)
-        print(f"  B={b} Tq={tq} Tk={tk} {'causal' if causal else 'no mask'}: o max|err| "
+        print(f"  B={b} Tq={tq} Tk={tk} {'causal' if causal else 'no mask'}, P1 {parts} "
+              f"part{'s' if parts > 1 else ''} a query tile: o max|err| "
               f"{eo:.3e}, lse {el:.3e} (tol {F32_TOL}), max row |err| / |ref| {erow:.3e} (tol "
               f"{F32_ROW_TOL}); dq, dk, dv max|err| / max|ref| "
               + ", ".join(f"{e:.3e}" for e in rels) + f" (tol {F32_TOL}), max row |err| / "
               "(|ref| + mean row norm) " + ", ".join(f"{r:.3e}" for r in rows)
-              + f" (tol {F32_ROW_TOL}); {o.dtype}; the forward bit-equal twice, the backward "
-              f"over {F32_BWD_RUNS} runs: {same}", flush=True)
+              + f" (tol {F32_ROW_TOL}); {o.dtype}; both bit-equal over {F32_BWD_RUNS} runs: "
+              f"{same}", flush=True)
         require(all(x.dtype == torch.float32 for x in (o, *got)),
                 "the fp32 dt kernels are not fp32")
         require(max(eo, el) <= F32_TOL and erow <= F32_ROW_TOL,
@@ -3113,6 +3197,13 @@ def phase_dt_kernels_f32(torch, ab, dev):
         errs["max_rel"], errs["row"] = max(errs["max_rel"], *rels), max(errs["row"], *rows)
         # controls, each a fault the rules above must see
         ctrl = {}
+        if parts > 1:
+            # P1's merge without each split query tile's last part
+            short = dt_dropped_part(torch, ab, qd, kd, vd, b, tq, tk, causal, parts)
+            ctrl[f"merge_without_last_part_B{b}_Tq{tq}_Tk{tk}"
+                 + ("" if causal else "_nomask")] = {"o_row": f32_fwd_row_err(
+                ab.from_dt(o, b, tq), ab.from_dt(short, b, tq))}
+            del short
         if tq == 8192:
             # the last 128 rows without their first key tile (a late key sweep)
             late = dt_rows_without_first_keys(torch, qd, kd, vd, tq)
@@ -3187,6 +3278,7 @@ def phase_dt_tool(ab):
           "bench, --bwd", flush=True)
     ab.flash_fwd_dt_b.launches = ab.flash_bwd_dt_b.launches = 0
     ab.flash_fwd_dt_b.launches_f32 = ab.flash_bwd_dt_b.launches_f32 = 0
+    ab.flash_fwd_dt_b.launches_f32_merge = 0
     checks, benches = {}, {}
     for dtype in ("fp32", "bf16"):
         flag = ["--dtype", dtype]
@@ -3197,11 +3289,18 @@ def phase_dt_tool(ab):
     checks["default"] = {"o": ab.main(["--check"]), **ab.main(["--check-bwd"])}
     counts = {"flash_dt_fwd": ab.flash_fwd_dt_b.launches, "flash_dt_bwd": ab.flash_bwd_dt_b.launches,
               "flash_dt_fwd_f32": ab.flash_fwd_dt_b.launches_f32,
-              "flash_dt_bwd_f32": ab.flash_bwd_dt_b.launches_f32}
+              "flash_dt_bwd_f32": ab.flash_bwd_dt_b.launches_f32,
+              "flash_dt_fwd_f32_merge": ab.flash_fwd_dt_b.launches_f32_merge}
     # per dtype: check 1; check-bwd 1 + 1; each bench one set-up call and a
-    # warm-up + 12 timed; the default checks 1 + 1 and 1 more on fp32
+    # warm-up + 12 timed; the default checks 1 + 1 and 1 more on fp32. P1
+    # fp32's merge runs with each forward at a shape that it splits: the four
+    # checks' (B=2, H=3, T=1024), the benches' (B=8, H=12, T=1024)
+    slots = ab._dt_f32_slots(0)  # the tool's device, cuda:0
+    split = [ab.dt_f32_parts(b * h, t, t, True, slots) > 1 for b, h, t in ((2, 3, 1024),
+                                                                          (8, 12, 1024))]
     want = {"flash_dt_fwd": 1 + 1 + 14 + 14, "flash_dt_bwd": 1 + 14,
-            "flash_dt_fwd_f32": 1 + 1 + 14 + 14 + 2, "flash_dt_bwd_f32": 1 + 14 + 1}
+            "flash_dt_fwd_f32": 1 + 1 + 14 + 14 + 2, "flash_dt_bwd_f32": 1 + 14 + 1,
+            "flash_dt_fwd_f32_merge": 4 * split[0] + 28 * split[1]}
     print(f"  launches {counts}", flush=True)
     require(counts == want, f"expected launches {want}, got {counts}")
     # the limits of the tool's checks by dtype: fp32 the TPU tool's own
@@ -5258,6 +5357,7 @@ F32_KERNELS = {"flash_fwd_f32_kernel": "gpt2vl_flash_fwd_f32_warps_per_sm",
                "flash_lse_fwd_f32_kernel": "gpt2vl_flash_lse_fwd_f32_warps_per_sm",
                "flash_lse_merge_f32_kernel": None,
                "flash_dt_fwd_f32_kernel": "gpt2vl_flash_dt_fwd_f32_warps_per_sm",
+               "flash_dt_merge_f32_kernel": None,
                "flash_dt_bwd_f32_kernel": "gpt2vl_flash_dt_bwd_f32_warps_per_sm"}
 # the SASS instruction counts of the fp32 self-attention pair when its blocks
 # were its own, before the general fp32 kernels shared them (cuobjdump -sass
@@ -5383,6 +5483,9 @@ def dt_f32_times(torch, fa, ab, dev, g, out):
         key, iters = f"B{b}_T{t}_causal", (20, 10) if t == 1024 else (5, 3)
         out[f"p1f32_{key}_ms"] = cuda_ms(
             lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True), iters[0])
+        if hasattr(ab, "dt_f32_parts"):  # P1 fp32 split over its key range
+            out[f"p1f32_{key}_parts"] = ab.dt_f32_parts(b * 12, t, t, True,
+                                                        ab._dt_f32_slots(dev.index))
         out[f"k1fwd_f32_same_inputs_{key}_ms"] = cuda_ms(
             lambda: fa.flash_attention(q, k, v, causal=True), iters[0])
         o, lse = ab.flash_fwd_dt_b(qd, kd, vd, b, t, t, causal=True)
@@ -5408,6 +5511,65 @@ def dt_f32_times(torch, fa, ab, dev, g, out):
                                             peak=PEAK_FP32_FLOPS)[0]})
         del q, k, v, do, qd, kd, vd, dod, o, lse, dcap, o1, lse1, qt, kt, vt, leaves, sdpa_o, dot
         torch.cuda.empty_cache()
+    dt_f32_split_times(torch, fa, ab, dev, g, out)
+
+
+# (B, H, Tq, Tk, causal) of P1 fp32's parts A/B: phase 19b's shapes, the
+# A/B tool's --check shape and its timed B=8, T=1024
+DT_F32_SPLIT_SHAPES = ((2, 12, 1024, 1024, True), (3, 12, 1088, 1088, True),
+                       (2, 12, 512, 1024, True), (2, 12, 1024, 1024, False),
+                       (2, 12, 1024, 512, True), (2, 12, 2048, 1024, True),
+                       (2, 3, 1024, 1024, True), (8, 12, 1024, 1024, True),
+                       (1, 12, 8192, 8192, True))
+
+
+def dt_f32_split_times(torch, fa, ab, dev, g, out):
+    """P1 fp32 at each of DT_F32_SPLIT_SHAPES through its wrapper as the
+    checkout has it, into ``out["p1f32_split_ms"]``; where the checkout
+    splits P1 (``ab.dt_f32_parts``), also ``out["p1f32_parts_ab"]``: at each
+    shape the rule's pick, the part count that read fastest, and for each
+    count from 1 to 8 the rule's cost (``ab.dt_f32_cost``), the list-schedule
+    balance and two times with the parts forced (the module's rule replaced
+    for the call), in the order 1, 2, ..., 8, 8, ..., 1, each forced o held
+    to the unforced o's rows within F32_ROW_TOL."""
+    split = hasattr(ab, "dt_f32_parts")
+    out["p1f32_split_ms"], ab_out = {}, {}
+    for b, h, tq, tk, causal in DT_F32_SPLIT_SHAPES:
+        key = f"B{b}_H{h}_Tq{tq}_Tk{tk}_{'causal' if causal else 'nomask'}"
+        qd, kd, vd, _ = dt_f32_inputs(torch, ab, b, tq, tk, h, dev, g)
+        # about 10 ms a reading: 0.42 ms at B=8, H=12, T=1024 (96 units)
+        iters = max(3, min(50, int(2300 / (b * h * tq * tk / 1024 ** 2))))
+        run = lambda: ab.flash_fwd_dt_b(qd, kd, vd, b, tq, tk, causal=causal)  # noqa: E731
+        out["p1f32_split_ms"][key] = cuda_ms(run, iters)
+        if split:
+            rule = ab.dt_f32_parts
+            pick = rule(b * h, tq, tk, causal, ab._dt_f32_slots(dev.index))
+            alts = list(range(1, 9))
+            o_ref = ab.from_dt(run()[0], b, tq)
+            times = {p: [] for p in alts}
+            try:
+                for p in alts + alts[::-1]:
+                    ab.dt_f32_parts = lambda *a, p=p: p
+                    times[p].append(cuda_ms(run, iters))
+                    err = f32_fwd_row_err(ab.from_dt(run()[0], b, tq), o_ref)
+                    require(err <= F32_ROW_TOL, f"P1 fp32 with {p} parts at {key}: row err {err}")
+            finally:
+                ab.dt_f32_parts = rule
+            visible = ab.dt_f32_visible_tiles(tq, tk, causal)
+            slots = ab._dt_f32_slots(dev.index)
+            ab_out[key] = {"pick": pick, "fastest": min(times, key=lambda p: sum(times[p])),
+                           "ms_by_parts": {str(p): t for p, t in times.items()},
+                           "cost_by_parts": {str(p): ab.dt_f32_cost(b * h, tq, tk, causal,
+                                                                    slots, p) for p in alts},
+                           "balance_by_parts": {str(p): fa.split_balance(
+                               b * h, visible, slots, p) for p in alts}}
+            print(f"  P1 fp32 parts A/B at {key}: the rule takes {pick}, fastest "
+                  f"{ab_out[key]['fastest']}; ms by parts "
+                  + ", ".join(f"{p}: {min(t):.4f}" for p, t in times.items()), flush=True)
+        del qd, kd, vd
+        torch.cuda.empty_cache()
+    if split:
+        out["p1f32_parts_ab"] = ab_out
 
 
 def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
@@ -5514,6 +5676,10 @@ def flash_times(torch, fa, fc, ab, dev, so, build_s, card, lib):
         f32_general_times(torch, fa, dev, g, out)
     if hasattr(ab.flash_fwd_dt_b, "launches_f32"):
         dt_f32_times(torch, fa, ab, dev, g, out)
+        # P1 fp32's launches in this run, and those that ran its merge
+        out["p1f32_launches"] = {"flash_dt_fwd_f32": ab.flash_fwd_dt_b.launches_f32,
+                                 "merge": getattr(ab.flash_fwd_dt_b, "launches_f32_merge",
+                                                  None)}
     # P2 at the tool's B=8, T=1024 and at B=1, T=8192, causal, dt inputs;
     # lse and dcap from the plain forward
     (qd, kd, vd, dod), _, (b, h, t, hs) = dt_inputs(torch, ab, dev, 19)
@@ -5646,7 +5812,7 @@ def main() -> int:
     for name in ("flash_fwd_f32_kernel", "flash_bwd_f32_kernel", "flash_general_fwd_f32_kernel",
                  "flash_general_bwd_f32_kernel", "flash_lse_fwd_f32_kernel",
                  "flash_lse_merge_f32_kernel", "flash_dt_fwd_f32_kernel",
-                 "flash_dt_bwd_f32_kernel"):
+                 "flash_dt_merge_f32_kernel", "flash_dt_bwd_f32_kernel"):
         ops = f32_report[name]["opcodes"]
         require(ops["HMMA"] + ops["HGMMA"] == 0, f"{name} has tensor-core products")
         require(f32_report[name]["spill_bytes"] == 0, f"{name} spills")
@@ -5742,6 +5908,7 @@ def main() -> int:
     train = phase_train_step(torch, np, gpt2, mods, cfgs, dev)
     torch.cuda.empty_cache()
     trainer_counts, _ = phase_trainer(torch, mods, cfgs)
+    profiler = phase_profiler(torch, mods)
 
     gen_errs, gen_t = phase_general(torch, fa, dev)
     torch.cuda.empty_cache()
@@ -6057,7 +6224,10 @@ def main() -> int:
         "flash_dt_fwd_f32": {
             "lse_max_abs_err": dt32_errs["lse"], "row_err": dt32_errs["o_row"],
             "controls": dt32_errs["controls"], "build": f32_report["flash_dt_fwd_f32_kernel"],
-            "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL}, "bit_equal_twice": True,
+            "merge_build": f32_report["flash_dt_merge_f32_kernel"],
+            "parts": dt32_errs["parts"], "merge_launches": dt_counts["flash_dt_fwd_f32_merge"],
+            "tol": {"o": F32_TOL, "lse": F32_TOL, "row": F32_ROW_TOL},
+            "bit_equal_runs": F32_BWD_RUNS,
             "shape": "B=8 T=1024 H=12 causal fp32, dt layout (H, hs, B*T)",
             "bound_peak": "67 TFLOP/s fp32 outside the tensor cores",
             "library_is": "F.scaled_dot_product_attention on the fp32 operands"},
@@ -6106,7 +6276,7 @@ def main() -> int:
                                "sdpa_ms": {"B1_T4096": lib_causal,
                                            "B1_T4096_nomask": lib_chunk}}}))
     print(json.dumps({"ab_dt_flash": dt_bench, "dt_f32_seconds": dt32_s,
-                      "k1_at_finetune_shape": k1_short, "card": card}))
+                      "k1_at_finetune_shape": k1_short, "profiler_hook": profiler, "card": card}))
     print(json.dumps({"scoring": {"tokens_per_s": n_tok / dt, "plain_tokens_per_s":
                                   n_tok / dt_plain, "micro_batch_device_ms": score_ms,
                                   "micro_batch_device_ms_by_class": score_split}}))

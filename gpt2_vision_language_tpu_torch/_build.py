@@ -64,7 +64,8 @@ SIGNATURES = {
     "gpt2vl_flash_fused_bwd": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_dt_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "gpt2vl_flash_dt_bwd": [_P] * 9 + [_I] * 6 + [_F, _P],
-    "gpt2vl_flash_dt_fwd_f32": [_P] * 5 + [_I] * 6 + [_P],
+    "gpt2vl_flash_dt_fwd_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "gpt2vl_flash_dt_fwd_f32_slots": [],
     "gpt2vl_flash_dt_fwd_f32_warps_per_sm": [],
     "gpt2vl_flash_dt_bwd_f32": [_P] * 9 + [_I] * 6 + [_F, _P],
     "gpt2vl_flash_dt_bwd_f32_warps_per_sm": [],

@@ -14,7 +14,8 @@
 //     key range; flash_general_bwd_f32.cu: the one-pass block; a query length
 //     Tq and a key length Tk, causal masks right-aligned);
 //   - DT by the A/B tool's dt-layout kernels (flash_dt_fwd_f32.cu: the
-//     forward block; flash_dt_bwd_f32.cu: the one-pass block): q, k, v, o and
+//     forward block over parts of the key range; flash_dt_bwd_f32.cu: the
+//     one-pass block): q, k, v, o and
 //     the gradients (H, hs, B*T), the sequence contiguous, Tq and Tk
 //     multiples of 64 and either the larger, a causal mask without offset
 //     (query i sees the keys j <= i), q pre-scaled by 1 / sqrt(hs), lse and
@@ -371,19 +372,21 @@ struct FwdSmem {
   Quarter<FWD_WR> pt[WARPS];  // per warp: P^T of 16 keys
 };
 
-// A split forward (SPLIT, Case::GENERAL: K2a's kernel, flash_lse_fwd_f32.cu)
-// cuts each query tile's visible key tiles into parts of at most `chunk`
-// tiles, `parts` work items a query tile (those past its visible tiles
-// empty), so that a grid too small for the card fills whole waves of its
-// resident slots. Item i of a one-dimensional grid is part i / BH % parts of
-// query tile ntq - 1 - i / BH / parts of (b, h) = i % BH: the longest
-// query tiles first, (b, h) fastest. A query tile of one part writes its o
-// and lse; the others leave their unnormalised o, running max and running
-// sum in the workspace at item i, and a second kernel merges them in part
-// order.
+// A split forward (SPLIT: K2a's kernel, flash_lse_fwd_f32.cu, Case::GENERAL;
+// P1's, flash_dt_fwd_f32.cu, Case::DT) cuts each query tile's visible key
+// tiles into parts of at most `chunk` tiles, `parts` work items a query tile
+// (those past its visible tiles empty), so that a grid too small for the
+// card fills whole waves of its resident slots. Item i of a one-dimensional
+// grid is part i / BH % parts of query tile ntq - 1 - i / BH / parts of
+// (b, h) = i % BH: the longest query tiles first (under either causal mask a
+// later query tile sees at least the key tiles of an earlier one), (b, h)
+// fastest. A query tile of one part writes its o and lse; the others leave
+// their unnormalised o, running max and running sum in the workspace at item
+// i, and a second kernel merges them in part order.
 struct FwdSplit {
   int BH, parts, chunk;
-  float* ws_o;   // (items, FWD_BQ, HS): a part's o before the division by its row sum
+  float* ws_o;   // (items, FWD_BQ, HS), DT (items, HS, FWD_BQ) as o is laid out: a
+                 // part's o before the division by its row sum
   float* ws_ml;  // (items, 2, FWD_BQ): a part's running max, then its row sum
 };
 
@@ -416,7 +419,7 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
                                               long long ksb, long long kst, long long ksh,
                                               long long vsb, long long vst, long long vsh,
                                               int causal, const FwdSplit& sp = FwdSplit{}) {
-  static_assert(!SPLIT || C == Case::GENERAL, "the split forward is the general case's");
+  static_assert(!SPLIT || C != Case::SELF, "the split forward is the general and dt cases'");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem_raw);
   const int Tk = C == Case::SELF ? Tq : Tk_;
@@ -533,7 +536,28 @@ __device__ __forceinline__ void forward_block(const float* __restrict__ q,
 #pragma unroll
       for (int sh = 4; sh > 0; sh >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], sh);
     const int qq = q0 + r0;
-    if (qq < Tq) {
+    bool several = false;  // one of several parts (SPLIT)
+    if constexpr (SPLIT) several = (n_kv + sp.chunk - 1) / sp.chunk > 1;
+    if (qq < Tq && several) {
+      // acc, m and l into the workspace at this item, by channel as o is
+      // stored: [channel][row], then [m | l][row], 16-byte runs of positions
+      float* wo = sp.ws_o + (long long)blockIdx.x * HS * FWD_BQ + r0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float* dst = wo + (4 * kg + (e < 4 ? e : 28 + e)) * FWD_BQ;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(acc[4][e], acc[5][e], acc[6][e], acc[7][e]);
+      }
+      if (kg == 0) {
+        float* wml = sp.ws_ml + (long long)blockIdx.x * 2 * FWD_BQ + r0;
+        *reinterpret_cast<float4*>(wml) = make_float4(m[0], m[1], m[2], m[3]);
+        *reinterpret_cast<float4*>(wml + 4) = make_float4(m[4], m[5], m[6], m[7]);
+        *reinterpret_cast<float4*>(wml + FWD_BQ) = make_float4(l[0], l[1], l[2], l[3]);
+        *reinterpret_cast<float4*>(wml + FWD_BQ + 4) = make_float4(l[4], l[5], l[6], l[7]);
+      }
+    } else if (qq < Tq) {
       float* ob = o + (long long)b * qsb + (long long)hh * qsh + qq;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {  // channel 4 kg + e, and 32 + 4 kg + e - 4

@@ -5,7 +5,8 @@ analysis notebooks keep working: `train_{ts}.csv` with columns
 [time, phase, step, loss, lr, grad_norm, dt_ms, tok_per_s, hellaswag_acc],
 phases train/val/hella/cider; `log.txt`; end-of-run XLSX export. The
 port's own copy of gpt2_vision_language_tpu/obs/csvlog.py MetricsLogger
-(stdlib only; the same rows from the same calls)."""
+(stdlib only; the same rows from the same calls), and its ProfilerHook on
+torch.profiler (torch imported when a trace starts)."""
 
 from __future__ import annotations
 
@@ -125,3 +126,42 @@ class MetricsLogger:
             print(f"[excel] written: {xlsx}")
         except Exception as e:  # noqa: BLE001 — parity: failure is non-fatal
             print(f"failed to convert to xlsx: {e}")
+
+
+class ProfilerHook:
+    """torch.profiler trace around a step window: set PROFILE_DIR to enable.
+
+    The JAX hook's names and window: the trainer calls ``step(step)`` after
+    each step's log line; at ``start_step`` it starts a trace and at
+    ``start_step + num_steps`` it stops it, so the trace holds steps
+    start_step + 1 .. start_step + num_steps and whatever the trainer ran
+    between those calls. It records the CPU, and the card's kernels where
+    CUDA is available, and writes one Chrome trace under PROFILE_DIR when
+    the window closes (``<host>_<pid>.<ms>.pt.trace.json``, torch's
+    ``tensorboard_trace_handler``). PROFILE_DIR unset or empty means off. As
+    in the JAX hook, a run that ends inside the window never stops its trace:
+    nothing is written, and the profiler stays on in that process, so a later
+    window there fails to start."""
+
+    def __init__(self, start_step: int = 10, num_steps: int = 5):
+        self.dir = os.environ.get("PROFILE_DIR")
+        self.start = start_step
+        self.stop = start_step + num_steps
+        self._prof = None  # the running trace
+
+    def step(self, step: int):
+        if not self.dir:
+            return
+        import torch
+
+        if step == self.start and self._prof is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(self.dir))
+            self._prof.start()
+        elif step == self.stop and self._prof is not None:
+            self._prof.stop()
+            self._prof = None

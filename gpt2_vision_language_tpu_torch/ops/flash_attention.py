@@ -660,20 +660,36 @@ def lse_f32_chunk(tk: int, parts: int) -> int:
     return -(-(-(-tk // KEY_TILE)) // parts)
 
 
-def lse_f32_balance(bh: int, tq: int, tk: int, causal: bool, slots: int, parts: int) -> float:
-    """The share of ``slots`` resident blocks that the split kernel's items
-    keep busy: its work (key tiles swept) over slots x the makespan of the
-    list schedule that hands each item, in the grid's order (the longest query
-    tiles first, each one's parts in turn, (b, h) fastest), to the first slot
-    that comes free; empty parts take no time."""
-    chunk = lse_f32_chunk(tk, parts)
-    lengths = [min(chunk, n - p * chunk)
-               for n in reversed(lse_f32_visible_tiles(tq, tk, causal))
+def split_makespan(bh: int, visible, slots: int, parts: int) -> tuple[int, int, int]:
+    """(work, makespan, split items) of a split forward's grid, its query
+    tiles seeing ``visible`` key tiles each (the split fp32 lse forward's and
+    P1 fp32's grids, csrc/flash_f32.cuh FwdSplit): the key tiles its items
+    sweep, those the busiest of ``slots`` resident blocks sweeps under the
+    list schedule that hands each item, in the grid's order (the longest
+    query tiles first, each one's parts of at most ceil(max(visible) /
+    parts) tiles in turn, (b, h) fastest), to the first slot that comes free
+    (empty parts take no time), and the items of the query tiles cut into
+    more than one part, which the merge reads."""
+    chunk = -(-max(visible) // parts)
+    lengths = [min(chunk, n - p * chunk) for n in reversed(visible)
                for p in range(parts) if p * chunk < n for _ in range(bh)]
     free = [0] * slots
     for length in lengths:
         heapq.heapreplace(free, free[0] + length)
-    return sum(lengths) / (slots * max(free))
+    split = sum(-(-n // chunk) for n in visible if n > chunk) * bh
+    return sum(lengths), max(free), split
+
+
+def split_balance(bh: int, visible, slots: int, parts: int) -> float:
+    """The share of ``slots`` resident blocks that a split forward's items
+    keep busy: its work over slots x the makespan (``split_makespan``)."""
+    work, span, _ = split_makespan(bh, visible, slots, parts)
+    return work / (slots * span)
+
+
+def lse_f32_balance(bh: int, tq: int, tk: int, causal: bool, slots: int, parts: int) -> float:
+    """``split_balance`` of the split fp32 lse forward's grid."""
+    return split_balance(bh, lse_f32_visible_tiles(tq, tk, causal), slots, parts)
 
 
 @functools.lru_cache(maxsize=256)

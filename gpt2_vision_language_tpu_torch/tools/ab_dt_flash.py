@@ -36,7 +36,9 @@ else refused; they run the plain versions ``flash_fwd_dt_b_reference`` and
 ``flash_bwd_dt_b_reference`` for CPU tensors. Nothing falls back from one to
 the other. Each launch adds one to its kernel's counter:
 ``flash_fwd_dt_b.launches`` / ``flash_bwd_dt_b.launches`` for the bf16
-kernels, ``.launches_f32`` beside them for the fp32 ones.
+kernels, ``.launches_f32`` beside them for the fp32 ones, and
+``flash_fwd_dt_b.launches_f32_merge`` for each fp32 forward that also
+launched its merge kernel (a query tile cut into several parts).
 
 Usage (on the card; ``--dtype bf16|fp32``, bf16 by default):
   python -m gpt2_vision_language_tpu_torch.tools.ab_dt_flash [--bwd] [--iters 12]
@@ -49,14 +51,18 @@ inputs and limits):
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..ops.flash_attention import flash_attention, flash_attention_reference
+from ..ops.flash_attention import (
+    LSE_F32_MAX_PARTS, flash_attention, flash_attention_reference, split_makespan,
+)
 
 TILE = 64  # positions per tile of the CUDA kernels
+F32_ROWS = 128  # query rows of a block of the fp32 forward (csrc/flash_f32.cuh FWD_BQ)
 HEAD_SIZE = 64
 # the dtypes the dt kernels take, by the name --dtype gives them
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -97,6 +103,101 @@ def flash_fwd_dt_b_reference(q, k, v, b, tq, tk, *, causal=True):
     p = torch.exp(s - lse[..., None]).to(v.dtype).float()
     o = torch.einsum("hbqk,hdbk->hdbq", p, v.float().reshape(h, hs, b, tk))
     return o.reshape(h, hs, b * tq).to(q.dtype), lse.reshape(h, b * tq)
+
+
+def dt_f32_visible_tiles(tq: int, tk: int, causal: bool) -> list[int]:
+    """The key tiles each 128-row query tile of P1 fp32 sweeps
+    (csrc/flash_f32.cuh visible_key_tiles, Case::DT): every one, or under the
+    mask without offset those up to its last row, all of them for a tile
+    past Tk."""
+    ntk = -(-tk // TILE)
+    return [min(-(-min(qt * F32_ROWS + F32_ROWS, tq) // TILE), ntk) if causal else ntk
+            for qt in range(-(-tq // F32_ROWS))]
+
+
+# What cutting P1 fp32's query tiles costs beside the schedule, in key tiles
+# of one resident slot: each item of a tile of several parts writes its o, m
+# and l to the workspace and the merge reads them back (DT_F32_MERGE_ITEM, the
+# slots sharing that traffic), and the merge is a second launch
+# (DT_F32_MERGE_LAUNCH). Fitted to the parts A/B of `chip_smoke.py
+# --flash-times` (P1 fp32 with 1 to 8 parts forced at nine shapes) on an
+# NVIDIA H100 80GB HBM3, where a key tile takes a slot about 12.8 us: the
+# count of least cost read within 1.1% of the fastest at each shape.
+DT_F32_MERGE_ITEM = 0.5
+DT_F32_MERGE_LAUNCH = 0.5
+
+
+def dt_f32_cost(bh: int, tq: int, tk: int, causal: bool, slots: int, parts: int) -> float:
+    """P1 fp32's time in key tiles of one resident slot with ``parts`` parts
+    a query tile: the list schedule's makespan over the ``slots`` resident
+    blocks (``ops.flash_attention.split_makespan`` over the dt case's visible
+    tiles) and, with more than one part, the merge's share."""
+    _, span, split = split_makespan(bh, dt_f32_visible_tiles(tq, tk, causal), slots, parts)
+    return span + (split * DT_F32_MERGE_ITEM / slots + DT_F32_MERGE_LAUNCH if parts > 1 else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def dt_f32_parts(bh: int, tq: int, tk: int, causal: bool, slots: int) -> int:
+    """Parts a query tile of P1 fp32: the count up to LSE_F32_MAX_PARTS of
+    least ``dt_f32_cost``, the fewest of equal cost; 1 where the
+    one-dimensional grid already fills the card's waves."""
+    return min(range(1, LSE_F32_MAX_PARTS + 1),
+               key=lambda p: (dt_f32_cost(bh, tq, tk, causal, slots, p), p))
+
+
+def dt_f32_parts_reference(q, k, v, b, tq, tk, *, causal, parts):
+    """Plain version of P1 fp32's items on dt-layout tensors: for each 128-row
+    query tile, its rows and, in part order, each part's (o before the
+    division by its row sum (H, hs, B, rows), running max m (H, B, rows), row
+    sum l (H, B, rows)) over its key tiles, parts of at most
+    ceil(max visible / parts) tiles, fp32; a row that sees none of a part's
+    keys has m = -1e30 and l = 0, as in the kernel."""
+    h, hs, _ = q.shape
+    visible = dt_f32_visible_tiles(tq, tk, causal)
+    chunk = -(-max(visible) // parts)
+    s = _scores(q, k, b, tq, tk, causal)  # (H, B, Tq, Tk)
+    v4 = v.float().reshape(h, hs, b, tk)
+    for qt, n in enumerate(visible):
+        rows = slice(qt * F32_ROWS, min(qt * F32_ROWS + F32_ROWS, tq))
+        out = []
+        for p in range(parts):
+            if p * chunk >= n:
+                break
+            keys = slice(p * chunk * TILE, min((p * chunk + chunk) * TILE, tk))
+            sp = s[:, :, rows, keys]
+            m = sp.amax(-1).clamp_min(-1e30)
+            e = torch.exp(sp - m[..., None])
+            out.append((torch.einsum("hbqk,hdbk->hdbq", e, v4[..., keys]), m, e.sum(-1)))
+        yield rows, out
+
+
+def merge_dt_parts(parts):
+    """(o (H, hs, B, rows), lse (H, B, rows)) of a query tile from its parts
+    (``dt_f32_parts_reference``), merged in their order as P1 fp32's merge
+    kernel does: M = max m, L = sum l exp(m - M), o = sum o exp(m - M) / L,
+    lse = M + log L."""
+    mx = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    o, l = 0.0, 0.0
+    for op, m, lp in parts:
+        w = torch.exp(m - mx)
+        l = l + lp * w
+        o = o + op * w[:, None]
+    return o / l[:, None], mx + torch.log(l)
+
+
+def flash_fwd_dt_split_reference(q, k, v, b, tq, tk, *, causal=True, parts=1):
+    """Plain version of P1 fp32 as it computes: each query tile's visible key
+    range cut into ``parts`` parts (``dt_f32_parts_reference``), merged in part
+    order (``merge_dt_parts``). Returns (o (H, hs, B*Tq), lse (H, B*Tq)),
+    fp32, the function of ``flash_fwd_dt_b_reference``."""
+    h, hs, _ = q.shape
+    o = torch.empty((h, hs, b, tq), dtype=torch.float32, device=q.device)
+    lse = torch.empty((h, b, tq), dtype=torch.float32, device=q.device)
+    for rows, pts in dt_f32_parts_reference(q, k, v, b, tq, tk, causal=causal, parts=parts):
+        o[..., rows], lse[..., rows] = merge_dt_parts(pts)
+    return o.reshape(h, hs, b * tq), lse.reshape(h, b * tq)
 
 
 def flash_bwd_dt_b_reference(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True,
@@ -150,10 +251,25 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _dt_f32_slots(device_index) -> int:
+    """P1 fp32's blocks resident at once on a card (SMs x blocks an SM, from
+    the occupancy calculator)."""
+    lib = _build.load()
+    with torch.cuda.device(device_index):
+        n = lib.gpt2vl_flash_dt_fwd_f32_slots()
+    if n <= 0:
+        raise RuntimeError("flash_dt_fwd_f32: the occupancy calculator failed")
+    return n
+
+
 def flash_fwd_dt_b(q, k, v, b, tq, tk, *, causal=True):
     """dt forward: q (H, hs, B*Tq) pre-scaled, k, v (H, hs, B*Tk) ->
     (o (H, hs, B*Tq), lse (H, B*Tq) fp32). The kernel for CUDA tensors (bf16
-    or fp32, by the operands' dtype), the plain version for CPU tensors."""
+    or fp32, by the operands' dtype), the plain version for CPU tensors. The
+    fp32 kernel cuts each query tile's key range into ``dt_f32_parts``
+    parts and merges them in a fixed order (``flash_fwd_dt_split_reference``
+    computes as it does): bit-equal run to run."""
     h, hs, _ = q.shape
     _check_dt("q", q, h, hs, b * tq)
     _check_dt("k", k, h, hs, b * tk)
@@ -166,13 +282,27 @@ def flash_fwd_dt_b(q, k, v, b, tq, tk, *, causal=True):
     o = torch.empty_like(q)
     lse = torch.empty((h, b * tq), dtype=torch.float32, device=q.device)
     lib = _build.load()
-    launch = lib.gpt2vl_flash_dt_fwd_f32 if f32 else lib.gpt2vl_flash_dt_fwd
     with torch.cuda.device(q.device):
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                     b, tq, tk, h, hs, int(causal), _stream(q))
+        if f32:
+            # the fp32 kernel's one-dimensional grid, each query tile's key
+            # range in dt_f32_parts parts; a workspace of items x 128 x
+            # (hs + 2) fp32 where there are several, merged in a fixed order
+            parts = dt_f32_parts(b * h, tq, tk, causal, _dt_f32_slots(q.device.index))
+            items = -(-tq // F32_ROWS) * parts * b * h
+            ws = (torch.empty(items * F32_ROWS * (hs + 2), dtype=torch.float32, device=q.device)
+                  if parts > 1 else None)
+            err = lib.gpt2vl_flash_dt_fwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                None if ws is None else ws.data_ptr(), b, tq, tk, h, hs, int(causal), parts,
+                _stream(q))
+        else:
+            err = lib.gpt2vl_flash_dt_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                          lse.data_ptr(), b, tq, tk, h, hs, int(causal),
+                                          _stream(q))
     _build.check(err, "flash_dt_fwd_f32" if f32 else "flash_dt_fwd")
     if f32:
         flash_fwd_dt_b.launches_f32 += 1
+        flash_fwd_dt_b.launches_f32_merge += int(parts > 1)
     else:
         flash_fwd_dt_b.launches += 1
     return o, lse
@@ -180,6 +310,7 @@ def flash_fwd_dt_b(q, k, v, b, tq, tk, *, causal=True):
 
 flash_fwd_dt_b.launches = 0
 flash_fwd_dt_b.launches_f32 = 0
+flash_fwd_dt_b.launches_f32_merge = 0
 
 
 def flash_bwd_dt_b(q, k, v, do, lse, dcap, b, tq, tk, *, causal=True, dq_scale=1.0):

@@ -6,7 +6,9 @@ rolling checkpoint every 2500, auto-resume), its CSV schema and its
 hyperparameters through ``PretrainConfig``. The token shards are read by
 ``data/fineweb.TokenShardLoader`` and the CSV is written by
 ``obs/csvlog.MetricsLogger``, the port's own copies of the JAX package's host
-modules. Each step's (accum, B, T+1) uint16 row buffer is read and copied to
+modules; with ``$PROFILE_DIR`` set, ``obs/csvlog.ProfilerHook`` writes a
+torch.profiler trace of steps 11-15 there, the JAX trainer's window. Each
+step's (accum, B, T+1) uint16 row buffer is read and copied to
 the device by a background thread (``data/pipeline.HostPrefetcher``: the next
 window is on its way while the current step runs), in its 16 bits through
 pinned memory, and split into x, y and widened to int32 there, as the JAX
@@ -84,7 +86,7 @@ from ..eval.hellaswag import HellaSwagEvaluator
 from ..infer.decode import Decoder
 from ..infer.sampling import sample_top_k
 from ..models import gpt2
-from ..obs.csvlog import MetricsLogger
+from ..obs.csvlog import MetricsLogger, ProfilerHook
 from ..ops import ring_attention
 from ..parallel import collectives as coll
 from ..parallel.mesh import init_distributed, is_master, make_mesh, world_size
@@ -296,6 +298,7 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
     log = MetricsLogger(cfg.log_dir, is_master=master)
     log.meta("tokenizer", tokenizer.name)
     log.meta("argv", " ".join(sys.argv))
+    prof = ProfilerHook()
     manager = CheckpointManager(os.path.join(log.log_dir, "ckpts"),
                                 save_every=cfg.save_every, enabled=cfg.save_ckpt,
                                 is_master=master, tree_fn=whole_tree)
@@ -384,6 +387,7 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
             dt = time.time() - t0
             log.train(step, metrics["loss"], metrics["lr"], metrics["grad_norm"],
                       dt * 1000, tokens_per_step / dt)
+            prof.step(step)
     finally:
         prefetch.close()
 

@@ -420,3 +420,23 @@ def test_lse_dropped_part_fails_the_f32_row_rule(tq, tk, causal, parts):
     assert cs.f32_fwd_row_err(whole, ro) <= cs.F32_ROW_TOL
     assert cs.f32_fwd_row_err(cs.lse_dropped_part(torch, fa, q, k, v, causal, parts),
                               ro) > cs.F32_ROW_TOL
+
+
+@pytest.mark.parametrize("b,tq,tk,causal,parts", [(2, 512, 1024, True, 4),
+                                                  (1, 1088, 1088, True, 6),
+                                                  (2, 256, 256, False, 2)])
+def test_dt_dropped_part_fails_the_f32_row_rule(b, tq, tk, causal, parts):
+    """Phase 19b's merge control: P1 fp32's split-and-merge without each
+    split query tile's last part fails the fp32 row rule against the plain
+    dt forward, which the whole split-and-merge passes (Tq < Tk, the ragged
+    Tq = 1088, unmasked)."""
+    rng = np.random.RandomState(25)
+    qd, kd, vd = (ab.to_dt(torch.from_numpy(rng.randn(b, n, 2, HS).astype(np.float32)))
+                  for n in (tq, tk, tk))
+    qd = qd * HS ** -0.5
+    ro, _ = ab.flash_fwd_dt_b_reference(qd, kd, vd, b, tq, tk, causal=causal)
+    whole, _ = ab.flash_fwd_dt_split_reference(qd, kd, vd, b, tq, tk, causal=causal,
+                                               parts=parts)
+    assert cs.f32_fwd_row_err(ab.from_dt(whole, b, tq), ab.from_dt(ro, b, tq)) <= cs.F32_ROW_TOL
+    short = cs.dt_dropped_part(torch, ab, qd, kd, vd, b, tq, tk, causal, parts)
+    assert cs.f32_fwd_row_err(ab.from_dt(short, b, tq), ab.from_dt(ro, b, tq)) > cs.F32_ROW_TOL

@@ -249,7 +249,7 @@ def test_fp32_pair_is_ffma_only(name, entry):
 @pytest.mark.parametrize("name,instance", [
     ("flash_fwd_f32.cu", "forward_block<Case::SELF>("),
     ("flash_general_fwd_f32.cu", "forward_block<Case::GENERAL>("),
-    ("flash_dt_fwd_f32.cu", "forward_block<Case::DT>("),
+    ("flash_dt_fwd_f32.cu", "forward_block<Case::DT, true>("),
     ("flash_bwd_f32.cu", "backward_grid<Case::SELF>("),
     ("flash_general_bwd_f32.cu", "pair_grid<Case::GENERAL>("),
     ("flash_lse_fwd_f32.cu", "forward_block<Case::GENERAL, true>("),
@@ -261,7 +261,8 @@ def test_fp32_blocks_are_written_once(name, instance):
     compile-time parameter: the self-attention kernels instance the forward
     block and the backward grid (its only user) with Case::SELF, the A/B
     tool's dt-layout ones (the transposed layout, no offset) the forward
-    block and the one-pass grid with Case::DT, the general forward (Tq !=
+    block split over the key range (its second kernel the merge of the
+    parts) and the one-pass grid with Case::DT, the general forward (Tq !=
     Tk, the right-aligned causal offset) the forward block with
     Case::GENERAL, the lse forward the same block split over the key range
     (its second kernel the merge of the parts), and the general backward the
@@ -274,7 +275,7 @@ def test_fp32_blocks_are_written_once(name, instance):
                  "void backward_grid(", "void pair_block(", "void pair_grid("):
         assert body in header
     text = (_build.CSRC / name).read_text()
-    two = ("flash_bwd_f32.cu", "flash_lse_fwd_f32.cu")
+    two = ("flash_bwd_f32.cu", "flash_lse_fwd_f32.cu", "flash_dt_fwd_f32.cu")
     assert instance in text and text.count("__global__") == (2 if name in two else 1)
     for product in ("rows_by_keys<", "keys_by_rows(", "acc_keys(", "acc_rows(", "rows_by_rows(",
                     "keys_by_channels(", "rows_by_channels("):
