@@ -333,23 +333,37 @@ first from the same seeded state on the same rows, at the schedule's peak
 LR (``PAR_LIMITS``: loss 1e-2, grad norm 2%, grads 2e-2 relative L2, the
 clip norm within 1e-4 of its own gathered grads' norm, the update within
 1e-3 of the plain AdamW replayed on its gathered grads; the ring's loss
-5e-3), and each rank's launch counts exact:
+5e-3), and each rank's launch counts exact (the command lines of 32b and 33b
+run side by side, as 37b and the dry run of 40 do, to keep the script
+within its time):
  32. DP over 2 ranks, GPT-2 124M, bf16: 2 micro-batches of (B=8, T=1024) a
      rank, phase 8's 32 rows (12 + 12 K1 a micro-batch, 1 K5 a rank); a
      control that skips the grad all-reduce must fail; then python -m
      torch.distributed.run --nproc_per_node 2 -m ...cli.pretrain --synthetic
-     --devices 2 --device cuda:0 --val-every 0 --steps 1, and --steps 2
-     resumes;
+     --devices 2 --device cuda:0 --val-every 0 --steps 1 at 2 layers
+     (``CUT_LAYERS``), and --steps 2 resumes;
  33. Megatron TP=2 (6 heads a rank), then TP=2 with sequence parallelism,
-     4 x (B=8, T=1024); K1 at H=6, 48 + 48 a rank; one validation
-     micro-batch through K4 on the gathered wte (12 K1-fwd, 1 K4, its loss
-     within 1e-2);
+     2 layers of 124M, 4 x (B=8, T=1024); K1 at H=6, 8 + 8 a rank; one
+     validation micro-batch through K4 on the gathered wte (2 K1-fwd, 1 K4,
+     its loss within 1e-2);
  34. TP=4 at the 1558M width (n_embd 1600, 25 heads: 7, 6, 6, 6 a rank), 2
      layers, 2 x (B=2, T=1024); a control whose clip norm counts the
      replicated leaves 4 times must fail;
- 35. the ring over 4 processes, 124M, 2 x (B=1, T=16384), a chunk of 4096 a
-     rank (K/V through pinned host memory): rank r launches K2a, D and K3c
-     24 (r + 1) times, 240 each in all, as the one-process ring;
+ 35. the ring over 4 processes in the JAX trainer's placement, 124M, 2 x
+     (B=1, T=16384): each rank its Megatron shards of the params and
+     moments (3 heads; the bytes of each rank equal ``megatron_bytes``, the
+     whole model on every rank must fail that check), each attention's heads
+     swapped for a T/4 chunk of every head by an all-to-all around the ring
+     (K/V hops and swaps through pinned host memory, 240 a rank): rank r
+     launches K2a, D and K3c 24 (r + 1) times, 240 each in all, as the
+     one-process ring; at 2 layers and T=4096 (a chunk of 1024 a rank): 35b
+     with sequence parallelism, 35c with the layerwise backward (K2a
+     8 (r + 1), D and K3c 4 (r + 1)), 35d with sequence parallelism at the
+     1558M width (7, 6, 6, 6 heads), 35e under FP32_POLICY (the fp32 K2a and
+     K3c, the latter's cooperative grid with four processes on the card;
+     limits 1e-4); two controls must fail: the all-to-all's backward as the
+     identity on the rank's own block, and the ring's merge without its
+     weights;
  36. DP fine-tunes (linear, Q-Former with its dropout) over 2 ranks of 64
      rows, the preset's 128 in all, 2 micro-batches, 12 layers.
 
@@ -388,6 +402,7 @@ card in the order parent, change, change, parent.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import glob
@@ -4774,6 +4789,11 @@ def phase_big_model(torch, np, gpt2, mods, cfgs, dev):
 PAR_LIMITS = {"loss_abs": 1e-2, "grad_norm_rel": 2e-2, "grads_rel_l2": 2e-2,
               "norm_self_rel": 1e-4, "update_max_rel": 1e-3, "eval_abs": 1e-2}
 RING_LIMITS = dict(PAR_LIMITS, loss_abs=5e-3)
+# the depth of the multi-process phases but 32's DP step, 34's 2 layers of
+# the 1558M width and 35's ring: phase 33's TP steps, the command lines of
+# 32b, 33b and 37b, and the pipelines of 37-38 run 2 of the preset's 12
+# layers, to keep the script within its time
+CUT_LAYERS = 2
 
 
 def par_check(name, rec, limits, control=False):
@@ -4824,12 +4844,13 @@ def write_hellaswag5(work):
     return hs
 
 
-def cli_pair(work, root, label, args, runs, cli_s, cli_counts, hs=None):
+def cli_pair(work, root, label, args, runs, cli_s, cli_counts, hs=None, model=None):
     """Invocations of ``args`` on 2 processes (python -m torch.distributed.run
     --nproc_per_node 2 of the worker's "cli" job) on one log dir, each after
     the first resuming: ``runs`` is ((--steps, {kernel: launches a rank},
     host-staged exchanges a rank), ...). Returns (the log dir, the last
-    invocation's output)."""
+    invocation's output). ``model``: the job's architecture, the preset's
+    replaced (GPTConfig keyword arguments)."""
     from gpt2_vision_language_tpu_torch.tools import dist_worker  # noqa: F401
 
     log = os.path.join(work, f"{label}_log")
@@ -4839,6 +4860,8 @@ def cli_pair(work, root, label, args, runs, cli_s, cli_counts, hs=None):
                "argv": args + ["--log-dir", log, "--steps", str(steps)]}
         if hs:
             job["hellaswag_dir"] = hs
+        if model:
+            job["model"] = model
         path = os.path.join(work, f"{tag}.json")
         with open(path, "w") as f:
             json.dump(job, f)
@@ -4865,7 +4888,7 @@ def cli_pair(work, root, label, args, runs, cli_s, cli_counts, hs=None):
                     f"{tag} rank {r}: {rec['host_staged']} host-staged exchanges, expected {staged}")
         cli_counts[tag] = [rec["launch_counts"] for rec in recs]
         steps_logged = [ln for ln in text.splitlines() if ln.startswith("step ")]
-        print(f"  --steps {steps}: {cli_s[label][-1]:.1f} s; launches a rank "
+        print(f"  {label} --steps {steps}: {cli_s[label][-1]:.1f} s; launches a rank "
               + "; ".join(json.dumps({k: v for k, v in rec["launch_counts"].items() if v})
                           for rec in recs)
               + f"; host-staged a rank {staged}; " + "; ".join(steps_logged), flush=True)
@@ -4894,6 +4917,7 @@ def phase_parallel(torch, np, cfgs, dev):
         paths[name] = os.path.join(work, f"{name}.npy")
         np.save(paths[name], a.astype(np.int32))
     out, seconds = {}, {}
+    tp_model = {"n_layer": CUT_LAYERS}
 
     print("[32-33, 36] 2 processes on cuda:0 over gloo: DP, TP, TP+SP (GPT-2 124M, bf16, the "
           "global batch of phase 8: 4 x (B=8, T=1024)), DP fine-tunes", flush=True)
@@ -4902,8 +4926,8 @@ def phase_parallel(torch, np, cfgs, dev):
         {"tag": "dp", "mesh": [2, 1], "rows": paths["rows_dp"], "model": {}},
         {"tag": "dp_no_allreduce", "mesh": [2, 1], "rows": paths["rows_dp"], "model": {},
          "fault": "skip_allreduce"},
-        {"tag": "tp2", "mesh": [1, 2], "rows": paths["rows8"], "model": {}, "eval": True},
-        {"tag": "tp2_sp", "mesh": [1, 2], "rows": paths["rows8"], "model": {}, "eval": True,
+        {"tag": "tp2", "mesh": [1, 2], "rows": paths["rows8"], "model": tp_model, "eval": True},
+        {"tag": "tp2_sp", "mesh": [1, 2], "rows": paths["rows8"], "model": tp_model, "eval": True,
          "seq_parallel": True},
         # half the preset's per-rank batch: 2 ranks of 64 rows hold its 128
         {"kind": "ftstep", "tag": "ft_linear", "bridge": "linear", "n_layer": 12, "accum": 2,
@@ -4920,14 +4944,15 @@ def phase_parallel(torch, np, cfgs, dev):
     par_check("dp", recs["dp"][0], PAR_LIMITS)
     par_counts("dp", recs["dp"], k1)
     par_check("dp_no_allreduce (control)", recs["dp_no_allreduce"][0], PAR_LIMITS, control=True)
-    print("[33] TP=2 (6 heads a rank) and TP=2 with sequence parallelism, 4 x (B=8, T=1024)",
-          flush=True)
+    print(f"[33] TP=2 (6 heads a rank) and TP=2 with sequence parallelism, {CUT_LAYERS} layers "
+          "of 124M, 4 x (B=8, T=1024)", flush=True)
     for tag in ("tp2", "tp2_sp"):
         require([r["local_heads"] for r in recs[tag]] == [6, 6], f"{tag}: not 6 heads a rank")
         par_check(tag, recs[tag][0], PAR_LIMITS)
-        par_counts(tag, recs[tag], {"flash_fwd": 48, "flash_bwd": 48, "adamw": 1})
+        par_counts(tag, recs[tag], {"flash_fwd": 4 * CUT_LAYERS, "flash_bwd": 4 * CUT_LAYERS,
+                                    "adamw": 1})
         for r, rec in enumerate(recs[tag]):  # the validation micro-batch: K4 on the gathered wte
-            require(rec["eval_counts"] == with_zeros({"flash_fwd": 12, "ce_fwd": 1}),
+            require(rec["eval_counts"] == with_zeros({"flash_fwd": CUT_LAYERS, "ce_fwd": 1}),
                     f"{tag} rank {r}: validation launches {rec['eval_counts']}")
     print("[36] DP fine-tunes, 2 ranks of 64 rows, 2 x (B=128, T=32) a step, 12 layers",
           flush=True)
@@ -4940,51 +4965,13 @@ def phase_parallel(torch, np, cfgs, dev):
     dp_counts = recs["dp"][0]["launch_counts"]
     tp_counts = recs["tp2"][0]["launch_counts"]
 
-    print("[34-35] 4 processes on cuda:0 over gloo: TP=4 at the 1558M width (7, 6, 6, 6 "
-          "heads), the ring of 4 chunks at T=16384", flush=True)
-    wide = {"n_layer": 2, "n_head": 25, "n_embd": 1600}
-    jobs = [
-        {"tag": "tp4_wide", "mesh": [1, 4], "rows": paths["rows_wide"], "model": wide},
-        {"tag": "tp4_norm_counts_replicated", "mesh": [1, 4], "rows": paths["rows_wide"],
-         "model": wide, "fault": "count_replicated"},
-        {"tag": "ring4", "mesh": [1, 4], "rows": paths["rows_ring"], "ring": True,
-         "model": {"block_size": 16384}},
-    ]
-    t0 = time.perf_counter()
-    dist_worker.launch(dict(base, kind="jobs", tag="four", jobs=jobs), 4, timeout=600,
-                       workdir=work)
-    seconds["four_process_launch"] = time.perf_counter() - t0
-    recs4 = {j["tag"]: par_records(work, j["tag"], 4) for j in jobs}
-    print("[34] TP=4 at n_embd=1600, n_head=25, 2 layers, 2 x (B=2, T=1024)", flush=True)
-    require([r["local_heads"] for r in recs4["tp4_wide"]] == [7, 6, 6, 6],
-            "tp4_wide: heads are not 7, 6, 6, 6")
-    par_check("tp4_wide", recs4["tp4_wide"][0], PAR_LIMITS)
-    par_counts("tp4_wide", recs4["tp4_wide"], {"flash_fwd": 4, "flash_bwd": 4, "adamw": 1})
-    par_check("tp4_norm_counts_replicated (control)", recs4["tp4_norm_counts_replicated"][0],
-              PAR_LIMITS, control=True)
-    print("[35] the ring over 4 processes: GPT-2 124M, 2 x (B=1, T=16384), a chunk of 4096 a "
-          "rank", flush=True)
-    ring = recs4["ring4"]
-    par_check("ring4", ring[0], RING_LIMITS)
-    # rank r computes its own chunk and the r before it: 1 + r pairs a layer,
-    # each a K2a, a D and a K3c launch
-    par_counts("ring4", ring, [{k: 24 * (r + 1) for k in ("flash_lse_fwd", "flash_rowdot",
-                                                         "flash_fused_bwd")} | {"adamw": 1}
-                               for r in range(4)])
-    for k in ("flash_lse_fwd", "flash_rowdot", "flash_fused_bwd"):
-        require(sum(r["launch_counts"][k] for r in ring) == 240,
-                f"the ranks' {k} launches do not sum to the one-process ring's 240")
-    out.update({tag: {"errors": rs[0]["errors"], "seconds": [r["seconds"] for r in rs],
-                      "peak_gib": [r["peak_gib"] for r in rs]} for tag, rs in recs4.items()})
-    out["ring4"]["tokens_per_s"] = ring[0]["tokens_per_step"] / ring[0]["seconds"][-1]
-    ring_counts = {k: sum(r["launch_counts"][k] for r in ring) for k in ring[0]["launch_counts"]}
+    recs4, ring_paths = phase_ring_parallel(torch, np, cfgs, base, paths, work, seconds, out)
     out["host_staged_calls"] = {tag: [r["host_staged"] for r in rs]
                                 for tag, rs in {**recs, **recs4}.items()}
-    # only the ring's send/recv cross host memory: 12 layers x 3 hops of
-    # K/V forward and 3 backward a micro-batch, 2 micro-batches
-    for tag, staged in out["host_staged_calls"].items():
-        want = [144] * 4 if tag == "ring4" else [0] * len(staged)
-        require(staged == want, f"{tag}: host-staged exchanges a rank {staged}, expected {want}")
+    for tag in recs:  # only the ring's hops and swaps cross host memory
+        staged = out["host_staged_calls"][tag]
+        require(staged == [0] * len(staged),
+                f"{tag}: host-staged exchanges a rank {staged}, expected none")
 
     # the command line as users launch it, each rank's cli.pretrain.main run
     # through the worker's "cli" job, which reads its launch counts
@@ -4992,38 +4979,45 @@ def phase_parallel(torch, np, cfgs, dev):
     hs = write_hellaswag5(work)
     cli_s, cli_counts = {}, {}
 
-    def cli_runs(label, args, runs, hellaswag=False):
+    def cli_runs(label, args, runs, hellaswag=False, model=None):
         return cli_pair(work, root, label, args, [(n, w, 0) for n, w in runs], cli_s, cli_counts,
-                        hs if hellaswag else None)
+                        hs if hellaswag else None, model)
 
-    n_layer = cfgs["gpt"].n_layer
     print("[32b] python -m torch.distributed.run --nproc_per_node 2 -m "
           "gpt2_vision_language_tpu_torch.tools.dist_worker JOB: cli.pretrain --synthetic "
           "--devices 2 --device cuda:0 --total-batch 32768 --val-every 0 --steps 1 (2 x (B=8, "
-          "T=1024) a rank), then --steps 2 (a resume)", flush=True)
-    k1_micro = lambda n: {"flash_fwd": n_layer * n, "flash_bwd": n_layer * n}  # noqa: E731
-    log, _ = cli_runs("cli_dp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
+          f"T=1024) a rank, {CUT_LAYERS} layers of 124M), then --steps 2 (a resume)", flush=True)
+    print("[33b] beside 32b, the same of cli.pretrain --devices 2 --tp 2 --seq-parallel --device "
+          "cuda:0 --micro-batch 1 --total-batch 1024 --val-every 1 --save-every 1 "
+          f"--sample-every 1 --steps 1, {CUT_LAYERS} layers of 124M, HellaSwag of 5 examples, "
+          "then --steps 2 (a resume)", flush=True)
+    k1_micro = lambda n: {"flash_fwd": CUT_LAYERS * n, "flash_bwd": CUT_LAYERS * n}  # noqa: E731
+    # 33b: a step: its micro-batch; validation: 20 micro-batches, each a K1 a
+    # layer and one K4 on the gathered wte; HellaSwag: the one data rank's 5
+    # examples on both model ranks, one forward at the 64-token width bucket,
+    # under the flash kernel's T >= 512 (ops/attention.AUTO_FLASH_MIN_T):
+    # plain attention, as on one process; sampling: no kernel. The two
+    # command lines run side by side (their own processes and log dirs), to
+    # keep the script within its time
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        dp_cli = pool.submit(
+            cli_runs, "cli_dp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
                                  "--device", "cuda:0", "--total-batch", "32768",
                                  "--val-every", "0", "--no-hellaswag"],
-                      ((1, {**k1_micro(2), "adamw": 1}), (2, {**k1_micro(2), "adamw": 1})))
-    # without validation only model_final is written, by the master alone
-    require(os.listdir(os.path.join(log, "ckpts")) == ["model_final.pt"],
-            "the CLI's checkpoints")
-    print("[33b] the same of cli.pretrain --devices 2 --tp 2 --seq-parallel --device cuda:0 "
-          "--micro-batch 1 --total-batch 1024 --val-every 1 --save-every 1 --sample-every 1 "
-          "--steps 1, HellaSwag of 5 examples, then --steps 2 (a resume)", flush=True)
-    # a step: its micro-batch; validation: 20 micro-batches, each 12 K1 and
-    # one K4 on the gathered wte; HellaSwag: the one data rank's 5 examples
-    # on both model ranks, one forward at the 64-token width bucket, under
-    # the flash kernel's T >= 512 (ops/attention.AUTO_FLASH_MIN_T): plain
-    # attention, as on one process; sampling: no kernel
-    log, text = cli_runs(
-        "cli_tp_sp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2", "--tp", "2",
-                      "--seq-parallel", "--device", "cuda:0", "--micro-batch", "1",
-                      "--total-batch", "1024", "--val-every", "1", "--save-every", "1",
-                      "--sample-every", "1"],
-        [(n, {"flash_fwd": n_layer * (1 + 20), "flash_bwd": n_layer, "ce_fwd": 20, "adamw": 1})
-         for n in (1, 2)], hellaswag=True)
+            ((1, {**k1_micro(2), "adamw": 1}), (2, {**k1_micro(2), "adamw": 1})), model=tp_model)
+        tp_cli = pool.submit(
+            cli_runs, "cli_tp_sp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
+                                    "--tp", "2", "--seq-parallel", "--device", "cuda:0",
+                                    "--micro-batch", "1", "--total-batch", "1024",
+                                    "--val-every", "1", "--save-every", "1", "--sample-every",
+                                    "1"],
+            [(n, {"flash_fwd": CUT_LAYERS * (1 + 20), "flash_bwd": CUT_LAYERS, "ce_fwd": 20,
+                  "adamw": 1}) for n in (1, 2)], hellaswag=True, model=tp_model)
+        log, _ = dp_cli.result()
+        # without validation only model_final is written, by the master alone
+        require(os.listdir(os.path.join(log, "ckpts")) == ["model_final.pt"],
+                "the CLI's checkpoints")
+        log, text = tp_cli.result()
     require(sorted(os.listdir(os.path.join(log, "ckpts")))
             == ["model_best.pt", "model_final.pt", "model_last.pt"], "the TP CLI's checkpoints")
     final = torch.load(os.path.join(log, "ckpts", "model_final.pt"), map_location="cpu",
@@ -5044,7 +5038,8 @@ def phase_parallel(torch, np, cfgs, dev):
         "32": wall["dp"] + wall["dp_no_allreduce"] + sum(cli_s["cli_dp"]),
         "33": wall["tp2"] + wall["tp2_sp"] + sum(cli_s["cli_tp_sp"]),
         "34": wall["tp4_wide"] + wall["tp4_norm_counts_replicated"],
-        "35": wall["ring4"], "36": wall["ft_linear"] + wall["ft_qformer"]}
+        "35": wall["ring4"], "35b-e": sum(wall[t] for t in RING_JOBS),
+        "36": wall["ft_linear"] + wall["ft_qformer"]}
     print("  wall seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds["phases"].items())
           + f"; tokens/s: DP {out['dp']['tokens_per_s']:.1f}, the process ring "
@@ -5052,8 +5047,193 @@ def phase_parallel(torch, np, cfgs, dev):
           flush=True)
     out["seconds"] = seconds
     out["cli_launches"] = cli_counts
-    return out, {"dp_train_step": dp_counts, "tp_train_step": tp_counts,
-                 "process_ring_train_step": ring_counts}
+    return out, {"dp_train_step": dp_counts, "tp_train_step": tp_counts, **ring_paths}
+
+
+# the ring compositions of phases 35b-e and their controls, each a job of the
+# 4-process launch on 2 layers: tag -> (its model and rows in
+# phase_ring_parallel's RING_MODELS, its job's own keys)
+RING_JOBS = {
+    "ring4_sp": ("two", {"seq_parallel": True}),
+    "ring4_layerwise": ("two", {"layerwise": True}),
+    "ring4_sp_wide": ("wide", {"seq_parallel": True}),
+    "ring4_f32": ("two", {"policy": "fp32"}),
+    "ring4_a2a_identity_backward": ("two", {"fault": "a2a_identity_backward"}),
+    "ring4_drop_merge_weights": ("two", {"fault": "drop_merge_weights"}),
+}
+# the models of phase 35's launch (GPTConfig keyword arguments, the 124M
+# preset's width unless given) and the sequence length of their rows: 35 at
+# full depth and T=16384, the compositions and the controls at 2 layers and
+# T=4096 (a chunk of 1024 a rank; the controls share 35b's one-process step),
+# 35d at the 1558M width
+RING_MODELS = {
+    "ring4": ({"block_size": 16384}, 16384),
+    "two": ({"n_layer": 2, "block_size": 4096}, 4096),
+    "wide": ({"n_layer": 2, "n_head": 25, "n_embd": 1600, "block_size": 4096}, 4096),
+}
+
+
+def megatron_bytes(torch, cfg, n):
+    """The fp32 parameter bytes each of n ranks holds under the Megatron
+    placement of ``cfg`` (parallel/sharding.TensorParallel's whole heads, MLP
+    columns and vocab rows; every other leaf whole)."""
+    from gpt2_vision_language_tpu_torch.models import gpt2
+    from gpt2_vision_language_tpu_torch.parallel.sharding import TensorParallel
+
+    with torch.device("meta"):
+        shapes = {n_: tuple(p.shape) for n_, p in gpt2.named_params(gpt2.GPT2(cfg)).items()}
+    out = []
+    for r in range(n):
+        tp = TensorParallel(None, r, n, cfg)
+        total = 0
+        for name, shape in shapes.items():
+            where = tp.index(name, shape)
+            numel = math.prod(shape)
+            total += numel if where is None else numel // shape[where[0]] * len(where[1])
+        out.append(4 * total)
+    return out
+
+
+def placement_bytes_excess(held, want):
+    """Each rank's (param bytes, moment bytes) against the Megatron
+    placement's fp32 params ``want[r]`` and their two fp32 moments: the
+    bytes over or under, 0 where the rank holds its shards."""
+    return [abs(p - w) + abs(m - 2 * w) for (p, m), w in zip(held, want)]
+
+
+def ring_check(name, recs, want_counts, staged, want_bytes, limits=RING_LIMITS):
+    """A ring job of the 4-process launch: rank 0's step against the
+    one-process step, every rank's launches, host-staged hops and placement
+    bytes, the whole model's bytes and the peak GiB printed beside them."""
+    par_check(name, recs[0], limits)
+    par_counts(name, recs, want_counts)
+    got = [r["host_staged"] for r in recs]
+    require(got == [staged] * len(recs),
+            f"{name}: host-staged hops a rank {got}, expected {staged}")
+    held = [(r["param_bytes"], r["moment_bytes"]) for r in recs]
+    excess = placement_bytes_excess(held, want_bytes)
+    print(f"  {name}: param + moment bytes a rank "
+          + ", ".join(f"{p + m:,}" for p, m in held)
+          + f" (Megatron placement {', '.join(f'{3 * w:,}' for w in want_bytes)}; the whole "
+          f"model {3 * recs[0]['whole_param_bytes']:,}); host-staged hops a rank {staged}",
+          flush=True)
+    require(not any(excess), f"{name}: a rank's bytes are not its Megatron shards' ({excess})")
+
+
+def phase_ring_parallel(torch, np, cfgs, base, paths, work, seconds, out):
+    """Phases 34-35e, one launch of 4 processes on cuda:0 over gloo: TP=4 at
+    the 1558M width with its norm control; the ring over the model group
+    inside Megatron-sharded attention (each rank its shards of the params
+    and moments, heads swapped for a T/4 chunk of every head by an all-to-all
+    around the ring) at 124M, then at 2 layers with sequence parallelism,
+    with the layerwise backward, with sequence parallelism at the 1558M
+    width (T=4096), and under FP32_POLICY, with two controls that must fail.
+    Returns (each job's records, the ring paths' summed launches)."""
+    from gpt2_vision_language_tpu_torch.core.config import GPTConfig
+    from gpt2_vision_language_tpu_torch.tools import dist_worker
+
+    vocab = cfgs["gpt"].vocab_size
+    for t in {t for _, t in RING_MODELS.values()} - {16384}:  # phase 35's rows are phase 32's
+        paths[f"rows_ring_{t}"] = os.path.join(work, f"rows_ring_{t}.npy")
+        np.save(paths[f"rows_ring_{t}"],
+                np.random.RandomState(t).randint(0, vocab, (1, 2, 1, t + 1)).astype(np.int32))
+    paths["rows_ring_16384"] = paths["rows_ring"]
+    print("[34-35e] 4 processes on cuda:0 over gloo: TP=4 at the 1558M width (7, 6, 6, 6 "
+          "heads), the ring of 4 chunks at T=16384 in the Megatron placement, its "
+          "compositions at 2 layers", flush=True)
+    wide = {"n_layer": 2, "n_head": 25, "n_embd": 1600}
+    jobs = [
+        {"tag": "tp4_wide", "mesh": [1, 4], "rows": paths["rows_wide"], "model": wide},
+        {"tag": "tp4_norm_counts_replicated", "mesh": [1, 4], "rows": paths["rows_wide"],
+         "model": wide, "fault": "count_replicated"},
+        {"tag": "ring4", "mesh": [1, 4], "rows": paths["rows_ring"], "ring": True,
+         "model": RING_MODELS["ring4"][0]},
+    ]
+    for tag, (size, extra) in RING_JOBS.items():
+        model, t = RING_MODELS[size]
+        jobs.append({"tag": tag, "mesh": [1, 4], "ring": True, **extra,
+                     "rows": paths[f"rows_ring_{t}"], "model": model})
+    t0 = time.perf_counter()
+    dist_worker.launch(dict(base, kind="jobs", tag="four", jobs=jobs), 4, timeout=900,
+                       workdir=work)
+    seconds["four_process_launch"] = time.perf_counter() - t0
+    recs4 = {j["tag"]: par_records(work, j["tag"], 4) for j in jobs}
+    print("[34] TP=4 at n_embd=1600, n_head=25, 2 layers, 2 x (B=2, T=1024)", flush=True)
+    require([r["local_heads"] for r in recs4["tp4_wide"]] == [7, 6, 6, 6],
+            "tp4_wide: heads are not 7, 6, 6, 6")
+    par_check("tp4_wide", recs4["tp4_wide"][0], PAR_LIMITS)
+    par_counts("tp4_wide", recs4["tp4_wide"], {"flash_fwd": 4, "flash_bwd": 4, "adamw": 1})
+    par_check("tp4_norm_counts_replicated (control)", recs4["tp4_norm_counts_replicated"][0],
+              PAR_LIMITS, control=True)
+
+    def lse(k_fwd, k_bwd, f32=False):
+        """rank r's launches: its own chunk and the r before it, 1 + r pairs
+        a layer, each a K2a (k_fwd times) and a D and a K3c (k_bwd times)."""
+        sfx = "_f32" if f32 else ""
+        return [{f"flash_lse_fwd{sfx}": k_fwd * (r + 1), f"flash_rowdot{sfx}": k_bwd * (r + 1),
+                 f"flash_fused_bwd{sfx}": k_bwd * (r + 1), "adamw": 1} for r in range(4)]
+
+    # the worker's GPTConfig of each job's model
+    want_bytes = {k: megatron_bytes(torch, GPTConfig(**m), 4) for k, (m, _) in RING_MODELS.items()}
+    # a micro-batch's staged hops a layer: the ring's 3 K/V hops forward and
+    # 3 backward, the 2 swaps forward and 2 backward (the layerwise backward's
+    # recompute: 3 hops and 2 swaps more)
+    print("[35] the ring over 4 processes in the Megatron placement: GPT-2 124M, 2 x (B=1, "
+          "T=16384), a chunk of 4096 a rank, 3 heads a rank", flush=True)
+    ring = recs4["ring4"]
+    require([r["local_heads"] for r in ring] == [3, 3, 3, 3], "ring4: not 3 heads a rank")
+    ring_check("ring4", ring, lse(24, 24), 12 * 2 * 10, want_bytes["ring4"])
+    for k in ("flash_lse_fwd", "flash_rowdot", "flash_fused_bwd"):
+        require(sum(r["launch_counts"][k] for r in ring) == 240,
+                f"the ranks' {k} launches do not sum to the one-process ring's 240")
+    print("  the whole model on every rank (the one-process step's placement) against the "
+          "bytes check (control): ", end="", flush=True)
+    ref = ring[0]["reference"]
+    whole_excess = placement_bytes_excess([(ref["param_bytes"], ref["moment_bytes"])] * 4,
+                                          want_bytes["ring4"])
+    print(", ".join(f"{e:,}" for e in whole_excess) + " bytes over", flush=True)
+    require(all(whole_excess), "the bytes check passed the whole-leaf placement: it cannot see it")
+    print("[35b] the ring with sequence parallelism, 2 layers of 124M, 2 x (B=1, T=4096)",
+          flush=True)
+    ring_check("ring4_sp", recs4["ring4_sp"], lse(4, 4), 2 * 2 * 10, want_bytes["two"])
+    print("[35c] the ring with the layerwise backward, 2 layers of 124M, 2 x (B=1, T=4096)",
+          flush=True)
+    ring_check("ring4_layerwise", recs4["ring4_layerwise"], lse(8, 4), 2 * 2 * 15,
+               want_bytes["two"])
+    print("[35d] the ring with sequence parallelism at the 1558M width (25 heads: 7, 6, 6, 6 "
+          "a rank), 2 layers, 2 x (B=1, T=4096), a chunk of 1024 a rank", flush=True)
+    require([r["local_heads"] for r in recs4["ring4_sp_wide"]] == [7, 6, 6, 6],
+            "ring4_sp_wide: heads are not 7, 6, 6, 6")
+    ring_check("ring4_sp_wide", recs4["ring4_sp_wide"], lse(4, 4), 2 * 2 * 10,
+               want_bytes["wide"])
+    print("[35e] the ring under FP32_POLICY, 2 layers of 124M, 2 x (B=1, T=4096): the fp32 "
+          "K2a and K3c (its cooperative grid) with four processes on the card", flush=True)
+    ring_check("ring4_f32", recs4["ring4_f32"], lse(4, 4, f32=True), 2 * 2 * 10,
+               want_bytes["two"], limits=dict(RING_LIMITS, loss_abs=1e-4, grad_norm_rel=1e-4,
+                                               grads_rel_l2=1e-4))
+    print("  the controls, as 35b without sequence parallelism:", flush=True)
+    for tag in ("ring4_a2a_identity_backward", "ring4_drop_merge_weights"):
+        par_check(f"{tag} (control)", recs4[tag][0], RING_LIMITS, control=True)
+    for tag, rs in recs4.items():
+        out[tag] = {"errors": rs[0]["errors"], "seconds": [r["seconds"] for r in rs],
+                    "peak_gib": [r["peak_gib"] for r in rs],
+                    "host_staged": [r["host_staged"] for r in rs]}
+        if tag.startswith("ring4"):
+            out[tag].update(tokens_per_s=rs[0]["tokens_per_step"] / rs[0]["seconds"][-1],
+                            param_moment_bytes=[r["param_bytes"] + r["moment_bytes"]
+                                                for r in rs],
+                            whole_param_moment_bytes=3 * rs[0]["whole_param_bytes"],
+                            collectives=rs[0]["collectives"])
+    paths_out = {}
+    for path, tag in (("process_ring_train_step", "ring4"),
+                      ("process_ring_sp_train_step", "ring4_sp"),
+                      ("process_ring_layerwise_train_step", "ring4_layerwise"),
+                      ("process_ring_sp_wide_train_step", "ring4_sp_wide"),
+                      ("process_ring_fp32_train_step", "ring4_f32")):
+        rs = recs4[tag]
+        paths_out[path] = {k: sum(r["launch_counts"][k] for r in rs)
+                           for k in rs[0]["launch_counts"]}
+    return recs4, paths_out
 
 
 # the int8 runs against the one-process int8 run (tools/dist_worker.compare_q8):
@@ -5076,7 +5256,8 @@ def phase_pipeline(torch, np, cfgs, dev):
     work = tempfile.mkdtemp(prefix="chip_pipeline_")
     base = {"device": "cuda:0", "policy": "bf16", "seed": 1337, "out": work, "reference": True,
             "save_whole": False, "step0": cfgs["sched"].warmup_steps, "threads": 2}
-    vocab, n_layer = cfgs["gpt"].vocab_size, cfgs["gpt"].n_layer
+    vocab, n_layer = cfgs["gpt"].vocab_size, CUT_LAYERS
+    pp_model = {"n_layer": n_layer}
     paths = {}
     for name, a in (("rows_pp", np.random.RandomState(5).randint(0, vocab, (1, 2, 8, 1025))),
                     ("rows_q8", np.random.RandomState(6).randint(0, vocab, (2, 2, 4, 1025)))):
@@ -5093,19 +5274,19 @@ def phase_pipeline(torch, np, cfgs, dev):
     # validation micro-batch's 4 forward
     staged = 4 * 2 * 2 + 4
 
-    print("[37, 39] 2 processes on cuda:0 over gloo: pp = 2 (GPT-2 124M, 6 layers a stage, "
-          "pp_micro 4, 2 x (B=8, T=1024), bf16) and its controls; 8-bit moments under TP = 2 "
-          "and pp = 2 (124M width, 2 layers, fp32, 2 steps of 2 x (B=4, T=1024)) and the "
-          "per-shard control", flush=True)
+    print(f"[37, 39] 2 processes on cuda:0 over gloo: pp = 2 ({n_layer} layers of GPT-2 124M, "
+          f"{per} a stage, pp_micro 4, 2 x (B=8, T=1024), bf16) and its controls; 8-bit "
+          "moments under TP = 2 and pp = 2 (124M width, 2 layers, fp32, 2 steps of 2 x (B=4, "
+          "T=1024)) and the per-shard control", flush=True)
     q8 = {"rows": paths["rows_q8"], "model": {"n_layer": 2}, "policy": "fp32",
           "opt_state_dtype": "int8", "step0": 0}
     jobs = [
         {"tag": "pp2", "mesh": [1, 1], "pp": 2, "pp_micro": 4, "rows": paths["rows_pp"],
-         "model": {}, "eval": True, "repeat": 1},
+         "model": pp_model, "eval": True, "repeat": 1},
         {"tag": "pp2_drop_backward_hop", "mesh": [1, 1], "pp": 2, "pp_micro": 4,
-         "rows": paths["rows_pp"], "model": {}, "fault": "drop_backward_hop"},
+         "rows": paths["rows_pp"], "model": pp_model, "fault": "drop_backward_hop"},
         {"tag": "pp2_norm_counts_replicated", "mesh": [1, 1], "pp": 2, "pp_micro": 4,
-         "rows": paths["rows_pp"], "model": {}, "fault": "count_replicated"},
+         "rows": paths["rows_pp"], "model": pp_model, "fault": "count_replicated"},
         dict(q8, tag="int8_tp2", mesh=[1, 2]),
         dict(q8, tag="int8_pp2", mesh=[1, 1], pp=2),
         dict(q8, tag="int8_tp2_per_shard", mesh=[1, 2], fault="per_shard_q8"),
@@ -5115,7 +5296,7 @@ def phase_pipeline(torch, np, cfgs, dev):
                        workdir=work)
     seconds["two_process_launch"] = time.perf_counter() - t0
     recs = {j["tag"]: par_records(work, j["tag"], 2) for j in jobs}
-    print("[37] pp = 2 over 2 processes, layers 0-5 and 6-11", flush=True)
+    print(f"[37] pp = 2 over 2 processes, layers 0-{per - 1} and {per}-{n_layer - 1}", flush=True)
     require([r["stage_layers"] for r in recs["pp2"]] == [list(range(per)),
                                                           list(range(per, n_layer))],
             "pp2: the stages do not hold their layers")
@@ -5145,10 +5326,10 @@ def phase_pipeline(torch, np, cfgs, dev):
     par_check("int8_tp2_per_shard (control)", recs["int8_tp2_per_shard"][0], Q8_LIMITS,
               control=True)
 
-    print("[38] pp = 2 x tp = 2 over 4 processes (124M, 6 layers and 6 heads a rank, "
-          "pp_micro 4, 2 x (B=8, T=1024), bf16)", flush=True)
+    print(f"[38] pp = 2 x tp = 2 over 4 processes ({n_layer} layers of 124M, {per} layers and 6 "
+          "heads a rank, pp_micro 4, 2 x (B=8, T=1024), bf16)", flush=True)
     jobs4 = [{"tag": "pp2xtp2", "mesh": [1, 2], "pp": 2, "pp_micro": 4, "rows": paths["rows_pp"],
-              "model": {}, "eval": True, "repeat": 1}]
+              "model": pp_model, "eval": True, "repeat": 1}]
     t0 = time.perf_counter()
     dist_worker.launch(dict(base, kind="jobs", tag="pipe_four", jobs=jobs4), 4, timeout=600,
                        workdir=work)
@@ -5191,13 +5372,13 @@ def phase_pipeline(torch, np, cfgs, dev):
     print("[37b] python -m torch.distributed.run --nproc_per_node 2 -m "
           "gpt2_vision_language_tpu_torch.tools.dist_worker JOB: cli.pretrain --synthetic "
           "--devices 2 --pp 2 --pp-micro 4 --device cuda:0 --total-batch 16384 --val-every 2 "
-          "--save-every 2 --sample-every 2 --steps 1 (2 x (B=8, T=1024)), HellaSwag of 5 "
-          "examples, then --steps 2 (a resume)", flush=True)
+          f"--save-every 2 --sample-every 2 --steps 1 (2 x (B=8, T=1024), {n_layer} layers of "
+          "124M), HellaSwag of 5 examples, then --steps 2 (a resume)", flush=True)
     root = checkout_root(dist_worker)
     hs = write_hellaswag5(work)
     cli_s, cli_counts = {}, {}
     # a step: k1; a validation: 20 micro-batches, each 4 sub-batches through a
-    # stage's 6 layers and K4 once on the last stage; HellaSwag (the 64-token
+    # stage's layers and K4 once on the last stage; HellaSwag (the 64-token
     # bucket) and sampling on the gathered stages: no kernel
     val = [{"flash_fwd": per * 4 * 20}, {"flash_fwd": per * 4 * 20, "ce_fwd": 20}]
 
@@ -5206,18 +5387,31 @@ def phase_pipeline(torch, np, cfgs, dev):
                                                                          "ce_fwd", "adamw")}
                 for v in val]
 
-    log, text = cli_pair(
-        work, root, "cli_pp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
-                               "--pp", "2", "--pp-micro", "4", "--device", "cuda:0",
-                               "--total-batch", "16384", "--val-every", "2", "--save-every", "2",
-                               "--sample-every", "2"],
-        [(n, counts(1, 1), 16 + 20 * 4) for n in (1, 2)], cli_s,
-        cli_counts, hs)
+    print("[40] beside 37b, python -m gpt2_vision_language_tpu_torch.tools.dryrun_multichip 4 "
+          "--device cuda:0 (its own 4 processes)", flush=True)
+    t0 = time.perf_counter()
+    dry = subprocess.Popen([sys.executable, "-m", "gpt2_vision_language_tpu_torch.tools."
+                            "dryrun_multichip", "4", "--device", "cuda:0"], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True, cwd=root)
+    try:
+        log, text = cli_pair(
+            work, root, "cli_pp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
+                                   "--pp", "2", "--pp-micro", "4", "--device", "cuda:0",
+                                   "--total-batch", "16384", "--val-every", "2",
+                                   "--save-every", "2", "--sample-every", "2"],
+            [(n, counts(1, 1), 16 + 20 * 4) for n in (1, 2)], cli_s,
+            cli_counts, hs, pp_model)
+        dry_text, _ = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    seconds["dryrun"] = time.perf_counter() - t0  # beside 37b: its wall, not its own time
     require(sorted(os.listdir(os.path.join(log, "ckpts")))
             == ["model_best.pt", "model_final.pt", "model_last.pt"], "the pp CLI's checkpoints")
     final = torch.load(os.path.join(log, "ckpts", "model_final.pt"), map_location="cpu",
                        weights_only=False)
-    require(set(final["model"]) == set(gpt_state_names(cfgs["gpt"])),
+    require(set(final["model"]) == set(gpt_state_names(cfgs["gpt"].replace(n_layer=n_layer))),
             "the pp checkpoint does not hold the whole model")
     hella = [ln for ln in text.splitlines() if ln.startswith("HellaSwag accuracy:")]
     require(len(hella) == 1 and "/5=" in hella[0], f"the resumed pp run's HellaSwag: {hella}")
@@ -5226,16 +5420,9 @@ def phase_pipeline(torch, np, cfgs, dev):
     print("  " + "; ".join(gathers), flush=True)
     seconds["cli_runs"] = cli_s
 
-    print("[40] python -m gpt2_vision_language_tpu_torch.tools.dryrun_multichip 4 --device cuda:0",
-          flush=True)
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "gpt2_vision_language_tpu_torch.tools."
-                          "dryrun_multichip", "4", "--device", "cuda:0"], capture_output=True,
-                         text=True, timeout=600, cwd=root)
-    seconds["dryrun"] = time.perf_counter() - t0
-    tail = "\n".join((run.stdout + run.stderr).splitlines()[-25:])
-    require(run.returncode == 0, f"dryrun_multichip failed:\n{tail}")
-    line = run.stdout.strip().splitlines()[-1]
+    tail = "\n".join(dry_text.splitlines()[-25:])
+    require(dry.returncode == 0, f"dryrun_multichip failed:\n{tail}")
+    line = [ln for ln in dry_text.strip().splitlines() if ln.startswith("dryrun_multichip(")][-1]
     require(line.startswith("dryrun_multichip(4): ok — ") and "pp(2 stages)" in line
             and "ring step loss" in line, f"dryrun_multichip printed {line!r}")
     print(f"  {line} ({seconds['dryrun']:.1f} s)", flush=True)

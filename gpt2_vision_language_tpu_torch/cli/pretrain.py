@@ -25,10 +25,11 @@ processes. ``--seq-len`` over 1024 grows the model's ``block_size`` with it
 (long-context pretraining: ``--seq-len 16384 --micro-batch 1`` runs every
 self-attention on the general flash kernels; with ``--attn-impl ring --tp 4``
 as a ring of 4 sequence chunks on the lse-forward and one-pass backward
-kernels). The memory recipes are the JAX CLI's flags; ``--fit-1chip``
-fills in the stack of ``FIT_1CHIP`` for the chosen ``--model``, the H100's
-own table. Env: FW_OUT_DIR (token shards), LOG_DIR, HELLASWAG_DIR,
-GPT2_BPE_DIR.
+kernels, over 4 processes inside Megatron-sharded attention, with
+``--seq-parallel`` or ``--layerwise-grad`` as under ``--tp``). The memory
+recipes are the JAX CLI's flags; ``--fit-1chip`` fills in the stack of
+``FIT_1CHIP`` for the chosen ``--model``, the H100's own table. Env:
+FW_OUT_DIR (token shards), LOG_DIR, HELLASWAG_DIR, GPT2_BPE_DIR.
 """
 
 from __future__ import annotations

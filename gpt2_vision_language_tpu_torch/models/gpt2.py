@@ -54,7 +54,8 @@ the functions here then compute this rank's heads and MLP slice, insert the
 collectives of parallel/collectives.py around them (``_enter``, ``_row_out``),
 look the embedding up by vocab rows and gather ``wte`` for the tied head;
 ``loss`` T-shards the residual stream between blocks when the run asked for
-sequence parallelism.
+sequence parallelism. With ``attn_impl="ring"`` a tensor-parallel block runs
+its attention as the ring over processes (``self_attention``).
 """
 
 from __future__ import annotations
@@ -233,15 +234,22 @@ def self_attention(attn: CausalSelfAttention, x, cfg: GPTConfig, *,
                    policy: Policy, attn_impl: str, tp=None):
     """Causal self-attention with fused QKV (train_gpt2.py:33-43). q, k and
     v stay strided (B, T, H, hs) views of the (B, T, 3C) projection. Under
-    tensor parallelism (``tp``) the rank computes its own heads."""
+    tensor parallelism (``tp``) the rank computes its own heads; with
+    ``attn_impl="ring"`` there, the ring over the ``model`` group
+    (``TensorParallel.ring_attention``)."""
     x = _enter(x, tp)
     b, t, _ = x.shape
     hs = cfg.head_dim
     qkv = linear(x, attn.c_attn.weight, attn.c_attn.bias, policy=policy)
     c = qkv.shape[-1] // 3
-    q, k, v = (a.view(b, t, c // hs, hs) for a in qkv.split(c, dim=-1))
     cc = policy.cast_compute
-    y = sdpa(cc(q), cc(k), cc(v), causal=True, impl=attn_impl, layout="bthd")
+    if tp is not None and attn_impl == "ring":
+        # the ring over the model group: heads swapped for sequence chunks
+        # and back around it
+        y = tp.ring_attention(cc(qkv).view(b, t, 3, c // hs, hs))
+    else:
+        q, k, v = (a.view(b, t, c // hs, hs) for a in qkv.split(c, dim=-1))
+        y = sdpa(cc(q), cc(k), cc(v), causal=True, impl=attn_impl, layout="bthd")
     y = y.to(x.dtype).reshape(b, t, c)
     return _row_out(y, attn.c_proj, policy, tp)
 
@@ -489,8 +497,7 @@ def apply(model: GPT2, idx, cfg: GPTConfig, *, targets=None, target_mask=None,
 
 def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
          policy: Policy = DEFAULT_POLICY, attn_impl: str = "auto",
-         ce_chunks: int = 8, ce_impl: str = "auto", remat=False,
-         pos_offset: int = 0, group=None):
+         ce_chunks: int = 8, ce_impl: str = "auto", remat=False, group=None):
     """CE loss without the (B, T, V) logits: apply(...)[1]'s semantics with
     lm_head + CE through fused_linear_ce. The scoring forward: called without
     autograd (train/step.py make_eval_step) under the bf16 policy on CUDA it
@@ -504,14 +511,11 @@ def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
     T-sharded between blocks when the run asked for sequence parallelism;
     then each rank scores its T-shard of the targets and the loss is their
     mean over ``model``. ``group``: the ranks of the process group hold the
-    other tokens (in the ring over processes idx and targets are this rank's
-    chunk of every sequence, at positions from ``pos_offset``; under data
-    parallelism its rows), and the loss is the mean over all of them. The
-    value returned is the whole loss on every rank; its backward reaches
-    this rank's part only."""
+    other rows (data parallelism), and the loss is the mean over all of
+    them. The value returned is the whole loss on every rank; its backward
+    reaches this rank's part only."""
     _check_len(idx, cfg)
-    x = embed_tokens(model, idx, cfg, pos_offset=pos_offset,
-                     seq_parallel=True).to(policy.compute_dtype)
+    x = embed_tokens(model, idx, cfg, seq_parallel=True).to(policy.compute_dtype)
     z = project_visual(model, z, cfg, x.dtype, policy=policy)
     x = run_blocks(model, x, cfg, z=z, policy=policy, attn_impl=attn_impl, remat=remat,
                    seq_parallel=True)
@@ -552,7 +556,8 @@ def loss_grad_layerwise(model: GPT2, idx, cfg: GPTConfig, *, targets, acc, targe
     twice. Returns the loss, detached. Plain decoder only, every parameter
     trainable (the pretraining workload). A tensor-parallel model runs its
     shards with the residual stream whole (no sequence parallelism, as in
-    the JAX trainer)."""
+    the JAX trainer), its attention the ring over processes with
+    ``attn_impl="ring"``."""
     if cfg.cross_attention:
         raise ValueError("loss_grad_layerwise: plain decoder only")
     _check_len(idx, cfg)

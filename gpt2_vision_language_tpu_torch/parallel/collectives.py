@@ -6,13 +6,18 @@ and activation shardings (gpt2_vision_language_tpu/parallel/mesh.py:9-12,
 sharding.py:1-20). Here every one is explicit and goes through this module:
 
   * ``all_reduce_``, ``all_gather``, ``reduce_scatter``, ``broadcast_``,
-    ``exchange`` (the ring's send to the next rank and receive from the
-    previous one) and the pipeline's point-to-point ``send`` and ``recv``;
+    ``all_to_all``, ``exchange`` (the ring's send to the next rank and
+    receive from the previous one) and the pipeline's point-to-point
+    ``send`` and ``recv``;
   * the Megatron pair ``CopyToGroup`` (identity forward, all-reduce backward)
     and ``ReduceFromGroup`` (all-reduce forward, identity backward), the
     sequence-parallel pair ``GatherSeq`` (all-gather on T forward,
-    reduce-scatter backward) and ``ScatterSeq`` (the transpose), and
-    ``GatherRows``, the vocab-sharded ``wte`` gathered whole for the tied head;
+    reduce-scatter backward) and ``ScatterSeq`` (the transpose),
+    ``GatherRows``, the vocab-sharded ``wte`` gathered whole for the tied
+    head, and the all-to-all pair of the ring under Megatron placement,
+    ``HeadsToChunks`` (this rank's heads over the whole sequence -> every
+    head over this rank's chunk of it) and ``ChunksToHeads`` (its inverse),
+    each the other's backward;
   * ``GradSync``: the train step's one all-reduce of the accumulated grads per
     optimizer step, flattened into one buffer a process group (the
     reference's DDP ``no_sync`` semantics), the loss averaged over ``data``,
@@ -26,14 +31,15 @@ Transport. NCCL takes CUDA tensors for everything. gloo, the backend of
 ranks that share one card or run on the CPU, takes CUDA tensors in all-reduce,
 all-gather, reduce-scatter and broadcast, but a send or receive of a CUDA
 tensor aborts the process (probed with torch 2.11 on an H100): ``exchange``,
-``send`` and ``recv`` stage those through pinned host memory in
-``host_staged``, which counts its calls. That is the gloo transport, not a fallback: the arithmetic stays on
-the card.
+``send``, ``recv`` and ``all_to_all`` stage those through pinned host memory
+in ``host_staged``, which counts its calls. That is the gloo transport, not a
+fallback: the arithmetic stays on the card.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 from typing import Dict, Iterable, Optional
 
 import torch
@@ -148,6 +154,46 @@ def broadcast_(t: torch.Tensor, group, src: int) -> torch.Tensor:
         counts["broadcast"] += 1
         dist.broadcast(_bits(t), dist.get_global_rank(group, src), group=group)
     return t
+
+
+def all_to_all(pieces, group, shapes):
+    """Send ``pieces[j]`` to rank j of ``group`` and return what every rank j
+    sent this one, as tensors of ``shapes[j]`` (one dtype and device, any
+    sizes, empty ones too): one ``all_to_all_single`` over flat buffers."""
+    counts["all_to_all"] += 1
+    dtype = pieces[0].dtype
+    send = _bits(torch.cat([p.reshape(-1) for p in pieces]))
+    sizes_in = [p.numel() for p in pieces]
+    sizes_out = [math.prod(s) for s in shapes]
+
+    def move(ts):
+        got = ts[0].new_empty(sum(sizes_out))
+        dist.all_to_all_single(got, ts[0], sizes_out, sizes_in, group=group)
+        return [got]
+
+    got = host_staged(move, [send])[0] if _staged(group, send) else move([send])[0]
+    got = _unbits(got, dtype)
+    return [part.view(s) for part, s in zip(got.split(sizes_out), shapes)]
+
+
+def heads_to_chunks(x: torch.Tensor, group, heads) -> torch.Tensor:
+    """(B, T, ..., heads[r], hs) of rank r's heads over the whole sequence ->
+    (B, T / n, ..., sum(heads), hs): every head over rank r's chunk of T,
+    positions r * T / n on, heads in rank order."""
+    n, t = _size(group), x.shape[1]
+    tc = t // n
+    pieces = [x[:, j * tc:(j + 1) * tc] for j in range(n)]
+    shapes = [(x.shape[0], tc, *x.shape[2:-2], h, x.shape[-1]) for h in heads]
+    return torch.cat(all_to_all(pieces, group, shapes), dim=-2)
+
+
+def chunks_to_heads(y: torch.Tensor, group, heads) -> torch.Tensor:
+    """The inverse of ``heads_to_chunks``: (B, T / n, ..., sum(heads), hs) of
+    rank r's chunk -> (B, T, ..., heads[r], hs) of its heads."""
+    n, r = _size(group), _rank(group)
+    pieces = list(y.split(list(heads), dim=-2))
+    shape = (y.shape[0], y.shape[1], *y.shape[2:-2], heads[r], y.shape[-1])
+    return torch.cat(all_to_all(pieces, group, [shape] * n), dim=1)
 
 
 def exchange(tensors, group, step: int):
@@ -265,6 +311,36 @@ class ScatterSeq(torch.autograd.Function):
         return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
 
 
+class HeadsToChunks(torch.autograd.Function):
+    """``heads_to_chunks`` forward, ``chunks_to_heads`` of the cotangent
+    backward: the ring's input under Megatron placement (JAX GSPMD's swap of
+    the head-sharded q/k/v for the ring's ``P(batch, None, "model", None)``,
+    ops/ring_attention.py:181-187 there)."""
+
+    @staticmethod
+    def forward(ctx, x, group, heads):
+        ctx.group, ctx.heads = group, list(heads)
+        return heads_to_chunks(x, group, ctx.heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return chunks_to_heads(g, ctx.group, ctx.heads), None, None
+
+
+class ChunksToHeads(torch.autograd.Function):
+    """``chunks_to_heads`` forward, ``heads_to_chunks`` backward: the ring's
+    output back to this rank's heads for the row-parallel ``c_proj``."""
+
+    @staticmethod
+    def forward(ctx, y, group, heads):
+        ctx.group, ctx.heads = group, list(heads)
+        return chunks_to_heads(y, group, ctx.heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return heads_to_chunks(g, ctx.group, ctx.heads), None, None
+
+
 class GatherRows(torch.autograd.Function):
     """The row-sharded ``w`` made whole (rank r holds ``sizes[r]`` rows).
     Backward: with ``partial`` every rank's gradient of the whole is a part
@@ -313,9 +389,9 @@ class GradSync:
     mesh: parallel.mesh.Mesh. ``sharded``: names of the leaves split over
     ``model`` (each rank holds a part); ``partial``: names of the replicated
     leaves whose gradients are partial over ``model`` (each rank saw only
-    its tokens: the replicated leaves under sequence parallelism, every leaf
-    in the process ring). ``staged``: under the pipeline, the names of the
-    leaves a stage holds alone (its layers); every other leaf is held by
+    its tokens: the replicated leaves under sequence parallelism).
+    ``staged``: under the pipeline, the names of the leaves a stage holds
+    alone (its layers); every other leaf is held by
     every stage and its gradient, formed where the stage uses it (the
     embeddings on the first, the head and ``ln_f`` on the last), is summed
     over ``pipe``. ``loss_is_global``: the loss of a micro-batch is already

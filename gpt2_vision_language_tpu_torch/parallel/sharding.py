@@ -30,6 +30,17 @@ and the column-parallel ones all-gather their input; the grads of the
 replicated leaves are then partial and summed over ``model`` by the train
 step (``parallel/collectives.GradSync``).
 
+With ``attn_impl="ring"`` the placement is the same (JAX ``shard_params``
+splits over "model" whatever the attention): the ring runs inside attention
+only. ``TensorParallel.ring_attention`` swaps this rank's heads over the
+whole sequence for every head over its T/tp chunk (``HeadsToChunks``, one
+all-to-all of q, k and v together), runs the ring over the ``model`` group
+(ops/ring_attention.GroupRing) and swaps back (``ChunksToHeads``) for the
+row-parallel ``c_proj``: JAX ops/ring_attention.py:181-187, where GSPMD
+places the same two swaps around the ring's shard_map. Everything else is
+the Megatron block above, sequence parallelism and the layerwise backward
+included.
+
 ``shard_params`` / ``gather_params`` move whole tensors to each rank's shards
 and back (state dicts and AdamW moments); checkpoints hold gathered trees.
 ``Placement`` is what a rank holds under TP and the pipeline together, and
@@ -113,6 +124,8 @@ class TensorParallel:
     axis) for a GPT-2 of ``cfg``: its heads, MLP columns and vocab rows, and
     the collectives of its forward. ``seq_parallel`` T-shards the residual
     stream where a caller allows it (``view(seq_parallel=True)``)."""
+
+    _ring = None  # the GroupRing of ``ring_attention``, made at its first call
 
     def __init__(self, group, rank: int, size: int, cfg: GPTConfig, *,
                  seq_parallel: bool = False):
@@ -213,6 +226,20 @@ class TensorParallel:
         """This rank's part of a (B, T, ...) tensor on T."""
         n = t.shape[1] // self.size
         return t[:, self.rank * n:(self.rank + 1) * n]
+
+    def ring_attention(self, qkv):
+        """Causal attention of this rank's heads over the whole sequence by
+        the ring over ``model``: ``qkv`` (B, T, 3, heads[rank], hs), this
+        rank's q, k and v sections of the fused projection -> (B, T,
+        heads[rank], hs). T divides by the ring's size."""
+        from ..ops.ring_attention import GroupRing, ring_attention
+
+        if self._ring is None:
+            self._ring = GroupRing(self.group)
+        chunk = coll.HeadsToChunks.apply(qkv, self.group, self.heads)
+        q, k, v = chunk.unbind(2)
+        y = ring_attention(q, k, v, self._ring)
+        return coll.ChunksToHeads.apply(y, self.group, self.heads)
 
 
 def shard_params(tree: Dict[str, torch.Tensor], tp: TensorParallel) -> Dict[str, torch.Tensor]:
@@ -429,21 +456,21 @@ class Placement:
             params[n].copy_(p_w[n].index_select(dim, idx.to(p_w[n].device)))
 
 
-def setup_parallel(model, mesh, *, seq_parallel: bool = False, ring: bool = False,
-                   make_sync=None):
+def setup_parallel(model, mesh, *, seq_parallel: bool = False, make_sync=None):
     """The parallel wiring of a train step over ``mesh`` (a parallel.mesh.Mesh
     on ("data", "model"), ("data", "pipe") or ("data", "pipe", "model")),
     the one the trainer and the worker share.
 
-    With ``model`` > 1 and no ring, Megatron TP: ``model`` (whole, the same on
-    every rank) is cut to this rank's shards in place (``shard_model``); with
-    ``pipe`` > 1 to its stage's layers (parallel/pipeline.cut_stage). On more
-    than one process, the step's ``GradSync`` (or ``make_sync``'s, built with
-    the same arguments): the sharded leaves' squares are summed over
-    ``model`` and a stage's layers' over ``pipe`` in the clip norm, the grads
-    partial over ``model`` (each rank saw only its tokens: the replicated
-    leaves under sequence parallelism, every leaf in the process ring) are
-    summed over it, and those of the leaves every stage holds over ``pipe``.
+    With ``model`` > 1, Megatron TP, whatever the attention (the ring over
+    processes runs inside it, ``TensorParallel.ring_attention``): ``model``
+    (whole, the same on every rank) is cut to this rank's shards in place
+    (``shard_model``); with ``pipe`` > 1 to its stage's layers
+    (parallel/pipeline.cut_stage). On more than one process, the step's
+    ``GradSync`` (or ``make_sync``'s, built with the same arguments): the
+    sharded leaves' squares are summed over ``model`` and a stage's layers'
+    over ``pipe`` in the clip norm, the grads of the replicated leaves are
+    summed over ``model`` under sequence parallelism (each rank saw only its
+    tokens), and those of the leaves every stage holds over ``pipe``.
     Returns (the rank's ``Placement``, the GradSync or None on one
     process)."""
     from ..train.optimizer import jax_leaves
@@ -452,7 +479,7 @@ def setup_parallel(model, mesh, *, seq_parallel: bool = False, ring: bool = Fals
     leaves = jax_leaves(dict(model.named_parameters()))
     n_model = mesh.size("model")
     tp, shapes = None, {}
-    if n_model > 1 and not ring:
+    if n_model > 1:
         tp = TensorParallel(mesh.group("model"), mesh.coord("model"), n_model, model.cfg,
                             seq_parallel=seq_parallel)
         shapes = shard_model(model, tp)
@@ -464,27 +491,7 @@ def setup_parallel(model, mesh, *, seq_parallel: bool = False, ring: bool = Fals
         return placement, None
     names = {n for n, _ in model.named_parameters()}
     sharded = sharded_names(names) if tp is not None else set()
-    if ring and n_model > 1:
-        partial = names
-    else:
-        partial = names - sharded if seq_parallel else set()
+    partial = names - sharded if seq_parallel else set()
     staged = None if stage is None else {n for n in names if layer_of(n) is not None}
     return placement, (make_sync or coll.GradSync)(mesh, sharded=sharded, partial=partial,
                                                    staged=staged)
-
-
-def ring_chunk_loss(mesh, cfg: GPTConfig, policy, *, remat=False):
-    """``loss(model, x, y)`` of the ring over the mesh's ``model`` group: this
-    rank's chunk of every (B, T) sequence, T/tp tokens from r * T/tp, its
-    positions offset so, the mean taken over the group's tokens."""
-    from ..models import gpt2
-
-    r, n, group = mesh.coord("model"), mesh.size("model"), mesh.group("model")
-
-    def loss(model, x, y):
-        tl = x.shape[1] // n
-        cut = slice(r * tl, (r + 1) * tl)
-        return gpt2.loss(model, x[:, cut], cfg, targets=y[:, cut], policy=policy,
-                         attn_impl="ring", remat=remat, pos_offset=r * tl, group=group)
-
-    return loss

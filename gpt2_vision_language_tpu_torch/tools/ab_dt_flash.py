@@ -96,10 +96,14 @@ def _scores(q, k, b, tq, tk, causal):
 def flash_fwd_dt_b_reference(q, k, v, b, tq, tk, *, causal=True):
     """Plain version of the dt forward on dt-layout tensors: fp32 scores and
     softmax, the probabilities rounded to v.dtype before the P V product as
-    in the kernel. Returns (o (H, hs, B*Tq) in q.dtype, lse (H, B*Tq) fp32)."""
+    in the kernel. Returns (o (H, hs, B*Tq) in q.dtype, lse (H, B*Tq) fp32).
+    The row statistic lse is summed in fp64 and rounded once: fp32
+    ``torch.logsumexp`` on the CPU was seen up to 4.8e-5 off in the rows
+    one intra-op thread computed in a process's first call, where its other
+    calls and the fp64 sum agree within 5e-7."""
     h, hs, _ = q.shape
     s = _scores(q, k, b, tq, tk, causal)
-    lse = torch.logsumexp(s, dim=-1)  # (H, B, Tq)
+    lse = torch.logsumexp(s.double(), dim=-1).float()  # (H, B, Tq)
     p = torch.exp(s - lse[..., None]).to(v.dtype).float()
     o = torch.einsum("hbqk,hdbk->hdbq", p, v.float().reshape(h, hs, b, tk))
     return o.reshape(h, hs, b * tq).to(q.dtype), lse.reshape(h, b * tq)

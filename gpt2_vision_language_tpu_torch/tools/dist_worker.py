@@ -9,15 +9,16 @@ WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE). The job's ``kind``:
   * ``"step"``: train steps of a GPT-2 on a ("data", "model") mesh of shape
     ``mesh``, or with ``pp`` > 1 a ("data", "pipe", "model") mesh of shape
     (mesh[0], pp, mesh[1]): data parallelism, Megatron tensor parallelism
-    (``mesh[1] > 1``, ``seq_parallel``), the ring over the model group
-    (``ring``), the GPipe pipeline (``pp``, ``pp_micro`` sub-batches a
-    micro-batch); ``opt_state_dtype`` the moments' storage. The whole
+    (``mesh[1] > 1``, ``seq_parallel``), the ring over the model group inside
+    its attention (``ring``), the GPipe pipeline (``pp``, ``pp_micro``
+    sub-batches a micro-batch), the layerwise backward (``layerwise``);
+    ``opt_state_dtype`` the moments' storage. The whole
     weights come from ``init`` (a state dict file) or from ``seed``; the
     rows from ``rows`` (an ``.npy`` of (steps, accum, B, T + 1) token ids,
     the global batch: data rank d takes rows [d * B / data, (d + 1) * B /
     data)). ``fault`` runs a deliberately wrong step (``FaultySync``,
-    ``faulty_pipeline``, ``faulty_placement``). With ``mesh`` [1, 1] and no
-    ``pp`` it is the one-process step (``run_job`` in the caller's own
+    ``faulty_pipeline``, ``faulty_placement``, ``faulty_ring``). With
+    ``mesh`` [1, 1] and no ``pp`` it is the one-process step (``run_job`` in the caller's own
     process), the ring then a LocalRing of ``ring_size`` chunks.
   * ``"ftstep"``: one optimizer step of a caption fine-tune, data-parallel
     (``fault`` as for ``"step"``).
@@ -34,13 +35,16 @@ trainers' own). Each rank writes ``{out}/{tag}_r{rank}.json``: the step
 metrics, this rank's kernel launch counts over the job (``launch_counts``)
 and its exchanges staged through host memory (``host_staged``), its peak
 device memory and seconds; a ``"step"`` job also its collectives a step
-(``collectives``) and its moments' bytes (``moment_bytes``). Rank 0 of a
+(``collectives``), its parameters' shapes and bytes and its moments' bytes
+(``param_shapes``, ``param_bytes``, ``moment_bytes``; ``whole_param_bytes``
+those of the whole model). Rank 0 of a
 ``"step"`` job also writes ``{tag}_whole.pt``: the whole (gathered) params
 before and after and the whole reduced grads of the last step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -156,6 +160,49 @@ def faulty_placement(placement):
     return out
 
 
+RING_FAULTS = ("a2a_identity_backward", "drop_merge_weights")
+
+
+@contextlib.contextmanager
+def faulty_ring(fault: str):
+    """The ring's controls, for the ranks of one run: ``"a2a_identity_backward"``
+    takes the backward of each all-to-all of the swap around the ring as the
+    identity on the rank's own block (its chunk of its heads, zeros for the
+    rest: no exchange), ``"drop_merge_weights"`` merges the ring's partial
+    outputs without their softmax weights."""
+    from ..ops import ring_attention as ra
+    from ..parallel import collectives as coll
+
+    def own_block(g, group, heads, to_chunks):
+        """The cotangent's block of this rank alone, in the input's layout."""
+        r, n = coll._rank(group), coll._size(group)
+        h0 = sum(heads[:r])
+        if to_chunks:  # g: (B, T, ..., h_r, hs) -> (B, T / n, ..., H, hs)
+            tc = g.shape[1] // n
+            out = g.new_zeros((g.shape[0], tc, *g.shape[2:-2], sum(heads), g.shape[-1]))
+            out[..., h0:h0 + heads[r], :] = g[:, r * tc:(r + 1) * tc]
+        else:  # g: (B, T / n, ..., H, hs) -> (B, T, ..., h_r, hs)
+            tc = g.shape[1]
+            out = g.new_zeros((g.shape[0], tc * n, *g.shape[2:-2], heads[r], g.shape[-1]))
+            out[:, r * tc:(r + 1) * tc] = g[..., h0:h0 + heads[r], :]
+        return out
+
+    saved = (coll.HeadsToChunks.backward, coll.ChunksToHeads.backward, ra._merge)
+    if fault == "a2a_identity_backward":
+        coll.HeadsToChunks.backward = staticmethod(
+            lambda ctx, g: (own_block(g, ctx.group, ctx.heads, False), None, None))
+        coll.ChunksToHeads.backward = staticmethod(
+            lambda ctx, g: (own_block(g, ctx.group, ctx.heads, True), None, None))
+    elif fault == "drop_merge_weights":
+        ra._merge = lambda c, u: (c[0] + u[0], torch.logaddexp(c[1], u[1]))
+    try:
+        yield
+    finally:
+        coll.HeadsToChunks.backward, coll.ChunksToHeads.backward = (
+            staticmethod(saved[0]), staticmethod(saved[1]))
+        ra._merge = saved[2]
+
+
 # ---------------------------------------------------------------------------
 # "step"
 # ---------------------------------------------------------------------------
@@ -199,7 +246,7 @@ def _steps(job: dict, device, mesh):
     from ..ops import ring_attention
     from ..parallel import collectives as coll
     from ..parallel.pipeline import make_pipeline_loss_fn
-    from ..parallel.sharding import ring_chunk_loss, setup_parallel
+    from ..parallel.sharding import setup_parallel
     from ..train.optimizer import adamw_init
     from ..train.step import make_train_step
     from ..utils.trees import tree_bytes
@@ -209,11 +256,12 @@ def _steps(job: dict, device, mesh):
     policy = _policy(job)
     ring = bool(job.get("ring"))
     fault = job.get("fault")
-    if fault and fault not in SYNC_FAULTS + ("drop_backward_hop", "per_shard_q8"):
+    if fault and fault not in SYNC_FAULTS + RING_FAULTS + ("drop_backward_hop", "per_shard_q8"):
         raise ValueError(f"unknown fault {fault!r}")
     model = _whole_model(job, cfg, device)
+    whole_bytes = tree_bytes(dict(model.named_parameters()))
     placement, sync = setup_parallel(model, mesh, seq_parallel=bool(job.get("seq_parallel")),
-                                     ring=ring, make_sync=_make_sync(job))
+                                     make_sync=_make_sync(job))
     if fault == "per_shard_q8":
         placement = faulty_placement(placement)
     reduced = {}  # the step's reduced grads (the pipeline folds them into accumulators)
@@ -226,7 +274,6 @@ def _steps(job: dict, device, mesh):
             reduced.update(grads)
 
         sync.reduce_ = keep
-    tp = placement.tp
     params = gpt2.named_params(model)
     rows = np.load(job["rows"])  # (steps, accum, B, T + 1), the global batch
     if mesh.world == 1 and job.get("data_split", 1) > 1:
@@ -240,21 +287,12 @@ def _steps(job: dict, device, mesh):
     d = mesh.coord("data")
     rows = rows[:, :, d * b:(d + 1) * b]
     t = t1 - 1
-    attn_impl = job.get("attn_impl", "auto")
+    attn_impl = "ring" if ring else job.get("attn_impl", "auto")
     layerwise = None
-    if ring and mesh.world == 1:  # one process: a LocalRing of ring_size chunks
+    local_ring = ring and n_model == 1  # one process: a LocalRing of ring_size chunks
+    if local_ring:
         ring_attention.set_ring(job.get("ring_size", n_model))
-
-        def loss_fn(m, micro):
-            return gpt2.loss(m, micro[:, :-1], cfg, targets=micro[:, 1:], policy=policy,
-                             attn_impl="ring")
-    elif ring:  # a chunk of every sequence a rank
-        ring_attention.set_ring(ring_attention.GroupRing(mesh.group("model")))
-        chunk_loss = ring_chunk_loss(mesh, cfg, policy)
-
-        def loss_fn(m, micro):
-            return chunk_loss(m, micro[:, :-1], micro[:, 1:])
-    elif n_pipe > 1:  # the GPipe schedule, through the train step's layerwise seam
+    if n_pipe > 1:  # the GPipe schedule, through the train step's layerwise seam
         pipe = make_pipeline_loss_fn(cfg, mesh, n_micro=job.get("pp_micro") or n_pipe,
                                      policy=policy, attn_impl=attn_impl)
         if fault == "drop_backward_hop":
@@ -270,8 +308,10 @@ def _steps(job: dict, device, mesh):
             return gpt2.loss(m, micro[:, :-1], cfg, targets=micro[:, 1:], policy=policy,
                              attn_impl=attn_impl, remat=job.get("remat", False))
 
+    held = {}  # the layerwise step's accumulators: its grads where no GradSync sees them
     if job.get("layerwise"):
         def layerwise(m, micro, acc):
+            held["acc"] = acc
             return gpt2.loss_grad_layerwise(m, micro[:, :-1], cfg, targets=micro[:, 1:],
                                             acc=acc, policy=policy, attn_impl=attn_impl,
                                             ce_chunks=2)
@@ -286,6 +326,8 @@ def _steps(job: dict, device, mesh):
     rec = {"rank": mesh.rank, "world": mesh.world, "mesh": list(mesh.shape),
            "axes": list(mesh.axis_names), "accum": accum,
            "local_heads": gpt2.local_heads(model, cfg), "tokens_per_step": accum * b_all * t,
+           "param_bytes": tree_bytes(dict(params)), "whole_param_bytes": whole_bytes,
+           "param_shapes": {n: list(p.shape) for n, p in params.items()},
            "moment_bytes": tree_bytes([state["m"], state["v"]])}
     if placement.stage is not None:
         rec["stage_layers"] = list(placement.stage.layers)
@@ -301,15 +343,17 @@ def _steps(job: dict, device, mesh):
     metrics, seconds = [], []
     counts0, calls0 = read_counts(), dict(coll.counts)
     staged_steps0 = coll.host_staged.calls
-    for i in range(steps):
-        batch = torch.from_numpy(rows[i].astype(np.int64)).to(device)
-        _sync(device)
-        t0 = time.perf_counter()
-        metrics.append(step(model, state, batch, step0 + i))
-        _sync(device)
-        seconds.append(time.perf_counter() - t0)
+    with faulty_ring(fault) if fault in RING_FAULTS else contextlib.nullcontext():
+        for i in range(steps):
+            batch = torch.from_numpy(rows[i].astype(np.int64)).to(device)
+            _sync(device)
+            t0 = time.perf_counter()
+            metrics.append(step(model, state, batch, step0 + i))
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
     counts = {k: v - counts0[k] for k, v in read_counts().items()}
-    grads = reduced or {n: p.grad for n, p in params.items() if p.grad is not None}
+    grads = reduced or (held["acc"].sums if held else
+                        {n: p.grad for n, p in params.items() if p.grad is not None})
     rec.update(metrics=metrics, seconds=seconds, launch_counts=counts,
                host_staged=coll.host_staged.calls - staged0,
                host_staged_per_step=(coll.host_staged.calls - staged_steps0) / steps,
@@ -337,7 +381,7 @@ def _steps(job: dict, device, mesh):
         _sync(device)
         warm.append(time.perf_counter() - t0)
     rec["warm_seconds"] = warm
-    if ring:
+    if local_ring:
         ring_attention.set_ring(None)
     return rec, out
 def _rel_l2(a: dict, b: dict) -> float:
@@ -356,14 +400,18 @@ def compare_steps(rec, got, ref_rec, ref, opt_cfg, decay_mask, trainable=None) -
         gradients (a norm counting a replicated leaf more than once is off);
       * update_max_rel: the step's parameter change against the plain AdamW
         replayed on its own whole gradients from the same state, as
-        max|err| / max|ref|."""
+        max|err| / max|ref|.
+
+    Computed on the device of ``got``'s tensors (``ref``'s are moved
+    there)."""
     from ..train.optimizer import adamw_init, adamw_update, global_norm
 
     m, r = rec["metrics"][-1], ref_rec["metrics"][-1]
     inv, inv_ref = 1.0 / rec["accum"], 1.0 / ref_rec["accum"]
     names = [n for n in ref["grads"] if trainable is None or trainable[n]]
+    dev = got["grads"][names[0]].device
     g = {n: got["grads"][n].float() * inv for n in names}
-    g_ref = {n: ref["grads"][n].float() * inv_ref for n in names}
+    g_ref = {n: ref["grads"][n].to(dev).float() * inv_ref for n in names}
     own_norm = float(global_norm(g))
     p = {n: got["before"][n].clone() for n in names}
     st = adamw_init(p)
@@ -514,16 +562,18 @@ def run_step_job(job: dict) -> dict:
     rec, out = _steps(job, device, mesh)
     if ref is not None:
         rec["reference"] = {k: ref[0][k] for k in ("seconds", "warm_seconds", "peak_gib",
-                                                   "tokens_per_step", "moment_bytes")}
+                                                   "tokens_per_step", "param_bytes",
+                                                   "moment_bytes")}
         cfg = GPTConfig(**job["model"])
-        got = {k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()}
         opt_cfg = OptimizerConfig(**job.get("opt", {}))
         if job.get("opt_state_dtype") == "int8":
+            got = {k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()}
             rec["errors"] = compare_q8(rec, got, ref[0], ref[1], opt_cfg, cfg)
             rec["q8_detail"] = q8_detail(got["q8"], ref[1]["q8"])
-        else:
-            rec["errors"] = compare_steps(rec, got, ref[0], ref[1], opt_cfg,
-                                          gpt2.decay_mask(gpt2.GPT2(cfg)))
+        else:  # on this rank's device, the host's fp32 replay of a whole model being slow
+            with torch.device("meta"):  # the mask's names alone
+                decay = gpt2.decay_mask(gpt2.GPT2(cfg))
+            rec["errors"] = compare_steps(rec, out, ref[0], ref[1], opt_cfg, decay)
     if mesh.rank == 0 and job.get("out") and job.get("save_whole", True):
         torch.save({k: {n: v.cpu() for n, v in d.items()} for k, d in out.items()},
                    os.path.join(job["out"], f"{job.get('tag', 'step')}_whole.pt"))
@@ -620,9 +670,7 @@ def run_ft_step_job(job: dict) -> dict:
     rec, out, (opt_cfg, decay, trainable) = _ft_steps(job, device,
                                                        make_mesh(None, ("data",), (world,)))
     if ref is not None:
-        rec["errors"] = compare_steps(rec, {k: {n: v.cpu() for n, v in d.items()}
-                                            for k, d in out.items()},
-                                      ref[0], ref[1], opt_cfg, decay, trainable)
+        rec["errors"] = compare_steps(rec, out, ref[0], ref[1], opt_cfg, decay, trainable)
     return rec
 
 

@@ -12,8 +12,9 @@ accumulation 2, B = 2N, T = 32):
   * one train step of data x Megatron TP x sequence parallelism on a
     (2, N / 2) mesh when N is even and at least 4 (6 heads over N / 2 ranks:
     unevenly where they must), data parallelism over N otherwise;
-  * on that mesh, the ring over the model group from the updated weights:
-    its step's loss within 5e-3 of the plain loss at those weights;
+  * on that mesh, the ring over the model group inside the Megatron-sharded
+    attention, with sequence parallelism, from the updated weights: its
+    step's loss within 5e-3 of the plain loss at those weights;
   * the GPipe pipeline over min(N, n_layer) stages (a ("data", "pipe")
     mesh): the blocks' forward within 1e-4 of ``run_blocks`` under fp32, and
     a pipelined train step whose loss is within 5e-3 of the plain one.
@@ -49,10 +50,9 @@ def run_rank(n_devices: int, device: str) -> str:
     from ..core.config import GPTConfig, OptimizerConfig, ScheduleConfig
     from ..core.precision import DEFAULT_POLICY, FP32_POLICY
     from ..models import gpt2
-    from ..ops import ring_attention
     from ..parallel.mesh import init_distributed, make_mesh
     from ..parallel.pipeline import make_pipeline_loss_fn, pipeline_run_blocks
-    from ..parallel.sharding import ring_chunk_loss, setup_parallel
+    from ..parallel.sharding import setup_parallel
     from ..train.optimizer import adamw_init
     from ..train.step import make_eval_step, make_train_step
 
@@ -108,16 +108,17 @@ def run_rank(n_devices: int, device: str) -> str:
 
     ring_note = ""
     if two_d and t % mesh.size("model") == 0:
-        # the ring over the model group, every rank holding the whole weights
+        # the ring over the model group inside Megatron-sharded attention,
+        # with sequence parallelism, as JAX runs attn_impl="ring" under tp
         rmodel = whole_model()
-        _, rsync = setup_parallel(rmodel, mesh, ring=True)
-        chunk = ring_chunk_loss(mesh, cfg, DEFAULT_POLICY)
-        ring_attention.set_ring(ring_attention.GroupRing(mesh.group("model")))
-        try:
-            rm = step_of(rmodel, lambda m, micro: chunk(m, micro["x"], micro["y"]), rsync)(
-                rmodel, adamw_init(gpt2.named_params(rmodel)), batch, 0)
-        finally:
-            ring_attention.set_ring(None)
+        rplace, rsync = setup_parallel(rmodel, mesh, seq_parallel=True)
+
+        def ring_loss(m, micro):
+            return gpt2.loss(m, micro["x"], cfg, targets=micro["y"], policy=DEFAULT_POLICY,
+                             attn_impl="ring")
+
+        rm = step_of(rmodel, ring_loss, rsync, rplace)(
+            rmodel, adamw_init(gpt2.named_params(rmodel), placement=rplace), batch, 0)
         _check(np.isfinite(rm["loss"]), f"ring loss {rm['loss']}")
         _check(abs(rm["loss"] - post) < 5e-3, f"ring step loss {rm['loss']} vs {post}")
         ring_note = f", ring step loss {rm['loss']:.4f}"

@@ -31,11 +31,14 @@ shape (world / (pp * tp), pp[, tp]) (parallel/mesh.py):
     rows; with ``seq_parallel`` the residual stream T-sharded between
     blocks;
   * ``attn_impl="ring"`` (:88-96, :134-138 there) with ``tp > 1`` chunks
-    that divide ``seq_len``: over processes, each rank of the model group
-    holds T/tp of every sequence and the ring is a ``GroupRing`` over that
-    group, the params replicated and their grads summed over it; on one
-    process the ring is run in turn (``ops.ring_attention.LocalRing``). The
-    ring is installed before the first step and removed when the run ends;
+    that divide ``seq_len``: over processes, the Megatron placement above
+    (JAX ``shard_params`` / ``shard_moments`` split over "model" whatever
+    the attention), each attention swapping its heads for a T/tp chunk of
+    every head and running the ring over the model group
+    (``parallel/sharding.TensorParallel.ring_attention``), with
+    ``seq_parallel`` or ``layerwise_grad`` as under TP; on one process the
+    ring is run in turn (``ops.ring_attention.LocalRing``), installed before
+    the first step and removed when the run ends;
   * ``pp > 1``: the GPipe pipeline over ``pipe`` (parallel/pipeline.py), a
     stage of n_layer / pp layers a rank, ``pp_micro`` (or pp) sub-batches a
     micro-batch; each step through the train step's layerwise seam,
@@ -91,7 +94,7 @@ from ..ops import ring_attention
 from ..parallel import collectives as coll
 from ..parallel.mesh import init_distributed, is_master, make_mesh, world_size
 from ..parallel.pipeline import make_pipeline_loss_fn, whole_stages
-from ..parallel.sharding import ring_chunk_loss, setup_parallel
+from ..parallel.sharding import setup_parallel
 from ..utils.trees import fmt_count, tree_bytes
 from .optimizer import adamw_init, convert_moments
 from .step import make_eval_step, make_train_step
@@ -147,10 +150,6 @@ def check_parallel(cfg: PretrainConfig, world: Optional[int] = None) -> None:
         if cfg.seq_len % cfg.tp:
             raise ValueError(f"attn_impl='ring': seq_len {cfg.seq_len} is not divisible "
                              f"by tp={cfg.tp}")
-        if cfg.seq_parallel:
-            raise NotImplementedError(
-                "seq_parallel with attn_impl='ring': both cut the sequence over the model "
-                "axis; not carried (ROADMAP, Not carried)")
     if cfg.seq_parallel and cfg.seq_len % cfg.tp:
         raise ValueError(f"seq_parallel: seq_len {cfg.seq_len} is not divisible by "
                          f"tp={cfg.tp}")
@@ -185,13 +184,15 @@ def run_pretrain(cfg: PretrainConfig, *, device, policy: Policy = DEFAULT_POLICY
         mesh = make_mesh(num_devices, axes, shape)
     else:
         mesh = make_mesh(num_devices, ("data", "model"), (world // tp, tp))
-    if ring:
-        ring_attention.set_ring(cfg.tp if world == 1
-                                else ring_attention.GroupRing(mesh.group("model")))
+    # one process runs the ring's ranks in turn; over processes each
+    # tensor-parallel attention runs the ring over the model group
+    local_ring = ring and world == 1
+    if local_ring:
+        ring_attention.set_ring(cfg.tp)
     try:
         return _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh)
     finally:
-        if ring:
+        if local_ring:
             ring_attention.set_ring(None)
 
 
@@ -199,10 +200,6 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
     master = is_master()
     data_rank, data_world = mesh.coord("data"), mesh.size("data")
     n_model = mesh.size("model")
-    seq_ring = n_model > 1 and cfg.attn_impl == "ring"
-    if seq_ring and cfg.layerwise_grad:
-        raise NotImplementedError("layerwise_grad with the ring over processes is not "
-                                  "carried (ROADMAP, Not carried)")
     accum = cfg.grad_accum_steps(data_world)
     if master:
         print(f"total desired batch size: {cfg.total_batch_size}")
@@ -223,8 +220,7 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
     model = gpt2.init(cfg.model, generator=torch.Generator(device).manual_seed(cfg.seed),
                       device=device)
     n_params = gpt2.param_count(model)
-    placement, sync = setup_parallel(model, mesh, seq_parallel=cfg.seq_parallel,
-                                     ring=cfg.attn_impl == "ring")
+    placement, sync = setup_parallel(model, mesh, seq_parallel=cfg.seq_parallel)
     tp = placement.tp
     if cfg.param_dtype:
         # the whole-model cast, the reference's CUDA run (train_gpt2.py:264);
@@ -245,17 +241,10 @@ def _run_pretrain(cfg, device, policy, max_steps_override, remat, mesh) -> dict:
               f"{cfg.grad_accum_dtype or 'float32'}"
               + (f" (a rank's {', '.join(part)})" if part else ""))
 
-    if seq_ring:
-        # this rank's chunk of every sequence
-        chunk_loss = ring_chunk_loss(mesh, cfg.model, policy, remat=remat)
-
-        def loss_fn(model, micro):
-            return chunk_loss(model, micro["x"], micro["y"])
-    else:
-        def loss_fn(model, micro):
-            # micro: {"x", "y"}, (B, T) int32 each
-            return gpt2.loss(model, micro["x"], cfg.model, targets=micro["y"],
-                             policy=policy, attn_impl=cfg.attn_impl, remat=remat)
+    def loss_fn(model, micro):
+        # micro: {"x", "y"}, (B, T) int32 each
+        return gpt2.loss(model, micro["x"], cfg.model, targets=micro["y"],
+                         policy=policy, attn_impl=cfg.attn_impl, remat=remat)
 
     layerwise_fn = None
     if cfg.layerwise_grad:

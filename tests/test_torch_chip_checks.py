@@ -440,3 +440,28 @@ def test_dt_dropped_part_fails_the_f32_row_rule(b, tq, tk, causal, parts):
     assert cs.f32_fwd_row_err(ab.from_dt(whole, b, tq), ab.from_dt(ro, b, tq)) <= cs.F32_ROW_TOL
     short = cs.dt_dropped_part(torch, ab, qd, kd, vd, b, tq, tk, causal, parts)
     assert cs.f32_fwd_row_err(ab.from_dt(short, b, tq), ab.from_dt(ro, b, tq)) > cs.F32_ROW_TOL
+
+
+@pytest.mark.parametrize("n_head, n_embd, ways", [(4, 64, 4), (25, 200, 4), (6, 48, 2)])
+def test_placement_bytes_check_holds_the_shards_and_fails_whole_leaves(n_head, n_embd, ways):
+    """Phase 35's bytes check: each rank's fp32 params and two fp32 moments,
+    as ``shard_model`` cuts a whole model for that rank, equal
+    ``megatron_bytes``' count; the whole model on every rank (the one-process
+    placement, the control) is outside it on every rank."""
+    from gpt2_vision_language_tpu_torch.core.config import GPTConfig
+    from gpt2_vision_language_tpu_torch.models import gpt2
+    from gpt2_vision_language_tpu_torch.parallel import sharding
+    from gpt2_vision_language_tpu_torch.utils.trees import tree_bytes
+
+    cfg = GPTConfig(block_size=64, vocab_size=300, n_layer=2, n_head=n_head, n_embd=n_embd)
+    want = cs.megatron_bytes(torch, cfg, ways)
+    held = []
+    for r in range(ways):
+        model = gpt2.GPT2(cfg)
+        sharding.shard_model(model, sharding.TensorParallel(None, r, ways, cfg))
+        p = tree_bytes(gpt2.named_params(model))
+        held.append((p, 2 * p))
+    assert cs.placement_bytes_excess(held, want) == [0] * ways
+    whole = tree_bytes(gpt2.named_params(gpt2.GPT2(cfg)))
+    assert sum(want) > whole > max(want)
+    assert all(cs.placement_bytes_excess([(whole, 2 * whole)] * ways, want))

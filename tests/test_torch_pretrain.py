@@ -122,9 +122,10 @@ def test_attn_impl_ring_is_refused():
     raised NotImplementedError). Now: --attn-impl ring --tp 2 parses to what
     the JAX CLI gives for tp and attn_impl; ring without --tp and a --tp that
     does not divide --seq-len are refused. --tp without ring (Megatron tensor
-    parallelism) and --seq-parallel parse to the JAX CLI's fields too, and a
-    one-process run refuses Megatron tensor parallelism: it runs over tp
-    processes."""
+    parallelism) and --seq-parallel parse to the JAX CLI's fields too, and so
+    do the ring with --seq-parallel and with --layerwise-grad, which the JAX
+    CLI accepts; a one-process run refuses Megatron tensor parallelism: it
+    runs over tp processes."""
     from gpt2_vision_language_tpu.cli import pretrain as jax_pretrain
 
     argv = ["--attn-impl", "ring", "--tp", "2", "--seq-len", "64"]
@@ -145,8 +146,12 @@ def test_attn_impl_ring_is_refused():
             want.tp, want.attn_impl, want.seq_parallel), argv
     with pytest.raises(ValueError, match="seq_parallel requires tp > 1"):
         pretrain.parse_and_build(["--seq-parallel"])
-    with pytest.raises(NotImplementedError, match="not carried"):
-        pretrain.parse_and_build(["--seq-parallel", "--tp", "2", "--attn-impl", "ring"])
+    for argv in (["--seq-parallel", "--tp", "2", "--attn-impl", "ring"],
+                 ["--layerwise-grad", "--tp", "4", "--attn-impl", "ring"]):
+        cfg, _ = pretrain.parse_and_build(argv)
+        want = jax_pretrain.parse_and_build(argv)[0]
+        fields = ("tp", "attn_impl", "seq_parallel", "layerwise_grad", "seq_len")
+        assert ([getattr(cfg, f) for f in fields] == [getattr(want, f) for f in fields]), argv
     with pytest.raises(ValueError, match="runs over tp processes"):
         pretrain.main(["--tp", "2", "--device", "cpu", "--steps", "1"])
 

@@ -127,3 +127,55 @@ def assert_matches_jax(rec: dict, after: dict, jax_metrics: list, jax_after, arc
     for n, t in after.items():
         np.testing.assert_allclose(t.numpy(), want[n].numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=f"{what} {n}")
+
+
+def a2a_rank(out_dir: str, n_head: int) -> None:
+    """One rank of the all-to-all round trip (launched by ``run_a2a``):
+    (B, T, 3, heads[r], hs) slices of one seeded (B, T, 3, n_head, hs)
+    tensor through ``HeadsToChunks`` and ``ChunksToHeads``, in fp32 and bf16,
+    and the gradient of each; writes what it checked to
+    ``{out_dir}/a2a_r{rank}.json``."""
+    import torch.distributed as dist
+
+    from gpt2_vision_language_tpu_torch.parallel import collectives as coll
+    from gpt2_vision_language_tpu_torch.parallel.mesh import maybe_init_distributed
+    from gpt2_vision_language_tpu_torch.parallel.sharding import split_counts
+
+    maybe_init_distributed("gloo")
+    torch.set_num_threads(1)
+    group, r, n = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
+    heads = split_counts(n_head, n)
+    h0, tc = sum(heads[:r]), 8 // n
+    g = torch.Generator().manual_seed(0)
+    full = torch.randn(2, 8, 3, n_head, 4, generator=g)
+    weight = torch.randn(2, 8, 3, n_head, 4, generator=g)
+    x = full[..., h0:h0 + heads[r], :].clone().requires_grad_(True)
+    chunk = coll.HeadsToChunks.apply(x, group, heads)
+    assert torch.equal(chunk, full[:, r * tc:(r + 1) * tc]), "heads -> chunks"
+    # d/dx of sum(weight's chunk * chunk) is weight at this rank's heads
+    (chunk * weight[:, r * tc:(r + 1) * tc]).sum().backward()
+    assert torch.equal(x.grad, weight[..., h0:h0 + heads[r], :]), "HeadsToChunks backward"
+    y = chunk.detach().requires_grad_(True)
+    back = coll.ChunksToHeads.apply(y, group, heads)
+    assert torch.equal(back, x.detach()), "chunks -> heads"
+    (back * weight[..., h0:h0 + heads[r], :]).sum().backward()
+    assert torch.equal(y.grad, weight[:, r * tc:(r + 1) * tc]), "ChunksToHeads backward"
+    xb = x.detach().to(torch.bfloat16)
+    cb = coll.heads_to_chunks(xb, group, heads)
+    assert cb.dtype == torch.bfloat16 and torch.equal(cb, full[:, r * tc:(r + 1) * tc].bfloat16())
+    assert torch.equal(coll.chunks_to_heads(cb, group, heads), xb), "bf16 round trip"
+    with open(os.path.join(out_dir, f"a2a_r{r}.json"), "w") as f:
+        json.dump({"heads": heads, "chunk_shape": list(chunk.shape),
+                   "all_to_all": coll.counts["all_to_all"]}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_a2a(nprocs: int, n_head: int, tmp_path) -> list:
+    """``a2a_rank`` on ``nprocs`` gloo processes; every rank's record."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import torch_dist; "
+            f"torch_dist.a2a_rank({str(tmp_path)!r}, {n_head})")
+    dist_worker.launch({"tag": "a2a"}, nprocs, timeout=TIMEOUT_S, workdir=str(tmp_path),
+                       argv=["-c", code])
+    return [json.load(open(os.path.join(tmp_path, f"a2a_r{r}.json"))) for r in range(nprocs)]
