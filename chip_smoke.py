@@ -90,7 +90,7 @@ Phases (any failure raises and the script exits non-zero):
      for 3 steps of 8 x 1024 tokens with PROFILE_DIR set and the hook's
      window (1, 1), so the trace opens after step 1 and closes after step 2:
      one Chrome trace, whose kernels include the port's flash_fwd, flash_bwd
-     and adamw;
+     and adamw, with the port's own spans (obs/spans.py) of step 2 beside them;
  10. the general (Tq != Tk, streamed K/V) flash kernels vs their plain
      versions, forward (o, lse) and backward (D, dq, dk/dv), at (B, Tq, Tk)
      = (2, 4096, 4096), (2, 1000, 1000), (2, 64, 2048) causal and not,
@@ -1372,7 +1372,8 @@ def phase_trainer(torch, mods, cfgs):
 
 def phase_profiler(torch, mods):
     print("[9b] ProfilerHook(start_step=1, num_steps=1) in cli.pretrain --synthetic, 3 steps "
-          "of 8,192 tokens, PROFILE_DIR set: the trace of step 2 names the port's kernels",
+          "of 8,192 tokens, PROFILE_DIR set: the trace of step 2 names the port's kernels "
+          "and holds its spans",
           flush=True)
     from gpt2_vision_language_tpu_torch.obs import csvlog
     from gpt2_vision_language_tpu_torch.train import pretrain as trainer
@@ -1398,10 +1399,19 @@ def phase_profiler(torch, mods):
             events = json.load(f)["traceEvents"]
         kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
         found = {k: [n for n in kernels if k in n] for k in ("flash_fwd", "flash_bwd", "adamw")}
+        spans = {}
+        for e in events:
+            if e.get("cat") == "gpt2vl":
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
         print(f"  3 steps in {dt:.1f} s; trace {os.path.getsize(traces[0])} bytes, "
-              f"{len(kernels)} kernel names; the port's: {found}", flush=True)
+              f"{len(kernels)} kernel names; the port's: {found}; its spans: {spans}", flush=True)
         require(all(found.values()), f"the trace does not name the port's kernels: {found}")
-        return {"seconds": dt, "kernel_names": len(kernels), "port_kernels": found}
+        want = ("step", "step.forward", "step.backward", "linear.fwd", "linear.bwd", "attn.fwd",
+                "attn.bwd", "ce.fwd", "ce.bwd", "step.optimizer", "optimizer.kernel")
+        require(spans.get("step") == 1 and all(spans.get(n) for n in want),
+                f"the trace does not hold the port's spans of one step: {spans}")
+        return {"seconds": dt, "kernel_names": len(kernels), "port_kernels": found,
+                "port_spans": spans}
     finally:
         trainer.ProfilerHook = old_hook
         tempfile.tempdir = old_tmp

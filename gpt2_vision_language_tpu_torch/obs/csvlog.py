@@ -6,7 +6,8 @@ analysis notebooks keep working: `train_{ts}.csv` with columns
 phases train/val/hella/cider; `log.txt`; end-of-run XLSX export. The
 port's own copy of gpt2_vision_language_tpu/obs/csvlog.py MetricsLogger
 (stdlib only; the same rows from the same calls), and its ProfilerHook on
-torch.profiler (torch imported when a trace starts)."""
+torch.profiler (torch imported when a trace starts), which carries the
+port's spans into its trace."""
 
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import csv
 import os
 import time
 from typing import Optional
+
+from . import spans
 
 
 class MetricsLogger:
@@ -138,10 +141,14 @@ class ProfilerHook:
     between those calls. It records the CPU, and the card's kernels where
     CUDA is available, and writes one Chrome trace under PROFILE_DIR when
     the window closes (``<host>_<pid>.<ms>.pt.trace.json``, torch's
-    ``tensorboard_trace_handler``). PROFILE_DIR unset or empty means off. As
-    in the JAX hook, a run that ends inside the window never stops its trace:
-    nothing is written, and the profiler stays on in that process, so a later
-    window there fails to start."""
+    ``tensorboard_trace_handler``). The port's own spans (``obs/spans.py``)
+    are on inside the window and are appended to that trace on its clock
+    (``cat: "gpt2vl"``), so the train step's phases, the linears, the
+    attention, the CE and the optimizer lie beside the kernels in one file.
+    PROFILE_DIR unset or empty means off. As in the JAX hook, a run that ends
+    inside the window never stops its trace: nothing is written, and the
+    profiler (and the spans) stay on in that process, so a later window
+    there fails to start."""
 
     def __init__(self, start_step: int = 10, num_steps: int = 5):
         self.dir = os.environ.get("PROFILE_DIR")
@@ -158,10 +165,22 @@ class ProfilerHook:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(
-                activities=activities,
-                on_trace_ready=torch.profiler.tensorboard_trace_handler(self.dir))
+            self._prof = torch.profiler.profile(activities=activities,
+                                                on_trace_ready=self._write)
+            spans.enable()
             self._prof.start()
         elif step == self.stop and self._prof is not None:
             self._prof.stop()
             self._prof = None
+
+    def _write(self, prof):
+        """torch's handler writes the trace; the window's spans go into it."""
+        import torch
+
+        before = set(os.listdir(self.dir)) if os.path.isdir(self.dir) else set()
+        torch.profiler.tensorboard_trace_handler(self.dir)(prof)
+        records = spans.drain()
+        spans.disable()
+        for name in sorted(set(os.listdir(self.dir)) - before):
+            if name.endswith(".json"):
+                spans.write_into(os.path.join(self.dir, name), records)

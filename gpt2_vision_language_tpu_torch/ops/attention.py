@@ -21,7 +21,8 @@ Counterpart of gpt2_vision_language_tpu/ops/attention.py:
 
 from __future__ import annotations
 
-from .flash_attention import flash_attention, flash_attention_reference
+from ..obs.spans import annotate, enabled, span
+from .flash_attention import flash_attention, flash_attention_reference, select_family
 
 # The JAX package's flash threshold (ops/attention.py:52-64), kept so that both
 # packages route the same shapes the same way. On the H100 the kernels win
@@ -38,7 +39,9 @@ IMPLS = ("auto", "xla", "flash", "ring")
 def sdpa(q, k, v, *, causal: bool, impl: str = "auto", layout: str = "bhtd"):
     """Attention over (B, H, Tq, hs) x (B, H, Tk, hs) -> (B, H, Tq, hs), or
     the same in (B, T, H, hs) order with layout="bthd". Scale 1/sqrt(hs),
-    softmax in fp32, causal masking right-aligned."""
+    softmax in fp32, causal masking right-aligned. Span ``attn.fwd``
+    (``obs/spans.py``; attrs ``impl``, the one taken, and on the flash path
+    ``family``)."""
     if impl not in IMPLS:
         raise ValueError(f"sdpa: unknown impl {impl!r}; expected one of {IMPLS}")
     if layout not in ("bthd", "bhtd"):
@@ -52,19 +55,22 @@ def sdpa(q, k, v, *, causal: bool, impl: str = "auto", layout: str = "bhtd"):
             and q.shape[t_axis] >= AUTO_FLASH_MIN_T
         )
         impl = "flash" if use_flash else "xla"
-    if impl == "flash":
-        return flash_attention(q, k, v, causal=causal, layout=layout)
-    if impl == "ring":
-        # sequence-chunked long-context path: needs set_ring() to have been
-        # called with the ring to run over
-        from . import ring_attention as ra
+    with span("attn.fwd", impl=impl):
+        if impl == "flash":
+            if enabled():
+                annotate("attn.fwd", family=select_family(q.shape[t_axis], k.shape[t_axis]))
+            return flash_attention(q, k, v, causal=causal, layout=layout)
+        if impl == "ring":
+            # sequence-chunked long-context path: needs set_ring() to have been
+            # called with the ring to run over
+            from . import ring_attention as ra
 
-        if ra.RING is None:
-            raise RuntimeError(
-                "attn_impl='ring' needs ops.ring_attention.set_ring(ring) first"
-            )
-        return ra.ring_attention(q, k, v, ra.RING, causal=causal, layout=layout)
-    return xla_sdpa(q, k, v, causal=causal, layout=layout)
+            if ra.RING is None:
+                raise RuntimeError(
+                    "attn_impl='ring' needs ops.ring_attention.set_ring(ring) first"
+                )
+            return ra.ring_attention(q, k, v, ra.RING, causal=causal, layout=layout)
+        return xla_sdpa(q, k, v, causal=causal, layout=layout)
 
 
 def xla_sdpa(q, k, v, *, causal: bool, layout: str = "bhtd"):

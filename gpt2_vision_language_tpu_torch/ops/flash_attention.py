@@ -79,6 +79,7 @@ import heapq
 import torch
 
 from .. import _build
+from ..obs.spans import span
 
 # head sizes the kernels in csrc/ are built for
 KERNEL_HEAD_SIZES = (64,)
@@ -352,9 +353,10 @@ class _FlashAttn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=ctx.causal)
-        return dq, dk, dv, None
+        with span("attn.bwd"):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do, causal=ctx.causal)
+            return dq, dk, dv, None
 
 
 # ---------------------------------------------------------------------------
@@ -589,9 +591,10 @@ class _FlashAttnGeneral(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_general_backward(q, k, v, o, lse, do, causal=ctx.causal)
-        return dq, dk, dv, None
+        with span("attn.bwd"):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = flash_general_backward(q, k, v, o, lse, do, causal=ctx.causal)
+            return dq, dk, dv, None
 
 
 # ---------------------------------------------------------------------------
@@ -871,15 +874,16 @@ class _FlashAttnLse(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = torch.zeros_like(o) if do is None else do.contiguous()
-        dcap = flash_rowdot(do, o)
-        if dlse is not None:
-            dcap = (dcap - dlse.float()).contiguous()
-        fused = (flash_fused_backward_f32 if q.is_cuda and q.dtype == torch.float32
-                 else flash_fused_backward)
-        dq, dk, dv = fused(q, k, v, do, lse, dcap, causal=ctx.causal)
-        return dq, dk, dv, None
+        with span("attn.bwd"):
+            q, k, v, o, lse = ctx.saved_tensors
+            do = torch.zeros_like(o) if do is None else do.contiguous()
+            dcap = flash_rowdot(do, o)
+            if dlse is not None:
+                dcap = (dcap - dlse.float()).contiguous()
+            fused = (flash_fused_backward_f32 if q.is_cuda and q.dtype == torch.float32
+                     else flash_fused_backward)
+            dq, dk, dv = fused(q, k, v, do, lse, dcap, causal=ctx.causal)
+            return dq, dk, dv, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True):

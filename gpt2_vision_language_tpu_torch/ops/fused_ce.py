@@ -26,6 +26,7 @@ import torch
 
 from .. import _build
 from ..core.precision import Policy, DEFAULT_POLICY
+from ..obs.spans import span
 from .layers import matmul_f32
 
 IMPLS = ("auto", "kernel", "xla")
@@ -124,43 +125,46 @@ ce_forward.launches = 0
 
 
 class _LinearCE(torch.autograd.Function):
-    """nll of x @ w.T against targets; saves (x, w, targets, logz)."""
+    """nll of x @ w.T against targets; saves (x, w, targets, logz). Spans
+    ``ce.fwd`` and ``ce.bwd`` (``obs/spans.py``)."""
 
     @staticmethod
     def forward(ctx, x, w, targets, n_chunks, policy, use_kernel):
-        cc = policy.cast_compute
-        if use_kernel:
-            nll, logz = ce_forward(cc(x).contiguous(), cc(w).contiguous(),
-                                   targets.to(torch.int32).contiguous())
-        else:
-            nll, logz = ce_forward_reference(cc(x), cc(w), targets, n_chunks=n_chunks,
-                                             logits_dtype=policy.compute_dtype)
-        ctx.n_chunks, ctx.policy = n_chunks, policy
-        ctx.save_for_backward(x, w, targets, logz)
-        return nll
+        with span("ce.fwd"):
+            cc = policy.cast_compute
+            if use_kernel:
+                nll, logz = ce_forward(cc(x).contiguous(), cc(w).contiguous(),
+                                       targets.to(torch.int32).contiguous())
+            else:
+                nll, logz = ce_forward_reference(cc(x), cc(w), targets, n_chunks=n_chunks,
+                                                 logits_dtype=policy.compute_dtype)
+            ctx.n_chunks, ctx.policy = n_chunks, policy
+            ctx.save_for_backward(x, w, targets, logz)
+            return nll
 
     @staticmethod
     def backward(ctx, g):
-        x, w, targets, logz = ctx.saved_tensors
-        policy = ctx.policy
-        cc = policy.cast_compute
-        wc = cc(w)
-        # accumulated in the param dtype across chunks; a frozen head gets none
-        dw = torch.zeros_like(w) if ctx.needs_input_grad[1] else None
-        dx = []
-        for xc, tc, gc, lzc in zip(x.chunk(ctx.n_chunks), targets.chunk(ctx.n_chunks),
-                                   g.float().chunk(ctx.n_chunks),
-                                   logz.chunk(ctx.n_chunks)):
-            xcc = cc(xc)
-            logits = matmul_f32(xcc, wc.t()).to(policy.compute_dtype)
-            p32 = torch.exp(logits.float() - lzc[:, None]) * gc[:, None]
-            rows = torch.arange(p32.shape[0], device=p32.device)
-            p32[rows, tc.long()] -= gc
-            p = p32.to(policy.compute_dtype)
-            dx.append(matmul_f32(p, wc).to(x.dtype))
-            if dw is not None:
-                dw += matmul_f32(p.t(), xcc).to(dw.dtype)
-        return torch.cat(dx), dw, None, None, None, None
+        with span("ce.bwd"):
+            x, w, targets, logz = ctx.saved_tensors
+            policy = ctx.policy
+            cc = policy.cast_compute
+            wc = cc(w)
+            # accumulated in the param dtype across chunks; a frozen head gets none
+            dw = torch.zeros_like(w) if ctx.needs_input_grad[1] else None
+            dx = []
+            for xc, tc, gc, lzc in zip(x.chunk(ctx.n_chunks), targets.chunk(ctx.n_chunks),
+                                       g.float().chunk(ctx.n_chunks),
+                                       logz.chunk(ctx.n_chunks)):
+                xcc = cc(xc)
+                logits = matmul_f32(xcc, wc.t()).to(policy.compute_dtype)
+                p32 = torch.exp(logits.float() - lzc[:, None]) * gc[:, None]
+                rows = torch.arange(p32.shape[0], device=p32.device)
+                p32[rows, tc.long()] -= gc
+                p = p32.to(policy.compute_dtype)
+                dx.append(matmul_f32(p, wc).to(x.dtype))
+                if dw is not None:
+                    dw += matmul_f32(p.t(), xcc).to(dw.dtype)
+            return torch.cat(dx), dw, None, None, None, None
 
 
 def fused_linear_ce(x, w, targets, *, n_chunks: int = 8,

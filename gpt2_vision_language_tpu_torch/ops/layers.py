@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.precision import Policy, DEFAULT_POLICY
+from ..obs.spans import span
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,26 +46,30 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class _Linear(torch.autograd.Function):
     """y = x @ w.T + b with compute-dtype operands and fp32 accumulation;
-    dx = dy @ w and dw = dy.T @ x the same way, db in fp32."""
+    dx = dy @ w and dw = dy.T @ x the same way, db in fp32. Spans
+    ``linear.fwd`` and ``linear.bwd`` (``obs/spans.py``), the casts and the
+    bias add included."""
 
     @staticmethod
     def forward(ctx, x, w, b, policy):
-        xc = policy.cast_compute(x)
-        y = matmul_f32(xc, policy.cast_compute(w).t())
-        if b is not None:
-            y = y + b.to(policy.accum_dtype)
-        ctx.policy = policy
-        ctx.x_dtype = x.dtype
-        ctx.has_bias = b is not None
-        ctx.save_for_backward(xc, w)
-        return y.to(x.dtype)
+        with span("linear.fwd"):
+            xc = policy.cast_compute(x)
+            y = matmul_f32(xc, policy.cast_compute(w).t())
+            if b is not None:
+                y = y + b.to(policy.accum_dtype)
+            ctx.policy = policy
+            ctx.x_dtype = x.dtype
+            ctx.has_bias = b is not None
+            ctx.save_for_backward(xc, w)
+            return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        xc, w = ctx.saved_tensors
-        dx, dw, db = linear_backward(dy, xc, w, ctx.policy, ctx.x_dtype, ctx.has_bias,
-                                     ctx.needs_input_grad[:3])
-        return dx, dw, db, None
+        with span("linear.bwd"):
+            xc, w = ctx.saved_tensors
+            dx, dw, db = linear_backward(dy, xc, w, ctx.policy, ctx.x_dtype, ctx.has_bias,
+                                         ctx.needs_input_grad[:3])
+            return dx, dw, db, None
 
 
 def linear_backward(dy, xc, w, policy: Policy, x_dtype, has_bias: bool, needs):

@@ -52,6 +52,7 @@ import torch
 
 from ..ckpt.convert import jax_leaf_path
 from ..core.config import OptimizerConfig
+from ..obs.spans import annotate, span
 from ..ops.fused_adamw import adamw_reference, fused_adamw
 
 # ---------------------------------------------------------------------------
@@ -396,7 +397,10 @@ def adamw_update(
     1/accum mean), folded into the clip scale as the JAX version does.
     placement: the parallel/sharding.Placement of a rank that holds part of
     the model; its 8-bit leaves update through ``Placement.update_q8``
-    (collective)."""
+    (collective). Spans (``obs/spans.py``): ``optimizer.kernel`` around the
+    kernel's launch, and the leaves each update took (``kernel``, ``plain``,
+    ``q8``) added to the ``step.optimizer`` span of ``train/step.py`` where
+    one is open."""
     if trainable_mask is None:
         trainable_mask = {n: True for n in params}
     step = state["step"] + 1
@@ -416,6 +420,7 @@ def adamw_update(
     lr_t, bc1_t, bc2_t = scalars[0], scalars[5], scalars[6]
     fused = set(kernel_leaves(params, state, trainable_mask)) if use_fused else set()
     kernel, kernel_wds = [], []
+    n_plain = n_q8 = 0
     with torch.no_grad():
         for path, leaf in jax_leaves(params).items():
             wd = cfg.weight_decay if decay_mask[leaf.names[0]] else 0.0
@@ -428,6 +433,7 @@ def adamw_update(
                     else:
                         _q8_update(leaf, params, grads, mq, vq, lr_t, clip_scale, bc1_t, bc2_t,
                                    cfg, wd)
+                    n_q8 += 1
                 continue
             for n in leaf.names:
                 if not trainable_mask[n]:
@@ -436,7 +442,8 @@ def adamw_update(
                 if n in fused:  # the kernel reads fp32 grads (bf16 accumulators upcast)
                     kernel.append((p, g if g.dtype == torch.float32 else g.float(), m, v))
                     kernel_wds.append(wd)
-                elif p.dtype == g.dtype == m.dtype == v.dtype == torch.float32:
+                    continue
+                if p.dtype == g.dtype == m.dtype == v.dtype == torch.float32:
                     adamw_reference(p, g, m, v, scalars, wd=wd)
                 else:  # compact storage: fp32 arithmetic, one rounding at store
                     p32, m32, v32 = _adam_f32(p.float(), g.float(), m.float(), v.float(),
@@ -444,8 +451,11 @@ def adamw_update(
                     p.copy_(p32)
                     m.copy_(m32)
                     v.copy_(v32)
+                n_plain += 1
         if kernel:
-            fused_adamw(kernel, scalars, kernel_wds)
+            with span("optimizer.kernel"):
+                fused_adamw(kernel, scalars, kernel_wds)
+    annotate("step.optimizer", kernel=len(kernel), plain=n_plain, q8=n_q8)
     state["step"] = step
 
 

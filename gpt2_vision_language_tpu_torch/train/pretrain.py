@@ -90,6 +90,7 @@ from ..infer.decode import Decoder
 from ..infer.sampling import sample_top_k
 from ..models import gpt2
 from ..obs.csvlog import MetricsLogger, ProfilerHook
+from ..obs.spans import span
 from ..ops import ring_attention
 from ..parallel import collectives as coll
 from ..parallel.mesh import init_distributed, is_master, make_mesh, world_size
@@ -115,9 +116,11 @@ def upload_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
 def split_rows_on_device(rows: torch.Tensor) -> dict:
     """Rows from ``upload_rows`` -> {"x": rows[..., :-1], "y": rows[..., 1:]},
     widened to int32 on the rows' device (the port's counterpart of
-    gpt2_vision_language_tpu/data/fineweb.py split_rows_on_device)."""
-    wide = rows.to(torch.int32) & 0xFFFF
-    return {"x": wide[..., :-1], "y": wide[..., 1:]}
+    gpt2_vision_language_tpu/data/fineweb.py split_rows_on_device); span
+    ``data.split``."""
+    with span("data.split"):
+        wide = rows.to(torch.int32) & 0xFFFF
+        return {"x": wide[..., :-1], "y": wide[..., 1:]}
 
 
 def check_parallel(cfg: PretrainConfig, world: Optional[int] = None) -> None:

@@ -21,6 +21,12 @@ them. The stochastic rounding's bits come from a ``torch.Generator`` on the
 params' device seeded per (step, micro-batch, parameter), so a resumed run
 draws what an uninterrupted one would.
 
+The step's spans (``obs/spans.py``): ``step`` around it, ``step.micro``
+around each micro-batch, ``step.forward`` and ``step.backward`` around
+``loss_fn`` and ``loss.backward()``, ``step.fold`` around the explicit
+accumulators' fold, ``step.norm`` from the grads to the one host read,
+``step.optimizer`` around ``adamw_update``.
+
 ``make_eval_step`` (:707-729): the mean loss over a batch of micro-batches,
 as the val-loss loop runs it (train_gpt2.py:341-350). It runs without
 autograd, so ``models.gpt2.loss`` takes the scoring path (flash and fused
@@ -36,6 +42,7 @@ import torch
 
 from ..core.config import OptimizerConfig, ScheduleConfig
 from ..models.gpt2 import named_params
+from ..obs.spans import span, step_span
 from .optimizer import adamw_update, freeze, global_norm
 from .schedule import cosine_warmup_lr
 
@@ -149,6 +156,10 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         raise ValueError("layerwise_loss_grad accumulates every parameter: no trainable_mask")
 
     def step(model, opt_state, batch, step_idx, extra=None):
+        with step_span(step_idx):
+            return run(model, opt_state, batch, step_idx, extra)
+
+    def run(model, opt_state, batch, step_idx, extra):
         if trainable_mask is not None:
             freeze(model, trainable_mask)
         params = named_params(model)
@@ -161,44 +172,51 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         accum = _steps(batch)
         lsum = None
         for i in range(accum):
-            micro = _micro(batch, i)
-            if acc is not None:
-                acc.micro = i
-            if layerwise_loss_grad is not None:
-                if extra is not None:
-                    raise ValueError("layerwise_loss_grad takes no `extra`")
-                loss = layerwise_loss_grad(model, micro, acc)
-            else:
-                loss = loss_fn(model, micro) if extra is None else loss_fn(model, micro, extra)
-                loss.backward()
-                if acc is not None:  # fold this micro-batch's grads in, then drop them
-                    for n, p in params.items():
-                        if p.grad is not None:
-                            acc.add(n, p.grad)
-                            p.grad = None
-            l = loss.detach().float()
-            lsum = l if lsum is None else lsum + l
+            with span("step.micro", i=i):
+                micro = _micro(batch, i)
+                if acc is not None:
+                    acc.micro = i
+                if layerwise_loss_grad is not None:
+                    if extra is not None:
+                        raise ValueError("layerwise_loss_grad takes no `extra`")
+                    loss = layerwise_loss_grad(model, micro, acc)
+                else:
+                    with span("step.forward"):
+                        loss = (loss_fn(model, micro) if extra is None
+                                else loss_fn(model, micro, extra))
+                    with span("step.backward"):
+                        loss.backward()
+                    if acc is not None:  # fold this micro-batch's grads in, then drop them
+                        with span("step.fold"):
+                            for n, p in params.items():
+                                if p.grad is not None:
+                                    acc.add(n, p.grad)
+                                    p.grad = None
+                l = loss.detach().float()
+                lsum = l if lsum is None else lsum + l
         inv_accum = 1.0 / accum
         loss = lsum * inv_accum
         lr = cosine_warmup_lr(step_idx, sched_cfg)
-        if acc is not None:
-            grads = acc.sums
-        else:
-            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for n, p in params.items() if tmask[n]}
-        if grad_sync is None:
-            norm = global_norm(grads) * inv_accum
-        else:
-            grad_sync.reduce_(grads)
-            norm = grad_sync.norm(grads) * inv_accum
-            loss = grad_sync.mean_loss(loss)
-        loss_h, norm_h = torch.stack([loss, norm]).tolist()  # the one host read
+        with span("step.norm"):
+            if acc is not None:
+                grads = acc.sums
+            else:
+                grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                         for n, p in params.items() if tmask[n]}
+            if grad_sync is None:
+                norm = global_norm(grads) * inv_accum
+            else:
+                grad_sync.reduce_(grads)
+                norm = grad_sync.norm(grads) * inv_accum
+                loss = grad_sync.mean_loss(loss)
+            loss_h, norm_h = torch.stack([loss, norm]).tolist()  # the one host read
         metrics = {"loss": loss_h, "lr": lr, "grad_norm": norm_h}
         if nan_guard and not (math.isfinite(loss_h) and math.isfinite(norm_h)):
             return metrics
-        adamw_update(params, grads, opt_state, lr, opt_cfg, norm=norm, decay_mask=decay_mask,
-                     trainable_mask=tmask, use_fused=use_fused_adamw, grad_scale=inv_accum,
-                     placement=placement)
+        with span("step.optimizer"):
+            adamw_update(params, grads, opt_state, lr, opt_cfg, norm=norm,
+                         decay_mask=decay_mask, trainable_mask=tmask, use_fused=use_fused_adamw,
+                         grad_scale=inv_accum, placement=placement)
         return metrics
 
     return step

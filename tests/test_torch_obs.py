@@ -89,3 +89,46 @@ def test_window_names_match_jax(start, num):
 
     ours, theirs = csvlog.ProfilerHook(start, num), jlog.ProfilerHook(start, num)
     assert (ours.dir, ours.start, ours.stop) == (theirs.dir, theirs.start, theirs.stop)
+
+
+def test_trace_holds_the_port_spans(tmp_path, monkeypatch):
+    """The window's train steps under the hook, on the CPU at 1 layer of
+    width 64: the written trace holds the port's ``step`` spans of the
+    window's steps beside the profiler's ops, on one clock, and the spans are
+    off again after it."""
+    from gpt2_vision_language_tpu_torch.core.config import OptimizerConfig, ScheduleConfig
+    from gpt2_vision_language_tpu_torch.core.precision import FP32_POLICY
+    from gpt2_vision_language_tpu_torch.models import gpt2
+    from gpt2_vision_language_tpu_torch.obs import spans
+    from gpt2_vision_language_tpu_torch.train.optimizer import adamw_init
+    from gpt2_vision_language_tpu_torch.train.step import make_train_step
+
+    out = tmp_path / "prof"
+    monkeypatch.setenv("PROFILE_DIR", str(out))
+    cfg = GPTConfig(block_size=32, vocab_size=128, n_layer=1, n_head=1, n_embd=64)
+    torch.manual_seed(0)
+    model = gpt2.GPT2(cfg)
+    state = adamw_init(gpt2.named_params(model))
+    step = make_train_step(
+        lambda m, micro: gpt2.loss(m, micro[:, :-1], cfg, targets=micro[:, 1:],
+                                   policy=FP32_POLICY),
+        OptimizerConfig(), ScheduleConfig(max_steps=10), decay_mask=gpt2.decay_mask(model))
+    batch = torch.randint(0, cfg.vocab_size, (2, 2, 17))
+    hook = csvlog.ProfilerHook(start_step=1, num_steps=2)
+    try:
+        for s in range(4):
+            step(model, state, batch, s)
+            hook.step(s)
+    finally:
+        if hook._prof is not None:
+            hook._prof.stop()
+    assert not spans.enabled()
+    (trace,) = glob.glob(str(out / "*.pt.trace.json"))
+    events = json.load(open(trace))["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "gpt2vl"]
+    assert sorted(e["args"]["step"] for e in ours if e["name"] == "step") == [2, 3]
+    assert {"step.micro", "step.forward", "step.backward", "linear.fwd", "ce.fwd",
+            "step.optimizer"} <= {e["name"] for e in ours}
+    (first,) = [e for e in ours if e["name"] == "step" and e["args"]["step"] == 2]
+    mms = [e for e in events if e.get("name") == "aten::mm" and e.get("tid") == first["tid"]]
+    assert any(first["ts"] <= e["ts"] <= first["ts"] + first["dur"] for e in mms)
