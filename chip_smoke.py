@@ -55,6 +55,15 @@ Phases (any failure raises and the script exits non-zero):
      (``ce_reference_drop``: 64 vocab columns of one tile left out, at
      N=8192; the ragged tile's padding counted as logits 0, at V=50257), the
      old 2e-3 check's reading printed beside;
+  3b. the CE logits-gradient kernel (K4b, csrc/ce_bwd.cu) vs its plain
+     version's fp32 P, element by element within 2^-8 + 2^-16 of each value, at
+     (N, D, V) = (2048, 768, 50304) (a chunk of the trainer's micro-batch),
+     (1000, 768, 50264) (ragged N, a last vocab tile of 88 columns) and
+     (1024, 1600, 50304) (the 1558M width), targets in the last tile, rows
+     of zero cotangent all zero, the kernel twice on one input bit for bit;
+     a control that must fail the check (``ce_bwd_reference_no_onehot``: P
+     without the one-hot subtraction); timed beside the plain version with
+     bf16 logits, the logits GEMM alone and the dx and dw products;
   4. the scoring forward: GPT-2 124M with seeded random weights, fp32
      params, bf16 policy, train.step.make_eval_step over 2 micro-batches of
      B=8, T=1024; the launch counters must show 12 flash and 1 CE launch per
@@ -82,7 +91,9 @@ Phases (any failure raises and the script exits non-zero):
      micro-batch and 1 AdamW launch per step; then one step at the peak LR
      on each path from one state (loss, grad norm and grads against the
      plain paths; the update against the plain AdamW on the same grads,
-     with controls that must fail); K4 in the training forward timed;
+     with controls that must fail); K4 and K4b once a micro-batch (ce_chunks
+     1); one micro-batch's forward + backward with the CE kernels timed
+     beside the plain CE, and under FP32_POLICY no CE kernel launched;
   9. the trainer entry point: cli.pretrain --synthetic for 3 steps of
      64 x 1024 tokens (CSV rows, checkpoints), then --steps 4 resumes at
      step 3 and runs one step;
@@ -943,6 +954,88 @@ def phase_ce(torch, fc, dev):
     return errs, timing
 
 
+# phase 3b's shapes (N, D, V): a chunk of the trainer's 124M micro-batch (16 x
+# 1024 rows in 8 chunks), a ragged N with a V whose last 256-wide tile holds 88
+# columns, and a chunk of 1558M's micro-batch (8 x 1024 rows in 8 chunks)
+CE_BWD_SHAPES = ((2048, 768, 50304), (1000, 768, 50264), (1024, 1600, 50304))
+# K4b's P against the plain version's fp32 P before its cast, element by
+# element: bf16's unit roundoff (2^-8, the cast), and 2^-16 for the fp32
+# logits' other sum order and ex2.approx
+CE_BWD_TOL = 2.0 ** -8 + 2.0 ** -16
+
+
+def ce_bwd_rel_err(torch, p, ref):
+    """max over the elements of |p - ref| / |ref|, p the kernel's bf16 P and
+    ref the plain version's fp32 P; where ref is 0, p must be 0 too."""
+    d = (p.float() - ref).abs()
+    r = ref.abs()
+    rel = torch.where(r > 0, d / r.clamp_min(1e-30), d * float("inf"))
+    return torch.nan_to_num(rel, nan=0.0).max().item()
+
+
+def ce_bwd_reference_no_onehot(torch, x, w, lse, g):
+    """The control of phase 3b: the plain version's fp32 P without the
+    one-hot subtraction at each row's target, as a kernel that lost it
+    would give."""
+    from gpt2_vision_language_tpu_torch.ops.layers import matmul_f32
+
+    return torch.exp(matmul_f32(x, w.t()) - lse[:, None]) * g[:, None]
+
+
+def phase_ce_bwd(torch, fc, dev):
+    print("[3b] CE logits gradient (K4b) vs plain", flush=True)
+    from gpt2_vision_language_tpu_torch.ops.layers import matmul_f32
+
+    g_ = torch.Generator(dev).manual_seed(3)
+    errs, timing, weights = {"max_rel": 0.0}, None, {}
+    for n, d, v in CE_BWD_SHAPES:
+        if d not in weights:
+            weights[d] = (torch.randn(50304, d, device=dev, generator=g_) * 0.02).to(torch.bfloat16)
+        w = weights[d][:v]  # the leading rows: contiguous
+        x = torch.randn(n, d, device=dev, generator=g_).to(torch.bfloat16)
+        t = torch.randint(0, v, (n,), device=dev, generator=g_, dtype=torch.int32)
+        t[:47] = torch.arange(v - 47, v, device=dev, dtype=torch.int32)  # the last tile
+        g = torch.rand(n, device=dev, generator=g_) / n
+        g[::7] = 0.0  # the masked rows of fused_ce_loss
+        _, lse = fc.ce_forward(x, w, t)
+        p = fc.ce_backward(x, w, t, lse, g)
+        again = fc.ce_backward(x, w, t, lse, g)
+        ref = fc.ce_backward_reference(x.float(), w.float(), t, lse, g)
+        torch.cuda.synchronize()
+        same = torch.equal(p, again)
+        e = ce_bwd_rel_err(torch, p, ref)
+        zero_rows = not p[::7].any()
+        print(f"  N={n} D={d} V={v}: P max over the elements of |err| / |ref| {e:.3e} (tol "
+              f"{CE_BWD_TOL:.3e}); rows of g = 0 all zero {zero_rows}; twice on one input "
+              f"bit-equal {same}", flush=True)
+        require(same, f"two runs of K4b differ at N={n} D={d} V={v}")
+        require(e <= CE_BWD_TOL and zero_rows, f"K4b N={n} D={d} V={v} disagrees")
+        errs["max_rel"] = max(errs["max_rel"], e)
+        if n == 2048:
+            # control: P without the one-hot subtraction
+            ctrl = ce_bwd_reference_no_onehot(torch, x.float(), w.float(), lse, g)
+            ce = ce_bwd_rel_err(torch, ctrl.to(torch.bfloat16), ref)
+            print(f"  control: the plain version without the one-hot subtraction: {ce:.3e} "
+                  f"(passes the check by {CE_BWD_TOL - ce:.3e}, must be < 0)", flush=True)
+            require(ce > CE_BWD_TOL, "the K4b check passed the control without the one-hot")
+            errs["control_no_onehot"] = ce
+            del ctrl
+            timing = interleaved(
+                lambda: fc.ce_backward(x, w, t, lse, g),
+                lambda: fc.ce_backward_reference(x, w, t, lse, g, logits_dtype=torch.bfloat16),
+                10, 3,
+            )
+            errs["logits_gemm_ms"] = cuda_ms(lambda: torch.mm(x, w.t()), 10)
+            errs["dx_ms"] = cuda_ms(lambda: matmul_f32(p, w), 10)
+            errs["dw_ms"] = cuda_ms(lambda: matmul_f32(p.t(), x), 10)
+            print(f"  N=2048: K4b {timing[0]:.4f} ms, plain P (bf16 logits, the plain route's) "
+                  f"{timing[1]:.4f} ms; beside it the logits GEMM alone (torch.mm, bf16 logits) "
+                  f"{errs['logits_gemm_ms']:.4f} ms, dx = P w {errs['dx_ms']:.4f} ms, "
+                  f"dw = P^T x {errs['dw_ms']:.4f} ms", flush=True)
+        del x, t, g, p, again, ref
+    return errs, timing
+
+
 def rel_err(a, ref):
     """max |a - ref| / max |ref|, in fp32."""
     return ((a.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
@@ -1122,7 +1215,7 @@ def phase_adamw(torch, gpt2, fw, schedule, cfgs, dev):
 def _counters(fa, fc, fw):
     return {"flash_fwd": fa.flash_attention, "flash_fwd_f32": fa.flash_forward_f32,
             "flash_bwd": fa.flash_attention_backward, "flash_bwd_f32": fa.flash_bwd_f32_cuda,
-            "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
+            "ce_fwd": fc.ce_forward, "ce_bwd": fc.ce_backward, "adamw": fw.fused_adamw,
             "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
             "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
             "flash_lse_fwd": fa.flash_lse_forward, "flash_fused_bwd": fa.flash_fused_backward,
@@ -1144,12 +1237,20 @@ def read_counts(fa, fc, fw):
 def with_zeros(counts):
     """Expected launch counts: the named ones, every other kernel 0."""
     return {**dict.fromkeys(("flash_fwd", "flash_fwd_f32", "flash_bwd", "flash_bwd_f32",
-                             "ce_fwd", "adamw",
+                             "ce_fwd", "ce_bwd", "adamw",
                              "flash_general_fwd", "flash_rowdot", "flash_general_dq",
                              "flash_general_dkv", "flash_lse_fwd", "flash_fused_bwd",
                              "flash_general_fwd_f32", "flash_general_bwd_f32", "flash_rowdot_f32",
                              "flash_lse_fwd_f32", "flash_fused_bwd_f32"), 0),
             **counts}
+
+
+def ce_train(micro, chunks=8, val=0):
+    """The CE kernels' launches of ``micro`` bf16 training micro-batches: K4
+    over each, K4b on each of its ``chunks`` chunks of rows (the loss's
+    ``ce_chunks``, 8 unless the caller says); and K4 alone over ``val``
+    validation micro-batches."""
+    return {"ce_fwd": micro + val, "ce_bwd": micro * chunks}
 
 
 def update_err(delta, ref):
@@ -1267,7 +1368,7 @@ def phase_train_step(torch, np, gpt2, mods, cfgs, dev):
     n_tok = accum * b * t
     reset_counts(fa, fc, fw)
     per_step = with_zeros({"flash_fwd": accum * cfg.n_layer,
-                           "flash_bwd": accum * cfg.n_layer, "adamw": 1})
+                           "flash_bwd": accum * cfg.n_layer, "adamw": 1, **ce_train(accum, 1)})
     metrics, times = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -1309,12 +1410,29 @@ def phase_train_step(torch, np, gpt2, mods, cfgs, dev):
                 p.grad = None
         return run
 
-    saved = fc.ce_forward.launches
-    k4 = interleaved(fwd_bwd("kernel"), fwd_bwd("auto"), 3, 3)
-    require(fc.ce_forward.launches > saved, "ce_impl='kernel' did not launch K4")
-    print(f"  one micro-batch forward + backward: CE 'kernel' (K4 forward) {k4[0]:.4f} ms, "
-          f"CE 'auto' (plain chunked forward) {k4[1]:.4f} ms", flush=True)
-    return {"kernel_tps": kernel_tps, "plain_tps": plain_tps, "counts": main_counts}
+    saved = read_counts(fa, fc, fw)
+    ce_ms = interleaved(fwd_bwd("auto"), fwd_bwd("xla"), 3, 3)
+    got = read_counts(fa, fc, fw)
+    calls = 2 * (1 + 3)  # interleaved: two readings of a warm-up and 3 calls
+    require(got["ce_fwd"] - saved["ce_fwd"] == calls and got["ce_bwd"] - saved["ce_bwd"] == calls,
+            "CE 'auto' under autograd did not take K4 and K4b once a micro-batch")
+    print(f"  one micro-batch forward + backward: CE 'auto' (K4 forward, K4b backward) "
+          f"{ce_ms[0]:.4f} ms, CE 'xla' (the chunked plain path) {ce_ms[1]:.4f} ms", flush=True)
+
+    # FP32_POLICY keeps the CE on the plain path: no K4 and no K4b
+    saved = read_counts(fa, fc, fw)
+    gpt2.loss(model, micro[:, :-1], cfg, targets=micro[:, 1:], policy=mods["fp32_policy"],
+              ce_chunks=1).backward()
+    for p in model.parameters():
+        p.grad = None
+    got = read_counts(fa, fc, fw)
+    print(f"  one micro-batch forward + backward under FP32_POLICY: CE launches "
+          f"{got['ce_fwd'] - saved['ce_fwd']} K4, {got['ce_bwd'] - saved['ce_bwd']} K4b",
+          flush=True)
+    require(got["ce_fwd"] == saved["ce_fwd"] and got["ce_bwd"] == saved["ce_bwd"],
+            "a train step under FP32_POLICY launched a CE kernel")
+    return {"kernel_tps": kernel_tps, "plain_tps": plain_tps, "counts": main_counts,
+            "micro_ce_ms": ce_ms}
 
 
 def phase_trainer(torch, mods, cfgs):
@@ -1335,8 +1453,8 @@ def phase_trainer(torch, mods, cfgs):
         counts = read_counts(fa, fc, fw)
         accum, val_steps = 8, 20
         want = with_zeros({"flash_fwd": cfg.n_layer * (3 * accum + 2 * val_steps),
-                           "flash_bwd": cfg.n_layer * 3 * accum, "ce_fwd": 2 * val_steps,
-                           "adamw": 3})
+                           "flash_bwd": cfg.n_layer * 3 * accum, "adamw": 3,
+                           **ce_train(3 * accum, val=2 * val_steps)})
         print(f"  3 steps in {dt:.1f} s (val at steps 0 and 2, samples, checkpoints); "
               f"launches {counts}", flush=True)
         require(counts == want, f"expected launches {want}, got {counts}")
@@ -1825,7 +1943,7 @@ def phase_long_train_step(torch, np, gpt2, mods, cfgs, dev):
     step_k, state_k = make(model, cfg, "auto", "auto", True)
     n = accum * cfg.n_layer
     per_step = with_zeros({"flash_general_fwd": n, "flash_rowdot": n, "flash_general_dq": n,
-                           "flash_general_dkv": n, "adamw": 1})
+                           "flash_general_dkv": n, "adamw": 1, **ce_train(accum, 1)})
     n_tok = accum * b * t
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa, fc, fw)
@@ -1869,7 +1987,8 @@ def phase_long_train_step(torch, np, gpt2, mods, cfgs, dev):
     compare_train_steps(torch, gpt2, mods, cfgs, kernel, plain, batch)
     counts = read_counts(fa, fc, fw)
     require(counts == with_zeros({"flash_general_fwd": 2, "flash_rowdot": 2,
-                                  "flash_general_dq": 2, "flash_general_dkv": 2, "adamw": 1}),
+                                  "flash_general_dq": 2, "flash_general_dkv": 2, "adamw": 1,
+                                  **ce_train(1, 1)}),
             f"the T={t2} kernel-path step did not run on the general kernels: {counts}")
     return {"tps": tps, "peak_gib": peak, "counts": main_counts}
 
@@ -1918,7 +2037,8 @@ def phase_long_trainer(torch, np, mods, cfgs):
         bwd = n_layer * 3 * accum
         want = with_zeros({"flash_general_fwd": n_layer * (3 * accum + 2 * val_steps),
                            "flash_rowdot": bwd, "flash_general_dq": bwd,
-                           "flash_general_dkv": bwd, "ce_fwd": 2 * val_steps, "adamw": 3})
+                           "flash_general_dkv": bwd, "adamw": 3,
+                           **ce_train(3 * accum, val=2 * val_steps)})
         print(f"  3 steps in {dt:.1f} s (val and HellaSwag at steps 0 and 2, samples, "
               f"checkpoints); launches {counts}", flush=True)
         require(counts == want, f"expected launches {want}, got {counts}")
@@ -2184,7 +2304,7 @@ def phase_ring_train_step(torch, np, gpt2, mods, cfgs, dev, whole):
     step_r, state_r = make(model, "ring")
     pairs = accum * cfg.n_layer * n * (n + 1) // 2
     per_step = with_zeros({"flash_lse_fwd": pairs, "flash_rowdot": pairs,
-                           "flash_fused_bwd": pairs, "adamw": 1})
+                           "flash_fused_bwd": pairs, "adamw": 1, **ce_train(accum, 1)})
     n_tok = accum * b * t
     ra.set_ring(n)
     try:
@@ -2238,7 +2358,7 @@ def phase_ring_train_step(torch, np, gpt2, mods, cfgs, dev, whole):
         whole = accum * cfg.n_layer
         require(counts == with_zeros({"flash_general_fwd": whole, "flash_rowdot": whole,
                                       "flash_general_dq": whole, "flash_general_dkv": whole,
-                                      "adamw": 1}),
+                                      "adamw": 1, **ce_train(accum, 1)}),
                 f"the flash-path step did not run on the general kernels: {counts}")
         real_merge = ra._merge
         ra._merge = lambda c, u: (c[0] + u[0], torch.logaddexp(c[1], u[1]))
@@ -2289,8 +2409,8 @@ def phase_ring_trainer(torch, mods, cfgs):
         accum, val_steps = 2, 20
         bwd = n_layer * pairs * 2 * accum
         want = with_zeros({"flash_lse_fwd": n_layer * pairs * (2 * accum + 2 * val_steps),
-                           "flash_rowdot": bwd, "flash_fused_bwd": bwd,
-                           "ce_fwd": 2 * val_steps, "adamw": 2})
+                           "flash_rowdot": bwd, "flash_fused_bwd": bwd, "adamw": 2,
+                           **ce_train(2 * accum, val=2 * val_steps)})
         print(f"  2 steps in {dt:.1f} s (val at steps 0 and 1, samples, checkpoints); "
               f"launches {counts}", flush=True)
         require(counts == want, f"expected launches {want}, got {counts}")
@@ -3594,10 +3714,16 @@ def phase_finetune_ops(torch, np, ft, mods, dev):
             require(fc.ce_forward.launches == n_ce + 1, "the no-grad loss did not launch the "
                     "CE kernel")
             loss_cpu = ref_loss_fn(ref, micro_cpu, bank.cpu().float()).item()
-        loss_g = loss_fn(model, micro, bank)  # under autograd: the chunked plain CE
-        require(fc.ce_forward.launches == n_ce + 1, "the training loss launched the CE kernel")
-        print(f"  {kind} loss (2 layers, B=16, T=32): card, CE kernel {loss_k:.6f}; card, plain "
-              f"CE under autograd {loss_g.item():.6f}; CPU fp32 {loss_cpu:.6f} (tol 2e-2)",
+        # under autograd: K4 too, and K4b on each of the 8 chunks in the backward
+        # (the head is frozen: dx only)
+        loss_g = loss_fn(model, micro, bank)
+        require(fc.ce_forward.launches == n_ce + 2, "the training loss did not launch K4")
+        n_bwd = fc.ce_backward.launches
+        loss_g.backward()
+        require(fc.ce_backward.launches == n_bwd + 8, "the training loss's backward did not "
+                "launch K4b on each of its 8 chunks")
+        print(f"  {kind} loss (2 layers, B=16, T=32): card, CE kernel {loss_k:.6f}; card, CE "
+              f"kernels under autograd {loss_g.item():.6f}; CPU fp32 {loss_cpu:.6f} (tol 2e-2)",
               flush=True)
         require(abs(loss_k - loss_cpu) <= 2e-2 and abs(loss_g.item() - loss_k) <= 1e-2,
                 f"{kind} loss disagrees")
@@ -3713,8 +3839,10 @@ def phase_finetune_clis(torch, ft, mods, dev):
                          else {n: n.startswith("bridge.") for n in params})
             n_train = sum(p.numel() for n, p in params.items() if trainable[n])
             n_total = sum(p.numel() for p in params.values())
-            # validations at step 0 and at the last step, 20 micro-batches each
-            want = with_zeros({"ce_fwd": 2 * 20, "adamw": steps})
+            # validations at step 0 and at the last step, 20 micro-batches each,
+            # beside the steps' micro-batches under autograd
+            accum = ft["presets"][kind]().grad_accum_steps(1)
+            want = with_zeros({"adamw": steps, **ce_train(steps * accum, val=2 * 20)})
             rows = [line.split(",") for f in sorted(glob.glob(os.path.join(log_dir, "*.csv")))
                     for line in open(f).read().splitlines()[1:]]
             train_rows = [r for r in rows if r[1] == "train"]
@@ -4656,7 +4784,8 @@ def phase_big_model(torch, np, gpt2, mods, cfgs, dev):
         n_layer = GPT2_1558M.n_layer
         fused = bool(mods["kernel_leaves"](gpt2.named_params(res["model"]), res["opt_state"]))
         want = with_zeros({"flash_fwd": 3 * 2 * n_layer * (2 if recompute else 1),
-                           "flash_bwd": 3 * 2 * n_layer, "adamw": 3 if fused else 0})
+                           "flash_bwd": 3 * 2 * n_layer, "adamw": 3 if fused else 0,
+                           **ce_train(3 * 2)})
         tps = _csv_train_tps(os.path.join(log_dir, "log"))
         print(f"  (c) cli.pretrain --model 1558M --fit-1chip ({row}), 3 steps of 2 x (B={b}, "
               f"T=1024): {wall:.1f} s, tokens/s by step {tps}, peak {peak:.2f} GiB; launches "
@@ -4931,7 +5060,7 @@ def phase_parallel(torch, np, cfgs, dev):
 
     print("[32-33, 36] 2 processes on cuda:0 over gloo: DP, TP, TP+SP (GPT-2 124M, bf16, the "
           "global batch of phase 8: 4 x (B=8, T=1024)), DP fine-tunes", flush=True)
-    k1 = {"flash_fwd": 24, "flash_bwd": 24, "adamw": 1}
+    k1 = {"flash_fwd": 24, "flash_bwd": 24, "adamw": 1, **ce_train(2)}
     jobs = [
         {"tag": "dp", "mesh": [2, 1], "rows": paths["rows_dp"], "model": {}},
         {"tag": "dp_no_allreduce", "mesh": [2, 1], "rows": paths["rows_dp"], "model": {},
@@ -4960,7 +5089,7 @@ def phase_parallel(torch, np, cfgs, dev):
         require([r["local_heads"] for r in recs[tag]] == [6, 6], f"{tag}: not 6 heads a rank")
         par_check(tag, recs[tag][0], PAR_LIMITS)
         par_counts(tag, recs[tag], {"flash_fwd": 4 * CUT_LAYERS, "flash_bwd": 4 * CUT_LAYERS,
-                                    "adamw": 1})
+                                    "adamw": 1, **ce_train(4)})
         for r, rec in enumerate(recs[tag]):  # the validation micro-batch: K4 on the gathered wte
             require(rec["eval_counts"] == with_zeros({"flash_fwd": CUT_LAYERS, "ce_fwd": 1}),
                     f"{tag} rank {r}: validation launches {rec['eval_counts']}")
@@ -4968,7 +5097,7 @@ def phase_parallel(torch, np, cfgs, dev):
           flush=True)
     for tag in ("ft_linear", "ft_qformer"):
         par_check(tag, recs[tag][0], PAR_LIMITS)
-        par_counts(tag, recs[tag], {"adamw": 1})
+        par_counts(tag, recs[tag], {"adamw": 1, **ce_train(2)})
     out.update({tag: {"errors": rs[0]["errors"], "seconds": [r["seconds"] for r in rs],
                       "peak_gib": [r["peak_gib"] for r in rs]} for tag, rs in recs.items()})
     out["dp"]["tokens_per_s"] = recs["dp"][0]["tokens_per_step"] / recs["dp"][0]["seconds"][-1]
@@ -5002,10 +5131,11 @@ def phase_parallel(torch, np, cfgs, dev):
           f"--sample-every 1 --steps 1, {CUT_LAYERS} layers of 124M, HellaSwag of 5 examples, "
           "then --steps 2 (a resume)", flush=True)
     k1_micro = lambda n: {"flash_fwd": CUT_LAYERS * n, "flash_bwd": CUT_LAYERS * n}  # noqa: E731
-    # 33b: a step: its micro-batch; validation: 20 micro-batches, each a K1 a
-    # layer and one K4 on the gathered wte; HellaSwag: the one data rank's 5
-    # examples on both model ranks, one forward at the 64-token width bucket,
-    # under the flash kernel's T >= 512 (ops/attention.AUTO_FLASH_MIN_T):
+    # 33b: a step: its micro-batch (K4 and K4b on the rank's T-shard);
+    # validation: 20 micro-batches, each a K1 a layer and one K4 on the
+    # gathered wte; HellaSwag: the one data rank's 5 examples on both model
+    # ranks, one forward at the 64-token width bucket, under the flash
+    # kernel's T >= 512 (ops/attention.AUTO_FLASH_MIN_T):
     # plain attention, as on one process; sampling: no kernel. The two
     # command lines run side by side (their own processes and log dirs), to
     # keep the script within its time
@@ -5014,15 +5144,15 @@ def phase_parallel(torch, np, cfgs, dev):
             cli_runs, "cli_dp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
                                  "--device", "cuda:0", "--total-batch", "32768",
                                  "--val-every", "0", "--no-hellaswag"],
-            ((1, {**k1_micro(2), "adamw": 1}), (2, {**k1_micro(2), "adamw": 1})), model=tp_model)
+            [(n, {**k1_micro(2), "adamw": 1, **ce_train(2)}) for n in (1, 2)], model=tp_model)
         tp_cli = pool.submit(
             cli_runs, "cli_tp_sp", ["--synthetic", "--synthetic-shards", "1", "--devices", "2",
                                     "--tp", "2", "--seq-parallel", "--device", "cuda:0",
                                     "--micro-batch", "1", "--total-batch", "1024",
                                     "--val-every", "1", "--save-every", "1", "--sample-every",
                                     "1"],
-            [(n, {"flash_fwd": CUT_LAYERS * (1 + 20), "flash_bwd": CUT_LAYERS, "ce_fwd": 20,
-                  "adamw": 1}) for n in (1, 2)], hellaswag=True, model=tp_model)
+            [(n, {"flash_fwd": CUT_LAYERS * (1 + 20), "flash_bwd": CUT_LAYERS, "adamw": 1,
+                  **ce_train(1, val=20)}) for n in (1, 2)], hellaswag=True, model=tp_model)
         log, _ = dp_cli.result()
         # without validation only model_final is written, by the master alone
         require(os.listdir(os.path.join(log, "ckpts")) == ["model_final.pt"],
@@ -5172,16 +5302,20 @@ def phase_ring_parallel(torch, np, cfgs, base, paths, work, seconds, out):
     require([r["local_heads"] for r in recs4["tp4_wide"]] == [7, 6, 6, 6],
             "tp4_wide: heads are not 7, 6, 6, 6")
     par_check("tp4_wide", recs4["tp4_wide"][0], PAR_LIMITS)
-    par_counts("tp4_wide", recs4["tp4_wide"], {"flash_fwd": 4, "flash_bwd": 4, "adamw": 1})
+    par_counts("tp4_wide", recs4["tp4_wide"], {"flash_fwd": 4, "flash_bwd": 4, "adamw": 1,
+                                               **ce_train(2)})
     par_check("tp4_norm_counts_replicated (control)", recs4["tp4_norm_counts_replicated"][0],
               PAR_LIMITS, control=True)
 
-    def lse(k_fwd, k_bwd, f32=False):
+    def lse(k_fwd, k_bwd, f32=False, ce_chunks=8):
         """rank r's launches: its own chunk and the r before it, 1 + r pairs
-        a layer, each a K2a (k_fwd times) and a D and a K3c (k_bwd times)."""
+        a layer, each a K2a (k_fwd times) and a D and a K3c (k_bwd times);
+        in bf16 K4 and K4b (``ce_chunks`` chunks) on each of the 2
+        micro-batches."""
         sfx = "_f32" if f32 else ""
+        ce = {} if f32 else ce_train(2, ce_chunks)
         return [{f"flash_lse_fwd{sfx}": k_fwd * (r + 1), f"flash_rowdot{sfx}": k_bwd * (r + 1),
-                 f"flash_fused_bwd{sfx}": k_bwd * (r + 1), "adamw": 1} for r in range(4)]
+                 f"flash_fused_bwd{sfx}": k_bwd * (r + 1), "adamw": 1, **ce} for r in range(4)]
 
     # the worker's GPTConfig of each job's model
     want_bytes = {k: megatron_bytes(torch, GPTConfig(**m), 4) for k, (m, _) in RING_MODELS.items()}
@@ -5208,7 +5342,7 @@ def phase_ring_parallel(torch, np, cfgs, base, paths, work, seconds, out):
     ring_check("ring4_sp", recs4["ring4_sp"], lse(4, 4), 2 * 2 * 10, want_bytes["two"])
     print("[35c] the ring with the layerwise backward, 2 layers of 124M, 2 x (B=1, T=4096)",
           flush=True)
-    ring_check("ring4_layerwise", recs4["ring4_layerwise"], lse(8, 4), 2 * 2 * 15,
+    ring_check("ring4_layerwise", recs4["ring4_layerwise"], lse(8, 4, ce_chunks=2), 2 * 2 * 15,
                want_bytes["two"])
     print("[35d] the ring with sequence parallelism at the 1558M width (25 heads: 7, 6, 6, 6 "
           "a rank), 2 layers, 2 x (B=1, T=4096), a chunk of 1024 a rank", flush=True)
@@ -5276,9 +5410,12 @@ def phase_pipeline(torch, np, cfgs, dev):
     out, seconds = {}, {}
     per = n_layer // 2  # layers a stage
     # a rank's step at pp = 2, pp_micro 4, 2 x (B=8, T=1024): its layers on
-    # each of 4 sub-batches of each micro-batch; the validation micro-batch
-    # once through the forward, K4 on the last stage
+    # each of 4 sub-batches of each micro-batch, the CE over the whole
+    # micro-batch on the last stage; the validation micro-batch once through
+    # the forward, K4 on the last stage
     k1 = {"flash_fwd": per * 4 * 2, "flash_bwd": per * 4 * 2, "adamw": 1}
+    # the last stage's: K4 over each micro-batch, K4b on its chunks
+    train = [k1, {**k1, **ce_train(2)}]
     ev = [{"flash_fwd": per * 4}, {"flash_fwd": per * 4, "ce_fwd": 1}]
     # 4 sub-batches' hops forward and back, 2 micro-batches, and the
     # validation micro-batch's 4 forward
@@ -5311,7 +5448,7 @@ def phase_pipeline(torch, np, cfgs, dev):
                                                           list(range(per, n_layer))],
             "pp2: the stages do not hold their layers")
     par_check("pp2", recs["pp2"][0], PAR_LIMITS)
-    par_counts("pp2", recs["pp2"], [k1, k1])
+    par_counts("pp2", recs["pp2"], train)
     for r, rec in enumerate(recs["pp2"]):
         require(rec["eval_counts"] == with_zeros(ev[r]),
                 f"pp2 rank {r}: validation launches {rec['eval_counts']}")
@@ -5350,7 +5487,7 @@ def phase_pipeline(torch, np, cfgs, dev):
     require([r["stage_layers"] for r in ptp] == [list(range(per))] * 2
             + [list(range(per, n_layer))] * 2, "pp2xtp2: the stages do not hold their layers")
     par_check("pp2xtp2", ptp[0], PAR_LIMITS)
-    par_counts("pp2xtp2", ptp, [k1] * 4)
+    par_counts("pp2xtp2", ptp, [train[0]] * 2 + [train[1]] * 2)
     for r, rec in enumerate(ptp):
         require(rec["eval_counts"] == with_zeros(ev[r // 2]),
                 f"pp2xtp2 rank {r}: validation launches {rec['eval_counts']}")
@@ -5387,15 +5524,15 @@ def phase_pipeline(torch, np, cfgs, dev):
     root = checkout_root(dist_worker)
     hs = write_hellaswag5(work)
     cli_s, cli_counts = {}, {}
-    # a step: k1; a validation: 20 micro-batches, each 4 sub-batches through a
+    # a step: train; a validation: 20 micro-batches, each 4 sub-batches through a
     # stage's layers and K4 once on the last stage; HellaSwag (the 64-token
     # bucket) and sampling on the gathered stages: no kernel
     val = [{"flash_fwd": per * 4 * 20}, {"flash_fwd": per * 4 * 20, "ce_fwd": 20}]
 
     def counts(steps, vals):
-        return [{k: steps * k1.get(k, 0) + vals * v.get(k, 0) for k in ("flash_fwd", "flash_bwd",
-                                                                         "ce_fwd", "adamw")}
-                for v in val]
+        return [{k: steps * t.get(k, 0) + vals * v.get(k, 0)
+                 for k in ("flash_fwd", "flash_bwd", "ce_fwd", "ce_bwd", "adamw")}
+                for t, v in zip(train, val)]
 
     print("[40] beside 37b, python -m gpt2_vision_language_tpu_torch.tools.dryrun_multichip 4 "
           "--device cuda:0 (its own 4 processes)", flush=True)
@@ -6025,6 +6162,7 @@ def main() -> int:
     f32b_errs, f32b_t = phase_flash_bwd_f32(torch, fa, dev)
     torch.cuda.empty_cache()
     ce_errs, ce_t = phase_ce(torch, fc, dev)
+    ce_bwd_errs, ce_bwd_t = phase_ce_bwd(torch, fc, dev)
 
     print("[4] scoring forward: GPT-2 124M, bf16 policy, 2 x (B=8, T=1024)", flush=True)
     cfg = GPTConfig()
@@ -6225,6 +6363,11 @@ def main() -> int:
         ("ce_fwd", "ce_fwd.cu", "gpt2_vision_language_tpu/ops/fused_ce.py:93", "trainer",
          ce_errs["max"], ce_t, bound_ms(2 * 8192 * 768 * 50304,
                                 2 * (8192 * 768 + 50304 * 768) + 3 * 4 * 8192), None),
+        # replaces no TPU kernel: the JAX backward of the fused CE is XLA
+        ("ce_bwd", "ce_bwd.cu", "none (XLA: gpt2_vision_language_tpu/ops/fused_ce.py:331)",
+         "trainer", ce_bwd_errs["max_rel"], ce_bwd_t,
+         bound_ms(2 * 2048 * 768 * 50304,
+                  2 * (2048 * 768 + 50304 * 768 + 2048 * 50304) + 3 * 4 * 2048), None),
         ("adamw", "adamw.cu", "gpt2_vision_language_tpu/ops/fused_adamw.py:36", "trainer",
          adamw_err, adamw_t, bound_ms(0, 7 * 4 * n_params), library["adamw_fused"]),
         ("flash_general_fwd", "flash_general_fwd.cu", f"{jfa}:221", "long_trainer",
@@ -6331,6 +6474,14 @@ def main() -> int:
                    "control_drop64_max_abs_err": ce_errs["control_drop64"],
                    "control_pad_max_abs_err": ce_errs["control_pad"],
                    "logits_gemm_ms": ce_errs["logits_gemm_ms"],
+                   "library_is": "none; logits_gemm_ms is torch.mm(x, w.t()) alone, bf16"},
+        "ce_bwd": {"err_is": "max over the elements of |err| / |ref|, against the plain "
+                          "version's fp32 P", "shape": "N=2048 D=768 V=50304",
+                   "tol": CE_BWD_TOL, "bit_equal_twice": True,
+                   "control_no_onehot": ce_bwd_errs["control_no_onehot"],
+                   "logits_gemm_ms": ce_bwd_errs["logits_gemm_ms"],
+                   "dx_ms": ce_bwd_errs["dx_ms"], "dw_ms": ce_bwd_errs["dw_ms"],
+                   "plain_is": "the plain version with bf16 logits (the plain route's P)",
                    "library_is": "none; logits_gemm_ms is torch.mm(x, w.t()) alone, bf16"},
         "adamw": {"err_is": "max|err| / max|ref|", "shape": "148 leaves, 124,475,904 params",
                   "library_is": "torch.optim.AdamW(fused=True).step()",

@@ -44,6 +44,7 @@ SIGNATURES = {
     "gpt2vl_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "gpt2vl_ce_fwd_block_rows": [],
     "gpt2vl_ce_fwd_tile_cols": [],
+    "gpt2vl_ce_bwd": [_P] * 6 + [_I] * 4 + [_P],
     "gpt2vl_flash_bwd": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_bwd_f32": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_I, _P],
     "gpt2vl_flash_fwd_f32_warps_per_sm": [],

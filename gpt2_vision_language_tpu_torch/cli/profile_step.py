@@ -61,6 +61,7 @@ HAND_WRITTEN_CLASSES = (
     ("flash_bwd_", "self-attention flash backward"),
     ("adamw_kernel", "AdamW kernel"),
     ("ce_fwd", "CE forward kernel"),
+    ("ce_bwd", "CE backward kernel"),
 )
 CLASSES = HAND_WRITTEN_CLASSES + (
     ("nvjet", "GEMM"), ("gemm", "GEMM"), ("cutlass", "GEMM"), ("cublas", "GEMM"),

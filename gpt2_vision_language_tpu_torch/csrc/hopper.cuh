@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels (the
 // forward main loop of flash_fwd_sm90.cuh, the key-major backward of
 // flash_bwd_sm90.cuh, the query-major dq block of flash_dq_sm90.cuh, the
-// fused LM-head + CE forward of ce_fwd.cu):
+// fused LM-head + CE forward of ce_fwd.cu and its logits gradient, ce_bwd.cu):
 // mbarriers, TMA loads, wgmma descriptors and instructions, and on the host
 // the encoding of tensor maps and the shared-memory attribute of a kernel.
 //
@@ -113,6 +113,34 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one box of a 2-D map at coordinates (c0, c1) from shared memory to global
+// memory; elements past the map's bounds are not written. Counted in the
+// issuing thread's bulk group (bulk_commit, bulk_wait_read, bulk_wait)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          (uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- barriers among some warps ---------------------------------------------

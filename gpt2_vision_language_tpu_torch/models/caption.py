@@ -19,10 +19,11 @@ embeddings. The subtleties it reproduces:
 optimizer and the checkpoint their leaves. The functions take it where the
 JAX functions take ``gpt_params, bridge_params``.
 
-``loss`` goes through ``gpt2.fused_ce_loss``: the fused CE kernel for a call
-without autograd on CUDA under the bf16 policy (validation), the chunked
-plain forward and backward under autograd. Generation uses the KV-cached
-Decoder with ``prefix_embeds``.
+``loss`` goes through ``gpt2.fused_ce_loss``: on CUDA under the bf16 policy
+the fused CE kernel, and under autograd the logits-gradient kernel in its
+backward (the frozen head gets no dw); the chunked plain forward and
+backward otherwise. Generation uses the KV-cached Decoder with
+``prefix_embeds``.
 """
 
 from __future__ import annotations

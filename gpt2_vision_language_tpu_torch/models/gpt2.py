@@ -13,10 +13,12 @@ and keep the JAX names and arguments.
 Self-attention feeds the three strided (B, T, H, hs) views of the fused
 QKV output straight to ops/attention.sdpa, which routes causal T >= 512 on
 CUDA to the flash kernels (forward and backward). ``loss`` runs lm_head +
-CE through ops/fused_ce.fused_linear_ce, which routes a call without
-autograd under the bf16 policy on CUDA to the fused CE kernel; under
-autograd it takes the chunked plain forward, and both have the chunked
-recompute backward, so ``loss`` is differentiable end to end. The tied
+CE through ops/fused_ce.fused_linear_ce, which routes a call under the
+bf16 policy on CUDA to the fused CE kernel (K4) over all rows and, under
+autograd, to the logits-gradient kernel (K4b) on each chunk of rows of its
+recompute backward, with dx and dw as plain products; under FP32_POLICY or
+on the CPU it takes the chunked plain forward and backward. Either way
+``loss`` is differentiable end to end. The tied
 wte / lm_head weight gets its gradient from the embedding gather and the
 CE head into one fp32 ``.grad``. The parameter dicts below
 (``named_params``, ``decay_mask``) are keyed by state-dict name and hold the tied weight once, as
@@ -503,9 +505,11 @@ def loss(model: GPT2, idx, cfg: GPTConfig, *, targets, target_mask=None, z=None,
     autograd (train/step.py make_eval_step) under the bf16 policy on CUDA it
     runs the flash kernel in every layer and the fused CE kernel once. The
     training loss: under autograd on CUDA every layer runs the flash forward
-    and, in the backward, the flash backward kernel; CE takes the chunked
-    plain forward and backward. ``ce_impl`` is fused_linear_ce's ``impl``,
-    ``remat`` run_blocks'.
+    and, in the backward, the flash backward kernel; under the bf16 policy
+    CE runs the fused CE kernel once and, in its backward, the
+    logits-gradient kernel on each of its ``ce_chunks`` chunks of rows (the
+    chunked plain forward and backward under FP32_POLICY). ``ce_impl`` is
+    fused_linear_ce's ``impl``, ``remat`` run_blocks'.
 
     Parallel forms: a tensor-parallel model (``model.tp``) runs its shards,
     T-sharded between blocks when the run asked for sequence parallelism;

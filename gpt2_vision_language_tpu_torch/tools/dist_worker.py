@@ -81,7 +81,7 @@ def kernel_counters():
 
     return {"flash_fwd": fa.flash_attention, "flash_fwd_f32": fa.flash_forward_f32,
             "flash_bwd": fa.flash_attention_backward, "flash_bwd_f32": fa.flash_bwd_f32_cuda,
-            "ce_fwd": fc.ce_forward, "adamw": fw.fused_adamw,
+            "ce_fwd": fc.ce_forward, "ce_bwd": fc.ce_backward, "adamw": fw.fused_adamw,
             "flash_general_fwd": fa.flash_general_forward, "flash_rowdot": fa.flash_rowdot,
             "flash_general_dq": fa.flash_general_dq, "flash_general_dkv": fa.flash_general_dkv,
             "flash_lse_fwd": fa.flash_lse_forward, "flash_fused_bwd": fa.flash_fused_backward,

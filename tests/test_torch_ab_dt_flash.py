@@ -285,10 +285,12 @@ def test_kernel_sources_and_signatures_are_registered():
     from gpt2_vision_language_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    # nineteen sources since the fp32 dt pair (flash_dt_fwd_f32.cu,
-    # flash_dt_bwd_f32.cu) and the split fp32 lse forward (flash_lse_fwd_f32.cu)
+    # twenty sources since the fp32 dt pair (flash_dt_fwd_f32.cu,
+    # flash_dt_bwd_f32.cu), the split fp32 lse forward (flash_lse_fwd_f32.cu)
+    # and the CE logits gradient (ce_bwd.cu)
     assert {"flash_dt_fwd.cu", "flash_dt_bwd.cu", "flash_dt_fwd_f32.cu",
-            "flash_dt_bwd_f32.cu", "flash_lse_fwd_f32.cu"} <= names and len(names) == 19
+            "flash_dt_bwd_f32.cu", "flash_lse_fwd_f32.cu", "ce_bwd.cu"} <= names
+    assert len(names) == 20
     # the fp32 forward also takes its workspace and its parts a query tile
     for suffix, n_fwd in (("", 12), ("_f32", 14)):
         assert len(_build.SIGNATURES[f"gpt2vl_flash_dt_fwd{suffix}"]) == n_fwd

@@ -274,6 +274,49 @@ def test_plain_bf16_operands_pass_the_ce_check(ce_inputs):
     assert (nll.double() - (lz - gold)).abs().max().item() < cs.CE_TOL / 10
 
 
+def _ce_bwd_case(ce_inputs):
+    """Phase 3b's inputs at a small size: the bf16 operands, their fp32 lse,
+    a cotangent with zero rows, and the plain version's fp32 P."""
+    x, w, t = ce_inputs
+    g = torch.from_numpy(np.random.RandomState(2).rand(CE_N).astype(np.float32)) / CE_N
+    g[::7] = 0.0
+    _, lse = fc.ce_forward_reference(x, w, t)
+    ref = fc.ce_backward_reference(x.float(), w.float(), t, lse, g)
+    return x, w, t, lse, g, ref
+
+
+def test_plain_bf16_p_passes_the_ce_bwd_check(ce_inputs):
+    """The plain version's P on the bf16 operands, cast once to bf16 as K4b
+    casts it, against its own fp32 P: inside bf16's unit roundoff, 2^-8, the
+    part of phase 3b's elementwise limit that the cast takes; zero rows where
+    g is 0."""
+    x, w, t, lse, g, ref = _ce_bwd_case(ce_inputs)
+    p = fc.ce_backward_reference(x, w, t, lse, g)
+    assert p.dtype == torch.bfloat16
+    assert cs.ce_bwd_rel_err(torch, p, ref) <= 2.0 ** -8 < cs.CE_BWD_TOL
+    assert not p[::7].any()
+
+
+@pytest.mark.parametrize("fault", ["no_onehot", "drop64", "zero_row_nonzero"])
+def test_ce_bwd_faults_fail_the_check(ce_inputs, fault):
+    """Phase 3b's control, P without the one-hot subtraction, fails the
+    elementwise check, as do 64 vocab columns of one tile left at 0 and a
+    row of g = 0 given another row's P; a max-relative check at the same
+    tolerance passes the dropped columns (their entries are about g / V)."""
+    x, w, t, lse, g, ref = _ce_bwd_case(ce_inputs)
+    if fault == "no_onehot":
+        p = cs.ce_bwd_reference_no_onehot(torch, x.float(), w.float(), lse, g).to(torch.bfloat16)
+    else:
+        p = fc.ce_backward_reference(x, w, t, lse, g)
+        if fault == "drop64":
+            p[:, 100 * 256:100 * 256 + 64] = 0
+        else:
+            p[7] = p[8]
+    assert cs.ce_bwd_rel_err(torch, p, ref) > cs.CE_BWD_TOL
+    if fault == "drop64":
+        assert (p.float() - ref).abs().max() / ref.abs().max() < cs.CE_BWD_TOL
+
+
 # phase 19's P2 checks at a small size: one sequence of T=2048, one head, in
 # the dt layout; its controls drop fewer positions than phase 19's (the
 # effect on max|ref| grows with the share of a row that is lost)

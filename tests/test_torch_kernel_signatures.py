@@ -71,6 +71,7 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
           "flash_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
           "flash_dt_bwd.cu": {"flash_bwd_sm90.cuh", "flash_dq_sm90.cuh", "hopper.cuh"},
           "ce_fwd.cu": {"hopper.cuh"},
+          "ce_bwd.cu": {"hopper.cuh"},
           "flash_fwd_f32.cu": {"flash_f32.cuh"},
           "flash_bwd_f32.cu": {"flash_f32.cuh"},
           "flash_general_fwd_f32.cu": {"flash_f32.cuh"},
@@ -81,12 +82,12 @@ SHARED = {"flash_general_fwd.cu": {"flash_fwd_sm90.cuh", "hopper.cuh"},
 
 
 def test_sources_include_only_their_own_headers():
-    """The ten Hopper kernels share csrc/hopper.cuh, eight of them through
+    """The eleven Hopper kernels share csrc/hopper.cuh, eight of them through
     three headers: the forward main loop (K2b, K2a, K1-fwd, P1), the
     key-major backward (K3c, K3b) and the query-major dq block (K3a); the
     self-attention backward (K1-bwd) and the dt-layout backward (P2) run both
-    backward blocks, and the fused LM-head + CE forward (K4) includes
-    hopper.cuh alone. The fp32 kernels, the self-attention pair, the
+    backward blocks, and the fused LM-head + CE forward (K4) and its logits
+    gradient (K4b) include hopper.cuh alone. The fp32 kernels, the self-attention pair, the
     general pair, the split lse forward and the dt-layout pair, share
     csrc/flash_f32.cuh (its FFMA
     register tiles, cp.async copies and blocks). The library name hashes
@@ -217,6 +218,20 @@ def test_ce_forward_is_a_wgmma_gemm_with_a_row_epilogue():
         assert gone not in text, gone
     hopper = (_build.CSRC / "hopper.cuh").read_text()
     assert "m64n256k16.f32.bf16.bf16" in hopper and "cp.async.bulk.tensor.2d" in hopper
+
+
+def test_ce_backward_is_k4s_main_loop_with_a_p_epilogue():
+    """K4b: K4's 2-D TMA maps of x and w and wgmma m64n256k16 main loop, one
+    __global__ kernel whose epilogue stores bf16 pairs of P; every output
+    tile written by one block, so no atomics and no merge kernel."""
+    text = (_build.CSRC / "ce_bwd.cu").read_text()
+    assert 'extern "C" int gpt2vl_ce_bwd(' in text
+    assert text.count("__global__") == 1
+    assert "map_2d(" in text and "tma_load_2d(" in text and "mma_m64n256_ss(" in text
+    assert "pack_bf16(" in text
+    for gone in ("atomicAdd", "atom.", "red.global", "_combine_kernel", "nvcuda", "<mma.h>",
+                 "wmma::"):
+        assert gone not in text, gone
 
 
 @pytest.mark.parametrize("name,entry", [("flash_fwd_f32.cu", "gpt2vl_flash_fwd_f32"),

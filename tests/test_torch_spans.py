@@ -226,6 +226,8 @@ def test_one_train_step_has_its_spans(recording, attn_impl, accum_dtype):
     # the JAX gate (1024 elements or more, a multiple of 128): wte, wpe and the 4 weights a layer
     assert opt.attrs == {"kernel": 10, "plain": 18, "q8": 0}
     assert {r.attrs["impl"] for r in recs if r.name == "attn.fwd"} == {attn_impl}
+    # FP32_POLICY keeps the CE on its chunked plain path
+    assert {r.attrs["impl"] for r in recs if r.name in ("ce.fwd", "ce.bwd")} == {"plain"}
     if attn_impl == "flash":
         assert {r.attrs["family"] for r in recs if r.name == "attn.fwd"} == {"self"}
 
